@@ -7,27 +7,53 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. device    — the card's name, and its name and power limit from nvidia-smi.
-2. build     — builds the conv kernel from csrc/ (nvcc, sm_90a) and times it.
+2. build     — builds the three kernel libraries from csrc/ (one nvcc per
+               source, sm_90a, all started together) and times the build.
 3. kernels   — the conv kernel against its plain PyTorch version at every
                distinct conv shape of LeNet and VGG16-CIFAR10 (every bucket
-               the server runs, 1-32 rows, and batch 128) and of VGG16-224
-               (batch 1 and 8), plus every fused activation at one shape.
+               the server runs, 1-32 rows, batch 128, and LeNet's training
+               batch 64) and of VGG16-224 (batch 1 and 8, and the training
+               batch 128), plus every fused activation at one shape.
                TF32 is off for the plain and library versions.  At batch
                32, 128 and VGG16-224's 8, per shape: errors, median times
                of the kernel, the plain version and the library call
                (cuDNN conv + activation), FLOPs (taps inside the image
                only), bytes and the bound at the published H100 SXM
                peaks.
-4. serve     — the main path: LeNet and VGG16-CIFAR10 (seeded random
-               weights, written as zips) served by ``Server`` over HTTP on
-               localhost: a ``warmup`` RPC per model, then 64 ``predict``
-               requests of 1-4 rows per model from 8 client threads.
-               Classes must equal argmax of a direct ``output()``; the
-               kernel's launch count, zeroed after the warm-up just before
-               the requests, must equal the convs of the batches served,
-               and no conv may take the dense chain.
-5. vgg16_224 — one ``output()`` of VGG16 at 224x224, batch 8, checked
-               against a forward through the plain conv.
+4. xent_dropout_kernels — the softmax-xent kernel against its plain
+               version (loss and gradient, rtol = atol = 1e-5) at [128,
+               1000], [256, 512], 997 rows and V = 50,257; the dropout
+               kernel against its plain version with torch.equal, forward
+               and backward, at [128, 25088], [128, 4096], an element count
+               that is not a multiple of 4 and an unaligned view, at
+               retain 0.5 and 0.8.  Times at the training path's shapes
+               beside bytes, bound, plain and library times; dropout's
+               forward (input cold in device memory) and backward (the
+               gradient warm in L2) are timed apart.  Below the dropout
+               gate, the hash kernel's host time against the dense path's.
+5. serve     — the main path of serving: LeNet and VGG16-CIFAR10 (seeded
+               random weights, written as zips) served by ``Server`` over
+               HTTP on localhost: a ``warmup`` RPC per model, then 64
+               ``predict`` requests of 1-4 rows per model from 8 client
+               threads.  Classes must equal argmax of a direct
+               ``output()``; the conv kernel's launch count, zeroed after
+               the warm-up just before the requests, must equal the convs
+               of the batches served, and no conv may take the dense chain.
+6. vgg16_224 — ``output()`` of VGG16 at 224x224, batch 8, three timed
+               calls (median reported), checked against a forward through
+               the plain conv.
+7. train_vgg16_224 — the main path of training: ``vgg16(dropout=0.5)``,
+               seeded random weights and data, batch 128, Nesterovs, 3
+               ``fit`` steps; every step must launch 13 conv, 1 xent and 4
+               dropout kernels (2 layers, forward and backward).  The last
+               step is then repeated from the same params, updater state
+               and seed words with every kernel replaced by its plain
+               version; score and updated params must agree and the
+               dropout masks be identical.
+8. train_lenet — ``lenet()`` with Adam, batch 64, 16 ``fit`` passes over
+               50 batches (800 steps, seconds of training): 2 conv launches
+               per step, no xent (vocab 10) and no dropout.  Samples/s is
+               all samples over all the time.
 
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -56,6 +82,23 @@ RTOL, ATOL = 1e-4, 1e-5
 # Whole-network outputs (softmax probabilities) through the kernel vs
 # through the plain conv: up to 16 layers of such sums.
 NET_RTOL, NET_ATOL = 1e-3, 1e-5
+# xent kernel vs plain version: the JAX suite's tolerance for its kernel.
+XENT_TOL = 1e-5
+# A training step through the kernels vs the same step through the plain
+# versions, TF32 off in both.  The score to STEP_RTOL.  The params by the
+# step's update: per tensor, |update_kernel - update_plain| over
+# |update_plain| (2-norms) at most STEP_UPDATE_RTOL.  The conv kernel and
+# cuDNN agree to ~1e-6 relative per layer (sums in another order), which
+# grows through 16 layers forward and back; Nesterovs' update is linear in
+# the gradient.  On an H100 the worst tensor measured 6.0e-5 (the first
+# conv's W); 5e-4 leaves 8x of that and stays under the ~1e-3 that TF32's
+# 10-bit mantissa would bring.  VGG16-224 on random labels at lr 0.01
+# diverges within 3 steps (score ~25 → ~5,600), so an elementwise
+# tolerance on the params themselves would measure the divergence.
+STEP_RTOL, STEP_UPDATE_RTOL = 1e-4, 5e-4
+VGG_BATCH, VGG_STEPS = 128, 3
+# LeNet: 16 passes over 50 batches, 800 steps, a window of seconds
+LENET_BATCH, LENET_BATCHES, LENET_EPOCHS = 64, 50, 16
 SEED = 1234
 
 
@@ -84,6 +127,36 @@ def time_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def graph_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, median over ``reps`` replays (CUDA events),
+    divided by ``calls``.  For kernels of a few microseconds, where the
+    Python around one call takes longer than the kernel and
+    :func:`time_ms` would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -164,12 +237,14 @@ def phase_kernels(torch, ck):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # timed: the served ladder's top bucket (32), batch 128, VGG16-224 at
-    # its batch; untimed: every other bucket the server runs (1-16 rows)
-    # and VGG16-224's first call at one row, since the kernel's plan
-    # (rows per thread, cluster split) depends on the batch
+    # its batch; untimed: every other bucket the server runs (1-16 rows),
+    # VGG16-224's first call at one row and the two training batches
+    # (LeNet at 64, VGG16-224 at 128), since the kernel's plan (rows per
+    # thread, cluster split) depends on the batch
     plan = [("lenet", 32, True), ("vgg16_cifar10", 32, True),
             ("lenet", 128, True), ("vgg16_cifar10", 128, True),
-            ("vgg16_224", 8, True), ("vgg16_224", 1, False)]
+            ("vgg16_224", 8, True), ("vgg16_224", 1, False),
+            ("lenet", LENET_BATCH, False), ("vgg16_224", VGG_BATCH, False)]
     plan += [(m, n, False) for m in ("lenet", "vgg16_cifar10")
              for n in (1, 2, 4, 8, 16)]
     records, ladder, seen = [], [], set()
@@ -373,12 +448,15 @@ def phase_vgg16_224(torch, ck):
     x = x.to("cuda")
     net.output(x[:1])        # first call: cuDNN/cuBLAS handles, allocator
     torch.cuda.synchronize()
-    before = ck.fused_conv2d_bias_act.launches
-    t0 = time.perf_counter()
-    out = net.output(x)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    delta = ck.fused_conv2d_bias_act.launches - before
+    # three timed calls: one host-clock sample can catch a host stall
+    walls = []
+    for _ in range(3):
+        before = ck.fused_conv2d_bias_act.launches
+        t0 = time.perf_counter()
+        out = net.output(x)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        delta = ck.fused_conv2d_bias_act.launches - before
     if tuple(out.shape) != (8, 1000) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"VGG16-224 output {tuple(out.shape)} not finite")
     row_sums = out.sum(dim=1)
@@ -388,7 +466,8 @@ def phase_vgg16_224(torch, ck):
         raise AssertionError(f"{delta} conv kernel launches for 13 convs")
     ref = _plain_forward(torch, ck, net, x)
     torch.testing.assert_close(out, ref, rtol=NET_RTOL, atol=NET_ATOL)
-    emit("vgg16_224", batch=8, wall_ms=wall * 1e3, conv_launches=delta,
+    emit("vgg16_224", batch=8, wall_ms=float(np.median(walls)),
+         wall_ms_each=walls, conv_launches=delta,
          max_abs_vs_plain=float((out - ref).abs().max()),
          classes=out.argmax(dim=1).tolist(),
          n_params=net.n_params,
@@ -411,28 +490,420 @@ def check_served_models_against_plain(torch, ck):
     return out
 
 
-def summary(records, launches) -> dict:
-    """One entry per kernel.  Times, bounds and errors sum (max for the
-    error) over the convs of one 32-row batch of each served model — the
-    shapes the served path runs at its largest bucket."""
+def _bound(nbytes: int, flops: int = 0):
+    """(bound ms, what bounds it) at the published H100 SXM peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def check_xent(torch, ck, N, V, gen, soft=False, timed=False) -> dict:
+    """The xent kernel against its plain version (loss, gradient, and the
+    backward of ``softmax_xent_rows``); raises on disagreement."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    x = torch.randn((N, V), generator=gen, device=dev) * 3
+    if soft:
+        y = torch.rand((N, V), generator=gen, device=dev)
+        y = y * torch.rand((N, 1), generator=gen, device=dev) * 2
+    else:
+        y = F.one_hot(torch.randint(0, V, (N,), generator=gen, device=dev),
+                      V).float()
+    g = torch.randn((N,), generator=gen, device=dev)
+    loss, grad = ck.fused_softmax_xent(x, y)
+    ref_loss, ref_grad = ck.softmax_xent_reference(x, y)
+    xr = x.clone().requires_grad_()
+    ck.softmax_xent_rows(xr, y).backward(g)
+    torch.cuda.synchronize()
+    for got, want in ((loss, ref_loss), (grad, ref_grad),
+                      (xr.grad, ref_grad * g[:, None])):
+        torch.testing.assert_close(got, want, rtol=XENT_TOL, atol=XENT_TOL)
+    rec = {"shape": [N, V], "soft_labels": soft,
+           "max_abs_err": max(float((loss - ref_loss).abs().max()),
+                              float((grad - ref_grad).abs().max()))}
+    if timed:
+        nbytes = 4 * (3 * N * V + N)      # read x, y; write grad, loss
+        xl = x.clone().requires_grad_()
+
+        def library():
+            torch.autograd.grad(F.cross_entropy(xl, y, reduction="none"),
+                                xl, g)
+        rec.update(ms=graph_ms(torch, lambda: ck.fused_softmax_xent(x, y)),
+                   call_ms=time_ms(torch, lambda: ck.fused_softmax_xent(x, y)),
+                   plain_ms=graph_ms(torch, lambda: ck.softmax_xent_reference(
+                       x, y)),
+                   library_ms=graph_ms(torch, library), bytes=nbytes)
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 6 * N * V)
+    return rec
+
+
+def check_dropout(torch, ck, shape, rate, gen, timed=False,
+                  offset=0) -> dict:
+    """The dropout kernel against its plain version, bit for bit, forward
+    and backward; ``offset`` takes x as a view that starts that many
+    floats into its storage."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    n = int(np.prod(shape))
+    x = torch.randn((n + offset,), generator=gen, device=dev)[offset:]
+    x = x.reshape(shape)
+    g = torch.randn(shape, generator=gen, device=dev)
+    seed = tuple(int(v) for v in torch.randint(
+        0, 1 << 32, (2,), generator=torch.Generator().manual_seed(n)))
+    xr = x.clone().requires_grad_()
+    y = ck.fused_threshold_dropout(xr, rate, seed)
+    y.backward(g)
+    ref = ck.threshold_dropout_reference(x, rate, seed)
+    ref_g = ck.threshold_dropout_reference(g, rate, seed)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, ref) and torch.equal(xr.grad, ref_g)):
+        raise AssertionError(f"dropout kernel differs from its plain version "
+                             f"at {shape} rate {rate} offset {offset}")
+    kept = float((ck.fused_threshold_dropout(torch.ones_like(x), rate, seed)
+                  != 0).float().mean())
+    if abs(kept - rate) > 0.01 + 5 / n ** 0.5:
+        raise AssertionError(f"dropout kept {kept} of {shape} at {rate}")
+    rec = {"shape": list(shape), "rate": rate, "offset": offset,
+           "kept": kept, "equal_forward": True, "equal_backward": True,
+           "max_abs_err": max(float((y.detach() - ref).abs().max()),
+                              float((xr.grad - ref_g).abs().max()))}
+    if timed:
+        nbytes = 8 * n                      # read x, write y
+        # forward: successive calls take successive inputs of a ring of
+        # more than the 50 MB L2, so each call reads its input from device
+        # memory.  Backward: the launch ``_ThresholdDropout.backward``
+        # makes, on one gradient every call, which stays in L2 as the
+        # gradient the next layer's backward has just written does.
+        ring = [x] + [x.clone() for _ in range(-(-50_000_000 // (4 * n)))]
+        turn = iter(range(1 << 30))
+
+        def cold(fn):
+            return lambda: fn(ring[next(turn) % len(ring)])
+
+        def kernel(t):
+            return ck.fused_threshold_dropout(t, rate, seed)
+
+        def plain(t):
+            return ck.threshold_dropout_reference(t, rate, seed)
+        # F.dropout moves the same bytes but draws its own mask; its
+        # backward multiplies the gradient by the saved mask
+        _, mask = torch.native_dropout(x, 1 - rate, True)
+        rec.update(
+            ms_forward=graph_ms(torch, cold(kernel)),
+            ms_backward=graph_ms(
+                torch, lambda: ck._threshold_dropout(g, rate, seed)),
+            call_ms=time_ms(torch, cold(kernel)),
+            plain_ms_forward=graph_ms(torch, cold(plain)),
+            plain_ms_backward=graph_ms(torch, lambda: plain(g)),
+            library_ms_forward=graph_ms(torch, cold(
+                lambda t: F.dropout(t, p=1 - rate, training=True))),
+            library_ms_backward=graph_ms(
+                torch, lambda: torch.ops.aten.native_dropout_backward(
+                    g, mask, 1 / rate)),
+            bytes=nbytes)
+        for key in ("ms", "plain_ms", "library_ms"):
+            rec[key] = rec[key + "_forward"] + rec[key + "_backward"]
+        # ~12 integer operations per element, at the int32 rate (half the
+        # f32 rate) still far below the bytes' time: bound by bytes.  One
+        # bound for each direction.
+        bound, rec["bound_by"] = _bound(nbytes)
+        rec["bound_ms"] = 2 * bound
+    return rec
+
+
+def dense_dropout_timing(torch, ck) -> list:
+    """Host-clock time of one dropout call under the kernel's 4,096-element
+    gate: the hash kernel against the dense path ``ops/helpers.dropout``
+    takes there (a generator seeded per call, ``torch.rand``, a select)."""
+    from deeplearning4j_tpu_torch.ops import helpers
+    out = []
+    for shape in ((1, 500), (8, 500), (4, 1023)):
+        x = torch.randn(shape, device="cuda")
+        seed = (12345, 67890)
+        out.append({
+            "shape": list(shape),
+            "kernel_host_ms": _host_ms(torch, lambda: float(
+                ck.fused_threshold_dropout(x, 0.5, seed).sum()), reps=50),
+            "dense_host_ms": _host_ms(torch, lambda: float(
+                helpers.dropout(x, 0.5, seed).sum()), reps=50),
+            "kernel_ms": graph_ms(
+                torch, lambda: ck.fused_threshold_dropout(x, 0.5, seed))})
+    return out
+
+
+def phase_xent_dropout_kernels(torch, ck) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xent = [check_xent(torch, ck, VGG_BATCH, 1000, gen, timed=True),
+            check_xent(torch, ck, VGG_BATCH, 1000, gen, soft=True),
+            check_xent(torch, ck, 256, 512, gen),
+            check_xent(torch, ck, 997, 1000, gen),
+            check_xent(torch, ck, 64, 50257, gen, soft=True)]
+    fc_in = [(VGG_BATCH, 25088), (VGG_BATCH, 4096)]
+    drop = [check_dropout(torch, ck, s, 0.5, gen, timed=True) for s in fc_in]
+    drop += [check_dropout(torch, ck, s, r, gen, offset=o)
+             for s, r, o in (((VGG_BATCH, 25088), 0.8, 0),
+                             ((VGG_BATCH, 4096), 0.8, 0),
+                             ((3, 4099), 0.5, 0), ((3, 4099), 0.8, 0),
+                             ((VGG_BATCH, 4096), 0.5, 1))]
+    emit("xent_dropout_kernels", xent_tol=XENT_TOL, xent=xent, dropout=drop,
+         dropout_under_gate=dense_dropout_timing(torch, ck),
+         library_note="dropout's library_ms is F.dropout: the same bytes, "
+                      "another mask, forward + its mask-multiply backward; "
+                      "xent's is F.cross_entropy with probability targets, "
+                      "forward + backward")
+    return {"xent": xent, "dropout": drop}
+
+
+def _kernel_counts(ck):
+    return {"conv2d_bias_act": ck.fused_conv2d_bias_act.launches,
+            "softmax_xent": ck.fused_softmax_xent.launches,
+            "threshold_dropout": ck.fused_threshold_dropout.launches}
+
+
+def _zero_counts(ck):
+    for fn in (ck.fused_conv2d_bias_act, ck.fused_softmax_xent,
+               ck.fused_threshold_dropout):
+        fn.launches = 0
+
+
+def _random_batch(rng, n, dims, classes):
+    x = rng.normal(size=(n,) + dims).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+    return x, y
+
+
+def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it):
+    """One training step of ``net`` from ``params`` / ``opt_states`` with
+    every kernel replaced by its plain version: conv through cuDNN (TF32
+    off), dropout through the plain hash, loss through the plain softmax
+    cross-entropy, gradients by autograd; the update is the network's own
+    (plain PyTorch).  Returns (score, new params, dropout inputs)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ConvolutionLayer, DenseLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    leaves = [{k: v.detach().clone().requires_grad_() for k, v in lp.items()}
+              for lp in params]
+    dropped = {}
+    n = len(net.layers)
+    with ck.full_f32_convs():
+        h = x
+        for i, layer in enumerate(net.layers):
+            if i in net.conf.preprocessors:
+                h, _ = net.conf.preprocessors[i](h)
+            p = leaves[i]
+            if layer.dropout and 0.0 < layer.dropout < 1.0:
+                dropped[i] = h.detach()
+                h = ck.threshold_dropout_reference(h, layer.dropout, seeds[i])
+            if isinstance(layer, ConvolutionLayer):
+                h = ck.conv2d_bias_act_reference(
+                    h, p["W"], p["b"], tuple(layer.padding),
+                    layer.convolution_mode, layer.activation)
+            elif i == n - 1:
+                h = torch.addmm(p["b"], h, p["W"])
+            elif isinstance(layer, DenseLayer):
+                h = layer._act(torch.addmm(p["b"], h, p["W"]))
+            else:
+                h = layer.forward(p, h)
+        loss, _ = ck.softmax_xent_reference(h, y)
+        score = loss.mean()
+        flat = iter(torch.autograd.grad(
+            score, [v for lp in leaves for v in lp.values()]))
+    grads = [{k: next(flat) for k in lp} for lp in leaves]
+    scratch = MultiLayerNetwork(net.conf, device=net.device)
+    scratch.net_params = [{k: v.detach().clone() for k, v in lp.items()}
+                          for lp in params]
+    scratch.opt_states = opt_states
+    scratch._apply_updates(grads, it)
+    return float(score.detach()), scratch.net_params, dropped
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.detach().clone()
+
+
+def phase_train_vgg16_224(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.models import vgg16
+    # the training path runs with PyTorch's defaults (cuDNN may use TF32);
+    # the port keeps its own conv backward in f32
+    torch.backends.cudnn.allow_tf32 = True
+    net = vgg16(dropout=0.5, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    x, y = _random_batch(np.random.default_rng(SEED), VGG_BATCH,
+                         (3, 224, 224), 1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    _zero_counts(ck)                                   # main path starts
+    for k in range(VGG_STEPS):
+        if k == VGG_STEPS - 1:       # snapshot for the plain-version step
+            before = ([{kk: v.clone() for kk, v in lp.items()}
+                       for lp in net.net_params], _clone_tree(net.opt_states),
+                      net.iteration)
+            state = net._generator.get_state()
+            seeds = net._draw_seeds().tolist()
+            net._generator.set_state(state)
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        steps.append({"step": k + 1, "score": net.score(), "seconds": dt,
+                      "samples_per_s": VGG_BATCH / dt,
+                      "launches": {n: after[n] - counts[n] for n in after}})
+    launches = _kernel_counts(ck)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    want = {"conv2d_bias_act": 13, "softmax_xent": 1, "threshold_dropout": 4}
+    for st in steps:
+        if st["launches"] != want or not np.isfinite(st["score"]):
+            raise AssertionError(f"VGG16-224 step {st}: launches must be "
+                                 f"{want} and the score finite")
+    params0, opt0, it = before
+    xd, yd = (torch.from_numpy(a).cuda() for a in (x, y))
+    plain_score, plain_params, dropped = _plain_train_step(
+        torch, ck, net, params0, opt0, xd, yd, seeds, it)
+    del opt0
+    for i, h in dropped.items():             # kernel vs plain on the same
+        rate = net.layers[i].dropout          # inputs: identical outputs
+        ones = torch.ones_like(h)             # and identical masks
+        if not (torch.equal(ck.fused_threshold_dropout(h, rate, seeds[i]),
+                            ck.threshold_dropout_reference(h, rate, seeds[i]))
+                and torch.equal(
+                    ck.fused_threshold_dropout(ones, rate, seeds[i]),
+                    ck.threshold_dropout_reference(ones, rate, seeds[i]))):
+            raise AssertionError(f"layer {i}: dropout masks differ")
+    kernel_score = steps[-1]["score"]
+    errs = {}
+    for i, (lp, pp, p0) in enumerate(zip(net.net_params, plain_params,
+                                         params0)):
+        for k in lp:
+            errs[f"{i}_{k}"] = float(torch.linalg.vector_norm(lp[k] - pp[k])
+                                     / torch.linalg.vector_norm(pp[k] - p0[k]))
+    del params0
+    res = {"batch": VGG_BATCH, "steps": steps,
+           "samples_per_s_after_first": VGG_BATCH * (len(steps) - 1)
+           / sum(s["seconds"] for s in steps[1:]),
+           "launches": launches, "max_memory_allocated": peak,
+           "plain_step": {"score": plain_score, "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "update_rel_err": errs,
+                          "max_update_rel_err": max(errs.values()),
+                          "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL,
+                          "dropout_masks_identical": sorted(dropped)}}
+    emit("train_vgg16_224", **res)
+    if res["plain_step"]["score_rel_diff"] > STEP_RTOL or \
+            max(errs.values()) > STEP_UPDATE_RTOL:
+        raise AssertionError("VGG16-224 step through the kernels disagrees "
+                             "with the plain step")
+    return res
+
+
+def phase_train_lenet(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import lenet
+    net = lenet(device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 3)
+    # MNIST-scale pixels in [0, 1)
+    batches = [DataSet(rng.random((LENET_BATCH, 1, 28, 28), np.float32),
+                       np.eye(10, dtype=np.float32)[
+                           rng.integers(0, 10, LENET_BATCH)])
+               for _ in range(LENET_BATCHES + 1)]
+    net.fit(batches[0])                       # first call: handles, allocator
+    torch.cuda.synchronize()
+    data = ListDataSetIterator(batches[1:])
+    epoch_s = []
+    _zero_counts(ck)                                   # main path starts
+    for _ in range(LENET_EPOCHS):
+        t0 = time.perf_counter()
+        net.fit(data)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    launches = _kernel_counts(ck)                      # main path ends
+    steps = LENET_BATCHES * LENET_EPOCHS
+    want = {"conv2d_bias_act": 2 * steps, "softmax_xent": 0,
+            "threshold_dropout": 0}
+    score = net.score()
+    dt = sum(epoch_s)
+    per_epoch = [LENET_BATCHES * LENET_BATCH / t for t in epoch_s]
+    res = {"batch": LENET_BATCH, "steps": steps, "seconds": dt,
+           "samples_per_s": steps * LENET_BATCH / dt,
+           "epoch_samples_per_s_min_max": [min(per_epoch), max(per_epoch)],
+           "ms_per_step": dt / steps * 1e3, "score": score,
+           "launches": launches}
+    emit("train_lenet", **res)
+    if launches != want or not np.isfinite(score):
+        raise AssertionError(f"LeNet training launched {launches}, want "
+                             f"{want}; score {score}")
+    return res
+
+
+def summary(records, serve_launches, xd, train_vgg, train_lenet) -> dict:
+    """One entry per kernel.  Conv: times, bounds and errors sum (max for
+    the error) over the convs of one 32-row batch of each served model.
+    Xent and dropout: the launches of one VGG16-224 training step (one
+    xent at [128, 1000]; dropout forward and backward at [128, 25088] and
+    [128, 4096]).  ``launches`` counts every main path's run."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
     rows = [by_shape[(tuple(s[:7]), s[7])] for s in served]
     t_ops = sum(r["flops"] for r in rows) / PEAK_F32_FLOPS
     t_bytes = sum(r["bytes"] for r in rows) / PEAK_BYTES
+    paths = {"serve": {"conv2d_bias_act": serve_launches},
+             "train_vgg16_224": train_vgg["launches"],
+             "train_lenet": train_lenet["launches"]}
+
+    def launches(name):
+        return sum(p.get(name, 0) for p in paths.values())
+
+    def by_path(name):
+        return {k: p.get(name, 0) for k, p in paths.items()}
+    xent = xd["xent"][0]
+    drop = [r for r in xd["dropout"] if "ms" in r]   # forward + backward
     return {"kernels": [{
         "name": "conv2d_bias_act",
         "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/conv_bias_act.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:577",
-        "launches": launches,
+        "launches": launches("conv2d_bias_act"),
+        "launches_by_path": by_path("conv2d_bias_act"),
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": sum(r["library_ms"] for r in rows),
+    }, {
+        "name": "softmax_xent",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/softmax_xent.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:466",
+        "launches": launches("softmax_xent"),
+        "launches_by_path": by_path("softmax_xent"),
+        "max_abs_err": max(r["max_abs_err"] for r in xd["xent"]),
+        "ms": xent["ms"], "plain_ms": xent["plain_ms"],
+        "bound_ms": xent["bound_ms"], "bound_by": xent["bound_by"],
+        "library_ms": xent["library_ms"],
+    }, {
+        "name": "threshold_dropout",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/threshold_dropout.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:827",
+        "launches": launches("threshold_dropout"),
+        "launches_by_path": by_path("threshold_dropout"),
+        "max_abs_err": max(r["max_abs_err"] for r in xd["dropout"]),
+        "ms": sum(r["ms"] for r in drop),
+        "plain_ms": sum(r["plain_ms"] for r in drop),
+        "bound_ms": sum(r["bound_ms"] for r in drop),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in drop),
     }]}
 
 
@@ -449,19 +920,25 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    ck.CONV_LIBRARY.get()
-    ptxas = [l.strip() for l in ck.CONV_LIBRARY.build_log.splitlines()
-             if "registers" in l or "spill" in l]
-    emit("build", seconds=time.perf_counter() - t0,
-         library=str(ck.CONV_LIBRARY.path().name), ptxas=ptxas)
+    ck.build_libraries()
+    emit("build", seconds=time.perf_counter() - t0, libraries={
+        lib.path().name: {
+            "nvcc_seconds": lib.build_seconds,
+            "ptxas": [l.strip() for l in lib.build_log.splitlines()
+                      if "registers" in l or "spill" in l]}
+        for lib in ck.LIBRARIES})
 
     records = phase_kernels(torch, ck)
-    launches = phase_serve(torch, ck)
+    xd = phase_xent_dropout_kernels(torch, ck)
+    serve_launches = phase_serve(torch, ck)
     emit("models_vs_plain", max_abs=check_served_models_against_plain(
         torch, ck), rtol=NET_RTOL, atol=NET_ATOL)
     phase_vgg16_224(torch, ck)
+    train_vgg = phase_train_vgg16_224(torch, ck)
+    train_lenet = phase_train_lenet(torch, ck)
 
-    print(json.dumps(summary(records, launches)))
+    print(json.dumps(summary(records, serve_launches, xd, train_vgg,
+                             train_lenet)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

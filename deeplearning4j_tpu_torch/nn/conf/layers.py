@@ -7,8 +7,11 @@ fields and their JSON are the JAX package's, so a configuration written
 by either package builds the same layers in the other.
 
 Ported so far: ``DenseLayer``, ``OutputLayer``, ``ConvolutionLayer`` and
-``SubsamplingLayer`` (the layers of LeNet and VGG16), forward only.  A
-configuration naming any other layer type raises on load.
+``SubsamplingLayer`` (the layers of LeNet and VGG16).  ``forward`` runs
+inference unless ``train`` is set; in training a layer with ``dropout``
+drops its INPUT, as DL4J does, from the two seed words the network hands
+it for the step.  A configuration naming any other layer type raises on
+load.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from deeplearning4j_tpu_torch.ops import activations as act_ops
 from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import helpers as helper_ops
 from deeplearning4j_tpu_torch.ops import initializers
+from deeplearning4j_tpu_torch.ops import losses as loss_ops
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -35,10 +39,10 @@ def register_layer(cls):
 @dataclasses.dataclass
 class Layer:
     """Hyperparameters every layer config can carry.  ``None`` means
-    "inherit from the global configuration".  The training fields
-    (learning rates, updater, regularization, dropout) are kept and
-    re-written so a configuration round-trips; inference ignores them,
-    as the JAX package's inference path does."""
+    "inherit from the global configuration".  ``dropout`` is the RETAIN
+    probability, as in DL4J 0.8 (0.0 = off; ref: util/Dropout.java).
+    Inference ignores the training fields, as the JAX package's
+    inference path does."""
 
     name: Optional[str] = None
     activation: Optional[str] = None
@@ -67,7 +71,10 @@ class Layer:
                    device: torch.device) -> Tuple[dict, InputType]:
         raise NotImplementedError
 
-    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: dict, x: torch.Tensor, train: bool = False,
+                seed=None) -> torch.Tensor:
+        """Apply the layer; ``train`` turns dropout on, with ``seed`` the
+        layer's two uint32 seed words for this step."""
         raise NotImplementedError
 
     def output_type(self, input_type: InputType) -> InputType:
@@ -75,6 +82,17 @@ class Layer:
 
     def _act(self, x):
         return act_ops.get(self.activation or "identity")(x)
+
+    def _maybe_dropout(self, x, train: bool, seed):
+        """Input dropout in training (ref: util/Dropout.java applyDropout).
+        DropConnect, which reuses the probability on the weights instead,
+        is not ported; ``MultiLayerNetwork.fit`` refuses it."""
+        if self.use_drop_connect:
+            return x
+        if train and self.dropout and 0.0 < self.dropout < 1.0 \
+                and seed is not None:
+            return helper_ops.dropout(x, self.dropout, seed)
+        return x
 
     def _winit(self, generator, shape, device, fan_in=None, fan_out=None):
         return initializers.init(generator, self.weight_init or "xavier",
@@ -116,7 +134,8 @@ class DenseLayer(Layer):
                   "b": self._binit((self.n_out,), device)}
         return params, InputType.feed_forward(self.n_out)
 
-    def forward(self, params, x):
+    def forward(self, params, x, train=False, seed=None):
+        x = self._maybe_dropout(x, train, seed)
         return self._act(torch.addmm(params["b"], x, params["W"]))
 
     def output_type(self, input_type):
@@ -125,9 +144,17 @@ class DenseLayer(Layer):
 
 @dataclasses.dataclass
 class BaseOutputLayer(DenseLayer):
-    """Dense + loss head; the loss name is kept for training."""
+    """Dense + loss head (ref: nn/layers/BaseOutputLayer computeScore)."""
 
     loss: str = "mcxent"
+
+    def compute_score(self, labels, preout, mask=None):
+        """Per-example loss [N] from pre-activations (stable fused path)."""
+        return loss_ops.get(self.loss)(labels, preout,
+                                       self.activation or "softmax", mask)
+
+    def preoutput(self, params, x):
+        return torch.addmm(params["b"], x, params["W"])
 
 
 @register_layer
@@ -162,7 +189,8 @@ class ConvolutionLayer(Layer):
         }
         return params, self.output_type(input_type)
 
-    def forward(self, params, x):
+    def forward(self, params, x, train=False, seed=None):
+        x = self._maybe_dropout(x, train, seed)
         return helper_ops.conv2d_bias_act(
             x, params["W"], params["b"], tuple(self.stride),
             tuple(self.padding), tuple(self.dilation),
@@ -190,7 +218,7 @@ class SubsamplingLayer(Layer):
     def initialize(self, generator, input_type, device):
         return {}, self.output_type(input_type)
 
-    def forward(self, params, x):
+    def forward(self, params, x, train=False, seed=None):
         return conv_ops.pool2d(x, self.pooling_type, tuple(self.kernel),
                                tuple(self.stride), tuple(self.padding),
                                self.convolution_mode, self.pnorm)

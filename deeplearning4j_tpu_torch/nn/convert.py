@@ -1,15 +1,16 @@
-"""Weights carried across from the JAX package.
+"""Weights and updater state carried across from the JAX package.
 
 The port keeps the JAX package's layouts (OIHW conv weights, dense ``W``
-as [n_in, n_out]), so a JAX ``MultiLayerNetwork``'s ``net_params`` — a
-list of per-layer dicts of arrays — map onto the port's one to one.  The
-caller hands them over as numpy arrays (``np.asarray`` of each leaf); this
-module imports nothing of JAX.
+as [n_in, n_out]) and its updater-state structure (per layer ``()`` or a
+dict of dicts of arrays), so a JAX ``MultiLayerNetwork``'s ``net_params``
+and ``opt_states`` map onto the port's one to one.  The caller hands them
+over as numpy arrays (``np.asarray`` of each leaf); this module imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -24,3 +25,19 @@ def params_from_jax(jax_params: List[Dict[str, np.ndarray]],
     dev = resolve_device(device)
     return [{k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
              for k, v in lp.items()} for lp in jax_params]
+
+
+def _to_torch(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v, dev) for v in tree)
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(dev)
+
+
+def opt_states_from_jax(jax_opt_states: List[Any],
+                        device: DeviceLike = None) -> List[Any]:
+    """Per-layer updater states of numpy arrays (``()`` for SGD, else
+    e.g. ``{"m": {"W": ..., "b": ...}, "v": {...}}``) → the same structure
+    of float32 tensors on ``device``."""
+    return _to_torch(list(jax_opt_states), resolve_device(device))

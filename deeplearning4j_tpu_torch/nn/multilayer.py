@@ -1,12 +1,21 @@
-"""MultiLayerNetwork — the port of ``deeplearning4j_tpu/nn/multilayer.py``,
-inference only.
+"""MultiLayerNetwork — the port of ``deeplearning4j_tpu/nn/multilayer.py``.
 
 ``init`` draws the params from a ``torch.Generator``; ``output`` runs the
 layer loop eagerly under ``torch.inference_mode`` on the network's
 device (there is no ``jit`` counterpart); ``predict`` returns argmax
 classes; ``params`` / ``set_params`` use the flat view of ``nn/params.py``.
-The network runs on the CUDA device unless it is built with
-``device="cpu"``.  Training (``fit``, updaters) comes with a later slice.
+``fit`` trains: per step a forward with autograd to the output layer's
+pre-activation, the loss (mean or sum over the batch, plus l1/l2, negated
+unless minimizing), its gradient, then per layer gradient
+normalization, the LR schedule, the learning rule and the bias LR
+(``ops/updaters.py``).  The step's dropout randomness is an explicit
+``[n_layers, 2]`` array of uint32 seed words, drawn from the network's
+own generator (seeded from the configuration) unless the caller passes
+it.  The network runs on the CUDA device unless it is built with
+``device="cpu"``.
+
+Not ported yet: ``fit(fused_steps=K)``, sharding and distributed
+training, checkpoint resume, truncated BPTT and listeners.
 """
 
 from __future__ import annotations
@@ -17,11 +26,64 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    DataSetIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.nn import params as param_util
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer, Layer
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.ops import bucketing
+from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
+
+WEIGHT_KEYS = {"W", "RW", "f_W", "f_RW", "b_W", "b_RW"}
+BIAS_KEYS = {"b", "f_b", "b_b"}
+
+
+def _updater_for(layer: Layer) -> upd_ops.Updater:
+    """The layer's learning rule with its hyperparameters and the JAX
+    package's defaults."""
+    name = (layer.updater or "sgd").lower()
+    hyper = {}
+    if name == "nesterovs":
+        hyper["momentum"] = (layer.momentum if layer.momentum is not None
+                             else 0.9)
+    elif name == "adadelta":
+        hyper["rho"] = layer.rho if layer.rho is not None else 0.95
+    elif name == "rmsprop":
+        hyper["rmsdecay"] = (layer.rms_decay if layer.rms_decay is not None
+                             else 0.95)
+    elif name in ("adam", "adamax"):
+        hyper["beta1"] = (layer.adam_mean_decay
+                          if layer.adam_mean_decay is not None else 0.9)
+        hyper["beta2"] = (layer.adam_var_decay
+                          if layer.adam_var_decay is not None else 0.999)
+    if layer.epsilon is not None and name in (
+            "adadelta", "rmsprop", "adam", "adamax", "adagrad"):
+        hyper["epsilon"] = layer.epsilon
+    return upd_ops.make(name, **hyper)
+
+
+def _tree_leaves(tree) -> List[torch.Tensor]:
+    """Leaves of nested dicts / tuples / lists in ``jax.tree_util`` order
+    (dict keys sorted), so a flattened updater state matches the JAX
+    package's byte for byte."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for t in tree for l in _tree_leaves(t)]
+    return [tree]
+
+
+def _tree_fill(tree, leaves):
+    """``tree`` with its leaves replaced, in :func:`_tree_leaves` order,
+    by the next items of the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _tree_fill(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_fill(t, leaves) for t in tree)
+    return next(leaves)
 
 
 class MultiLayerNetwork:
@@ -31,6 +93,18 @@ class MultiLayerNetwork:
         self.layers = conf.layers
         self.device = resolve_device(device)
         self.net_params: Optional[List[dict]] = None
+        # updater state, made at the first training step or restore, so a
+        # network that only serves holds none
+        self.opt_states: Optional[List] = None
+        self.updaters = [_updater_for(l) for l in self.layers]
+        self.frozen = [type(l).__name__ == "FrozenLayerConf"
+                       for l in self.layers]
+        self.iteration = 0
+        self.epoch = 0
+        self._score = float("nan")
+        # the source of each step's dropout seed words
+        self._generator = torch.Generator().manual_seed(
+            int(conf.global_conf.seed))
 
     def init(self, generator: Optional[torch.Generator] = None
              ) -> "MultiLayerNetwork":
@@ -68,13 +142,31 @@ class MultiLayerNetwork:
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The per-layer forward loop with the preprocessor hook."""
-        for i, layer in enumerate(self.layers):
+    def _forward(self, params, x: torch.Tensor, train: bool = False,
+                 seeds=None, stop: Optional[int] = None) -> torch.Tensor:
+        """The per-layer forward loop with the preprocessor hook; ``stop``
+        runs only ``layers[:stop]``; in training layer i gets the seed
+        words ``seeds[i]``."""
+        layers = self.layers if stop is None else self.layers[:stop]
+        for i, layer in enumerate(layers):
             if i in self.conf.preprocessors:
                 x, _ = self.conf.preprocessors[i](x)
-            x = layer.forward(self.net_params[i], x)
+            x = layer.forward(params[i], x, train,
+                              None if seeds is None else seeds[i])
         return x
+
+    def _forward_to_preout(self, params, x, train: bool, seeds=None):
+        """Forward to the output layer's PRE-activation (the stable fused
+        loss works on it)."""
+        n = len(self.layers)
+        x = self._forward(params, x, train, seeds, stop=n - 1)
+        if (n - 1) in self.conf.preprocessors:
+            x, _ = self.conf.preprocessors[n - 1](x)
+        last = self.layers[-1]
+        if train:
+            x = last._maybe_dropout(x, True,
+                                    None if seeds is None else seeds[n - 1])
+        return last.preoutput(params[-1], x)
 
     def output(self, x) -> torch.Tensor:
         """Network output for a batch (numpy array or tensor), as a tensor
@@ -82,7 +174,7 @@ class MultiLayerNetwork:
         if self.net_params is None:
             self.init()
         with torch.inference_mode():
-            return self._forward(self._as_input(x))
+            return self._forward(self.net_params, self._as_input(x))
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions."""
@@ -106,6 +198,189 @@ class MultiLayerNetwork:
             torch.cuda.synchronize(self.device)
         return {"buckets": ladder,
                 "warmup_sec": round(time.perf_counter() - t0, 3)}
+
+    # ---- training ----
+    def fit(self, data, labels=None, epochs: int = 1
+            ) -> "MultiLayerNetwork":
+        """fit(DataSetIterator) | fit(DataSet) | fit(x, y)
+        (ref: MultiLayerNetwork.fit :996): ``epochs`` passes over the
+        data, one training step per batch (``conf.iterations`` steps when
+        that is above 1)."""
+        if labels is not None:
+            data = DataSet(np.asarray(data), np.asarray(labels))
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        if not isinstance(data, DataSetIterator):
+            raise TypeError(f"fit takes a DataSetIterator, a DataSet or "
+                            f"(features, labels), not {type(data).__name__}")
+        if self.net_params is None:
+            self.init()
+        for _ in range(epochs):
+            data.reset()
+            while data.has_next():
+                self._fit_batch(data.next())
+            self.epoch += 1
+        return self
+
+    def _draw_seeds(self) -> torch.Tensor:
+        """One step's dropout seed words, [n_layers, 2] uint32 values (as
+        int64), from the network's generator."""
+        return torch.randint(0, 1 << 32, (len(self.layers), 2),
+                             generator=self._generator, dtype=torch.int64)
+
+    def _fit_batch(self, ds: DataSet, seeds=None) -> None:
+        """Train on one batch: ``conf.iterations`` steps.  ``seeds`` gives
+        the steps' dropout seed words, ``[n_layers, 2]`` for one step or
+        ``[iterations, n_layers, 2]``; without it each step draws its own
+        from the network's generator."""
+        g = self.conf.global_conf
+        if not isinstance(self.layers[-1], BaseOutputLayer):
+            raise ValueError("Last layer must be an output layer to fit()")
+        if any(l.use_drop_connect and l.dropout for l in self.layers):
+            raise NotImplementedError(
+                "DropConnect is not ported to deeplearning4j_tpu_torch yet")
+        if self.net_params is None:
+            self.init()
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        n_steps = max(1, g.iterations)
+        if seeds is not None:
+            seeds = np.asarray(seeds, dtype=np.int64).reshape(
+                -1, len(self.layers), 2)
+            if len(seeds) != n_steps:
+                raise ValueError(f"{len(seeds)} steps of seeds for "
+                                 f"{n_steps} iterations")
+        x = self._as_input(ds.features)
+        y = self._as_input(ds.labels)
+        fmask = None if ds.features_mask is None else \
+            self._as_input(ds.features_mask)
+        lmask = None if ds.labels_mask is None else \
+            self._as_input(ds.labels_mask)
+        for k in range(n_steps):
+            step_seeds = (self._draw_seeds() if seeds is None
+                          else seeds[k]).tolist()
+            score, grads = self._grad_step(x, y, fmask, lmask, step_seeds)
+            self._apply_updates(grads, self.iteration)
+            self._score = score
+            self.iteration += 1
+
+    def _grad_step(self, x, y, fmask, lmask, seeds):
+        """Score of the batch and its gradient per layer and param."""
+        g = self.conf.global_conf
+        params = [{k: v.detach().requires_grad_(not self.frozen[i])
+                   for k, v in lp.items()}
+                  for i, lp in enumerate(self.net_params)]
+        with torch.enable_grad():
+            preout = self._forward_to_preout(params, x, True, seeds)
+            lm = lmask if lmask is not None else (
+                fmask if fmask is not None and fmask.ndim == preout.ndim - 1
+                else None)
+            per_ex = self.layers[-1].compute_score(y, preout, lm)
+            score = per_ex.mean() if g.mini_batch else per_ex.sum()
+            score = score + self._reg_penalty(params)
+            if not g.minimize:
+                score = -score
+            leaves = [v for lp in params for v in lp.values()
+                      if v.requires_grad]
+            flat = iter(torch.autograd.grad(score, leaves))
+        grads = [{k: next(flat) for k, v in lp.items() if v.requires_grad}
+                 for lp in params]
+        return score.detach(), grads
+
+    def _reg_penalty(self, params):
+        """l1/l2 on weights and biases (zero unless the configuration
+        enables regularization)."""
+        total = 0.0
+        for layer, lp in zip(self.layers, params):
+            l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
+            l1b, l2b = layer.l1_bias or 0.0, layer.l2_bias or 0.0
+            for k, v in lp.items():
+                a, b = ((l1b, l2b) if k in BIAS_KEYS
+                        else (l1, l2) if k in WEIGHT_KEYS else (0.0, 0.0))
+                if a:
+                    total = total + a * torch.sum(torch.abs(v))
+                if b:
+                    total = total + 0.5 * b * torch.sum(v * v)
+        return total
+
+    def _init_opt_states(self) -> List:
+        return [u.init(lp) for u, lp in zip(self.updaters, self.net_params)]
+
+    @torch.no_grad()
+    def _apply_updates(self, grads, it: int) -> None:
+        """Per layer: gradient normalization, LR schedule, learning rule,
+        bias-LR override, then params -= update.  The params are updated
+        in place (JAX builds new arrays), which saves one copy of them."""
+        g = self.conf.global_conf
+        for i, layer in enumerate(self.layers):
+            gi = grads[i]
+            if not gi or self.frozen[i]:
+                continue
+            gi = upd_ops.normalize_gradient(
+                gi, layer.gradient_normalization,
+                layer.gradient_normalization_threshold or 1.0)
+            base = (layer.learning_rate if layer.learning_rate is not None
+                    else g.learning_rate)
+            lr = upd_ops.schedule_lr(
+                base, g.lr_policy, it, decay_rate=g.lr_policy_decay_rate,
+                steps=g.lr_policy_steps, power=g.lr_policy_power,
+                schedule_map=g.learning_rate_schedule)
+            upd, self.opt_states[i] = self.updaters[i].apply(
+                gi, self.opt_states[i], lr, it)
+            blr = layer.bias_learning_rate
+            if blr is not None and blr != (layer.learning_rate
+                                           or g.learning_rate):
+                # rescale the bias update (exact for rules linear in lr)
+                scale = blr / base if base else 1.0
+                upd = {k: (v * scale if k in BIAS_KEYS else v)
+                       for k, v in upd.items()}
+            for k, u in upd.items():
+                self.net_params[i][k].sub_(u)
+
+    def score(self, dataset: Optional[DataSet] = None) -> float:
+        """The loss on a DataSet (inference forward, l1/l2 included), or
+        the score of the last training step (ref: MultiLayerNetwork.score)."""
+        if dataset is None:
+            return float(self._score)
+        g = self.conf.global_conf
+        with torch.inference_mode():
+            x = self._as_input(dataset.features)
+            preout = self._forward_to_preout(self.net_params, x, False)
+            fmask = None if dataset.features_mask is None else \
+                self._as_input(dataset.features_mask)
+            lm = (self._as_input(dataset.labels_mask)
+                  if dataset.labels_mask is not None else
+                  fmask if fmask is not None
+                  and fmask.ndim == preout.ndim - 1 else None)
+            per_ex = self.layers[-1].compute_score(
+                self._as_input(dataset.labels), preout, lm)
+            score = per_ex.mean() if g.mini_batch else per_ex.sum()
+            return float(score + self._reg_penalty(self.net_params))
+
+    # ---- updater state ----
+    def updater_state_flat(self) -> torch.Tensor:
+        """The updater state as one flat vector, in the JAX package's
+        ``tree_leaves`` order (the ``updaterState.bin`` layout)."""
+        leaves = _tree_leaves(self.opt_states or [])
+        if not leaves:
+            return torch.zeros((0,), dtype=torch.float32)
+        return torch.cat([l.reshape(-1) for l in leaves])
+
+    def set_updater_state_flat(self, flat) -> None:
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        flat = torch.as_tensor(flat, dtype=torch.float32).reshape(-1)
+        leaves = _tree_leaves(self.opt_states)
+        n = sum(l.numel() for l in leaves)
+        if flat.numel() != n:
+            raise ValueError(f"Updater state size mismatch: model {n} vs "
+                             f"flat {flat.numel()}")
+        parts, off = [], 0
+        for l in leaves:
+            parts.append(flat[off:off + l.numel()].reshape(l.shape).to(
+                device=l.device, dtype=l.dtype).clone())
+            off += l.numel()
+        self.opt_states = _tree_fill(self.opt_states, iter(parts))
 
     # ---- flat param view ----
     def params(self) -> torch.Tensor:

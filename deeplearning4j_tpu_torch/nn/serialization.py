@@ -2,12 +2,14 @@
 for MultiLayerNetwork.
 
 A zip holding ``configuration.json`` (the configuration dict tagged with
-``"@model"``) and ``coefficients.bin`` (the flat param vector of
-``nn/params.py``, little-endian float32).  The format is the JAX
-package's byte for byte: a zip either package writes restores in the
-other, and re-writing a restored model gives the same
-``coefficients.bin``.  Updater state is not read or written (no training
-yet); a ComputationGraph zip, or one the original Java DL4J wrote, raises.
+``"@model"``), ``coefficients.bin`` (the flat param vector of
+``nn/params.py``, little-endian float32) and, once the network has
+updater state, ``updaterState.bin`` (that state flattened in the JAX
+package's ``tree_leaves`` order, little-endian float32).  The format is
+the JAX package's byte for byte: a zip either package writes restores in
+the other, and re-writing a restored model gives the same
+``coefficients.bin`` and ``updaterState.bin``.  A ComputationGraph zip,
+or one the original Java DL4J wrote, raises.
 """
 
 from __future__ import annotations
@@ -23,18 +25,25 @@ from deeplearning4j_tpu_torch.ops.platform import DeviceLike
 
 CONFIG_NAME = "configuration.json"
 COEFFICIENTS_NAME = "coefficients.bin"
+UPDATER_NAME = "updaterState.bin"
+
+
+def _f32_bytes(t) -> bytes:
+    return t.detach().cpu().numpy().astype("<f4").tobytes()
 
 
 def write_model(model, path: Union[str, Path]) -> None:
-    """(ref: ModelSerializer.writeModel)"""
+    """(ref: ModelSerializer.writeModel); the updater state goes in when
+    the model has one."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     conf_dict = model.conf.to_dict()
     conf_dict["@model"] = type(model).__name__
-    flat = model.params().detach().cpu().numpy().astype("<f4")
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(CONFIG_NAME, json.dumps(conf_dict, indent=2))
-        zf.writestr(COEFFICIENTS_NAME, flat.tobytes())
+        zf.writestr(COEFFICIENTS_NAME, _f32_bytes(model.params()))
+        if model.opt_states is not None:
+            zf.writestr(UPDATER_NAME, _f32_bytes(model.updater_state_flat()))
 
 
 def is_graph_conf(conf_dict: dict) -> bool:
@@ -43,7 +52,8 @@ def is_graph_conf(conf_dict: dict) -> bool:
 
 
 def restore_multi_layer_network(path: Union[str, Path],
-                                device: DeviceLike = None):
+                                device: DeviceLike = None,
+                                load_updater: bool = True):
     """(ref: ModelSerializer.restoreMultiLayerNetwork)"""
     from deeplearning4j_tpu_torch.nn.conf.network import (
         MultiLayerConfiguration)
@@ -61,13 +71,19 @@ def restore_multi_layer_network(path: Union[str, Path],
                 "yet")
         conf_dict.pop("@model", None)
         flat = np.frombuffer(zf.read(COEFFICIENTS_NAME), dtype="<f4")
+        upd = (np.frombuffer(zf.read(UPDATER_NAME), dtype="<f4")
+               if load_updater and UPDATER_NAME in zf.namelist() else None)
     net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_dict),
                             device=device).init()
     net.set_params(flat.copy())
+    if upd is not None:
+        net.set_updater_state_flat(upd.copy())
     return net
 
 
-def load_model(path: Union[str, Path], device: DeviceLike = None):
+def load_model(path: Union[str, Path], device: DeviceLike = None,
+               load_updater: bool = True):
     """Restore a model zip (ref: util/ModelGuesser.java); only the
     MultiLayerNetwork is ported."""
-    return restore_multi_layer_network(path, device=device)
+    return restore_multi_layer_network(path, device=device,
+                                       load_updater=load_updater)

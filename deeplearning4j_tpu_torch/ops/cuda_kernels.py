@@ -1,7 +1,6 @@
 """Kernels written by hand for NVIDIA Hopper, with their plain versions.
 
-The port of ``deeplearning4j_tpu/ops/pallas_kernels.py``.  One kernel so
-far:
+The port of ``deeplearning4j_tpu/ops/pallas_kernels.py``.  Three kernels:
 
 ``fused_conv2d_bias_act`` (``csrc/conv_bias_act.cu``) replaces the Pallas
 TPU kernel ``_conv_bias_act_kernel`` (``pallas_kernels.py:577``, launched
@@ -9,22 +8,42 @@ by ``_conv_forward`` :605 through ``fused_conv2d_bias_act`` :652): a
 stride-1 conv with f32 accumulation, + bias, + one of the 15 elementwise
 activations of :data:`CONV_FUSED_ACTS`, applied before the single write
 of the output.  It is bound by operations (the FMA rate of the CUDA
-cores); the source file's header says how the tiling answers that.
+cores); the source file's header says how the tiling answers that.  Its
+backward recomputes through the plain conv and differentiates that, as
+``_conv_vjp_bwd`` (:639) does, with TF32 off for those convs.
+
+``fused_softmax_xent`` (``csrc/softmax_xent.cu``) replaces
+``_softmax_xent_kernel`` (:466, launched by ``fused_softmax_xent`` :500):
+per-row softmax cross-entropy loss and its gradient in one pass.
+``softmax_xent_rows`` is the differentiable loss; its backward scales
+the saved gradient, as ``_sxr_bwd`` (:535) does.
+
+``fused_threshold_dropout`` (``csrc/threshold_dropout.cu``) replaces
+``_dropout_kernel`` (:827, launched by ``_dropout_forward`` :841):
+inverted dropout whose mask is a counter-hash threshold test, so the
+backward is the same kernel on the gradient with the same seed words and
+no mask is stored.  Kernel and plain version are bit-identical to the
+JAX ``threshold_dropout_reference`` (:907).  Both xent and dropout are
+bound by bytes.
 
 Rules every kernel here keeps:
 
 * the wrapper takes the plain PyTorch version (``*_reference``) only for
   a tensor that lies on the CPU; for any other tensor it launches the
   kernel or raises — there is no fallback;
-* the kernel library is built from the repo's ``csrc/`` at first use by
-  ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``_build/`` and
+* the kernel libraries are built from the repo's ``csrc/`` at first use
+  by ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``_build/`` and
   loaded with ``ctypes``; a failed build or launch raises;
-* the wrapper counts its launches in a plain integer attribute
-  (``fused_conv2d_bias_act.launches``), and nowhere else.
+  :func:`build_libraries` builds them all at once, one ``nvcc`` each;
+* the wrapper that launches a kernel counts its launches in a plain
+  integer attribute (``fused_conv2d_bias_act.launches``,
+  ``fused_softmax_xent.launches``, ``fused_threshold_dropout.launches``),
+  and nowhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,8 +51,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,10 +145,37 @@ class KernelLibrary:
             return self._lib
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 CONV_LIBRARY = KernelLibrary(
     CSRC / "conv_bias_act.cu",
     {"dl4j_conv2d_bias_act_f32": ([_P, _P, _P, _P] + [_I] * 12 + [_P], _I)})
+XENT_LIBRARY = KernelLibrary(
+    CSRC / "softmax_xent.cu",
+    {"dl4j_softmax_xent_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I)})
+DROPOUT_LIBRARY = KernelLibrary(
+    CSRC / "threshold_dropout.cu",
+    {"dl4j_threshold_dropout_f32": (
+        [_P, _P, _U, _U, _U, _U, ctypes.c_float, _P], _I)})
+LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY)
+
+
+def build_libraries() -> None:
+    """Build and load every kernel library at once: one ``nvcc`` process
+    per source, all started together.  Raises if any build fails."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(KernelLibrary.get, LIBRARIES))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _count(fn) -> None:
+    with _launch_lock:
+        fn.launches += 1
+
+
+_launch_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -200,24 +247,22 @@ def conv2d_bias_act_reference(x, w, b, pad=(0, 0),
     return act_ops.get(activation or "identity")(y)
 
 
-_launch_lock = threading.Lock()
+@contextlib.contextmanager
+def full_f32_convs():
+    """cuDNN convs in full f32 for the duration, TF32 off (PyTorch lets
+    cuDNN use TF32 for f32 convs by default); the previous setting is
+    restored on exit.  The conv backward runs under it, so its gradients
+    are f32 like the reference's."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
-def fused_conv2d_bias_act(x, w, b, stride=(1, 1), pad=(0, 0),
-                          dilation=(1, 1), border_mode: str = "truncate",
-                          activation: str = "identity"):
-    """Fused conv + bias + activation, NCHW in / OIHW weights, for shapes
-    :func:`conv_fused_supported` accepts.  A CPU tensor takes the plain
-    version; any other tensor launches the CUDA kernel or raises."""
-    act = (activation or "identity").lower()
-    if not conv_fused_supported(x.shape, w.shape, x.dtype, stride, dilation,
-                                act, pad, border_mode):
-        raise ValueError(
-            f"conv kernel does not take x{tuple(x.shape)} w{tuple(w.shape)} "
-            f"{x.dtype} stride={tuple(stride)} dilation={tuple(dilation)} "
-            f"activation={act!r}")
-    if x.device.type == "cpu":
-        return conv2d_bias_act_reference(x, w, b, pad, border_mode, act)
+def _launch_conv(x, w, b, pad, border_mode, act):
+    """One launch of the conv kernel on CUDA tensors x, w, b."""
     if not (x.is_cuda and w.is_cuda and b.is_cuda):
         raise ValueError(f"conv kernel needs CUDA tensors, got x on "
                          f"{x.device}, w on {w.device}, b on {b.device}")
@@ -235,17 +280,274 @@ def fused_conv2d_bias_act(x, w, b, stride=(1, 1), pad=(0, 0),
     OH, OW = H + pt + pb - KH + 1, W + pl_ + pr - KW + 1
     y = torch.empty((N, Cout, OH, OW), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dl4j_conv2d_bias_act_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             N, Cin, H, W, Cout, KH, KW, pt, pl_, OH, OW,
-            _CONV_ACT_IDS[act], stream)
+            _CONV_ACT_IDS[act], _stream(x))
     if err != 0:
         raise RuntimeError(f"conv kernel launch failed: CUDA error {err} "
                            f"for x{tuple(x.shape)} w{tuple(w.shape)}")
-    with _launch_lock:
-        fused_conv2d_bias_act.launches += 1
+    _count(fused_conv2d_bias_act)
     return y
 
 
+class _ConvBiasAct(torch.autograd.Function):
+    """Forward: the kernel.  Backward: recompute through the plain
+    conv + bias + activation and differentiate that — one extra conv
+    buys gradients that are exactly the dense path's, as the JAX
+    package's ``_conv_vjp_bwd`` does (it has no Pallas backward either).
+    Those convs run in full f32 (:func:`full_f32_convs`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, pad, border_mode, act):
+        ctx.save_for_backward(x, w, b)
+        ctx.conf = (pad, border_mode, act)
+        return _launch_conv(x, w, b, pad, border_mode, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad(), full_f32_convs():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            y = conv2d_bias_act_reference(*leaves, *ctx.conf)
+            grads = iter(torch.autograd.grad(
+                y, [t for t in leaves if t.requires_grad], g))
+        return tuple(next(grads) if n else None for n in need) + \
+            (None, None, None)
+
+
+def fused_conv2d_bias_act(x, w, b, stride=(1, 1), pad=(0, 0),
+                          dilation=(1, 1), border_mode: str = "truncate",
+                          activation: str = "identity"):
+    """Fused conv + bias + activation, NCHW in / OIHW weights, for shapes
+    :func:`conv_fused_supported` accepts.  A CPU tensor takes the plain
+    version; any other tensor launches the CUDA kernel or raises.  When
+    autograd records, the output has a backward (:class:`_ConvBiasAct`);
+    under ``no_grad``/``inference_mode`` the Function runs forward only."""
+    act = (activation or "identity").lower()
+    if not conv_fused_supported(x.shape, w.shape, x.dtype, stride, dilation,
+                                act, pad, border_mode):
+        raise ValueError(
+            f"conv kernel does not take x{tuple(x.shape)} w{tuple(w.shape)} "
+            f"{x.dtype} stride={tuple(stride)} dilation={tuple(dilation)} "
+            f"activation={act!r}")
+    if x.device.type == "cpu":
+        return conv2d_bias_act_reference(x, w, b, pad, border_mode, act)
+    pad = tuple(int(p) for p in pad)
+    return _ConvBiasAct.apply(x, w, b, pad, border_mode, act)
+
+
 fused_conv2d_bias_act.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# softmax cross-entropy, loss and gradient
+# ---------------------------------------------------------------------------
+
+def softmax_xent_supported(shape, dtype) -> bool:
+    """Support predicate of the xent kernel: 2-D f32 [N, V] with N within
+    CUDA's grid and a row index that fits the kernel's ints."""
+    if len(shape) != 2 or dtype != torch.float32:
+        return False
+    N, V = (int(d) for d in shape)
+    return 1 <= N < 2 ** 31 and 1 <= V < 2 ** 31
+
+
+def softmax_xent_reference(logits, labels):
+    """The plain version: (per-row loss [N], dlogits [N, V]) with the
+    kernel's math, ``loss = -sum y ((x - m) - log z)`` and
+    ``grad = softmax(x) * sum y - y``."""
+    m = logits.amax(dim=1, keepdim=True)
+    e = torch.exp(logits - m)
+    z = e.sum(dim=1, keepdim=True)
+    logp = (logits - m) - torch.log(z)
+    loss = -(labels * logp).sum(dim=1)
+    grad = e / z * labels.sum(dim=1, keepdim=True) - labels
+    return loss, grad
+
+
+def _xent_threads(V: int) -> int:
+    """Threads per row: about 8 elements each, 128 to 1024."""
+    return min(1024, max(128, next_pow2(-(-V // 8))))
+
+
+def fused_softmax_xent(logits, labels):
+    """(per-row loss [N], dlogits [N, V]) in one fused pass.  A CPU tensor
+    takes the plain version; any other tensor launches the kernel or
+    raises."""
+    if not softmax_xent_supported(logits.shape, logits.dtype) or \
+            labels.shape != logits.shape or labels.dtype != logits.dtype:
+        raise ValueError(f"xent kernel does not take logits "
+                         f"{tuple(logits.shape)} {logits.dtype}, labels "
+                         f"{tuple(labels.shape)} {labels.dtype}")
+    if logits.device.type == "cpu":
+        return softmax_xent_reference(logits, labels)
+    if not (logits.is_cuda and labels.device == logits.device):
+        raise ValueError(f"xent kernel needs CUDA tensors on one device, "
+                         f"got logits on {logits.device}, labels on "
+                         f"{labels.device}")
+    lib = XENT_LIBRARY.get()
+    x, y = logits.detach().contiguous(), labels.detach().contiguous()
+    N, V = x.shape
+    loss = torch.empty((N,), dtype=torch.float32, device=x.device)
+    grad = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.dl4j_softmax_xent_f32(
+            x.data_ptr(), y.data_ptr(), loss.data_ptr(), grad.data_ptr(),
+            N, V, _xent_threads(V), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"xent kernel launch failed: CUDA error {err} "
+                           f"for logits {tuple(x.shape)}")
+    _count(fused_softmax_xent)
+    return loss, grad
+
+
+fused_softmax_xent.launches = 0
+
+
+class _SoftmaxXentRows(torch.autograd.Function):
+    """Per-row loss whose backward reuses the gradient the forward pass
+    already produced (``_sxr_fwd`` / ``_sxr_bwd``, :526-538)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        loss, grad = fused_softmax_xent(logits, labels)
+        ctx.save_for_backward(grad)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        grad, = ctx.saved_tensors
+        return grad * g[:, None], None
+
+
+def softmax_xent_rows(logits, labels):
+    """Differentiable fused softmax + cross-entropy: per-row loss [N] of
+    logits [N, V] against labels [N, V] (labels get no gradient)."""
+    return _SoftmaxXentRows.apply(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# threshold dropout
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+DROPOUT_MIN_ELEMENTS = 1 << 12
+
+
+def dropout_fused_supported(shape, dtype) -> bool:
+    """Support predicate of the dropout tier, the JAX gate (:919) for f32:
+    at least 4,096 elements, so that skipping the mask tensor beats the
+    launch; fewer than 2^32, the range of the kernel's uint32 element
+    ids."""
+    if dtype != torch.float32:
+        return False
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return DROPOUT_MIN_ELEMENTS <= n < 2 ** 32
+
+
+def dropout_seed_words(seed) -> Tuple[int, int]:
+    """The two uint32 seed words of a dropout call, from any pair of
+    integers (a tuple, or a tensor or array of two)."""
+    s0, s1 = (int(v) & _M32 for v in (seed.tolist()
+                                      if hasattr(seed, "tolist") else seed))
+    return s0, s1
+
+
+def dropout_threshold(rate: float) -> int:
+    """round(rate * 2^24) with Python's round (half to even), as the JAX
+    kernel computes it: an element is kept iff (hash >> 8) < this."""
+    return int(round(float(rate) * float(1 << 24)))
+
+
+def dropout_scale(rate: float) -> float:
+    """float32(1 / rate), computed in double and rounded once.  Kept
+    elements are multiplied by it; dividing by ``rate`` would round
+    differently."""
+    return ctypes.c_float(1.0 / float(rate)).value
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for an int64 tensor a < 2^32, without int64
+    overflow: c is split into 16-bit halves."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def mix32(idx, s0: int, s1: int):
+    """The kernel's xxhash-style avalanche (``_mix32``, :797) on an int64
+    tensor of uint32 element ids; returns uint32 values as int64."""
+    h = _mul32(idx, 2654435761) ^ s0
+    h = _mul32(h, 2246822519)
+    h = h ^ (h >> 13)
+    h = _mul32(h ^ s1, 3266489917)
+    return h ^ (h >> 16)
+
+
+def threshold_dropout_reference(x, rate: float, seed):
+    """The plain version: the kernel's mask and scaling from the C-order
+    element ids of x, bit-identical to the kernel."""
+    if rate >= 1.0 or rate <= 0.0:
+        return x
+    s0, s1 = dropout_seed_words(seed)
+    idx = torch.arange(x.numel(), dtype=torch.int64,
+                       device=x.device).reshape(x.shape)
+    keep = (mix32(idx, s0, s1) >> 8) < dropout_threshold(rate)
+    # a float32 tensor times a Python float multiplies in float32, and the
+    # scale is a float32 value: the same one rounding as the kernel's
+    return torch.where(keep, x * dropout_scale(rate), 0.0)
+
+
+def _threshold_dropout(x, rate: float, seed):
+    """One application, forward or backward: the plain version for a CPU
+    tensor, one kernel launch for any other."""
+    if x.device.type == "cpu":
+        return threshold_dropout_reference(x, rate, seed)
+    if not x.is_cuda or x.dtype != torch.float32 or x.numel() >= 2 ** 32:
+        raise ValueError(f"dropout kernel takes a CUDA float32 tensor of "
+                         f"fewer than 2^32 elements, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    lib = DROPOUT_LIBRARY.get()
+    x = x.detach().contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()            # the kernel moves 16 bytes per access
+    y = torch.empty_like(x)
+    s0, s1 = dropout_seed_words(seed)
+    with torch.cuda.device(x.device):
+        err = lib.dl4j_threshold_dropout_f32(
+            x.data_ptr(), y.data_ptr(), x.numel(), s0, s1,
+            dropout_threshold(rate), dropout_scale(rate), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"dropout kernel launch failed: CUDA error {err} "
+                           f"for x{tuple(x.shape)}")
+    _count(fused_threshold_dropout)
+    return y
+
+
+class _ThresholdDropout(torch.autograd.Function):
+    """The residual is the seed alone: the backward applies the same
+    masked scaling to the gradient (``_dropout_vjp_bwd``, :864)."""
+
+    @staticmethod
+    def forward(ctx, x, rate, seed):
+        ctx.rate, ctx.seed = rate, seed
+        return _threshold_dropout(x, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _threshold_dropout(g, ctx.rate, ctx.seed), None, None
+
+
+def fused_threshold_dropout(x, rate: float, seed):
+    """Inverted dropout with the mask's threshold test inside the kernel.
+    ``rate`` is the RETAIN probability; ``seed`` the two uint32 seed words.
+    Differentiable; a CPU tensor takes the plain version both ways."""
+    if rate >= 1.0 or rate <= 0.0:
+        return x
+    return _ThresholdDropout.apply(x, float(rate), dropout_seed_words(seed))
+
+
+fused_threshold_dropout.launches = 0

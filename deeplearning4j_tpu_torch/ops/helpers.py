@@ -1,10 +1,21 @@
 """Per-op kernel selection — the port of ``deeplearning4j_tpu/ops/helpers.py``.
 
-Only ``conv2d_bias_act`` so far.  On a CUDA tensor whose shape the
-kernel's predicate accepts it launches the hand-written kernel
-(``ops/cuda_kernels.py``); otherwise it takes the dense chain (plain conv
-→ bias → activation), which is what the JAX package does for strided and
-dilated convs.  Each decision is metered in
+==================  ==========================  ===========================
+op                  kernel (ops/cuda_kernels)   dense chain
+==================  ==========================  ===========================
+``conv2d``          fused_conv2d_bias_act       ops/convolution.conv2d + act
+``dropout``         fused_threshold_dropout     ops/normalization.dropout
+``softmax_xent``    softmax_xent_rows           logsumexp form in ops/losses
+==================  ==========================  ===========================
+
+``conv2d_bias_act`` launches the hand-written kernel on a CUDA tensor
+whose shape the kernel's predicate accepts, and takes the dense chain
+otherwise (on the CPU too), which is what the JAX package does for
+strided and dilated convs.  ``dropout`` and ``softmax_xent_wanted`` apply
+the JAX gates, which look at shapes only; the tensor's device then
+decides inside the wrapper between the kernel (CUDA) and its plain
+version (CPU), so the CPU runs the same hash mask and the same fused
+loss as the card.  Each decision is metered in
 ``dl4j_kernel_selected_total`` / ``dl4j_kernel_fallback_total`` by op.
 
 Not ported, on purpose: the JAX package's ``kernel_self_test``
@@ -18,10 +29,18 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.ops import activations as act_ops
 from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+
+# The JAX xent gate (helpers.py:190): wide vocabularies only, where the
+# saved round trips of the [N, V] probabilities beat the launch.
+XENT_MIN_VOCAB = 128
+XENT_MIN_ELEMENTS = 1 << 16
 
 
 def record_selection(op: str, kernel: bool) -> None:
@@ -52,3 +71,28 @@ def conv2d_bias_act(x, w, b, stride=(1, 1), pad=(0, 0), dilation=(1, 1),
     record_selection("conv2d", False)
     return act_ops.get(act)(conv_ops.conv2d(x, w, b, stride, pad, dilation,
                                             border_mode))
+
+
+def dropout(x, rate: float, seed):
+    """Inverted dropout for ``Layer._maybe_dropout``; ``rate`` is the
+    RETAIN probability, ``seed`` the layer's two uint32 seed words.  The
+    threshold-hash kernel (plain version on the CPU) for f32 tensors of
+    at least 4,096 elements; else the dense mask of
+    ``ops/normalization.dropout``, drawn from a generator seeded with the
+    same words."""
+    if ck.dropout_fused_supported(x.shape, x.dtype):
+        record_selection("dropout", True)
+        return ck.fused_threshold_dropout(x, float(rate), seed)
+    record_selection("dropout", False)
+    s0, s1 = ck.dropout_seed_words(seed)
+    gen = torch.Generator(device=x.device).manual_seed((s0 << 32) | s1)
+    return norm_ops.dropout(x, rate, gen)
+
+
+def softmax_xent_wanted(n_rows: int, vocab: int) -> bool:
+    """Decision for ``ops/losses.mcxent`` (shape and mask legality are the
+    caller's check): the fused loss for vocab >= 128 and
+    rows * vocab >= 65,536."""
+    ok = vocab >= XENT_MIN_VOCAB and n_rows * vocab >= XENT_MIN_ELEMENTS
+    record_selection("softmax_xent", ok)
+    return ok

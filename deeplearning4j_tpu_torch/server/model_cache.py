@@ -67,7 +67,9 @@ class ModelCache:
             else:
                 self._count("misses")
                 e = {"mtime": mtime,
-                     "model": load_model(key, device=self.device),
+                     # serving needs no updater state on the device
+                     "model": load_model(key, device=self.device,
+                                         load_updater=False),
                      "warmup": None, "loaded_at": time.time()}
                 self._entries[key] = e
                 while len(self._entries) > self.capacity:

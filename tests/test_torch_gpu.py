@@ -4,15 +4,21 @@ runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
-Tolerance of the kernel against its plain version: rtol 1e-4, atol 1e-5
-(float32 sums in different orders; TF32 off for the plain version).
+Tolerances against the plain versions: conv rtol 1e-4, atol 1e-5
+(float32 sums in different orders; TF32 off for the plain version); xent
+rtol = atol = 1e-5 (the JAX suite's); dropout bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.models import lenet, vgg16_cifar10
+from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf import network
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 
 # the shape / pad / mode grid of the JAX package's fused-conv parity test
@@ -86,3 +92,106 @@ def test_models_on_the_card_match_the_cpu(cuda_device):
                       for l in gpu.layers)
         assert ck.fused_conv2d_bias_act.launches == launches + n_convs
         torch.testing.assert_close(got, cpu.output(x), rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,V", [(128, 1000), (256, 512), (997, 130),
+                                 (3, 50257)])
+def test_xent_kernel_matches_plain_version_on_the_card(cuda_device, N, V):
+    rng = np.random.default_rng(N)
+    x = torch.from_numpy((rng.normal(size=(N, V)) * 3).astype(np.float32))
+    y = torch.from_numpy(rng.random(size=(N, V)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32))
+    x, y, g = x.to(cuda_device), y.to(cuda_device), g.to(cuda_device)
+    launches = ck.fused_softmax_xent.launches
+    xr = x.clone().requires_grad_()
+    loss = ck.softmax_xent_rows(xr, y)
+    loss.backward(g)
+    assert ck.fused_softmax_xent.launches == launches + 1
+    ref_loss, ref_grad = ck.softmax_xent_reference(x, y)
+    torch.testing.assert_close(loss.detach(), ref_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xr.grad, ref_grad * g[:, None], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 4096), (3, 4099), (4097,)])
+@pytest.mark.parametrize("rate", [0.5, 0.8])
+def test_dropout_kernel_is_bit_identical_on_the_card(cuda_device, shape,
+                                                     rate):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda_device)
+    seed = (2654435761, 12345)
+    launches = ck.fused_threshold_dropout.launches
+    xr = x.clone().requires_grad_()
+    y = ck.fused_threshold_dropout(xr, rate, seed)
+    y.backward(g)
+    assert ck.fused_threshold_dropout.launches == launches + 2
+    assert torch.equal(y, ck.threshold_dropout_reference(x, rate, seed))
+    assert torch.equal(xr.grad, ck.threshold_dropout_reference(g, rate, seed))
+    cpu = ck.threshold_dropout_reference(x.cpu(), rate, seed)
+    assert torch.equal(y.cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_conv_backward_runs_in_f32_and_restores_tf32(cuda_device):
+    """With cuDNN allowed TF32 (PyTorch's default) the conv kernel's
+    gradients still equal the plain conv's in full f32."""
+    x, w, b = _conv_inputs((4, 8, 16, 16), (3, 3), cuda_device, cout=16)
+    torch.backends.cudnn.allow_tf32 = True
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = ck.fused_conv2d_bias_act(*leaves, pad=(1, 1), activation="relu")
+    assert y.grad_fn is not None
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, leaves, g)
+    assert torch.backends.cudnn.allow_tf32
+    with ck.full_f32_convs():
+        ref_leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        ref = ck.conv2d_bias_act_reference(*ref_leaves, (1, 1), "truncate",
+                                           "relu")
+        want = torch.autograd.grad(ref, ref_leaves, g)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-6)
+
+
+def _small_drop_net(device):
+    b = (network.NeuralNetConfiguration.builder().seed(11)
+         .learning_rate(0.01).updater("nesterovs").weight_init("relu").list())
+    for ch in (4, 8):
+        b.layer(L.ConvolutionLayer(n_out=ch, kernel=(3, 3), padding=(1, 1),
+                                   activation="relu"))
+    b.layer(L.SubsamplingLayer(pooling_type="max", kernel=(2, 2),
+                               stride=(2, 2)))
+    b.layer(L.DenseLayer(n_out=64, activation="relu", dropout=0.5))
+    b.layer(L.OutputLayer(n_out=256, activation="softmax", loss="mcxent"))
+    conf = b.set_input_type(InputType.convolutional(8, 8, 3)).build()
+    return MultiLayerNetwork(conf, device=device).init(
+        generator=torch.Generator().manual_seed(3))
+
+
+@pytest.mark.gpu
+def test_fit_on_the_card_matches_the_cpu(cuda_device):
+    """Two Nesterovs steps of the small dropout net on the card (conv, xent
+    and dropout kernels) and on the CPU (plain versions), same params and
+    seed words."""
+    gpu, cpu = _small_drop_net(cuda_device), _small_drop_net("cpu")
+    rng = np.random.default_rng(0)
+    before = (ck.fused_conv2d_bias_act.launches,
+              ck.fused_softmax_xent.launches,
+              ck.fused_threshold_dropout.launches)
+    for _ in range(2):
+        ds = DataSet(rng.normal(size=(256, 3, 8, 8)).astype(np.float32),
+                     np.eye(256, dtype=np.float32)[rng.integers(0, 256, 256)])
+        seeds = rng.integers(0, 1 << 32, size=(5, 2))
+        gpu._fit_batch(ds, seeds=seeds)
+        cpu._fit_batch(ds, seeds=seeds)
+        np.testing.assert_allclose(gpu.score(), cpu.score(), rtol=1e-4)
+    after = (ck.fused_conv2d_bias_act.launches,
+             ck.fused_softmax_xent.launches,
+             ck.fused_threshold_dropout.launches)
+    assert [a - b for a, b in zip(after, before)] == [4, 2, 4]
+    torch.testing.assert_close(gpu.params().cpu(), cpu.params(), rtol=1e-4,
+                               atol=1e-5)
