@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. device    — the card's name, and its name and power limit from nvidia-smi.
-2. build     — builds the three kernel libraries from csrc/ (one nvcc per
+2. build     — builds the four kernel libraries from csrc/ (one nvcc per
                source, sm_90a, all started together) and times the build.
 3. kernels   — the conv kernel against its plain PyTorch version at every
                distinct conv shape of LeNet and VGG16-CIFAR10 (every bucket
@@ -54,6 +54,30 @@ exits non-zero:
                50 batches (800 steps, seconds of training): 2 conv launches
                per step, no xent (vocab 10) and no dropout.  Samples/s is
                all samples over all the time.
+9. lstm_kernel — the peephole-LSTM step kernel against its plain version
+               (c', h', rtol = atol = 1e-5) at (N, H) = (32, 200), (4, 200),
+               (1, 200), (3, 8), (5, 24), (64, 256); a 2-layer ``lstm_scan``
+               over 50 steps through the kernel against the same scan
+               through the plain step (outputs, final states and every
+               param's gradient within 1e-4 relative 2-norm), unmasked,
+               masked and reversed; the step timed at the main paths'
+               (32, 200), (4, 200) and (1, 200) by replaying a CUDA graph
+               of 50 steps, beside the plain step and the bound.
+10. train_charrnn — the main path of recurrent training: ``char_rnn(V,
+               200, 2)`` (RMSProp, TBPTT 50) on ``CharacterIterator`` over
+               the repo's SURVEY.md (V = 107), sequences of 1,000, batch
+               32, 8 minibatches (160 segments) through ``fit``; each must
+               launch exactly 2,000 lstm steps and no other kernel (V < 128
+               keeps the loss dense).  Then one segment through the kernel
+               against the same segment through the plain step, from the
+               same params, updater and RNN state: score to 1e-5 relative,
+               each param's update to 5e-4 relative 2-norm.  Chars/s over
+               minibatches 2-8, score per minibatch, peak memory.
+11. sample_charrnn — the main path of sampling: ``rnn_time_step`` on 4
+               streams for 300 characters (2 launches per call, one per
+               layer for all streams), then ``sample_text`` once; then
+               ``rnn_time_step`` fed one character at a time must equal
+               ``output()`` on the same 50 characters within 1e-5.
 
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -100,6 +124,23 @@ VGG_BATCH, VGG_STEPS = 128, 3
 # LeNet: 16 passes over 50 batches, 800 steps, a window of seconds
 LENET_BATCH, LENET_BATCHES, LENET_EPOCHS = 64, 50, 16
 SEED = 1234
+# The char-RNN recipe (dl4j-examples GravesLSTMCharModellingExample) on the
+# repo's SURVEY.md: 2 x GravesLSTM(200), TBPTT 50, sequences of 1,000 at
+# batch 32; sampling 4 streams of 300 characters.
+CHAR_HIDDEN, CHAR_LAYERS, CHAR_TBPTT = 200, 2, 50
+CHAR_SEQ, CHAR_BATCH, CHAR_MINIBATCHES = 1000, 32, 8
+SAMPLE_STREAMS, SAMPLE_CHARS = 4, 300
+# The lstm kernel against its plain step: the JAX suite's tolerance for its
+# kernel (one step, the same f32 math, the product summed in another order).
+LSTM_TOL = 1e-5
+# A 2-layer scan of 50 steps, kernel vs plain step, forward and backward:
+# relative 2-norm of the difference, per output, state and gradient.
+LSTM_SCAN_REL = 1e-4
+# One TBPTT segment through the kernel vs the plain step: score to 1e-5
+# relative; each param's RMSProp update to 5e-4 in relative 2-norm, the
+# training step's rule above.
+CHAR_SCORE_RTOL, CHAR_UPDATE_RTOL = 1e-5, 5e-4
+ROOT = Path(__file__).resolve().parent
 
 
 def emit(phase: str, **fields) -> None:
@@ -435,7 +476,7 @@ def _plain_forward(torch, ck, net, x):
                     x, p["W"], p["b"], tuple(layer.padding),
                     layer.convolution_mode, layer.activation)
             else:
-                x = layer.forward(p, x)
+                x, _, _ = layer.forward(p, {}, x)
     return x
 
 
@@ -657,12 +698,13 @@ def phase_xent_dropout_kernels(torch, ck) -> dict:
 def _kernel_counts(ck):
     return {"conv2d_bias_act": ck.fused_conv2d_bias_act.launches,
             "softmax_xent": ck.fused_softmax_xent.launches,
-            "threshold_dropout": ck.fused_threshold_dropout.launches}
+            "threshold_dropout": ck.fused_threshold_dropout.launches,
+            "lstm_step": ck.fused_lstm_step.launches}
 
 
 def _zero_counts(ck):
     for fn in (ck.fused_conv2d_bias_act, ck.fused_softmax_xent,
-               ck.fused_threshold_dropout):
+               ck.fused_threshold_dropout, ck.fused_lstm_step):
         fn.launches = 0
 
 
@@ -703,7 +745,7 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it):
             elif isinstance(layer, DenseLayer):
                 h = layer._act(torch.addmm(p["b"], h, p["W"]))
             else:
-                h = layer.forward(p, h)
+                h, _, _ = layer.forward(p, {}, h)
         loss, _ = ck.softmax_xent_reference(h, y)
         score = loss.mean()
         flat = iter(torch.autograd.grad(
@@ -721,7 +763,9 @@ def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone_tree(v) for v in tree)
+        items = [_clone_tree(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
     return tree.detach().clone()
 
 
@@ -757,7 +801,8 @@ def phase_train_vgg16_224(torch, ck) -> dict:
                       "launches": {n: after[n] - counts[n] for n in after}})
     launches = _kernel_counts(ck)                      # main path ends
     peak = torch.cuda.max_memory_allocated()
-    want = {"conv2d_bias_act": 13, "softmax_xent": 1, "threshold_dropout": 4}
+    want = {"conv2d_bias_act": 13, "softmax_xent": 1, "threshold_dropout": 4,
+            "lstm_step": 0}
     for st in steps:
         if st["launches"] != want or not np.isfinite(st["score"]):
             raise AssertionError(f"VGG16-224 step {st}: launches must be "
@@ -828,7 +873,7 @@ def phase_train_lenet(torch, ck) -> dict:
     launches = _kernel_counts(ck)                      # main path ends
     steps = LENET_BATCHES * LENET_EPOCHS
     want = {"conv2d_bias_act": 2 * steps, "softmax_xent": 0,
-            "threshold_dropout": 0}
+            "threshold_dropout": 0, "lstm_step": 0}
     score = net.score()
     dt = sum(epoch_s)
     per_epoch = [LENET_BATCHES * LENET_BATCH / t for t in epoch_s]
@@ -843,13 +888,278 @@ def phase_train_lenet(torch, ck) -> dict:
                              f"{want}; score {score}")
     return res
 
+def _rel_norm(torch, got, want) -> float:
+    """||got - want|| / ||want|| (2-norms), 0 when both are zero."""
+    den = float(torch.linalg.vector_norm(want))
+    num = float(torch.linalg.vector_norm(got - want))
+    return num / den if den else num
 
-def summary(records, serve_launches, xd, train_vgg, train_lenet) -> dict:
+
+def _plain_lstm_step(ck):
+    """Within the block, ``ops/recurrent.lstm_scan`` takes the plain step
+    (``lstm_step_reference``) where it would launch the kernel: the
+    network and scan code run unchanged, and no launch is counted."""
+    from unittest import mock
+    return mock.patch.object(ck, "fused_lstm_step", ck.lstm_step_reference)
+
+
+def _lstm_bound(N, H):
+    """(bytes, FLOPs) of one step: zx, h, c, RW, p3 read once, c', h'
+    written once; the [N, H] x [H, 4H] product and ~20 operations per
+    (n, j) of gate math."""
+    nbytes = 4 * (N * 4 * H + 2 * N * H + 4 * H * H + 3 * H + 2 * N * H)
+    return nbytes, 2 * N * H * 4 * H + 20 * N * H
+
+
+def check_lstm_step(torch, ck, N, H, gen, timed=False) -> dict:
+    """The kernel against its plain version at one (N, H), with zx a row-
+    strided view (one time step of [N, 3, 4H]) as ``lstm_scan`` passes it."""
+    dev = torch.device("cuda")
+    zx = torch.randn((N, 3, 4 * H), generator=gen, device=dev)[:, 1]
+    h = torch.randn((N, H), generator=gen, device=dev)
+    c = torch.randn((N, H), generator=gen, device=dev)
+    rw = torch.randn((H, 4 * H), generator=gen, device=dev) * H ** -0.5
+    p3 = torch.randn((3, H), generator=gen, device=dev) * 0.1
+    got = ck.fused_lstm_step(zx, h, c, rw, p3)
+    want = ck.lstm_step_reference(zx, h, c, rw, p3)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=LSTM_TOL, atol=LSTM_TOL)
+    rec = {"shape": [N, H], "max_abs_err": max(
+        float((a - e).abs().max()) for a, e in zip(got, want))}
+    if timed:
+        nbytes, flops = _lstm_bound(N, H)
+        rec.update(
+            ms=graph_ms(torch, lambda: ck.fused_lstm_step(zx, h, c, rw, p3),
+                        calls=50),
+            call_ms=time_ms(torch, lambda: ck.fused_lstm_step(
+                zx, h, c, rw, p3)),
+            plain_ms=graph_ms(torch, lambda: ck.lstm_step_reference(
+                zx, h, c, rw, p3), calls=50),
+            bytes=nbytes, flops=flops)
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+    return rec
+
+
+def check_lstm_scan(torch, ck, masked: bool, reverse: bool) -> dict:
+    """A 2-layer ``lstm_scan`` of the char-RNN's widths over one TBPTT
+    segment (N = 32, T = 50, V = 107 -> 200 -> 200) from a nonzero state,
+    through the kernel and through the plain step: outputs, final states
+    and the gradients of every param."""
+    from deeplearning4j_tpu_torch.ops import recurrent as rnn
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    N, T, V, H = CHAR_BATCH, CHAR_TBPTT, 107, CHAR_HIDDEN
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    layers = [{"W": randn(n_in, 4 * H, scale=n_in ** -0.5),
+               "RW": randn(H, 4 * H, scale=H ** -0.5),
+               "b": randn(4 * H, scale=0.1), "pI": randn(H, scale=0.1),
+               "pF": randn(H, scale=0.1), "pO": randn(H, scale=0.1)}
+              for n_in in (V, H)]
+    x = torch.nn.functional.one_hot(torch.randint(
+        0, V, (N, T), generator=gen, device="cuda"), V).float()
+    inits = [rnn.LSTMState(randn(N, H), randn(N, H)) for _ in layers]
+    mask = None
+    if masked:
+        lens = torch.randint(1, T + 1, (N,), generator=gen, device="cuda")
+        mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
+    g_out = randn(N, T, H)
+
+    def run():
+        leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                  for p in layers]
+        h, finals = x, []
+        for p, init in zip(leaves, inits):
+            h, fin = rnn.lstm_scan(p, h, init, mask, reverse=reverse)
+            finals += list(fin)
+        grads = torch.autograd.grad(
+            (h * g_out).sum() + sum(f.sum() for f in finals),
+            [v for p in leaves for v in p.values()])
+        return [h.detach()] + [f.detach() for f in finals] + list(grads)
+
+    before = ck.fused_lstm_step.launches
+    got = run()
+    launches = ck.fused_lstm_step.launches - before
+    with _plain_lstm_step(ck):
+        want = run()
+    torch.cuda.synchronize()
+    errs = [_rel_norm(torch, a, e) for a, e in zip(got, want)]
+    rec = {"masked": masked, "reverse": reverse, "launches": launches,
+           "max_rel_norm_err": max(errs),
+           "max_abs_err_output": float((got[0] - want[0]).abs().max())}
+    if launches != 2 * T or max(errs) > LSTM_SCAN_REL:
+        raise AssertionError(f"lstm_scan through the kernel disagrees with "
+                             f"the plain step: {rec}, errors {errs}")
+    return rec
+
+
+def phase_lstm_kernel(torch, ck) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # timed: every shape a main path runs (training at 32 rows, sampling
+    # at 4 streams and sample_text at 1)
+    steps = [check_lstm_step(torch, ck, n, CHAR_HIDDEN, gen, timed=True)
+             for n in (CHAR_BATCH, SAMPLE_STREAMS, 1)]
+    steps += [check_lstm_step(torch, ck, n, h, gen)
+              for n, h in ((3, 8), (5, 24), (64, 256))]
+    scans = [check_lstm_scan(torch, ck, m, r)
+             for m, r in ((False, False), (True, False), (False, True))]
+    res = {"tol": LSTM_TOL, "scan_rel_norm_tol": LSTM_SCAN_REL,
+           "steps": steps, "scans": scans,
+           "us_per_step": steps[0]["ms"] * 1e3,
+           "plain_us_per_step": steps[0]["plain_ms"] * 1e3,
+           "bound_us_per_step": steps[0]["bound_ms"] * 1e3,
+           "library_note": "no single PyTorch call computes a peephole LSTM "
+                           "step: torch.lstm_cell has no peepholes"}
+    emit("lstm_kernel", **res)
+    return res
+
+
+def phase_train_charrnn(torch, ck):
+    from deeplearning4j_tpu_torch.models import CharacterIterator, char_rnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=CHAR_SEQ, batch=CHAR_BATCH, seed=0)
+    net = char_rnn(it.vocab_size, CHAR_HIDDEN, CHAR_LAYERS,
+                   tbptt_length=CHAR_TBPTT, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    minibatches = []
+    _zero_counts(ck)                                   # main path starts
+    for k in range(CHAR_MINIBATCHES):
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        net.fit(it.next())       # one minibatch, 20 TBPTT segments
+        score = net.score()      # a host copy: waits for the card
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        minibatches.append({
+            "minibatch": k + 1, "score": score, "seconds": dt,
+            "chars_per_s": CHAR_BATCH * CHAR_SEQ / dt,
+            "launches": {n: after[n] - counts[n] for n in after}})
+    launches = _kernel_counts(ck)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    want = {"conv2d_bias_act": 0, "softmax_xent": 0, "threshold_dropout": 0,
+            "lstm_step": CHAR_LAYERS * CHAR_SEQ}
+    for mb in minibatches:
+        if mb["launches"] != want or not np.isfinite(mb["score"]):
+            raise AssertionError(f"char-RNN minibatch {mb}: launches must be "
+                                 f"{want} and the score finite")
+    if net.iteration != CHAR_MINIBATCHES * CHAR_SEQ // CHAR_TBPTT:
+        raise AssertionError(f"{net.iteration} TBPTT steps")
+    res = {"vocab": it.vocab_size, "batch": CHAR_BATCH, "seq": CHAR_SEQ,
+           "tbptt": CHAR_TBPTT, "segments": net.iteration,
+           "minibatches": minibatches,
+           "chars_per_s_after_first": CHAR_BATCH * CHAR_SEQ
+           * (CHAR_MINIBATCHES - 1)
+           / sum(m["seconds"] for m in minibatches[1:]),
+           "launches": launches, "max_memory_allocated": peak,
+           "n_params": net.n_params,
+           "plain_segment": _charrnn_segment_vs_plain(torch, ck, net, it)}
+    emit("train_charrnn", **res)
+    return res, net, it
+
+
+def _charrnn_segment_vs_plain(torch, ck, net, it) -> dict:
+    """One TBPTT segment (grad step + RMSProp update) from the trained
+    params, updater state and carried RNN state, through the kernel and
+    then, from the same snapshot, through the plain step."""
+    ds = it.next()
+    x = torch.from_numpy(ds.features[:, :CHAR_TBPTT]).cuda()
+    y = torch.from_numpy(ds.labels[:, :CHAR_TBPTT]).cuda()
+    snap = (_clone_tree(net.net_params), _clone_tree(net.opt_states),
+            _clone_tree(net.net_state), net.iteration)
+
+    def segment():
+        net.net_params, net.opt_states, net.net_state = (
+            _clone_tree(t) for t in snap[:3])
+        score, grads = net._grad_step(x, y, None, None, None)
+        net._apply_updates(grads, snap[3])
+        return float(score), net.net_params
+    k_score, k_params = segment()
+    with _plain_lstm_step(ck):
+        p_score, p_params = segment()
+    errs = {f"{i}_{k}": float(
+        torch.linalg.vector_norm(lp[k] - pp[k])
+        / torch.linalg.vector_norm(pp[k] - p0[k]))
+        for i, (lp, pp, p0) in enumerate(zip(k_params, p_params, snap[0]))
+        for k in lp}
+    rec = {"kernel_score": k_score, "plain_score": p_score,
+           "score_rel_diff": abs(k_score - p_score) / abs(p_score),
+           "update_rel_err": errs, "max_update_rel_err": max(errs.values()),
+           "score_rtol": CHAR_SCORE_RTOL, "update_rtol": CHAR_UPDATE_RTOL}
+    if rec["score_rel_diff"] > CHAR_SCORE_RTOL or \
+            rec["max_update_rel_err"] > CHAR_UPDATE_RTOL:
+        raise AssertionError(f"char-RNN segment through the kernel disagrees "
+                             f"with the plain step: {rec}")
+    return rec
+
+
+def phase_sample_charrnn(torch, ck, net, it) -> dict:
+    from deeplearning4j_tpu_torch.models import sample_text
+    V = it.vocab_size
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(SEED)
+    net.rnn_clear_previous_state()
+    cur = rng.integers(0, V, SAMPLE_STREAMS)
+    picks = []
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_CHARS):
+        out = net.rnn_time_step(eye[cur][:, None, :])[:, -1]
+        p = out.double().cpu().numpy()
+        cur = np.array([rng.choice(V, p=q / q.sum()) for q in p])
+        picks.append(cur)
+    stream_s = time.perf_counter() - t0
+    stream_launches = ck.fused_lstm_step.launches
+    seed_text, length = "The ", 100
+    t0 = time.perf_counter()
+    text = sample_text(net, it, seed_text, length=length, rng_seed=SEED)
+    text_s = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    want_stream = CHAR_LAYERS * SAMPLE_CHARS
+    want = CHAR_LAYERS * (SAMPLE_CHARS + len(seed_text) + length)
+    if stream_launches != want_stream or launches["lstm_step"] != want or \
+            sum(launches.values()) != want:
+        raise AssertionError(f"sampling launched {launches} ({stream_launches}"
+                             f" over the streams); want {want_stream} over "
+                             f"the streams and {want} lstm steps in all")
+    if len(text) != len(seed_text) + length or \
+            any(ch not in it.char_to_idx for ch in text):
+        raise AssertionError(f"sample_text gave {text!r}")
+    # fed one character at a time, rnn_time_step equals output()
+    x = it.next().features[:SAMPLE_STREAMS, :CHAR_TBPTT]
+    full = net.output(x)
+    net.rnn_clear_previous_state()
+    steps = torch.cat([net.rnn_time_step(x[:, t:t + 1])
+                       for t in range(CHAR_TBPTT)], dim=1)
+    torch.testing.assert_close(steps, full, rtol=LSTM_TOL, atol=LSTM_TOL)
+    sums = full.sum(dim=-1)
+    torch.testing.assert_close(sums, torch.ones_like(sums), rtol=0,
+                               atol=1e-5)
+    res = {"streams": SAMPLE_STREAMS, "chars": SAMPLE_CHARS,
+           "ms_per_char": stream_s / SAMPLE_CHARS * 1e3,
+           "stream_launches": stream_launches,
+           "sample_text_ms_per_char": text_s / (len(seed_text) + length)
+           * 1e3,
+           "launches": launches,
+           "first_stream": "".join(it.idx_to_char[int(p[0])] for p in picks),
+           "sample_text": text,
+           "time_step_vs_output_max_abs": float((steps - full).abs().max())}
+    emit("sample_charrnn", **res)
+    return res
+
+
+def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
+            train_char, sample_char) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
     xent at [128, 1000]; dropout forward and backward at [128, 25088] and
-    [128, 4096]).  ``launches`` counts every main path's run."""
+    [128, 4096]).  LSTM: one step at the char-RNN's (32, 200).
+    ``launches`` counts every main path's run."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -858,7 +1168,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet) -> dict:
     t_bytes = sum(r["bytes"] for r in rows) / PEAK_BYTES
     paths = {"serve": {"conv2d_bias_act": serve_launches},
              "train_vgg16_224": train_vgg["launches"],
-             "train_lenet": train_lenet["launches"]}
+             "train_lenet": train_lenet["launches"],
+             "train_charrnn": train_char["launches"],
+             "sample_charrnn": sample_char["launches"]}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -904,6 +1216,18 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet) -> dict:
         "bound_ms": sum(r["bound_ms"] for r in drop),
         "bound_by": "bytes",
         "library_ms": sum(r["library_ms"] for r in drop),
+    }, {
+        "name": "lstm_step",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/lstm_step.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:703",
+        "launches": launches("lstm_step"),
+        "launches_by_path": by_path("lstm_step"),
+        "max_abs_err": max(r["max_abs_err"] for r in lstm["steps"]),
+        "ms": lstm["steps"][0]["ms"], "plain_ms": lstm["steps"][0]["plain_ms"],
+        "bound_ms": lstm["steps"][0]["bound_ms"],
+        "bound_by": lstm["steps"][0]["bound_by"],
+        "library_ms": None, "library_note": lstm["library_note"],
     }]}
 
 
@@ -936,9 +1260,12 @@ def main() -> int:
     phase_vgg16_224(torch, ck)
     train_vgg = phase_train_vgg16_224(torch, ck)
     train_lenet = phase_train_lenet(torch, ck)
+    lstm = phase_lstm_kernel(torch, ck)
+    train_char, net, it = phase_train_charrnn(torch, ck)
+    sample_char = phase_sample_charrnn(torch, ck, net, it)
 
     print(json.dumps(summary(records, serve_launches, xd, train_vgg,
-                             train_lenet)))
+                             train_lenet, lstm, train_char, sample_char)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,7 @@
-"""Model zoo of the port: LeNet-MNIST and VGG16 (ImageNet and CIFAR-10
-recipes), at the JAX package's widths."""
+"""Model zoo of the port: LeNet-MNIST, VGG16 (ImageNet and CIFAR-10
+recipes) and the GravesLSTM char-RNN, at the JAX package's widths."""
 
+from deeplearning4j_tpu_torch.models.charrnn import (  # noqa: F401
+    CharacterIterator, char_rnn, sample_text)
 from deeplearning4j_tpu_torch.models.lenet import lenet  # noqa: F401
 from deeplearning4j_tpu_torch.models.vgg import vgg16, vgg16_cifar10  # noqa: F401

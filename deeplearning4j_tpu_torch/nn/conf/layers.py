@@ -7,11 +7,16 @@ fields and their JSON are the JAX package's, so a configuration written
 by either package builds the same layers in the other.
 
 Ported so far: ``DenseLayer``, ``OutputLayer``, ``ConvolutionLayer`` and
-``SubsamplingLayer`` (the layers of LeNet and VGG16).  ``forward`` runs
-inference unless ``train`` is set; in training a layer with ``dropout``
-drops its INPUT, as DL4J does, from the two seed words the network hands
-it for the step.  A configuration naming any other layer type raises on
-load.
+``SubsamplingLayer`` (the layers of LeNet and VGG16), and the recurrent
+family ``GravesLSTM``, ``GravesBidirectionalLSTM``, ``RnnOutputLayer`` and
+``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]).
+``forward(params, state, x, train, seed, mask)`` returns ``(output,
+new_state, mask)`` as in the JAX package: ``state`` is the layer's dict
+of carried state (a recurrent layer's ``rnn_state``), ``mask`` the time
+mask.  It runs inference unless ``train`` is set; in training a layer
+with ``dropout`` drops its INPUT, as DL4J does, from the two seed words
+the network hands it for the step.  A configuration naming any other
+layer type raises on load.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import helpers as helper_ops
 from deeplearning4j_tpu_torch.ops import initializers
 from deeplearning4j_tpu_torch.ops import losses as loss_ops
+from deeplearning4j_tpu_torch.ops import recurrent as rnn_ops
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -71,10 +77,12 @@ class Layer:
                    device: torch.device) -> Tuple[dict, InputType]:
         raise NotImplementedError
 
-    def forward(self, params: dict, x: torch.Tensor, train: bool = False,
-                seed=None) -> torch.Tensor:
-        """Apply the layer; ``train`` turns dropout on, with ``seed`` the
-        layer's two uint32 seed words for this step."""
+    def forward(self, params: dict, state: dict, x: torch.Tensor,
+                train: bool = False, seed=None, mask=None
+                ) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
+        """Apply the layer -> (output, new state, output mask); ``train``
+        turns dropout on, with ``seed`` the layer's two uint32 seed words
+        for this step."""
         raise NotImplementedError
 
     def output_type(self, input_type: InputType) -> InputType:
@@ -134,9 +142,10 @@ class DenseLayer(Layer):
                   "b": self._binit((self.n_out,), device)}
         return params, InputType.feed_forward(self.n_out)
 
-    def forward(self, params, x, train=False, seed=None):
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
         x = self._maybe_dropout(x, train, seed)
-        return self._act(torch.addmm(params["b"], x, params["W"]))
+        return self._act(torch.addmm(params["b"], x, params["W"])), state, \
+            mask
 
     def output_type(self, input_type):
         return InputType.feed_forward(self.n_out)
@@ -189,12 +198,12 @@ class ConvolutionLayer(Layer):
         }
         return params, self.output_type(input_type)
 
-    def forward(self, params, x, train=False, seed=None):
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
         x = self._maybe_dropout(x, train, seed)
         return helper_ops.conv2d_bias_act(
             x, params["W"], params["b"], tuple(self.stride),
             tuple(self.padding), tuple(self.dilation),
-            self.convolution_mode, self.activation or "identity")
+            self.convolution_mode, self.activation or "identity"), state, mask
 
     def output_type(self, input_type):
         oh, ow = conv_ops.conv2d_output_shape(
@@ -218,13 +227,150 @@ class SubsamplingLayer(Layer):
     def initialize(self, generator, input_type, device):
         return {}, self.output_type(input_type)
 
-    def forward(self, params, x, train=False, seed=None):
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
         return conv_ops.pool2d(x, self.pooling_type, tuple(self.kernel),
                                tuple(self.stride), tuple(self.padding),
-                               self.convolution_mode, self.pnorm)
+                               self.convolution_mode, self.pnorm), state, mask
 
     def output_type(self, input_type):
         oh, ow = conv_ops.conv2d_output_shape(
             (input_type.height, input_type.width), self.kernel, self.stride,
             self.padding, (1, 1), self.convolution_mode)
         return InputType.convolutional(oh, ow, input_type.channels)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent family, layout [N, T, C]
+# ---------------------------------------------------------------------------
+
+@register_layer
+@dataclasses.dataclass
+class GravesLSTM(Layer):
+    """Peephole LSTM over the whole sequence (``ops/recurrent.lstm_scan``).
+    The final (c, h) goes back as ``rnn_state`` in the returned state,
+    which ``rnn_time_step`` and truncated BPTT carry to the next call."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    gate_activation: str = "sigmoid"
+    forget_gate_bias_init: float = 1.0
+
+    def initialize(self, generator, input_type, device):
+        n_in = self.n_in or input_type.size
+        H = self.n_out
+        b = torch.zeros((4 * H,), dtype=torch.float32, device=device)
+        b[H:2 * H] = self.forget_gate_bias_init      # the forget-gate block
+        params = {
+            "W": self._winit(generator, (n_in, 4 * H), device, fan_in=n_in,
+                             fan_out=4 * H),
+            "RW": self._winit(generator, (H, 4 * H), device, fan_in=H,
+                              fan_out=4 * H),
+            "b": b,
+            "pI": torch.zeros((H,), dtype=torch.float32, device=device),
+            "pF": torch.zeros((H,), dtype=torch.float32, device=device),
+            "pO": torch.zeros((H,), dtype=torch.float32, device=device),
+        }
+        return params, InputType.recurrent(H, input_type.timesteps)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        x = self._maybe_dropout(x, train, seed)
+        init = state.get("rnn_state") if state else None
+        hs, final = rnn_ops.lstm_scan(
+            params, x, init, mask,
+            gate_act=act_ops.get(self.gate_activation),
+            cell_act=act_ops.get(self.activation or "tanh"))
+        return hs, {**(state or {}), "rnn_state": final}, mask
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.n_out, input_type.timesteps)
+
+
+@register_layer
+@dataclasses.dataclass
+class GravesBidirectionalLSTM(Layer):
+    """A forward and a backward peephole LSTM with their own params
+    (``f_*``, ``b_*``); the two directions' outputs are SUMMED, so the
+    output size is n_out (ref: GravesBidirectionalLSTM.java:204).  It
+    carries no state between calls."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    gate_activation: str = "sigmoid"
+    forget_gate_bias_init: float = 1.0
+
+    def _direction(self) -> GravesLSTM:
+        return GravesLSTM(n_in=self.n_in, n_out=self.n_out,
+                          activation=self.activation,
+                          weight_init=self.weight_init, dist=self.dist,
+                          gate_activation=self.gate_activation,
+                          forget_gate_bias_init=self.forget_gate_bias_init)
+
+    def initialize(self, generator, input_type, device):
+        sub = self._direction()
+        pf, out = sub.initialize(generator, input_type, device)
+        pb, _ = sub.initialize(generator, input_type, device)
+        params = {f"f_{k}": v for k, v in pf.items()}
+        params.update({f"b_{k}": v for k, v in pb.items()})
+        return params, out
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        x = self._maybe_dropout(x, train, seed)
+        gate = act_ops.get(self.gate_activation)
+        cell = act_ops.get(self.activation or "tanh")
+        pf = {k[2:]: v for k, v in params.items() if k.startswith("f_")}
+        pb = {k[2:]: v for k, v in params.items() if k.startswith("b_")}
+        hf, _ = rnn_ops.lstm_scan(pf, x, None, mask, gate_act=gate,
+                                  cell_act=cell)
+        hb, _ = rnn_ops.lstm_scan(pb, x, None, mask, reverse=True,
+                                  gate_act=gate, cell_act=cell)
+        return hf + hb, state, mask
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.n_out, input_type.timesteps)
+
+
+@register_layer
+@dataclasses.dataclass
+class RnnOutputLayer(BaseOutputLayer):
+    """Per-time-step dense + loss over [N, T, C]; the score of an example
+    sums its (masked) steps."""
+
+    def initialize(self, generator, input_type, device):
+        n_in = self.n_in or input_type.size
+        params = {"W": self._winit(generator, (n_in, self.n_out), device),
+                  "b": self._binit((self.n_out,), device)}
+        return params, InputType.recurrent(self.n_out, input_type.timesteps)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        x = self._maybe_dropout(x, train, seed)
+        return self._act(self.preoutput(params, x)), state, mask
+
+    def preoutput(self, params, x):
+        return x @ params["W"] + params["b"]
+
+    def compute_score(self, labels, preout, mask=None):
+        m = mask[..., None] if mask is not None else None
+        return loss_ops.get(self.loss)(labels, preout,
+                                       self.activation or "softmax", m)
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.n_out, input_type.timesteps)
+
+
+@register_layer
+@dataclasses.dataclass
+class LastTimeStepLayer(Layer):
+    """[N, T, C] -> [N, C] at each sequence's last unmasked step (the
+    sequential counterpart of DL4J's LastTimeStepVertex)."""
+
+    def initialize(self, generator, input_type, device):
+        return {}, self.output_type(input_type)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        if mask is None:
+            return x[:, -1], state, None
+        idx = ((mask > 0).sum(dim=1) - 1).clamp_min(0)
+        return x[torch.arange(x.shape[0], device=x.device), idx], state, None
+
+    def output_type(self, input_type):
+        return InputType.feed_forward(input_type.size)

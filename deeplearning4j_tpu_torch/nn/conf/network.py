@@ -257,6 +257,11 @@ class ListBuilder:
         self._layers: List[L.Layer] = []
         self._input_type: Optional[InputType] = None
         self._preprocs: Dict[int, pp.InputPreProcessor] = {}
+        self._backprop = True
+        self._pretrain = False
+        self._bp_type = "standard"
+        self._tbptt_f = 20
+        self._tbptt_b = 20
 
     def layer(self, idx_or_layer, layer: Optional[L.Layer] = None
               ) -> "ListBuilder":
@@ -278,6 +283,28 @@ class ListBuilder:
         self._preprocs[idx] = proc
         return self
 
+    def backprop(self, on: bool) -> "ListBuilder":
+        self._backprop = on
+        return self
+
+    def pretrain(self, on: bool) -> "ListBuilder":
+        self._pretrain = on
+        return self
+
+    def backprop_type(self, t: str) -> "ListBuilder":
+        """'standard' or 'truncatedbptt' (TBPTT: ``fit`` steps once per
+        segment of ``t_bptt_forward_length`` steps, carrying RNN state)."""
+        self._bp_type = t.lower()
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "ListBuilder":
+        self._tbptt_f = int(n)
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "ListBuilder":
+        self._tbptt_b = int(n)
+        return self
+
     def build(self) -> MultiLayerConfiguration:
         if any(l is None for l in self._layers):
             raise ValueError("Gap in layer indices")
@@ -288,13 +315,18 @@ class ListBuilder:
                                              preprocs)
         return MultiLayerConfiguration(
             layers=layers, global_conf=self._g, input_type=self._input_type,
-            preprocessors=preprocs)
+            preprocessors=preprocs, backprop=self._backprop,
+            pretrain=self._pretrain, backprop_type=self._bp_type,
+            tbptt_fwd_length=self._tbptt_f, tbptt_back_length=self._tbptt_b)
 
 
 def _needs(layer: L.Layer) -> str:
-    """Which input family a layer consumes: 'ff' | 'cnn' | 'any'."""
+    """Which input family a layer consumes: 'ff' | 'cnn' | 'rnn' | 'any'."""
     if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer)):
         return "cnn"
+    if isinstance(layer, (L.GravesLSTM, L.GravesBidirectionalLSTM,
+                          L.RnnOutputLayer)):
+        return "rnn"
     if isinstance(layer, L.DenseLayer):
         return "ff"
     return "any"
@@ -310,6 +342,10 @@ def _adapter(cur: InputType, needed: str) -> Optional[pp.InputPreProcessor]:
     if cur.kind == "cnnflat" and needed == "cnn":
         return pp.FeedForwardToCnnPreProcessor(cur.height, cur.width,
                                                cur.channels)
+    if cur.kind == "ff" and needed == "rnn":
+        return pp.FeedForwardToRnnPreProcessor(cur.timesteps)
+    if cur.kind == "rnn" and needed == "ff":
+        return pp.RnnToFeedForwardPreProcessor()
     raise NotImplementedError(
         f"no ported preprocessor from {cur.kind} to {needed}")
 

@@ -1,15 +1,16 @@
 """Input preprocessors — shape adapters between layer families, ported
 from ``deeplearning4j_tpu/nn/conf/preprocessors.py``.
 
-The two the builder inserts between the ported layer types: CNN → dense
+The ones the builder inserts between the ported layer types: CNN → dense
 (a row-major flatten of NCHW, so the dense ``W`` rows line up with the
-JAX package's) and flat CNN → CNN.  The recurrent adapters wait for the
-recurrent layers.
+JAX package's), flat CNN → CNN, and the recurrent adapters RNN → dense
+and dense → RNN, which fold time into the batch and back, masks with it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
@@ -76,3 +77,38 @@ class FeedForwardToCnnPreProcessor(InputPreProcessor):
 
     def output_type(self, input_type):
         return InputType.convolutional(self.height, self.width, self.channels)
+
+
+@register_preproc
+@dataclasses.dataclass
+class RnnToFeedForwardPreProcessor(InputPreProcessor):
+    """[N, T, C] -> [N*T, C], the mask [N, T] -> [N*T].  The time-step
+    count goes on in the feed-forward InputType, so a later
+    FeedForwardToRnn adapter can restore the sequence shape."""
+
+    def __call__(self, x, mask=None):
+        return x.reshape(-1, x.shape[-1]), (
+            mask.reshape(-1) if mask is not None else None)
+
+    def output_type(self, input_type):
+        return InputType("ff", size=input_type.size,
+                         timesteps=input_type.timesteps)
+
+
+@register_preproc
+@dataclasses.dataclass
+class FeedForwardToRnnPreProcessor(InputPreProcessor):
+    """[N*T, C] -> [N, T, C], the mask [N*T] -> [N, T]."""
+
+    timesteps: Optional[int] = None
+
+    def __call__(self, x, mask=None):
+        t = self.timesteps
+        if t is None:
+            raise ValueError(
+                "FeedForwardToRnnPreProcessor needs static timesteps")
+        return x.reshape(-1, t, x.shape[-1]), (
+            mask.reshape(-1, t) if mask is not None else None)
+
+    def output_type(self, input_type):
+        return InputType.recurrent(input_type.flat_size(), self.timesteps)

@@ -14,14 +14,22 @@ own generator (seeded from the configuration) unless the caller passes
 it.  The network runs on the CUDA device unless it is built with
 ``device="cpu"``.
 
+Recurrent networks: every layer has a state dict (``net_state``) and the
+forward threads it, with the time mask, through the preprocessors and
+layers.  A recurrent layer returns its final (c, h) as ``rnn_state``.
+Under ``backprop_type("truncatedbptt")`` ``fit`` of a [N, T, C] batch
+takes one step per segment of ``tbptt_fwd_length`` steps, carrying that
+state (detached) from segment to segment; ``rnn_time_step`` carries it
+from call to call; a standard step drops it afterwards.
+
 Not ported yet: ``fit(fused_steps=K)``, sharding and distributed
-training, checkpoint resume, truncated BPTT and listeners.
+training, checkpoint resume and listeners.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +39,8 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     DataSetIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.nn import params as param_util
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer, Layer
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    BaseOutputLayer, GravesBidirectionalLSTM, GravesLSTM, Layer)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
@@ -76,6 +85,20 @@ def _tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def _detach(tree):
+    """``tree`` (dicts, lists, tuples, named tuples) with every tensor
+    detached."""
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_detach(t) for t in tree]
+    if isinstance(tree, tuple):
+        items = [_detach(t) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            tuple(items)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
 def _tree_fill(tree, leaves):
     """``tree`` with its leaves replaced, in :func:`_tree_leaves` order,
     by the next items of the iterator ``leaves``."""
@@ -93,6 +116,8 @@ class MultiLayerNetwork:
         self.layers = conf.layers
         self.device = resolve_device(device)
         self.net_params: Optional[List[dict]] = None
+        # per-layer carried state; a recurrent layer's is its rnn_state
+        self.net_state: List[dict] = [{} for _ in self.layers]
         # updater state, made at the first training step or restore, so a
         # network that only serves holds none
         self.opt_states: Optional[List] = None
@@ -126,8 +151,11 @@ class MultiLayerNetwork:
     def _input_type_chain_start(self) -> InputType:
         if self.conf.input_type is not None:
             return self.conf.input_type
-        n_in = getattr(self.layers[0], "n_in", None)
+        first = self.layers[0]
+        n_in = getattr(first, "n_in", None)
         if n_in:
+            if isinstance(first, (GravesLSTM, GravesBidirectionalLSTM)):
+                return InputType.recurrent(n_in)
             return InputType.feed_forward(n_in)
         raise ValueError(
             "Network needs conf.input_type or an explicit n_in on layer 0")
@@ -142,39 +170,58 @@ class MultiLayerNetwork:
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
-    def _forward(self, params, x: torch.Tensor, train: bool = False,
-                 seeds=None, stop: Optional[int] = None) -> torch.Tensor:
-        """The per-layer forward loop with the preprocessor hook; ``stop``
-        runs only ``layers[:stop]``; in training layer i gets the seed
-        words ``seeds[i]``."""
+    def _as_mask(self, mask) -> Optional[torch.Tensor]:
+        return None if mask is None else self._as_input(mask)
+
+    def _forward(self, params, state, x: torch.Tensor, mask=None,
+                 train: bool = False, seeds=None, stateful_rnn: bool = False,
+                 stop: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, List[dict], Optional[torch.Tensor]]:
+        """The per-layer forward loop (preprocessor hook, state and mask
+        threading, the JAX package's ``_forward_core``) -> (output, new
+        per-layer states, output mask).  Unless ``stateful_rnn``, each
+        layer starts without its stored ``rnn_state``.  ``stop`` runs only
+        ``layers[:stop]``; in training layer i gets the seed words
+        ``seeds[i]``."""
         layers = self.layers if stop is None else self.layers[:stop]
+        new_states = []
         for i, layer in enumerate(layers):
             if i in self.conf.preprocessors:
-                x, _ = self.conf.preprocessors[i](x)
-            x = layer.forward(params[i], x, train,
-                              None if seeds is None else seeds[i])
-        return x
+                x, mask = self.conf.preprocessors[i](x, mask)
+            s = state[i]
+            if not stateful_rnn and "rnn_state" in s:
+                s = {k: v for k, v in s.items() if k != "rnn_state"}
+            x, ns, mask = layer.forward(params[i], s, x, train,
+                                        None if seeds is None else seeds[i],
+                                        mask)
+            new_states.append(ns)
+        return x, new_states, mask
 
-    def _forward_to_preout(self, params, x, train: bool, seeds=None):
+    def _forward_to_preout(self, params, state, x, mask, train: bool,
+                           seeds=None, stateful_rnn: bool = False):
         """Forward to the output layer's PRE-activation (the stable fused
-        loss works on it)."""
+        loss works on it) -> (preout, new states, mask)."""
         n = len(self.layers)
-        x = self._forward(params, x, train, seeds, stop=n - 1)
+        x, new_states, mask = self._forward(params, state, x, mask, train,
+                                            seeds, stateful_rnn, stop=n - 1)
         if (n - 1) in self.conf.preprocessors:
-            x, _ = self.conf.preprocessors[n - 1](x)
+            x, mask = self.conf.preprocessors[n - 1](x, mask)
         last = self.layers[-1]
         if train:
             x = last._maybe_dropout(x, True,
                                     None if seeds is None else seeds[n - 1])
-        return last.preoutput(params[-1], x)
+        new_states.append(state[-1])
+        return last.preoutput(params[-1], x), new_states, mask
 
-    def output(self, x) -> torch.Tensor:
+    def output(self, x, mask=None) -> torch.Tensor:
         """Network output for a batch (numpy array or tensor), as a tensor
-        on the network's device."""
+        on the network's device; no stored RNN state is used."""
         if self.net_params is None:
             self.init()
         with torch.inference_mode():
-            return self._forward(self.net_params, self._as_input(x))
+            out, _, _ = self._forward(self.net_params, self.net_state,
+                                      self._as_input(x), self._as_mask(mask))
+            return out
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions."""
@@ -243,6 +290,10 @@ class MultiLayerNetwork:
             self.init()
         if self.opt_states is None:
             self.opt_states = self._init_opt_states()
+        if self.conf.backprop_type == "truncatedbptt" and \
+                np.ndim(ds.features) == 3:
+            self._fit_tbptt(ds)
+            return
         n_steps = max(1, g.iterations)
         if seeds is not None:
             seeds = np.asarray(seeds, dtype=np.int64).reshape(
@@ -252,29 +303,56 @@ class MultiLayerNetwork:
                                  f"{n_steps} iterations")
         x = self._as_input(ds.features)
         y = self._as_input(ds.labels)
-        fmask = None if ds.features_mask is None else \
-            self._as_input(ds.features_mask)
-        lmask = None if ds.labels_mask is None else \
-            self._as_input(ds.labels_mask)
+        fmask = self._as_mask(ds.features_mask)
+        lmask = self._as_mask(ds.labels_mask)
         for k in range(n_steps):
             step_seeds = (self._draw_seeds() if seeds is None
                           else seeds[k]).tolist()
             score, grads = self._grad_step(x, y, fmask, lmask, step_seeds)
             self._apply_updates(grads, self.iteration)
+            self.rnn_clear_previous_state()
+            self._score = score
+            self.iteration += 1
+
+    def _fit_tbptt(self, ds: DataSet) -> None:
+        """Truncated BPTT (ref: MultiLayerNetwork.doTruncatedBPTT :1227):
+        the RNN state is cleared, then one grad step and one update per
+        segment of ``tbptt_fwd_length`` time steps, each segment starting
+        from the state the previous one ended in (detached, so the
+        gradient stops at the segment's start).  Labels and masks are
+        sliced with the features."""
+        T = ds.features.shape[1]
+        seg_len = self.conf.tbptt_fwd_length
+        self.rnn_clear_previous_state()
+        x, y = self._as_input(ds.features), self._as_input(ds.labels)
+        fmask = self._as_mask(ds.features_mask)
+        lmask = self._as_mask(ds.labels_mask)
+        for t0 in range(0, T, seg_len):
+            seg = slice(t0, min(t0 + seg_len, T))
+            score, grads = self._grad_step(
+                x[:, seg], y[:, seg] if y.ndim == 3 else y,
+                None if fmask is None else fmask[:, seg],
+                None if lmask is None else lmask[:, seg],
+                self._draw_seeds().tolist())
+            self._apply_updates(grads, self.iteration)
             self._score = score
             self.iteration += 1
 
     def _grad_step(self, x, y, fmask, lmask, seeds):
-        """Score of the batch and its gradient per layer and param."""
+        """Score of the batch and its gradient per layer and param.  The
+        forward starts from ``net_state`` (its ``rnn_state`` only under
+        truncated BPTT) and the layers' new states, detached, replace it,
+        as the JAX step returns them."""
         g = self.conf.global_conf
         params = [{k: v.detach().requires_grad_(not self.frozen[i])
                    for k, v in lp.items()}
                   for i, lp in enumerate(self.net_params)]
         with torch.enable_grad():
-            preout = self._forward_to_preout(params, x, True, seeds)
+            preout, new_states, m = self._forward_to_preout(
+                params, self.net_state, x, fmask, True, seeds,
+                stateful_rnn=self.conf.backprop_type == "truncatedbptt")
             lm = lmask if lmask is not None else (
-                fmask if fmask is not None and fmask.ndim == preout.ndim - 1
-                else None)
+                m if m is not None and m.ndim == preout.ndim - 1 else None)
             per_ex = self.layers[-1].compute_score(y, preout, lm)
             score = per_ex.mean() if g.mini_batch else per_ex.sum()
             score = score + self._reg_penalty(params)
@@ -285,6 +363,7 @@ class MultiLayerNetwork:
             flat = iter(torch.autograd.grad(score, leaves))
         grads = [{k: next(flat) for k, v in lp.items() if v.requires_grad}
                  for lp in params]
+        self.net_state = _detach(new_states)
         return score.detach(), grads
 
     def _reg_penalty(self, params):
@@ -344,18 +423,51 @@ class MultiLayerNetwork:
             return float(self._score)
         g = self.conf.global_conf
         with torch.inference_mode():
-            x = self._as_input(dataset.features)
-            preout = self._forward_to_preout(self.net_params, x, False)
-            fmask = None if dataset.features_mask is None else \
-                self._as_input(dataset.features_mask)
-            lm = (self._as_input(dataset.labels_mask)
+            preout, _, m = self._forward_to_preout(
+                self.net_params, self.net_state,
+                self._as_input(dataset.features),
+                self._as_mask(dataset.features_mask), False)
+            lm = (self._as_mask(dataset.labels_mask)
                   if dataset.labels_mask is not None else
-                  fmask if fmask is not None
-                  and fmask.ndim == preout.ndim - 1 else None)
+                  m if m is not None and m.ndim == preout.ndim - 1 else None)
             per_ex = self.layers[-1].compute_score(
                 self._as_input(dataset.labels), preout, lm)
             score = per_ex.mean() if g.mini_batch else per_ex.sum()
             return float(score + self._reg_penalty(self.net_params))
+
+    # ---- stateful RNN inference ----
+    def rnn_time_step(self, x, mask=None) -> torch.Tensor:
+        """Stateful inference (ref: MultiLayerNetwork.rnnTimeStep :2383):
+        x [N, T, C] continues each recurrent layer from the state the
+        previous call left (zeros after :meth:`rnn_clear_previous_state`),
+        and the new final state is kept for the next call.  Fed one step
+        at a time it equals :meth:`output` on the whole sequence."""
+        if self.net_params is None:
+            self.init()
+        with torch.no_grad():
+            out, new_states, _ = self._forward(
+                self.net_params, self.net_state, self._as_input(x),
+                self._as_mask(mask), stateful_rnn=True)
+        self._merge_rnn_state(new_states)
+        return out
+
+    def _merge_rnn_state(self, new_states) -> None:
+        """Keep the layers' new ``rnn_state`` and nothing else of their
+        new states."""
+        merged = []
+        for old, new in zip(self.net_state, new_states):
+            s = dict(old)
+            if "rnn_state" in new:
+                s["rnn_state"] = new["rnn_state"]
+            merged.append(s)
+        self.net_state = merged
+
+    def rnn_clear_previous_state(self) -> None:
+        """Drop the stored RNN carry: the next ``rnn_time_step`` starts
+        from zeros, and a standard training step leaks no state into the
+        next batch (the JAX package's ``_strip_rnn_state``)."""
+        self.net_state = [{k: v for k, v in s.items() if k != "rnn_state"}
+                          for s in self.net_state]
 
     # ---- updater state ----
     def updater_state_flat(self) -> torch.Tensor:

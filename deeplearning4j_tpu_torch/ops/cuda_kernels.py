@@ -1,6 +1,6 @@
 """Kernels written by hand for NVIDIA Hopper, with their plain versions.
 
-The port of ``deeplearning4j_tpu/ops/pallas_kernels.py``.  Three kernels:
+The port of ``deeplearning4j_tpu/ops/pallas_kernels.py``.  Four kernels:
 
 ``fused_conv2d_bias_act`` (``csrc/conv_bias_act.cu``) replaces the Pallas
 TPU kernel ``_conv_bias_act_kernel`` (``pallas_kernels.py:577``, launched
@@ -26,6 +26,13 @@ no mask is stored.  Kernel and plain version are bit-identical to the
 JAX ``threshold_dropout_reference`` (:907).  Both xent and dropout are
 bound by bytes.
 
+``fused_lstm_step`` (``csrc/lstm_step.cu``) replaces ``_lstm_step_kernel``
+(:703, launched by ``_lstm_forward`` :730 through ``fused_lstm_step``
+:754): one peephole-LSTM step, the recurrent product ``h @ RW`` and all
+the gate math in one launch.  Its backward differentiates the plain
+version (``lstm_step_reference``) from the saved inputs, as
+``_lstm_vjp_bwd`` (:764) does.
+
 Rules every kernel here keeps:
 
 * the wrapper takes the plain PyTorch version (``*_reference``) only for
@@ -37,8 +44,8 @@ Rules every kernel here keeps:
   :func:`build_libraries` builds them all at once, one ``nvcc`` each;
 * the wrapper that launches a kernel counts its launches in a plain
   integer attribute (``fused_conv2d_bias_act.launches``,
-  ``fused_softmax_xent.launches``, ``fused_threshold_dropout.launches``),
-  and nowhere else.
+  ``fused_softmax_xent.launches``, ``fused_threshold_dropout.launches``,
+  ``fused_lstm_step.launches``), and nowhere else.
 """
 
 from __future__ import annotations
@@ -156,7 +163,10 @@ DROPOUT_LIBRARY = KernelLibrary(
     CSRC / "threshold_dropout.cu",
     {"dl4j_threshold_dropout_f32": (
         [_P, _P, _U, _U, _U, _U, ctypes.c_float, _P], _I)})
-LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY)
+LSTM_LIBRARY = KernelLibrary(
+    CSRC / "lstm_step.cu",
+    {"dl4j_lstm_step_f32": ([_P, _I] + [_P] * 6 + [_I, _I, _P], _I)})
+LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY)
 
 
 def build_libraries() -> None:
@@ -551,3 +561,126 @@ def fused_threshold_dropout(x, rate: float, seed):
 
 
 fused_threshold_dropout.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# peephole LSTM step
+# ---------------------------------------------------------------------------
+
+_LSTM_ROWS_PER_BLOCK = 8     # kBN in csrc/lstm_step.cu
+
+
+def lstm_fused_supported(n: int, h: int, dtype) -> bool:
+    """Support predicate of the lstm kernel: the JAX shape rule (h >= 8,
+    h % 8 == 0), f32, and at most 65,535 blocks of 8 rows.  The kernel
+    tiles the recurrent product over k, so the TPU's VMEM budget has no
+    counterpart and H is otherwise unbounded."""
+    if dtype != torch.float32 or h < 8 or h % 8:
+        return False
+    return 1 <= n <= _LSTM_ROWS_PER_BLOCK * _GRID_YZ_MAX
+
+
+def lstm_step_reference(zx, h, c, rw, p3):
+    """The plain version (``_lstm_step_reference``, :738): zx [N, 4H], h,
+    c [N, H], rw [H, 4H], p3 [3, H] (pI, pF, pO) -> (c', h'), gate layout
+    [i, f, o, c].  The CPU path of the wrapper, the function its backward
+    differentiates, and the kernel's yardstick on the card."""
+    z = zx + h @ rw
+    zi, zf, zo, zc = z.chunk(4, dim=-1)
+    i = torch.sigmoid(zi + c * p3[0])
+    f = torch.sigmoid(zf + c * p3[1])
+    g = torch.tanh(zc)
+    c_new = f * c + i * g
+    o = torch.sigmoid(zo + c_new * p3[2])
+    return c_new, o * torch.tanh(c_new)
+
+
+@contextlib.contextmanager
+def full_f32_matmuls():
+    """cuBLAS float32 products in full f32 for the duration (TF32 off);
+    the previous setting is restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _launch_lstm_step(zx, h, c, rw, p3):
+    """One launch of the lstm kernel on CUDA tensors; zx may be a
+    row-strided view (one time step of [N, T, 4H])."""
+    N, H = c.shape
+    ok = (zx.shape == (N, 4 * H) and h.shape == (N, H)
+          and rw.shape == (H, 4 * H) and p3.shape == (3, H)
+          and all(t.is_cuda and t.device == c.device
+                  and t.dtype == torch.float32
+                  for t in (zx, h, c, rw, p3)))
+    if not ok:
+        raise ValueError(
+            f"lstm kernel takes float32 CUDA tensors on one device, zx "
+            f"[N, 4H], h, c [N, H], rw [H, 4H], p3 [3, H]; got zx "
+            f"{tuple(zx.shape)} {zx.dtype} on {zx.device}, h "
+            f"{tuple(h.shape)}, c {tuple(c.shape)} on {c.device}, rw "
+            f"{tuple(rw.shape)}, p3 {tuple(p3.shape)}")
+    lib = LSTM_LIBRARY.get()
+    if zx.stride(1) != 1:
+        zx = zx.contiguous()
+    ld = zx.stride(0) if N > 1 else 4 * H
+    h, c, rw, p3 = (t.contiguous() for t in (h, c, rw, p3))
+    c_new = torch.empty((N, H), dtype=torch.float32, device=c.device)
+    h_new = torch.empty_like(c_new)
+    with torch.cuda.device(c.device):
+        err = lib.dl4j_lstm_step_f32(
+            zx.data_ptr(), ld, h.data_ptr(), c.data_ptr(), rw.data_ptr(),
+            p3.data_ptr(), c_new.data_ptr(), h_new.data_ptr(), N, H,
+            _stream(c))
+    if err != 0:
+        raise RuntimeError(f"lstm kernel launch failed: CUDA error {err} "
+                           f"for N={N} H={H}")
+    _count(fused_lstm_step)
+    return c_new, h_new
+
+
+class _LSTMStep(torch.autograd.Function):
+    """Forward: the kernel.  Backward: differentiate the plain version from
+    the saved inputs (``_lstm_vjp_bwd``, :764), with TF32 off for its
+    product.  Only the step's inputs are saved, not its [N, 4H] gates, so
+    a sequence of T steps keeps T small residuals."""
+
+    @staticmethod
+    def forward(ctx, zx, h, c, rw, p3):
+        ctx.save_for_backward(zx, h, c, rw, p3)
+        return _launch_lstm_step(zx, h, c, rw, p3)
+
+    @staticmethod
+    def backward(ctx, g_c, g_h):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad(), full_f32_matmuls():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            outs, grads_out = [], []
+            for y, g in zip(lstm_step_reference(*leaves), (g_c, g_h)):
+                if g is not None:
+                    outs.append(y)
+                    grads_out.append(g)
+            grads = iter(torch.autograd.grad(
+                outs, [t for t in leaves if t.requires_grad], grads_out))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def fused_lstm_step(zx, h, c, rw, p3):
+    """One peephole-LSTM step -> (c', h'), f32, for shapes
+    :func:`lstm_fused_supported` accepts.  A CPU tensor takes the plain
+    version; any other tensor launches the kernel or raises.
+    Differentiable in all five inputs."""
+    N, H = c.shape
+    if not lstm_fused_supported(N, H, c.dtype):
+        raise ValueError(f"lstm kernel does not take N={N} H={H} {c.dtype}")
+    if c.device.type == "cpu":
+        return lstm_step_reference(zx, h, c, rw, p3)
+    return _LSTMStep.apply(zx, h, c, rw, p3)
+
+
+fused_lstm_step.launches = 0

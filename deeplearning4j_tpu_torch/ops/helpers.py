@@ -6,13 +6,15 @@ op                  kernel (ops/cuda_kernels)   dense chain
 ``conv2d``          fused_conv2d_bias_act       ops/convolution.conv2d + act
 ``dropout``         fused_threshold_dropout     ops/normalization.dropout
 ``softmax_xent``    softmax_xent_rows           logsumexp form in ops/losses
+``lstm_step``       fused_lstm_step             recurrent._lstm_cell_pre
 ==================  ==========================  ===========================
 
 ``conv2d_bias_act`` launches the hand-written kernel on a CUDA tensor
 whose shape the kernel's predicate accepts, and takes the dense chain
 otherwise (on the CPU too), which is what the JAX package does for
-strided and dilated convs.  ``dropout`` and ``softmax_xent_wanted`` apply
-the JAX gates, which look at shapes only; the tensor's device then
+strided and dilated convs.  ``dropout``, ``softmax_xent_wanted`` and
+``lstm_step_wanted`` apply the JAX gates, which look at shapes (and, for
+the LSTM, at the cell's activations) only; the tensor's device then
 decides inside the wrapper between the kernel (CUDA) and its plain
 version (CPU), so the CPU runs the same hash mask and the same fused
 loss as the card.  Each decision is metered in
@@ -95,4 +97,25 @@ def softmax_xent_wanted(n_rows: int, vocab: int) -> bool:
     rows * vocab >= 65,536."""
     ok = vocab >= XENT_MIN_VOCAB and n_rows * vocab >= XENT_MIN_ELEMENTS
     record_selection("softmax_xent", ok)
+    return ok
+
+
+# The cell the lstm kernel computes: sigmoid gates, tanh cell activation.
+_SIGMOIDS = (torch.sigmoid, act_ops.sigmoid)
+_TANHS = (torch.tanh, act_ops.tanh)
+
+
+def lstm_step_wanted(params: dict, x, gate_act, cell_act,
+                     peephole: bool = True) -> bool:
+    """Decision for ``ops/recurrent.lstm_scan`` (``helpers.py:157`` of the
+    JAX package): the fused step for the peephole cell with sigmoid gates
+    and a tanh cell, where :func:`ck.lstm_fused_supported` takes the batch,
+    width and dtype; the composable cell otherwise."""
+    ok = (peephole
+          and all(k in params for k in ("pI", "pF", "pO", "RW"))
+          and any(gate_act is f for f in _SIGMOIDS)
+          and any(cell_act is f for f in _TANHS)
+          and ck.lstm_fused_supported(x.shape[0], params["RW"].shape[0],
+                                      x.dtype))
+    record_selection("lstm_step", ok)
     return ok

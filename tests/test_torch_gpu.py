@@ -6,7 +6,8 @@ runs on a machine that has only PyTorch:
 
 Tolerances against the plain versions: conv rtol 1e-4, atol 1e-5
 (float32 sums in different orders; TF32 off for the plain version); xent
-rtol = atol = 1e-5 (the JAX suite's); dropout bit for bit.
+and the LSTM step rtol = atol = 1e-5 (the JAX suite's); dropout bit for
+bit.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.datasets import DataSet
-from deeplearning4j_tpu_torch.models import lenet, vgg16_cifar10
+from deeplearning4j_tpu_torch.models import char_rnn, lenet, vgg16_cifar10
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf import network
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -195,3 +196,69 @@ def test_fit_on_the_card_matches_the_cpu(cuda_device):
     assert [a - b for a, b in zip(after, before)] == [4, 2, 4]
     torch.testing.assert_close(gpu.params().cpu(), cpu.params(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H", [(32, 200), (1, 200), (4, 200), (5, 24)])
+def test_lstm_kernel_matches_plain_version_on_the_card(cuda_device, N, H):
+    """One step, forward and the gradients of all five inputs, with zx a
+    time step of a [N, T, 4H] tensor (a row-strided view) as in
+    ``lstm_scan``."""
+    rng = np.random.default_rng(N * 1000 + H)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda_device)
+    zx = t(N, 3, 4 * H)[:, 1]
+    args = [zx, t(N, H), t(N, H), t(H, 4 * H, scale=0.1), t(3, H, scale=0.1)]
+    g_c, g_h = t(N, H), t(N, H)
+    launches = ck.fused_lstm_step.launches
+    leaves = [a.clone().requires_grad_() for a in args]
+    c_new, h_new = ck.fused_lstm_step(*leaves)
+    assert ck.fused_lstm_step.launches == launches + 1
+    grads = torch.autograd.grad((c_new * g_c).sum() + (h_new * g_h).sum(),
+                                leaves)
+    ref_leaves = [a.clone().requires_grad_() for a in args]
+    ref_c, ref_h = ck.lstm_step_reference(*ref_leaves)
+    want = torch.autograd.grad((ref_c * g_c).sum() + (ref_h * g_h).sum(),
+                               ref_leaves)
+    torch.testing.assert_close(c_new, ref_c, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h_new, ref_h, rtol=1e-5, atol=1e-5)
+    for a, e in zip(grads, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
+    assert ck.fused_lstm_step.launches == launches + 1
+
+
+@pytest.mark.gpu
+def test_char_rnn_on_the_card_matches_the_cpu(cuda_device):
+    """One TBPTT minibatch of a small char-RNN on the card (one lstm launch
+    per layer and time step) and on the CPU (plain step), then
+    ``rnn_time_step``: two launches per call, outputs as on the CPU."""
+    V, T = 12, 20
+    nets = [char_rnn(V, hidden=16, tbptt_length=5, device=d).init()
+            for d in (cuda_device, "cpu")]
+    start = nets[1].params().clone()
+    rng = np.random.default_rng(1)
+    eye = np.eye(V, dtype=np.float32)
+    x = eye[rng.integers(0, V, (4, T))]
+    y = eye[rng.integers(0, V, (4, T))]
+    launches = ck.fused_lstm_step.launches
+    for net in nets:
+        net.fit(x, y)
+    assert ck.fused_lstm_step.launches == launches + 2 * T
+    np.testing.assert_allclose(nets[0].score(), nets[1].score(), rtol=1e-4)
+    # RMSProp's updates, relative to how far they moved the params (the
+    # rule of tests/test_torch_charrnn.py)
+    moved = torch.linalg.vector_norm(nets[1].params() - start)
+    assert float(torch.linalg.vector_norm(
+        nets[0].params().cpu() - nets[1].params()) / moved) <= 1e-2
+    nets[0].set_params(nets[1].params())
+    launches = ck.fused_lstm_step.launches
+    outs = []
+    for net in nets:
+        net.rnn_clear_previous_state()
+        outs.append([net.rnn_time_step(x[:, t:t + 1]).cpu()
+                     for t in range(3)])
+    assert ck.fused_lstm_step.launches == launches + 2 * 3
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
