@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. device    — the card's name, and its name and power limit from nvidia-smi.
-2. build     — builds the four kernel libraries from csrc/ (one nvcc per
+2. build     — builds the five kernel libraries from csrc/ (one nvcc per
                source, sm_90a, all started together) and times the build.
 3. kernels   — the conv kernel against its plain PyTorch version at every
                distinct conv shape of LeNet and VGG16-CIFAR10 (every bucket
@@ -78,6 +78,36 @@ exits non-zero:
                layer for all streams), then ``sample_text`` once; then
                ``rnn_time_step`` fed one character at a time must equal
                ``output()`` on the same 50 characters within 1e-5.
+12. flash_kernels — the flash forward, dQ and dK/dV kernels against their
+               plain versions (rtol = atol = 1e-5, TF32 off) at (B, H, T, D)
+               = (4, 8, 8192, 64) causal (the training path's shape),
+               (1, 2, 8192, 64) causal, (2, 2, 200, 64) masked from
+               position 180, head dims 32, 96 and 128, T = 130, and a batch
+               row that is fully masked (out 0, lse -1e30); each kernel
+               timed at the training path's (4, 8, 8192, 64), causal, beside
+               its plain version, its bound, and
+               ``F.scaled_dot_product_attention`` f32 (forward, and forward
+               + backward; timed only).
+13. train_attention — the main path of attention training: ``attention_lm``
+               (2 x causal SelfAttentionLayer(512, 8 heads), head dim 64,
+               Adam, 1,534,059 params) on ``CharacterIterator`` over
+               SURVEY.md (V = 107), 8 ``fit`` steps of 4 x 8,192 characters;
+               each step must launch exactly one forward, one dQ and one
+               dK/dV kernel per attention layer and nothing else, with no
+               attention call on the dense chain; peak memory must stay
+               below one dense [4, 8, 8192, 8192] f32 score tensor.  Then
+               one step at T = 2,048 through the kernels against the same
+               step through the plain versions, from the initial params
+               with Wq/Wk x 4 and layer 0's Wv/Wo x 10 (so both layers'
+               q/k gradients are well conditioned): the score to 1e-5
+               relative, each param's gradient to 1e-4 and Adam update to
+               5e-4 in relative 2-norm (bk by output invariance).
+14. output_attention — ``output()`` at 4 x 8,192, three timed calls, one
+               forward launch per layer each.
+15. sample_attention — 4 streams x 300 characters through ``rnn_time_step``
+               (the KV ring, no kernel) and ``sample_text``; the streams'
+               outputs must equal ``output()`` on the 300-character prefix
+               (through the forward kernel) within 1e-5.
 
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -140,11 +170,36 @@ LSTM_SCAN_REL = 1e-4
 # relative; each param's RMSProp update to 5e-4 in relative 2-norm, the
 # training step's rule above.
 CHAR_SCORE_RTOL, CHAR_UPDATE_RTOL = 1e-5, 5e-4
+# The long-context attention model (examples/long_context_attention.py at
+# the context and head dim of the JAX suite's flash target): 2 x causal
+# SelfAttentionLayer(512, 8 heads), Adam, SURVEY.md characters, 8 fit steps
+# of 4 x 8,192; one step at T = 2,048 against the plain versions.
+ATT_WIDTH, ATT_HEADS, ATT_LAYERS = 512, 8, 2
+ATT_SEQ, ATT_BATCH, ATT_STEPS, ATT_PLAIN_SEQ = 8192, 4, 8, 2048
+# Each flash kernel against its plain version: both f32 with the same
+# products; the forward's online softmax rescales in another order, and
+# lse is ~10 in size.  rtol = atol = 1e-5.
+FLASH_TOL = 1e-5
+FLASH_MASK_FROM = 180
+# A step through the flash kernels vs the plain versions: the score to
+# 1e-5 relative (the training step's rule above); each param's gradient to
+# 1e-4 (the CPU parity tests' rtol) and its Adam update to 5e-4 (the
+# training step's rule above), in relative 2-norm.  Outputs (decode vs
+# output(), the bk swap) 1e-5.
+ATT_SCORE_RTOL, ATT_GRAD_RTOL, ATT_UPDATE_RTOL = 1e-5, 1e-4, 5e-4
+ATT_OUT_TOL = 1e-5
+# The state that step starts from: the initial params with Wq and Wk of
+# both layers times ATT_PEAK_QK and layer 0's Wv and Wo times
+# ATT_SPREAD_V (reasons in _attention_step_vs_plain).
+ATT_PEAK_QK, ATT_SPREAD_V = 4.0, 10.0
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -695,17 +750,30 @@ def phase_xent_dropout_kernels(torch, ck) -> dict:
     return {"xent": xent, "dropout": drop}
 
 
+def _launchers(ck) -> dict:
+    """Every kernel wrapper of the port by its name in the kernels line."""
+    return {"conv2d_bias_act": ck.fused_conv2d_bias_act,
+            "softmax_xent": ck.fused_softmax_xent,
+            "threshold_dropout": ck.fused_threshold_dropout,
+            "lstm_step": ck.fused_lstm_step,
+            "flash_forward": ck.flash_forward,
+            "flash_dq": ck.flash_dq,
+            "flash_dkv": ck.flash_dkv}
+
+
 def _kernel_counts(ck):
-    return {"conv2d_bias_act": ck.fused_conv2d_bias_act.launches,
-            "softmax_xent": ck.fused_softmax_xent.launches,
-            "threshold_dropout": ck.fused_threshold_dropout.launches,
-            "lstm_step": ck.fused_lstm_step.launches}
+    return {name: fn.launches for name, fn in _launchers(ck).items()}
 
 
 def _zero_counts(ck):
-    for fn in (ck.fused_conv2d_bias_act, ck.fused_softmax_xent,
-               ck.fused_threshold_dropout, ck.fused_lstm_step):
+    for fn in _launchers(ck).values():
         fn.launches = 0
+
+
+def _want(ck, **launches) -> dict:
+    """The launch counts of a path: the given ones, 0 for every other
+    kernel."""
+    return {name: launches.get(name, 0) for name in _launchers(ck)}
 
 
 def _random_batch(rng, n, dims, classes):
@@ -801,8 +869,7 @@ def phase_train_vgg16_224(torch, ck) -> dict:
                       "launches": {n: after[n] - counts[n] for n in after}})
     launches = _kernel_counts(ck)                      # main path ends
     peak = torch.cuda.max_memory_allocated()
-    want = {"conv2d_bias_act": 13, "softmax_xent": 1, "threshold_dropout": 4,
-            "lstm_step": 0}
+    want = _want(ck, conv2d_bias_act=13, softmax_xent=1, threshold_dropout=4)
     for st in steps:
         if st["launches"] != want or not np.isfinite(st["score"]):
             raise AssertionError(f"VGG16-224 step {st}: launches must be "
@@ -872,8 +939,7 @@ def phase_train_lenet(torch, ck) -> dict:
         epoch_s.append(time.perf_counter() - t0)
     launches = _kernel_counts(ck)                      # main path ends
     steps = LENET_BATCHES * LENET_EPOCHS
-    want = {"conv2d_bias_act": 2 * steps, "softmax_xent": 0,
-            "threshold_dropout": 0, "lstm_step": 0}
+    want = _want(ck, conv2d_bias_act=2 * steps)
     score = net.score()
     dt = sum(epoch_s)
     per_epoch = [LENET_BATCHES * LENET_BATCH / t for t in epoch_s]
@@ -1041,8 +1107,7 @@ def phase_train_charrnn(torch, ck):
             "launches": {n: after[n] - counts[n] for n in after}})
     launches = _kernel_counts(ck)                      # main path ends
     peak = torch.cuda.max_memory_allocated()
-    want = {"conv2d_bias_act": 0, "softmax_xent": 0, "threshold_dropout": 0,
-            "lstm_step": CHAR_LAYERS * CHAR_SEQ}
+    want = _want(ck, lstm_step=CHAR_LAYERS * CHAR_SEQ)
     for mb in minibatches:
         if mb["launches"] != want or not np.isfinite(mb["score"]):
             raise AssertionError(f"char-RNN minibatch {mb}: launches must be "
@@ -1151,14 +1216,387 @@ def phase_sample_charrnn(torch, ck, net, it) -> dict:
     emit("sample_charrnn", **res)
     return res
 
+# ---------------------------------------------------------------------------
+# flash attention: the long-context attention model
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(torch, gen, B, H, T, D, mask="none"):
+    q, k, v, g = (torch.randn((B, H, T, D), generator=gen, device="cuda")
+                  * 0.5 for _ in range(4))
+    km = torch.ones((B, T), device="cuda")
+    if mask == "tail":
+        km[:, FLASH_MASK_FROM:] = 0.0
+    elif mask == "dead_row":
+        km[-1] = 0.0
+    return q, k, v, g, km
+
+
+def _flash_work(B, H, T, D, causal):
+    """(FLOPs, bytes) of the forward, dq and dk/dv kernels on inputs of
+    this shape: 2 D FLOPs per (query, key) pair attended and product (2,
+    3 and 4 products); each input read once, each output written once."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    big, rows = 4 * B * H * T * D, 4 * B * H * T
+    mask = 4 * B * T
+    return {"flash_forward": (4 * D * pairs, 3 * big + mask + big + rows),
+            "flash_dq": (6 * D * pairs, 4 * big + mask + 2 * rows + big),
+            "flash_dkv": (8 * D * pairs, 4 * big + mask + 2 * rows
+                          + 2 * big)}
+
+
+def check_flash(torch, ck, gen, B, H, T, D, causal, mask) -> dict:
+    """Each flash kernel against its plain version on the same inputs (the
+    plain lse and delta feed both backward kernels, so each kernel is held
+    alone); a query row with no live key must give out 0 and lse -1e30."""
+    q, k, v, g, km = _flash_inputs(torch, gen, B, H, T, D, mask)
+    s = D ** -0.5
+    out, lse = ck.flash_forward(q, k, v, km, causal, s)
+    rout, rlse = ck.flash_forward_reference(q, k, v, km, causal, s)
+    delta = (g * rout).sum(-1)
+    dq = ck.flash_dq(q, k, v, km, g, rlse, delta, causal, s)
+    dk, dv = ck.flash_dkv(q, k, v, km, g, rlse, delta, causal, s)
+    rdq = ck.flash_dq_reference(q, k, v, km, g, rlse, delta, causal, s)
+    rdk, rdv = ck.flash_dkv_reference(q, k, v, km, g, rlse, delta, causal, s)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("out", out, rout), ("lse", lse, rlse),
+                            ("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL,
+                                   msg=lambda m: f"flash {name} at "
+                                   f"{(B, H, T, D, causal, mask)}: {m}")
+        errs[name] = float((got - want).abs().max())
+    if mask == "dead_row" and not (bool((out[-1] == 0).all())
+                                   and bool((lse[-1] == ck.NEG_INF).all())):
+        raise AssertionError("a fully masked batch row must give out 0 and "
+                             "lse -1e30")
+    return {"shape": [B, H, T, D], "causal": causal, "mask": mask,
+            "max_abs_err": errs}
+
+
+def phase_flash_kernels(torch, ck) -> dict:
+    """The three flash kernels against their plain versions, TF32 off (the
+    first case is the training path's shape), then timed at that shape beside the plain versions, the
+    bound and ``F.scaled_dot_product_attention`` (f32)."""
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, T, D = ATT_BATCH, ATT_HEADS, ATT_SEQ, ATT_WIDTH // ATT_HEADS
+    cases = [(B, H, T, D, True, "none"), (1, 2, ATT_SEQ, 64, True, "none"),
+             (2, 2, 200, 64, False, "tail"), (2, 2, 200, 64, True, "tail"),
+             (2, 2, 256, 32, True, "none"), (2, 2, 256, 96, True, "none"),
+             (2, 2, 256, 128, False, "none"), (2, 2, 130, 64, True, "none"),
+             (2, 2, 256, 64, True, "dead_row"),
+             (2, 2, 200, 128, False, "dead_row")]
+    checks = [check_flash(torch, ck, gen, *c) for c in cases]
+    torch.cuda.empty_cache()
+    # timed at the training path's (B, H, T, D) = (4, 8, 8192, 64), causal
+    q, k, v, g, km = _flash_inputs(torch, gen, B, H, T, D)
+    s = D ** -0.5
+    out, lse = ck.flash_forward(q, k, v, km, True, s)
+    delta = (g * out).sum(-1)
+    calls = {
+        "flash_forward": (
+            lambda: ck.flash_forward(q, k, v, km, True, s),
+            lambda: ck.flash_forward_reference(q, k, v, km, True, s)),
+        "flash_dq": (
+            lambda: ck.flash_dq(q, k, v, km, g, lse, delta, True, s),
+            lambda: ck.flash_dq_reference(q, k, v, km, g, lse, delta, True,
+                                          s)),
+        "flash_dkv": (
+            lambda: ck.flash_dkv(q, k, v, km, g, lse, delta, True, s),
+            lambda: ck.flash_dkv_reference(q, k, v, km, g, lse, delta, True,
+                                           s))}
+    work = _flash_work(B, H, T, D, True)
+    timed = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = work[name]
+        rec = {"ms": time_ms(torch, kernel, reps=5, warmup=1),
+               "plain_ms": time_ms(torch, plain, reps=3, warmup=1),
+               "flops": flops, "bytes": nbytes}
+        torch.cuda.empty_cache()
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        timed[name] = rec
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qs, ks, vs), g)
+    with torch.no_grad():
+        lib_fwd = time_ms(torch, sdpa, reps=5, warmup=1)
+    lib_both = time_ms(torch, sdpa_fwd_bwd, reps=5, warmup=1)
+    lib_out = sdpa().detach()
+    torch.testing.assert_close(out, lib_out, rtol=FLASH_TOL, atol=FLASH_TOL)
+    res = {"tol": FLASH_TOL, "checks": checks, "timed_shape": [B, H, T, D],
+           "causal": True, "timed": timed,
+           "library_ms_forward": lib_fwd,
+           "library_ms_forward_backward": lib_both,
+           "kernels_ms_forward_backward": sum(r["ms"]
+                                              for r in timed.values()),
+           "library_max_abs_vs_kernel": float((out - lib_out).abs().max()),
+           "library_note": "F.scaled_dot_product_attention (f32, causal), "
+                           "timed only: its forward for flash_forward; its "
+                           "backward computes dq, dk and dv in one call, so "
+                           "dq and dk/dv have no call of their own and the "
+                           "forward + backward is set against the three "
+                           "kernels together"}
+    emit("flash_kernels", **res)
+    return res
+
+
+def _fallbacks(op: str) -> float:
+    """Calls of ``op`` that have taken the dense torch chain so far."""
+    from deeplearning4j_tpu_torch import monitor
+    return monitor.get_registry().counter(
+        "dl4j_kernel_fallback_total", "ops that took the dense torch chain",
+        labels=("op",)).labels(op=op).value
+
+
+def _plain_flash(ck):
+    """Within the block, ``_FlashAttention`` runs the plain versions where
+    it would launch the kernels: the network and autograd code run
+    unchanged, and no launch is counted."""
+    from contextlib import ExitStack
+    from unittest import mock
+    stack = ExitStack()
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+        stack.enter_context(mock.patch.object(
+            ck, name, getattr(ck, name + "_reference")))
+    return stack
+
+
+def phase_train_attention(torch, ck):
+    from deeplearning4j_tpu_torch.models import CharacterIterator, attention_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=ATT_SEQ, batch=ATT_BATCH, seed=0)
+    net = attention_lm(it.vocab_size, ATT_WIDTH, ATT_HEADS, ATT_LAYERS,
+                       ATT_SEQ, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    start = _clone_tree(net.net_params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    fallbacks = _fallbacks("attention")
+    _zero_counts(ck)                                   # main path starts
+    for k in range(ATT_STEPS):
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        net.fit(it.next())
+        score = net.score()      # a host copy: waits for the card
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        steps.append({"step": k + 1, "score": score, "seconds": dt,
+                      "chars_per_s": ATT_BATCH * ATT_SEQ / dt,
+                      "launches": {n: after[n] - counts[n] for n in after}})
+    launches = _kernel_counts(ck)                      # main path ends
+    fallbacks = _fallbacks("attention") - fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    want = _want(ck, flash_forward=ATT_LAYERS, flash_dq=ATT_LAYERS,
+                 flash_dkv=ATT_LAYERS)
+    for st in steps:
+        if st["launches"] != want or not np.isfinite(st["score"]):
+            raise AssertionError(f"attention step {st}: launches must be "
+                                 f"{want} and the score finite")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} attention calls took the dense "
+                             f"chain")
+    dense_scores = 4 * ATT_BATCH * ATT_HEADS * ATT_SEQ ** 2
+    if peak >= dense_scores:
+        raise AssertionError(f"peak memory {peak} B is not below one dense "
+                             f"score tensor ({dense_scores} B)")
+    res = {"vocab": it.vocab_size, "batch": ATT_BATCH, "seq": ATT_SEQ,
+           "width": ATT_WIDTH, "heads": ATT_HEADS, "layers": ATT_LAYERS,
+           "n_params": net.n_params, "steps": steps,
+           "chars_per_s_after_first": ATT_BATCH * ATT_SEQ * (ATT_STEPS - 1)
+           / sum(st["seconds"] for st in steps[1:]),
+           "launches": launches, "attention_fallbacks": fallbacks,
+           "max_memory_allocated": peak,
+           "one_dense_score_tensor_bytes": dense_scores,
+           "plain_step": _attention_step_vs_plain(torch, ck, net, it,
+                                                  start)}
+    emit("train_attention", **res)
+    return res, net, it
+
+
+def _attention_step_vs_plain(torch, ck, net, it, start) -> dict:
+    """One ``fit`` step (grad step + Adam update) at T = 2,048 with a fresh
+    updater, through the kernels and through the plain versions: the score,
+    each param's gradient and each param's update, held to one rule for
+    every tensor.
+
+    Not from the trained state: the recipe's lr of 0.05 drives this width
+    into a saturated state within a step or two (PERF.md), where the
+    attention layers' gradients vanish.  Not from the initial params
+    either: layer 0's output passes the layers' default sigmoid with
+    pre-activations of a few hundredths, so layer 1 sees 0.5 plus a
+    variation of about 1 % at every position, its values are near equal,
+    and its q and k gradients are differences of near-equal numbers, about
+    1e-6 of its other gradients, which any two float32 computations give
+    a few % apart.  So the step starts from the initial params with layer
+    0's Wv and Wo times ATT_SPREAD_V, which spreads the sigmoid's inputs to
+    order 1 and layer 1's values apart, and with Wq and Wk of both layers
+    times ATT_PEAK_QK, which sharpens both layers' attention.  There every
+    gradient of both layers is well conditioned and one rule holds for all
+    of them.  The key bias ``bk`` is held to neither: the softmax ignores a
+    bias added to every key of a row, so its gradient is float32 noise in
+    every computation; swapping the two steps' ``bk`` must leave the
+    output unchanged.  The trained state is put back afterwards."""
+    ds = it.next()
+    x = torch.from_numpy(ds.features[:, :ATT_PLAIN_SEQ]).cuda()
+    y = torch.from_numpy(ds.labels[:, :ATT_PLAIN_SEQ]).cuda()
+    trained = (net.net_params, net.opt_states, net.iteration)
+    begin = _clone_tree(start)
+    for i in range(ATT_LAYERS):
+        for k in ("Wq", "Wk"):
+            begin[i][k] *= ATT_PEAK_QK
+    for k in ("Wv", "Wo"):
+        begin[0][k] *= ATT_SPREAD_V
+
+    def step():
+        net.net_params = _clone_tree(begin)
+        net.opt_states = net._init_opt_states()
+        score, grads = net._grad_step(x, y, None, None, None)
+        kept = _clone_tree(grads)
+        net._apply_updates(grads, 0)
+        return float(score), kept, [{k: v - p0[k] for k, v in lp.items()}
+                                    for lp, p0 in zip(net.net_params, begin)]
+    before = _kernel_counts(ck)
+    kernel = step()
+    launched = {n: v - before[n] for n, v in _kernel_counts(ck).items()}
+    with _plain_flash(ck):
+        plain = step()
+    if _kernel_counts(ck) != {n: before[n] + launched[n] for n in before}:
+        raise AssertionError("a plain step launched a kernel")
+
+    def errors(idx):
+        """Per tensor but bk: relative 2-norm of kernel vs plain."""
+        return {f"{i}_{k}": _rel_norm(torch, kernel[idx][i][k], lp[k])
+                for i, lp in enumerate(plain[idx]) for k in lp if k != "bk"}
+    grads, updates = errors(1), errors(2)
+    net.net_params = [{k: p0[k] + d for k, d in lp.items()}
+                      for lp, p0 in zip(kernel[2], begin)]
+    out = net.output(x)
+    for i in range(ATT_LAYERS):
+        net.net_params[i]["bk"] = begin[i]["bk"] + plain[2][i]["bk"]
+    bk_swap = float((net.output(x) - out).abs().max())
+    net.net_params, net.opt_states, net.iteration = trained
+    bad = sorted([n for n, e in grads.items() if e > ATT_GRAD_RTOL] +
+                 [n for n, e in updates.items() if e > ATT_UPDATE_RTOL])
+    rec = {"seq": ATT_PLAIN_SEQ, "peak_qk": ATT_PEAK_QK,
+           "spread_v": ATT_SPREAD_V, "kernel_score": kernel[0],
+           "plain_score": plain[0],
+           "score_rel_diff": abs(kernel[0] - plain[0]) / abs(plain[0]),
+           "grad_rel_err": grads, "update_rel_err": updates,
+           "max_grad_rel_err": max(grads.values()),
+           "max_update_rel_err": max(updates.values()),
+           "over_tolerance": bad,
+           "bk_swap_max_abs_output_change": bk_swap,
+           "launches": launched, "score_rtol": ATT_SCORE_RTOL,
+           "grad_rtol": ATT_GRAD_RTOL, "update_rtol": ATT_UPDATE_RTOL}
+    if launched != _want(ck, flash_forward=ATT_LAYERS, flash_dq=ATT_LAYERS,
+                         flash_dkv=ATT_LAYERS) or \
+            rec["score_rel_diff"] > ATT_SCORE_RTOL or bad or \
+            bk_swap > ATT_OUT_TOL:
+        raise AssertionError(f"attention step through the kernels disagrees "
+                             f"with the plain step: {rec}")
+    return rec
+
+
+def phase_output_attention(torch, ck, net, it) -> dict:
+    ds = it.next()
+    x = torch.from_numpy(ds.features).cuda()
+    net.output(x)
+    torch.cuda.synchronize()
+    walls = []
+    _zero_counts(ck)                                   # main path starts
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = net.output(x)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernel_counts(ck)                      # main path ends
+    if launches != _want(ck, flash_forward=3 * ATT_LAYERS):
+        raise AssertionError(f"output() launched {launches}")
+    if tuple(out.shape) != (ATT_BATCH, ATT_SEQ, it.vocab_size) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"output {tuple(out.shape)} not finite")
+    sums = out.sum(dim=-1)
+    torch.testing.assert_close(sums, torch.ones_like(sums), rtol=0,
+                               atol=1e-5)
+    res = {"batch": ATT_BATCH, "seq": ATT_SEQ, "wall_ms": float(
+        np.median(walls)), "wall_ms_each": walls, "launches": launches,
+        "chars_per_s": ATT_BATCH * ATT_SEQ / float(np.median(walls)) * 1e3}
+    emit("output_attention", **res)
+    return res
+
+
+def phase_sample_attention(torch, ck, net, it) -> dict:
+    """4 streams x 300 characters through ``rnn_time_step`` (the KV ring of
+    8,192 entries per layer, plain torch: no kernel), ``sample_text``, and
+    the ring against ``output()`` on the whole 300-character prefix, which
+    takes the flash forward kernel (T = 300 is not a multiple of its
+    64-row tiles)."""
+    from deeplearning4j_tpu_torch.models import sample_text
+    V = it.vocab_size
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(SEED)
+    net.rnn_clear_previous_state()
+    cur = rng.integers(0, V, SAMPLE_STREAMS)
+    picks, outs = [cur], []
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_CHARS):
+        out = net.rnn_time_step(eye[cur][:, None, :])[:, -1]
+        outs.append(out)
+        p = out.double().cpu().numpy()
+        cur = np.array([rng.choice(V, p=q / q.sum()) for q in p])
+        picks.append(cur)
+    stream_s = time.perf_counter() - t0
+    seed_text, length = "The ", 100
+    t0 = time.perf_counter()
+    text = sample_text(net, it, seed_text, length=length, rng_seed=SEED)
+    text_s = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    if any(launches.values()):
+        raise AssertionError(f"KV-ring sampling launched {launches}")
+    if len(text) != len(seed_text) + length or \
+            any(ch not in it.char_to_idx for ch in text):
+        raise AssertionError(f"sample_text gave {text!r}")
+    # the ring's answers against output() on the whole prefix
+    prefix = np.stack(picks[:SAMPLE_CHARS], axis=1)            # [4, 300]
+    full = net.output(eye[prefix])
+    steps = torch.stack(outs, dim=1)
+    torch.testing.assert_close(steps, full, rtol=ATT_OUT_TOL,
+                               atol=ATT_OUT_TOL)
+    res = {"streams": SAMPLE_STREAMS, "chars": SAMPLE_CHARS,
+           "window": net.layers[0].cache_window,
+           "ms_per_char": stream_s / SAMPLE_CHARS * 1e3,
+           "sample_text_ms_per_char": text_s / (len(seed_text) + length)
+           * 1e3,
+           "launches": launches,
+           "first_stream": "".join(it.idx_to_char[int(p[0])] for p in picks),
+           "sample_text": text,
+           "time_step_vs_output_max_abs": float((steps - full).abs().max()),
+           "tol": ATT_OUT_TOL}
+    emit("sample_attention", **res)
+    return res
+
 
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
-            train_char, sample_char) -> dict:
+            train_char, sample_char, flash, train_att, output_att,
+            sample_att) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
     xent at [128, 1000]; dropout forward and backward at [128, 25088] and
-    [128, 4096]).  LSTM: one step at the char-RNN's (32, 200).
+    [128, 4096]).  LSTM: one step at the char-RNN's (32, 200).  Flash: one
+    launch at the attention model's (4, 8, 8192, 64), causal.
     ``launches`` counts every main path's run."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
@@ -1170,7 +1608,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
              "train_vgg16_224": train_vgg["launches"],
              "train_lenet": train_lenet["launches"],
              "train_charrnn": train_char["launches"],
-             "sample_charrnn": sample_char["launches"]}
+             "sample_charrnn": sample_char["launches"],
+             "train_attention": train_att["launches"],
+             "output_attention": output_att["launches"],
+             "sample_attention": sample_att["launches"]}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -1228,7 +1669,25 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
         "bound_ms": lstm["steps"][0]["bound_ms"],
         "bound_by": lstm["steps"][0]["bound_by"],
         "library_ms": None, "library_note": lstm["library_note"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line}",
+        "launches": launches(name),
+        "launches_by_path": by_path(name),
+        "max_abs_err": max(c["max_abs_err"][e] for c in flash["checks"]
+                           for e in errs),
+        "ms": flash["timed"][name]["ms"],
+        "plain_ms": flash["timed"][name]["plain_ms"],
+        "bound_ms": flash["timed"][name]["bound_ms"],
+        "bound_by": flash["timed"][name]["bound_by"],
+        "library_ms": (flash["library_ms_forward"]
+                       if name == "flash_forward" else None),
+        "library_note": flash["library_note"],
+    } for name, line, errs in (("flash_forward", 128, ("out", "lse")),
+                               ("flash_dq", 238, ("dq",)),
+                               ("flash_dkv", 274, ("dk", "dv")))]}
 
 
 def main() -> int:
@@ -1263,9 +1722,15 @@ def main() -> int:
     lstm = phase_lstm_kernel(torch, ck)
     train_char, net, it = phase_train_charrnn(torch, ck)
     sample_char = phase_sample_charrnn(torch, ck, net, it)
+    del net
+    flash = phase_flash_kernels(torch, ck)
+    train_att, net, it = phase_train_attention(torch, ck)
+    output_att = phase_output_attention(torch, ck, net, it)
+    sample_att = phase_sample_attention(torch, ck, net, it)
 
     print(json.dumps(summary(records, serve_launches, xd, train_vgg,
-                             train_lenet, lstm, train_char, sample_char)))
+                             train_lenet, lstm, train_char, sample_char,
+                             flash, train_att, output_att, sample_att)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,8 @@
 """Model zoo of the port: LeNet-MNIST, VGG16 (ImageNet and CIFAR-10
-recipes) and the GravesLSTM char-RNN, at the JAX package's widths."""
+recipes), the GravesLSTM char-RNN and the causal self-attention language
+model of the long-context example, at the JAX package's widths."""
 
+from deeplearning4j_tpu_torch.models.attention import attention_lm  # noqa: F401
 from deeplearning4j_tpu_torch.models.charrnn import (  # noqa: F401
     CharacterIterator, char_rnn, sample_text)
 from deeplearning4j_tpu_torch.models.lenet import lenet  # noqa: F401

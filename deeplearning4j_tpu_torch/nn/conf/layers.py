@@ -9,7 +9,8 @@ by either package builds the same layers in the other.
 Ported so far: ``DenseLayer``, ``OutputLayer``, ``ConvolutionLayer`` and
 ``SubsamplingLayer`` (the layers of LeNet and VGG16), and the recurrent
 family ``GravesLSTM``, ``GravesBidirectionalLSTM``, ``RnnOutputLayer`` and
-``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]).
+``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]), and
+``SelfAttentionLayer``, whose core goes through ``parallel/sequence``.
 ``forward(params, state, x, train, seed, mask)`` returns ``(output,
 new_state, mask)`` as in the JAX package: ``state`` is the layer's dict
 of carried state (a recurrent layer's ``rnn_state``), ``mask`` the time
@@ -33,6 +34,7 @@ from deeplearning4j_tpu_torch.ops import helpers as helper_ops
 from deeplearning4j_tpu_torch.ops import initializers
 from deeplearning4j_tpu_torch.ops import losses as loss_ops
 from deeplearning4j_tpu_torch.ops import recurrent as rnn_ops
+from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -374,3 +376,88 @@ class LastTimeStepLayer(Layer):
 
     def output_type(self, input_type):
         return InputType.feed_forward(input_type.size)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+@register_layer
+@dataclasses.dataclass
+class SelfAttentionLayer(Layer):
+    """Multi-head self-attention over recurrent input [N, T, C]: q, k, v
+    projections, the core of ``parallel/sequence.attention`` (the flash
+    kernels where ``ops/helpers.attention_wanted`` takes the shape, the
+    dense softmax otherwise), the output projection, the activation and
+    the time mask.
+
+    Under ``parallel/sequence.kv_decode_scope`` (entered by
+    ``rnn_time_step``) the layer decodes incrementally instead: each new
+    token appends its K/V to a per-stream ring of ``cache_window`` entries,
+    carried as the layer's ``rnn_state``, and attends over the valid
+    entries (``attend_cached``).  Decoding is causal; with ``cache_window``
+    at least the stream's length it equals causal ``output()``.
+    ``cache_window=None`` becomes the declared input timesteps at init (128
+    when variable).  The paged KV arena of the JAX package is not ported."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    n_heads: int = 1
+    causal: bool = False
+    strategy: str = "auto"      # auto | ring | ulysses | dense
+    project_output: bool = True
+    cache_window: Optional[int] = None   # KV-ring length for decode
+
+    def initialize(self, generator, input_type, device):
+        n_in = self.n_in or input_type.size
+        if self.n_out % self.n_heads:
+            raise ValueError(f"n_out={self.n_out} % n_heads={self.n_heads}")
+        if self.cache_window is None:
+            self.cache_window = int(input_type.timesteps or 128)
+        params = {
+            "Wq": self._winit(generator, (n_in, self.n_out), device),
+            "Wk": self._winit(generator, (n_in, self.n_out), device),
+            "Wv": self._winit(generator, (n_in, self.n_out), device),
+            "bq": self._binit((self.n_out,), device),
+            "bk": self._binit((self.n_out,), device),
+            "bv": self._binit((self.n_out,), device),
+        }
+        if self.project_output:
+            params["Wo"] = self._winit(generator, (self.n_out, self.n_out),
+                                       device)
+            params["bo"] = self._binit((self.n_out,), device)
+        return params, InputType.recurrent(self.n_out, input_type.timesteps)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        x = self._maybe_dropout(x, train, seed)
+        B, T, _ = x.shape
+        H, Dh = self.n_heads, self.n_out // self.n_heads
+
+        def split(a):  # [B, T, n_out] -> [B, H, T, Dh]
+            return a.reshape(B, T, H, Dh).transpose(1, 2)
+
+        q = split(x @ params["Wq"] + params["bq"])
+        k = split(x @ params["Wk"] + params["bk"])
+        v = split(x @ params["Wv"] + params["bv"])
+        new_state = state
+        if seq_ops.kv_decode_active() and not train:
+            ring = state.get("rnn_state") if state else None
+            if ring is None:
+                ring = seq_ops.kv_ring_init(
+                    B, H, int(self.cache_window or 128), Dh, x.dtype,
+                    x.device)
+            out, ring = seq_ops.attend_cached(q, k, v, ring, key_mask=mask)
+            new_state = {**(state or {}), "rnn_state": ring}
+        else:
+            out = seq_ops.attention(q, k, v, causal=self.causal,
+                                    key_mask=mask, strategy=self.strategy)
+        out = out.transpose(1, 2).reshape(B, T, self.n_out)
+        if self.project_output:
+            out = out @ params["Wo"] + params["bo"]
+        out = self._act(out)
+        if mask is not None:
+            out = out * mask[:, :, None].to(out.dtype)
+        return out, new_state, mask
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.n_out, input_type.timesteps)

@@ -16,7 +16,8 @@ it.  The network runs on the CUDA device unless it is built with
 
 Recurrent networks: every layer has a state dict (``net_state``) and the
 forward threads it, with the time mask, through the preprocessors and
-layers.  A recurrent layer returns its final (c, h) as ``rnn_state``.
+layers.  A recurrent layer returns its final (c, h) as ``rnn_state``; a
+``SelfAttentionLayer`` under ``rnn_time_step`` returns its KV ring.
 Under ``backprop_type("truncatedbptt")`` ``fit`` of a [N, T, C] batch
 takes one step per segment of ``tbptt_fwd_length`` steps, carrying that
 state (detached) from segment to segment; ``rnn_time_step`` carries it
@@ -45,6 +46,7 @@ from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
 
 WEIGHT_KEYS = {"W", "RW", "f_W", "f_RW", "b_W", "b_RW"}
 BIAS_KEYS = {"b", "f_b", "b_b"}
@@ -441,10 +443,12 @@ class MultiLayerNetwork:
         x [N, T, C] continues each recurrent layer from the state the
         previous call left (zeros after :meth:`rnn_clear_previous_state`),
         and the new final state is kept for the next call.  Fed one step
-        at a time it equals :meth:`output` on the whole sequence."""
+        at a time it equals :meth:`output` on the whole sequence.  The
+        forward runs under ``kv_decode_scope``, so an attention layer
+        decodes against its KV ring (the JAX package's ``_rnn_step_raw``)."""
         if self.net_params is None:
             self.init()
-        with torch.no_grad():
+        with torch.no_grad(), seq_ops.kv_decode_scope():
             out, new_states, _ = self._forward(
                 self.net_params, self.net_state, self._as_input(x),
                 self._as_mask(mask), stateful_rnn=True)

@@ -1,6 +1,6 @@
 """Kernels written by hand for NVIDIA Hopper, with their plain versions.
 
-The port of ``deeplearning4j_tpu/ops/pallas_kernels.py``.  Four kernels:
+The port of ``deeplearning4j_tpu/ops/pallas_kernels.py``.  Seven kernels:
 
 ``fused_conv2d_bias_act`` (``csrc/conv_bias_act.cu``) replaces the Pallas
 TPU kernel ``_conv_bias_act_kernel`` (``pallas_kernels.py:577``, launched
@@ -33,6 +33,18 @@ the gate math in one launch.  Its backward differentiates the plain
 version (``lstm_step_reference``) from the saved inputs, as
 ``_lstm_vjp_bwd`` (:764) does.
 
+``flash_forward``, ``flash_dq`` and ``flash_dkv`` (``csrc/flash_attention.cu``)
+replace ``_flash_fwd_kernel`` (:128, launched by ``_flash_fwd`` :196),
+``_flash_dq_kernel`` (:238) and ``_flash_dkv_kernel`` (:274, both launched
+by ``_flash_bwd`` :341/:357): exact attention with an online softmax that
+never writes the [T, T] scores, its per-row log-sum-exp, and the two
+backward kernels that recompute the probabilities from it.
+``flash_attention`` is the differentiable entry point
+(``_FlashAttention``, the ``custom_vjp`` of :397-414).  The JAX wrapper's
+padding of D and T to 128 (:419-448) is a TPU lane artifact and is not
+copied: the kernels mask the last tile and take any head dim up to 128.
+All three are bound by operations.
+
 Rules every kernel here keeps:
 
 * the wrapper takes the plain PyTorch version (``*_reference``) only for
@@ -45,7 +57,8 @@ Rules every kernel here keeps:
 * the wrapper that launches a kernel counts its launches in a plain
   integer attribute (``fused_conv2d_bias_act.launches``,
   ``fused_softmax_xent.launches``, ``fused_threshold_dropout.launches``,
-  ``fused_lstm_step.launches``), and nowhere else.
+  ``fused_lstm_step.launches``, ``flash_forward.launches``,
+  ``flash_dq.launches``, ``flash_dkv.launches``), and nowhere else.
 """
 
 from __future__ import annotations
@@ -166,7 +179,14 @@ DROPOUT_LIBRARY = KernelLibrary(
 LSTM_LIBRARY = KernelLibrary(
     CSRC / "lstm_step.cu",
     {"dl4j_lstm_step_f32": ([_P, _I] + [_P] * 6 + [_I, _I, _P], _I)})
-LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY)
+_F = ctypes.c_float
+FLASH_LIBRARY = KernelLibrary(
+    CSRC / "flash_attention.cu",
+    {"dl4j_flash_fwd_f32": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_dq_f32": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_dkv_f32": ([_P] * 9 + [_I] * 5 + [_F, _P], _I)})
+LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY,
+             FLASH_LIBRARY)
 
 
 def build_libraries() -> None:
@@ -684,3 +704,211 @@ def fused_lstm_step(zx, h, c, rw, p3):
 
 
 fused_lstm_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward, dQ, dK/dV
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30              # lse of a query row with no live key
+FLASH_MIN_T, FLASH_MIN_D = 128, 32   # the JAX gate (:451)
+FLASH_MAX_D = 128            # the kernels' shared-memory plan
+
+
+def flash_attention_supported(q_shape, dtype, kv_len=None) -> bool:
+    """Support predicate of the flash kernels: the JAX gate (T >= 128, head
+    dim >= 32, keys as long as the queries) and the kernels' own limits
+    (f32, head dim a multiple of 4 up to 128, B * H within CUDA's grid).
+    Any T above the gate works: the kernels mask the last tile."""
+    if len(q_shape) != 4 or dtype != torch.float32:
+        return False
+    B, H, T, D = (int(d) for d in q_shape)
+    if kv_len is not None and int(kv_len) != T:
+        return False
+    return (T >= FLASH_MIN_T and FLASH_MIN_D <= D <= FLASH_MAX_D
+            and D % 4 == 0 and 1 <= B * H <= _GRID_YZ_MAX)
+
+
+def _flash_live(key_mask, T: int, causal: bool):
+    """[B, 1, T|1, T] bool: which (query, key) pairs attend."""
+    live = (key_mask > 0)[:, None, None, :]
+    if causal:
+        live = live & torch.ones((T, T), dtype=torch.bool,
+                                 device=key_mask.device).tril()
+    return live
+
+
+def flash_forward_reference(q, k, v, key_mask, causal: bool, scale: float):
+    """The plain version of the forward kernel -> (out [B, H, T, D], lse
+    [B, H, T]), materialising the [T, T] scores.  A query row with no live
+    key gets out = 0 and lse = -1e30."""
+    s = (q @ k.transpose(-1, -2)) * scale
+    s = s.masked_fill(~_flash_live(key_mask, q.shape[2], causal),
+                      float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    row_live = m > float("-inf")
+    p = torch.exp(s - torch.where(row_live, m, torch.zeros_like(m)))
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p @ v) / torch.where(row_live, l, torch.ones_like(l))
+    lse = torch.where(row_live, m + torch.log(l), torch.full_like(m, NEG_INF))
+    return out, lse.squeeze(-1)
+
+
+def _flash_probs(q, k, key_mask, lse, causal: bool, scale: float):
+    """p recomputed from lse, the exponent clamped to -inf on dead pairs
+    and dead rows (``_recompute_p``, :219): exactly 0 there, never inf."""
+    s = (q @ k.transpose(-1, -2)) * scale
+    live = _flash_live(key_mask, q.shape[2], causal) & \
+        (lse > NEG_INF * 0.5)[..., None]
+    return torch.exp(torch.where(live, s - lse[..., None], float("-inf")))
+
+
+def flash_dq_reference(q, k, v, key_mask, dout, lse, delta, causal: bool,
+                       scale: float):
+    """The plain version of the dQ kernel: scale * (p * (dO V^T - delta)) K."""
+    p = _flash_probs(q, k, key_mask, lse, causal, scale)
+    ds = p * (dout @ v.transpose(-1, -2) - delta[..., None])
+    return (ds @ k) * scale
+
+
+def flash_dkv_reference(q, k, v, key_mask, dout, lse, delta, causal: bool,
+                        scale: float):
+    """The plain version of the dK/dV kernel -> (dk, dv):
+    dk = scale * (p * (dO V^T - delta))^T Q, dv = p^T dO."""
+    p = _flash_probs(q, k, key_mask, lse, causal, scale)
+    ds = p * (dout @ v.transpose(-1, -2) - delta[..., None])
+    return (ds.transpose(-1, -2) @ q) * scale, p.transpose(-1, -2) @ dout
+
+
+def _flash_args(q, **named):
+    """Check a flash kernel's CUDA inputs — q, k, v, dout [B, H, T, D],
+    key_mask [B, T], lse, delta [B, H, T], float32 on q's device — and
+    return them contiguous, q first."""
+    B, H, T, D = q.shape
+    shapes = {"k": (B, H, T, D), "v": (B, H, T, D), "dout": (B, H, T, D),
+              "key_mask": (B, T), "lse": (B, H, T), "delta": (B, H, T)}
+    ok = q.is_cuda and flash_attention_supported(q.shape, q.dtype) and all(
+        tuple(t.shape) == shapes[n] and t.device == q.device
+        and t.dtype == torch.float32 for n, t in named.items())
+    if not ok:
+        raise ValueError(
+            f"flash kernels take float32 CUDA tensors on one device, q, k, "
+            f"v, dout [B, H, T, D] with T >= {FLASH_MIN_T} and D in "
+            f"[{FLASH_MIN_D}, {FLASH_MAX_D}], D % 4 == 0; key_mask [B, T]; "
+            f"lse, delta [B, H, T]; got q {tuple(q.shape)} {q.dtype} on "
+            f"{q.device}, " + ", ".join(
+                f"{n} {tuple(t.shape)} {t.dtype} on {t.device}"
+                for n, t in named.items()))
+    return [t.contiguous() for t in (q, *named.values())]
+
+
+def _launch_flash(wrapper, symbol: str, inputs, outputs, causal: bool,
+                  scale: float):
+    """Launch the flash kernel ``symbol`` on the checked CUDA ``inputs``
+    (q first, as :func:`_flash_args` returns them) into ``outputs``, and
+    count the launch on ``wrapper``."""
+    q = inputs[0]
+    B, H, T, D = q.shape
+    kernel = getattr(FLASH_LIBRARY.get(), symbol)
+    with torch.cuda.device(q.device):
+        err = kernel(*(t.data_ptr() for t in (*inputs, *outputs)), B * H, H,
+                     T, D, int(causal), float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err} for q{tuple(q.shape)}")
+    _count(wrapper)
+    return outputs
+
+
+def flash_forward(q, k, v, key_mask, causal: bool, scale: float):
+    """(out, lse) of one attention core, q, k, v [B, H, T, D], key_mask
+    [B, T] (> 0 keeps the key).  A CPU tensor takes the plain version; any
+    other launches the forward kernel or raises."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, key_mask, causal, scale)
+    inputs = _flash_args(q, k=k, v=v, key_mask=key_mask)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch_flash(flash_forward, "dl4j_flash_fwd_f32", inputs,
+                         (torch.empty_like(inputs[0]), lse), causal, scale)
+
+
+flash_forward.launches = 0
+
+
+def flash_dq(q, k, v, key_mask, dout, lse, delta, causal: bool,
+             scale: float):
+    """dQ of one attention core from the forward's lse and
+    delta = sum(dout * out, -1).  A CPU tensor takes the plain version;
+    any other launches the dQ kernel or raises."""
+    if q.device.type == "cpu":
+        return flash_dq_reference(q, k, v, key_mask, dout, lse, delta, causal,
+                                  scale)
+    inputs = _flash_args(q, k=k, v=v, key_mask=key_mask, dout=dout, lse=lse,
+                         delta=delta)
+    return _launch_flash(flash_dq, "dl4j_flash_dq_f32", inputs,
+                         (torch.empty_like(inputs[0]),), causal, scale)[0]
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, key_mask, dout, lse, delta, causal: bool,
+              scale: float):
+    """(dK, dV) of one attention core, inputs as :func:`flash_dq`.  A CPU
+    tensor takes the plain version; any other launches the dK/dV kernel or
+    raises."""
+    if q.device.type == "cpu":
+        return flash_dkv_reference(q, k, v, key_mask, dout, lse, delta,
+                                   causal, scale)
+    inputs = _flash_args(q, k=k, v=v, key_mask=key_mask, dout=dout, lse=lse,
+                         delta=delta)
+    return _launch_flash(flash_dkv, "dl4j_flash_dkv_f32", inputs,
+                         (torch.empty_like(inputs[0]),
+                          torch.empty_like(inputs[0])), causal, scale)
+
+
+flash_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: :func:`flash_forward`, saving (q, k, v, mask, out, lse).
+    Backward: delta = sum(dO * out, -1) as a torch expression (XLA computes
+    it outside the kernels too, :333), then :func:`flash_dq` and
+    :func:`flash_dkv`.  O(T) memory both ways: nothing [T, T] is saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, scale):
+        out, lse = flash_forward(q, k, v, key_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.conf = (causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g * out).sum(dim=-1)
+        dq = flash_dq(q, k, v, key_mask, g, lse, delta, *ctx.conf)
+        dk, dv = flash_dkv(q, k, v, key_mask, g, lse, delta, *ctx.conf)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, key_mask=None, causal: bool = False,
+                    scale: Optional[float] = None):
+    """Exact attention with O(T) memory both ways, q, k, v [B, H, T, D],
+    key_mask [B, T] (1 keeps the key; None keeps all), ``scale`` 1/sqrt(D)
+    unless given, for shapes :func:`flash_attention_supported` takes.
+    Differentiable in q, k and v.  CPU tensors run the plain versions
+    through the same autograd Function; any other tensor launches the
+    kernels or raises.  A query row with no live key gives 0."""
+    if not flash_attention_supported(q.shape, q.dtype, k.shape[2]):
+        raise ValueError(f"flash attention does not take q{tuple(q.shape)} "
+                         f"{q.dtype} with {k.shape[2]} keys")
+    B, _, T, D = q.shape
+    if key_mask is None:
+        key_mask = torch.ones((B, T), dtype=torch.float32, device=q.device)
+    scale = float(scale) if scale is not None else 1.0 / D ** 0.5
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v,
+                                 key_mask.to(torch.float32).contiguous(),
+                                 bool(causal), scale)

@@ -7,21 +7,24 @@ op                  kernel (ops/cuda_kernels)   dense chain
 ``dropout``         fused_threshold_dropout     ops/normalization.dropout
 ``softmax_xent``    softmax_xent_rows           logsumexp form in ops/losses
 ``lstm_step``       fused_lstm_step             recurrent._lstm_cell_pre
+``attention``       flash_attention             parallel/sequence dense
 ==================  ==========================  ===========================
 
 ``conv2d_bias_act`` launches the hand-written kernel on a CUDA tensor
 whose shape the kernel's predicate accepts, and takes the dense chain
 otherwise (on the CPU too), which is what the JAX package does for
-strided and dilated convs.  ``dropout``, ``softmax_xent_wanted`` and
-``lstm_step_wanted`` apply the JAX gates, which look at shapes (and, for
-the LSTM, at the cell's activations) only; the tensor's device then
-decides inside the wrapper between the kernel (CUDA) and its plain
-version (CPU), so the CPU runs the same hash mask and the same fused
-loss as the card.  Each decision is metered in
-``dl4j_kernel_selected_total`` / ``dl4j_kernel_fallback_total`` by op.
+strided and dilated convs.  ``dropout``, ``softmax_xent_wanted``,
+``lstm_step_wanted`` and ``attention_wanted`` apply the JAX gates, which
+look at shapes (and, for the LSTM, at the cell's activations) only; the
+tensor's device then decides inside the wrapper between the kernel
+(CUDA) and its plain version (CPU), so the CPU runs the same hash mask,
+the same fused loss and the same flash arithmetic as the card.  Each
+decision is metered in ``dl4j_kernel_selected_total`` /
+``dl4j_kernel_fallback_total`` by op.
 
 Not ported, on purpose: the JAX package's ``kernel_self_test``
-disable-on-error, ``ensure_validated`` and the ``DL4J_PALLAS*`` switches.
+disable-on-error (``_selftest_flash`` among them), ``ensure_validated``
+and the ``DL4J_PALLAS*`` switches (``DL4J_PALLAS_FLASH`` among them).
 A kernel that fails to build or launch on the card raises here instead of
 being switched off, so a broken kernel cannot hide behind the dense
 chain.
@@ -118,4 +121,14 @@ def lstm_step_wanted(params: dict, x, gate_act, cell_act,
           and ck.lstm_fused_supported(x.shape[0], params["RW"].shape[0],
                                       x.dtype))
     record_selection("lstm_step", ok)
+    return ok
+
+
+def attention_wanted(q) -> bool:
+    """Decision for ``parallel/sequence.dense_attention`` (``helpers.py:196``
+    of the JAX package): the flash kernels for a [B, H, T, D] core that
+    :func:`ck.flash_attention_supported` takes (T >= 128, 32 <= D <= 128,
+    f32); the dense softmax otherwise."""
+    ok = ck.flash_attention_supported(q.shape, q.dtype)
+    record_selection("attention", ok)
     return ok

@@ -1,0 +1,205 @@
+"""The port's flash attention (``ops/cuda_kernels.flash_attention`` and its
+three kernels' plain versions) held against the JAX package's Pallas flash
+attention on the CPU.
+
+On the CPU the port's wrappers run the plain versions through the same
+autograd Function that launches the kernels on the card; the JAX side runs
+``pallas_kernels.flash_attention`` and its ``_flash_fwd`` / ``_flash_bwd``
+in interpret mode, as ``tests/test_pallas_kernels.py`` does.  Inputs are
+drawn with numpy, ``N(0, 0.3^2)`` as in that suite.
+
+Tolerances are that suite's for its kernel: the output (and lse) at
+rtol = atol = 2e-4, gradients at rtol = atol = 1e-3 — the same float32 math
+with the softmax taken online in 128-key blocks on one side and over whole
+rows on the other.
+
+A query row with no live key (a fully masked batch row) is 0 in the port,
+with lse = -1e30.  The JAX kernel gives the same lse there, but its output
+is the mean of V over the key blocks it visits (each dead score is -1e30,
+so the online softmax weighs them equally), a value that depends on its
+tiling and that its own backward treats as constant.  Such rows are held
+to lse, to 0 on the port's side and to the gradients, which agree; the
+JAX output is compared on the rows that have a live key.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.ops import pallas_kernels as pk
+from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+
+OUT_TOL, GRAD_TOL = 2e-4, 1e-3
+
+# (B, H, T, D, causal, mask): causal and not, ragged T = 200 and 130, head
+# dims 32, 64, 96, key masks (a tail from position 180, random holes, a
+# fully masked batch row)
+CASES = [
+    (1, 2, 256, 64, True, "none"),
+    (1, 2, 256, 64, False, "none"),
+    (2, 2, 200, 64, True, "tail"),
+    (2, 2, 200, 64, False, "tail"),
+    (2, 1, 130, 32, False, "holes"),
+    (2, 2, 130, 96, True, "none"),
+    (2, 2, 200, 32, True, "dead_row"),
+    (2, 1, 256, 96, False, "dead_row"),
+]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU side on one intra-op thread, as in the other parity
+    tests: multi-threaded float32 reductions have been seen to vary from
+    run to run on a loaded host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(B, H, T, D, mask, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.normal(size=(B, H, T, D)).astype(np.float32) * 0.3
+                  for _ in range(4))
+    km = np.ones((B, T), np.float32)
+    if mask == "tail":
+        km[:, 180:] = 0.0
+    elif mask == "holes":
+        km = (rng.random((B, T)) > 0.3).astype(np.float32)
+        km[:, 0] = 1.0
+    elif mask == "dead_row":
+        km[1] = 0.0
+    return q, k, v, g, km
+
+
+def _live_rows(km, causal, T):
+    """[B, 1, T] bool: query rows with at least one live key."""
+    live = km[:, None, :] > 0
+    if causal:
+        live = np.tril(np.ones((T, T), bool))[None] & live
+        return live.any(axis=-1)[:, None, :]
+    return np.broadcast_to(live.any(axis=-1)[:, :, None], (len(km), 1, T))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,mask", CASES)
+def test_flash_attention_matches_jax(B, H, T, D, causal, mask):
+    """``flash_attention`` output and the gradients of <out, G> in q, k, v
+    against JAX's ``pallas_kernels.flash_attention`` (its custom_vjp)."""
+    q, k, v, g, km = _inputs(B, H, T, D, mask, seed=T + D)
+    scale = 1.0 / D ** 0.5
+
+    def jloss(q, k, v):
+        return jnp.sum(pk.flash_attention(q, k, v, jnp.asarray(km), causal)
+                       * jnp.asarray(g))
+    jout = np.asarray(pk.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                         jnp.asarray(km), causal))
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    launches = (ck.flash_forward.launches, ck.flash_dq.launches,
+                ck.flash_dkv.launches)
+    out = ck.flash_attention(*leaves, _t(km), causal, scale)
+    (out * _t(g)).sum().backward()
+    # the CPU ran the plain versions: no kernel launch was counted
+    assert (ck.flash_forward.launches, ck.flash_dq.launches,
+            ck.flash_dkv.launches) == launches
+
+    got = out.detach().numpy()
+    live = np.broadcast_to(_live_rows(km, causal, T)[..., None], got.shape)
+    np.testing.assert_allclose(got[live], jout[live], rtol=OUT_TOL,
+                               atol=OUT_TOL)
+    assert (got[~live] == 0).all()
+    for a, b in zip(leaves, jgrads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def _pad_t(a, axis, T_pad):
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, T_pad - a.shape[axis])
+    return np.pad(a, widths)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,mask", CASES)
+def test_flash_kernels_plain_versions_match_jax(B, H, T, D, causal, mask):
+    """lse, dq, dk and dv of the three plain versions against the JAX
+    kernels ``_flash_fwd`` and ``_flash_bwd``.  Those take T in whole
+    128-row blocks, so their inputs are padded along T with masked keys
+    and a zero cotangent, as ``flash_attention`` pads them, and cut back:
+    a masked key changes no real row and a zero cotangent adds nothing to
+    dk or dv."""
+    q, k, v, g, km = _inputs(B, H, T, D, mask, seed=3 * T + D)
+    scale = 1.0 / D ** 0.5
+    Tp = -(-T // 128) * 128
+    jq, jk, jv, jg = (jnp.asarray(_pad_t(a, 2, Tp)) for a in (q, k, v, g))
+    jkm = jnp.asarray(_pad_t(km, 1, Tp))
+    jout, jlse = pk._flash_fwd(jq, jk, jv, jkm, causal=causal, scale=scale)
+    jdq, jdk, jdv = pk._flash_bwd(jq, jk, jv, jkm, jout,
+                                  jlse, jg, causal=causal, scale=scale)
+    jlse = np.asarray(jlse).reshape(B, H, Tp)[..., :T]
+
+    tq, tk, tv, tg, tkm = (_t(a) for a in (q, k, v, g, km))
+    out, lse = ck.flash_forward(tq, tk, tv, tkm, causal, scale)
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=OUT_TOL, atol=OUT_TOL)
+    dead = ~_live_rows(km, causal, T)
+    assert (lse.numpy()[np.broadcast_to(dead, lse.shape)] == -1e30).all()
+    assert (jlse[np.broadcast_to(dead, jlse.shape)] == -1e30).all()
+    # the backward's delta from the JAX output, so that dead rows carry
+    # JAX's values there too (they multiply p = 0 in both)
+    jo = np.asarray(jout)[:, :, :T]
+    delta = _t((g * jo).sum(-1))
+    dq = ck.flash_dq(tq, tk, tv, tkm, tg, lse, delta, causal, scale)
+    dk, dv = ck.flash_dkv(tq, tk, tv, tkm, tg, lse, delta, causal, scale)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(want)[:, :, :T],
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+    for t in (out, lse, dq, dk, dv):
+        assert torch.isfinite(t).all()
+
+
+def test_flash_backward_has_no_inf_on_dead_rows():
+    """The exponent, not the result, is clamped on dead rows: with lse =
+    -1e30 an unclamped exp(s - lse) would be inf, and p * (dp - delta)
+    would put inf or NaN into dk and dv."""
+    q, k, v, g, km = _inputs(2, 2, 128, 32, "dead_row", seed=5)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = ck.flash_attention(*leaves, _t(km), True)
+    (out * _t(g)).sum().backward()
+    for t in leaves:
+        assert torch.isfinite(t.grad).all()
+        assert (t.grad[1] == 0).all()     # the dead batch row
+
+
+@pytest.mark.parametrize("shape,dtype,kv_len,ok", [
+    ((2, 2, 128, 32), torch.float32, None, True),
+    ((2, 2, 8192, 64), torch.float32, 8192, True),
+    ((1, 1, 200, 96), torch.float32, None, True),
+    ((1, 1, 130, 128), torch.float32, None, True),
+    ((2, 2, 127, 64), torch.float32, None, False),   # below one block
+    ((2, 2, 256, 16), torch.float32, None, False),   # head dim < 32
+    ((2, 2, 256, 160), torch.float32, None, False),  # beyond the plan
+    ((2, 2, 256, 34), torch.float32, None, False),   # D % 4 != 0
+    ((2, 2, 256, 64), torch.float64, None, False),
+    ((2, 2, 256, 64), torch.float32, 255, False),    # keys != queries
+])
+def test_flash_support_predicate(shape, dtype, kv_len, ok):
+    """The JAX gate (T >= 128, D >= 32, as long as the queries) and the
+    kernels' own limits; JAX's gate agrees wherever the kernels take the
+    shape."""
+    assert ck.flash_attention_supported(shape, dtype, kv_len) is ok
+    if ok:
+        assert pk.flash_attention_supported(jnp.zeros(shape))
+
+
+def test_flash_attention_refuses_what_it_does_not_take():
+    q = torch.zeros((1, 1, 64, 32))
+    with pytest.raises(ValueError, match="does not take"):
+        ck.flash_attention(q, q, q)

@@ -5,8 +5,9 @@ runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 
 Tolerances against the plain versions: conv rtol 1e-4, atol 1e-5
-(float32 sums in different orders; TF32 off for the plain version); xent
-and the LSTM step rtol = atol = 1e-5 (the JAX suite's); dropout bit for
+(float32 sums in different orders; TF32 off for the plain version); xent,
+the LSTM step and the flash kernels rtol = atol = 1e-5 (the JAX suite's
+for its fused kernels, tighter than its flash suite's); dropout bit for
 bit.
 """
 
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.datasets import DataSet
-from deeplearning4j_tpu_torch.models import char_rnn, lenet, vgg16_cifar10
+from deeplearning4j_tpu_torch.models import (attention_lm, char_rnn, lenet,
+                                             vgg16_cifar10)
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf import network
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -262,3 +264,107 @@ def test_char_rnn_on_the_card_matches_the_cpu(cuda_device):
     assert ck.fused_lstm_step.launches == launches + 2 * 3
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+FLASH_CASES = [
+    (2, 2, 200, 64, False, "tail"), (2, 2, 200, 64, True, "tail"),
+    (1, 3, 130, 32, True, "none"), (2, 2, 256, 96, True, "none"),
+    (1, 2, 256, 128, False, "none"), (2, 2, 256, 64, True, "dead_row"),
+    (2, 1, 320, 32, False, "dead_row"),
+]
+
+
+def _flash_inputs(B, H, T, D, mask, device):
+    rng = np.random.default_rng(B * 10_000 + T * 10 + D)
+    q, k, v, g = (torch.from_numpy(
+        (rng.normal(size=(B, H, T, D)) * 0.5).astype(np.float32)).to(device)
+        for _ in range(4))
+    km = torch.ones((B, T), device=device)
+    if mask == "tail":
+        km[:, 180:] = 0.0
+    elif mask == "dead_row":
+        km[-1] = 0.0
+    return q, k, v, g, km
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D,causal,mask", FLASH_CASES)
+def test_flash_kernels_match_plain_versions_on_the_card(cuda_device, B, H,
+                                                        T, D, causal, mask):
+    """Each of the three kernels against its plain version on the same
+    inputs (the plain lse and delta feed both backward kernels): ragged T,
+    key masks, a fully masked batch row (out 0, lse -1e30), causal and
+    not, head dims 32 to 128."""
+    q, k, v, g, km = _flash_inputs(B, H, T, D, mask, cuda_device)
+    s = D ** -0.5
+    before = (ck.flash_forward.launches, ck.flash_dq.launches,
+              ck.flash_dkv.launches)
+    out, lse = ck.flash_forward(q, k, v, km, causal, s)
+    rout, rlse = ck.flash_forward_reference(q, k, v, km, causal, s)
+    delta = (g * rout).sum(-1)
+    dq = ck.flash_dq(q, k, v, km, g, rlse, delta, causal, s)
+    dk, dv = ck.flash_dkv(q, k, v, km, g, rlse, delta, causal, s)
+    assert (ck.flash_forward.launches, ck.flash_dq.launches,
+            ck.flash_dkv.launches) == tuple(b + 1 for b in before)
+    want = (rout, rlse,
+            ck.flash_dq_reference(q, k, v, km, g, rlse, delta, causal, s),
+            *ck.flash_dkv_reference(q, k, v, km, g, rlse, delta, causal, s))
+    for got, ref in zip((out, lse, dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    if mask == "dead_row":
+        assert bool((out[-1] == 0).all()) and bool((lse[-1] == -1e30).all())
+        assert bool((dk[-1] == 0).all()) and bool((dv[-1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_gradients_on_the_card_match_the_cpu(cuda_device,
+                                                             causal):
+    """``flash_attention`` through autograd: the kernels on the card, the
+    plain versions on the CPU, one Function for both."""
+    q, k, v, g, km = _flash_inputs(2, 2, 200, 64, "tail", "cpu")
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = ck.flash_attention(*leaves, km.to(dev), causal)
+        (out * g.to(dev)).sum().backward()
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_attention_fit_step_launch_counts_on_the_card(cuda_device):
+    """One ``fit`` step of a small attention LM on the card launches one
+    forward, one dQ and one dK/dV kernel per attention layer and nothing
+    else, and scores as the CPU does; ``output()`` launches one forward
+    per layer; ``rnn_time_step`` (the KV ring) launches none."""
+    V, T = 12, 256
+    nets = [attention_lm(V, 64, 2, 2, T, learning_rate=0.01,
+                         device=d).init() for d in (cuda_device, "cpu")]
+    rng = np.random.default_rng(2)
+    eye = np.eye(V, dtype=np.float32)
+    x = eye[rng.integers(0, V, (2, T))]
+    y = eye[rng.integers(0, V, (2, T))]
+    names = ("fused_conv2d_bias_act", "fused_softmax_xent",
+             "fused_threshold_dropout", "fused_lstm_step", "flash_forward",
+             "flash_dq", "flash_dkv")
+
+    def counts():
+        return [getattr(ck, n).launches for n in names]
+    before = counts()
+    nets[0].fit(x, y)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 2, 2, 2]
+    nets[1].fit(x, y)
+    np.testing.assert_allclose(nets[0].score(), nets[1].score(), rtol=1e-4)
+    nets[0].set_params(nets[1].params())
+    before = counts()
+    got = nets[0].output(x).cpu()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 0, 0, 2, 0, 0]
+    torch.testing.assert_close(got, nets[1].output(x), rtol=1e-5, atol=1e-5)
+    before = counts()
+    steps = torch.cat([nets[0].rnn_time_step(x[:, t:t + 1]).cpu()
+                       for t in range(8)], dim=1)
+    assert counts() == before
+    torch.testing.assert_close(steps, got[:, :8], rtol=1e-5, atol=1e-5)

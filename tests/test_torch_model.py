@@ -263,8 +263,13 @@ def test_port_imports_no_jax():
         "             or n == 'deeplearning4j_tpu'\n"
         "             or n.startswith('deeplearning4j_tpu.'))\n"
         "print(len(mods), bad)\n"
+        "print(' '.join(mods))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 10
+    walked = proc.stdout.splitlines()[1].split()
+    assert {"deeplearning4j_tpu_torch.parallel",
+            "deeplearning4j_tpu_torch.parallel.sequence",
+            "deeplearning4j_tpu_torch.models.attention"} <= set(walked)

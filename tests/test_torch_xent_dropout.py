@@ -14,6 +14,8 @@ the JAX suite's tolerance for its fused kernel
 another order.
 """
 
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -196,7 +198,10 @@ def test_mcxent_dispatch_matches_jax(mask, monkeypatch):
                                   "squared_hinge", "kl_divergence", "mape",
                                   "msle", "poisson"])
 def test_loss_registry_matches_jax(name):
-    rng = np.random.default_rng(hash(name) % 1000)
+    """Each loss of the registry on seeded data: the seed is the name's
+    CRC-32, the same in every process (Python's ``hash`` of a string is
+    not)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()) % 1000)
     N, V = 6, 9
     preout = rng.normal(size=(N, V)).astype(np.float32)
     labels = rng.random(size=(N, V)).astype(np.float32)
@@ -209,3 +214,50 @@ def test_loss_registry_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert losses.names() == jax_losses.names()
+
+
+# XLA's float32 tanh on the CPU is within 4.5 ulp of the exact value and
+# torch's within 0.57 ulp (measured over 2e6 draws of N(0, 4)), so the two
+# activations differ by at most 5 ulp.
+TANH_ULPS = 5
+
+
+def test_msle_conditioning_near_minus_one():
+    """msle at seed 755 of the registry test's draw (tanh activation, [6,
+    9]), where 1 + tanh(preout) reaches 3.1e-4 and the loss is
+    ill-conditioned in the activation.
+
+    Derivation.  Per row, msle = (1/V) sum_j (log1p(o_j) - log1p(y_j))^2
+    with o = tanh(preout).  The two frameworks' tanh differ by at most
+    ``TANH_ULPS`` ulp(o_j) (see above); log1p multiplies an absolute error
+    of o_j by 1 / (1 + o_j), up to ~3,000x here; the square and the mean
+    then multiply it by 2 |log1p(o_j) - log1p(y_j)| / V.  So, to first
+    order, the rows may differ by
+
+        sum_j 2 |log1p(o_j) - log1p(y_j)| / V * TANH_ULPS ulp(o_j) / (1 + o_j)
+
+    on top of the registry's rtol = atol = 1e-5 for the rest of the float32
+    arithmetic.  That bound is the tolerance.  The same data at rtol 1e-5
+    alone fails (relative error 3.7e-5): the registry test's seeds are
+    fixed so that it does not depend on such data by chance, and this case
+    keeps the conditioning in view instead of hiding it."""
+    rng = np.random.default_rng(755)
+    N, V = 6, 9
+    preout = rng.normal(size=(N, V)).astype(np.float32)
+    labels = rng.random(size=(N, V)).astype(np.float32)
+    out = np.tanh(preout.astype(np.float64))
+    assert (1 + out).min() < 4e-4          # the ill-conditioned element
+    want = np.asarray(jax_losses.msle(jnp.asarray(labels),
+                                      jnp.asarray(preout), "tanh"))
+    got = losses.msle(torch.from_numpy(labels), torch.from_numpy(preout),
+                      "tanh").numpy()
+    o32 = np.tanh(preout)
+    ulp = np.spacing(np.abs(o32)).astype(np.float64)
+    gap = np.abs(np.log1p(out) - np.log1p(labels.astype(np.float64)))
+    bound = (2 * gap / V * TANH_ULPS * ulp / (1 + out)).sum(axis=1)
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= bound + RTOL * np.abs(want) + ATOL).all(), (err, bound)
+    # the activations themselves differ by no more than the stated ulps
+    jt = np.asarray(jnp.tanh(jnp.asarray(preout)), np.float64)
+    tt = torch.tanh(torch.from_numpy(preout)).numpy().astype(np.float64)
+    assert (np.abs(jt - tt) <= TANH_ULPS * ulp).all()
