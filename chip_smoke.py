@@ -15,11 +15,18 @@ exits non-zero:
                batch 64) and of VGG16-224 (batch 1 and 8, and the training
                batch 128), plus every fused activation at one shape.
                TF32 is off for the plain and library versions.  At batch
-               32, 128 and VGG16-224's 8, per shape: errors, median times
-               of the kernel, the plain version and the library call
-               (cuDNN conv + activation), FLOPs (taps inside the image
-               only), bytes and the bound at the published H100 SXM
-               peaks.
+               32, 128 and VGG16-224's 8 and 128, per shape and summed per
+               set (every conv of the model's forward, a repeated shape
+               as often as it runs): errors, median times of the kernel,
+               the plain version,
+               the library call (cuDNN conv + activation) in f32 and,
+               labelled as the less accurate function, with TF32 on;
+               FLOPs (taps inside the image only), bytes, the bound of
+               f32-accurate products on the tensor cores (3xTF32) and,
+               beside it, the bound of f32 FMAs on the CUDA cores, at the
+               published H100 SXM peaks.  The conv library's SASS must
+               hold HGMMA (wgmma) instructions; their count is on the
+               line.
 4. xent_dropout_kernels — the softmax-xent kernel against its plain
                version (loss and gradient, rtol = atol = 1e-5) at [128,
                1000], [256, 512], 997 rows and V = 50,257; the dropout
@@ -127,9 +134,13 @@ from pathlib import Path
 
 import numpy as np
 
-# Published H100 SXM peaks: f32 on the CUDA cores, and HBM3 bandwidth.
+# Published H100 SXM peaks: f32 on the CUDA cores, dense TF32 on the tensor
+# cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
+# The conv kernel's f32-accurate products take three TF32 products each.
+TF32_PRODUCTS_PER_F32 = 3
 # Kernel vs plain version: |y - ref| <= ATOL * max|ref| + RTOL * |ref|.
 # Both accumulate in f32 over up to 4608 products, in different orders.
 RTOL, ATOL = 1e-4, 1e-5
@@ -312,20 +323,47 @@ def check_conv(torch, ck, shape, gen, timed: bool = True) -> dict:
     flops = 2 * N * Cout * Cin * valid_taps(H, K, p, OH) * \
         valid_taps(W, K, p, OW)
     nbytes = 4 * (x.numel() + w.numel() + b.numel() + y.numel())
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    # the kernel's bound: f32-accurate products on the tensor cores, three
+    # TF32 products each; the f32 FMAs of the CUDA cores bound a kernel
+    # that does not use them, and stand beside it
+    t_ops = TF32_PRODUCTS_PER_F32 * flops / PEAK_TF32_FLOPS
+    t_simt, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     act_fn = act_ops.get(act)
+
+    def library():
+        return act_fn(F.conv2d(x, w, b, padding=pad))
     rec.update(
         ms=time_ms(torch, lambda: ck.fused_conv2d_bias_act(
             x, w, b, pad=pad, activation=act)),
         plain_ms=time_ms(torch, lambda: ck.conv2d_bias_act_reference(
             x, w, b, pad, "truncate", act)),
-        library_ms=time_ms(torch, lambda: act_fn(F.conv2d(x, w, b,
-                                                          padding=pad))),
+        library_ms=time_ms(torch, library),
         flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes")
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_f32_simt_ms=max(t_simt, t_bytes) * 1e3)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rec["library_tf32_ms"] = time_ms(torch, library)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["share_of_f32_simt_bound"] = rec["bound_f32_simt_ms"] / rec["ms"]
     rec["tflops"] = flops / rec["ms"] / 1e9
     return rec
+
+
+def conv_hgmma_count(ck) -> int:
+    """HGMMA (wgmma) instructions in the conv library's SASS; raises if
+    there are none."""
+    count = ck.conv_sass_hgmma_count()
+    if count == 0:
+        raise AssertionError("the conv library's SASS has no HGMMA: the "
+                             "kernel does not run on the tensor cores")
+    return count
+
+
+SET_SUMS = ("ms", "plain_ms", "library_ms", "library_tf32_ms", "bound_ms",
+            "bound_f32_simt_ms", "flops", "bytes")
 
 
 def phase_kernels(torch, ck):
@@ -333,14 +371,14 @@ def phase_kernels(torch, ck):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # timed: the served ladder's top bucket (32), batch 128, VGG16-224 at
-    # its batch; untimed: every other bucket the server runs (1-16 rows),
-    # VGG16-224's first call at one row and the two training batches
-    # (LeNet at 64, VGG16-224 at 128), since the kernel's plan (rows per
-    # thread, cluster split) depends on the batch
+    # its output() batch and at its training batch (the forward convs of a
+    # training step); untimed: every other bucket the server runs (1-16
+    # rows), VGG16-224's first call at one row and LeNet's training batch,
+    # since the kernel's plan (tile, cluster split) depends on the batch
     plan = [("lenet", 32, True), ("vgg16_cifar10", 32, True),
             ("lenet", 128, True), ("vgg16_cifar10", 128, True),
-            ("vgg16_224", 8, True), ("vgg16_224", 1, False),
-            ("lenet", LENET_BATCH, False), ("vgg16_224", VGG_BATCH, False)]
+            ("vgg16_224", 8, True), ("vgg16_224", VGG_BATCH, True),
+            ("vgg16_224", 1, False), ("lenet", LENET_BATCH, False)]
     plan += [(m, n, False) for m in ("lenet", "vgg16_cifar10")
              for n in (1, 2, 4, 8, 16)]
     records, ladder, seen = [], [], set()
@@ -355,7 +393,26 @@ def phase_kernels(torch, ck):
     acts = sorted(set(ck.CONV_FUSED_ACTS) - {"linear"})
     act_records = [check_conv(torch, ck, (32, 20, 12, 12, 50, 5, 0, a), gen,
                               timed=False) for a in acts]
+    # sums over each timed set (a model at one batch): every conv of the
+    # model's forward, a repeated shape once for each time it runs
+    by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
+    sets = {}
+    for model, batch, timed in plan:
+        if not timed:
+            continue
+        rows = [by_shape[(tuple(s[:7]), s[7])]
+                for s in conv_shapes(model, batch)]
+        agg = {k: sum(r[k] for r in rows) for k in SET_SUMS}
+        agg["convs"] = len(rows)
+        agg["tflops"] = agg["flops"] / agg["ms"] / 1e9
+        agg["share_of_bound"] = agg["bound_ms"] / agg["ms"]
+        sets[f"{model}_{batch}"] = agg
     emit("kernels", tf32=False, rtol=RTOL, atol_scaled=ATOL,
+         conv_sass_hgmma=conv_hgmma_count(ck), timed_sets=sets,
+         bound_note="bound_ms: 3 TF32 products per f32 product at "
+                    "PEAK_TF32_FLOPS, or bytes; bound_f32_simt_ms: f32 FMAs "
+                    "at PEAK_F32_FLOPS, or bytes; library_tf32_ms is cuDNN "
+                    "with TF32 on, a less accurate function",
          shapes=records, untimed_shapes=ladder, activations=act_records)
     return records + ladder
 
@@ -519,9 +576,10 @@ def _drive(url, path, xs):
 
 
 def _plain_forward(torch, ck, net, x):
-    """The network's forward with every conv through the plain version."""
+    """The network's forward with every conv through the plain version,
+    in full f32 whatever an earlier phase left cuDNN's TF32 setting at."""
     from deeplearning4j_tpu_torch.nn.conf.layers import ConvolutionLayer
-    with torch.inference_mode():
+    with torch.inference_mode(), ck.full_f32_convs():
         for i, layer in enumerate(net.layers):
             if i in net.conf.preprocessors:
                 x, _ = net.conf.preprocessors[i](x)
@@ -1602,7 +1660,8 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
     rows = [by_shape[(tuple(s[:7]), s[7])] for s in served]
-    t_ops = sum(r["flops"] for r in rows) / PEAK_F32_FLOPS
+    t_ops = TF32_PRODUCTS_PER_F32 * sum(r["flops"] for r in rows) / \
+        PEAK_TF32_FLOPS
     t_bytes = sum(r["bytes"] for r in rows) / PEAK_BYTES
     paths = {"serve": {"conv2d_bias_act": serve_launches},
              "train_vgg16_224": train_vgg["launches"],
@@ -1632,7 +1691,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_f32_simt_ms": sum(r["bound_f32_simt_ms"] for r in rows),
         "library_ms": sum(r["library_ms"] for r in rows),
+        "library_tf32_ms": sum(r["library_tf32_ms"] for r in rows),
     }, {
         "name": "softmax_xent",
         "route": "cuda",

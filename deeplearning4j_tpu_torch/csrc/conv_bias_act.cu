@@ -1,4 +1,5 @@
-// Fused stride-1 conv2d + bias + activation, f32, for NVIDIA Hopper (sm_90a).
+// Fused stride-1 conv2d + bias + activation, f32-accurate, for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_conv_bias_act_kernel`
 // (deeplearning4j_tpu/ops/pallas_kernels.py:577, launched by `_conv_forward`
@@ -6,55 +7,75 @@
 // activation applied to the accumulator before the one write of y.
 //
 // What bounds it on this card: operations.  A 3x3 conv at the served shapes
-// does 2*9*Cin multiply-adds per output for 4 bytes written, far above the
-// card's f32 balance point (67 TFLOP/s against 3.35 TB/s is ~20 FLOP per
-// byte), so the limit is the FMA rate of the CUDA cores and the shared-memory
-// traffic that feeds them.
+// does 2*9*Cin multiply-adds per output for 4 bytes written.  f32-accurate
+// products on the tensor cores take three TF32 products each (3xTF32, below),
+// so the least time is 3 * FLOPs over the 494.7 TFLOP/s TF32 peak: 2.5x the
+// 67 TFLOP/s of f32 FMAs on the CUDA cores.
 //
-// What the design does about it.  The TPU kernel holds one whole image in
-// VMEM per program; that cannot fit in 227 KB of shared memory and would give
-// LeNet only N blocks.  Here a block of 256 threads owns an output tile of
-// (NI images) x (TH rows) x (TW cols) x (64 output channels), with grid
-// (spatial tiles, Cout / 64, image groups).  It loops over the input channels
-// in slices of CK: each slice stages the input halo tile
-// [NI][CK][TH+KH-1][TW+KW-1] (zero where it falls in the padding, so no
-// padded copy of x is ever written) and the filter slice [CK][KH][KW][64]
-// in shared memory.  A warp owns 8 output channels, a lane one output column
-// of R consecutive rows, so each thread keeps an R x 8 accumulator block in
-// registers: per (channel, kw) it reads R+KH-1 input values once and reuses
-// them across the KH filter rows, and reads its 8 weights as two broadcast
-// float4 loads, giving 8*R*KH FMAs per R+3*KH shared-memory loads.  The
-// tile's shape follows the output size (TW up to 32 columns, R up to 8 rows,
-// several images per block when an image is smaller than a warp), so the
-// 2x2 and 4x4 maps of VGG16's last blocks keep every lane busy.  Bias and
-// activation run on the registers before the single store of y.
-//
-// Small maps with many channels (VGG16's last blocks, LeNet's second conv)
-// give too few such blocks to fill 132 SMs.  There the host first gives each
-// thread fewer rows (more, smaller blocks), then splits the input channels
-// over a thread block cluster of up to 8 blocks (a Hopper feature): each
-// block of the cluster sums its share of the channels, parks its partial
-// accumulators in its shared memory, and after a cluster barrier each block
-// reduces a slice of the tile's outputs across the cluster through
-// distributed shared memory, then applies bias and activation and stores
-// them.  Every output is still written once, activated.  This is a
-// CUDA-core kernel; tensor cores (wgmma), TMA and double buffering are later
-// work.
+// The design: an implicit GEMM on the tensor cores with `wgmma`.
+//   M = output pixels (n, oh, ow), N = Cout, K = Cin*KH*KW (OIHW order).
+// A block of two warpgroups owns a tile of 128 output pixels -- NI images x
+// TH rows x TW cols, chosen by plan() from the output's shape -- by BN (32
+// or 64) output channels, and walks K in slices of 64.
+//  * B, the weights, are split once per call by a small pass into tf32
+//    halves, w_hi = rna(w) and w_lo = rna(w - w_hi), written as two
+//    [Cout padded to 64][K padded to 64] matrices (zero in the padding).
+//    They are K-major, as wgmma wants tf32 operands, and each slice's
+//    [BN][64] tile of both is two 128-byte rows per channel, stored as two
+//    [BN][32] atoms: the copies write them in the 128-byte swizzle that the
+//    wgmma descriptor names.
+//  * A, the im2col tile, is never written anywhere.  Each slice stages the
+//    input halo of the channels its 64 K indices touch,
+//    [channels][NI][TH+KH-1][TW+KW-1], zero where it falls in the padding
+//    (the copies' zero-fill: no padded copy of x exists), plus a table of
+//    the 64 K indices' offsets into that halo.  Each thread then gathers its
+//    wgmma A fragments straight from the halo into registers (a row's base
+//    offset plus the K index's offset) and splits them there: a_hi =
+//    rna(a), a_lo = rna(a - a_hi).
+//  * Per 8-deep K step a warpgroup issues three wgmma.m64nBNk8 products,
+//    a_hi.w_hi + a_hi.w_lo + a_lo.w_hi: the error of 3xTF32 is that of the
+//    dropped a_lo.w_lo term, ~2^-22 relative per product, near f32's own
+//    rounding.  The tensor cores round each accumulation toward zero, which
+//    over a K of thousands drifts by ~1e-4 relative, so each slice's 24
+//    products go into a fresh accumulator that the CUDA cores then add, with
+//    rounding to nearest, to the f32 sum in registers.
+//  * The copies are cp.async, into a ring of two stages: the copies of slice
+//    k+1 are in flight while the warpgroups multiply slice k.  A slice's
+//    products go out in four wgmma groups of six, and each quarter's A
+//    fragments are gathered while the groups before it run.  The halo's
+//    copies read each element's source offset from a per-block table, so a
+//    copy costs one shared load and no division.  A thread waits for its
+//    own copies, fences them to the async proxy that wgmma reads through,
+//    and a block barrier publishes them.
+//  * Small maps with many channels (VGG16's 2x2 and 4x4 maps at serving
+//    batches) give too few tiles to fill 132 SMs.  There the host splits the
+//    K slices over a thread block cluster of up to 8 blocks: each block
+//    parks its partial accumulators in its shared memory, and after a
+//    cluster barrier each block sums a share of the tile's outputs across
+//    the cluster through distributed shared memory.
+//  * Epilogue: bias + activation on the f32 accumulator in registers, and
+//    one store of each output, in NCHW.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kCoTile = 64;       // output channels per block, 8 per warp
-constexpr int kMaxK = 7;          // largest KH / KW the kernel takes
-constexpr int kMaxCk = 8;         // input channels staged per slice
-constexpr int kSmemFloats = 12288;  // 48 KB of shared memory for staging
-constexpr int kMaxCluster = 8;      // portable thread block cluster size
+constexpr int kThreads = 256;          // two warpgroups of 64 pixel rows
+constexpr int kBM = 128;               // output pixels per block
+constexpr int kBK = 64;                // K per slice: two 128-byte rows
+constexpr int kStages = 2;             // cp.async ring depth
+constexpr int kMaxK = 7;               // largest KH / KW the kernel takes
+constexpr int kMaxTW = 32;             // widest tile, in output columns
+constexpr int kHaloMaxFloats = 6144;   // staged halo per stage, 24 KB
+constexpr int kMaxCluster = 8;         // portable thread block cluster size
+constexpr int kWRowPad = 64;           // split weights' rows: Cout up to this
+constexpr int kSmemMax = 231424;       // dynamic shared memory: 227 KB less 1 KB
+                                       // for the static tap table
 
 // Activation ids; the Python wrapper maps names to these (ops/cuda_kernels.py).
 enum Act {
@@ -90,313 +111,614 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-struct Tile {
-  int tw, rb, ni, th;   // columns, row blocks, images, rows (= rb * R)
-  int in_h, pitch;      // staged halo rows and row pitch
-  int ck;               // input channels per slice
-  int in_floats;        // staged input floats per slice (rounded up to 4)
-  int smem_floats;
-  int cs;               // blocks per cluster splitting the input channels
-  int ci_per_rank;      // input channels each block of a cluster sums
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+// 4 bytes, or zeros when src_bytes is 0 (nothing is read then).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Order this thread's completed generic-proxy writes to shared memory (the
+// cp.async copies) before later async-proxy reads of it (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator register across
+// the wgmma fence/wait around it.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// Descriptor of a K-major [rows][32 f32] tile with the 128-byte swizzle:
+// 8-row groups 1,024 bytes apart (SBO); LBO is unused for this layout.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// D[64 x BN] = A[64 x 8] (tf32, registers) * B[8 x BN] (tf32, shared
+// memory, K-major, described by desc_b) + (scale_d ? D : 0).  A's fragment:
+// a[0] (row g, col t), a[1] (row g+8, col t), a[2] (row g, col t+4), a[3]
+// (row g+8, col t+4), with g = lane/4 + 16*warp-in-warpgroup, t = lane%4.
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
 };
 
-int next_pow2(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The plan
+// ---------------------------------------------------------------------------
+
+struct Plan {
+  int bn;                 // output channels per block: 32 or 64
+  int ni, th, tw;         // images, rows and columns of a tile of pixels
+  int hr, hp;             // staged halo rows and row pitch
+  int nch;                // input channels staged per slice
+  int halo_floats;        // staged halo per stage (multiple of 32)
+  int tiles_n, tiles_h, tiles_w, tiles_c;   // image groups, row and column
+                                            // tiles, Cout tiles
+  int slices;             // K slices of kBK: Kpad / kBK
+  int cs;                 // blocks per cluster splitting the slices
+  int per_rank;           // slices each block of a cluster multiplies
+  int stage_bytes;        // one ring stage: w_hi, w_lo, halo, offsets
+  int table_off;          // byte offset of the halo's source offsets
+  int smem;               // dynamic shared memory bytes
+};
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The smallest tile that covers `size` in as few tiles as `d` does.
+int balance(int size, int d) { return cdiv(size, cdiv(size, d)); }
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// Tile of kBM output pixels: try widths of 32, 16, 8 and 4 columns (the
+// output's width if narrower), the rows that fill 128 pixels, and several
+// whole images when an image is smaller than a tile; keep the candidate with
+// the fewest tiles, then the smallest halo.
+void choose_tile(int N, int OH, int OW, int KH, int KW, Plan* p) {
+  const int widths[4] = {kMaxTW, 16, 8, 4};
+  long long best_tiles = -1;
+  int best_halo = 0;
+  for (int c = 0; c < 4; ++c) {
+    int tw = balance(OW, imin(OW, widths[c]));
+    int th = balance(OH, imin(OH, kBM / tw));
+    int ni = (th == OH && tw == OW) ? balance(N, imin(N, kBM / (th * tw)))
+                                    : 1;
+    while (p->nch * ni * (th + KH - 1) * (tw + KW - 1) > kHaloMaxFloats) {
+      if (ni > 1) ni = balance(N, (ni + 1) / 2);
+      else if (th > 1) th = balance(OH, (th + 1) / 2);
+      else tw = balance(OW, (tw + 1) / 2);
+    }
+    const long long tiles =
+        static_cast<long long>(cdiv(N, ni)) * cdiv(OH, th) * cdiv(OW, tw);
+    const int halo = p->nch * ni * (th + KH - 1) * (tw + KW - 1);
+    if (best_tiles < 0 || tiles < best_tiles ||
+        (tiles == best_tiles && halo < best_halo)) {
+      best_tiles = tiles;
+      best_halo = halo;
+      p->ni = ni;
+      p->th = th;
+      p->tw = tw;
+    }
+  }
 }
 
-// The tile for an output of OH x OW with R rows per thread.  Returns false
-// where the kernel does not apply.
-bool plan_tile(int Cin, int KH, int KW, int OH, int OW, int R, Tile* t) {
-  t->tw = next_pow2(OW) < 32 ? next_pow2(OW) : 32;
-  int rows_needed = (OH + R - 1) / R;
-  int rb_max = 32 / t->tw;
-  t->rb = next_pow2(rows_needed) < rb_max ? next_pow2(rows_needed) : rb_max;
-  t->ni = 32 / (t->tw * t->rb);
-  t->th = t->rb * R;
-  t->in_h = t->th + KH - 1;
-  t->pitch = t->tw + KW - 1;
-  int per_ck = t->ni * t->in_h * t->pitch + KH * KW * kCoTile;
-  int ck = kSmemFloats / per_ck;
-  if (ck < 1) return false;
-  if (ck > kMaxCk) ck = kMaxCk;
-  if (ck > Cin) ck = Cin;
-  t->ck = ck;
-  t->in_floats = (ck * t->ni * t->in_h * t->pitch + 3) & ~3;
-  t->smem_floats = t->in_floats + ck * KH * KW * kCoTile;
-  return t->smem_floats <= kSmemFloats;
+// Where the kernel applies, in closed form (ops/cuda_kernels.py's
+// conv_fused_supported is the same test): KH, KW <= kMaxK; K <= 2^30; a
+// halo element's offset in x from its tile's first image is an int (a tile
+// holds several images only when one image fits in kBM pixels, and H <=
+// OH + KH - 1, W <= OW + KW - 1 for a stride-1 conv); and the grid fits
+// CUDA's 2^31 - 1 blocks (every tile has an output pixel, and a cluster
+// split only multiplies grids below two blocks per SM).
+bool supported(int N, int Cin, int KH, int KW, int Cout, int OH, int OW) {
+  if (N < 1 || Cin < 1 || Cout < 1 || OH < 1 || OW < 1 || KH < 1 ||
+      KW < 1 || KH > kMaxK || KW > kMaxK)
+    return false;
+  if (static_cast<long long>(Cin) * KH * KW > (1LL << 30)) return false;
+  const long long pix = static_cast<long long>(OH) * OW;
+  const long long ni = pix <= kBM ? imin(N, kBM / static_cast<int>(pix)) : 1;
+  if (ni * Cin * (OH + KH - 1) * (OW + KW - 1) > 0x7FFFFFFFLL) return false;
+  return static_cast<long long>(N) * pix * cdiv(Cout, Cout <= 32 ? 32 : 64) <=
+         0x7FFFFFFFLL;
 }
 
-template <int R>
+// The most shared memory a plan asks for: the ring, whose halo is at most
+// kHaloMaxFloats floats a stage, then the halo plane's source offsets (no
+// more than the halo's floats) and alignment slack.  The parked
+// accumulators of a cluster split reuse the ring's bytes.
+constexpr int kRingMax =
+    kStages * ((2 * 64 * kBK * 4 + kHaloMaxFloats * 4 + kBK * 4 + 1023) /
+               1024 * 1024);
+static_assert(64 / 2 * kThreads * 4 <= kRingMax, "parked sums exceed ring");
+static_assert(kRingMax + kHaloMaxFloats * 4 + 1024 <= kSmemMax,
+              "a plan could ask for more shared memory than a block has");
+
+// The whole launch plan, for a shape supported() accepts.
+void plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW, int sms,
+          Plan* p) {
+  const int taps = KH * KW;
+  const int kpad = cdiv(Cin * taps, kBK) * kBK;
+  p->bn = Cout <= 32 ? 32 : 64;
+  // channels that kBK consecutive K indices can touch, and no more than the
+  // padded K holds
+  p->nch = imin((kBK + taps - 2) / taps + 1, (kpad - 1) / taps + 1);
+  choose_tile(N, OH, OW, KH, KW, p);
+  p->hr = p->th + KH - 1;
+  p->hp = p->tw + KW - 1;
+  p->halo_floats = cdiv(p->nch * p->ni * p->hr * p->hp, 32) * 32;
+  p->tiles_n = cdiv(N, p->ni);
+  p->tiles_h = cdiv(OH, p->th);
+  p->tiles_w = cdiv(OW, p->tw);
+  p->tiles_c = cdiv(Cout, p->bn);
+  p->slices = kpad / kBK;
+  const long long blocks = static_cast<long long>(p->tiles_n) * p->tiles_h *
+                           p->tiles_w * p->tiles_c;
+  // split K over a cluster while the grid has fewer than two blocks per SM
+  p->cs = 1;
+  while (p->cs < kMaxCluster && p->slices >= 2 * p->cs &&
+         blocks * p->cs < 2LL * sms)
+    p->cs *= 2;
+  p->per_rank = cdiv(p->slices, p->cs);
+  p->stage_bytes =
+      cdiv(2 * p->bn * kBK * 4 + p->halo_floats * 4 + kBK * 4, 1024) * 1024;
+  const int ring = kStages * p->stage_bytes;
+  const int part = p->bn / 2 * kThreads * 4;      // parked accumulators
+  p->table_off = ring > part ? ring : part;
+  // + the halo plane's source offsets (4 bytes each) + alignment slack
+  p->smem = p->table_off + p->ni * p->hr * p->hp * 4 + 1024;
+}
+
+struct Shape {
+  int N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act;
+  int kpad;               // row length of the split weights
+  long long lo_off;       // floats from w_hi to w_lo
+};
+
+// ---------------------------------------------------------------------------
+// Kernels
+// ---------------------------------------------------------------------------
+
+// w [rows_w][K] -> w_hi, w_lo [rows][kpad], zero beyond rows_w and K.
+__global__ void split_tf32_kernel(const float* __restrict__ w,
+                                  float* __restrict__ ws, int rows_w, int K,
+                                  int kpad, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int n = static_cast<int>(i / kpad);
+  const int k = static_cast<int>(i % kpad);
+  const float v = (n < rows_w && k < K)
+                      ? w[static_cast<long long>(n) * K + k] : 0.0f;
+  const uint32_t hi = tf32_rna(v);
+  const float lo = v - __uint_as_float(hi);
+  ws[i] = __uint_as_float(hi);
+  ws[total + i] = __uint_as_float(tf32_rna(lo));
+}
+
+template <int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_bias_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ y,
-                     int N, int Cin, int H, int W, int Cout, int KH, int KW,
-                     int pt, int pl, int OH, int OW, int act, Tile t,
-                     int tiles_w) {
-  extern __shared__ __align__(16) float smem[];
-  float* in_s = smem;                  // [ni][ck][in_h][pitch]
-  float* w_s = smem + t.in_floats;     // [ck][KH][KW][64]
+conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
+                  const float* __restrict__ b, float* __restrict__ y,
+                  Shape s, Plan p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int tap_off[kMaxK * kMaxK];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;    // the swizzle needs 1 KB
+  uint8_t* smem = smem_raw + (base - raw);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int col = lane % t.tw;
-  const int rblk = (lane / t.tw) % t.rb;
-  const int img_l = lane / (t.tw * t.rb);
-  const int r0 = rblk * R;
+  const int wg = warp >> 2;
 
-  const int rank = blockIdx.x % t.cs;   // == cluster block rank
-  const int tile = blockIdx.x / t.cs;
-  const int oh0 = (tile / tiles_w) * t.th;
-  const int ow0 = (tile % tiles_w) * t.tw;
-  const int co0 = blockIdx.y * kCoTile;
-  const int n0 = blockIdx.z * t.ni;
-  const bool warp_active = co0 + warp * 8 < Cout;   // warp-uniform
+  int rank = 0;
+  if (p.cs > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
+  int t = blockIdx.x / p.cs;
+  const int ct = t % p.tiles_c;
+  t /= p.tiles_c;
+  const int ow0 = (t % p.tiles_w) * p.tw;
+  t /= p.tiles_w;
+  const int oh0 = (t % p.tiles_h) * p.th;
+  const int n0 = (t / p.tiles_h) * p.ni;
+  const int co0 = ct * BN;
 
-  float acc[R][8];
+  // the halo plane [NI][TH+KH-1][TW+KW-1]: each element's offset in x from
+  // image n0's channel 0, -1 where it is padding; the taps' offsets in it
+  const int taps = s.KH * s.KW;
+  const int plane = p.ni * p.hr * p.hp;
+  const long long chw = static_cast<long long>(s.H) * s.W;
+  int* src_off = reinterpret_cast<int*>(smem + p.table_off);
+  for (int e = tid; e < plane; e += kThreads) {
+    const int li = e / (p.hr * p.hp), rem = e % (p.hr * p.hp);
+    const int ih = oh0 - s.pt + rem / p.hp, iw = ow0 - s.pl + rem % p.hp;
+    src_off[e] = (n0 + li < s.N && ih >= 0 && ih < s.H && iw >= 0 &&
+                  iw < s.W)
+                     ? static_cast<int>(li * s.Cin * chw + ih * s.W + iw)
+                     : -1;
+  }
+  const float* xn = x + static_cast<long long>(n0) * s.Cin * chw;
+  for (int i = tid; i < taps; i += kThreads)
+    tap_off[i] = (i / s.KW) * p.hp + i % s.KW;
+
+  // this thread's two pixel rows of the tile (accumulator rows g and g+8)
+  const int pix = p.th * p.tw;
+  const int live_rows = p.ni * pix;
+  int rbase[2];
+  long long yoff[2];
+  bool live[2];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * h;
+    const int rn = r / pix, rem = r % pix;
+    const int rh = rem / p.tw, rw = rem % p.tw;
+    live[h] = r < live_rows && n0 + rn < s.N && oh0 + rh < s.OH &&
+              ow0 + rw < s.OW;
+    rbase[h] = live[h] ? (rn * p.hr + rh) * p.hp + rw : 0;
+    yoff[h] = live[h] ? (static_cast<long long>(n0 + rn) * s.Cout * s.OH +
+                         oh0 + rh) * s.OW + ow0 + rw
+                      : 0;
+  }
+  const bool wg_live = wg * 64 < live_rows;     // warpgroup-uniform
 
-  const int in_w = t.pitch;
-  const int khkw = KH * KW;
-  const int ci_begin = rank * t.ci_per_rank;
-  const int ci_end = min(Cin, ci_begin + t.ci_per_rank);
-  for (int ci0 = ci_begin; ci0 < ci_end; ci0 += t.ck) {
-    const int ck = min(t.ck, ci_end - ci0);
-    // stage the input halo tile; out-of-image positions are the zero padding
-    const int n_in = t.ni * ck * t.in_h * in_w;
-    for (int e = tid; e < n_in; e += kThreads) {
-      int c_ = e % in_w;
-      int q = e / in_w;
-      int r_ = q % t.in_h;
-      q /= t.in_h;
-      int c = q % ck;
-      int ni = q / ck;
-      int img = n0 + ni;
-      int ih = oh0 - pt + r_;
-      int iw = ow0 - pl + c_;
-      float v = 0.0f;
-      if (img < N && ih >= 0 && ih < H && iw >= 0 && iw < W)
-        v = x[((static_cast<long long>(img) * Cin + ci0 + c) * H + ih) * W + iw];
-      in_s[((ni * t.ck + c) * t.in_h + r_) * in_w + c_] = v;
+  const int s_begin = rank * p.per_rank;
+  const int s_end = imin(p.slices, s_begin + p.per_rank);
+  const int ns = s_end > s_begin ? s_end - s_begin : 0;
+  const int halo_bytes = p.halo_floats * 4;
+  // this thread's halo elements f = tid + 256 j of [channel][plane]:
+  // channel f / plane, element f % plane, walked without a division
+  const int c_first = tid / plane, e_first = tid % plane;
+  const int c_step = kThreads / plane, e_step = kThreads % plane;
+  // the K bookkeeping of the next slice to load, without divisions: its
+  // first channel c_lo (k0 = c_lo * taps + t_lo), and the channel and tap
+  // (kc, kt) of K index k0 + kidx, whose halo offset thread kidx writes
+  const int k_first = s_begin * kBK;
+  int c_lo = k_first / taps, t_lo = k_first % taps;
+  const int kidx = tid % kBK;
+  int kc = (k_first + kidx) / taps, kt = (k_first + kidx) % taps;
+  auto advance = [&](int& c, int& t) {
+    c += kBK / taps;
+    t += kBK % taps;
+    if (t >= taps) {
+      t -= taps;
+      ++c;
     }
-    // stage the filter slice, transposed so a warp's 8 channels are adjacent
-    const int n_w = kCoTile * ck * khkw;
-    for (int e = tid; e < n_w; e += kThreads) {
-      int k = e % khkw;
-      int q = e / khkw;
-      int c = q % ck;
-      int co = q / ck;
-      float v = 0.0f;
-      if (co0 + co < Cout)
-        v = w[(static_cast<long long>(co0 + co) * Cin + ci0 + c) * khkw + k];
-      w_s[(c * khkw + k) * kCoTile + co] = v;
-    }
-    __syncthreads();
+  };
 
-    if (warp_active) {
-      for (int c = 0; c < ck; ++c) {
-        const float* ip = in_s + ((img_l * t.ck + c) * t.in_h + r0) * in_w + col;
-        const float* wp = w_s + c * khkw * kCoTile + warp * 8;
-        for (int kw = 0; kw < KW; ++kw) {
-          float v[R + kMaxK - 1];
+  // issue the copies of slice `sl` into ring stage `st` (slices in order)
+  auto load = [&](int sl, int st) {
+    const uint32_t sa = base + st * p.stage_bytes;
+    const int k0 = sl * kBK;
+    // w_hi and w_lo tiles, [atom][BN][32 f32] each: row n's 16-byte chunk
+    // c of an atom goes to chunk c ^ (n % 8)
 #pragma unroll
-          for (int j = 0; j < R + kMaxK - 1; ++j)
-            if (j < R + KH - 1) v[j] = ip[j * in_w + kw];
+    for (int j = 0; j < 2 * BN * kBK / 4 / kThreads; ++j) {
+      const int e = tid + j * kThreads;
+      const int half = e / (BN * kBK / 4);
+      const int n = (e / (kBK / 4)) % BN;
+      const int c = e % (kBK / 4);
+      cp_async16(sa + half * (BN * kBK * 4) + (c >> 3) * (BN * 128) +
+                     n * 128 + (((c & 7) ^ (n & 7)) << 4),
+                 ws + half * s.lo_off +
+                     static_cast<long long>(co0 + n) * s.kpad + k0 + 4 * c);
+    }
+    // the halo of the channels this slice touches, zero outside the image
+    const uint32_t halo = sa + 2 * BN * kBK * 4;
+    int c = c_first, e = e_first;
+    for (int f = tid; f < p.nch * plane; f += kThreads) {
+      const int g = src_off[e];
+      const bool ok = g >= 0 && c_lo + c < s.Cin;
+      cp_async4(halo + f * 4, ok ? xn + (c_lo + c) * chw + g : x, ok ? 4 : 0);
+      c += c_step;
+      e += e_step;
+      if (e >= plane) {
+        e -= plane;
+        ++c;
+      }
+    }
+    // each K index's offset into the halo
+    if (tid < kBK) {
+      int* koff = reinterpret_cast<int*>(smem + st * p.stage_bytes +
+                                         2 * BN * kBK * 4 + halo_bytes);
+      koff[tid] = (kc - c_lo) * plane + tap_off[kt];
+    }
+    advance(c_lo, t_lo);
+    advance(kc, kt);
+  };
+
+  // Two-level sum: each slice's 24 products go into a fresh wgmma
+  // accumulator (`part`), which is then added to `acc` by the CUDA cores.
+  // The tensor cores round each accumulation toward zero; summed into one
+  // accumulator over a whole K of 4,608 that loses ~1e-4 relative, while a
+  // slice's partial is small, and the slices' sum rounds to nearest.
+  float acc[BN / 2], part[BN / 2];
 #pragma unroll
-          for (int kh = 0; kh < kMaxK; ++kh) {
-            if (kh < KH) {
-              const float4 wa = *reinterpret_cast<const float4*>(
-                  wp + (kh * KW + kw) * kCoTile);
-              const float4 wb = *reinterpret_cast<const float4*>(
-                  wp + (kh * KW + kw) * kCoTile + 4);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.0f;
+
+  __syncthreads();                      // src_off, tap_off
 #pragma unroll
-              for (int r = 0; r < R; ++r) {
-                const float xv = v[r + kh];
-                acc[r][0] = fmaf(xv, wa.x, acc[r][0]);
-                acc[r][1] = fmaf(xv, wa.y, acc[r][1]);
-                acc[r][2] = fmaf(xv, wa.z, acc[r][2]);
-                acc[r][3] = fmaf(xv, wa.w, acc[r][3]);
-                acc[r][4] = fmaf(xv, wb.x, acc[r][4]);
-                acc[r][5] = fmaf(xv, wb.y, acc[r][5]);
-                acc[r][6] = fmaf(xv, wb.z, acc[r][6]);
-                acc[r][7] = fmaf(xv, wb.w, acc[r][7]);
-              }
-            }
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < ns) load(s_begin + i, i);
+    cp_async_commit();
+  }
+  // Per slice of 8 K steps, in quarters of two: gather a quarter's A
+  // fragments and issue its six products as one wgmma group; before the
+  // third and fourth quarters reuse the first and second quarters'
+  // registers, wait until only one group is in flight.  The copies of
+  // slice i+1 are issued while the last groups run.
+  for (int i = 0; i < ns; ++i) {
+    cp_async_wait<kStages - 2>();       // this thread's copies of slice i
+    fence_proxy_async();
+    __syncthreads();                    // everyone's; stage i-1 is free
+    if (wg_live) {
+      const int st = i % kStages;
+      const uint8_t* stage = smem + st * p.stage_bytes;
+      const float* halo =
+          reinterpret_cast<const float*>(stage + 2 * BN * kBK * 4);
+      const int* koff = reinterpret_cast<const int*>(
+          stage + 2 * BN * kBK * 4 + halo_bytes);
+      const uint32_t sa = base + st * p.stage_bytes;
+      uint32_t a_hi[2][2][4], a_lo[2][2][4];
+#pragma unroll
+      for (int qt = 0; qt < kBK / 16; ++qt) {
+        if (qt >= 2) wgmma_wait<1>();   // quarter qt-2's registers are free
+        uint32_t (&ah)[2][4] = a_hi[qt & 1];
+        uint32_t (&al)[2][4] = a_lo[qt & 1];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int kk = 2 * qt + u;
+          const int k_a = koff[8 * kk + (lane & 3)];
+          const int k_b = koff[8 * kk + (lane & 3) + 4];
+          const float v[4] = {halo[rbase[0] + k_a], halo[rbase[1] + k_a],
+                              halo[rbase[0] + k_b], halo[rbase[1] + k_b]};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            ah[u][q] = tf32_rna(v[q]);
+            al[u][q] = tf32_rna(v[q] - __uint_as_float(ah[u][q]));
           }
         }
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int kk = 2 * qt + u;
+          // atom kk / 4 of the tile; 8 K are 32 bytes along its rows, >> 4
+          const uint32_t at = sa + (kk >> 2) * (BN * 128);
+          const uint64_t d_hi = sw128_desc(at) + 2 * (kk & 3);
+          const uint64_t d_lo = sw128_desc(at + BN * kBK * 4) + 2 * (kk & 3);
+          Wgmma<BN>::mma(part, ah[u], d_hi, kk > 0);
+          Wgmma<BN>::mma(part, ah[u], d_lo, 1);
+          Wgmma<BN>::mma(part, al[u], d_hi, 1);
+        }
+        wgmma_commit();
       }
     }
-    __syncthreads();
-  }
-
-  // epilogue: bias + activation on the accumulator, one store per output
-  const int img = n0 + img_l;
-  const int ow = ow0 + col;
-  const bool in_range = warp_active && img < N && ow < OW;
-  float* yp = y + (static_cast<long long>(img) * Cout + co0 + warp * 8) *
-                  OH * OW + ow;
-  if (t.cs == 1) {
-    if (!in_range) return;
+    const int nx = i + kStages - 1;
+    if (nx < ns) load(s_begin + nx, nx % kStages);
+    cp_async_commit();
+    if (wg_live) {
+      wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int co = co0 + warp * 8 + j;
-      if (co >= Cout) break;
-      const float bias = b[co];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int oh = oh0 + r0 + r;
-        if (oh < OH)
-          yp[(static_cast<long long>(j) * OH + oh) * OW] =
-              activate(acc[r][j] + bias, act);
+      for (int j = 0; j < BN / 2; ++j) {
+        fence_operand(part[j]);
+        acc[j] += part[j];
       }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator element i: column pair j = i / 4, row g + 8 * ((i / 2) % 2),
+  // column 8 j + 2 (lane % 4) + i % 2
+  const long long plane_out = static_cast<long long>(s.OH) * s.OW;
+  if (p.cs == 1) {
+    if (!wg_live) return;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int co = co0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+      const int h = (i >> 1) & 1;
+      if (live[h] && co < s.Cout)
+        y[yoff[h] + co * plane_out] = activate(acc[i] + b[co], s.act);
     }
     return;
   }
 
-  // cluster split: park the partial sums, reduce a slice across the cluster
+  // cluster split: park the partial sums, reduce a share across the cluster
   cg::cluster_group cluster = cg::this_cluster();
-  float* part = smem;                  // [R * 8][kThreads]
+  float* parked = reinterpret_cast<float*>(smem);   // [BN / 2][kThreads]
+  __syncthreads();                                  // the ring is drained
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) part[(r * 8 + j) * kThreads + tid] = acc[r][j];
+  for (int i = 0; i < BN / 2; ++i) parked[i * kThreads + tid] = acc[i];
   cluster.sync();
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if ((r * 8 + j) % t.cs != rank) continue;
-      float sum = 0.0f;
-      for (int q = 0; q < t.cs; ++q)
-        sum += cluster.map_shared_rank(part, q)[(r * 8 + j) * kThreads + tid];
-      const int co = co0 + warp * 8 + j;
-      const int oh = oh0 + r0 + r;
-      if (in_range && co < Cout && oh < OH)
-        yp[(static_cast<long long>(j) * OH + oh) * OW] =
-            activate(sum + b[co], act);
-    }
+  for (int i = 0; i < BN / 2; ++i) {
+    if (i % p.cs != rank) continue;
+    float sum = 0.0f;
+    for (int q = 0; q < p.cs; ++q)
+      sum += cluster.map_shared_rank(parked, q)[i * kThreads + tid];
+    const int co = co0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+    const int h = (i >> 1) & 1;
+    if (live[h] && co < s.Cout)
+      y[yoff[h] + co * plane_out] = activate(sum + b[co], s.act);
   }
   cluster.sync();   // no block leaves while another reads its shared memory
 }
 
-template <int R>
-cudaError_t launch(const float* x, const float* w, const float* b, float* y,
-                   int N, int Cin, int H, int W, int Cout, int KH, int KW,
-                   int pt, int pl, int OH, int OW, int act, const Tile& t,
-                   cudaStream_t stream) {
-  const int tiles_w = (OW + t.tw - 1) / t.tw;
-  const int tiles_h = (OH + t.th - 1) / t.th;
-  dim3 grid(tiles_w * tiles_h * t.cs, (Cout + kCoTile - 1) / kCoTile,
-            (N + t.ni - 1) / t.ni);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
-  size_t smem = t.smem_floats * sizeof(float);
-  if (t.cs == 1) {
-    conv_bias_act_kernel<R><<<grid, kThreads, smem, stream>>>(
-        x, w, b, y, N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act, t,
-        tiles_w);
-    return cudaGetLastError();
-  }
-  const size_t part = static_cast<size_t>(R) * 8 * kThreads * sizeof(float);
-  if (part > smem) smem = part;
-  if (smem > 48 * 1024) {
+template <int BN>
+cudaError_t launch(const float* x, const float* ws, const float* b, float* y,
+                   const Shape& s, const Plan& p, cudaStream_t stream) {
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !attr_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv_bias_act_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        conv_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemMax);
     if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
   }
+  const long long blocks = static_cast<long long>(p.tiles_n) * p.tiles_h *
+                           p.tiles_w * p.tiles_c * p.cs;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = t.cs;
+  attr[0].val.clusterDim.x = p.cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, conv_bias_act_kernel<R>, x, w, b, y, N, Cin, H, W, Cout, KH, KW,
-      pt, pl, OH, OW, act, t, tiles_w);
+  cfg.numAttrs = p.cs > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, conv_wgmma_kernel<BN>, x, ws, b,
+                                       y, s, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-long long n_blocks(const Tile& t, int N, int Cout, int OH, int OW) {
-  return static_cast<long long>((OW + t.tw - 1) / t.tw) *
-         ((OH + t.th - 1) / t.th) * ((Cout + kCoTile - 1) / kCoTile) *
-         ((N + t.ni - 1) / t.ni);
-}
-
-// Blocks per cluster: split the input channels (up to 8 ways, at least one
-// slice of CK channels per block) while the grid has fewer than `target`
-// blocks.
-void split_channels(Tile* t, int N, int Cin, int Cout, int OH, int OW,
-                    long long target) {
-  const int slices = (Cin + t->ck - 1) / t->ck;
-  const long long blocks = n_blocks(*t, N, Cout, OH, OW);
-  t->cs = 1;
-  while (t->cs < kMaxCluster && slices >= 2 * t->cs &&
-         blocks * t->cs < target)
-    t->cs *= 2;
-  t->ci_per_rank = ((slices + t->cs - 1) / t->cs) * t->ck;
-}
-
-// Rows per thread and the cluster split: start from the most register reuse
-// (R = min(8, OH) rows), split the input channels while the grid has fewer
-// than two blocks per SM, and if that is not enough halve R (more, smaller
-// blocks, less reuse) and split again.
-bool plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW, int* R,
-          Tile* t) {
+int device_sms() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long target = 2LL * sms;
-  *R = next_pow2(OH) < 8 ? next_pow2(OH) : 8;
-  if (!plan_tile(Cin, KH, KW, OH, OW, *R, t)) return false;
-  split_channels(t, N, Cin, Cout, OH, OW, target);
-  while (*R > 1 && n_blocks(*t, N, Cout, OH, OW) * t->cs < target) {
-    Tile smaller;
-    if (!plan_tile(Cin, KH, KW, OH, OW, *R / 2, &smaller)) break;
-    split_channels(&smaller, N, Cin, Cout, OH, OW, target);
-    *R /= 2;
-    *t = smaller;
-  }
-  return true;
+  return sms;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The plan for a conv on a card with `sms` SMs, as 18 ints: bn, ni, th, tw,
+// hr, hp, nch, halo_floats, tiles_n, tiles_h, tiles_w, tiles_c, slices, cs,
+// per_rank, stage_bytes, smem, blocks (grid size).  Returns 0, or
+// cudaErrorInvalidValue where the kernel does not apply.
+int dl4j_conv2d_plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW,
+                     int sms, int* out) {
+  if (!supported(N, Cin, KH, KW, Cout, OH, OW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  plan(N, Cin, KH, KW, Cout, OH, OW, sms, &p);
+  const int v[18] = {p.bn, p.ni, p.th, p.tw, p.hr, p.hp, p.nch,
+                     p.halo_floats, p.tiles_n, p.tiles_h, p.tiles_w,
+                     p.tiles_c, p.slices, p.cs, p.per_rank, p.stage_bytes,
+                     p.smem,
+                     p.tiles_n * p.tiles_h * p.tiles_w * p.tiles_c * p.cs};
+  for (int i = 0; i < 18; ++i) out[i] = v[i];
+  return 0;
+}
+
 // y[N, Cout, OH, OW] = act(conv(x[N, Cin, H, W] padded by (pt top, pl left,
 // and whatever OH/OW imply at the bottom/right), w[Cout, Cin, KH, KW]) + b).
-// All tensors contiguous f32 on the device.  Launches on `stream` and
+// `ws` is scratch for the split weights: 2 * roundup(Cout, 64) *
+// roundup(Cin * KH * KW, 64) floats, 16-byte aligned.  All tensors contiguous
+// f32 on the device.  Launches the split pass and the conv on `stream` and
 // returns cudaGetLastError() (0 on success).
 int dl4j_conv2d_bias_act_f32(const float* x, const float* w, const float* b,
-                             float* y, int N, int Cin, int H, int W, int Cout,
-                             int KH, int KW, int pt, int pl, int OH, int OW,
-                             int act, void* stream) {
-  if (N < 1 || Cin < 1 || Cout < 1 || OH < 1 || OW < 1 || KH < 1 ||
-      KW < 1 || KH > kMaxK || KW > kMaxK)
+                             float* y, float* ws, int N, int Cin, int H, int W,
+                             int Cout, int KH, int KW, int pt, int pl, int OH,
+                             int OW, int act, void* stream) {
+  if (!supported(N, Cin, KH, KW, Cout, OH, OW))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int R;
-  Tile t;
-  if (!plan(N, Cin, KH, KW, Cout, OH, OW, &R, &t))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  switch (R) {
-    case 1: err = launch<1>(x, w, b, y, N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act, t, s); break;
-    case 2: err = launch<2>(x, w, b, y, N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act, t, s); break;
-    case 4: err = launch<4>(x, w, b, y, N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act, t, s); break;
-    default: err = launch<8>(x, w, b, y, N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act, t, s); break;
+  Plan p;
+  plan(N, Cin, KH, KW, Cout, OH, OW, device_sms(), &p);
+  if (reinterpret_cast<uintptr_t>(ws) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int K = Cin * KH * KW;
+  const int rows = cdiv(Cout, kWRowPad) * kWRowPad;
+  Shape s = {N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act,
+             p.slices * kBK, static_cast<long long>(rows) * p.slices * kBK};
+  const long long total = s.lo_off;
+  split_tf32_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                      st>>>(w, ws, Cout, K, s.kpad, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (p.bn) {
+    case 32: err = launch<32>(x, ws, b, y, s, p, st); break;
+    default: err = launch<64>(x, ws, b, y, s, p, st); break;
   }
   return static_cast<int>(err);
 }

@@ -7,10 +7,12 @@ TPU kernel ``_conv_bias_act_kernel`` (``pallas_kernels.py:577``, launched
 by ``_conv_forward`` :605 through ``fused_conv2d_bias_act`` :652): a
 stride-1 conv with f32 accumulation, + bias, + one of the 15 elementwise
 activations of :data:`CONV_FUSED_ACTS`, applied before the single write
-of the output.  It is bound by operations (the FMA rate of the CUDA
-cores); the source file's header says how the tiling answers that.  Its
-backward recomputes through the plain conv and differentiates that, as
-``_conv_vjp_bwd`` (:639) does, with TF32 off for those convs.
+of the output.  It is an implicit GEMM on the tensor cores (``wgmma``),
+f32-accurate through three TF32 products per product (3xTF32), fed by a
+ring of ``cp.async`` copies; it is bound by operations, and the source
+file's header says how the design answers that.  Its backward recomputes
+through the plain conv and differentiates that, as ``_conv_vjp_bwd``
+(:639) does, with TF32 off for those convs.
 
 ``fused_softmax_xent`` (``csrc/softmax_xent.cu``) replaces
 ``_softmax_xent_kernel`` (:466, launched by ``fused_softmax_xent`` :500):
@@ -96,21 +98,26 @@ _CONV_ACT_IDS = {
     "hardtanh": 13}
 CONV_FUSED_ACTS = frozenset(_CONV_ACT_IDS)
 
-# The conv kernel's own limits (plan_tile in csrc/conv_bias_act.cu).
+# The conv kernel's constants that its gate needs (constexpr in
+# csrc/conv_bias_act.cu, which the tests parse): largest KH/KW, output
+# pixels per tile, K per slice, the split weights' row padding.
 CONV_MAX_K = 7
-_CONV_CO_TILE = 64
-_CONV_SMEM_FLOATS = 12288   # 48 KB of shared memory per block
+_CONV_BM = 128
+_CONV_BK = 64
+_CONV_W_ROW_PAD = 64
+_INT_MAX = 2 ** 31 - 1
 _GRID_YZ_MAX = 65535
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
+def _cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
+    for cand in (shutil.which(name),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
+                              "bin", name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       "csrc/ at first use and need the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels are built from "
+                       f"csrc/ at first use and need the CUDA toolkit")
 
 
 class KernelLibrary:
@@ -139,9 +146,9 @@ class KernelLibrary:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-               "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-               str(self.source)]
+        cmd = [_cuda_tool("nvcc"), *ARCH_FLAGS, "-std=c++17", "-O3",
+               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o",
+               str(tmp), str(self.source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
@@ -168,7 +175,8 @@ class KernelLibrary:
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 CONV_LIBRARY = KernelLibrary(
     CSRC / "conv_bias_act.cu",
-    {"dl4j_conv2d_bias_act_f32": ([_P, _P, _P, _P] + [_I] * 12 + [_P], _I)})
+    {"dl4j_conv2d_bias_act_f32": ([_P] * 5 + [_I] * 12 + [_P], _I),
+     "dl4j_conv2d_plan": ([_I] * 8 + [_P], _I)})
 XENT_LIBRARY = KernelLibrary(
     CSRC / "softmax_xent.cu",
     {"dl4j_softmax_xent_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I)})
@@ -221,26 +229,55 @@ def conv_pads(KH: int, KW: int, pad: Sequence[int], border_mode: str):
     return ((int(pad[0]), int(pad[0])), (int(pad[1]), int(pad[1])))
 
 
-def _conv_tile_fits(Cin, KH, KW, OH, OW) -> bool:
-    """Python mirror of plan_tile() in csrc/conv_bias_act.cu: the staged
-    halo tile plus one input channel's filter slice must fit the block's
-    48 KB of shared memory."""
-    R = min(8, next_pow2(OH))
-    tw = min(32, next_pow2(OW))
-    rb = min(32 // tw, next_pow2(-(-OH // R)))
-    ni = 32 // (tw * rb)
-    per_ck = ni * (rb * R + KH - 1) * (tw + KW - 1) + KH * KW * _CONV_CO_TILE
-    return per_ck <= _CONV_SMEM_FLOATS
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# The fields of a plan, in the order dl4j_conv2d_plan writes them.
+CONV_PLAN_FIELDS = ("bn", "ni", "th", "tw", "hr", "hp", "nch", "halo_floats",
+                    "tiles_n", "tiles_h", "tiles_w", "tiles_c", "slices",
+                    "cs", "per_rank", "stage_bytes", "smem", "blocks")
+
+
+def conv_plan(N, Cin, KH, KW, Cout, OH, OW, sms: int):
+    """The conv library's own tiling of a stride-1 conv on a card with
+    ``sms`` SMs (``dl4j_conv2d_plan``), as a dict of
+    :data:`CONV_PLAN_FIELDS`, or None where the kernel does not apply.
+    Builds the library; the plan is kept in the C source only."""
+    out = (ctypes.c_int * len(CONV_PLAN_FIELDS))()
+    err = CONV_LIBRARY.get().dl4j_conv2d_plan(N, Cin, KH, KW, Cout, OH, OW,
+                                              sms, out)
+    return None if err else dict(zip(CONV_PLAN_FIELDS, out))
+
+
+def conv_sass_hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the conv library's SASS, counted in
+    ``cuobjdump -sass``'s listing.  Builds the library."""
+    CONV_LIBRARY.get()
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                           str(CONV_LIBRARY.path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def conv_split_floats(Cout: int, Cin: int, KH: int, KW: int) -> int:
+    """Floats of the scratch that holds the split weights, w_hi and w_lo,
+    each [Cout padded to 64][Cin*KH*KW padded to a K slice, 64]."""
+    return 2 * _cdiv(Cout, _CONV_W_ROW_PAD) * _CONV_W_ROW_PAD * \
+        _cdiv(Cin * KH * KW, _CONV_BK) * _CONV_BK
 
 
 def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
                          dilation=(1, 1), activation: str = "identity",
                          pad=(0, 0), border_mode: str = "truncate") -> bool:
     """Support predicate of the conv kernel: stride 1, dilation 1, f32,
-    one of :data:`CONV_FUSED_ACTS`, KH and KW at most 7, a tile that fits
-    48 KB of shared memory and a grid within CUDA's limits.  Unlike the
-    TPU gate it has no per-image budget: the kernel tiles the output, so
-    VGG16 at 224x224 (a 226x226x64 padded input) is accepted."""
+    one of :data:`CONV_FUSED_ACTS`, and the closed-form limits of
+    ``supported()`` in csrc/conv_bias_act.cu: KH and KW at most 7, K =
+    Cin*KH*KW at most 2^30, a halo offset from a tile's first image that
+    fits an int, and a grid of at most 2^31 - 1 blocks.  Unlike the TPU
+    gate it has no per-image budget: the kernel tiles the output, so VGG16
+    at 224x224 (a 226x226x64 padded input) is accepted.  Unlike the TPU
+    gate it takes f32 only, not bf16."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     if tuple(stride) != (1, 1) or tuple(dilation) != (1, 1):
@@ -251,17 +288,21 @@ def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
         return False
     N, Cin, H, W = (int(d) for d in x_shape)
     Cout, Cin_w, KH, KW = (int(d) for d in w_shape)
-    if Cin_w != Cin or min(N, Cin, Cout) < 1:
-        return False
-    if KH > CONV_MAX_K or KW > CONV_MAX_K:
+    if Cin_w != Cin:
         return False
     (pt, pb), (pl_, pr) = conv_pads(KH, KW, pad, border_mode)
     OH, OW = H + pt + pb - KH + 1, W + pl_ + pr - KW + 1
-    if OH <= 0 or OW <= 0:
+    if min(N, Cin, Cout, OH, OW, KH, KW) < 1 or max(KH, KW) > CONV_MAX_K:
         return False
-    if -(-Cout // _CONV_CO_TILE) > _GRID_YZ_MAX or N > _GRID_YZ_MAX:
+    if Cin * KH * KW > 2 ** 30:
         return False
-    return _conv_tile_fits(Cin, KH, KW, OH, OW)
+    # a tile holds several images only when one image fits in a tile
+    ni = min(N, _CONV_BM // (OH * OW)) if OH * OW <= _CONV_BM else 1
+    if ni * Cin * (OH + KH - 1) * (OW + KW - 1) > _INT_MAX:
+        return False
+    # every tile has an output pixel; a K split only multiplies grids
+    # below two blocks per SM
+    return N * OH * OW * _cdiv(Cout, 32 if Cout <= 32 else 64) <= _INT_MAX
 
 
 def conv2d_bias_act_reference(x, w, b, pad=(0, 0),
@@ -309,10 +350,16 @@ def _launch_conv(x, w, b, pad, border_mode, act):
     (pt, pb), (pl_, pr) = conv_pads(KH, KW, pad, border_mode)
     OH, OW = H + pt + pb - KH + 1, W + pl_ + pr - KW + 1
     y = torch.empty((N, Cout, OH, OW), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    ws = torch.empty((conv_split_floats(Cout, Cin, KH, KW),),
+                     dtype=torch.float32, device=x.device)
+    # the library plans and launches on the current device: switch to x's
+    # only when it is another (a small share of a small conv's host time)
+    with (contextlib.nullcontext()
+          if x.device.index == torch.cuda.current_device()
+          else torch.cuda.device(x.device)):
         err = lib.dl4j_conv2d_bias_act_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            N, Cin, H, W, Cout, KH, KW, pt, pl_, OH, OW,
+            ws.data_ptr(), N, Cin, H, W, Cout, KH, KW, pt, pl_, OH, OW,
             _CONV_ACT_IDS[act], _stream(x))
     if err != 0:
         raise RuntimeError(f"conv kernel launch failed: CUDA error {err} "

@@ -142,36 +142,162 @@ def test_strided_conv_parity_and_output_shape():
             (11, 9), (3, 3), (2, 2), pad, (1, 1), mode)
 
 
-def _model_convs(height, width):
-    """(x_shape, w_shape, pad) of every conv of LeNet and VGG16."""
-    convs = [((1, 1, 28, 28), (20, 1, 5, 5), (0, 0)),
-             ((1, 20, 12, 12), (50, 20, 5, 5), (0, 0))]
-    cin, h, w = 3, height, width
+# Every batch a main path runs each model at: the serving ladder (1-32) and
+# batch 128 for the served models, LeNet's training batch 64, VGG16-224's
+# first call, its output() batch and its training batch.
+MAIN_PATH_BATCHES = {"lenet": (1, 2, 4, 8, 16, 32, 64, 128),
+                     "vgg16_cifar10": (1, 2, 4, 8, 16, 32, 128),
+                     "vgg16_224": (1, 8, 128)}
+
+
+def _model_convs(model, batch):
+    """(x_shape, w_shape, pad) of every conv of ``model`` at ``batch``."""
+    if model == "lenet":
+        return [((batch, 1, 28, 28), (20, 1, 5, 5), (0, 0)),
+                ((batch, 20, 12, 12), (50, 20, 5, 5), (0, 0))]
+    convs, cin = [], 3
+    hw = 32 if model == "vgg16_cifar10" else 224
     for n_convs, ch in [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]:
         for _ in range(n_convs):
-            convs.append(((8, cin, h, w), (ch, cin, 3, 3), (1, 1)))
+            convs.append(((batch, cin, hw, hw), (ch, cin, 3, 3), (1, 1)))
             cin = ch
-        h, w = h // 2, w // 2
+        hw //= 2
     return convs
 
 
-@pytest.mark.parametrize("hw", [32, 224])
-def test_gate_accepts_every_served_conv(hw):
-    for x_shape, w_shape, pad in _model_convs(hw, hw):
-        assert ck.conv_fused_supported(x_shape, w_shape, torch.float32,
-                                       activation="relu", pad=pad), x_shape
+MAIN_PATH_CONVS = [(m, n, i) for m, batches in MAIN_PATH_BATCHES.items()
+                   for n in batches for i in range(len(_model_convs(m, n)))]
 
 
-def test_gate_rejects_what_the_kernel_does_not_take():
-    x, w = (2, 3, 16, 16), (4, 3, 3, 3)
-    f32 = torch.float32
-    assert ck.conv_fused_supported(x, w, f32)
-    assert not ck.conv_fused_supported(x, w, f32, stride=(2, 2))
-    assert not ck.conv_fused_supported(x, w, f32, dilation=(2, 2))
-    assert not ck.conv_fused_supported(x, w, torch.float64)
-    assert not ck.conv_fused_supported(x, w, f32, activation="softmax")
-    assert not ck.conv_fused_supported(x, (4, 3, 9, 9), f32)
-    assert not ck.conv_fused_supported((2, 3, 2, 2), (4, 3, 3, 3), f32)
+@pytest.mark.parametrize("model,batch,index", MAIN_PATH_CONVS)
+def test_gate_accepts_every_served_conv(model, batch, index):
+    """Every conv of LeNet, VGG16-CIFAR10 and VGG16-224 at every batch a
+    main path runs takes the kernel.  (The library's plan for each of them
+    is held to the output and the card's limits on the card, in
+    tests/test_torch_gpu.py.)"""
+    x_shape, w_shape, pad = _model_convs(model, batch)[index]
+    assert ck.conv_fused_supported(x_shape, w_shape, torch.float32,
+                                   activation="relu", pad=pad)
+
+
+_F32 = torch.float32
+
+
+@pytest.mark.parametrize("x,w,kwargs,accepted", [
+    ((2, 3, 16, 16), (4, 3, 3, 3), {}, True),
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"stride": (2, 2)}, False),
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"dilation": (2, 2)}, False),
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"dtype": torch.float64}, False),
+    # the JAX gate takes bf16; the port's kernel is f32 only
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"dtype": torch.bfloat16}, False),
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"activation": "softmax"}, False),
+    ((2, 3, 16, 16), (4, 3, 9, 9), {}, False),
+    ((2, 3, 16, 16), (4, 3, 7, 8), {}, False),
+    ((2, 3, 16, 16), (4, 3, 7, 7), {}, True),
+    ((2, 3, 16, 16), (4, 3, 1, 1), {}, True),
+    ((2, 3, 2, 2), (4, 3, 3, 3), {}, False),
+    ((2, 3, 16, 16), (4, 5, 3, 3), {}, False),
+    ((2, 3, 16), (4, 3, 3, 3), {}, False),
+    # K = Cin * KH * KW at most 2^30
+    ((1, 2 ** 30 // 49, 7, 7), (4, 2 ** 30 // 49, 7, 7), {}, True),
+    ((1, 2 ** 30 // 49 + 1, 7, 7), (4, 2 ** 30 // 49 + 1, 7, 7), {}, False),
+    # a halo offset from a tile's first image is an int: 8 images of 4x4
+    # outputs share a tile at batch 64, one at batch 1
+    ((1, 2 ** 23, 6, 6), (4, 2 ** 23, 3, 3), {}, True),
+    ((64, 2 ** 23, 6, 6), (4, 2 ** 23, 3, 3), {}, False),
+    ((1, 2 ** 21, 40, 40), (4, 2 ** 21, 3, 3), {}, False),
+    # at most 2^31 - 1 blocks
+    ((2 ** 16, 1, 200, 200), (64, 1, 1, 1), {}, False),
+])
+def test_gate_rejects_what_the_kernel_does_not_take(x, w, kwargs, accepted):
+    kwargs = dict(kwargs)
+    dtype = kwargs.pop("dtype", _F32)
+    assert ck.conv_fused_supported(x, w, dtype, **kwargs) is accepted
+
+
+def test_conv_plan_mirror_matches_source_constants():
+    """The gate's constants are the .cu source's, the source holds the
+    same closed-form limits (supported()), and the C plan's exported
+    field list is CONV_PLAN_FIELDS."""
+    src = (ck.CSRC / "conv_bias_act.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert {k: consts[k] for k in ("kMaxK", "kBM", "kBK", "kWRowPad")} == {
+        "kMaxK": ck.CONV_MAX_K, "kBM": ck._CONV_BM, "kBK": ck._CONV_BK,
+        "kWRowPad": ck._CONV_W_ROW_PAD}
+    body = re.search(r"bool supported\((.*?)\n\}", src, re.S).group(1)
+    for rule in ("KH > kMaxK", "(1LL << 30)", "pix <= kBM",
+                 "(OH + KH - 1) * (OW + KW - 1) > 0x7FFFFFFFLL",
+                 "cdiv(Cout, Cout <= 32 ? 32 : 64)"):
+        assert rule in body, rule
+    assert src.count("if (!supported(N, Cin, KH, KW, Cout, OH, OW))") == 2
+    prose = " ".join(re.sub(r"\s*//\s*", " ", src).split())
+    fields = re.search(r"as (\d+) ints: ([\w, ]+?)(?: \(grid size\))?\.",
+                       prose)
+    assert int(fields.group(1)) == len(ck.CONV_PLAN_FIELDS)
+    assert tuple(f.strip() for f in fields.group(2).split(",")) == \
+        ck.CONV_PLAN_FIELDS
+    assert "wgmma.mma_async.sync.aligned.m64n" in src
+    assert "cp.async" in src
+
+
+def _tf32(t):
+    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped bits'
+    weight to the magnitude, then clear them."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(t):
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+# chip_smoke.py's conv tolerance: |y - ref| <= ATOL * max|ref| + RTOL * |ref|
+SMOKE_RTOL, SMOKE_ATOL = 1e-4, 1e-5
+
+
+def _excess(got, ref):
+    """Largest |got - ref| over its chip_smoke.py allowance (<= 1 holds)."""
+    allow = SMOKE_ATOL * ref.abs().max() + SMOKE_RTOL * ref.abs()
+    return float(((got - ref).abs() / allow).max())
+
+
+@pytest.mark.parametrize("x_shape,w_shape,pad", [
+    ((2, 1, 28, 28), (20, 1, 5, 5), 0),       # LeNet conv1: K = 25
+    ((2, 20, 12, 12), (50, 20, 5, 5), 0),     # LeNet conv2
+    ((2, 64, 8, 8), (64, 64, 3, 3), 1),       # a VGG block's conv
+    ((1, 256, 4, 4), (32, 256, 3, 3), 1),     # K = 2,304
+])
+def test_three_tf32_products_hold_the_kernel_tolerance(x_shape, w_shape,
+                                                       pad):
+    """The kernel's arithmetic, emulated on the CPU: each operand split
+    into TF32 halves, hi = rna(v), lo = rna(v - hi), and the conv summed
+    as hi.w_hi + hi.w_lo + lo.w_hi.  It holds to the JAX package's
+    lax.conv_general_dilated at chip_smoke.py's tolerance; one TF32
+    product per product (hi.w_hi alone) does not, which is why the kernel
+    takes three."""
+    rng = np.random.default_rng(17)
+    N, Cin, H, W = x_shape
+    x = rng.normal(size=x_shape).astype(np.float32)
+    w = (rng.normal(size=w_shape)
+         * np.sqrt(2.0 / (Cin * w_shape[2] * w_shape[3]))).astype(np.float32)
+    b = np.zeros(w_shape[0], np.float32)
+    xp = np.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)))
+    ref = np.asarray(pk._conv_ref_nhwc(
+        jnp.asarray(xp.transpose(0, 2, 3, 1)),
+        jnp.asarray(w.transpose(2, 3, 1, 0)), jnp.asarray(b[None]),
+        "identity")).transpose(0, 3, 1, 2)
+    ref = torch.from_numpy(np.ascontiguousarray(ref))
+    (x_hi, x_lo), (w_hi, w_lo) = _split(_t(xp)), _split(_t(w))
+    for part in (x_hi, x_lo, w_hi, w_lo):       # 10 mantissa bits or fewer
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    conv = torch.nn.functional.conv2d
+    three = conv(x_hi, w_hi) + conv(x_hi, w_lo) + conv(x_lo, w_hi)
+    one = conv(x_hi, w_hi)
+    assert _excess(three, ref) <= 1.0
+    assert _excess(one, ref) > 1.0
 
 
 def test_cpu_tensor_takes_dense_chain_and_is_metered():

@@ -80,6 +80,209 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, act):
         assert ck.fused_conv2d_bias_act.launches == launches + 1
 
 
+# Shapes where the conv kernel's plan branches: (x shape, w shape, pad).
+CONV_BRANCHES = {
+    "cin1_k25_cout20": ((2, 1, 28, 28), (20, 1, 5, 5), 0),
+    "lenet_cout50_cluster": ((4, 20, 12, 12), (50, 20, 5, 5), 0),
+    "map2x2_batch1": ((1, 512, 2, 2), (512, 512, 3, 3), 1),
+    "map2x2_batch32": ((32, 512, 2, 2), (512, 512, 3, 3), 1),
+    "map4x4_batch1": ((1, 256, 4, 4), (512, 256, 3, 3), 1),
+    "map4x4_batch32": ((32, 512, 4, 4), (512, 512, 3, 3), 1),
+    "k7": ((2, 5, 13, 11), (8, 5, 7, 7), 3),
+    "odd_hw": ((3, 16, 15, 9), (70, 16, 3, 3), 1),
+    "k1_32_channels_a_slice": ((2, 40, 3, 3), (10, 40, 1, 1), 0),
+    "vgg16_224_first": ((2, 3, 224, 224), (64, 3, 3, 3), 1),
+}
+
+
+def _he_inputs(x_shape, w_shape, device, seed=5):
+    """x ~ N(0, 1), He-scaled weights, bias ~ N(0, 0.01): the magnitudes of
+    chip_smoke.py's conv checks."""
+    rng = np.random.default_rng(seed)
+    fan_in = w_shape[1] * w_shape[2] * w_shape[3]
+    x = rng.normal(size=x_shape).astype(np.float32)
+    w = (rng.normal(size=w_shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+    b = (rng.normal(size=w_shape[0]) * 0.1).astype(np.float32)
+    return (torch.from_numpy(a).to(device) for a in (x, w, b))
+
+
+def _assert_conv_close(y, ref):
+    """chip_smoke.py's conv rule: |y - ref| <= 1e-5 max|ref| + 1e-4 |ref|
+    (f32 sums of up to 4,608 products in different orders)."""
+    allow = 1e-5 * ref.abs().max() + 1e-4 * ref.abs()
+    excess = float(((y - ref).abs() / allow).max())
+    assert excess <= 1.0 and bool(torch.isfinite(y).all()), excess
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CONV_BRANCHES))
+def test_kernel_matches_plain_version_where_the_plan_branches(cuda_device,
+                                                              case):
+    x_shape, w_shape, pad = CONV_BRANCHES[case]
+    x, w, b = _he_inputs(x_shape, w_shape, cuda_device)
+    launches = ck.fused_conv2d_bias_act.launches
+    y = ck.fused_conv2d_bias_act(x, w, b, pad=(pad, pad), activation="relu")
+    ref = ck.conv2d_bias_act_reference(x, w, b, (pad, pad), "truncate",
+                                       "relu")
+    _assert_conv_close(y, ref)
+    assert ck.fused_conv2d_bias_act.launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", sorted(ck.CONV_FUSED_ACTS))
+def test_every_activation_through_the_cluster_split(cuda_device, act):
+    """Every activation on the cluster path (the K split's reduction
+    applies bias and activation), at LeNet's second conv."""
+    x, w, b = _he_inputs((4, 20, 12, 12), (50, 20, 5, 5), cuda_device)
+    y = ck.fused_conv2d_bias_act(x, w, b, activation=act)
+    _assert_conv_close(y, ck.conv2d_bias_act_reference(
+        x, w, b, (0, 0), "truncate", act))
+
+
+def _main_path_convs():
+    """(N, Cin, H, Cout, K, pad) of every conv of LeNet, VGG16-CIFAR10 and
+    VGG16-224 at every batch a main path runs."""
+    out = set()
+    for n in (1, 2, 4, 8, 16, 32, 64, 128):
+        out |= {(n, 1, 28, 20, 5, 0), (n, 20, 12, 50, 5, 0)}
+    for hw, batches in ((32, (1, 2, 4, 8, 16, 32, 128)), (224, (1, 8, 128))):
+        for n in batches:
+            cin, size = 3, hw
+            for n_convs, ch in ((2, 64), (2, 128), (3, 256), (3, 512),
+                                (3, 512)):
+                for _ in range(n_convs):
+                    out.add((n, cin, size, ch, 3, 1))
+                    cin = ch
+                size //= 2
+    return sorted(out)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.gpu
+def test_kernels_plan_covers_every_main_path_conv(cuda_device):
+    """For every main-path conv the gate accepts, the kernel library's own
+    plan on this card exists, covers the whole output and all of K, and
+    keeps its tile, halo, cluster, shared memory and grid within the
+    kernel's limits."""
+    sms = _sms(cuda_device)
+    for N, Cin, H, Cout, K, pad in _main_path_convs():
+        assert ck.conv_fused_supported((N, Cin, H, H), (Cout, Cin, K, K),
+                                       torch.float32, pad=(pad, pad))
+        O = H + 2 * pad - K + 1
+        p = ck.conv_plan(N, Cin, K, K, Cout, O, O, sms)
+        assert p is not None
+        assert p["ni"] * p["th"] * p["tw"] <= ck._CONV_BM
+        assert p["ni"] * p["tiles_n"] >= N and p["th"] * p["tiles_h"] >= O
+        assert p["tw"] * p["tiles_w"] >= O and p["bn"] * p["tiles_c"] >= Cout
+        assert p["slices"] * ck._CONV_BK >= Cin * K * K
+        assert p["cs"] * p["per_rank"] >= p["slices"] and p["cs"] <= 8
+        assert p["nch"] * p["ni"] * p["hr"] * p["hp"] <= p["halo_floats"]
+        assert p["smem"] <= 227 * 1024 and p["blocks"] <= 2 ** 31 - 1
+
+
+@pytest.mark.gpu
+def test_conv_library_runs_on_the_tensor_cores(cuda_device):
+    """The conv library's SASS holds HGMMA (wgmma) instructions."""
+    assert ck.conv_sass_hgmma_count() > 0
+
+
+def _emulate_conv_kernel(x, w, pad, sms):
+    """The kernel's indexing, block by block, in numpy (float64): the
+    tiles of the library's own plan, the cluster ranks' K slices, the
+    staged halo with its zero fill, the K-offset table and the gather of A
+    rows from the halo.
+    Returns y with NaN where no block wrote and raises if a block writes
+    an output twice."""
+    N, Cin, H, W = x.shape
+    Cout, _, KH, KW = w.shape
+    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    p = ck.conv_plan(N, Cin, KH, KW, Cout, OH, OW, sms)
+    taps, BK = KH * KW, ck._CONV_BK
+    kpad = p["slices"] * BK
+    ws = np.zeros((-(-Cout // 128) * 128, kpad))
+    ws[:Cout, :Cin * taps] = w.reshape(Cout, -1)
+    ni, th, tw, hr, hp = (p[k] for k in ("ni", "th", "tw", "hr", "hp"))
+    plane = ni * hr * hp
+    tap_off = np.array([(t // KW) * hp + t % KW for t in range(taps)])
+    xpad = np.zeros((N + ni, Cin + p["nch"], H + 2 * hr, W + 2 * hp))
+    xpad[:N, :Cin, hr:hr + H, hp:hp + W] = x     # zero around the image
+    y = np.full((N, Cout, OH, OW), np.nan)
+    r = np.arange(ck._CONV_BM)
+    rn, rh, rw = r // (th * tw), r % (th * tw) // tw, r % tw
+    rbase = (rn * hr + rh) * hp + rw
+    for block in range(p["blocks"] // p["cs"]):
+        t, acc = block, 0.0
+        ct, t = t % p["tiles_c"], t // p["tiles_c"]
+        ow0, t = t % p["tiles_w"] * tw, t // p["tiles_w"]
+        oh0, n0 = t % p["tiles_h"] * th, t // p["tiles_h"] * ni
+        co0 = ct * p["bn"]
+        live = ((r < ni * th * tw) & (n0 + rn < N) & (oh0 + rh < OH)
+                & (ow0 + rw < OW))
+        rows = np.where(live, rbase, 0)         # dead rows read offset 0
+        for rank in range(p["cs"]):
+            for sl in range(rank * p["per_rank"],
+                            min(p["slices"], (rank + 1) * p["per_rank"])):
+                k0 = sl * BK
+                c_lo = k0 // taps
+                halo = xpad[n0:n0 + ni, c_lo:c_lo + p["nch"],
+                            hr + oh0 - pad:hr + oh0 - pad + hr,
+                            hp + ow0 - pad:hp + ow0 - pad + hp]
+                halo = halo.transpose(1, 0, 2, 3).reshape(-1)
+                assert halo.size == p["nch"] * plane <= p["halo_floats"]
+                k = k0 + np.arange(BK)
+                koff = (k // taps - c_lo) * plane + tap_off[k % taps]
+                a = halo[rows[:, None] + koff[None]]
+                acc = acc + a @ ws[co0:co0 + p["bn"], k0:k0 + BK].T
+        co = co0 + np.arange(p["bn"])
+        for i in np.flatnonzero(live):
+            out = y[n0 + rn[i], co[co < Cout], oh0 + rh[i], ow0 + rw[i]]
+            assert np.isnan(out).all(), "an output written twice"
+            y[n0 + rn[i], co[co < Cout], oh0 + rh[i], ow0 + rw[i]] = \
+                acc[i, co < Cout]
+    return y
+
+
+@pytest.mark.parametrize("x_shape,w_shape,pad", [
+    ((2, 1, 28, 28), (20, 1, 5, 5), 0),       # one slice, 5 row tiles
+    ((3, 20, 12, 12), (50, 20, 5, 5), 0),     # two images a tile, cluster
+    ((1, 64, 2, 2), (96, 64, 3, 3), 1),       # 2x2 map at batch 1
+    ((3, 16, 4, 4), (70, 16, 3, 3), 1),       # 4x4 maps, Cout not 8k
+    ((1, 5, 13, 11), (8, 5, 7, 7), 3),        # 7x7, odd H and W
+    ((2, 40, 3, 3), (10, 40, 1, 1), 0),       # 1x1: 32 channels a slice
+])
+def test_kernel_tiling_writes_every_output_once(x_shape, w_shape, pad):
+    rng = np.random.default_rng(3)
+    x, w = rng.normal(size=x_shape), rng.normal(size=w_shape)
+    y = _emulate_conv_kernel(x, w, pad)
+    assert not np.isnan(y).any()
+    ref = torch.nn.functional.conv2d(torch.from_numpy(x),
+                                     torch.from_numpy(w), padding=pad)
+    np.testing.assert_allclose(y, ref.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,w_shape,pad", [
+    ((2, 1, 28, 28), (20, 1, 5, 5), 0),       # one slice, 5 row tiles
+    ((3, 20, 12, 12), (50, 20, 5, 5), 0),     # two images a tile, cluster
+    ((1, 64, 2, 2), (96, 64, 3, 3), 1),       # 2x2 map at batch 1
+    ((3, 16, 4, 4), (70, 16, 3, 3), 1),       # 4x4 maps, Cout not 8k
+    ((1, 5, 13, 11), (8, 5, 7, 7), 3),        # 7x7, odd H and W
+    ((2, 40, 3, 3), (10, 40, 1, 1), 0),       # 1x1: 32 channels a slice
+])
+def test_kernel_tiling_writes_every_output_once(cuda_device, x_shape,
+                                                w_shape, pad):
+    rng = np.random.default_rng(3)
+    x, w = rng.normal(size=x_shape), rng.normal(size=w_shape)
+    y = _emulate_conv_kernel(x, w, pad, _sms(cuda_device))
+    assert not np.isnan(y).any()
+    ref = torch.nn.functional.conv2d(torch.from_numpy(x),
+                                     torch.from_numpy(w), padding=pad)
+    np.testing.assert_allclose(y, ref.numpy(), rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.gpu
 def test_models_on_the_card_match_the_cpu(cuda_device):
     """LeNet and VGG16-CIFAR10 with the same weights on the card (conv

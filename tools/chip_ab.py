@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Compare two trees of the repo on one GPU by running each tree's own
+``chip_smoke.py`` in turns: A, B, B, A (A is the baseline, B the change).
+
+    python3 tools/chip_ab.py A_DIR B_DIR --out RESULTS.json
+
+Each run is ``python3 chip_smoke.py`` with the tree as its working
+directory, so each tree builds and loads its own kernels.  From every run
+the script keeps the end-to-end numbers both trees' scripts print: VGG16-224
+training (samples/s after the first step, peak memory), VGG16-224
+``output()`` ms at batch 8, serving (requests/s, p50 and p99 latency and
+the batcher's mean compute ms per model), LeNet training samples/s, and the
+build's seconds.  It prints one JSON line per run, with the run's last
+line of output, and writes every run's phase lines to ``--out``.  It exits non-zero if any run fails; the failed
+run's last lines of output are in the file.  Comparing the two trees is
+fair only within one such call: the card, its power limit and the host
+are shared by all four runs.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def _phases(stdout: str) -> dict:
+    out = {}
+    for line in stdout.splitlines():
+        line = line.strip()
+        if line.startswith('{"phase": '):
+            rec = json.loads(line)
+            out[rec["phase"]] = rec
+    return out
+
+
+def _numbers(ph: dict) -> dict:
+    """The end-to-end numbers of one run, where its phases printed them."""
+    nums = {}
+    if "build" in ph:
+        nums["build_s"] = ph["build"]["seconds"]
+    if "train_vgg16_224" in ph:
+        t = ph["train_vgg16_224"]
+        nums["vgg16_224_samples_per_s"] = t["samples_per_s_after_first"]
+        nums["vgg16_224_step_s"] = [s["seconds"] for s in t["steps"]]
+        nums["vgg16_224_peak_bytes"] = t["max_memory_allocated"]
+    if "vgg16_224" in ph:
+        nums["vgg16_224_output_ms"] = ph["vgg16_224"]["wall_ms"]
+    if "serve" in ph:
+        for name, m in ph["serve"]["models"].items():
+            nums[f"serve_{name}"] = {
+                "requests_per_s": m["requests_per_s"],
+                "p50_ms": m["p50_ms"], "p99_ms": m["p99_ms"],
+                "compute_mean_ms": m["batcher"]["compute_ms"]["mean_ms"]}
+    if "train_lenet" in ph:
+        nums["lenet_samples_per_s"] = ph["train_lenet"]["samples_per_s"]
+    return nums
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("a_dir", type=Path)
+    ap.add_argument("b_dir", type=Path)
+    ap.add_argument("--out", type=Path, required=True,
+                    help="JSON file for every run's phase lines")
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds allowed for each run")
+    args = ap.parse_args()
+    runs, failed = [], False
+    for label, tree in (("A", args.a_dir), ("B", args.b_dir),
+                        ("B", args.b_dir), ("A", args.a_dir)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
+                              capture_output=True, text=True,
+                              timeout=args.timeout)
+        ph = _phases(proc.stdout)
+        lines = proc.stdout.strip().splitlines()
+        run = {"tree": label, "dir": str(tree), "rc": proc.returncode,
+               "wall_s": time.perf_counter() - t0, **_numbers(ph),
+               "last_line": lines[-1] if lines else ""}
+        print(json.dumps(run), flush=True)
+        run["phases"], run["tail_lines"] = ph, lines[-3:]
+        if proc.returncode != 0:
+            failed = True
+            run["stdout_tail"] = proc.stdout[-4000:]
+            run["stderr_tail"] = proc.stderr[-4000:]
+        runs.append(run)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(runs))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
