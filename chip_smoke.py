@@ -124,6 +124,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,7 +140,8 @@ import numpy as np
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
-# The conv kernel's f32-accurate products take three TF32 products each.
+# The f32-accurate products of the conv and flash backward kernels take
+# three TF32 products each.
 TF32_PRODUCTS_PER_F32 = 3
 # Kernel vs plain version: |y - ref| <= ATOL * max|ref| + RTOL * |ref|.
 # Both accumulate in f32 over up to 4608 products, in different orders.
@@ -192,6 +194,10 @@ ATT_SEQ, ATT_BATCH, ATT_STEPS, ATT_PLAIN_SEQ = 8192, 4, 8, 2048
 # lse is ~10 in size.  rtol = atol = 1e-5.
 FLASH_TOL = 1e-5
 FLASH_MASK_FROM = 180
+# The backward kernels' instances in the flash library's SASS (mangled
+# flash_bwd<DPAD, true> for dq, <DPAD, false> for dk/dv)
+FLASH_BWD_FUNCTIONS = {"flash_dq": r"flash_bwdILi\d+ELb1E",
+                       "flash_dkv": r"flash_bwdILi\d+ELb0E"}
 # A step through the flash kernels vs the plain versions: the score to
 # 1e-5 relative (the training step's rule above); each param's gradient to
 # 1e-4 (the CPU parity tests' rtol) and its Adam update to 5e-4 (the
@@ -352,14 +358,17 @@ def check_conv(torch, ck, shape, gen, timed: bool = True) -> dict:
     return rec
 
 
-def conv_hgmma_count(ck) -> int:
-    """HGMMA (wgmma) instructions in the conv library's SASS; raises if
-    there are none."""
-    count = ck.conv_sass_hgmma_count()
-    if count == 0:
-        raise AssertionError("the conv library's SASS has no HGMMA: the "
-                             "kernel does not run on the tensor cores")
-    return count
+def hgmma_count(ck, library, kernel: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of every kernel function of
+    ``library`` whose mangled name matches the regex ``kernel``; raises if
+    one of them has none."""
+    counts = {f: n for f, n in ck.sass_hgmma_counts(library).items()
+              if re.search(kernel, f)}
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"{kernel} in {library.source.name}: HGMMA "
+                             f"counts {counts}; the kernel does not run on "
+                             f"the tensor cores")
+    return sum(counts.values())
 
 
 SET_SUMS = ("ms", "plain_ms", "library_ms", "library_tf32_ms", "bound_ms",
@@ -408,7 +417,9 @@ def phase_kernels(torch, ck):
         agg["share_of_bound"] = agg["bound_ms"] / agg["ms"]
         sets[f"{model}_{batch}"] = agg
     emit("kernels", tf32=False, rtol=RTOL, atol_scaled=ATOL,
-         conv_sass_hgmma=conv_hgmma_count(ck), timed_sets=sets,
+         conv_sass_hgmma=hgmma_count(ck, ck.CONV_LIBRARY,
+                                     "conv_wgmma_kernel"),
+         timed_sets=sets,
          bound_note="bound_ms: 3 TF32 products per f32 product at "
                     "PEAK_TF32_FLOPS, or bytes; bound_f32_simt_ms: f32 FMAs "
                     "at PEAK_F32_FLOPS, or bytes; library_tf32_ms is cuDNN "
@@ -1334,8 +1345,12 @@ def check_flash(torch, ck, gen, B, H, T, D, causal, mask) -> dict:
 
 def phase_flash_kernels(torch, ck) -> dict:
     """The three flash kernels against their plain versions, TF32 off (the
-    first case is the training path's shape), then timed at that shape beside the plain versions, the
-    bound and ``F.scaled_dot_product_attention`` (f32)."""
+    first case is the training path's shape), then timed at that shape
+    beside the plain versions, the bound and
+    ``F.scaled_dot_product_attention`` (f32): its forward, its forward +
+    backward, and its backward alone.  The forward kernel's bound is f32
+    FMAs on the CUDA cores; the backward kernels' is 3 TF32 products per
+    f32 product on the tensor cores, the CUDA-core bound beside it."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1373,7 +1388,16 @@ def phase_flash_kernels(torch, ck) -> dict:
                "plain_ms": time_ms(torch, plain, reps=3, warmup=1),
                "flops": flops, "bytes": nbytes}
         torch.cuda.empty_cache()
-        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+        simt_ms, simt_by = _bound(nbytes, flops)
+        if name == "flash_forward":
+            rec["bound_ms"], rec["bound_by"] = simt_ms, simt_by
+        else:
+            t_ops = TF32_PRODUCTS_PER_F32 * flops / PEAK_TF32_FLOPS
+            t_bytes = nbytes / PEAK_BYTES
+            rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+            rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            rec["bound_f32_simt_ms"] = simt_ms
+            rec["share_of_f32_simt_bound"] = simt_ms / rec["ms"]
         rec["tflops"] = flops / rec["ms"] / 1e9
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         timed[name] = rec
@@ -1387,21 +1411,32 @@ def phase_flash_kernels(torch, ck) -> dict:
     with torch.no_grad():
         lib_fwd = time_ms(torch, sdpa, reps=5, warmup=1)
     lib_both = time_ms(torch, sdpa_fwd_bwd, reps=5, warmup=1)
-    lib_out = sdpa().detach()
+    lib_graph = sdpa()
+
+    def sdpa_bwd():
+        torch.autograd.grad(lib_graph, (qs, ks, vs), g, retain_graph=True)
+    lib_bwd = time_ms(torch, sdpa_bwd, reps=5, warmup=1)
+    lib_out = lib_graph.detach()
+    del lib_graph
     torch.testing.assert_close(out, lib_out, rtol=FLASH_TOL, atol=FLASH_TOL)
     res = {"tol": FLASH_TOL, "checks": checks, "timed_shape": [B, H, T, D],
            "causal": True, "timed": timed,
+           "sass_hgmma": {name: hgmma_count(ck, ck.FLASH_LIBRARY, pattern)
+                          for name, pattern in FLASH_BWD_FUNCTIONS.items()},
            "library_ms_forward": lib_fwd,
            "library_ms_forward_backward": lib_both,
+           "library_ms_backward": lib_bwd,
            "kernels_ms_forward_backward": sum(r["ms"]
                                               for r in timed.values()),
+           "kernels_ms_backward": timed["flash_dq"]["ms"]
+           + timed["flash_dkv"]["ms"],
            "library_max_abs_vs_kernel": float((out - lib_out).abs().max()),
            "library_note": "F.scaled_dot_product_attention (f32, causal), "
                            "timed only: its forward for flash_forward; its "
-                           "backward computes dq, dk and dv in one call, so "
-                           "dq and dk/dv have no call of their own and the "
-                           "forward + backward is set against the three "
-                           "kernels together"}
+                           "backward alone (one forward, then autograd.grad "
+                           "with retain_graph) computes dq, dk and dv in one "
+                           "call, so dq and dk/dv have no call of their own "
+                           "and the pair is set against it"}
     emit("flash_kernels", **res)
     return res
 
@@ -1654,8 +1689,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
     Xent and dropout: the launches of one VGG16-224 training step (one
     xent at [128, 1000]; dropout forward and backward at [128, 25088] and
     [128, 4096]).  LSTM: one step at the char-RNN's (32, 200).  Flash: one
-    launch at the attention model's (4, 8, 8192, 64), causal.
-    ``launches`` counts every main path's run."""
+    launch at the attention model's (4, 8, 8192, 64), causal; dq and dk/dv
+    carry their 3xTF32 bound, the f32 CUDA-core bound beside it, HGMMA in
+    their SASS and SDPA f32's backward, which computes the pair in one
+    call.  ``launches`` counts every main path's run."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -1746,6 +1783,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
         "library_ms": (flash["library_ms_forward"]
                        if name == "flash_forward" else None),
         "library_note": flash["library_note"],
+        **({} if name == "flash_forward" else {
+            "bound_f32_simt_ms": flash["timed"][name]["bound_f32_simt_ms"],
+            "library_ms_backward_pair": flash["library_ms_backward"],
+            "sass_hgmma": flash["sass_hgmma"][name]}),
     } for name, line, errs in (("flash_forward", 128, ("out", "lse")),
                                ("flash_dq", 238, ("dq",)),
                                ("flash_dkv", 274, ("dk", "dv")))]}

@@ -3,9 +3,9 @@
 //
 // Replaces the three Pallas TPU kernels of
 // deeplearning4j_tpu/ops/pallas_kernels.py:
-//   flash_fwd  <- `_flash_fwd_kernel` :128 (launched by `_flash_fwd` :196)
-//   flash_dq   <- `_flash_dq_kernel`  :238 (launched by `_flash_bwd` :341)
-//   flash_dkv  <- `_flash_dkv_kernel` :274 (launched by `_flash_bwd` :357)
+//   flash_fwd             <- `_flash_fwd_kernel` :128 (launched by `_flash_fwd` :196)
+//   flash_bwd<DPAD, true> <- `_flash_dq_kernel`  :238 (launched by `_flash_bwd` :341)
+//   flash_bwd<DPAD, false><- `_flash_dkv_kernel` :274 (launched by `_flash_bwd` :357)
 // Layout [B*H, T, D] row-major for q, k, v, out, dout, dq, dk, dv; lse and
 // delta [B*H, T]; the key mask [B, T] (> 0 keeps a key), shared by the H heads
 // of a batch row.  For query row r and key c, with scale s:
@@ -20,44 +20,90 @@
 // such a row and sets its p to 0 by clamping the exponent (never the result,
 // so no 0 * inf reaches dk or dv), as `_recompute_p` (:219) does.  dq and
 // dk/dv are two kernels, so no atomics are needed and the result is
-// deterministic.  The [T, T] score matrix never reaches device memory: each
-// block holds one 64 x 64 tile of it in shared memory at a time.
+// deterministic.  The [T, T] score matrix never reaches device memory.  Any
+// T works (the last tile is masked); any head dim D with D % 4 == 0 and
+// D <= 128 works (DPAD = 64 or 128 is D rounded up, the padding zero).
 //
-// What bounds it on this card.  At the long-context model's shape (B = 4,
+// What bounds them on this card.  At the long-context model's shape (B = 4,
 // H = 8, T = 8192, D = 64, causal) the forward does 275 GFLOP and reads 268
-// MB: 4.1 ms on the CUDA cores' 67 TFLOP/s against 0.08 ms of HBM time, so
-// operations bound all three kernels.  The TPU kernels hold a whole [T, D] K
-// and V in VMEM and feed the MXU; here a block has 227 KB of shared memory
-// and f32 has no tensor-core path in this design, so the work is CUDA-core
-// FMAs fed from shared memory.
+// MB, so operations bound all three kernels.
 //
-// What the design does about it (right and simple first; wgmma, TMA and bf16
-// are later work).  A block of 256 threads owns one 64-row tile of queries
-// (forward, dq) or keys (dk/dv) and walks the other side's 64-row tiles in a
-// loop, which takes the place of the TPU kernels' sequential grid axis; with
-// `causal` it skips the tiles past the diagonal.  Every tile sits in shared
-// memory row-major with a row stride of DPAD + 4 floats (DPAD = 64 or 128, the
-// head dim rounded up, padded columns zero), so a warp's float4 loads of 8
-// different rows land on 32 different banks.  Thread (ty, tx) = (tid / 16,
-// tid % 16) owns the 4 x 4 score entries of rows ty + 16 i and columns
-// tx + 16 j; each step of 4 along d loads 8 float4 and does 64 FMAs.  The
-// row statistics of the online softmax are reduced across the 16 threads of
-// a row by warp shuffles.  The second product of each kernel (P V, dS K,
-// P^T dO, dS^T Q) goes through a 64 x 64 tile in shared memory and gives each
-// thread 4 rows by DPAD / 16 output columns, accumulated in registers.
-// Forward and dq blocks start with the last query tiles, which have the most
-// key tiles to visit under `causal`; dk/dv blocks start with the first key
-// tiles for the same reason.  Any T works (the last tile is masked); any head
-// dim D with D % 4 == 0 and D <= 128 works.
+// The forward is a CUDA-core design: its bound is 4.1 ms of f32 FMAs at 67
+// TFLOP/s.  A block of 256 threads owns one 64-row tile of queries and walks
+// the 64-row key tiles in a loop, which takes the place of the TPU kernel's
+// sequential grid axis; with `causal` it skips the tiles past the diagonal.
+// Every tile sits in shared memory row-major with a row stride of DPAD + 4
+// floats, so a warp's float4 loads of 8 different rows land on 32 different
+// banks.  Thread (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4 score
+// entries of rows ty + 16 i and columns tx + 16 j; the row statistics of the
+// online softmax are reduced across the 16 threads of a row by warp
+// shuffles; P V goes through a 64 x 64 tile in shared memory.  Blocks start
+// with the last query tiles, which have the most key tiles to visit.
+//
+// The backward: per tile of the [T, T] scores it computes S and dP (two
+// products that reduce over D) and then two products (dk/dv: dk, dv) or one
+// (dq) that reduce over rows.  One template, flash_bwd<DPAD, DQ>, is both
+// kernels.  A block of two warpgroups owns BLOCK rows (64, or 32 at DPAD =
+// 128) of one side -- keys for dk/dv, queries for dq -- keeps them in
+// shared memory, and streams 64-row tiles of the other side, copied by
+// cp.async into a ring of two stages (row stride DPAD + 4, zero past T).
+// Every product but dP runs on the tensor cores, f32-accurate by 3xTF32 as
+// the conv (conv_bias_act.cu): a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, where hi
+// is x with its low 13 bits cleared (tf32) and lo = x - hi, exact in f32,
+// of which the tensor cores read the top 19 bits.  Clearing bits is one
+// integer op where the conv's cvt.rna costs more (dk/dv 16.9 -> 14.4 ms on
+// an H100 at that shape); the dropped terms stay below 2^-20 of a product.
+//  * tf32 wgmma takes B only from shared memory and only K-major, and A
+//    from registers only as a fragment.  A is gathered from the raw tiles
+//    and split in registers; the B operands are split once into hi and lo
+//    K-major tiles in the 128-byte swizzle.
+//  * Phase 1, each warpgroup NH = BLOCK / 2 of the block's rows, in wgmma's
+//    accumulator layout: S = streamed0 . fixed0^T on the tensor cores
+//    (m64nNH, K = DPAD), and dP = streamed1 . fixed1^T on the CUDA cores in
+//    f32, summed over d in ascending order as a plain f32 matmul sums it;
+//    each 8-deep step issues its S products and then does the dP FMAs of
+//    the same 8 columns while they run.  ds = p (dP - delta) cancels where
+//    the softmax is sharp (delta = sum_c p_c dP_c comes from the caller),
+//    so an error in dP is an error in ds many times its size: on an H100,
+//    dP on the tensor cores, which truncate as they add, put the attention
+//    training step's Adam updates 1.9e-3 from the plain versions' (the
+//    check allows 5e-4), S on the CUDA cores changed nothing, dP on the
+//    CUDA cores gave 1.9e-4.  Then p and ds in f32 on the CUDA cores,
+//    stored split into K-major tiles [block row][streamed row]: the
+//    accumulator's rows become the K index, so the transpose costs
+//    nothing.  K index t of each 8 holds streamed row 2t
+//    and t + 4 holds 2t + 1, so that phase 2's gathers meet no bank
+//    conflict.
+//  * Phase 2: out^T[d][block row] += sum over the tile's rows of
+//    streamed^T[d][row] . tile[block row][row]: dk^T += q^T dS and dv^T +=
+//    dout^T P, or dq^T += k^T dS^T, wgmma.m64n32k8, K = 64, A gathered from
+//    the raw tile transposed; each warpgroup takes 32 block rows (DPAD =
+//    64) or 64 head dims (DPAD = 128).  A tile's phase-2 products run on
+//    into the next tile's phase 1; the block waits for them only before
+//    it overwrites the p and ds tiles.
+//  * The tensor cores truncate as they add: one accumulator over thousands
+//    of rows drifts ~1e-4 relative (measured on the conv).  So each tile's
+//    products go into fresh accumulators, hi.hi and cross products apart,
+//    which the CUDA cores add to the running f32 sums with rounding to
+//    nearest.
+//  * The grid is (B*H, blocks) so that every head's longest blocks go out
+//    first: under `causal`, dq blocks start with the last query rows, dk/dv
+//    blocks with the first keys.
+// Its bound, every product on the tensor cores, is 3 x FLOPs over the 494.7
+// TFLOP/s TF32 peak: dq 2.50 ms, dk/dv 3.33 ms at that shape; dP on the
+// CUDA cores alone takes 2.05 ms at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper_tf32.cuh"
 
 namespace {
 
-constexpr int kB = 64;            // rows of a query or key tile
-constexpr int kThreads = 256;     // 16 x 16
-constexpr int kLP = kB + 4;       // row stride of a [64, 64] tile of p or ds
+constexpr int kB = 64;            // rows of a query or key tile (forward)
+constexpr int kThreads = 256;     // 16 x 16 (forward)
+constexpr int kLP = kB + 4;       // row stride of a [64, 64] tile of p
 constexpr float kDeadLse = -1e30f;
 
 template <int DPAD>
@@ -268,171 +314,357 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
-flash_dq(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, const float* __restrict__ mask,
-         const float* __restrict__ dout, const float* __restrict__ lse,
-         const float* __restrict__ delta, float* __restrict__ dq, int H,
-         int T, int D, int causal, float scale) {
-  constexpr int TILE = Plan<DPAD>::TILE, DW = Plan<DPAD>::DW;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + TILE;
-  float* k_s = do_s + TILE;
-  float* v_s = k_s + TILE;
-  float* ds_s = v_s + TILE;
-  float* live_s = ds_s + kB * kLP;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, b = bh / H;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kB;
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const size_t row_base = static_cast<size_t>(bh) * T;
+// ---------------------------------------------------------------------------
+// Backward: dq and dk/dv on the tensor cores (wgmma, 3xTF32)
+// ---------------------------------------------------------------------------
 
-  load_tile<DPAD>(q_s, q + base, q0, T, D);
-  load_tile<DPAD>(do_s, dout + base, q0, T, D);
-  float lse_r[4], delta_r[4], acc[4][DW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lse_r[i] = r < T ? lse[row_base + r] : kDeadLse;
-    delta_r[i] = r < T ? delta[row_base + r] : 0.0f;
-#pragma unroll
-    for (int e = 0; e < DW; ++e) acc[i][e] = 0.0f;
-  }
-  const int nk = (T + kB - 1) / kB;
-  const int n_live = causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < n_live; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();
-    load_tile<DPAD>(k_s, k + base, k0, T, D);
-    load_tile<DPAD>(v_s, v + base, k0, T, D);
-    if (tid < kB)
-      live_s[tid] = (k0 + tid < T &&
-                     mask[static_cast<size_t>(b) * T + k0 + tid] > 0.0f)
-                        ? 1.0f : 0.0f;
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_rows<DPAD>(q_s, k_s, ty, tx, s);
-    dot_rows<DPAD>(do_s, v_s, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      const bool row_live = lse_r[i] > 0.5f * kDeadLse;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool live = row_live && live_s[tx + 16 * j] > 0.0f &&
-                          (!causal || c <= r);
-        const float p = expf(live ? s[i][j] * scale - lse_r[i] : -INFINITY);
-        ds_s[(ty + 16 * i) * kLP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-    mul_tile<DPAD>(ds_s, k_s, ty, tx, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r < T) store_row<DPAD>(dq + base, r, D, tx, acc[i], scale);
-  }
+constexpr int kBwdThreads = 256;   // two warpgroups; 16 x 16 in phase 1
+constexpr int kS = 64;             // rows of a streamed tile
+constexpr int kSmemMax = 232448;   // a block's dynamic shared memory
+
+// The backward's plan.  DQ: the dq kernel, whose block rows are queries and
+// whose streamed rows are keys; else the dk/dv kernel, the other way round.
+template <int DPAD, bool DQ>
+struct Bwd {
+  static constexpr int BLOCK = DPAD == 64 ? 64 : 32;   // block rows
+  static constexpr int NH = BLOCK / 2;   // phase-1 columns of a warpgroup
+  static constexpr int LD = DPAD + 4;    // row stride of a raw tile, floats
+  static constexpr int OUT1 = BLOCK * kS * 4;    // bytes of a phase-1 tile
+  static constexpr int NOUT = DQ ? 1 : 2;        // dS, and P for dk/dv
+  static constexpr int VEC = DQ ? 1 : 2;         // mask, or lse and delta
+  static constexpr int OUTS = 2 * NOUT * OUT1;   // hi and lo
+  static constexpr int FIX0 = BLOCK * DPAD * 4;  // bytes of fixed0 hi or lo
+  static constexpr int FIX1 = (BLOCK * LD * 4 + 1023) / 1024 * 1024;
+  static constexpr int STAGE =
+      (2 * kS * LD * 4 + VEC * kS * 4 + 1023) / 1024 * 1024;
+  static constexpr int SMEM = OUTS + 2 * FIX0 + FIX1 + 2 * STAGE + 1024;
+  static_assert(SMEM <= kSmemMax, "the plan exceeds a block's shared memory");
+};
+
+// Byte offset of element (row n, k) in a K-major tile of `rows` rows stored
+// as [k / 32][rows][32 f32] atoms in the 128-byte swizzle.
+__device__ __forceinline__ uint32_t sw_off(int rows, int n, int k) {
+  return (k >> 5) * (rows * 128) + n * 128 +
+         ((((k & 31) >> 2) ^ (n & 7)) << 4) + (k & 3) * 4;
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv(const float* __restrict__ q, const float* __restrict__ k,
+// v = hi + lo with hi = v truncated to tf32 and lo = v - hi exact in f32
+// (the tensor cores read lo's top 19 bits).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+template <int DPAD, bool DQ>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ mask,
           const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, float* __restrict__ dk,
-          float* __restrict__ dv, int H, int T, int D, int causal,
+          const float* __restrict__ delta, float* __restrict__ out0,
+          float* __restrict__ out1, int H, int T, int D, int causal,
           float scale) {
-  constexpr int TILE = Plan<DPAD>::TILE, DW = Plan<DPAD>::DW;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + TILE;
-  float* q_s = v_s + TILE;
-  float* do_s = q_s + TILE;
-  float* pt_s = do_s + TILE;
-  float* dst_s = pt_s + kB * kLP;
-  float* lse_s = dst_s + kB * kLP;
-  float* delta_s = lse_s + kB;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, b = bh / H;
-  const int kt = blockIdx.x;
-  const int k0 = kt * kB;
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const size_t row_base = static_cast<size_t>(bh) * T;
+  using P = Bwd<DPAD, DQ>;
+  constexpr int BLOCK = P::BLOCK, NH = P::NH, LD = P::LD;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;   // the swizzle's 1 KB
+  uint8_t* smem = smem_raw + (base - raw_addr);
+  // after the p and ds tiles: fixed0 split [hi, lo][DPAD / 32][BLOCK][32],
+  // fixed1 f32 [BLOCK][LD], then the ring
+  constexpr int kFix0 = P::OUTS, kFix1 = kFix0 + 2 * P::FIX0;
+  constexpr int kRing = kFix1 + P::FIX1;
+  float* fixed1 = reinterpret_cast<float*>(smem + kFix1);
 
-  load_tile<DPAD>(k_s, k + base, k0, T, D);
-  load_tile<DPAD>(v_s, v + base, k0, T, D);
-  bool key_live[4];
-  float dk_acc[4][DW], dv_acc[4][DW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    key_live[i] = c < T && mask[static_cast<size_t>(b) * T + c] > 0.0f;
-#pragma unroll
-    for (int e = 0; e < DW; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
-  }
-  const int nq = (T + kB - 1) / kB;
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kB;
-    __syncthreads();
-    load_tile<DPAD>(q_s, q + base, q0, T, D);
-    load_tile<DPAD>(do_s, dout + base, q0, T, D);
-    if (tid < kB) {
-      const int r = q0 + tid;
-      lse_s[tid] = r < T ? lse[row_base + r] : kDeadLse;
-      delta_s[tid] = r < T ? delta[row_base + r] : 0.0f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, t = lane & 3;
+  const int m0 = 16 * (warp & 3) + (lane >> 2);   // accumulator rows m0, m0+8
+  const int bh = blockIdx.x, b = bh / H;
+  const int blk = DQ ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int b0 = blk * BLOCK;                     // the block's first row
+  const size_t base_td = static_cast<size_t>(bh) * T * D;
+  const size_t base_t = static_cast<size_t>(bh) * T;
+  const float* maskb = mask + static_cast<size_t>(b) * T;
+  const float scale_log2e = scale * 1.4426950408889634f;   // p = 2^(...)
+  // fixed: the block's rows of (q, dout) for dq, (k, v) for dk/dv;
+  // streamed: (k, v) for dq, (q, dout) for dk/dv
+  const float* fix0 = (DQ ? q : k) + base_td;
+  const float* fix1 = (DQ ? dout : v) + base_td;
+  const float* str0 = (DQ ? k : q) + base_td;
+  const float* str1 = (DQ ? v : dout) + base_td;
+
+  // the fixed rows, zero past T and in [D, DPAD): fixed0 split into tf32
+  // hi and lo K-major tiles, fixed1 in f32
+  {
+    constexpr int C4 = DPAD / 4;
+    for (int e = tid; e < BLOCK * C4; e += kBwdThreads) {
+      const int n = e / C4, c4 = e - n * C4;
+      const bool ok = b0 + n < T && 4 * c4 < D;
+      const size_t src = static_cast<size_t>(b0 + n) * D + 4 * c4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (ok) x = __ldg(reinterpret_cast<const float4*>(fix1 + src));
+      *reinterpret_cast<float4*>(fixed1 + n * LD + 4 * c4) = x;
+      x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (ok) x = __ldg(reinterpret_cast<const float4*>(fix0 + src));
+      uint4 hi, lo;
+      split(x.x, hi.x, lo.x);
+      split(x.y, hi.y, lo.y);
+      split(x.z, hi.z, lo.z);
+      split(x.w, hi.w, lo.w);
+      const uint32_t off = kFix0 + sw_off(BLOCK, n, 4 * c4);
+      *reinterpret_cast<uint4*>(smem + off) = hi;
+      *reinterpret_cast<uint4*>(smem + off + P::FIX0) = lo;
     }
-    __syncthreads();
-    // transposed tiles: rows are this block's keys, columns the queries
-    float st[4][4] = {}, dpt[4][4] = {};
-    dot_rows<DPAD>(k_s, q_s, ty, tx, st);
-    dot_rows<DPAD>(v_s, do_s, ty, tx, dpt);
+    fence_proxy_async();
+  }
+
+  // this thread's phase-1 columns, block rows wg * NH + 8 (j / 2) + 2 t +
+  // j % 2 (wgmma's accumulator layout): whether each is live, and for dq
+  // its lse and delta
+  constexpr int JC = NH / 4;
+  bool col_live[JC];
+  float col_lse[JC], col_delta[JC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + ty + 16 * i;
+  for (int j = 0; j < JC; ++j) {
+    const int n = b0 + wg * NH + 8 * (j >> 1) + 2 * t + (j & 1);
+    if (DQ) {
+      col_lse[j] = n < T ? lse[base_t + n] : kDeadLse;
+      col_delta[j] = n < T ? delta[base_t + n] : 0.0f;
+      col_live[j] = col_lse[j] > 0.5f * kDeadLse;
+    } else {
+      col_lse[j] = col_delta[j] = 0.0f;
+      col_live[j] = n < T && maskb[n] > 0.0f;
+    }
+  }
+
+  // the streamed tiles this block visits
+  const int ns = (T + kS - 1) / kS;
+  const int first = DQ || !causal ? 0 : b0 / kS;
+  const int last = DQ && causal ? min(ns - 1, (b0 + BLOCK - 1) / kS)
+                                : ns - 1;
+  const int n_tiles = last - first + 1;
+
+  // copies of streamed tile `tile` into ring stage `st`: the two raw
+  // [kS][LD] tiles (zero past T and in the columns [D, DPAD)), then the
+  // row vectors (zero past T)
+  auto load = [&](int tile, int st) {
+    constexpr int C4 = DPAD / 4;
+    const int r0 = tile * kS;
+    const uint32_t sa = base + kRing + st * P::STAGE;
+    for (int e = tid; e < kS * C4; e += kBwdThreads) {
+      const int r = e / C4, c4 = e - r * C4;
+      const bool ok = r0 + r < T && 4 * c4 < D;
+      const size_t src = ok ? static_cast<size_t>(r0 + r) * D + 4 * c4 : 0;
+      const uint32_t dst = sa + (r * LD + 4 * c4) * 4;
+      cp_async16_zfill(dst, str0 + src, ok ? 16 : 0);
+      cp_async16_zfill(dst + kS * LD * 4, str1 + src, ok ? 16 : 0);
+    }
+    if (tid < P::VEC * kS) {
+      const int r = tid % kS;
+      const bool ok = r0 + r < T;
+      const int row = ok ? r0 + r : 0;
+      const float* src = DQ ? maskb + row
+                            : (tid < kS ? lse : delta) + base_t + row;
+      cp_async4(sa + 2 * kS * LD * 4 + tid * 4, src, ok ? 4 : 0);
+    }
+  };
+
+  // phase 2: a warpgroup takes head dims d0 + [0, 64) and block rows
+  // n0 + [0, 32); accumulator element i is head dim d0 + m0 + 8 ((i / 2) %
+  // 2), block row n0 + 8 (i / 4) + 2 t + i % 2.  Running sums dk (or dq)
+  // and dv; a tile's fresh accumulators, hi.hi and cross products apart,
+  // which run on into the next tile's phase 1.
+  const int d0 = DPAD == 128 ? 64 * wg : 0;
+  const int n0 = DPAD == 64 ? 32 * wg : 0;
+  float acc0[16], acc1[16], f0h[16], f0x[16], f1h[16], f1x[16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = q0 + tx + 16 * j;
-        const float lr = lse_s[tx + 16 * j];
-        const bool live = key_live[i] && lr > 0.5f * kDeadLse &&
-                          (!causal || c <= r);
-        const float p = expf(live ? st[i][j] * scale - lr : -INFINITY);
-        pt_s[(ty + 16 * i) * kLP + tx + 16 * j] = p;
-        dst_s[(ty + 16 * i) * kLP + tx + 16 * j] =
-            p * (dpt[i][j] - delta_s[tx + 16 * j]);
+  for (int i = 0; i < 16; ++i)
+    acc0[i] = acc1[i] = f0h[i] = f0x[i] = f1h[i] = f1x[i] = 0.0f;
+  auto add_phase2 = [&]() {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      fence_operand(f0h[i]);
+      fence_operand(f0x[i]);
+      acc0[i] += f0h[i] + f0x[i];
+      if (!DQ) {
+        fence_operand(f1h[i]);
+        fence_operand(f1x[i]);
+        acc1[i] += f1h[i] + f1x[i];
       }
     }
-    __syncthreads();
-    mul_tile<DPAD>(pt_s, do_s, ty, tx, dv_acc);
-    mul_tile<DPAD>(dst_s, q_s, ty, tx, dk_acc);
-  }
+  };
+
+  load(first, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int tile = first + it;
+    const int st = it & 1;
+    cp_async_wait<0>();                // this thread's copies of the tile
+    __syncthreads();                   // everyone's; the other stage is free
+    if (it + 1 < n_tiles) load(tile + 1, st ^ 1);
+    cp_async_commit();
+    const float* raw0 =
+        reinterpret_cast<const float*>(smem + kRing + st * P::STAGE);
+    const float* raw1 = raw0 + kS * LD;
+    const float* vec = raw1 + kS * LD;
+    const int r0 = tile * kS;
+
+    // Phase 1, in wgmma's accumulator layout, NH block rows a warpgroup:
+    // S = raw0 . fixed0^T on the tensor cores (3xTF32), and dP = raw1 .
+    // fixed1^T on the CUDA cores in f32, summed over d in ascending order as
+    // a plain f32 matmul sums it: ds = p (dP - delta) cancels where the
+    // softmax is sharp, and delta comes from the caller.  Each 8-deep step
+    // issues its S products, then does the dP FMAs of the same 8 columns
+    // while they run.
+    float s_hh[NH / 2], s_x[NH / 2], dp[NH / 2] = {};
+    {
+      const uint32_t fb = base + kFix0 + wg * NH * 128;
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c >= T) continue;
-    store_row<DPAD>(dk + base, c, D, tx, dk_acc[i], scale);
-    store_row<DPAD>(dv + base, c, D, tx, dv_acc[i], 1.0f);
+      for (int kk = 0; kk < DPAD / 8; ++kk) {
+        if (kk >= 2) wgmma_wait<1>();  // step kk-2's registers are free
+        const int c = 8 * kk + t;
+        const float x[4] = {raw0[m0 * LD + c], raw0[(m0 + 8) * LD + c],
+                            raw0[m0 * LD + c + 4],
+                            raw0[(m0 + 8) * LD + c + 4]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split(x[j], ah[kk & 1][j], al[kk & 1][j]);
+        wgmma_fence();
+        const uint32_t at = fb + (kk >> 2) * (BLOCK * 128);
+        const int step = 2 * (kk & 3);
+        const uint64_t dh = sw128_desc(at) + step;
+        const uint64_t dl = sw128_desc(at + P::FIX0) + step;
+        Wgmma<NH>::mma(s_hh, ah[kk & 1], dh, kk > 0);
+        Wgmma<NH>::mma(s_x, ah[kk & 1], dl, kk > 0);
+        Wgmma<NH>::mma(s_x, al[kk & 1], dh, 1);
+        wgmma_commit();
+#pragma unroll
+        for (int d = 8 * kk; d < 8 * kk + 8; d += 4) {
+          const float4 a0 =
+              *reinterpret_cast<const float4*>(raw1 + m0 * LD + d);
+          const float4 a1 =
+              *reinterpret_cast<const float4*>(raw1 + (m0 + 8) * LD + d);
+#pragma unroll
+          for (int j = 0; j < JC; ++j) {
+            const float4 bv = *reinterpret_cast<const float4*>(
+                fixed1 + (wg * NH + 8 * (j >> 1) + 2 * t + (j & 1)) * LD + d);
+            // element i = 4 (j / 2) + 2 h + j % 2 is row m0 + 8 h
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4& av = h ? a1 : a0;
+              float& e = dp[4 * (j >> 1) + 2 * h + (j & 1)];
+              e = fmaf(av.x, bv.x, e);
+              e = fmaf(av.y, bv.y, e);
+              e = fmaf(av.z, bv.z, e);
+              e = fmaf(av.w, bv.w, e);
+            }
+          }
+        }
+      }
+    }
+    wgmma_wait<0>();                   // S, and the last tile's phase 2
+    if (it > 0) add_phase2();
+    __syncthreads();                   // both warpgroups' phase 2 is done
+
+    // p and ds in f32 on the CUDA cores (ds cancels), stored split as
+    // phase 2's K-major operands [block row][streamed row]: K index t of
+    // each 8 holds streamed row 2t and t + 4 holds 2t + 1, the order phase
+    // 2 gathers in
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) {
+      fence_operand(s_hh[i]);
+      fence_operand(s_x[i]);
+      const int r = m0 + 8 * ((i >> 1) & 1), sr = r0 + r;
+      const int j = 2 * (i >> 2) + (i & 1);
+      const int n = wg * NH + 8 * (i >> 2) + 2 * t + (i & 1), br = b0 + n;
+      const int kx = (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1);
+      float l, dl;
+      bool live;
+      if (DQ) {          // rows are keys, columns queries
+        l = col_lse[j];
+        dl = col_delta[j];
+        live = col_live[j] && sr < T && vec[r] > 0.0f &&
+               (!causal || sr <= br);
+      } else {           // rows are queries, columns keys
+        l = vec[r];
+        dl = vec[kS + r];
+        live = col_live[j] && sr < T && l > 0.5f * kDeadLse &&
+               (!causal || br <= sr);
+      }
+      const float pv = exp2f(live ? (s_hh[i] + s_x[i]) * scale_log2e -
+                                        l * 1.4426950408889634f
+                                  : -INFINITY);
+      const float ds = pv * (dp[i] - dl);
+      uint8_t* o = smem + sw_off(BLOCK, n, kx);
+      uint32_t hi, lo;
+      split(ds, hi, lo);
+      *reinterpret_cast<uint32_t*>(o) = hi;
+      *reinterpret_cast<uint32_t*>(o + P::OUT1) = lo;
+      if (!DQ) {
+        split(pv, hi, lo);
+        *reinterpret_cast<uint32_t*>(o + 2 * P::OUT1) = hi;
+        *reinterpret_cast<uint32_t*>(o + 3 * P::OUT1) = lo;
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // Phase 2 on the tensor cores: out^T[d][n] += sum over the tile's
+    // streamed rows of raw^T[d][row] . tile[n][row] (m64n32, K = 64):
+    // dk/dv: dk^T += q^T dS, dv^T += dout^T P; dq: dq^T += k^T dS^T.
+    {
+      uint32_t ah[4][2][4], al[4][2][4];
+#pragma unroll
+      for (int kk = 0; kk < kS / 8; ++kk) {
+        if (kk >= 4) wgmma_wait<3>();  // step kk-4's registers are free
+        uint32_t (&h)[2][4] = ah[kk & 3];
+        uint32_t (&l)[2][4] = al[kk & 3];
+        const int ra = 8 * kk + 2 * t;   // streamed rows of K index t, t+4
+#pragma unroll
+        for (int f = 0; f < (DQ ? 1 : 2); ++f) {
+          const float* src = (f ? raw1 : raw0) + d0 + m0;
+          const float x[4] = {src[ra * LD], src[ra * LD + 8],
+                              src[(ra + 1) * LD], src[(ra + 1) * LD + 8]};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) split(x[j], h[f][j], l[f][j]);
+        }
+        wgmma_fence();
+        const uint32_t at = base + (kk >> 2) * (BLOCK * 128) + n0 * 128;
+        const int step = 2 * (kk & 3);
+        const uint64_t dsh = sw128_desc(at) + step;
+        const uint64_t dsl = sw128_desc(at + P::OUT1) + step;
+        Wgmma<32>::mma(f0h, h[0], dsh, kk > 0);
+        Wgmma<32>::mma(f0x, h[0], dsl, kk > 0);
+        Wgmma<32>::mma(f0x, l[0], dsh, 1);
+        if (!DQ) {
+          const uint64_t dph = sw128_desc(at + 2 * P::OUT1) + step;
+          const uint64_t dpl = sw128_desc(at + 3 * P::OUT1) + step;
+          Wgmma<32>::mma(f1h, h[1], dph, kk > 0);
+          Wgmma<32>::mma(f1x, h[1], dpl, kk > 0);
+          Wgmma<32>::mma(f1x, l[1], dph, 1);
+        }
+        wgmma_commit();
+      }
+    }
+  }
+  if (n_tiles > 0) add_phase2();
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = d0 + m0 + 8 * ((i >> 1) & 1);
+    const int br = b0 + n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    if (d < D && br < T) {
+      const size_t o = base_td + static_cast<size_t>(br) * D + d;
+      out0[o] = acc0[i] * scale;
+      if (!DQ) out1[o] = acc1[i];
+    }
   }
 }
 
 bool bad_shape(int BH, int H, int T, int D) {
   return BH < 1 || H < 1 || BH % H != 0 || BH > 65535 || T < 1 || D < 4 ||
          D > 128 || D % 4 != 0;
-}
-
-// Dynamic shared memory of each kernel, in bytes.
-template <int DPAD> constexpr size_t fwd_smem() {
-  return (3 * Plan<DPAD>::TILE + kB * kLP + kB) * sizeof(float);
-}
-template <int DPAD> constexpr size_t dq_smem() {
-  return (4 * Plan<DPAD>::TILE + kB * kLP + kB) * sizeof(float);
-}
-template <int DPAD> constexpr size_t dkv_smem() {
-  return (4 * Plan<DPAD>::TILE + 2 * kB * kLP + 2 * kB) * sizeof(float);
 }
 
 template <typename K>
@@ -446,7 +678,8 @@ template <int DPAD>
 int launch_fwd(const float* q, const float* k, const float* v,
                const float* mask, float* out, float* lse, int BH, int H,
                int T, int D, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DPAD>();
+  const size_t smem =
+      (3 * Plan<DPAD>::TILE + kB * kLP + kB) * sizeof(float);
   cudaError_t err = allow_smem(flash_fwd<DPAD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + kB - 1) / kB, BH);
@@ -455,31 +688,19 @@ int launch_fwd(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DPAD>
-int launch_dq(const float* q, const float* k, const float* v,
-              const float* mask, const float* dout, const float* lse,
-              const float* delta, float* dq, int BH, int H, int T, int D,
-              int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem<DPAD>();
-  cudaError_t err = allow_smem(flash_dq<DPAD>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kB - 1) / kB, BH);
-  flash_dq<DPAD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, mask, dout, lse, delta, dq, H, T, D, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int DPAD>
-int launch_dkv(const float* q, const float* k, const float* v,
+template <int DPAD, bool DQ>
+int launch_bwd(const float* q, const float* k, const float* v,
                const float* mask, const float* dout, const float* lse,
-               const float* delta, float* dk, float* dv, int BH, int H, int T,
-               int D, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem<DPAD>();
-  cudaError_t err = allow_smem(flash_dkv<DPAD>, smem);
+               const float* delta, float* out0, float* out1, int BH, int H,
+               int T, int D, int causal, float scale, cudaStream_t stream) {
+  using P = Bwd<DPAD, DQ>;
+  const int blocks = (T + P::BLOCK - 1) / P::BLOCK;
+  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(flash_bwd<DPAD, DQ>, P::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kB - 1) / kB, BH);
-  flash_dkv<DPAD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, mask, dout, lse, delta, dk, dv, H, T, D, causal, scale);
+  const dim3 grid(BH, blocks);
+  flash_bwd<DPAD, DQ><<<grid, kBwdThreads, P::SMEM, stream>>>(
+      q, k, v, mask, dout, lse, delta, out0, out1, H, T, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -510,10 +731,12 @@ int dl4j_flash_dq_f32(const float* q, const float* k, const float* v,
                       int D, int causal, float scale, void* stream) {
   if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch_dq<64>(q, k, v, mask, dout, lse, delta, dq, BH, H,
-                                 T, D, causal, scale, s)
-                 : launch_dq<128>(q, k, v, mask, dout, lse, delta, dq, BH, H,
-                                  T, D, causal, scale, s);
+  return D <= 64 ? launch_bwd<64, true>(q, k, v, mask, dout, lse, delta, dq,
+                                        nullptr, BH, H, T, D, causal, scale,
+                                        s)
+                 : launch_bwd<128, true>(q, k, v, mask, dout, lse, delta, dq,
+                                         nullptr, BH, H, T, D, causal, scale,
+                                         s);
 }
 
 // dk, dv [BH, T, D] from the same inputs as dl4j_flash_dq_f32.
@@ -523,10 +746,11 @@ int dl4j_flash_dkv_f32(const float* q, const float* k, const float* v,
                        int T, int D, int causal, float scale, void* stream) {
   if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch_dkv<64>(q, k, v, mask, dout, lse, delta, dk, dv, BH,
-                                  H, T, D, causal, scale, s)
-                 : launch_dkv<128>(q, k, v, mask, dout, lse, delta, dk, dv,
-                                   BH, H, T, D, causal, scale, s);
+  return D <= 64 ? launch_bwd<64, false>(q, k, v, mask, dout, lse, delta, dk,
+                                         dv, BH, H, T, D, causal, scale, s)
+                 : launch_bwd<128, false>(q, k, v, mask, dout, lse, delta,
+                                          dk, dv, BH, H, T, D, causal, scale,
+                                          s);
 }
 
 }  // extern "C"

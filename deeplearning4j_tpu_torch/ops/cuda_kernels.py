@@ -45,7 +45,10 @@ backward kernels that recompute the probabilities from it.
 (``_FlashAttention``, the ``custom_vjp`` of :397-414).  The JAX wrapper's
 padding of D and T to 128 (:419-448) is a TPU lane artifact and is not
 copied: the kernels mask the last tile and take any head dim up to 128.
-All three are bound by operations.
+All three are bound by operations.  The forward runs on the CUDA cores;
+the two backward kernels are one ``wgmma`` template whose products run on
+the tensor cores in 3xTF32, except dP, which the CUDA cores sum in the
+order of a plain f32 matmul (the source's header says why).
 
 Rules every kernel here keeps:
 
@@ -69,6 +72,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -109,6 +113,9 @@ _INT_MAX = 2 ** 31 - 1
 _GRID_YZ_MAX = 65535
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def _cuda_tool(name: str) -> str:
     """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     for cand in (shutil.which(name),
@@ -123,7 +130,8 @@ def _cuda_tool(name: str) -> str:
 class KernelLibrary:
     """One ``csrc/*.cu`` source built into a shared library with a plain C
     interface and loaded with ctypes, once per process.  The library's
-    file name carries a hash of the source, so an edited source is
+    file name carries a hash of the source and of the local headers it
+    includes (``#include "..."``), so an edited source or header is
     rebuilt and a stale build is never loaded."""
 
     def __init__(self, source: Path, symbols: dict):
@@ -134,8 +142,21 @@ class KernelLibrary:
         self.build_seconds: Optional[float] = None
         self.build_log = ""
 
+    def sources(self) -> list:
+        """The source, then every local header it includes, directly or
+        through another header, each once."""
+        files, i = [self.source], 0
+        while i < len(files):
+            for name in _LOCAL_INCLUDE.findall(files[i].read_text()):
+                header = files[i].parent / name
+                if header not in files:
+                    files.append(header)
+            i += 1
+        return files
+
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
+        digest = hashlib.sha256(b"".join(f.read_bytes()
+                                         for f in self.sources())
                                 + " ".join(ARCH_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.source.stem}-{digest[:12]}.so"
 
@@ -204,6 +225,25 @@ def build_libraries() -> None:
         list(pool.map(KernelLibrary.get, LIBRARIES))
 
 
+def sass_hgmma_counts(library: KernelLibrary) -> dict:
+    """HGMMA (wgmma) instructions in each kernel function of ``library``'s
+    SASS, counted in ``cuobjdump -sass``'s listing: {mangled name: count}.
+    Builds the library."""
+    library.get()
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                           str(library.path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            function = head.group(1)
+            counts[function] = 0
+        elif function is not None and "HGMMA" in line:
+            counts[function] += 1
+    return counts
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -248,16 +288,6 @@ def conv_plan(N, Cin, KH, KW, Cout, OH, OW, sms: int):
     err = CONV_LIBRARY.get().dl4j_conv2d_plan(N, Cin, KH, KW, Cout, OH, OW,
                                               sms, out)
     return None if err else dict(zip(CONV_PLAN_FIELDS, out))
-
-
-def conv_sass_hgmma_count() -> int:
-    """HGMMA (wgmma) instructions in the conv library's SASS, counted in
-    ``cuobjdump -sass``'s listing.  Builds the library."""
-    CONV_LIBRARY.get()
-    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
-                           str(CONV_LIBRARY.path())], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def conv_split_floats(Cout: int, Cin: int, KH: int, KW: int) -> int:

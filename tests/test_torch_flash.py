@@ -203,3 +203,81 @@ def test_flash_attention_refuses_what_it_does_not_take():
     q = torch.zeros((1, 1, 64, 32))
     with pytest.raises(ValueError, match="does not take"):
         ck.flash_attention(q, q, q)
+
+
+def _tf32(t):
+    """float32 truncated to TF32, its low 13 bits cleared: the backward
+    kernels' split, and what the tensor cores read of a register."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(a, b):
+    """a @ b as the backward kernels multiply on the tensor cores: hi = x
+    truncated to TF32, lo = x - hi in f32, which the tensor cores truncate
+    to TF32, and the sum a_hi.b_hi + a_hi.b_lo + a_lo.b_hi of exact
+    products (float64), rounded to float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    d = torch.float64
+    return (a_hi.to(d) @ b_hi.to(d) + a_hi.to(d) @ b_lo.to(d)
+            + a_lo.to(d) @ b_hi.to(d)).to(torch.float32)
+
+
+def _one_tf32(a, b):
+    return (_tf32(a).double() @ _tf32(b).double()).to(torch.float32)
+
+
+@pytest.mark.parametrize("T,D,causal", [(256, 64, True), (200, 96, False)])
+def test_three_tf32_products_hold_the_flash_tolerance(T, D, causal):
+    """The backward kernels' arithmetic, emulated on the CPU: S, then dq,
+    dk and dv from p and ds formed in f32, in 3xTF32 (dP is a plain f32
+    product in the kernels too) holds to the JAX package's ``_flash_bwd``
+    at chip_smoke.py's FLASH_TOL (rtol = atol = 1e-5, inputs N(0, 0.5^2)
+    as there); with one TF32 product per product it does not, which is why
+    the kernels take three."""
+    rng = np.random.default_rng(T + D)
+    q, k, v, g = (rng.normal(size=(1, 1, T, D)).astype(np.float32) * 0.5
+                  for _ in range(4))
+    km = np.ones((1, T), np.float32)
+    scale = 1.0 / D ** 0.5
+    Tp = -(-T // 128) * 128
+    jq, jk, jv, jg = (jnp.asarray(_pad_t(a, 2, Tp)) for a in (q, k, v, g))
+    jkm = jnp.asarray(_pad_t(km, 1, Tp))
+    jout, jlse = pk._flash_fwd(jq, jk, jv, jkm, causal=causal, scale=scale)
+    want = [np.array(x)[0, 0, :T] for x in pk._flash_bwd(
+        jq, jk, jv, jkm, jout, jlse, jg, causal=causal, scale=scale)]
+    lse = _t(np.array(jlse).reshape(1, 1, Tp)[0, 0, :T])
+    delta = _t((g * np.asarray(jout)[:, :, :T]).sum(-1)[0, 0])
+    tq, tk, tv, tg = (_t(a[0, 0]) for a in (q, k, v, g))
+    live = torch.ones((T, T), dtype=torch.bool)
+    if causal:
+        live = live.tril()
+
+    def grads(mm):
+        s = mm(tq, tk.T) * scale
+        p = torch.exp(torch.where(live, s - lse[:, None], float("-inf")))
+        ds = p * (tg @ tv.T - delta[:, None])
+        return mm(ds, tk) * scale, mm(ds.T, tq) * scale, mm(p.T, tg)
+
+    def excess(got):
+        return max(float(((a - torch.from_numpy(b)).abs()
+                          / (1e-5 + 1e-5 * torch.from_numpy(b).abs())).max())
+                   for a, b in zip(got, want))
+    assert excess(grads(_three_tf32)) <= 1.0
+    assert excess(grads(_one_tf32)) > 1.0
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path):
+    """An edited header, included directly or through another header,
+    changes the library's file name, so a stale build is never loaded; the
+    flash and conv sources both include the shared tf32 header."""
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <math.h>\n')
+    lib = ck.KernelLibrary(tmp_path / "k.cu", {})
+    assert [f.name for f in lib.sources()] == ["k.cu", "a.cuh", "b.cuh"]
+    before = lib.path()
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert lib.path() != before
+    for library in (ck.FLASH_LIBRARY, ck.CONV_LIBRARY):
+        assert ck.CSRC / "hopper_tf32.cuh" in library.sources()

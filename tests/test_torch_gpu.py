@@ -186,7 +186,18 @@ def test_kernels_plan_covers_every_main_path_conv(cuda_device):
 @pytest.mark.gpu
 def test_conv_library_runs_on_the_tensor_cores(cuda_device):
     """The conv library's SASS holds HGMMA (wgmma) instructions."""
-    assert ck.conv_sass_hgmma_count() > 0
+    assert sum(ck.sass_hgmma_counts(ck.CONV_LIBRARY).values()) > 0
+
+
+@pytest.mark.gpu
+def test_flash_backward_kernels_run_on_the_tensor_cores(cuda_device):
+    """Every instance of the dq and dk/dv kernel (flash_bwd<DPAD, DQ>, DPAD
+    64 and 128) holds HGMMA in the flash library's SASS; the forward is a
+    CUDA-core kernel."""
+    counts = ck.sass_hgmma_counts(ck.FLASH_LIBRARY)
+    bwd = {f: n for f, n in counts.items() if "flash_bwd" in f}
+    assert len(bwd) == 4 and all(bwd.values()), counts
+    assert not any(n for f, n in counts.items() if "flash_fwd" in f)
 
 
 def _emulate_conv_kernel(x, w, pad, sms):
@@ -243,24 +254,6 @@ def _emulate_conv_kernel(x, w, pad, sms):
             y[n0 + rn[i], co[co < Cout], oh0 + rh[i], ow0 + rw[i]] = \
                 acc[i, co < Cout]
     return y
-
-
-@pytest.mark.parametrize("x_shape,w_shape,pad", [
-    ((2, 1, 28, 28), (20, 1, 5, 5), 0),       # one slice, 5 row tiles
-    ((3, 20, 12, 12), (50, 20, 5, 5), 0),     # two images a tile, cluster
-    ((1, 64, 2, 2), (96, 64, 3, 3), 1),       # 2x2 map at batch 1
-    ((3, 16, 4, 4), (70, 16, 3, 3), 1),       # 4x4 maps, Cout not 8k
-    ((1, 5, 13, 11), (8, 5, 7, 7), 3),        # 7x7, odd H and W
-    ((2, 40, 3, 3), (10, 40, 1, 1), 0),       # 1x1: 32 channels a slice
-])
-def test_kernel_tiling_writes_every_output_once(x_shape, w_shape, pad):
-    rng = np.random.default_rng(3)
-    x, w = rng.normal(size=x_shape), rng.normal(size=w_shape)
-    y = _emulate_conv_kernel(x, w, pad)
-    assert not np.isnan(y).any()
-    ref = torch.nn.functional.conv2d(torch.from_numpy(x),
-                                     torch.from_numpy(w), padding=pad)
-    np.testing.assert_allclose(y, ref.numpy(), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.gpu

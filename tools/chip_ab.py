@@ -9,8 +9,11 @@ directory, so each tree builds and loads its own kernels.  From every run
 the script keeps the end-to-end numbers both trees' scripts print: VGG16-224
 training (samples/s after the first step, peak memory), VGG16-224
 ``output()`` ms at batch 8, serving (requests/s, p50 and p99 latency and
-the batcher's mean compute ms per model), LeNet training samples/s, and the
-build's seconds.  It prints one JSON line per run, with the run's last
+the batcher's mean compute ms per model), LeNet training samples/s, the
+xent, dropout and LSTM kernels' times, char-RNN training characters/s, the
+flash kernels' and SDPA's times, attention training (characters/s after the
+first step, step seconds, peak memory), attention ``output()`` ms and
+sampling ms per character, and the build's seconds.  It prints one JSON line per run, with the run's last
 line of output, and writes every run's phase lines to ``--out``.  It exits non-zero if any run fails; the failed
 run's last lines of output are in the file.  Comparing the two trees is
 fair only within one such call: the card, its power limit and the host
@@ -55,6 +58,30 @@ def _numbers(ph: dict) -> dict:
                 "compute_mean_ms": m["batcher"]["compute_ms"]["mean_ms"]}
     if "train_lenet" in ph:
         nums["lenet_samples_per_s"] = ph["train_lenet"]["samples_per_s"]
+    if "xent_dropout_kernels" in ph:
+        x = ph["xent_dropout_kernels"]
+        nums["xent_ms"] = x["xent"][0]["ms"]
+        nums["dropout_ms"] = [r["ms"] for r in x["dropout"] if "ms" in r]
+    if "lstm_kernel" in ph:
+        nums["lstm_us_per_step"] = ph["lstm_kernel"]["us_per_step"]
+    if "train_charrnn" in ph:
+        nums["charrnn_chars_per_s"] = \
+            ph["train_charrnn"]["chars_per_s_after_first"]
+    if "flash_kernels" in ph:
+        f = ph["flash_kernels"]
+        nums["flash_ms"] = {k: r["ms"] for k, r in f["timed"].items()}
+        nums["sdpa_ms"] = {k: f.get(f"library_ms_{k}") for k in
+                           ("forward", "backward", "forward_backward")}
+    if "train_attention" in ph:
+        t = ph["train_attention"]
+        nums["attention_chars_per_s"] = t["chars_per_s_after_first"]
+        nums["attention_step_s"] = [s["seconds"] for s in t["steps"]]
+        nums["attention_peak_bytes"] = t["max_memory_allocated"]
+    if "output_attention" in ph:
+        nums["attention_output_ms"] = ph["output_attention"]["wall_ms"]
+    if "sample_attention" in ph:
+        nums["attention_sample_ms_per_char"] = \
+            ph["sample_attention"]["ms_per_char"]
     return nums
 
 

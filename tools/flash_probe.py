@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Build the flash kernels, check the backward pair against its plain
+versions and time it, on one GPU.
+
+    python3 tools/flash_probe.py [--variant NAME=PATH.cu ...] [--reps N]
+
+Prints one JSON line per step: the build (nvcc seconds, ptxas registers and
+spills of every kernel), the dq and dk/dv kernels against
+``flash_dq_reference`` / ``flash_dkv_reference`` on chip_smoke.py's cases
+(rtol = atol = FLASH_TOL), and the CUDA-event time of each at the training
+shape (4, 8, 8192, 64), causal.  Each ``--variant`` is another source with
+the same C interface (a copy of ``csrc/flash_attention.cu`` with one part
+changed, or an older version of it, kept under a git-ignored directory):
+it is built beside the repo's kernels, checked the same way on the small
+cases, and timed in turns with them, repo / variants / variants reversed /
+repo, so that designs are compared on one card in one call.  A variant
+with a part cut out fails its checks by design; the last line says
+whether every check passed, and the exit code is 0 unless a build or a
+launch failed.
+"""
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (the repo's check and timing helpers)
+
+
+def _launch(torch, lib, symbol, inputs, outputs, causal, scale):
+    q = inputs[0]
+    B, H, T, D = q.shape
+    err = getattr(lib.get(), symbol)(
+        *(t.data_ptr() for t in (*inputs, *outputs)), B * H, H, T, D,
+        int(causal), float(scale), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} from {lib.source}: CUDA error {err}")
+    return outputs
+
+
+def _pair(torch, lib, q, k, v, km, g, lse, delta, causal, scale):
+    """(dq, dk, dv) from ``lib``'s two backward kernels."""
+    inputs = [t.contiguous() for t in (q, k, v, km, g, lse, delta)]
+    dq = _launch(torch, lib, "dl4j_flash_dq_f32", inputs,
+                 (torch.empty_like(q),), causal, scale)[0]
+    dk, dv = _launch(torch, lib, "dl4j_flash_dkv_f32", inputs,
+                     (torch.empty_like(q), torch.empty_like(q)), causal,
+                     scale)
+    return dq, dk, dv
+
+
+def check(torch, ck, lib, gen, B, H, T, D, causal, mask) -> dict:
+    q, k, v, g, km = cs._flash_inputs(torch, gen, B, H, T, D, mask)
+    s = D ** -0.5
+    out, lse = ck.flash_forward_reference(q, k, v, km, causal, s)
+    delta = (g * out).sum(-1)
+    got = _pair(torch, lib, q, k, v, km, g, lse, delta, causal, s)
+    want = (ck.flash_dq_reference(q, k, v, km, g, lse, delta, causal, s),
+            *ck.flash_dkv_reference(q, k, v, km, g, lse, delta, causal, s))
+    torch.cuda.synchronize()
+    rec = {"shape": [B, H, T, D], "causal": causal, "mask": mask}
+    ok = True
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a - b).abs()
+        allow = cs.FLASH_TOL + cs.FLASH_TOL * b.abs()
+        rec[name] = {"max_abs": float(err.max()),
+                     "worst_over_tol": float((err / allow).max()),
+                     "finite": bool(torch.isfinite(a).all())}
+        ok = ok and rec[name]["worst_over_tol"] <= 1.0 and rec[name]["finite"]
+    rec["ok"] = ok
+    return rec
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=PATH of another flash source to build, "
+                         "check and time")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": cs.nvidia_smi()}), flush=True)
+    libs = {"repo": ck.FLASH_LIBRARY}
+    for spec in args.variant:
+        name, path = spec.split("=", 1)
+        libs[name] = ck.KernelLibrary(Path(path), ck.FLASH_LIBRARY._symbols)
+    for name, lib in libs.items():
+        t0 = time.perf_counter()
+        lib.get()
+        print(json.dumps({"build": name, "wall_s": time.perf_counter() - t0,
+                          "nvcc_s": lib.build_seconds, "ptxas": [
+                              l.strip() for l in lib.build_log.splitlines()
+                              if "registers" in l or "spill" in l
+                              or "Compiling entry" in l]}), flush=True)
+    B, H, T, D = cs.ATT_BATCH, cs.ATT_HEADS, cs.ATT_SEQ, \
+        cs.ATT_WIDTH // cs.ATT_HEADS
+    cases = [(2, 2, 256, 64, True, "none"), (2, 2, 200, 64, False, "tail"),
+             (2, 2, 200, 64, True, "tail"), (2, 2, 256, 32, True, "none"),
+             (2, 2, 256, 96, True, "none"), (2, 2, 256, 128, False, "none"),
+             (2, 2, 130, 64, True, "none"), (2, 2, 256, 64, True, "dead_row"),
+             (2, 2, 200, 128, False, "dead_row"),
+             (1, 2, T, 64, True, "none"), (B, H, T, D, True, "none")]
+    failed = False
+    for name, lib in libs.items():
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        # a variant is checked on the small cases only
+        for c in cases if name == "repo" else cases[:-2]:
+            rec = check(torch, ck, lib, gen, *c)
+            failed = failed or not rec["ok"]
+            print(json.dumps({"check": name, **rec}), flush=True)
+            torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q, k, v, g, km = cs._flash_inputs(torch, gen, B, H, T, D)
+    s = D ** -0.5
+    out, lse = ck.flash_forward(q, k, v, km, True, s)
+    delta = (g * out).sum(-1)
+    inputs = [q, k, v, km, g, lse, delta]
+    order = [n for n in libs if n != "repo"]
+    turns = ["repo"] + order + order[::-1] + ["repo"] if order else ["repo"]
+    for name in turns:
+        lib = libs[name]
+        rec = {"time": name}
+        rec["dq_ms"] = cs.time_ms(torch, lambda: _launch(
+            torch, lib, "dl4j_flash_dq_f32", inputs,
+            (torch.empty_like(q),), True, s), reps=args.reps, warmup=1)
+        rec["dkv_ms"] = cs.time_ms(torch, lambda: _launch(
+            torch, lib, "dl4j_flash_dkv_f32", inputs,
+            (torch.empty_like(q), torch.empty_like(q)), True, s),
+            reps=args.reps, warmup=1)
+        print(json.dumps(rec), flush=True)
+    print(json.dumps({"ok": not failed}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
