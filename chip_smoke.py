@@ -63,7 +63,9 @@ exits non-zero:
                all samples over all the time.
 9. lstm_kernel — the peephole-LSTM step kernel against its plain version
                (c', h', rtol = atol = 1e-5) at (N, H) = (32, 200), (4, 200),
-               (1, 200), (3, 8), (5, 24), (64, 256); a 2-layer ``lstm_scan``
+               (1, 200), (3, 8), (5, 24), (64, 256), and at the tiling's
+               edges (3, 1024) (four k-chunks a warp), (7, 264) (a ragged
+               chunk) and (40, 8) (a ragged row block); a 2-layer ``lstm_scan``
                over 50 steps through the kernel against the same scan
                through the plain step (outputs, final states and every
                param's gradient within 1e-4 relative 2-norm), unmasked,
@@ -91,8 +93,9 @@ exits non-zero:
                (1, 2, 8192, 64) causal, (2, 2, 200, 64) masked from
                position 180, head dims 32, 96 and 128, T = 130, and a batch
                row that is fully masked (out 0, lse -1e30); each kernel
-               timed at the training path's (4, 8, 8192, 64), causal, beside
-               its plain version, its bound, and
+               timed at the training path's (4, 8, 8192, 64), causal (the
+               forward with its split pre-pass), beside its plain version,
+               its bound, and
                ``F.scaled_dot_product_attention`` f32 (forward, and forward
                + backward; timed only).
 13. train_attention — the main path of attention training: ``attention_lm``
@@ -140,8 +143,8 @@ import numpy as np
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
-# The f32-accurate products of the conv and flash backward kernels take
-# three TF32 products each.
+# The f32-accurate products of the conv and flash kernels take three TF32
+# products each.
 TF32_PRODUCTS_PER_F32 = 3
 # Kernel vs plain version: |y - ref| <= ATOL * max|ref| + RTOL * |ref|.
 # Both accumulate in f32 over up to 4608 products, in different orders.
@@ -194,10 +197,12 @@ ATT_SEQ, ATT_BATCH, ATT_STEPS, ATT_PLAIN_SEQ = 8192, 4, 8, 2048
 # lse is ~10 in size.  rtol = atol = 1e-5.
 FLASH_TOL = 1e-5
 FLASH_MASK_FROM = 180
-# The backward kernels' instances in the flash library's SASS (mangled
-# flash_bwd<DPAD, true> for dq, <DPAD, false> for dk/dv)
-FLASH_BWD_FUNCTIONS = {"flash_dq": r"flash_bwdILi\d+ELb1E",
-                       "flash_dkv": r"flash_bwdILi\d+ELb0E"}
+# The flash kernels' instances in the flash library's SASS (mangled
+# flash_fwd<DPAD> for the forward, flash_bwd<DPAD, true> for dq, <DPAD,
+# false> for dk/dv)
+FLASH_FUNCTIONS = {"flash_forward": r"flash_fwdILi\d+E",
+                   "flash_dq": r"flash_bwdILi\d+ELb1E",
+                   "flash_dkv": r"flash_bwdILi\d+ELb0E"}
 # A step through the flash kernels vs the plain versions: the score to
 # 1e-5 relative (the training step's rule above); each param's gradient to
 # 1e-4 (the CPU parity tests' rtol) and its Adam update to 5e-4 (the
@@ -1136,8 +1141,11 @@ def phase_lstm_kernel(torch, ck) -> dict:
     # at 4 streams and sample_text at 1)
     steps = [check_lstm_step(torch, ck, n, CHAR_HIDDEN, gen, timed=True)
              for n in (CHAR_BATCH, SAMPLE_STREAMS, 1)]
+    # untimed: small shapes and the tiling's edges (k-chunks of 32 over
+    # ceil(H / 8) rows a warp; blocks of 16 rows)
     steps += [check_lstm_step(torch, ck, n, h, gen)
-              for n, h in ((3, 8), (5, 24), (64, 256))]
+              for n, h in ((3, 8), (5, 24), (64, 256), (3, 1024), (7, 264),
+                           (40, 8))]
     scans = [check_lstm_scan(torch, ck, m, r)
              for m, r in ((False, False), (True, False), (False, True))]
     res = {"tol": LSTM_TOL, "scan_rel_norm_tol": LSTM_SCAN_REL,
@@ -1348,9 +1356,9 @@ def phase_flash_kernels(torch, ck) -> dict:
     first case is the training path's shape), then timed at that shape
     beside the plain versions, the bound and
     ``F.scaled_dot_product_attention`` (f32): its forward, its forward +
-    backward, and its backward alone.  The forward kernel's bound is f32
-    FMAs on the CUDA cores; the backward kernels' is 3 TF32 products per
-    f32 product on the tensor cores, the CUDA-core bound beside it."""
+    backward, and its backward alone.  Each kernel's bound is 3 TF32
+    products per f32 product on the tensor cores, the f32 CUDA-core bound
+    beside it."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1388,16 +1396,13 @@ def phase_flash_kernels(torch, ck) -> dict:
                "plain_ms": time_ms(torch, plain, reps=3, warmup=1),
                "flops": flops, "bytes": nbytes}
         torch.cuda.empty_cache()
-        simt_ms, simt_by = _bound(nbytes, flops)
-        if name == "flash_forward":
-            rec["bound_ms"], rec["bound_by"] = simt_ms, simt_by
-        else:
-            t_ops = TF32_PRODUCTS_PER_F32 * flops / PEAK_TF32_FLOPS
-            t_bytes = nbytes / PEAK_BYTES
-            rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
-            rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-            rec["bound_f32_simt_ms"] = simt_ms
-            rec["share_of_f32_simt_bound"] = simt_ms / rec["ms"]
+        simt_ms = _bound(nbytes, flops)[0]
+        t_ops = TF32_PRODUCTS_PER_F32 * flops / PEAK_TF32_FLOPS
+        t_bytes = nbytes / PEAK_BYTES
+        rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["bound_f32_simt_ms"] = simt_ms
+        rec["share_of_f32_simt_bound"] = simt_ms / rec["ms"]
         rec["tflops"] = flops / rec["ms"] / 1e9
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         timed[name] = rec
@@ -1422,7 +1427,7 @@ def phase_flash_kernels(torch, ck) -> dict:
     res = {"tol": FLASH_TOL, "checks": checks, "timed_shape": [B, H, T, D],
            "causal": True, "timed": timed,
            "sass_hgmma": {name: hgmma_count(ck, ck.FLASH_LIBRARY, pattern)
-                          for name, pattern in FLASH_BWD_FUNCTIONS.items()},
+                          for name, pattern in FLASH_FUNCTIONS.items()},
            "library_ms_forward": lib_fwd,
            "library_ms_forward_backward": lib_both,
            "library_ms_backward": lib_bwd,
@@ -1689,9 +1694,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
     Xent and dropout: the launches of one VGG16-224 training step (one
     xent at [128, 1000]; dropout forward and backward at [128, 25088] and
     [128, 4096]).  LSTM: one step at the char-RNN's (32, 200).  Flash: one
-    launch at the attention model's (4, 8, 8192, 64), causal; dq and dk/dv
-    carry their 3xTF32 bound, the f32 CUDA-core bound beside it, HGMMA in
-    their SASS and SDPA f32's backward, which computes the pair in one
+    launch at the attention model's (4, 8, 8192, 64), causal; each carries
+    its 3xTF32 bound, the f32 CUDA-core bound beside it and HGMMA in its
+    SASS; dq and dk/dv SDPA f32's backward, which computes the pair in one
     call.  ``launches`` counts every main path's run."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
@@ -1783,10 +1788,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
         "library_ms": (flash["library_ms_forward"]
                        if name == "flash_forward" else None),
         "library_note": flash["library_note"],
+        "bound_f32_simt_ms": flash["timed"][name]["bound_f32_simt_ms"],
+        "sass_hgmma": flash["sass_hgmma"][name],
         **({} if name == "flash_forward" else {
-            "bound_f32_simt_ms": flash["timed"][name]["bound_f32_simt_ms"],
-            "library_ms_backward_pair": flash["library_ms_backward"],
-            "sass_hgmma": flash["sass_hgmma"][name]}),
+            "library_ms_backward_pair": flash["library_ms_backward"]}),
     } for name, line, errs in (("flash_forward", 128, ("out", "lse")),
                                ("flash_dq", 238, ("dq",)),
                                ("flash_dkv", 274, ("dk", "dv")))]}

@@ -28,17 +28,52 @@
 // H = 8, T = 8192, D = 64, causal) the forward does 275 GFLOP and reads 268
 // MB, so operations bound all three kernels.
 //
-// The forward is a CUDA-core design: its bound is 4.1 ms of f32 FMAs at 67
-// TFLOP/s.  A block of 256 threads owns one 64-row tile of queries and walks
-// the 64-row key tiles in a loop, which takes the place of the TPU kernel's
-// sequential grid axis; with `causal` it skips the tiles past the diagonal.
-// Every tile sits in shared memory row-major with a row stride of DPAD + 4
-// floats, so a warp's float4 loads of 8 different rows land on 32 different
-// banks.  Thread (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4 score
-// entries of rows ty + 16 i and columns tx + 16 j; the row statistics of the
-// online softmax are reduced across the 16 threads of a row by warp
-// shuffles; P V goes through a 64 x 64 tile in shared memory.  Blocks start
-// with the last query tiles, which have the most key tiles to visit.
+// The forward: S = Q K^T and P V, both on the tensor cores, f32-accurate by
+// 3xTF32 (as the backward, below), with the online softmax in f32 on the
+// CUDA cores between them.  Its bound is 3 x 275 GFLOP over the 494.7
+// TFLOP/s TF32 peak, 1.67 ms at that shape (4.1 ms of f32 FMAs on the CUDA
+// cores).
+//  * A split pre-pass, flash_fwd_split, writes every 64-key tile (32 at
+//    DPAD = 128) once into the scratch as the products read it: K and V^T
+//    split into tf32 hi and lo K-major images in the 128-byte swizzle, and
+//    a key bias (0, or -inf for a masked key or one past T).  Each tile is
+//    read by up to T / 128 query blocks, so splitting it in every block
+//    would repeat the same CUDA-core work that many times; the pre-pass
+//    reads K and V once and writes twice their bytes (269 MB at that
+//    shape), and the kernel does no split, transpose or mask test for them.
+//  * P V takes P as A straight from the S accumulators (layout (b)): the
+//    accumulator holds a row's keys 2t, 2t + 1 of each 8 where the A
+//    fragment wants K indices t, t + 4, so the V^T image stores each 8 keys
+//    in that order, and P never goes through shared memory.  B = V^T needs
+//    V transposed, which the pre-pass does for free.  (Computing O^T = V^T
+//    P^T instead, as the backward's phase 2, would gather and split V in
+//    every block and store P to shared memory per tile.)
+//  * A block is NWG consumer warpgroups of 64 query rows (two at DPAD = 64,
+//    one at 128, for shared memory) and one producer warpgroup, one thread
+//    of which brings each tile (64 KB) in one bulk copy into a ring of two
+//    stages, counted on mbarriers: no block barrier in the loop, so one
+//    warpgroup's softmax runs while the other's products do.  The producer
+//    hands its registers to the consumers (setmaxnreg).  Q is split once
+//    into hi and lo K-major images and read by wgmma from shared memory.
+//  * The first product into a fresh accumulator is D = A B with D an output
+//    only (`init`): with D an input, its dead value stayed live and ptxas
+//    serialised the wgmmas for want of registers.
+//  * Accuracy.  The backward's ds = p (dP - delta) cancels where attention
+//    is sharp, and delta = dout.out comes from this kernel's out, so a bias
+//    in out (or lse) of a few 1e-7 shows in every q and k gradient: with the
+//    backward's split (low bits cleared, lo of v's sign) and one P V
+//    accumulator a tile, the attention training step's Adam updates went
+//    3.1e-3 to 6.6e-3 from the plain versions' (limit 5e-4) on an H100, though
+//    every kernel check passed at 3 % of FLASH_TOL.  So the forward splits
+//    to the nearest tf32 (split_rn: lo of either sign) and gives P V's hi.hi
+//    a fresh accumulator every k-step, added on the CUDA cores rounding to
+//    nearest: the gradients then sit as close to the plain versions' as
+//    with the plain forward (4e-6).  S keeps one hi.hi and one cross
+//    accumulator a tile.  The softmax works in the log2 domain (exp2f,
+//    scale folded in by log2 e), and lse comes out as the natural log the
+//    backward recomputes p from.
+//  * The grid is (B*H, query blocks), so that every head's last query rows,
+//    which visit the most key tiles, go out first (as the backward).
 //
 // The backward: per tile of the [T, T] scores it computes S and dP (two
 // products that reduce over D) and then two products (dk/dv: dk, dv) or one
@@ -101,216 +136,371 @@
 
 namespace {
 
-constexpr int kB = 64;            // rows of a query or key tile (forward)
-constexpr int kThreads = 256;     // 16 x 16 (forward)
-constexpr int kLP = kB + 4;       // row stride of a [64, 64] tile of p
 constexpr float kDeadLse = -1e30f;
+constexpr int kSmemMax = 232448;   // a block's dynamic shared memory
 
+// Byte offset of element (row n, k) in a K-major tile of `rows` rows stored
+// as [k / 32][rows][32 f32] atoms in the 128-byte swizzle.
+__device__ __forceinline__ uint32_t sw_off(int rows, int n, int k) {
+  return (k >> 5) * (rows * 128) + n * 128 +
+         ((((k & 31) >> 2) ^ (n & 7)) << 4) + (k & 3) * 4;
+}
+
+// The inverse of sw_off: the (row n, k) of 4-byte word w of such a tile.
+__device__ __forceinline__ void sw_pos(int rows, int w, int& n, int& k) {
+  const int atom = w / (rows * 32), rem = w - atom * rows * 32;
+  n = rem >> 5;
+  k = atom * 32 + ((((rem & 31) >> 2) ^ (n & 7)) << 2) + (rem & 3);
+}
+
+// v = hi + lo with hi = v truncated to tf32 and lo = v - hi exact in f32
+// (the tensor cores read lo's top 19 bits).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// v = hi + lo with hi = v rounded to the nearest tf32 and lo = v - hi exact
+// in f32, of either sign: what the tensor cores then drop (lo's low 13 bits,
+// lo.lo) has no bias, where split's lo, of v's sign, is always cut the same
+// way.  The forward's out feeds the backward's delta = dout.out, from which
+// ds = p (dP - delta) cancels, so a bias in out shows in every gradient.
+__device__ __forceinline__ void split_rn(float v, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// ---------------------------------------------------------------------------
+// Forward: a split pre-pass, then the product kernel on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdStages = 2;      // the ring of key tiles
+constexpr int kSplitThreads = 256;
+
+// The forward's plan.  A block of NWG consumer warpgroups (64 query rows
+// each) and one producer warpgroup; key tiles of KT keys.
 template <int DPAD>
-struct Plan {
-  static constexpr int LD = DPAD + 4;      // row stride of a [64, DPAD] tile
-  static constexpr int TILE = kB * LD;     // floats in one such tile
-  static constexpr int DW = DPAD / 16;     // output columns per thread
+struct Fwd {
+  static constexpr int NWG = DPAD == 64 ? 2 : 1;
+  static constexpr int ROWS = 64 * NWG;              // query rows of a block
+  static constexpr int KT = DPAD == 64 ? 64 : 32;    // keys of a tile
+  static constexpr int NS = KT / 2;                  // S accumulators
+  static constexpr int IMG = KT * DPAD * 4;          // bytes of one image
+  static constexpr int VCH = KT * 64 * 4;            // a 64-dim V^T chunk
+  // a tile in the scratch: K hi, K lo, V^T hi, V^T lo, the key bias
+  static constexpr int TILE = 4 * IMG + KT * 4;
+  static constexpr int STAGE = (TILE + 1023) / 1024 * 1024;
+  static constexpr int QIMG = 64 * DPAD * 4;         // a warpgroup's Q hi
+  static constexpr int RING = NWG * 2 * QIMG;
+  static constexpr int BARS = RING + kFwdStages * STAGE;
+  static constexpr int THREADS = 128 * NWG + 128;
+  static constexpr int SMEM = BARS + 16 * kFwdStages + 1024;
+  static_assert(SMEM <= kSmemMax, "the plan exceeds a block's shared memory");
+  static_assert(TILE % 16 == 0 && TILE < (1 << 20), "one bulk copy a tile");
 };
 
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+// Key position p of a V^T image holds key perm(p) of its tile: within each
+// 8, position t holds key 2t and t + 4 holds key 2t + 1, the order in which
+// a thread's S accumulators hold a row's keys, so that P serves as the A
+// fragment of P V straight from them.
+__device__ __forceinline__ int perm(int p) {
+  return (p & ~7) + ((p & 7) < 4 ? 2 * (p & 7) : 2 * (p & 7) - 7);
 }
 
-// The max and the sum over the 16 threads that share a row (lanes that differ
-// in their low 4 bits).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// s[64][LD] <- rows [r0, r0 + 64) of the row-major [T, D] matrix g; zeros past
-// T and in the columns [D, DPAD).
+// The pre-pass: tile `blockIdx.x` of head `blockIdx.y` into the scratch as
+// the products read it, zero past T and in [D, DPAD): K (its rows the B
+// operand of S, K-major) and V^T (the B operand of P V: [d][key], keys in
+// perm order) split into tf32 hi and lo in the 128-byte swizzle, then the
+// key bias, 0 for a live key and -inf for a masked key or one past T.
 template <int DPAD>
-__device__ __forceinline__ void load_tile(float* __restrict__ s,
-                                          const float* __restrict__ g, int r0,
-                                          int T, int D) {
-  constexpr int LD = Plan<DPAD>::LD, C4 = DPAD / 4;
-  for (int e = threadIdx.x; e < kB * C4; e += kThreads) {
-    const int r = e / C4, c = (e - r * C4) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r0 + r < T && c < D)
-      x = __ldg(reinterpret_cast<const float4*>(
-          g + static_cast<size_t>(r0 + r) * D + c));
-    *reinterpret_cast<float4*>(s + r * LD + c) = x;
-  }
-}
-
-// acc[i][j] += sum_d a[ty + 16 i][d] b[tx + 16 j][d], a and b [64][LD].
-template <int DPAD>
-__device__ __forceinline__ void dot_rows(const float* __restrict__ a,
-                                         const float* __restrict__ b, int ty,
-                                         int tx, float (&acc)[4][4]) {
-  constexpr int LD = Plan<DPAD>::LD;
-#pragma unroll 4
-  for (int d = 0; d < DPAD; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[i][4 jj + e] += sum_c p[ty + 16 i][c] m[c][64 jj + 4 tx + e],
-// p [64][kLP], m [64][LD].
-template <int DPAD>
-__device__ __forceinline__ void mul_tile(const float* __restrict__ p,
-                                         const float* __restrict__ m, int ty,
-                                         int tx,
-                                         float (&acc)[4][Plan<DPAD>::DW]) {
-  constexpr int LD = Plan<DPAD>::LD, NJ = DPAD / 64;
-#pragma unroll 2
-  for (int c = 0; c < kB; c += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kLP + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float4 mv = *reinterpret_cast<const float4*>(
-            m + (c + e) * LD + 64 * jj + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float w = comp(pv[i], e);
-          acc[i][4 * jj + 0] = fmaf(w, mv.x, acc[i][4 * jj + 0]);
-          acc[i][4 * jj + 1] = fmaf(w, mv.y, acc[i][4 * jj + 1]);
-          acc[i][4 * jj + 2] = fmaf(w, mv.z, acc[i][4 * jj + 2]);
-          acc[i][4 * jj + 3] = fmaf(w, mv.w, acc[i][4 * jj + 3]);
-        }
-      }
-  }
-}
-
-// row r of the row-major [T, D] matrix g <- mul * acc[i] for this thread's
-// columns; r < T is the caller's check.
-template <int DPAD>
-__device__ __forceinline__ void store_row(float* __restrict__ g, int r, int D,
-                                          int tx, const float* acc,
-                                          float mul) {
-#pragma unroll
-  for (int jj = 0; jj < DPAD / 64; ++jj) {
-    const int d = 64 * jj + 4 * tx;
-    if (d < D)
-      *reinterpret_cast<float4*>(g + static_cast<size_t>(r) * D + d) =
-          make_float4(acc[4 * jj] * mul, acc[4 * jj + 1] * mul,
-                      acc[4 * jj + 2] * mul, acc[4 * jj + 3] * mul);
-  }
-}
-
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ mask,
-          float* __restrict__ out, float* __restrict__ lse, int H, int T,
-          int D, int causal, float scale) {
-  constexpr int TILE = Plan<DPAD>::TILE, DW = Plan<DPAD>::DW;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + TILE;
-  float* v_s = k_s + TILE;
-  float* p_s = v_s + TILE;
-  float* live_s = p_s + kB * kLP;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, b = bh / H;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kB;
+__global__ void __launch_bounds__(kSplitThreads)
+flash_fwd_split(const float* __restrict__ k, const float* __restrict__ v,
+                const float* __restrict__ mask, uint8_t* __restrict__ scratch,
+                int H, int T, int D) {
+  using P = Fwd<DPAD>;
+  constexpr int KT = P::KT, LD = DPAD + 1;
+  __shared__ float ks[KT][LD], vs[KT][LD];
+  const int tile = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int k0 = tile * KT;
   const size_t base = static_cast<size_t>(bh) * T * D;
+  for (int e = tid; e < KT * DPAD; e += kSplitThreads) {
+    const int r = e / DPAD, d = e - r * DPAD;
+    const bool ok = k0 + r < T && d < D;
+    const size_t src = base + static_cast<size_t>(k0 + r) * D + d;
+    ks[r][d] = ok ? __ldg(k + src) : 0.0f;
+    vs[r][d] = ok ? __ldg(v + src) : 0.0f;
+  }
+  __syncthreads();
+  uint32_t* out = reinterpret_cast<uint32_t*>(
+      scratch + (static_cast<size_t>(bh) * gridDim.x + tile) * P::TILE);
+  constexpr int W = P::IMG / 4;
+  for (int w = tid; w < W; w += kSplitThreads) {
+    int n, kk;
+    sw_pos(KT, w, n, kk);                  // K[key n][d kk]
+    uint32_t hi, lo;
+    split_rn(ks[n][kk], hi, lo);
+    out[w] = hi;
+    out[W + w] = lo;
+    const int ch = w / (P::VCH / 4), wc = w - ch * (P::VCH / 4);
+    sw_pos(64, wc, n, kk);                 // V^T[d 64 ch + n][position kk]
+    split_rn(vs[perm(kk)][64 * ch + n], hi, lo);
+    out[2 * W + w] = hi;
+    out[3 * W + w] = lo;
+  }
+  if (tid < KT) {
+    const int key = k0 + tid;
+    const bool live =
+        key < T && mask[static_cast<size_t>(bh / H) * T + key] > 0.0f;
+    reinterpret_cast<float*>(out + 4 * W)[tid] = live ? 0.0f : -INFINITY;
+  }
+}
 
-  load_tile<DPAD>(q_s, q + base, q0, T, D);
-  float m[4], l[4], acc[4][DW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DW; ++e) acc[i][e] = 0.0f;
-  }
-  const int nk = (T + kB - 1) / kB;
-  const int n_live = causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < n_live; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();                 // the last tile's readers are done
-    load_tile<DPAD>(k_s, k + base, k0, T, D);
-    load_tile<DPAD>(v_s, v + base, k0, T, D);
-    if (tid < kB)
-      live_s[tid] = (k0 + tid < T &&
-                     mask[static_cast<size_t>(b) * T + k0 + tid] > 0.0f)
-                        ? 1.0f : 0.0f;
-    __syncthreads();
-    float s[4][4] = {};
-    dot_rows<DPAD>(q_s, k_s, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool live = live_s[tx + 16 * j] > 0.0f && (!causal || c <= r);
-        s[i][j] = live ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float alpha = 1.0f, sum = 0.0f;
-      if (m_new != -INFINITY) {      // a live key has been seen in this row
-        alpha = expf(m[i] - m_new);  // 0 while m[i] is still -inf
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);   // 0 for a dead entry
-          sum += s[i][j];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < DW; ++e) acc[i][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p_s[(ty + 16 * i) * kLP + tx + 16 * j] = s[i][j];
+template <int DPAD>
+__global__ void __launch_bounds__(Fwd<DPAD>::THREADS, 1)
+flash_fwd(const float* __restrict__ q, const uint8_t* __restrict__ scratch,
+          float* __restrict__ out, float* __restrict__ lse, int T, int D,
+          int causal, float scale) {
+  using P = Fwd<DPAD>;
+  constexpr int KT = P::KT, NS = P::NS, NWG = P::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;   // the swizzle's 1 KB
+  uint8_t* smem = smem_raw + (base - raw_addr);
+  const uint32_t full = base + P::BARS, empty = full + 8 * kFwdStages;
+
+  // every head's last query rows, which visit the most key tiles, first
+  const int bh = blockIdx.x, qb = gridDim.y - 1 - blockIdx.y;
+  const int r0 = qb * P::ROWS;
+  const int ntiles = (T + KT - 1) / KT;
+  const int n_tiles = causal ? min(ntiles, (r0 + P::ROWS - 1) / KT + 1)
+                             : ntiles;
+  const uint8_t* tiles =
+      scratch + static_cast<size_t>(bh) * ntiles * P::TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * NWG);
     }
-    __syncthreads();
-    mul_tile<DPAD>(p_s, v_s, ty, tx, acc);
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  // the producer warpgroup gives its registers to the consumers (a block
+  // of 384 threads gets 168 a thread; the consumers need ~200): one thread
+  // brings in one tile a bulk copy
+  if (warp >= 4 * NWG) {
+    if (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 128 * NWG)
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kFwdStages;
+        mbar_wait(empty + 8 * st, ((it / kFwdStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + 8 * st, P::TILE);
+        bulk_copy(base + P::RING + st * P::STAGE,
+                  tiles + static_cast<size_t>(it) * P::TILE, P::TILE,
+                  full + 8 * st);
+      }
+    return;
+  }
+  if (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+
+  // a consumer warpgroup: query rows q0 + [0, 64); this thread's rows
+  // q0 + g and q0 + g + 8, and the accumulators' columns 8 j + 2 t + {0, 1}
+  const int wg = warp >> 2, t = lane & 3;
+  const int g = 16 * (warp & 3) + (lane >> 2);
+  const int q0 = r0 + 64 * wg;
+  const size_t base_td = static_cast<size_t>(bh) * T * D;
+  const uint32_t qh = base + wg * 2 * P::QIMG, ql = qh + P::QIMG;
+  {
+    // the warpgroup's Q rows, zero past T and in [D, DPAD), split into tf32
+    // hi and lo K-major tiles: S's A operand, read from shared memory
+    constexpr int C4 = DPAD / 4;
+    for (int e = tid & 127; e < 64 * C4; e += 128) {
+      const int n = e / C4, c4 = e - n * C4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (q0 + n < T && 4 * c4 < D)
+        x = __ldg(reinterpret_cast<const float4*>(
+            q + base_td + static_cast<size_t>(q0 + n) * D + 4 * c4));
+      uint4 hi, lo;
+      split_rn(x.x, hi.x, lo.x);
+      split_rn(x.y, hi.y, lo.y);
+      split_rn(x.z, hi.z, lo.z);
+      split_rn(x.w, hi.w, lo.w);
+      const uint32_t off = wg * 2 * P::QIMG + sw_off(64, n, 4 * c4);
+      *reinterpret_cast<uint4*>(smem + off) = hi;
+      *reinterpret_cast<uint4*>(smem + off + P::QIMG) = lo;
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  }
+
+  const float scale_log2e = scale * 1.4426950408889634f;
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[DPAD / 2], s_hh[NS], s_x[NS], o_ha[32], o_x[32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < DPAD / 2; ++i) o[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kFwdStages, k0 = it * KT;
+    mbar_wait(full + 8 * st, (it / kFwdStages) & 1);
+    if (causal && k0 > q0 + 63) {      // no live key for these rows
+      mbar_arrive(empty + 8 * st);
+      continue;
+    }
+    const uint32_t stage = base + P::RING + st * P::STAGE;
+
+    // S = Q K^T on the tensor cores, 3xTF32, hi.hi and the cross products
+    // in fresh accumulators apart
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      fence_operand(s_hh[i]);
+      fence_operand(s_x[i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DPAD / 8; ++kk) {
+      const int step = 2 * (kk & 3);
+      const uint64_t ah = sw128_desc(qh + (kk >> 2) * (64 * 128)) + step;
+      const uint64_t al = sw128_desc(ql + (kk >> 2) * (64 * 128)) + step;
+      const uint32_t kb = stage + (kk >> 2) * (KT * 128);
+      const uint64_t bh_ = sw128_desc(kb) + step;
+      const uint64_t bl = sw128_desc(kb + P::IMG) + step;
+      if (kk == 0) {
+        WgmmaSS<KT>::init(s_hh, ah, bh_);
+        WgmmaSS<KT>::init(s_x, ah, bl);
+      } else {
+        WgmmaSS<KT>::mma(s_hh, ah, bh_, 1);
+        WgmmaSS<KT>::mma(s_x, ah, bl, 1);
+      }
+      WgmmaSS<KT>::mma(s_x, al, bh_, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // the online softmax in f32 on the CUDA cores, in the log2 domain: x =
+    // s scale log2(e) + bias; the row max over the 4 threads of a row
+    const float* bias =
+        reinterpret_cast<const float*>(smem + P::RING + st * P::STAGE +
+                                       4 * P::IMG);
+    const bool diag = causal && k0 + KT - 1 > q0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      fence_operand(s_hh[i]);
+      fence_operand(s_x[i]);
+      const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * t + (i & 1);
+      float x = fmaf(s_hh[i] + s_x[i], scale_log2e, bias[col]);
+      if (diag && k0 + col > q0 + g + 8 * h) x = -INFINITY;
+      s_hh[i] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m2[h], mx[h]);
+      mu[h] = m_new == -INFINITY ? 0.0f : m_new;   // no live key yet: p = 0
+      alpha[h] = exp2f(m2[h] - mu[h]);             // 0 while m2 is -inf
+      m2[h] = m_new;
+      l[h] *= alpha[h];                            // this thread's share
+    }
+    // p, split in place into tf32 hi (s_hh) and lo (s_x): the A fragments
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = exp2f(s_hh[i] - mu[h]);
+      l[h] += p;
+      uint32_t hi, lo;
+      split_rn(p, hi, lo);
+      s_hh[i] = __uint_as_float(hi);
+      s_x[i] = __uint_as_float(lo);
+    }
+
+    // P V on the tensor cores, 3xTF32, per 64 head dims: A = P from the
+    // registers (K index t holds key 2t, t + 4 key 2t + 1, as the V^T
+    // image).  hi.hi goes into a fresh accumulator every k-step, which the
+    // CUDA cores add, rounding to nearest, to the rescaled running sum; the
+    // cross products, 2^-11 the size, into one accumulator over the tile.
+    // The tensor cores truncate as they add: summed over the tile, hi.hi's
+    // truncation biased out enough to show in the gradients.  Each k-step
+    // waits for its products (a second buffer in turn cost the registers
+    // that keep ptxas from serialising the wgmmas, and was slower); the
+    // other warpgroup's products fill the tensor cores meanwhile.
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {     // P is written before the fences
+      fence_operand(s_hh[i]);
+      fence_operand(s_x[i]);
+    }
+#pragma unroll
+    for (int ch = 0; ch < DPAD / 64; ++ch) {
+      float* oc = o + 32 * ch;
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {
+        const uint32_t ah[4] = {
+            __float_as_uint(s_hh[4 * kk]), __float_as_uint(s_hh[4 * kk + 2]),
+            __float_as_uint(s_hh[4 * kk + 1]),
+            __float_as_uint(s_hh[4 * kk + 3])};
+        const uint32_t al[4] = {
+            __float_as_uint(s_x[4 * kk]), __float_as_uint(s_x[4 * kk + 2]),
+            __float_as_uint(s_x[4 * kk + 1]),
+            __float_as_uint(s_x[4 * kk + 3])};
+        const int step = 2 * (kk & 3);
+        const uint32_t vb =
+            stage + 2 * P::IMG + ch * P::VCH + (kk >> 2) * (64 * 128);
+        const uint64_t bh_ = sw128_desc(vb) + step;
+        const uint64_t bl = sw128_desc(vb + P::IMG) + step;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_operand(o_ha[i]);
+        wgmma_fence();
+        Wgmma<64>::init(o_ha, ah, bh_);
+        if (kk == 0)
+          Wgmma<64>::init(o_x, ah, bl);
+        else
+          Wgmma<64>::mma(o_x, ah, bl, 1);
+        Wgmma<64>::mma(o_x, al, bh_, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          fence_operand(o_ha[i]);
+          if (kk == 0) oc[i] *= alpha[(i >> 1) & 1];
+          oc[i] += o_ha[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        fence_operand(o_x[i]);
+        oc[i] += o_x[i];
+      }
+    }
+    mbar_arrive(empty + 8 * st);       // this thread is done with the stage
+  }
+
+  // out = o / l and lse = (m2 + log2 l) ln 2 for the thread's two rows; a
+  // row with no live key gives 0 and kDeadLse
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = q0 + g + 8 * h;
     if (r >= T) continue;
-    const bool row_live = l[i] > 0.0f;
-    store_row<DPAD>(out + base, r, D, tx, acc[i],
-                    row_live ? 1.0f / l[i] : 0.0f);
-    if (tx == 0)
+    const bool live = l[h] > 0.0f;
+    const float inv = live ? 1.0f / l[h] : 0.0f;
+    float* row = out + base_td + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int i = 2 * h; i < DPAD / 2; i += 4) {
+      // elements i, i + 1: head dims 64 (i / 32) + 8 ((i % 32) / 4) + 2 t
+      const int d = 64 * (i >> 5) + 8 * ((i & 31) >> 2) + 2 * t;
+      if (d < D)
+        *reinterpret_cast<float2*>(row + d) =
+            make_float2(o[i] * inv, o[i + 1] * inv);
+    }
+    if (t == 0)
       lse[static_cast<size_t>(bh) * T + r] =
-          row_live ? m[i] + logf(l[i]) : kDeadLse;
+          live ? (m2[h] + log2f(l[h])) * 0.6931471805599453f : kDeadLse;
   }
 }
 
@@ -320,7 +510,6 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kBwdThreads = 256;   // two warpgroups; 16 x 16 in phase 1
 constexpr int kS = 64;             // rows of a streamed tile
-constexpr int kSmemMax = 232448;   // a block's dynamic shared memory
 
 // The backward's plan.  DQ: the dq kernel, whose block rows are queries and
 // whose streamed rows are keys; else the dk/dv kernel, the other way round.
@@ -340,20 +529,6 @@ struct Bwd {
   static constexpr int SMEM = OUTS + 2 * FIX0 + FIX1 + 2 * STAGE + 1024;
   static_assert(SMEM <= kSmemMax, "the plan exceeds a block's shared memory");
 };
-
-// Byte offset of element (row n, k) in a K-major tile of `rows` rows stored
-// as [k / 32][rows][32 f32] atoms in the 128-byte swizzle.
-__device__ __forceinline__ uint32_t sw_off(int rows, int n, int k) {
-  return (k >> 5) * (rows * 128) + n * 128 +
-         ((((k & 31) >> 2) ^ (n & 7)) << 4) + (k & 3) * 4;
-}
-
-// v = hi + lo with hi = v truncated to tf32 and lo = v - hi exact in f32
-// (the tensor cores read lo's top 19 bits).
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xFFFFE000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
 
 template <int DPAD, bool DQ>
 __global__ void __launch_bounds__(kBwdThreads, 1)
@@ -676,15 +851,21 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <int DPAD>
 int launch_fwd(const float* q, const float* k, const float* v,
-               const float* mask, float* out, float* lse, int BH, int H,
-               int T, int D, int causal, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (3 * Plan<DPAD>::TILE + kB * kLP + kB) * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd<DPAD>, smem);
+               const float* mask, float* out, float* lse, uint8_t* scratch,
+               int BH, int H, int T, int D, int causal, float scale,
+               cudaStream_t stream) {
+  using P = Fwd<DPAD>;
+  const int ntiles = (T + P::KT - 1) / P::KT;
+  const int nq = (T + P::ROWS - 1) / P::ROWS;
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_split<DPAD><<<dim3(ntiles, BH), kSplitThreads, 0, stream>>>(
+      k, v, mask, scratch, H, T, D);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kB - 1) / kB, BH);
-  flash_fwd<DPAD><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse,
-                                                    H, T, D, causal, scale);
+  err = allow_smem(flash_fwd<DPAD>, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd<DPAD><<<dim3(BH, nq), P::THREADS, P::SMEM, stream>>>(
+      q, scratch, out, lse, T, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -709,17 +890,21 @@ int launch_bwd(const float* q, const float* k, const float* v,
 extern "C" {
 
 // out [BH, T, D] and lse [BH, T] from q, k, v [BH, T, D] and the key mask
-// [BH / H, T]; all f32, contiguous, on the device.  Launches on `stream` and
-// returns a CUDA error code (0 on success).
+// [BH / H, T]; all f32, contiguous, on the device.  `scratch` holds
+// BH * ceil(T / KT) tiles of TILE bytes (Fwd<DPAD>: KT = 64 and TILE =
+// 65,792 for D <= 64, else 32 and 65,664), 16-byte aligned, for the split
+// pre-pass; it is overwritten.  Launches the pre-pass and the kernel on
+// `stream` and returns a CUDA error code (0 on success).
 int dl4j_flash_fwd_f32(const float* q, const float* k, const float* v,
-                       const float* mask, float* out, float* lse, int BH,
-                       int H, int T, int D, int causal, float scale,
-                       void* stream) {
+                       const float* mask, float* out, float* lse,
+                       void* scratch, int BH, int H, int T, int D, int causal,
+                       float scale, void* stream) {
   if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch_fwd<64>(q, k, v, mask, out, lse, BH, H, T, D,
+  uint8_t* sc = static_cast<uint8_t*>(scratch);
+  return D <= 64 ? launch_fwd<64>(q, k, v, mask, out, lse, sc, BH, H, T, D,
                                   causal, scale, s)
-                 : launch_fwd<128>(q, k, v, mask, out, lse, BH, H, T, D,
+                 : launch_fwd<128>(q, k, v, mask, out, lse, sc, BH, H, T, D,
                                    causal, scale, s);
 }
 

@@ -17,25 +17,29 @@
 // What bounds it on this card.  At the char-RNN's shape (N = 32, H = 200) one
 // step moves 847,200 bytes (RW alone is 640 KB) and does 10.2 MFLOP: 0.25 us
 // of HBM time against 0.15 us of f32 FMA time, so bytes on paper.  In fact
-// this design is far from both: RW stays in the 50 MB L2 from step to step,
-// and on the H100 the step's time barely moves with N (PERF.md), so what
-// bounds it is each block's serial chain of k-chunks (L2 load latency, then
-// two barriers, with one block per SM), and in training the host's launch
-// rate bounds it long before that.
+// RW stays in the 50 MB L2 from step to step, and what bounds one step is
+// latency: the launch, and the L2 round trips that lie in series on the way
+// from the inputs to h'.  (The first design walked k in seven dependent
+// chunks per block on 28 blocks and took 22 us whatever N was.)
 //
-// What the design does about it (right and simple first).  One thread owns
-// one (row n, hidden unit j) pair and accumulates the four gate columns
-// j, H+j, 2H+j, 3H+j of h[n,:] RW, so all the gate math of that pair is local
-// and no block exchanges anything with another.  A block is 32 hidden units
-// (threadIdx.x, a warp, neighbouring threads on neighbouring RW columns) by
-// 8 rows (threadIdx.y).  It walks k in chunks of 32: it stages h[rows, k-chunk]
-// and the four matching RW column slices (16 KB) in shared memory, then does
-// f32 FMAs on the CUDA cores; inside a warp the h value is a broadcast and
-// the RW reads are consecutive banks.  Ragged edges are masked on load and
-// store: H = 200 is not a multiple of 32, and sampling runs N = 1 and N = 4.
-// Tiling over k means no limit on H; the grid's y extent (N / 8 <= 65,535)
-// is the only shape limit, checked by the Python predicate.  The TPU
-// kernel's VMEM budget has no counterpart here.
+// What the design does about it.  A block owns kJB = 2 hidden units (all
+// four gates: 8 RW columns) for kNB = 16 rows, so H = 200 gives 100 blocks
+// per 16 rows, 200 at the char-RNN's N = 32 (there, on an H100, blocks of
+// 32 rows took 8.4 us, of 16 5.4 us, of 8 7.3 us).  Its 8 warps split k:
+// warp w sums k in its own range of ceil(H / 8) rows, in chunks of kKC =
+// 32.  For a chunk, each lane first
+// issues every load it needs at once -- the 32 RW values of its column and
+// its share of h[rows, chunk], which the warp stages in its own slice of
+// shared memory -- so a chunk costs one L2 round trip, and H = 200 is one
+// chunk per warp; no block barrier lies inside the loop.  Lane = column c
+// (0..7) + 8 x row group (0..3), 4 rows a lane.  The warps' partial sums
+// meet once in shared memory; after one barrier, thread (unit, row) adds
+// them and does the gate math with zx, c and the peepholes, which it loaded
+// before the product.  The sum over k is taken in another order than the
+// plain version's (within LSTM_TOL).  Ragged edges are masked: N not a
+// multiple of 16, a k range not a multiple of the chunk.  H is otherwise
+// unbounded (nothing of RW is staged); the grid's y extent (N / 16 <=
+// 65,535) is the only shape limit, checked by the Python predicate.
 //
 // zx may be a row-strided view (a time step of a [N, T, 4H] tensor): ld_zx is
 // its row stride in floats; everything else is contiguous.
@@ -45,10 +49,15 @@
 
 namespace {
 
-constexpr int kBJ = 32;   // hidden units per block (threadIdx.x)
-constexpr int kBN = 8;    // rows per block (threadIdx.y)
-constexpr int kKC = 32;   // k-chunk of the recurrent product
-constexpr int kThreads = kBJ * kBN;
+constexpr int kJB = 2;               // hidden units per block
+constexpr int kCols = 4 * kJB;       // RW columns per block (4 gates)
+constexpr int kNB = 16;              // rows per block
+constexpr int kWarps = 8;            // the k split
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKC = 32;              // k-chunk of one warp
+constexpr int kGroups = 32 / kCols;  // row groups of a warp
+constexpr int kRows = kNB / kGroups; // rows of one lane
+static_assert(kJB * kNB <= kThreads, "one thread per (unit, row) output");
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -60,53 +69,79 @@ lstm_step_f32(const float* __restrict__ zx, int ld_zx,
               const float* __restrict__ rw, const float* __restrict__ p3,
               float* __restrict__ c_out, float* __restrict__ h_out,
               int N, int H) {
-  __shared__ float h_s[kBN][kKC];
-  __shared__ float rw_s[kKC][4][kBJ];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int t = ty * kBJ + tx;
-  const int j0 = blockIdx.x * kBJ, n0 = blockIdx.y * kBN;
-  const int j = j0 + tx, n = n0 + ty;
+  __shared__ float h_s[kWarps][kNB][kKC + 1];   // each warp's h chunk
+  __shared__ float part[kWarps][kCols][kNB];    // the warps' partial sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j0 = blockIdx.x * kJB, n0 = blockIdx.y * kNB;
   const size_t G = 4 * static_cast<size_t>(H);
 
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < H; k0 += kKC) {
-    {  // h[n0 : n0+8, k0 : k0+32], one element per thread
-      const int nn = t / kKC, kk = t % kKC;
-      const int gn = n0 + nn, gk = k0 + kk;
-      h_s[nn][kk] = (gn < N && gk < H)
-                        ? h[static_cast<size_t>(gn) * H + gk] : 0.0f;
-    }
-    // RW[k0 : k0+32, g*H + j0 : g*H + j0+32] for the four gates
-    for (int e = t; e < kKC * 4 * kBJ; e += kThreads) {
-      const int kk = e / (4 * kBJ), r = e % (4 * kBJ);
-      const int g = r / kBJ, jj = r % kBJ;
-      const int gk = k0 + kk, gj = j0 + jj;
-      rw_s[kk][g][jj] =
-          (gk < H && gj < H)
-              ? rw[static_cast<size_t>(gk) * G + static_cast<size_t>(g) * H + gj]
-              : 0.0f;
-    }
-    __syncthreads();
+  // the gate-math thread's inputs, loaded before the product
+  const int oj = j0 + tid % kJB, on = n0 + tid / kJB;
+  const bool owner = tid < kJB * kNB && oj < H && on < N;
+  float zg[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cv = 0.0f, pi = 0.0f, pf = 0.0f,
+        po = 0.0f;
+  if (owner) {
+    const float* z = zx + static_cast<size_t>(on) * ld_zx;
 #pragma unroll
-    for (int kk = 0; kk < kKC; ++kk) {
-      const float hv = h_s[ty][kk];
-      acc[0] = fmaf(hv, rw_s[kk][0][tx], acc[0]);
-      acc[1] = fmaf(hv, rw_s[kk][1][tx], acc[1]);
-      acc[2] = fmaf(hv, rw_s[kk][2][tx], acc[2]);
-      acc[3] = fmaf(hv, rw_s[kk][3][tx], acc[3]);
-    }
-    __syncthreads();
+    for (int g = 0; g < 4; ++g) zg[g] = __ldg(z + g * H + oj);
+    cv = __ldg(c + static_cast<size_t>(on) * H + oj);
+    pi = __ldg(p3 + oj);
+    pf = __ldg(p3 + H + oj);
+    po = __ldg(p3 + 2 * H + oj);
   }
-  if (n >= N || j >= H) return;
 
-  const float* __restrict__ z = zx + static_cast<size_t>(n) * ld_zx;
-  const size_t o = static_cast<size_t>(n) * H + j;
-  const float cv = c[o];
-  const float ig = sigmoid(z[j] + acc[0] + cv * p3[j]);
-  const float fg = sigmoid(z[H + j] + acc[1] + cv * p3[H + j]);
-  const float gg = tanhf(z[3 * H + j] + acc[3]);
+  // lane's column (gate g, unit j0 + u) and rows n0 + rg + kGroups * i
+  const int col = lane % kCols, rg = lane / kCols;
+  const int cg = col / kJB, cu = j0 + col % kJB;
+  const bool col_ok = cu < H;
+  const float* rw_col = rw + static_cast<size_t>(cg) * H + cu;
+  float acc[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+
+  const int range = (H + kWarps - 1) / kWarps;
+  const int k_begin = warp * range, k_end = min(H, k_begin + range);
+  for (int k0 = k_begin; k0 < k_end; k0 += kKC) {
+    const int kn = min(kKC, k_end - k0);
+    // every load of the chunk at once: this lane's RW column ...
+    float w[kKC];
+#pragma unroll
+    for (int kk = 0; kk < kKC; ++kk)
+      w[kk] = (kk < kn && col_ok)
+                  ? __ldg(rw_col + static_cast<size_t>(k0 + kk) * G) : 0.0f;
+    // ... and h[n0 + r, k0 + lane] for the warp's slice
+#pragma unroll 8
+    for (int r = 0; r < kNB; ++r)
+      h_s[warp][r][lane] = (lane < kn && n0 + r < N)
+          ? __ldg(h + static_cast<size_t>(n0 + r) * H + k0 + lane) : 0.0f;
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < kKC; ++kk)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        acc[i] = fmaf(h_s[warp][rg + kGroups * i][kk], w[kk], acc[i]);
+    __syncwarp();                  // the slice is free for the next chunk
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) part[warp][col][rg + kGroups * i] = acc[i];
+  __syncthreads();
+  if (!owner) return;
+
+  const int u = tid % kJB, r = tid / kJB;
+  float z[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    float s = zg[g];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[w][g * kJB + u][r];
+    z[g] = s;
+  }
+  const float ig = sigmoid(z[0] + cv * pi);
+  const float fg = sigmoid(z[1] + cv * pf);
+  const float gg = tanhf(z[3]);
   const float cn = fg * cv + ig * gg;
-  const float og = sigmoid(z[2 * H + j] + acc[2] + cn * p3[2 * H + j]);
+  const float og = sigmoid(z[2] + cn * po);
+  const size_t o = static_cast<size_t>(on) * H + oj;
   c_out[o] = cn;
   h_out[o] = og * tanhf(cn);
 }
@@ -123,11 +158,10 @@ int dl4j_lstm_step_f32(const float* zx, int ld_zx, const float* h,
                        float* c_out, float* h_out, int N, int H,
                        void* stream) {
   if (N < 1 || H < 1 || ld_zx < 4 * H ||
-      (N + kBN - 1) / kBN > 65535)
+      (N + kNB - 1) / kNB > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((H + kBJ - 1) / kBJ, (N + kBN - 1) / kBN);
-  lstm_step_f32<<<grid, dim3(kBJ, kBN), 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((H + kJB - 1) / kJB, (N + kNB - 1) / kNB);
+  lstm_step_f32<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       zx, ld_zx, h, c, rw, p3, c_out, h_out, N, H);
   return static_cast<int>(cudaGetLastError());
 }

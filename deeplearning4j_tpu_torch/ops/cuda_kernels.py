@@ -211,7 +211,7 @@ LSTM_LIBRARY = KernelLibrary(
 _F = ctypes.c_float
 FLASH_LIBRARY = KernelLibrary(
     CSRC / "flash_attention.cu",
-    {"dl4j_flash_fwd_f32": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+    {"dl4j_flash_fwd_f32": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dq_f32": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dkv_f32": ([_P] * 9 + [_I] * 5 + [_F, _P], _I)})
 LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY,
@@ -664,12 +664,12 @@ fused_threshold_dropout.launches = 0
 # peephole LSTM step
 # ---------------------------------------------------------------------------
 
-_LSTM_ROWS_PER_BLOCK = 8     # kBN in csrc/lstm_step.cu
+_LSTM_ROWS_PER_BLOCK = 16    # kNB in csrc/lstm_step.cu
 
 
 def lstm_fused_supported(n: int, h: int, dtype) -> bool:
     """Support predicate of the lstm kernel: the JAX shape rule (h >= 8,
-    h % 8 == 0), f32, and at most 65,535 blocks of 8 rows.  The kernel
+    h % 8 == 0), f32, and at most 65,535 blocks of 16 rows.  The kernel
     tiles the recurrent product over k, so the TPU's VMEM budget has no
     counterpart and H is otherwise unbounded."""
     if dtype != torch.float32 or h < 8 or h % 8:
@@ -897,16 +897,30 @@ def _launch_flash(wrapper, symbol: str, inputs, outputs, causal: bool,
     return outputs
 
 
+def flash_fwd_scratch_bytes(bh: int, T: int, D: int) -> int:
+    """Bytes of the forward's split pre-pass scratch (``Fwd<DPAD>`` in
+    ``csrc/flash_attention.cu``): ceil(T / KT) tiles per head of K and V^T
+    split into tf32 hi and lo images (4 x KT x DPAD f32) and KT key biases;
+    KT = 64 keys at D <= 64 (DPAD 64), else 32 (DPAD 128)."""
+    dpad, kt = (64, 64) if D <= 64 else (128, 32)
+    return bh * _cdiv(T, kt) * (4 * kt * dpad * 4 + kt * 4)
+
+
 def flash_forward(q, k, v, key_mask, causal: bool, scale: float):
     """(out, lse) of one attention core, q, k, v [B, H, T, D], key_mask
     [B, T] (> 0 keeps the key).  A CPU tensor takes the plain version; any
-    other launches the forward kernel or raises."""
+    other launches the forward kernel (after its split pre-pass, into a
+    scratch the wrapper allocates and frees) or raises."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, key_mask, causal, scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    B, H, T, D = q.shape
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(flash_fwd_scratch_bytes(B * H, T, D),
+                          dtype=torch.uint8, device=q.device)
     return _launch_flash(flash_forward, "dl4j_flash_fwd_f32", inputs,
-                         (torch.empty_like(inputs[0]), lse), causal, scale)
+                         (torch.empty_like(inputs[0]), lse, scratch), causal,
+                         scale)[:2]
 
 
 flash_forward.launches = 0

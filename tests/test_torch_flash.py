@@ -22,6 +22,8 @@ to lse, to 0 on the port's side and to the gradients, which agree; the
 JAX output is compared on the rows that have a live key.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -265,6 +267,115 @@ def test_three_tf32_products_hold_the_flash_tolerance(T, D, causal):
                    for a, b in zip(got, want))
     assert excess(grads(_three_tf32)) <= 1.0
     assert excess(grads(_one_tf32)) > 1.0
+
+
+def _tf32_rn(t):
+    """float32 rounded to the nearest TF32, ties away from zero (cvt.rna):
+    the forward kernel's split."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_rn(t):
+    """(hi, lo) as the forward splits and the tensor cores read them: hi
+    the nearest TF32, lo = t - hi (exact, either sign) truncated to TF32."""
+    hi = _tf32_rn(t)
+    return hi, _tf32(t - hi)
+
+
+def _emulate_forward(q, k, v, scale, causal, three=True):
+    """The forward kernel's arithmetic on one head, q, k, v [T, D]: key tiles
+    of KT (64 at D <= 64, else 32); S = Q K^T in 3xTF32 (hi.hi and the
+    cross products each summed exactly over the tile, then rounded to f32,
+    as one accumulator a tile); the online softmax in f32 in the log2
+    domain; P V in 3xTF32 with hi.hi summed exactly over each 8 keys and
+    rounded to f32 (a fresh accumulator a k-step), added to the rescaled
+    running sum in f32, the cross products over the tile.  ``three=False``
+    keeps one TF32 product (hi.hi) per product.  -> (out, lse)."""
+    T, D = q.shape
+    kt = 64 if D <= 64 else 32
+    f64 = torch.float64
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    c = torch.tensor(scale, dtype=torch.float32) * log2e
+    qh, ql = _split_rn(q)
+    m = torch.full((T, 1), float("-inf"))
+    l = torch.zeros((T, 1))
+    o = torch.zeros((T, D))
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, T, kt):
+        kk, vv = k[k0:k0 + kt], v[k0:k0 + kt]
+        kh, kl = _split_rn(kk)
+        s_hh = (qh.to(f64) @ kh.T.to(f64)).float()
+        s_x = (qh.to(f64) @ kl.T.to(f64) + ql.to(f64) @ kh.T.to(f64)).float()
+        x = (s_hh + s_x) * c if three else s_hh * c
+        if causal:
+            x = x.masked_fill(torch.arange(k0, k0 + len(kk))[None] > rows,
+                              float("-inf"))
+        m_new = torch.maximum(m, x.amax(1, keepdim=True))
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new),
+                         m_new)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(x - mu)
+        l = l * alpha + p.sum(1, keepdim=True)
+        m = m_new
+        ph, pl = _split_rn(p)
+        vh, vl = _split_rn(vv)
+        o = o * alpha
+        for j in range(0, len(kk), 8):
+            o = o + (ph[:, j:j + 8].to(f64) @ vh[j:j + 8].to(f64)).float()
+        if three:
+            o = o + (ph.to(f64) @ vl.to(f64)
+                     + pl.to(f64) @ vh.to(f64)).float()
+    ln2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
+    return o / l, (m + torch.log2(l)).squeeze(1) * ln2
+
+
+@pytest.mark.parametrize("T,D,causal", [(256, 64, True), (200, 96, False)])
+def test_forward_products_in_three_tf32_hold_the_flash_tolerance(T, D,
+                                                                 causal):
+    """The forward kernel's arithmetic, emulated on the CPU (S and P V in
+    3xTF32 from round-to-nearest splits, the online softmax in f32, P V's
+    hi.hi in a fresh accumulator every 8 keys), holds out and lse to the
+    JAX package's ``_flash_fwd`` at chip_smoke.py's FLASH_TOL (rtol = atol
+    = 1e-5, inputs N(0, 0.5^2) as there); with one TF32 product per product
+    it does not."""
+    rng = np.random.default_rng(7 * T + D)
+    q, k, v = (rng.normal(size=(1, 1, T, D)).astype(np.float32) * 0.5
+               for _ in range(3))
+    km = np.ones((1, T), np.float32)
+    scale = 1.0 / D ** 0.5
+    Tp = -(-T // 128) * 128
+    jq, jk, jv = (jnp.asarray(_pad_t(a, 2, Tp)) for a in (q, k, v))
+    jout, jlse = pk._flash_fwd(jq, jk, jv, jnp.asarray(_pad_t(km, 1, Tp)),
+                               causal=causal, scale=scale)
+    want = (torch.from_numpy(np.array(jout)[0, 0, :T]),
+            torch.from_numpy(np.array(jlse).reshape(Tp)[:T]))
+    tq, tk, tv = (_t(a[0, 0]) for a in (q, k, v))
+
+    def excess(got):
+        return max(float(((a - b).abs() / (1e-5 + 1e-5 * b.abs())).max())
+                   for a, b in zip(got, want))
+    assert excess(_emulate_forward(tq, tk, tv, scale, causal)) <= 1.0
+    assert excess(_emulate_forward(tq, tk, tv, scale, causal,
+                                   three=False)) > 1.0
+
+
+def test_forward_scratch_plan_matches_the_source():
+    """``flash_fwd_scratch_bytes`` mirrors ``Fwd<DPAD>`` of the source: KT
+    keys a tile (64 at DPAD 64, 32 at DPAD 128), and a tile of four split
+    images of KT x DPAD f32 and KT key biases; at the training shape, 32
+    heads of 8,192 keys, 269,484,032 bytes."""
+    src = (ck.CSRC / "flash_attention.cu").read_text()
+    kt = re.search(r"int KT = DPAD == 64 \? (\d+) : (\d+);", src)
+    assert kt and (int(kt.group(1)), int(kt.group(2))) == (64, 32)
+    assert "int IMG = KT * DPAD * 4;" in src
+    assert "int TILE = 4 * IMG + KT * 4;" in src
+    for bh, T, D in ((32, 8192, 64), (4, 200, 32), (4, 130, 96),
+                     (1, 256, 128)):
+        dpad, tile = (64, 64) if D <= 64 else (128, 32)
+        want = bh * -(-T // tile) * (4 * tile * dpad * 4 + 4 * tile)
+        assert ck.flash_fwd_scratch_bytes(bh, T, D) == want
+    assert ck.flash_fwd_scratch_bytes(32, 8192, 64) == 269_484_032
 
 
 def test_library_path_hashes_the_headers_a_source_includes(tmp_path):

@@ -190,14 +190,15 @@ def test_conv_library_runs_on_the_tensor_cores(cuda_device):
 
 
 @pytest.mark.gpu
-def test_flash_backward_kernels_run_on_the_tensor_cores(cuda_device):
-    """Every instance of the dq and dk/dv kernel (flash_bwd<DPAD, DQ>, DPAD
-    64 and 128) holds HGMMA in the flash library's SASS; the forward is a
-    CUDA-core kernel."""
+def test_flash_kernels_run_on_the_tensor_cores(cuda_device):
+    """Every instance of the forward (flash_fwd<DPAD>) and of the dq and
+    dk/dv kernel (flash_bwd<DPAD, DQ>), DPAD 64 and 128, holds HGMMA in the
+    flash library's SASS."""
     counts = ck.sass_hgmma_counts(ck.FLASH_LIBRARY)
+    fwd = {f: n for f, n in counts.items() if "flash_fwdILi" in f}
     bwd = {f: n for f, n in counts.items() if "flash_bwd" in f}
+    assert len(fwd) == 2 and all(fwd.values()), counts
     assert len(bwd) == 4 and all(bwd.values()), counts
-    assert not any(n for f, n in counts.items() if "flash_fwd" in f)
 
 
 def _emulate_conv_kernel(x, w, pad, sms):
@@ -397,11 +398,15 @@ def test_fit_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,H", [(32, 200), (1, 200), (4, 200), (5, 24)])
+@pytest.mark.parametrize("N,H", [(32, 200), (1, 200), (4, 200), (5, 24),
+                                 (3, 1024), (40, 8), (7, 264), (70, 128)])
 def test_lstm_kernel_matches_plain_version_on_the_card(cuda_device, N, H):
     """One step, forward and the gradients of all five inputs, with zx a
     time step of a [N, T, 4H] tensor (a row-strided view) as in
-    ``lstm_scan``."""
+    ``lstm_scan``.  At the tiling's edges: H = 1024 gives each of the 8
+    warps four k-chunks of 32; H = 264 a range of 33 (a chunk of 32, then
+    one of 1); H = 8 one k a warp; N = 40 and 70 span row blocks of 16 with
+    a ragged last block."""
     rng = np.random.default_rng(N * 1000 + H)
 
     def t(*shape, scale=1.0):

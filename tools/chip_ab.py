@@ -10,7 +10,8 @@ the script keeps the end-to-end numbers both trees' scripts print: VGG16-224
 training (samples/s after the first step, peak memory), VGG16-224
 ``output()`` ms at batch 8, serving (requests/s, p50 and p99 latency and
 the batcher's mean compute ms per model), LeNet training samples/s, the
-xent, dropout and LSTM kernels' times, char-RNN training characters/s, the
+xent, dropout and LSTM kernels' times (the LSTM at every timed shape),
+char-RNN training characters/s, the
 flash kernels' and SDPA's times, attention training (characters/s after the
 first step, step seconds, peak memory), attention ``output()`` ms and
 sampling ms per character, and the build's seconds.  It prints one JSON line per run, with the run's last
@@ -64,6 +65,9 @@ def _numbers(ph: dict) -> dict:
         nums["dropout_ms"] = [r["ms"] for r in x["dropout"] if "ms" in r]
     if "lstm_kernel" in ph:
         nums["lstm_us_per_step"] = ph["lstm_kernel"]["us_per_step"]
+        nums["lstm_us_by_shape"] = {
+            "x".join(map(str, r["shape"])): r["ms"] * 1e3
+            for r in ph["lstm_kernel"]["steps"] if "ms" in r}
     if "train_charrnn" in ph:
         nums["charrnn_chars_per_s"] = \
             ph["train_charrnn"]["chars_per_s_after_first"]

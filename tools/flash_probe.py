@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
-"""Build the flash kernels, check the backward pair against its plain
-versions and time it, on one GPU.
+"""Build the flash kernels, check the forward and the backward pair against
+their plain versions and time them, on one GPU.
 
     python3 tools/flash_probe.py [--variant NAME=PATH.cu ...] [--reps N]
+                                 [--step]
 
-Prints one JSON line per step: the build (nvcc seconds, ptxas registers and
-spills of every kernel), the dq and dk/dv kernels against
-``flash_dq_reference`` / ``flash_dkv_reference`` on chip_smoke.py's cases
-(rtol = atol = FLASH_TOL), and the CUDA-event time of each at the training
-shape (4, 8, 8192, 64), causal.  Each ``--variant`` is another source with
-the same C interface (a copy of ``csrc/flash_attention.cu`` with one part
-changed, or an older version of it, kept under a git-ignored directory):
+Prints one JSON line per step: the build (nvcc seconds, ptxas registers,
+spills and wgmma notes of every kernel), the forward, dq and dk/dv kernels
+against ``flash_forward_reference``, ``flash_dq_reference`` and
+``flash_dkv_reference`` on chip_smoke.py's cases (rtol = atol = FLASH_TOL),
+and the CUDA-event time of each at the training shape (4, 8, 8192, 64),
+causal (the forward's split pre-pass included).  Each ``--variant`` is
+another source with the same C interface (a copy of
+``csrc/flash_attention.cu`` with one part changed, kept under a git-ignored
+directory):
 it is built beside the repo's kernels, checked the same way on the small
 cases, and timed in turns with them, repo / variants / variants reversed /
 repo, so that designs are compared on one card in one call.  A variant
 with a part cut out fails its checks by design; the last line says
 whether every check passed, and the exit code is 0 unless a build or a
 launch failed.
+
+``--step`` adds chip_smoke.py's sharpest accuracy check: one attention
+training step at T = 2,048 through each library's kernels against the plain
+versions (``_attention_step_vs_plain``: the relative 2-norm of every
+param's gradient and Adam update), and once with the plain forward and the
+repo's backward kernels.  The steps run in turns, twice over: the update
+errors move with the work that ran before them (not traced), so a library
+is judged on both turns.
 """
 
 import argparse
+import ast
 import json
 import sys
 import time
@@ -29,6 +41,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (the repo's check and timing helpers)
+
+
+def _forward(torch, ck, lib, q, k, v, km, causal, scale):
+    """(out, lse) from ``lib``'s forward kernel."""
+    B, H, T, D = q.shape
+    outputs = [torch.empty_like(q), q.new_empty((B, H, T)),
+               torch.empty(ck.flash_fwd_scratch_bytes(B * H, T, D),
+                           dtype=torch.uint8, device=q.device)]
+    inputs = [t.contiguous() for t in (q, k, v, km)]
+    return _launch(torch, lib, "dl4j_flash_fwd_f32", inputs, outputs, causal,
+                   scale)[:2]
 
 
 def _launch(torch, lib, symbol, inputs, outputs, causal, scale):
@@ -58,13 +81,15 @@ def check(torch, ck, lib, gen, B, H, T, D, causal, mask) -> dict:
     s = D ** -0.5
     out, lse = ck.flash_forward_reference(q, k, v, km, causal, s)
     delta = (g * out).sum(-1)
-    got = _pair(torch, lib, q, k, v, km, g, lse, delta, causal, s)
-    want = (ck.flash_dq_reference(q, k, v, km, g, lse, delta, causal, s),
+    got = (*_forward(torch, ck, lib, q, k, v, km, causal, s),
+           *_pair(torch, lib, q, k, v, km, g, lse, delta, causal, s))
+    want = (out, lse,
+            ck.flash_dq_reference(q, k, v, km, g, lse, delta, causal, s),
             *ck.flash_dkv_reference(q, k, v, km, g, lse, delta, causal, s))
     torch.cuda.synchronize()
     rec = {"shape": [B, H, T, D], "causal": causal, "mask": mask}
     ok = True
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
         err = (a - b).abs()
         allow = cs.FLASH_TOL + cs.FLASH_TOL * b.abs()
         rec[name] = {"max_abs": float(err.max()),
@@ -81,6 +106,9 @@ def main() -> int:
                     help="NAME=PATH of another flash source to build, "
                          "check and time")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--step", action="store_true",
+                    help="also the T = 2,048 training step against the "
+                         "plain versions, per library")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -101,7 +129,8 @@ def main() -> int:
                           "nvcc_s": lib.build_seconds, "ptxas": [
                               l.strip() for l in lib.build_log.splitlines()
                               if "registers" in l or "spill" in l
-                              or "Compiling entry" in l]}), flush=True)
+                              or "Compiling entry" in l or "wgmma" in l]}),
+              flush=True)
     B, H, T, D = cs.ATT_BATCH, cs.ATT_HEADS, cs.ATT_SEQ, \
         cs.ATT_WIDTH // cs.ATT_HEADS
     cases = [(2, 2, 256, 64, True, "none"), (2, 2, 200, 64, False, "tail"),
@@ -130,6 +159,8 @@ def main() -> int:
     for name in turns:
         lib = libs[name]
         rec = {"time": name}
+        rec["fwd_ms"] = cs.time_ms(torch, lambda: _forward(
+            torch, ck, lib, q, k, v, km, True, s), reps=args.reps, warmup=1)
         rec["dq_ms"] = cs.time_ms(torch, lambda: _launch(
             torch, lib, "dl4j_flash_dq_f32", inputs,
             (torch.empty_like(q),), True, s), reps=args.reps, warmup=1)
@@ -138,8 +169,48 @@ def main() -> int:
             (torch.empty_like(q), torch.empty_like(q)), True, s),
             reps=args.reps, warmup=1)
         print(json.dumps(rec), flush=True)
+    if args.step:
+        step_errors(torch, ck, libs)
     print(json.dumps({"ok": not failed}))
     return 0
+
+
+def step_errors(torch, ck, libs) -> None:
+    """One line per library and turn: the attention step at T = 2,048
+    through the library's kernels against the plain versions."""
+    from unittest import mock
+    from deeplearning4j_tpu_torch.models import CharacterIterator, attention_lm
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=cs.ATT_SEQ, batch=cs.ATT_BATCH, seed=0)
+    net = attention_lm(it.vocab_size, cs.ATT_WIDTH, cs.ATT_HEADS,
+                       cs.ATT_LAYERS, cs.ATT_SEQ, device="cuda").init(
+        generator=torch.Generator().manual_seed(cs.SEED))
+    start = cs._clone_tree(net.net_params)
+    repo = ck.FLASH_LIBRARY
+
+    def plain_forward(*a):
+        return ck.flash_forward_reference(*a)
+    plain_forward.launches = 0
+    runs = [(name, lib, None) for name, lib in libs.items()]
+    runs.append(("plain_forward", repo, plain_forward))
+    for turn in (1, 2):
+        for name, lib, forward in runs:
+            it.reset()
+            ck.FLASH_LIBRARY = lib
+            with mock.patch.object(ck, "flash_forward",
+                                   forward or ck.flash_forward):
+                try:
+                    rec = cs._attention_step_vs_plain(torch, ck, net, it,
+                                                      start)
+                except AssertionError as e:   # the record is in the message
+                    msg = str(e)
+                    rec = ast.literal_eval(msg[msg.index("{"):])
+            print(json.dumps({"step": name, "turn": turn,
+                              "max_grad_rel_err": rec["max_grad_rel_err"],
+                              "max_update_rel_err": rec["max_update_rel_err"],
+                              "over_tolerance": rec["over_tolerance"]}),
+                  flush=True)
+    ck.FLASH_LIBRARY = repo
 
 
 if __name__ == "__main__":
