@@ -29,7 +29,14 @@ exits non-zero:
                line.
 4. xent_dropout_kernels — the softmax-xent kernel against its plain
                version (loss and gradient, rtol = atol = 1e-5) at [128,
-               1000], [256, 512], 997 rows and V = 50,257; the dropout
+               1000], [256, 512], 997 rows, V = 50,257, V not a multiple
+               of 4, rows not 16-byte aligned, one row, both sides of
+               the warp path's 2,048, the widest row a cluster's
+               registers hold (131,072) and wider rows, whose further
+               elements stream (262,144 and an unaligned 131,073), with
+               the plan of each (a warp or a cluster per row); timed at
+               [128, 1000] and [64, 50257] beside an empty kernel on the
+               same grid (the least any launch takes); the dropout
                kernel against its plain version with torch.equal, forward
                and backward, at [128, 25088], [128, 4096], an element count
                that is not a multiple of 4 and an unaligned view, at
@@ -61,6 +68,30 @@ exits non-zero:
                50 batches (800 steps, seconds of training): 2 conv launches
                per step, no xent (vocab 10) and no dropout.  Samples/s is
                all samples over all the time.
+8b. train_lenet_pipeline — LeNet + Adam, batch 64, one epoch of
+               ``MnistDataSetIterator`` (the 8,192-row stand-in unless
+               MNIST's files are cached; the line says which) through an
+               ``AsyncDataSetIterator`` that runs ``ImagePreProcessingScaler``
+               on its worker and stages each batch onto the card as the
+               step takes it (the line names the route: a pageable copy on
+               the step's stream under PINNED_STAGING_BYTES, else pinned
+               on the side stream): exactly 2 conv launches a step, every
+               batch through the pipeline, the most transformed batches
+               ever waiting on the host (``ready_high_water``) within the
+               staging depth; then
+               ``evaluate`` on the test split through the same pipeline
+               (2 conv launches a batch, accuracy at least 0.9).  First,
+               4 steps of ``fit`` through the default pipeline against the
+               same 4 fed synchronously (``pipeline_workers=0``) from the
+               same params, under cuDNN's deterministic algorithms: equal
+               parameters and score (``torch.equal``).
+8c. gateway_fit_evaluate — a LeNet zip and 9 exported ``.npz`` shards of
+               64 rows (the last 40) through the gateway over HTTP: ``fit``
+               (exactly 2 conv launches a batch), ``evaluate`` (equal to a
+               direct ``evaluate()`` of the written zip on the same
+               shards), then ``predict``, which must serve the trained
+               parameters (within the whole-network tolerance of a direct
+               ``output()``, and away from the initial ones).
 9. lstm_kernel — the peephole-LSTM step kernel against its plain version
                (c', h', rtol = atol = 1e-5) at (N, H) = (32, 200), (4, 200),
                (1, 200), (3, 8), (5, 24), (64, 256), and at the tiling's
@@ -169,6 +200,14 @@ STEP_RTOL, STEP_UPDATE_RTOL = 1e-4, 5e-4
 VGG_BATCH, VGG_STEPS = 128, 3
 # LeNet: 16 passes over 50 batches, 800 steps, a window of seconds
 LENET_BATCH, LENET_BATCHES, LENET_EPOCHS = 64, 50, 16
+# LeNet through the input pipeline: the first steps against sync fit, equal
+# under cuDNN's deterministic algorithms.  After one epoch of the
+# class-separable stand-in the test split must be classified better than
+# chance by far.
+PIPE_CHECK_STEPS = 4
+LENET_MIN_ACCURACY = 0.9
+# the gateway's fit: 9 exported minibatches of 64 rows, the last 24 short
+GATEWAY_SHARDS, GATEWAY_SHORT = 9, 24
 SEED = 1234
 # The char-RNN recipe (dl4j-examples GravesLSTMCharModellingExample) on the
 # repo's SURVEY.md: 2 x GravesLSTM(200), TBPTT 50, sequences of 1,000 at
@@ -667,18 +706,27 @@ def _bound(nbytes: int, flops: int = 0):
                                        else "bytes")
 
 
-def check_xent(torch, ck, N, V, gen, soft=False, timed=False) -> dict:
+def check_xent(torch, ck, N, V, gen, soft=False, timed=False,
+               offset=0) -> dict:
     """The xent kernel against its plain version (loss, gradient, and the
-    backward of ``softmax_xent_rows``); raises on disagreement."""
+    backward of ``softmax_xent_rows``); raises on disagreement.  ``offset``
+    takes logits and labels as views that start that many floats into
+    their storage (rows not 16-byte aligned)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    x = torch.randn((N, V), generator=gen, device=dev) * 3
+
+    def view(t):
+        flat = torch.empty((N * V + offset,), device=dev)
+        flat[offset:] = t.reshape(-1)
+        return flat[offset:].reshape(N, V)
+    x = view(torch.randn((N, V), generator=gen, device=dev) * 3)
     if soft:
         y = torch.rand((N, V), generator=gen, device=dev)
         y = y * torch.rand((N, 1), generator=gen, device=dev) * 2
     else:
         y = F.one_hot(torch.randint(0, V, (N,), generator=gen, device=dev),
                       V).float()
+    y = view(y)
     g = torch.randn((N,), generator=gen, device=dev)
     loss, grad = ck.fused_softmax_xent(x, y)
     ref_loss, ref_grad = ck.softmax_xent_reference(x, y)
@@ -688,7 +736,9 @@ def check_xent(torch, ck, N, V, gen, soft=False, timed=False) -> dict:
     for got, want in ((loss, ref_loss), (grad, ref_grad),
                       (xr.grad, ref_grad * g[:, None])):
         torch.testing.assert_close(got, want, rtol=XENT_TOL, atol=XENT_TOL)
-    rec = {"shape": [N, V], "soft_labels": soft,
+    plan = ck.xent_plan(N, V, aligned=offset % 4 == 0)
+    rec = {"shape": [N, V], "soft_labels": soft, "offset": offset,
+           "plan": plan, "blocks": N * plan["blocks_per_row"],
            "max_abs_err": max(float((loss - ref_loss).abs().max()),
                               float((grad - ref_grad).abs().max()))}
     if timed:
@@ -698,11 +748,20 @@ def check_xent(torch, ck, N, V, gen, soft=False, timed=False) -> dict:
         def library():
             torch.autograd.grad(F.cross_entropy(xl, y, reduction="none"),
                                 xl, g)
+        lib = ck.XENT_LIBRARY.get()
+
+        def floor():
+            # an empty kernel on the same grid: the least any launch takes
+            err = lib.dl4j_launch_floor(rec["blocks"], plan["threads"],
+                                        torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"empty kernel: CUDA error {err}")
         rec.update(ms=graph_ms(torch, lambda: ck.fused_softmax_xent(x, y)),
                    call_ms=time_ms(torch, lambda: ck.fused_softmax_xent(x, y)),
                    plain_ms=graph_ms(torch, lambda: ck.softmax_xent_reference(
                        x, y)),
-                   library_ms=graph_ms(torch, library), bytes=nbytes)
+                   library_ms=graph_ms(torch, library),
+                   empty_kernel_ms=graph_ms(torch, floor), bytes=nbytes)
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 6 * N * V)
     return rec
 
@@ -803,11 +862,27 @@ def dense_dropout_timing(torch, ck) -> list:
 
 def phase_xent_dropout_kernels(torch, ck) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the training path's [128, 1000] and GPT-2's vocabulary, timed; the
+    # warp path's widths, V not a multiple of 4, rows not 16-byte aligned,
+    # one row, and the cluster path up to its widest row, checked
     xent = [check_xent(torch, ck, VGG_BATCH, 1000, gen, timed=True),
+            check_xent(torch, ck, 64, 50257, gen, soft=True, timed=True),
             check_xent(torch, ck, VGG_BATCH, 1000, gen, soft=True),
             check_xent(torch, ck, 256, 512, gen),
             check_xent(torch, ck, 997, 1000, gen),
-            check_xent(torch, ck, 64, 50257, gen, soft=True)]
+            check_xent(torch, ck, 130, 1001, gen, soft=True),
+            check_xent(torch, ck, VGG_BATCH, 1000, gen, offset=1),
+            check_xent(torch, ck, 1, 1000, gen),
+            check_xent(torch, ck, 300, 77, gen, soft=True),
+            check_xent(torch, ck, 64, 2048, gen, soft=True),
+            check_xent(torch, ck, 64, 2047, gen, soft=True),
+            check_xent(torch, ck, 64, 2049, gen, soft=True),
+            check_xent(torch, ck, 1, 50257, gen, soft=True, offset=3),
+            check_xent(torch, ck, 16, ck.XENT_REGISTER_ROW, gen, soft=True),
+            check_xent(torch, ck, 4, 2 * ck.XENT_REGISTER_ROW, gen,
+                       soft=True),
+            check_xent(torch, ck, 2, ck.XENT_REGISTER_ROW + 1, gen,
+                       offset=1)]
     fc_in = [(VGG_BATCH, 25088), (VGG_BATCH, 4096)]
     drop = [check_dropout(torch, ck, s, 0.5, gen, timed=True) for s in fc_in]
     drop += [check_dropout(torch, ck, s, r, gen, offset=o)
@@ -1027,6 +1102,197 @@ def phase_train_lenet(torch, ck) -> dict:
         raise AssertionError(f"LeNet training launched {launches}, want "
                              f"{want}; score {score}")
     return res
+
+def _pipeline_consumed() -> float:
+    """Batches the async input pipeline has handed to a consumer so far."""
+    from deeplearning4j_tpu_torch import monitor
+    return monitor.get_registry().counter(
+        "dl4j_pipeline_batches_total", labels=("stage",)).labels(
+        stage="consumed").value
+
+
+def _mnist_scaler():
+    """The pipeline's normalizer: ``load_mnist`` gives pixels in [0, 1]
+    (real or stand-in), which it maps to [-1, 1]."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        ImagePreProcessingScaler)
+    return ImagePreProcessingScaler(-1.0, 1.0, max_value=1.0)
+
+
+def phase_train_lenet_pipeline(torch, ck) -> dict:
+    """LeNet + Adam on MNIST through ``fit``'s async input pipeline with
+    device staging, then ``evaluate`` on the test split."""
+    from deeplearning4j_tpu_torch.datasets import (
+        AsyncDataSetIterator, ListDataSetIterator, fetchers, iterators)
+    from deeplearning4j_tpu_torch.models import lenet
+    real = all((fetchers.CACHE_DIR / "mnist" / f).exists()
+               for f in fetchers.MNIST_FILES.values())
+    scaler = _mnist_scaler()
+    train = fetchers.MnistDataSetIterator(LENET_BATCH, train=True, seed=SEED)
+    n_batches = len(train._data)
+    train_rows = sum(d.num_examples() for d in train._data)
+    batch_bytes = train._data[0].features.nbytes + \
+        train._data[0].labels.nbytes
+
+    # the first steps through the pipeline against the same steps fed
+    # synchronously, from the same params and seed words, bitwise: with
+    # cuDNN's deterministic algorithms both runs are, while its default
+    # conv backward is not, and Adam can lift that noise past any fixed
+    # tolerance (tools/fit_determinism_probe.py)
+    first = [scaler.transform(d) for d in train._data[:PIPE_CHECK_STEPS]]
+    nets = {}
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for workers in (1, 0):
+            net = lenet(device="cuda")
+            net.conf.global_conf.pipeline_workers = workers
+            net.init(generator=torch.Generator().manual_seed(SEED))
+            before = _pipeline_consumed()
+            net.fit(ListDataSetIterator(first))
+            torch.cuda.synchronize()
+            nets[workers] = (net, _pipeline_consumed() - before)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    (piped, piped_consumed), (sync, sync_consumed) = nets[1], nets[0]
+    check = {"steps": PIPE_CHECK_STEPS,
+             "rule": "torch.equal, cuDNN deterministic",
+             "pipeline_batches": piped_consumed, "sync_batches": sync_consumed,
+             "bitwise_equal": bool(torch.equal(piped.params(), sync.params())),
+             "score_pipeline": piped.score(), "score_sync": sync.score()}
+    del nets, piped, sync
+    if not check["bitwise_equal"] or piped_consumed != PIPE_CHECK_STEPS or \
+            sync_consumed != 0 or \
+            check["score_pipeline"] != check["score_sync"]:
+        raise AssertionError(f"fit through the pipeline differs from sync "
+                             f"fit: {check}")
+
+    net = lenet(device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    g = net.conf.global_conf
+    it = AsyncDataSetIterator(train, queue_size=g.pipeline_prefetch,
+                              workers=g.pipeline_workers,
+                              staging_depth=g.pipeline_staging_depth,
+                              device=net.device, normalizer=scaler)
+    consumed = _pipeline_consumed()
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    net.fit(it)
+    score = net.score()          # a host copy: waits for the card
+    dt = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    consumed = _pipeline_consumed() - consumed
+    test = AsyncDataSetIterator(
+        fetchers.MnistDataSetIterator(LENET_BATCH, train=False,
+                                      shuffle=False),
+        queue_size=g.pipeline_prefetch, workers=g.pipeline_workers,
+        staging_depth=g.pipeline_staging_depth, device=net.device,
+        normalizer=scaler)
+    n_test = len(test.underlying._data)
+    test_rows = sum(d.num_examples() for d in test.underlying._data)
+    _zero_counts(ck)                                   # evaluate starts
+    t1 = time.perf_counter()
+    ev = net.evaluate(test)
+    eval_s = time.perf_counter() - t1
+    eval_launches = _kernel_counts(ck)                 # evaluate ends
+    test.close()
+    res = {"data": "mnist files" if real else "stand-in (load_mnist, "
+                                                "no files cached)",
+           "batch": LENET_BATCH, "steps": n_batches,
+           "rows": train_rows, "seconds": dt,
+           "samples_per_s": train_rows / dt,
+           "score": score, "launches": launches,
+           "pipeline_batches": consumed,
+           "batch_bytes": batch_bytes, "staging_route": (
+               "pinned" if batch_bytes >= iterators.PINNED_STAGING_BYTES
+               else "pageable"),
+           "ready_high_water": it.staging_high_water,
+           "staging_depth": it.staging_depth, "workers": it.workers,
+           "evaluate": {"batches": n_test, "rows": int(
+               ev.confusion.matrix.sum()), "accuracy": ev.accuracy(),
+               "f1": ev.f1(), "seconds": eval_s,
+               "launches": eval_launches},
+           "pipeline_vs_sync": check}
+    emit("train_lenet_pipeline", **res)
+    if launches != _want(ck, conv2d_bias_act=2 * n_batches) or \
+            eval_launches != _want(ck, conv2d_bias_act=2 * n_test) or \
+            consumed != n_batches or not np.isfinite(score) or \
+            not 1 <= it.staging_high_water <= it.staging_depth or \
+            res["evaluate"]["rows"] != test_rows or \
+            ev.accuracy() < LENET_MIN_ACCURACY:
+        raise AssertionError(f"LeNet through the pipeline: {res}")
+    return res
+
+
+def phase_gateway_fit_evaluate(torch, ck) -> dict:
+    """The gateway's fit and evaluate RPCs over HTTP on a LeNet zip and
+    exported minibatches, then predict with the trained parameters."""
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.models import lenet
+    from deeplearning4j_tpu_torch.nn.serialization import (
+        restore_multi_layer_network, write_model)
+    from deeplearning4j_tpu_torch.scaleout.data import (
+        PathDataSetIterator, export_dataset)
+    from deeplearning4j_tpu_torch.server import (
+        DeepLearning4jEntryPoint, Server)
+    rows = GATEWAY_SHARDS * LENET_BATCH - GATEWAY_SHORT
+    data = _mnist_scaler().transform(fetchers.load_mnist(
+        train=True, num_examples=rows))
+    probe = data.features[:5]
+    with tempfile.TemporaryDirectory() as tmp:
+        model = str(Path(tmp) / "lenet.zip")
+        first = lenet(device="cuda").init(
+            generator=torch.Generator().manual_seed(SEED + 5))
+        write_model(first, model)
+        shards = Path(tmp) / "shards"
+        shards.mkdir()
+        batches = data.batch_by(LENET_BATCH)
+        for i, b in enumerate(batches):
+            export_dataset(b, shards / f"b{i}.npz")
+        server = Server(DeepLearning4jEntryPoint(device="cuda")).start()
+        try:
+            url = f"http://127.0.0.1:{server.port}/"
+            _zero_counts(ck)                           # main path starts
+            t0 = time.perf_counter()
+            fit = _rpc(url, "fit", {"model_path": model,
+                                    "data_dir": str(shards)})
+            fit_s = time.perf_counter() - t0
+            launches = _kernel_counts(ck)              # main path ends
+            _zero_counts(ck)
+            ev = _rpc(url, "evaluate", {"model_path": fit["model_path"],
+                                        "data_dir": str(shards)})
+            eval_launches = _kernel_counts(ck)
+            served = _rpc(url, "predict", {"model_path": model,
+                                           "features": probe.tolist(),
+                                           "coalesce": False})
+        finally:
+            server.stop()
+        trained = restore_multi_layer_network(fit["model_path"],
+                                              device="cuda")
+        direct = trained.evaluate(PathDataSetIterator.from_dir(shards))
+        want = trained.output(probe).cpu().numpy()
+        old = first.output(probe).cpu().numpy()
+    got = np.asarray(served["predictions"], np.float32)
+    res = {"shards": len(batches), "rows": rows,
+           "last_shard_rows": batches[-1].num_examples(),
+           "fit": {**fit, "seconds": fit_s,
+                   "samples_per_s": rows / fit_s},
+           "launches": launches, "evaluate": ev,
+           "evaluate_launches": eval_launches,
+           "direct_evaluate": {"accuracy": direct.accuracy(),
+                               "f1": direct.f1()},
+           "predict_after_fit_max_abs": float(np.abs(got - want).max()),
+           "predict_moved_from_initial": float(np.abs(got - old).max())}
+    emit("gateway_fit_evaluate", **res)
+    want_launches = _want(ck, conv2d_bias_act=2 * len(batches))
+    if launches != want_launches or eval_launches != want_launches or \
+            ev != res["direct_evaluate"] or not np.isfinite(fit["score"]) \
+            or not np.allclose(got, want, rtol=NET_RTOL, atol=NET_ATOL) \
+            or np.allclose(got, old, rtol=NET_RTOL, atol=NET_ATOL):
+        raise AssertionError(f"gateway fit / evaluate: {res}")
+    return res
+
 
 def _rel_norm(torch, got, want) -> float:
     """||got - want|| / ||want|| (2-norms), 0 when both are zero."""
@@ -1686,9 +1952,9 @@ def phase_sample_attention(torch, ck, net, it) -> dict:
     return res
 
 
-def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
-            train_char, sample_char, flash, train_att, output_att,
-            sample_att) -> dict:
+def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
+            gateway_fit, lstm, train_char, sample_char, flash, train_att,
+            output_att, sample_att) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -1708,6 +1974,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
     paths = {"serve": {"conv2d_bias_act": serve_launches},
              "train_vgg16_224": train_vgg["launches"],
              "train_lenet": train_lenet["launches"],
+             "train_lenet_pipeline": lenet_pipe["launches"],
+             "evaluate_lenet": lenet_pipe["evaluate"]["launches"],
+             "gateway_fit": gateway_fit["launches"],
+             "gateway_evaluate": gateway_fit["evaluate_launches"],
              "train_charrnn": train_char["launches"],
              "sample_charrnn": sample_char["launches"],
              "train_attention": train_att["launches"],
@@ -1719,7 +1989,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
 
     def by_path(name):
         return {k: p.get(name, 0) for k, p in paths.items()}
-    xent = xd["xent"][0]
+    xent, xent_wide = xd["xent"][:2]
     drop = [r for r in xd["dropout"] if "ms" in r]   # forward + backward
     return {"kernels": [{
         "name": "conv2d_bias_act",
@@ -1747,6 +2017,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lstm,
         "ms": xent["ms"], "plain_ms": xent["plain_ms"],
         "bound_ms": xent["bound_ms"], "bound_by": xent["bound_by"],
         "library_ms": xent["library_ms"],
+        "empty_kernel_ms": xent["empty_kernel_ms"], "plan": xent["plan"],
+        "wide": {k: xent_wide[k] for k in (
+            "shape", "plan", "blocks", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "empty_kernel_ms")},
     }, {
         "name": "threshold_dropout",
         "route": "cuda",
@@ -1826,6 +2100,8 @@ def main() -> int:
     phase_vgg16_224(torch, ck)
     train_vgg = phase_train_vgg16_224(torch, ck)
     train_lenet = phase_train_lenet(torch, ck)
+    lenet_pipe = phase_train_lenet_pipeline(torch, ck)
+    gateway_fit = phase_gateway_fit_evaluate(torch, ck)
     lstm = phase_lstm_kernel(torch, ck)
     train_char, net, it = phase_train_charrnn(torch, ck)
     sample_char = phase_sample_charrnn(torch, ck, net, it)
@@ -1836,8 +2112,9 @@ def main() -> int:
     sample_att = phase_sample_attention(torch, ck, net, it)
 
     print(json.dumps(summary(records, serve_launches, xd, train_vgg,
-                             train_lenet, lstm, train_char, sample_char,
-                             flash, train_att, output_att, sample_att)))
+                             train_lenet, lenet_pipe, gateway_fit, lstm,
+                             train_char, sample_char, flash, train_att,
+                             output_att, sample_att)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """DataSet — a copy of ``deeplearning4j_tpu/datasets/dataset.py`` ``DataSet``.
 
-Arrays stay host numpy until ``MultiLayerNetwork.fit`` moves a batch to
-the network's device.
+Arrays are host numpy until the input pipeline stages a batch onto the
+network's device (``datasets/iterators.stage_batch``), which leaves torch
+tensors in their place; ``MultiLayerNetwork`` takes either.
 """
 
 from __future__ import annotations

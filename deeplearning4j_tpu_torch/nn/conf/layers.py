@@ -16,8 +16,9 @@ new_state, mask)`` as in the JAX package: ``state`` is the layer's dict
 of carried state (a recurrent layer's ``rnn_state``), ``mask`` the time
 mask.  It runs inference unless ``train`` is set; in training a layer
 with ``dropout`` drops its INPUT, as DL4J does, from the two seed words
-the network hands it for the step.  A configuration naming any other
-layer type raises on load.
+the network hands it for the step, or under ``use_drop_connect`` drops
+its weights ``W`` instead (DenseLayer, ConvolutionLayer and the output
+layers).  A configuration naming any other layer type raises on load.
 """
 
 from __future__ import annotations
@@ -95,14 +96,25 @@ class Layer:
 
     def _maybe_dropout(self, x, train: bool, seed):
         """Input dropout in training (ref: util/Dropout.java applyDropout).
-        DropConnect, which reuses the probability on the weights instead,
-        is not ported; ``MultiLayerNetwork.fit`` refuses it."""
+        Under DropConnect the probability applies to the weights instead
+        (:meth:`_maybe_drop_connect`)."""
         if self.use_drop_connect:
             return x
         if train and self.dropout and 0.0 < self.dropout < 1.0 \
                 and seed is not None:
             return helper_ops.dropout(x, self.dropout, seed)
         return x
+
+    def _maybe_drop_connect(self, params: dict, train: bool, seed) -> dict:
+        """DropConnect (Wan et al.; ref: util/Dropout.java
+        applyDropConnect): in training, each weight of ``W`` kept with the
+        retain probability ``dropout`` and divided by it; biases intact."""
+        if not (self.use_drop_connect and train and self.dropout
+                and 0.0 < self.dropout < 1.0 and seed is not None
+                and "W" in params):
+            return params
+        return {**params,
+                "W": helper_ops.drop_connect(params["W"], self.dropout, seed)}
 
     def _winit(self, generator, shape, device, fan_in=None, fan_out=None):
         return initializers.init(generator, self.weight_init or "xavier",
@@ -146,8 +158,8 @@ class DenseLayer(Layer):
 
     def forward(self, params, state, x, train=False, seed=None, mask=None):
         x = self._maybe_dropout(x, train, seed)
-        return self._act(torch.addmm(params["b"], x, params["W"])), state, \
-            mask
+        p = self._maybe_drop_connect(params, train, seed)
+        return self._act(torch.addmm(p["b"], x, p["W"])), state, mask
 
     def output_type(self, input_type):
         return InputType.feed_forward(self.n_out)
@@ -202,8 +214,9 @@ class ConvolutionLayer(Layer):
 
     def forward(self, params, state, x, train=False, seed=None, mask=None):
         x = self._maybe_dropout(x, train, seed)
+        p = self._maybe_drop_connect(params, train, seed)
         return helper_ops.conv2d_bias_act(
-            x, params["W"], params["b"], tuple(self.stride),
+            x, p["W"], p["b"], tuple(self.stride),
             tuple(self.padding), tuple(self.dilation),
             self.convolution_mode, self.activation or "identity"), state, mask
 

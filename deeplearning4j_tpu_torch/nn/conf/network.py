@@ -169,9 +169,8 @@ class NeuralNetConfiguration:
 
 class Builder:
     """Fluent setters of the global hyperparameters; the names follow
-    the JAX package's builder.  The training-only knobs of that builder
-    (precision tiers, sharding, distribution, input pipeline, fault
-    tolerance) wait for the training slice."""
+    the JAX package's builder.  Its precision tiers, sharding,
+    distribution and fault-tolerance knobs are not ported yet."""
 
     def __init__(self):
         self._g = GlobalConf()
@@ -245,6 +244,22 @@ class Builder:
     def gradient_normalization(self, mode: str, threshold: float = 1.0):
         self._g.gradient_normalization = mode
         self._g.gradient_normalization_threshold = float(threshold)
+        return self
+
+    def input_pipeline(self, workers: Optional[int] = None,
+                       prefetch: Optional[int] = None,
+                       staging_depth: Optional[int] = None):
+        """Tune the async input pipeline ``fit`` wraps iterators with:
+        ``workers`` parallel ETL threads (0 disables the wrapper),
+        ``prefetch`` raw batches queued ahead, ``staging_depth``
+        transformed batches that may wait on the host for the step (each
+        is staged onto the device as the step takes it)."""
+        if workers is not None:
+            self._g.pipeline_workers = int(workers)
+        if prefetch is not None:
+            self._g.pipeline_prefetch = int(prefetch)
+        if staging_depth is not None:
+            self._g.pipeline_staging_depth = int(staging_depth)
         return self
 
     def list(self) -> "ListBuilder":

@@ -4,7 +4,10 @@
 layer loop eagerly under ``torch.inference_mode`` on the network's
 device (there is no ``jit`` counterpart); ``predict`` returns argmax
 classes; ``params`` / ``set_params`` use the flat view of ``nn/params.py``.
-``fit`` trains: per step a forward with autograd to the output layer's
+``fit`` trains on batches from the asynchronous input pipeline
+(``datasets/iterators.AsyncDataSetIterator``, staging each batch onto the
+network's device as the step takes it) unless ``pipeline_workers`` is 0: per
+step a forward with autograd to the output layer's
 pre-activation, the loss (mean or sum over the batch, plus l1/l2, negated
 unless minimizing), its gradient, then per layer gradient
 normalization, the LR schedule, the learning rule and the bias LR
@@ -23,6 +26,9 @@ takes one step per segment of ``tbptt_fwd_length`` steps, carrying that
 state (detached) from segment to segment; ``rnn_time_step`` carries it
 from call to call; a standard step drops it afterwards.
 
+``evaluate`` fills an ``nn/evaluation.Evaluation`` from ``output``;
+``score_examples`` gives the loss of every example.
+
 Not ported yet: ``fit(fused_steps=K)``, sharding and distributed
 training, checkpoint resume and listeners.
 """
@@ -37,12 +43,13 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
-    DataSetIterator, ListDataSetIterator)
+    AsyncDataSetIterator, DataSetIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.nn import params as param_util
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     BaseOutputLayer, GravesBidirectionalLSTM, GravesLSTM, Layer)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
@@ -209,11 +216,13 @@ class MultiLayerNetwork:
         if (n - 1) in self.conf.preprocessors:
             x, mask = self.conf.preprocessors[n - 1](x, mask)
         last = self.layers[-1]
+        seed = None if seeds is None else seeds[n - 1]
         if train:
-            x = last._maybe_dropout(x, True,
-                                    None if seeds is None else seeds[n - 1])
+            x = last._maybe_dropout(x, True, seed)
         new_states.append(state[-1])
-        return last.preoutput(params[-1], x), new_states, mask
+        return (last.preoutput(last._maybe_drop_connect(params[-1], train,
+                                                        seed), x),
+                new_states, mask)
 
     def output(self, x, mask=None) -> torch.Tensor:
         """Network output for a batch (numpy array or tensor), as a tensor
@@ -254,7 +263,13 @@ class MultiLayerNetwork:
         """fit(DataSetIterator) | fit(DataSet) | fit(x, y)
         (ref: MultiLayerNetwork.fit :996): ``epochs`` passes over the
         data, one training step per batch (``conf.iterations`` steps when
-        that is above 1)."""
+        that is above 1).  As in the JAX package, an iterator that is not
+        already asynchronous is wrapped in an ``AsyncDataSetIterator``
+        with ``pipeline_workers`` workers, ``pipeline_prefetch`` raw
+        batches queued and at most ``pipeline_staging_depth`` transformed
+        batches waiting on the host, unless ``pipeline_workers`` is 0;
+        each batch is staged onto the network's device as the step takes
+        it, and the pipeline is closed on return."""
         if labels is not None:
             data = DataSet(np.asarray(data), np.asarray(labels))
         if isinstance(data, DataSet):
@@ -264,11 +279,24 @@ class MultiLayerNetwork:
                             f"(features, labels), not {type(data).__name__}")
         if self.net_params is None:
             self.init()
-        for _ in range(epochs):
-            data.reset()
-            while data.has_next():
-                self._fit_batch(data.next())
-            self.epoch += 1
+        it = data
+        g = self.conf.global_conf
+        if (g.pipeline_workers > 0 and it.async_supported()
+                and not isinstance(it, AsyncDataSetIterator)):
+            it = AsyncDataSetIterator(
+                it, queue_size=g.pipeline_prefetch,
+                workers=g.pipeline_workers,
+                staging_depth=g.pipeline_staging_depth, device=self.device)
+        try:
+            for _ in range(epochs):
+                it.reset()
+                while it.has_next():
+                    self._fit_batch(it.next())
+                self.epoch += 1
+        finally:
+            # release the pipeline's threads, also when a step raised
+            if isinstance(it, AsyncDataSetIterator):
+                it.close()
         return self
 
     def _draw_seeds(self) -> torch.Tensor:
@@ -285,9 +313,6 @@ class MultiLayerNetwork:
         g = self.conf.global_conf
         if not isinstance(self.layers[-1], BaseOutputLayer):
             raise ValueError("Last layer must be an output layer to fit()")
-        if any(l.use_drop_connect and l.dropout for l in self.layers):
-            raise NotImplementedError(
-                "DropConnect is not ported to deeplearning4j_tpu_torch yet")
         if self.net_params is None:
             self.init()
         if self.opt_states is None:
@@ -436,6 +461,50 @@ class MultiLayerNetwork:
                 self._as_input(dataset.labels), preout, lm)
             score = per_ex.mean() if g.mini_batch else per_ex.sum()
             return float(score + self._reg_penalty(self.net_params))
+
+    def score_examples(self, data, add_regularization_terms: bool = False
+                       ) -> np.ndarray:
+        """Per-example scores WITHOUT minibatch averaging (ref:
+        MultiLayerNetwork.scoreExamples :1884 iterator, :1901 DataSet):
+        the output layer's loss of each example from an inference forward;
+        ``add_regularization_terms`` adds the net's l1/l2 penalty to every
+        example's score.  Takes a DataSet or an iterator; returns a 1-D
+        array over all examples."""
+        if self.net_params is None:
+            self.init()
+        batches = [data] if isinstance(data, DataSet) else data
+        out = []
+        with torch.inference_mode():
+            for ds in batches:
+                preout, _, m = self._forward_to_preout(
+                    self.net_params, self.net_state,
+                    self._as_input(ds.features),
+                    self._as_mask(ds.features_mask), False)
+                lm = (self._as_mask(ds.labels_mask)
+                      if ds.labels_mask is not None else
+                      m if m is not None and m.ndim == preout.ndim - 1
+                      else None)
+                per = self.layers[-1].compute_score(
+                    self._as_input(ds.labels), preout, lm)
+                if add_regularization_terms:
+                    per = per + self._reg_penalty(self.net_params)
+                out.append(per.cpu().numpy())
+        return np.concatenate(out)
+
+    def evaluate(self, iterator_or_dataset) -> Evaluation:
+        """Classification evaluation (ref: MultiLayerNetwork.evaluate):
+        ``output`` of every batch's features against its labels (and
+        labels mask)."""
+        ev = Evaluation()
+        if isinstance(iterator_or_dataset, DataSet):
+            batches = [iterator_or_dataset]
+        else:
+            iterator_or_dataset.reset()
+            batches = iterator_or_dataset
+        for ds in batches:
+            ev.eval(ds.labels, self.output(ds.features),
+                    mask=ds.labels_mask)
+        return ev
 
     # ---- stateful RNN inference ----
     def rnn_time_step(self, x, mask=None) -> torch.Tensor:

@@ -81,6 +81,15 @@ def restore_multi_layer_network(path: Union[str, Path],
     return net
 
 
+def read_updater_state(path: Union[str, Path]):
+    """The zip's flat updater state (``updaterState.bin``) as float32, or
+    None when it holds none."""
+    with zipfile.ZipFile(path, "r") as zf:
+        if UPDATER_NAME not in zf.namelist():
+            return None
+        return np.frombuffer(zf.read(UPDATER_NAME), dtype="<f4").copy()
+
+
 def load_model(path: Union[str, Path], device: DeviceLike = None,
                load_updater: bool = True):
     """Restore a model zip (ref: util/ModelGuesser.java); only the

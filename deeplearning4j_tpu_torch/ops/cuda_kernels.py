@@ -16,7 +16,10 @@ through the plain conv and differentiates that, as ``_conv_vjp_bwd``
 
 ``fused_softmax_xent`` (``csrc/softmax_xent.cu``) replaces
 ``_softmax_xent_kernel`` (:466, launched by ``fused_softmax_xent`` :500):
-per-row softmax cross-entropy loss and its gradient in one pass.
+per-row softmax cross-entropy loss and its gradient, each row read from
+device memory once and held in registers (a warp per row up to 2,048
+wide, a thread block cluster beyond; past 131,072 a row's further
+elements are streamed and read twice).
 ``softmax_xent_rows`` is the differentiable loss; its backward scales
 the saved gradient, as ``_sxr_bwd`` (:535) does.
 
@@ -85,7 +88,6 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import activations as act_ops
-from deeplearning4j_tpu_torch.ops.bucketing import next_pow2
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -200,7 +202,9 @@ CONV_LIBRARY = KernelLibrary(
      "dl4j_conv2d_plan": ([_I] * 8 + [_P], _I)})
 XENT_LIBRARY = KernelLibrary(
     CSRC / "softmax_xent.cu",
-    {"dl4j_softmax_xent_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I)})
+    {"dl4j_softmax_xent_f32": ([_P, _P, _P, _P, _I, _I, _P], _I),
+     "dl4j_softmax_xent_plan": ([_I, _I, _I, _P], _I),
+     "dl4j_launch_floor": ([_I, _I, _P], _I)})
 DROPOUT_LIBRARY = KernelLibrary(
     CSRC / "threshold_dropout.cu",
     {"dl4j_threshold_dropout_f32": (
@@ -453,13 +457,21 @@ fused_conv2d_bias_act.launches = 0
 # softmax cross-entropy, loss and gradient
 # ---------------------------------------------------------------------------
 
+# The widest row the xent kernel holds in registers: a cluster of 8 blocks
+# of 512 threads, 32 floats of x and y each (kMaxCluster, kBlockThreads,
+# kBlockPer in csrc/softmax_xent.cu, which the tests parse).  Wider rows
+# stream their further elements and read them twice.
+XENT_REGISTER_ROW = 8 * 512 * 32
+
+
 def softmax_xent_supported(shape, dtype) -> bool:
-    """Support predicate of the xent kernel: 2-D f32 [N, V] with N within
-    CUDA's grid and a row index that fits the kernel's ints."""
+    """Support predicate of the xent kernel: 2-D f32 [N, V] with V below
+    2^31 and N rows, times the up to 8 blocks a row takes, within CUDA's
+    grid."""
     if len(shape) != 2 or dtype != torch.float32:
         return False
     N, V = (int(d) for d in shape)
-    return 1 <= N < 2 ** 31 and 1 <= V < 2 ** 31
+    return 1 <= N and 8 * N < 2 ** 31 and 1 <= V < 2 ** 31
 
 
 def softmax_xent_reference(logits, labels):
@@ -475,9 +487,18 @@ def softmax_xent_reference(logits, labels):
     return loss, grad
 
 
-def _xent_threads(V: int) -> int:
-    """Threads per row: about 8 elements each, 128 to 1024."""
-    return min(1024, max(128, next_pow2(-(-V // 8))))
+def xent_plan(n_rows: int, V: int, aligned: bool = True) -> dict:
+    """The xent kernel's launch plan on the current CUDA device, as the
+    built library makes it (the plan lives in the C source): floats per
+    load (4 where V % 4 == 0 and the rows are 16-byte aligned), floats of
+    x and of y per thread, threads per block, blocks per row (a thread
+    block cluster when above 1)."""
+    out = (ctypes.c_int * 4)()
+    err = XENT_LIBRARY.get().dl4j_softmax_xent_plan(
+        int(n_rows), int(V), int(bool(aligned)), out)
+    if err != 0:
+        raise ValueError(f"xent kernel does not take [{n_rows}, {V}]")
+    return dict(zip(("vec", "per_thread", "threads", "blocks_per_row"), out))
 
 
 def fused_softmax_xent(logits, labels):
@@ -503,7 +524,7 @@ def fused_softmax_xent(logits, labels):
     with torch.cuda.device(x.device):
         err = lib.dl4j_softmax_xent_f32(
             x.data_ptr(), y.data_ptr(), loss.data_ptr(), grad.data_ptr(),
-            N, V, _xent_threads(V), _stream(x))
+            N, V, _stream(x))
     if err != 0:
         raise RuntimeError(f"xent kernel launch failed: CUDA error {err} "
                            f"for logits {tuple(x.shape)}")

@@ -94,6 +94,26 @@ def dropout(x, rate: float, seed):
     return norm_ops.dropout(x, rate, gen)
 
 
+# Mixed into a layer's seed words for its DropConnect mask, so the mask's
+# generator is not the one the layer's dense dropout would seed.
+DROP_CONNECT_SALT = 0x0D20
+
+
+def drop_connect(w, rate: float, seed):
+    """DropConnect on a weight tensor: each weight kept with the RETAIN
+    probability ``rate`` and divided by it, the others 0 (so no gradient
+    reaches them).  The mask is ``torch.bernoulli`` on a generator seeded
+    from the layer's two seed words for the step, as the JAX package draws
+    it from ``jax.random.bernoulli`` on a key folded with 0x0D20: the same
+    distribution, other masks.  There is no kernel: the JAX package draws
+    this mask densely too."""
+    s0, s1 = ck.dropout_seed_words(seed)
+    gen = torch.Generator(device=w.device).manual_seed(
+        ((s0 << 32) | s1) ^ DROP_CONNECT_SALT)
+    keep = torch.bernoulli(torch.full_like(w, float(rate)), generator=gen)
+    return torch.where(keep.bool(), w / rate, torch.zeros_like(w))
+
+
 def softmax_xent_wanted(n_rows: int, vocab: int) -> bool:
     """Decision for ``ops/losses.mcxent`` (shape and mask legality are the
     caller's check): the fused loss for vocab >= 128 and

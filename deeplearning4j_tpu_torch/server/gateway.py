@@ -9,36 +9,48 @@ JSON-RPC over HTTP around :class:`DeepLearning4jEntryPoint`:
 comes from the :class:`ModelCache` (loaded and warmed once), concurrent
 requests coalesce through one :class:`MicroBatcher` per model, and
 admission control rejects a request that would push the queued rows past
-``max_queue_rows`` (HTTP 503 + ``Retry-After``).  ``GET /healthz`` answers
-liveness.  Everything runs on the CUDA device unless the entry point is
-built with ``device="cpu"``.
+``max_queue_rows`` (HTTP 503 + ``Retry-After``).  ``fit`` trains the
+cached model on a directory of exported ``.npz`` minibatches, writes the
+trained zip and drops the cache entry; ``evaluate`` scores a model on such
+a directory (ref: DeepLearning4jEntryPoint.fit :21-33).  ``GET /healthz``
+answers liveness.  Everything runs on the CUDA device unless the entry
+point is built with ``device="cpu"``.
 
-Not ported yet: ``fit``, ``evaluate``, ``predict(data_dir=...)``, decode
-sessions and speculative decode, tenants and fair share, SLOs, readiness,
-the metrics and trace endpoints.
+Not ported yet: the HDF5 minibatch layouts of ``fit`` / ``evaluate``
+(they come with Keras import), bucketed ``fit``,
+``predict(data_dir=...)``, decode sessions and speculative decode,
+tenants and fair share, SLOs, readiness, the metrics and trace endpoints.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
 from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.nn.serialization import (
+    read_updater_state, write_model)
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike
 from deeplearning4j_tpu_torch.resilience.errors import (
     DeadlineExceededError, OverloadedError)
+from deeplearning4j_tpu_torch.scaleout.data import PathDataSetIterator
 from deeplearning4j_tpu_torch.server.batcher import MicroBatcher
 from deeplearning4j_tpu_torch.server.model_cache import ModelCache
 
 # the RPC methods a client may call
 RPC_METHODS = frozenset(("predict", "warmup", "invalidate", "stats",
-                         "healthz"))
+                         "healthz", "fit", "evaluate"))
+
+# the reference's HDF5 minibatch file name (HDF5MiniBatchDataSetIterator)
+_H5_BATCH = re.compile(r"^batch_(\d+)\.h5$")
 
 
 class DeepLearning4jEntryPoint:
@@ -91,6 +103,55 @@ class DeepLearning4jEntryPoint:
         else:
             out = model.output(x).cpu().numpy()
         return self._format_predictions(out, top_k, argmax_only)
+
+    # ---- training ----
+    @staticmethod
+    def _data_iterator(data_dir: str) -> PathDataSetIterator:
+        """The minibatches of ``data_dir``: its ``.npz`` exports
+        (``scaleout/data.PathDataSetIterator``).  A directory in one of the
+        reference's HDF5 layouts (``features/`` + ``labels/`` subdirs, or
+        ``batch_%d.h5`` files) raises: reading it needs h5py and Keras
+        import, not ported yet."""
+        d = Path(data_dir)
+        if ((d / "features").is_dir() and (d / "labels").is_dir()) or \
+                any(_H5_BATCH.match(p.name) for p in d.iterdir()):
+            raise NotImplementedError(
+                f"{data_dir} holds HDF5 minibatches; they are read through "
+                f"Keras import, which is not ported to "
+                f"deeplearning4j_tpu_torch yet (ROADMAP A2)")
+        return PathDataSetIterator.from_dir(d)
+
+    def fit(self, model_path: str, data_dir: str, epochs: int = 1,
+            save_path: Optional[str] = None) -> dict:
+        """Train ``model_path`` (the cached instance, its updater state
+        restored from the zip) on the minibatches of ``data_dir``, one
+        ``fit`` per minibatch for ``epochs`` passes; write the trained zip
+        to ``save_path`` (default: over ``model_path``) and drop the cache
+        entry, which no longer matches its file.  Returns the last score
+        and the written path."""
+        model = self.model_cache.get(model_path)
+        if model.opt_states is None:
+            upd = read_updater_state(model_path)
+            if upd is not None:
+                model.set_updater_state_flat(upd)
+        it = self._data_iterator(data_dir)
+        for _ in range(int(epochs)):
+            it.reset()
+            while it.has_next():
+                model.fit(it.next())
+        out = save_path or model_path
+        if not out.endswith(".zip"):
+            out = str(Path(out).with_suffix(".zip"))
+        write_model(model, out)
+        self.invalidate(model_path)
+        return {"score": float(model.score()), "model_path": out}
+
+    def evaluate(self, model_path: str, data_dir: str) -> dict:
+        """Accuracy and F1 of ``model_path`` on the minibatches of
+        ``data_dir`` (``MultiLayerNetwork.evaluate``)."""
+        model = self.model_cache.get(model_path)
+        ev = model.evaluate(self._data_iterator(data_dir))
+        return {"accuracy": ev.accuracy(), "f1": ev.f1()}
 
     def warmup(self, model_path: str, feature_dims,
                max_batch: Optional[int] = None) -> dict:

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.datasets import (
+    AsyncDataSetIterator, DataSet, ListDataSetIterator, iterators)
 from deeplearning4j_tpu_torch.models import (attention_lm, char_rnn, lenet,
                                              vgg16_cifar10)
 from deeplearning4j_tpu_torch.nn.conf import layers as L
@@ -295,14 +296,29 @@ def test_models_on_the_card_match_the_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,V", [(128, 1000), (256, 512), (997, 130),
-                                 (3, 50257)])
-def test_xent_kernel_matches_plain_version_on_the_card(cuda_device, N, V):
-    rng = np.random.default_rng(N)
-    x = torch.from_numpy((rng.normal(size=(N, V)) * 3).astype(np.float32))
-    y = torch.from_numpy(rng.random(size=(N, V)).astype(np.float32))
+@pytest.mark.parametrize("N,V,offset", [
+    (128, 1000, 0), (256, 512, 0), (997, 130, 0), (3, 50257, 0),
+    (130, 1001, 0),                  # V % 4 != 0: single-float loads
+    (128, 1000, 1), (64, 50257, 3),  # rows not 16-byte aligned
+    (1, 1000, 0), (1, 50257, 0),     # one row
+    (300, 77, 0), (64, 2048, 0), (64, 2047, 0), (64, 2049, 0),
+    (64, 50257, 0), (16, 131072, 0),
+    (4, 262144, 0), (2, 300001, 1)])  # wider than the registers: streamed
+def test_xent_kernel_matches_plain_version_on_the_card(cuda_device, N, V,
+                                                       offset):
+    """Both paths of the kernel (a warp per row, a cluster per row), each
+    load width, views whose rows start off a 16-byte boundary, and rows
+    wider than a cluster's registers hold."""
+    rng = np.random.default_rng(N + V)
+
+    def on_card(a):
+        flat = torch.empty((a.size + offset,), device=cuda_device)
+        flat[offset:] = torch.from_numpy(a.reshape(-1)).to(cuda_device)
+        return flat[offset:].reshape(a.shape)
+    x = on_card((rng.normal(size=(N, V)) * 3).astype(np.float32))
+    y = on_card(rng.random(size=(N, V)).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32))
-    x, y, g = x.to(cuda_device), y.to(cuda_device), g.to(cuda_device)
+    g = g.to(cuda_device)
     launches = ck.fused_softmax_xent.launches
     xr = x.clone().requires_grad_()
     loss = ck.softmax_xent_rows(xr, y)
@@ -312,6 +328,105 @@ def test_xent_kernel_matches_plain_version_on_the_card(cuda_device, N, V):
     torch.testing.assert_close(loss.detach(), ref_loss, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(xr.grad, ref_grad * g[:, None], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_xent_plan_reads_each_row_on_enough_sms(cuda_device):
+    """The plan the built library makes: a warp per row at the training
+    path's [128, 1000], float4 loads only where the rows are aligned, and
+    more than 64 blocks pulling at [64, 50257]."""
+    plan = ck.xent_plan(128, 1000)
+    assert plan == {"vec": 4, "per_thread": 32, "threads": 32,
+                    "blocks_per_row": 1}
+    assert ck.xent_plan(128, 1000, aligned=False)["vec"] == 1
+    assert ck.xent_plan(128, 1001)["vec"] == 1
+    wide = ck.xent_plan(64, 50257)
+    assert wide["threads"] == 512 and 64 * wide["blocks_per_row"] > 64
+    assert wide["blocks_per_row"] * 512 * 32 >= 50257
+    widest = ck.xent_plan(1, 4 * ck.XENT_REGISTER_ROW)
+    assert widest == {"vec": 4, "per_thread": 32, "threads": 512,
+                      "blocks_per_row": 8}
+    assert widest["blocks_per_row"] * 512 * 32 == ck.XENT_REGISTER_ROW
+    with pytest.raises(ValueError):
+        ck.xent_plan(1, 0)
+
+
+def _staging_batches(n, rows, cols, seed=0, masks=True):
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.normal(size=(rows, cols)).astype(np.float32),
+                    rng.random((rows, 3)).astype(np.float32),
+                    rng.random((rows,)).astype(np.float32) if masks
+                    else None, None) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(32, 17), (1024, 512)])
+def test_staged_batches_equal_their_host_copies(cuda_device, rows, cols):
+    """Batches under PINNED_STAGING_BYTES (a pageable copy on the
+    consumer's stream) and over it (pinned, on the side stream)."""
+    batches = _staging_batches(6, rows, cols)
+    nbytes = sum(a.nbytes for a in (batches[0].features, batches[0].labels,
+                                    batches[0].features_mask))
+    assert (nbytes >= iterators.PINNED_STAGING_BYTES) == (rows == 1024)
+    it = AsyncDataSetIterator(ListDataSetIterator(batches), workers=2,
+                              device=cuda_device, staging_depth=2)
+    got = []
+    while it.has_next():
+        got.append(it.next())
+    it.close()
+    assert len(got) == 6
+    for a, b in zip(got, batches):
+        assert a.labels_mask is None
+        for k in ("features", "labels", "features_mask"):
+            t = getattr(a, k)
+            assert t.device.type == "cuda"
+            assert torch.equal(t.cpu(), torch.from_numpy(getattr(b, k)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(4096, 16384), (64, 256)])
+def test_consumer_stream_waits_for_the_staging_copy(cuda_device, rows,
+                                                    cols):
+    """A 256 MB batch (pinned, side stream) and a 64 KB one (pageable,
+    the consumer's stream), each staged while the consumer's stream is
+    busy: the moment ``next()`` returns, the host array is overwritten and
+    the staged tensor is compared on the consumer's stream; it must hold
+    the batch as it was when staged."""
+    host = np.random.default_rng(1).random((rows, cols), np.float32)
+    want = torch.from_numpy(host).to(cuda_device)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        it = AsyncDataSetIterator(
+            ListDataSetIterator([DataSet(host, host[:, :1])]),
+            device=cuda_device)
+        it.has_next()
+        torch.cuda._sleep(20_000_000)   # ~10 ms of the consumer's stream
+        staged = it.next()
+        host[:] = -1.0
+        same = torch.equal(staged.features, want)
+        it.close()
+        host[:] = want.cpu().numpy()
+        assert same
+
+
+@pytest.mark.gpu
+def test_fit_through_the_pipeline_on_the_card_equals_sync(cuda_device):
+    def conf(workers):
+        return (network.NeuralNetConfiguration.builder().seed(7)
+                .updater("adam").learning_rate(0.01)
+                .input_pipeline(workers=workers, staging_depth=2).list()
+                .layer(L.DenseLayer(n_in=17, n_out=32, activation="relu"))
+                .layer(L.OutputLayer(n_in=32, n_out=3, activation="softmax",
+                                     loss="mcxent"))
+                .build())
+    batches = _staging_batches(8, 32, 17, seed=3, masks=False)
+    nets = []
+    for workers in (0, 2):
+        net = MultiLayerNetwork(conf(workers), device=cuda_device).init()
+        net.fit(ListDataSetIterator(batches), epochs=2)
+        nets.append(net)
+    assert torch.equal(nets[0].params(), nets[1].params())
+    assert nets[0].score() == nets[1].score()
 
 
 @pytest.mark.gpu

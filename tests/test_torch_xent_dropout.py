@@ -14,6 +14,7 @@ the JAX suite's tolerance for its fused kernel
 another order.
 """
 
+import re
 import zlib
 
 import jax
@@ -162,6 +163,51 @@ def test_xent_gate_matches_jax(rows, vocab, monkeypatch):
     monkeypatch.setenv("DL4J_PALLAS_XENT", "1")
     assert helpers.softmax_xent_wanted(rows, vocab) == \
         jax_helpers.softmax_xent_wanted(rows, vocab)
+
+
+def test_xent_widest_row_matches_the_kernel_source():
+    """``XENT_REGISTER_ROW`` is the widest row the CUDA kernel holds in
+    registers: a cluster of kMaxCluster blocks of kBlockThreads threads
+    with kBlockPer floats of x and y each (constants of
+    ``csrc/softmax_xent.cu``); the kernel source keeps no cap on V."""
+    src = (ck.CSRC / "softmax_xent.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert ck.XENT_REGISTER_ROW == (const["kMaxCluster"] *
+                                    const["kBlockThreads"] *
+                                    const["kBlockPer"])
+    assert "kMaxV" not in src
+
+
+def test_xent_beyond_the_widest_row_takes_the_dense_chain(monkeypatch):
+    """Rows wider than the kernel holds in registers still take the fused
+    loss, as JAX's gate sends them to its kernel: the wrapper takes them,
+    and on the CPU its plain version (the dense logsumexp chain) gives
+    JAX's fused loss and gradient (rtol = atol = 1e-5)."""
+    monkeypatch.setenv("DL4J_PALLAS_XENT", "1")
+    V = ck.XENT_REGISTER_ROW + 1
+    assert helpers.softmax_xent_wanted(1, V)
+    assert jax_helpers.softmax_xent_wanted(1, V)
+    assert ck.softmax_xent_supported((1, V), torch.float32)
+    logits, labels, g = _xent_inputs(1, V, soft=True)
+    ploss, pgrad = ck.fused_softmax_xent(torch.from_numpy(logits),
+                                         torch.from_numpy(labels))
+    jloss, jgrad = pk.fused_softmax_xent(jnp.asarray(logits),
+                                         jnp.asarray(labels))
+    np.testing.assert_allclose(ploss.numpy(), np.asarray(jloss),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pgrad.numpy(), np.asarray(jgrad),
+                               rtol=RTOL, atol=ATOL)
+    jl, vjp = jax.vjp(lambda a: jax_losses.mcxent(jnp.asarray(labels), a),
+                      jnp.asarray(logits))
+    jdx, = vjp(jnp.asarray(g))
+    lt = torch.from_numpy(logits).requires_grad_()
+    loss = losses.mcxent(torch.from_numpy(labels), lt)
+    loss.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(jdx),
+                               rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("mask", [None, "rows", "rows_col", "classes"])

@@ -10,7 +10,10 @@ the script keeps the end-to-end numbers both trees' scripts print: VGG16-224
 training (samples/s after the first step, peak memory), VGG16-224
 ``output()`` ms at batch 8, serving (requests/s, p50 and p99 latency and
 the batcher's mean compute ms per model), LeNet training samples/s, the
-xent, dropout and LSTM kernels' times (the LSTM at every timed shape),
+xent, dropout and LSTM kernels' times (xent and the LSTM at every timed
+shape, xent beside an empty kernel on its grid where the tree's script
+times one), LeNet through the input pipeline (samples/s, the reorder
+buffer's high-water mark, ``evaluate``'s accuracy), the gateway's ``fit`` seconds,
 char-RNN training characters/s, the
 flash kernels' and SDPA's times, attention training (characters/s after the
 first step, step seconds, peak memory), attention ``output()`` ms and
@@ -62,7 +65,20 @@ def _numbers(ph: dict) -> dict:
     if "xent_dropout_kernels" in ph:
         x = ph["xent_dropout_kernels"]
         nums["xent_ms"] = x["xent"][0]["ms"]
+        nums["xent_timed"] = {
+            "x".join(map(str, r["shape"])): {
+                k: r.get(k) for k in ("ms", "empty_kernel_ms", "plain_ms",
+                                      "library_ms", "bound_ms")}
+            for r in x["xent"] if "ms" in r}
         nums["dropout_ms"] = [r["ms"] for r in x["dropout"] if "ms" in r]
+    if "train_lenet_pipeline" in ph:
+        t = ph["train_lenet_pipeline"]
+        nums["lenet_pipeline_samples_per_s"] = t["samples_per_s"]
+        nums["lenet_pipeline_ready_high_water"] = t["ready_high_water"]
+        nums["lenet_evaluate"] = {k: t["evaluate"][k] for k in
+                                  ("accuracy", "f1", "seconds")}
+    if "gateway_fit_evaluate" in ph:
+        nums["gateway_fit_s"] = ph["gateway_fit_evaluate"]["fit"]["seconds"]
     if "lstm_kernel" in ph:
         nums["lstm_us_per_step"] = ph["lstm_kernel"]["us_per_step"]
         nums["lstm_us_by_shape"] = {
