@@ -12,8 +12,9 @@ exits non-zero:
 3. kernels   — the conv kernel against its plain PyTorch version at every
                distinct conv shape of LeNet and VGG16-CIFAR10 (every bucket
                the server runs, 1-32 rows, batch 128, and LeNet's training
-               batch 64) and of VGG16-224 (batch 1 and 8, and the training
-               batch 128), plus every fused activation at one shape.
+               batch 64), of VGG16-224 (batch 1 and 8, and the training
+               batch 128) and VGG16-BN's linear convs (batch 32 and 128),
+               plus every fused activation at one shape.
                TF32 is off for the plain and library versions.  At batch
                32, 128 and VGG16-224's 8 and 128, per shape and summed per
                set (every conv of the model's forward, a repeated shape
@@ -92,6 +93,41 @@ exits non-zero:
                shards), then ``predict``, which must serve the trained
                parameters (within the whole-network tolerance of a direct
                ``output()``, and away from the initial ones).
+8d. keras_vgg16_bn — VGG16 with batch normalization for CIFAR-10 (the
+               public Keras recipe, ``keras_vgg16_bn_config``; 13 linear
+               3x3 convs each followed by relu, BatchNormalization and
+               Dropout or a max pool; 14,991,946 params, 9,472 running
+               statistics) imported through the port's Keras import from
+               its configuration and seeded Keras-layout weight arrays
+               (a dict lookup, no h5py; running means off 0, variances in
+               [0.5, 1.5]); ``output()`` at batch 32 and 128, five timed
+               calls each (median reported): exactly 13 conv launches a
+               forward, against a forward through the plain conv within
+               the whole-network tolerance; peak memory.
+8e. train_keras_vgg16_bn — the imported VGG16-BN, 3 timed ``fit`` steps
+               at batch 128 (SGD at the importer's defaults) on a seeded
+               CIFAR-shaped batch and a fourth that keeps its layer
+               outputs: exactly 13 conv and 20 dropout launches a step
+               (10 DropoutLayers, forward and backward); the fourth
+               step against the plain step from the same params, updater
+               state, BN statistics, seed words, relu masks and
+               max-pool argmax (score 1e-4, updates 5e-4 and BN running
+               mean and var 1e-4 in relative 2-norm, dropout masks
+               identical, and where the plain forward's own relu or
+               argmax decision differs, a near tie within 1e-4 of the
+               layer's scale); then ``evaluate`` on 1,024
+               seeded rows (13 conv launches a batch of 128).
+               Samples/s over steps 2-3, step seconds, peak memory over
+               steps 1-3.
+8f. new_layers — small nets of the layers and preprocessors Keras import
+               brought (``new_layer_nets``: ZeroPadding, LRN, batch norm,
+               Activation, GlobalPooling over NCHW and over a masked
+               sequence, Embedding on indices and on one-hot rows, a
+               LossLayer head, RnnToCnn, Composable(CnnToRnn)) on the card
+               against the same nets on the CPU in this process, from the
+               same params and state: ``output()``, then one ``fit`` step
+               with the same seed words (score, params and state, rtol
+               1e-4, atol 1e-5).
 9. lstm_kernel — the peephole-LSTM step kernel against its plain version
                (c', h', rtol = atol = 1e-5) at (N, H) = (32, 200), (4, 200),
                (1, 200), (3, 8), (5, 24), (64, 256), and at the tiling's
@@ -157,6 +193,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -253,8 +290,206 @@ ATT_OUT_TOL = 1e-5
 # both layers times ATT_PEAK_QK and layer 0's Wv and Wo times
 # ATT_SPREAD_V (reasons in _attention_step_vs_plain).
 ATT_PEAK_QK, ATT_SPREAD_V = 4.0, 10.0
+# VGG16 with batch normalization for CIFAR-10, the public Keras recipe
+# (geifmany/cifar-vgg cifar10vgg.build_model, Simonyan & Zisserman's
+# widths): per block (convs, channels, dropout rate); each conv is
+# Conv2D(3x3, same, linear) -> relu -> BatchNormalization -> Dropout, the
+# block's last conv MaxPooling2D instead of the Dropout; then Dropout(0.5)
+# -> Flatten -> Dense(512) -> relu -> BatchNormalization -> Dropout(0.5)
+# -> Dense(10, softmax).  13 convs, 10 Dropout layers, 14,991,946 params
+# and 9,472 running statistics.  Served at batch 32 and 128; trained at
+# 128 for 3 timed steps and one checked against the plain step, then
+# evaluated on 1,024 rows.
+VGG_BN_BLOCKS = ((2, 64, 0.3), (2, 128, 0.4), (3, 256, 0.4),
+                 (3, 512, 0.4), (3, 512, 0.4))
+VGG_BN_HEAD, VGG_BN_CLASSES, VGG_BN_HW = 512, 10, 32
+VGG_BN_PARAMS, VGG_BN_STATS = 14_991_946, 9_472
+VGG_BN_BATCHES, VGG_BN_TRAIN_BATCH, VGG_BN_STEPS = (32, 128), 128, 3
+VGG_BN_EVAL_ROWS = 1024
+# A step through the kernels vs the plain step: the score and updates by
+# the training step's rule above; BN's running mean and var after the
+# step to 1e-4 in relative 2-norm.  A relu passes the gradient of an
+# element or not by its sign, and a max pool sends each window's gradient
+# to one element: where a pre-activation lies nearer 0, or two elements
+# of a window nearer each other, than the two forwards differ, the steps
+# may decide apart and an update moves by a whole element's gradient
+# (0.8 % of the updates of VGG16-BN, PERF.md).  So the plain step takes
+# the kernel step's relu masks and max-pool argmax, and where its own
+# decision differs, the pre-activation (or the gap between the two
+# elements) must be within TIE_RTOL of the layer input's largest
+# magnitude: a near tie, ten times the conv check's ATOL.
+BN_STATS_RTOL = 1e-4
+TIE_RTOL = 1e-4
+# new_layers: the same nets on the card and on the CPU, from the same
+# params and state: rtol 1e-4 (float32 sums in other orders, conv through
+# the kernel on the card), atol 1e-5 for values near zero (the conv
+# check's).
+NEW_LAYERS_RTOL, NEW_LAYERS_ATOL = 1e-4, 1e-5
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
+
+
+def keras_vgg16_bn_config(blocks=VGG_BN_BLOCKS, head=VGG_BN_HEAD,
+                          classes=VGG_BN_CLASSES, hw=VGG_BN_HW) -> dict:
+    """The Keras ``model_config`` (Keras 3 Sequential layout) of VGG16
+    with batch normalization for CIFAR-10, at the widths given."""
+    layers = [{"class_name": "InputLayer",
+               "config": {"name": "input", "batch_shape": [None, hw, hw, 3],
+                          "dtype": "float32"}}]
+
+    def add(cls, name, **cfg):
+        layers.append({"class_name": cls, "config": {"name": name, **cfg}})
+    k = 0
+    for b, (n_convs, ch, rate) in enumerate(blocks, 1):
+        for c in range(1, n_convs + 1):
+            k += 1
+            add("Conv2D", f"conv{k}", filters=ch, kernel_size=[3, 3],
+                strides=[1, 1], padding="same", activation="linear")
+            add("Activation", f"relu{k}", activation="relu")
+            add("BatchNormalization", f"bn{k}", momentum=0.99, epsilon=1e-3)
+            if c < n_convs:
+                add("Dropout", f"drop{k}", rate=rate)
+            else:
+                add("MaxPooling2D", f"pool{b}", pool_size=[2, 2],
+                    strides=[2, 2], padding="valid")
+    add("Dropout", "drop_head", rate=0.5)
+    add("Flatten", "flatten")
+    add("Dense", "fc", units=head, activation="linear")
+    add("Activation", "relu_fc", activation="relu")
+    add("BatchNormalization", "bn_fc", momentum=0.99, epsilon=1e-3)
+    add("Dropout", "drop_fc", rate=0.5)
+    add("Dense", "predictions", units=classes, activation="softmax")
+    return {"class_name": "Sequential",
+            "config": {"name": "vgg16_bn_cifar10", "layers": layers}}
+
+
+def keras_vgg16_bn_weights(config: dict, seed: int) -> dict:
+    """Keras-layout weight arrays for ``config``, drawn from a numpy seed:
+    He-scaled HWIO conv and [in, out] dense kernels, small biases, BN
+    ``gamma`` in [0.8, 1.2], ``beta`` ~ 0.1 N(0, 1), ``moving_mean`` ~
+    0.1 N(0, 1) and ``moving_variance`` in [0.5, 1.5], so inference batch
+    norm is not the identity.  Keyed by Keras layer name."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    layers = config["config"]["layers"]
+    shape = layers[0]["config"]["batch_shape"]
+    hw, width = shape[1], shape[3]
+    weights = {}
+    for ld in layers[1:]:
+        cls, cfg = ld["class_name"], ld["config"]
+        if cls == "Conv2D":
+            cout = cfg["filters"]
+            weights[cfg["name"]] = {
+                "kernel": (rng.standard_normal((3, 3, width, cout))
+                           * np.sqrt(2.0 / (9 * width))).astype(f32),
+                "bias": (0.05 * rng.standard_normal(cout)).astype(f32)}
+            width = cout
+        elif cls == "MaxPooling2D":
+            hw //= 2
+        elif cls == "Flatten":
+            width = width * hw * hw
+        elif cls == "Dense":
+            units = cfg["units"]
+            weights[cfg["name"]] = {
+                "kernel": (rng.standard_normal((width, units))
+                           * np.sqrt(2.0 / width)).astype(f32),
+                "bias": (0.05 * rng.standard_normal(units)).astype(f32)}
+            width = units
+        elif cls == "BatchNormalization":
+            weights[cfg["name"]] = {
+                "gamma": rng.uniform(0.8, 1.2, width).astype(f32),
+                "beta": (0.1 * rng.standard_normal(width)).astype(f32),
+                "moving_mean": (0.1 * rng.standard_normal(width)).astype(f32),
+                "moving_variance": rng.uniform(0.5, 1.5, width).astype(f32)}
+    return weights
+
+
+def import_keras_vgg16_bn(device, seed: int = SEED, **widths):
+    """VGG16-BN through the port's Keras import: the configuration built
+    above, then its weight arrays through ``_load_weights`` with a dict
+    lookup (no h5py)."""
+    from deeplearning4j_tpu_torch.keras_import import KerasModelImport
+    config = keras_vgg16_bn_config(**widths)
+    net = KerasModelImport.import_keras_sequential_configuration(
+        json.dumps(config), device=device)
+    KerasModelImport._load_weights(net, keras_vgg16_bn_weights(config, seed))
+    return net
+
+
+def new_layer_nets():
+    """Small nets built with the port's configuration API that cover the
+    layers and preprocessors Keras import brought: name -> (conf,
+    features, labels, features mask).  ``cnn``: Conv -> ZeroPadding ->
+    LRN -> BatchNormalization -> Activation -> GlobalPooling(avg) ->
+    Dense -> LossLayer(softmax); ``rnn_pool``: GlobalPooling(max) over a
+    masked sequence; ``embedding`` with integer and ``embedding_one_hot``
+    with one-hot input; ``preproc``: RnnToCnn -> Conv -> Composable(CnnToRnn)
+    -> GlobalPooling(pnorm) over a masked sequence -> BatchNormalization
+    -> Output."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import network
+    from deeplearning4j_tpu_torch.nn.conf import preprocessors as pp
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    rng = np.random.default_rng(SEED + 9)
+    f32 = np.float32
+
+    def builder():
+        return (network.NeuralNetConfiguration.builder().seed(SEED)
+                .learning_rate(0.05).updater("nesterovs").list())
+
+    def onehot(n, k):
+        return np.eye(k, dtype=f32)[rng.integers(0, k, n)]
+
+    def seq_mask(n, t):
+        lengths = rng.integers(1, t + 1, n)
+        return (np.arange(t)[None, :] < lengths[:, None]).astype(f32)
+    nets = {}
+    conf = (builder()
+            .layer(L.ConvolutionLayer(n_out=8, kernel=(3, 3),
+                                      convolution_mode="same",
+                                      activation="identity"))
+            .layer(L.ZeroPaddingLayer(pad=(1, 0, 2, 1)))
+            .layer(L.LocalResponseNormalization(n=3, alpha=0.5))
+            .layer(L.BatchNormalization())
+            .layer(L.ActivationLayer(activation="relu"))
+            .layer(L.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L.DenseLayer(n_out=5, activation="identity"))
+            .layer(L.LossLayer(loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.convolutional(12, 12, 3)).build())
+    nets["cnn"] = (conf, rng.normal(size=(16, 3, 12, 12)).astype(f32),
+                   onehot(16, 5), None)
+    conf = (builder()
+            .layer(L.GlobalPoolingLayer(pooling_type="max"))
+            .layer(L.DenseLayer(n_out=6, activation="tanh"))
+            .layer(L.OutputLayer(n_out=4, activation="softmax",
+                                 loss="mcxent"))
+            .set_input_type(InputType.recurrent(7, 9)).build())
+    nets["rnn_pool"] = (conf, rng.normal(size=(12, 9, 7)).astype(f32),
+                        onehot(12, 4), seq_mask(12, 9))
+    for name, feats in (("embedding", rng.integers(0, 20, 24)),
+                        ("embedding_one_hot", onehot(24, 20))):
+        conf = (builder()
+                .layer(L.EmbeddingLayer(n_in=20, n_out=8, activation="tanh"))
+                .layer(L.DenseLayer(n_out=6, activation="relu"))
+                .layer(L.OutputLayer(n_out=3, activation="softmax",
+                                     loss="mcxent"))
+                .set_input_type(InputType.feed_forward(20)).build())
+        nets[name] = (conf, feats, onehot(24, 3), None)
+    T, C, H, W = 5, 2, 6, 6
+    conf = (builder()
+            .layer(L.ConvolutionLayer(n_out=4, kernel=(3, 3),
+                                      activation="tanh"))
+            .layer(L.GlobalPoolingLayer(pooling_type="pnorm", pnorm=2))
+            .layer(L.BatchNormalization())
+            .layer(L.OutputLayer(n_out=3, activation="softmax",
+                                 loss="mcxent"))
+            .input_pre_processor(0, pp.RnnToCnnPreProcessor(H, W, C))
+            .input_pre_processor(1, pp.ComposableInputPreProcessor.compose(
+                pp.CnnToRnnPreProcessor(timesteps=T)))
+            .set_input_type(InputType.recurrent(C * H * W, T)).build())
+    nets["preproc"] = (conf, rng.normal(size=(6, T, C * H * W)).astype(f32),
+                       onehot(6, 3), seq_mask(6, T))
+    return nets
 
 
 def emit(phase: str, **fields) -> None:
@@ -324,11 +559,13 @@ def conv_shapes(model: str, batch: int):
         return [(batch, 1, 28, 28, 20, 5, 0, "identity"),
                 (batch, 20, 12, 12, 50, 5, 0, "identity")]
     from deeplearning4j_tpu_torch.models.vgg import BLOCKS
-    hw = 32 if model == "vgg16_cifar10" else 224
+    hw = 224 if model == "vgg16_224" else 32
+    # VGG16-BN's convs are linear: relu comes after them as a layer
+    act = "identity" if model == "vgg16_bn_cifar10" else "relu"
     out, cin = [], 3
     for n_convs, ch in BLOCKS:
         for _ in range(n_convs):
-            out.append((batch, cin, hw, hw, ch, 3, 1, "relu"))
+            out.append((batch, cin, hw, hw, ch, 3, 1, act))
             cin = ch
         hw //= 2
     return out
@@ -432,6 +669,7 @@ def phase_kernels(torch, ck):
             ("lenet", 128, True), ("vgg16_cifar10", 128, True),
             ("vgg16_224", 8, True), ("vgg16_224", VGG_BATCH, True),
             ("vgg16_224", 1, False), ("lenet", LENET_BATCH, False)]
+    plan += [("vgg16_bn_cifar10", n, False) for n in VGG_BN_BATCHES]
     plan += [(m, n, False) for m in ("lenet", "vgg16_cifar10")
              for n in (1, 2, 4, 8, 16)]
     records, ladder, seen = [], [], set()
@@ -644,7 +882,7 @@ def _plain_forward(torch, ck, net, x):
                     x, p["W"], p["b"], tuple(layer.padding),
                     layer.convolution_mode, layer.activation)
             else:
-                x, _, _ = layer.forward(p, {}, x)
+                x, _, _ = layer.forward(p, net.net_state[i], x)
     return x
 
 
@@ -931,19 +1169,77 @@ def _random_batch(rng, n, dims, classes):
     return x, y
 
 
-def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it):
-    """One training step of ``net`` from ``params`` / ``opt_states`` with
-    every kernel replaced by its plain version: conv through cuDNN (TF32
-    off), dropout through the plain hash, loss through the plain softmax
-    cross-entropy, gradients by autograd; the update is the network's own
-    (plain PyTorch).  Returns (score, new params, dropout inputs)."""
+class _RecordedOutputs:
+    """While active, each layer of ``net`` keeps the output of its forward
+    (detached) in ``outputs`` by layer index."""
+
+    def __init__(self, net):
+        self.net, self.outputs = net, {}
+
+    def __enter__(self):
+        for i, layer in enumerate(self.net.layers):
+            def forward(*args, _fwd=layer.forward, _i=i, **kw):
+                out = _fwd(*args, **kw)
+                self.outputs[_i] = out[0].detach()
+                return out
+            layer.forward = forward       # shadows the class's method
+        return self
+
+    def __exit__(self, *exc):
+        for layer in self.net.layers:
+            del layer.forward
+
+
+def _pinned(torch, layer, i, h, outputs, ties):
+    """The plain step's relu or max pool at layer ``i`` with the kernel
+    step's choice: its relu mask (from its output ``outputs[i]``) or its
+    max-pool argmax (from its pool input ``outputs[i - 1]``).  Appends to
+    ``ties`` the elements or windows where the plain forward's own choice
+    differs and the largest gap there, relative to the layer input's
+    largest magnitude."""
+    import torch.nn.functional as F
+    scale = float(h.detach().abs().max())
+    if type(layer).__name__ == "ActivationLayer":
+        keep = outputs[i] > 0
+        flips = keep != (h > 0)
+        gap = h.abs()[flips]
+        out = torch.where(keep, h, 0.0)
+    else:
+        k, st = tuple(layer.kernel), tuple(layer.stride)
+        _, idx = F.max_pool2d(outputs[i - 1], k, st, return_indices=True)
+        own, own_idx = F.max_pool2d(h, k, st, return_indices=True)
+        out = h.flatten(2).gather(2, idx.flatten(2)).view_as(idx)
+        flips = own_idx != idx
+        gap = (own - out).abs()[flips]
+    ties.append({"layer": i, "kind": type(layer).__name__,
+                 "elements": int(flips.numel()), "flips": int(flips.sum()),
+                 "max_rel_gap": float(gap.max()) / scale if gap.numel()
+                 else 0.0})
+    return out
+
+
+def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
+                      states=None, kernel_outputs=None):
+    """One training step of ``net`` from ``params`` / ``opt_states`` (and
+    the layers' ``states``: batch norm's running statistics) with every
+    kernel replaced by its plain version: conv through cuDNN (TF32 off),
+    dropout through the plain hash, loss through the plain softmax
+    cross-entropy, gradients by autograd; batch norm and the update are
+    the network's own (plain PyTorch).  With ``kernel_outputs`` (the
+    kernel step's layer outputs, :class:`_RecordedOutputs`) each relu
+    layer and max pool takes the kernel step's mask or argmax
+    (:func:`_pinned`).  Returns (score, new params, dropout inputs, new
+    states, near ties)."""
     from deeplearning4j_tpu_torch.nn.conf.layers import (
-        ConvolutionLayer, DenseLayer)
+        ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
+        SubsamplingLayer)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     leaves = [{k: v.detach().clone().requires_grad_() for k, v in lp.items()}
               for lp in params]
     dropped = {}
     n = len(net.layers)
+    new_states = [dict(s) for s in (states or [{} for _ in net.layers])]
+    ties = []
     with ck.full_f32_convs():
         h = x
         for i, layer in enumerate(net.layers):
@@ -961,6 +1257,15 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it):
                 h = torch.addmm(p["b"], h, p["W"])
             elif isinstance(layer, DenseLayer):
                 h = layer._act(torch.addmm(p["b"], h, p["W"]))
+            elif isinstance(layer, BatchNormalization):
+                h, ns, _ = layer.forward(p, new_states[i], h, train=True)
+                new_states[i] = {k: v.detach() for k, v in ns.items()}
+            elif kernel_outputs is not None and (
+                    (isinstance(layer, ActivationLayer)
+                     and layer.activation == "relu")
+                    or (isinstance(layer, SubsamplingLayer)
+                        and layer.pooling_type == "max")):
+                h = _pinned(torch, layer, i, h, kernel_outputs, ties)
             else:
                 h, _, _ = layer.forward(p, {}, h)
         loss, _ = ck.softmax_xent_reference(h, y)
@@ -973,7 +1278,8 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it):
                           for lp in params]
     scratch.opt_states = opt_states
     scratch._apply_updates(grads, it)
-    return float(score.detach()), scratch.net_params, dropped
+    return (float(score.detach()), scratch.net_params, dropped, new_states,
+            ties)
 
 
 def _clone_tree(tree):
@@ -1025,7 +1331,7 @@ def phase_train_vgg16_224(torch, ck) -> dict:
                                  f"{want} and the score finite")
     params0, opt0, it = before
     xd, yd = (torch.from_numpy(a).cuda() for a in (x, y))
-    plain_score, plain_params, dropped = _plain_train_step(
+    plain_score, plain_params, dropped, _, _ = _plain_train_step(
         torch, ck, net, params0, opt0, xd, yd, seeds, it)
     del opt0
     for i, h in dropped.items():             # kernel vs plain on the same
@@ -1292,6 +1598,242 @@ def phase_gateway_fit_evaluate(torch, ck) -> dict:
             or np.allclose(got, old, rtol=NET_RTOL, atol=NET_ATOL):
         raise AssertionError(f"gateway fit / evaluate: {res}")
     return res
+
+
+def _vgg_bn_layers(net) -> dict:
+    names = [type(l).__name__ for l in net.layers]
+    return {k: names.count(k) for k in ("ConvolutionLayer", "DropoutLayer",
+                                        "BatchNormalization")}
+
+
+def _vgg_bn_checked(net) -> dict:
+    """The imported VGG16-BN's layer counts and sizes, checked."""
+    counts = _vgg_bn_layers(net)
+    stats = sum(v.numel() for s in net.net_state for v in s.values())
+    if counts != {"ConvolutionLayer": 13, "DropoutLayer": 10,
+                  "BatchNormalization": 14} or \
+            net.n_params != VGG_BN_PARAMS or stats != VGG_BN_STATS:
+        raise AssertionError(f"imported VGG16-BN has {counts}, "
+                             f"{net.n_params} params, {stats} statistics")
+    return {"layers": counts, "n_params": net.n_params,
+            "running_statistics": stats}
+
+
+def phase_keras_vgg16_bn(torch, ck) -> dict:
+    """VGG16-BN for CIFAR-10 imported from its Keras configuration and
+    weight arrays (no h5py), served through ``output()`` at batch 32 and
+    128: 13 conv launches a forward, against a forward through the plain
+    conv."""
+    net = import_keras_vgg16_bn("cuda")
+    sizes = _vgg_bn_checked(net)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    xs = {n: torch.randn((n, 3, VGG_BN_HW, VGG_BN_HW), generator=gen).cuda()
+          for n in VGG_BN_BATCHES}
+    for x in xs.values():           # first calls: handles, allocator
+        net.output(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches, outs = {}, {}
+    _zero_counts(ck)                                   # main path starts
+    for n, x in xs.items():
+        walls, per_call = [], []
+        for _ in range(5):
+            before = ck.fused_conv2d_bias_act.launches
+            t0 = time.perf_counter()
+            outs[n] = net.output(x)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            per_call.append(ck.fused_conv2d_bias_act.launches - before)
+        batches[n] = {"output_ms": float(np.median(walls)),
+                      "output_ms_each": walls,
+                      "conv_launches_per_forward": per_call}
+    launches = _kernel_counts(ck)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    for n, x in xs.items():
+        out, rec = outs[n], batches[n]
+        ref = _plain_forward(torch, ck, net, x)
+        rec["max_abs_vs_plain"] = float((out - ref).abs().max())
+        rec["classes"] = out.argmax(dim=1)[:16].tolist()
+        sums = out.sum(dim=1)
+        if tuple(out.shape) != (n, VGG_BN_CLASSES) or \
+                not bool(torch.isfinite(out).all()) or \
+                not torch.allclose(sums, torch.ones_like(sums), atol=1e-5) \
+                or set(rec["conv_launches_per_forward"]) != {13}:
+            raise AssertionError(f"VGG16-BN output at batch {n}: {rec}")
+        torch.testing.assert_close(out, ref, rtol=NET_RTOL, atol=NET_ATOL)
+    res = {**sizes, "batches": batches, "launches": launches,
+           "max_memory_allocated": peak, "rtol": NET_RTOL, "atol": NET_ATOL}
+    if launches != _want(ck, conv2d_bias_act=13 * 5 * len(xs)):
+        raise AssertionError(f"VGG16-BN inference launched {launches}")
+    emit("keras_vgg16_bn", **res)
+    return res
+
+
+def phase_train_keras_vgg16_bn(torch, ck) -> dict:
+    """The imported VGG16-BN trained with ``fit`` (SGD, the importer's
+    defaults) at batch 128: 3 timed steps, then one more whose layer
+    outputs are kept (``_RecordedOutputs`` keeps a gigabyte of them alive,
+    which would cost a timed step its allocations) and which is checked
+    against the plain step, BN statistics included; 13 conv and 10
+    dropout-forward launches every step (and the 10 backward launches of
+    dropout); then ``evaluate`` on 1,024 rows."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    torch.backends.cudnn.allow_tf32 = True
+    net = import_keras_vgg16_bn("cuda")
+    _vgg_bn_checked(net)
+    rng = np.random.default_rng(SEED + 12)
+    x, y = _random_batch(rng, VGG_BN_TRAIN_BATCH, (3, VGG_BN_HW, VGG_BN_HW),
+                         VGG_BN_CLASSES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    _zero_counts(ck)                                   # main path starts
+    recorded = _RecordedOutputs(net)
+    for k in range(VGG_BN_STEPS + 1):
+        checked = k == VGG_BN_STEPS
+        if checked:                   # snapshot for the plain-version step
+            peak = torch.cuda.max_memory_allocated()
+            before = (_clone_tree(net.net_params), _clone_tree(net.opt_states),
+                      _clone_tree(net.net_state), net.iteration)
+            state = net._generator.get_state()
+            seeds = net._draw_seeds().tolist()
+            net._generator.set_state(state)
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        with recorded if checked else contextlib.nullcontext():
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        steps.append({"step": k + 1, "checked": checked,
+                      "score": net.score(), "seconds": dt,
+                      "samples_per_s": VGG_BN_TRAIN_BATCH / dt,
+                      "launches": {n: after[n] - counts[n] for n in after}})
+    launches = _kernel_counts(ck)                      # main path ends
+    want = _want(ck, conv2d_bias_act=13, threshold_dropout=20)
+    for st in steps:
+        if st["launches"] != want or not np.isfinite(st["score"]):
+            raise AssertionError(f"VGG16-BN step {st}: launches must be "
+                                 f"{want} and the score finite")
+    params0, opt0, states0, it = before
+    xd, yd = (torch.from_numpy(a).cuda() for a in (x, y))
+    plain_score, plain_params, dropped, plain_states, ties = \
+        _plain_train_step(torch, ck, net, params0, opt0, xd, yd, seeds, it,
+                          states0, recorded.outputs)
+    del recorded
+    del opt0
+    for i, h in dropped.items():             # kernel vs plain on the same
+        rate = net.layers[i].dropout          # inputs: identical outputs
+        ones = torch.ones_like(h)             # and identical masks
+        if not (torch.equal(ck.fused_threshold_dropout(h, rate, seeds[i]),
+                            ck.threshold_dropout_reference(h, rate, seeds[i]))
+                and torch.equal(
+                    ck.fused_threshold_dropout(ones, rate, seeds[i]),
+                    ck.threshold_dropout_reference(ones, rate, seeds[i]))):
+            raise AssertionError(f"layer {i}: dropout masks differ")
+    kernel_score = steps[-1]["score"]
+    errs, stat_errs, stat_update_errs = {}, {}, {}
+    for i, (lp, pp, p0) in enumerate(zip(net.net_params, plain_params,
+                                         params0)):
+        for k in lp:
+            errs[f"{i}_{k}"] = _rel_norm(torch, lp[k] - p0[k], pp[k] - p0[k])
+    for i, (s, ps, s0) in enumerate(zip(net.net_state, plain_states,
+                                        states0)):
+        for k in s:
+            stat_errs[f"{i}_{k}"] = _rel_norm(torch, s[k], ps[k])
+            stat_update_errs[f"{i}_{k}"] = _rel_norm(torch, s[k] - s0[k],
+                                                     ps[k] - s0[k])
+    del params0, states0
+    eval_rows = [DataSet(*_random_batch(rng, VGG_BN_TRAIN_BATCH,
+                                        (3, VGG_BN_HW, VGG_BN_HW),
+                                        VGG_BN_CLASSES))
+                 for _ in range(VGG_BN_EVAL_ROWS // VGG_BN_TRAIN_BATCH)]
+    _zero_counts(ck)                                   # evaluate starts
+    t1 = time.perf_counter()
+    ev = net.evaluate(ListDataSetIterator(eval_rows))
+    eval_s = time.perf_counter() - t1
+    eval_launches = _kernel_counts(ck)                 # evaluate ends
+    timed = steps[1:VGG_BN_STEPS]
+    res = {"batch": VGG_BN_TRAIN_BATCH, "steps": steps,
+           "samples_per_s_after_first": VGG_BN_TRAIN_BATCH * len(timed)
+           / sum(st["seconds"] for st in timed),
+           "launches": launches, "max_memory_allocated": peak,
+           "plain_step": {"score": plain_score, "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "max_update_rel_err": max(errs.values()),
+                          "update_rel_err": errs,
+                          "max_bn_stats_rel_err": max(stat_errs.values()),
+                          "max_bn_stats_update_rel_err": max(
+                              stat_update_errs.values()),
+                          "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL,
+                          "bn_stats_rtol": BN_STATS_RTOL,
+                          "near_ties": ties, "tie_rtol": TIE_RTOL,
+                          "dropout_masks_identical": sorted(dropped)},
+           "evaluate": {"rows": int(ev.confusion.matrix.sum()),
+                        "accuracy": ev.accuracy(), "seconds": eval_s,
+                        "launches": eval_launches}}
+    emit("train_keras_vgg16_bn", **res)
+    n_eval = len(eval_rows)
+    if res["plain_step"]["score_rel_diff"] > STEP_RTOL or \
+            res["plain_step"]["max_update_rel_err"] > STEP_UPDATE_RTOL or \
+            res["plain_step"]["max_bn_stats_rel_err"] > BN_STATS_RTOL or \
+            len(dropped) != 10 or len(ties) != 5 + 14 or \
+            max(t["max_rel_gap"] for t in ties) > TIE_RTOL:
+        raise AssertionError("VGG16-BN step through the kernels disagrees "
+                             "with the plain step")
+    if eval_launches != _want(ck, conv2d_bias_act=13 * n_eval) or \
+            res["evaluate"]["rows"] != VGG_BN_EVAL_ROWS:
+        raise AssertionError(f"VGG16-BN evaluate: {res['evaluate']}")
+    return res
+
+
+def phase_new_layers(torch, ck) -> dict:
+    """The small nets of ``new_layer_nets`` on the card against the same
+    nets on the CPU from the same params and state: ``output()``, then one
+    ``fit`` step with the same seed words (params, state and score)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    res = {}
+    for name, (conf, x, y, mask) in new_layer_nets().items():
+        cpu = MultiLayerNetwork(conf, device="cpu").init()
+        gpu = MultiLayerNetwork(conf, device="cuda")
+        gpu.net_params = [{k: v.to("cuda", copy=True) for k, v in lp.items()}
+                          for lp in cpu.net_params]
+        gpu.net_state = [{k: v.to("cuda", copy=True) for k, v in s.items()}
+                         for s in cpu.net_state]
+        errs = {"output": _assert_near(torch, gpu.output(x, mask),
+                                       cpu.output(x, mask), name)}
+        seeds = np.arange(2 * len(conf.layers)).reshape(-1, 2) + SEED
+        ds = DataSet(x, y, mask, None)
+        for net in (cpu, gpu):
+            net._fit_batch(ds, seeds=seeds)
+        errs["score"] = abs(gpu.score() - cpu.score()) / abs(cpu.score())
+        if errs["score"] > NEW_LAYERS_RTOL:
+            raise AssertionError(f"{name}: scores {gpu.score()} (card) and "
+                                 f"{cpu.score()} (CPU)")
+        for i, (gl, cl) in enumerate(zip(gpu.net_params + gpu.net_state,
+                                         cpu.net_params + cpu.net_state)):
+            for k in cl:
+                errs[f"{i}_{k}"] = _assert_near(torch, gl[k], cl[k],
+                                                f"{name} {i} {k}")
+        res[name] = {"layers": [type(l).__name__ for l in conf.layers],
+                     "preprocessors": {str(k): type(v).__name__ for k, v in
+                                       conf.preprocessors.items()},
+                     "max_abs_err": max(errs.values())}
+    emit("new_layers", nets=res, rtol=NEW_LAYERS_RTOL, atol=NEW_LAYERS_ATOL)
+    return res
+
+
+def _assert_near(torch, got, want, what) -> float:
+    """``got`` (on the card) within NEW_LAYERS_RTOL / _ATOL of ``want``
+    (on the CPU); returns the largest absolute difference."""
+    got = got.detach().cpu()
+    torch.testing.assert_close(got, want.detach(), rtol=NEW_LAYERS_RTOL,
+                               atol=NEW_LAYERS_ATOL, msg=lambda m: f"{what}: "
+                               f"{m}")
+    return float((got - want.detach()).abs().max())
 
 
 def _rel_norm(torch, got, want) -> float:
@@ -1953,8 +2495,8 @@ def phase_sample_attention(torch, ck, net, it) -> dict:
 
 
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
-            gateway_fit, lstm, train_char, sample_char, flash, train_att,
-            output_att, sample_att) -> dict:
+            gateway_fit, keras_vgg, train_keras_vgg, lstm, train_char,
+            sample_char, flash, train_att, output_att, sample_att) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -1978,6 +2520,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "evaluate_lenet": lenet_pipe["evaluate"]["launches"],
              "gateway_fit": gateway_fit["launches"],
              "gateway_evaluate": gateway_fit["evaluate_launches"],
+             "keras_vgg16_bn": keras_vgg["launches"],
+             "train_keras_vgg16_bn": train_keras_vgg["launches"],
+             "evaluate_keras_vgg16_bn":
+                 train_keras_vgg["evaluate"]["launches"],
              "train_charrnn": train_char["launches"],
              "sample_charrnn": sample_char["launches"],
              "train_attention": train_att["launches"],
@@ -2102,6 +2648,9 @@ def main() -> int:
     train_lenet = phase_train_lenet(torch, ck)
     lenet_pipe = phase_train_lenet_pipeline(torch, ck)
     gateway_fit = phase_gateway_fit_evaluate(torch, ck)
+    keras_vgg = phase_keras_vgg16_bn(torch, ck)
+    train_keras_vgg = phase_train_keras_vgg16_bn(torch, ck)
+    phase_new_layers(torch, ck)
     lstm = phase_lstm_kernel(torch, ck)
     train_char, net, it = phase_train_charrnn(torch, ck)
     sample_char = phase_sample_charrnn(torch, ck, net, it)
@@ -2112,9 +2661,9 @@ def main() -> int:
     sample_att = phase_sample_attention(torch, ck, net, it)
 
     print(json.dumps(summary(records, serve_launches, xd, train_vgg,
-                             train_lenet, lenet_pipe, gateway_fit, lstm,
-                             train_char, sample_char, flash, train_att,
-                             output_att, sample_att)))
+                             train_lenet, lenet_pipe, gateway_fit, keras_vgg,
+                             train_keras_vgg, lstm, train_char, sample_char,
+                             flash, train_att, output_att, sample_att)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

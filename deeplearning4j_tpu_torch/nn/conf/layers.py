@@ -6,15 +6,22 @@ JSON-serializable hyperparameter record and the layer's implementation:
 fields and their JSON are the JAX package's, so a configuration written
 by either package builds the same layers in the other.
 
-Ported so far: ``DenseLayer``, ``OutputLayer``, ``ConvolutionLayer`` and
-``SubsamplingLayer`` (the layers of LeNet and VGG16), and the recurrent
+Ported so far: ``DenseLayer``, ``OutputLayer``, ``LossLayer``,
+``ActivationLayer``, ``DropoutLayer``, ``EmbeddingLayer``; the
+convolutional family ``ConvolutionLayer``, ``SubsamplingLayer``,
+``ZeroPaddingLayer``, ``BatchNormalization``,
+``LocalResponseNormalization`` and ``GlobalPoolingLayer``; the recurrent
 family ``GravesLSTM``, ``GravesBidirectionalLSTM``, ``RnnOutputLayer`` and
-``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]), and
+``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]); and
 ``SelfAttentionLayer``, whose core goes through ``parallel/sequence``.
+``initialize`` returns ``(params, output type)`` and ``initial_state``
+the layer's starting state (BatchNormalization's running ``mean`` and
+``var``; empty for the others), which the JAX package's ``initialize``
+returns as the middle of its triple.
 ``forward(params, state, x, train, seed, mask)`` returns ``(output,
 new_state, mask)`` as in the JAX package: ``state`` is the layer's dict
-of carried state (a recurrent layer's ``rnn_state``), ``mask`` the time
-mask.  It runs inference unless ``train`` is set; in training a layer
+of carried state (a recurrent layer's ``rnn_state``, batch norm's running
+statistics), ``mask`` the time mask.  It runs inference unless ``train`` is set; in training a layer
 with ``dropout`` drops its INPUT, as DL4J does, from the two seed words
 the network hands it for the step, or under ``use_drop_connect`` drops
 its weights ``W`` instead (DenseLayer, ConvolutionLayer and the output
@@ -34,6 +41,7 @@ from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import helpers as helper_ops
 from deeplearning4j_tpu_torch.ops import initializers
 from deeplearning4j_tpu_torch.ops import losses as loss_ops
+from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 from deeplearning4j_tpu_torch.ops import recurrent as rnn_ops
 from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
 
@@ -76,9 +84,17 @@ class Layer:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: Optional[float] = None
 
+    def has_params(self) -> bool:
+        return True
+
     def initialize(self, generator: torch.Generator, input_type: InputType,
                    device: torch.device) -> Tuple[dict, InputType]:
         raise NotImplementedError
+
+    def initial_state(self, input_type: InputType,
+                      device: torch.device) -> dict:
+        """The layer's state before any step, given its input type."""
+        return {}
 
     def forward(self, params: dict, state: dict, x: torch.Tensor,
                 train: bool = False, seed=None, mask=None
@@ -188,6 +204,101 @@ class OutputLayer(BaseOutputLayer):
 
 @register_layer
 @dataclasses.dataclass
+class LossLayer(Layer):
+    """Loss without params: the activation on the raw input, and the loss
+    on it (ref: nn/conf/layers/LossLayer.java)."""
+
+    loss: str = "mcxent"
+
+    def has_params(self):
+        return False
+
+    def initialize(self, generator, input_type, device):
+        return {}, input_type
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        return self._act(x), state, mask
+
+    def output_type(self, input_type):
+        return input_type
+
+    def compute_score(self, labels, preout, mask=None):
+        return loss_ops.get(self.loss)(labels, preout,
+                                       self.activation or "identity", mask)
+
+    def preoutput(self, params, x):
+        return x
+
+
+@register_layer
+@dataclasses.dataclass
+class ActivationLayer(Layer):
+    """The activation alone (ref: nn/conf/layers/ActivationLayer.java)."""
+
+    def has_params(self):
+        return False
+
+    def initialize(self, generator, input_type, device):
+        return {}, input_type
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        return self._act(x), state, mask
+
+    def output_type(self, input_type):
+        return input_type
+
+
+@register_layer
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Dropout alone (ref: nn/conf/layers/DropoutLayer.java), through
+    ``_maybe_dropout``: the threshold-hash kernel with the layer's seed
+    words at or above its gate."""
+
+    def has_params(self):
+        return False
+
+    def initialize(self, generator, input_type, device):
+        return {}, input_type
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        return self._maybe_dropout(x, train, seed), state, mask
+
+    def output_type(self, input_type):
+        return input_type
+
+
+@register_layer
+@dataclasses.dataclass
+class EmbeddingLayer(Layer):
+    """Row lookup: integer indices [N] (or [N, 1]) gather rows of ``W``
+    [vocab, n_out]; float input is taken as one-hot [N, vocab] and
+    multiplied (ref: EmbeddingLayer.java, a dense layer on one-hot
+    input).  Then + b and the activation."""
+
+    n_in: Optional[int] = None  # vocab size
+    n_out: int = 0
+
+    def initialize(self, generator, input_type, device):
+        n_in = self.n_in or input_type.flat_size()
+        params = {"W": self._winit(generator, (n_in, self.n_out), device),
+                  "b": self._binit((self.n_out,), device)}
+        return params, InputType.feed_forward(self.n_out)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        if not torch.is_floating_point(x):
+            idx = x.reshape(x.shape[0]) if x.ndim > 1 else x
+            emb = params["W"][idx.long()]
+        else:
+            emb = x @ params["W"]
+        return self._act(emb + params["b"]), state, mask
+
+    def output_type(self, input_type):
+        return InputType.feed_forward(self.n_out)
+
+
+@register_layer
+@dataclasses.dataclass
 class ConvolutionLayer(Layer):
     """2D convolution, weights OIHW [n_out, c_in, kh, kw].  The forward
     goes through ``ops/helpers.conv2d_bias_act``: the hand-written CUDA
@@ -239,6 +350,9 @@ class SubsamplingLayer(Layer):
     convolution_mode: str = "truncate"
     pnorm: int = 2
 
+    def has_params(self):
+        return False
+
     def initialize(self, generator, input_type, device):
         return {}, self.output_type(input_type)
 
@@ -252,6 +366,146 @@ class SubsamplingLayer(Layer):
             (input_type.height, input_type.width), self.kernel, self.stride,
             self.padding, (1, 1), self.convolution_mode)
         return InputType.convolutional(oh, ow, input_type.channels)
+
+
+@register_layer
+@dataclasses.dataclass
+class ZeroPaddingLayer(Layer):
+    """Zeros around NCHW's spatial dims (ref: ZeroPaddingLayer.java)."""
+
+    pad: Tuple[int, int, int, int] = (0, 0, 0, 0)  # top, bottom, left, right
+
+    def has_params(self):
+        return False
+
+    def initialize(self, generator, input_type, device):
+        return {}, self.output_type(input_type)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        t, b, l, r = self.pad
+        return conv_ops.zero_pad2d(x, t, b, l, r), state, mask
+
+    def output_type(self, input_type):
+        t, b, l, r = self.pad
+        return InputType.convolutional(input_type.height + t + b,
+                                       input_type.width + l + r,
+                                       input_type.channels)
+
+
+@register_layer
+@dataclasses.dataclass
+class BatchNormalization(Layer):
+    """Batch norm over feature axis 1 of [N, C] or NCHW
+    (ref: BatchNormalization.java:228).  It applies NO activation unless
+    one is set: ``activation`` defaults to identity rather than inheriting
+    the global default.  ``gamma`` / ``beta`` are params (none under
+    ``lock_gamma_beta``); the running ``mean`` and ``var`` are state,
+    which a training forward returns updated (``ops/normalization``) and
+    inference reads."""
+
+    activation: Optional[str] = "identity"
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False
+    n_features: Optional[int] = None
+
+    def _nfeat(self, input_type):
+        return self.n_features or (
+            input_type.channels if input_type.kind == "cnn"
+            else input_type.flat_size())
+
+    def initialize(self, generator, input_type, device):
+        n = self._nfeat(input_type)
+        params = {} if self.lock_gamma_beta else {
+            "gamma": torch.ones((n,), dtype=torch.float32, device=device),
+            "beta": torch.zeros((n,), dtype=torch.float32, device=device)}
+        return params, input_type
+
+    def initial_state(self, input_type, device):
+        n = self._nfeat(input_type)
+        return {"mean": torch.zeros((n,), dtype=torch.float32, device=device),
+                "var": torch.ones((n,), dtype=torch.float32, device=device)}
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        n = state["mean"].shape[0]
+        gamma = params.get("gamma")
+        if gamma is None:
+            gamma = torch.ones((n,), dtype=x.dtype, device=x.device)
+        beta = params.get("beta")
+        if beta is None:
+            beta = torch.zeros((n,), dtype=x.dtype, device=x.device)
+        if train:
+            y, m, v = norm_ops.batch_norm_train(
+                x, gamma, beta, state["mean"], state["var"],
+                decay=self.decay, eps=self.eps)
+            return self._act(y), {"mean": m, "var": v}, mask
+        y = norm_ops.batch_norm_infer(x, gamma, beta, state["mean"],
+                                      state["var"], eps=self.eps)
+        return self._act(y), state, mask
+
+    def output_type(self, input_type):
+        return input_type
+
+
+@register_layer
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN on NCHW (ref: LocalResponseNormalization.java:69)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def has_params(self):
+        return False
+
+    def initialize(self, generator, input_type, device):
+        return {}, input_type
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        return norm_ops.local_response_norm(
+            x, k=self.k, n=self.n, alpha=self.alpha, beta=self.beta), \
+            state, mask
+
+    def output_type(self, input_type):
+        return input_type
+
+
+@register_layer
+@dataclasses.dataclass
+class GlobalPoolingLayer(Layer):
+    """Collapse the spatial dims of NCHW or the time dim of [N, T, C]
+    (ref: GlobalPoolingLayer.java); over time it drops masked steps
+    (MaskedReductionUtil) and consumes the mask."""
+
+    pooling_type: str = "max"
+    pnorm: int = 2
+    collapse_dimensions: bool = True
+
+    def has_params(self):
+        return False
+
+    def initialize(self, generator, input_type, device):
+        return {}, self.output_type(input_type)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        if x.ndim == 4:
+            y = conv_ops.global_pool(x, self.pooling_type, (2, 3), self.pnorm)
+        elif x.ndim == 3:
+            m = mask[..., None] if mask is not None else None
+            y = conv_ops.global_pool(x, self.pooling_type, (1,), self.pnorm,
+                                     m)
+        else:
+            y = x
+        return y, state, None
+
+    def output_type(self, input_type):
+        if input_type.kind == "cnn":
+            return InputType.feed_forward(input_type.channels)
+        if input_type.kind == "rnn":
+            return InputType.feed_forward(input_type.size)
+        return input_type
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +631,9 @@ class RnnOutputLayer(BaseOutputLayer):
 class LastTimeStepLayer(Layer):
     """[N, T, C] -> [N, C] at each sequence's last unmasked step (the
     sequential counterpart of DL4J's LastTimeStepVertex)."""
+
+    def has_params(self):
+        return False
 
     def initialize(self, generator, input_type, device):
         return {}, self.output_type(input_type)

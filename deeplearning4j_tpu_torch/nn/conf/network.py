@@ -337,12 +337,13 @@ class ListBuilder:
 
 def _needs(layer: L.Layer) -> str:
     """Which input family a layer consumes: 'ff' | 'cnn' | 'rnn' | 'any'."""
-    if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer)):
+    if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer,
+                          L.ZeroPaddingLayer, L.LocalResponseNormalization)):
         return "cnn"
     if isinstance(layer, (L.GravesLSTM, L.GravesBidirectionalLSTM,
                           L.RnnOutputLayer)):
         return "rnn"
-    if isinstance(layer, L.DenseLayer):
+    if isinstance(layer, (L.DenseLayer, L.EmbeddingLayer)):
         return "ff"
     return "any"
 
@@ -361,13 +362,18 @@ def _adapter(cur: InputType, needed: str) -> Optional[pp.InputPreProcessor]:
         return pp.FeedForwardToRnnPreProcessor(cur.timesteps)
     if cur.kind == "rnn" and needed == "ff":
         return pp.RnnToFeedForwardPreProcessor()
-    raise NotImplementedError(
-        f"no ported preprocessor from {cur.kind} to {needed}")
+    if cur.kind == "cnn" and needed == "rnn":
+        return pp.CnnToRnnPreProcessor()
+    if cur.kind == "rnn" and needed == "cnn":
+        raise ValueError(
+            "RnnToCnn requires explicit preprocessor with target shape")
+    raise ValueError(f"No automatic preprocessor from {cur.kind} to {needed}")
 
 
 def _infer_shapes(layers: List[L.Layer], input_type: InputType,
                   preprocs: Dict[int, pp.InputPreProcessor]):
-    """Walk the stack inferring nIn and inserting preprocessors."""
+    """Walk the stack inferring nIn (and BatchNormalization's
+    ``n_features``) and inserting preprocessors."""
     cur = input_type
     out_layers = []
     for i, layer in enumerate(layers):
@@ -377,10 +383,16 @@ def _infer_shapes(layers: List[L.Layer], input_type: InputType,
                 preprocs[i] = adapter
         if i in preprocs:
             cur = preprocs[i].output_type(cur)
+        updates = {}
         if getattr(layer, "n_in", 0) is None:
-            layer = dataclasses.replace(
-                layer, n_in=cur.flat_size() if cur.kind != "cnn"
-                else cur.channels)
+            updates["n_in"] = (cur.flat_size() if cur.kind != "cnn"
+                               else cur.channels)
+        if isinstance(layer, L.BatchNormalization) and \
+                layer.n_features is None:
+            updates["n_features"] = (cur.channels if cur.kind == "cnn"
+                                     else cur.flat_size())
+        if updates:
+            layer = dataclasses.replace(layer, **updates)
         out_layers.append(layer)
         cur = layer.output_type(cur)
     return out_layers, preprocs

@@ -1,9 +1,10 @@
-"""Weights and updater state carried across from the JAX package.
+"""Weights, layer state and updater state carried across from the JAX package.
 
 The port keeps the JAX package's layouts (OIHW conv weights, dense ``W``
 as [n_in, n_out]) and its updater-state structure (per layer ``()`` or a
 dict of dicts of arrays), so a JAX ``MultiLayerNetwork``'s ``net_params``
-and ``opt_states`` map onto the port's one to one.  The caller hands them
+and ``opt_states`` map onto the port's one to one, and so does its
+``net_state`` (batch norm's running ``mean`` / ``var``, RNN carries).  The caller hands them
 over as numpy arrays (``np.asarray`` of each leaf); this module imports
 nothing of JAX.
 """
@@ -41,3 +42,12 @@ def opt_states_from_jax(jax_opt_states: List[Any],
     e.g. ``{"m": {"W": ..., "b": ...}, "v": {...}}``) → the same structure
     of float32 tensors on ``device``."""
     return _to_torch(list(jax_opt_states), resolve_device(device))
+
+
+def state_from_jax(jax_state: List[Dict[str, Any]],
+                   device: DeviceLike = None) -> List[Dict[str, Any]]:
+    """Per-layer state dicts of numpy arrays (a JAX ``net_state``: batch
+    norm's ``{"mean", "var"}``, ``{}`` for stateless layers) → the same
+    structure of float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return [_to_torch(dict(s), dev) for s in jax_state]

@@ -17,9 +17,12 @@ own generator (seeded from the configuration) unless the caller passes
 it.  The network runs on the CUDA device unless it is built with
 ``device="cpu"``.
 
-Recurrent networks: every layer has a state dict (``net_state``) and the
-forward threads it, with the time mask, through the preprocessors and
-layers.  A recurrent layer returns its final (c, h) as ``rnn_state``; a
+Every layer has a state dict (``net_state``), filled by ``init`` from
+the layers' ``initial_state`` (BatchNormalization's running ``mean`` and
+``var``), and the forward threads it, with the time mask, through the
+preprocessors and layers.  A training step keeps the layers' new states
+(batch norm's updated statistics); ``output`` and ``rnn_time_step`` read
+them.  A recurrent layer returns its final (c, h) as ``rnn_state``; a
 ``SelfAttentionLayer`` under ``rnn_time_step`` returns its KV ring.
 Under ``backprop_type("truncatedbptt")`` ``fit`` of a [N, T, C] batch
 takes one step per segment of ``tbptt_fwd_length`` steps, carrying that
@@ -47,7 +50,8 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
 from deeplearning4j_tpu_torch.nn import params as param_util
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BaseOutputLayer, GravesBidirectionalLSTM, GravesLSTM, Layer)
+    BaseOutputLayer, EmbeddingLayer, GravesBidirectionalLSTM, GravesLSTM,
+    Layer, LossLayer)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
 from deeplearning4j_tpu_torch.ops import bucketing
@@ -125,7 +129,8 @@ class MultiLayerNetwork:
         self.layers = conf.layers
         self.device = resolve_device(device)
         self.net_params: Optional[List[dict]] = None
-        # per-layer carried state; a recurrent layer's is its rnn_state
+        # per-layer carried state (batch norm's running statistics from
+        # init, a recurrent layer's rnn_state)
         self.net_state: List[dict] = [{} for _ in self.layers]
         # updater state, made at the first training step or restore, so a
         # network that only serves holds none
@@ -142,17 +147,19 @@ class MultiLayerNetwork:
 
     def init(self, generator: Optional[torch.Generator] = None
              ) -> "MultiLayerNetwork":
-        """Draw every layer's params.  Without a generator the draws come
-        from a CPU generator seeded with the configuration's seed, so one
-        configuration gives the same weights on every device."""
+        """Draw every layer's params and set its initial state.  Without
+        a generator the draws come from a CPU generator seeded with the
+        configuration's seed, so one configuration gives the same weights
+        on every device."""
         if generator is None:
             generator = torch.Generator().manual_seed(
                 int(self.conf.global_conf.seed))
         cur = self._input_type_chain_start()
-        self.net_params = []
+        self.net_params, self.net_state = [], []
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 cur = self.conf.preprocessors[i].output_type(cur)
+            self.net_state.append(layer.initial_state(cur, self.device))
             p, cur = layer.initialize(generator, cur, self.device)
             self.net_params.append(p)
         return self
@@ -176,11 +183,29 @@ class MultiLayerNetwork:
         self.net_params = params_from_jax(jax_params, self.device)
         return self
 
+    def load_jax_state(self, jax_state) -> "MultiLayerNetwork":
+        """Take the layer states of a JAX ``MultiLayerNetwork`` (its
+        ``net_state``, as numpy arrays): batch norm's running statistics
+        and any RNN carry."""
+        from deeplearning4j_tpu_torch.nn.convert import state_from_jax
+        self.net_state = state_from_jax(jax_state, self.device)
+        return self
+
     def _as_input(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        """Features as float32 on the network's device; integer indices
+        stay integers when the first layer is an EmbeddingLayer, which
+        gathers rows with them (as the JAX package's does)."""
+        if isinstance(self.layers[0], EmbeddingLayer):
+            t = torch.as_tensor(x)
+            if not torch.is_floating_point(t):
+                return t.to(device=self.device, dtype=torch.int64)
+        return self._as_float(x)
+
+    def _as_float(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32).to(self.device)
 
     def _as_mask(self, mask) -> Optional[torch.Tensor]:
-        return None if mask is None else self._as_input(mask)
+        return None if mask is None else self._as_float(mask)
 
     def _forward(self, params, state, x: torch.Tensor, mask=None,
                  train: bool = False, seeds=None, stateful_rnn: bool = False,
@@ -311,8 +336,9 @@ class MultiLayerNetwork:
         ``[iterations, n_layers, 2]``; without it each step draws its own
         from the network's generator."""
         g = self.conf.global_conf
-        if not isinstance(self.layers[-1], BaseOutputLayer):
-            raise ValueError("Last layer must be an output layer to fit()")
+        if not isinstance(self.layers[-1], (BaseOutputLayer, LossLayer)):
+            raise ValueError(
+                "Last layer must be an output/loss layer to fit()")
         if self.net_params is None:
             self.init()
         if self.opt_states is None:
@@ -329,7 +355,7 @@ class MultiLayerNetwork:
                 raise ValueError(f"{len(seeds)} steps of seeds for "
                                  f"{n_steps} iterations")
         x = self._as_input(ds.features)
-        y = self._as_input(ds.labels)
+        y = self._as_float(ds.labels)
         fmask = self._as_mask(ds.features_mask)
         lmask = self._as_mask(ds.labels_mask)
         for k in range(n_steps):
@@ -351,7 +377,7 @@ class MultiLayerNetwork:
         T = ds.features.shape[1]
         seg_len = self.conf.tbptt_fwd_length
         self.rnn_clear_previous_state()
-        x, y = self._as_input(ds.features), self._as_input(ds.labels)
+        x, y = self._as_input(ds.features), self._as_float(ds.labels)
         fmask = self._as_mask(ds.features_mask)
         lmask = self._as_mask(ds.labels_mask)
         for t0 in range(0, T, seg_len):
@@ -458,7 +484,7 @@ class MultiLayerNetwork:
                   if dataset.labels_mask is not None else
                   m if m is not None and m.ndim == preout.ndim - 1 else None)
             per_ex = self.layers[-1].compute_score(
-                self._as_input(dataset.labels), preout, lm)
+                self._as_float(dataset.labels), preout, lm)
             score = per_ex.mean() if g.mini_batch else per_ex.sum()
             return float(score + self._reg_penalty(self.net_params))
 
@@ -485,7 +511,7 @@ class MultiLayerNetwork:
                       m if m is not None and m.ndim == preout.ndim - 1
                       else None)
                 per = self.layers[-1].compute_score(
-                    self._as_input(ds.labels), preout, lm)
+                    self._as_float(ds.labels), preout, lm)
                 if add_regularization_terms:
                     per = per + self._reg_penalty(self.net_params)
                 out.append(per.cpu().numpy())

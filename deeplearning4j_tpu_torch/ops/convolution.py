@@ -91,3 +91,37 @@ def pool2d(x, kind: str, kernel=(2, 2), stride=(2, 2), pad=(0, 0),
         p = float(pnorm)
         return window_sum(torch.abs(x) ** p) ** (1.0 / p)
     raise ValueError(f"Unknown pooling type '{kind}'")
+
+
+def zero_pad2d(x, pad_top, pad_bottom, pad_left, pad_right):
+    """ZeroPaddingLayer: zeros around the spatial dims of NCHW."""
+    return F.pad(x, (pad_left, pad_right, pad_top, pad_bottom))
+
+
+def global_pool(x, kind: str, axes, pnorm: int = 2, mask=None):
+    """GlobalPoolingLayer (ref: GlobalPoolingLayer.java): reduce ``axes``
+    (``(2, 3)`` for NCHW, ``(1,)`` for [N, T, C]) by max | avg | sum |
+    pnorm.  ``mask`` (broadcastable, 1 = keep) drops padded steps as
+    MaskedReductionUtil does: -inf for max, zeros otherwise, and avg
+    divides by the live count."""
+    kind = kind.lower()
+    axes = tuple(axes)
+    if mask is not None:
+        mask = mask.to(x.dtype)
+        if kind == "max":
+            x = torch.where(mask > 0, x, float("-inf"))
+        else:
+            x = x * mask
+    if kind == "max":
+        return torch.amax(x, dim=axes)
+    if kind == "sum":
+        return torch.sum(x, dim=axes)
+    if kind in ("avg", "mean"):
+        if mask is not None:
+            denom = torch.sum(mask, dim=axes)
+            return torch.sum(x, dim=axes) / torch.clamp_min(denom, 1e-8)
+        return torch.mean(x, dim=axes)
+    if kind == "pnorm":
+        p = float(pnorm)
+        return torch.sum(torch.abs(x) ** p, dim=axes) ** (1.0 / p)
+    raise ValueError(f"Unknown global pooling type '{kind}'")

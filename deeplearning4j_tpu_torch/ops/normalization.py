@@ -1,9 +1,18 @@
-"""Dense dropout — the part of ``deeplearning4j_tpu/ops/normalization.py``
-the training slice needs (``dropout``, :71).
+"""Normalization ops — the port of ``deeplearning4j_tpu/ops/normalization.py``.
 
-It is the fallback of ``ops/helpers.dropout`` for tensors under the
-threshold-dropout kernel's gate.  Its mask is a Bernoulli draw from an
-explicit ``torch.Generator``; the JAX version draws from
+``batch_norm_train`` (:17) / ``batch_norm_infer`` (:41) and
+``local_response_norm`` (:57) are plain torch ops, as they are plain XLA
+in the JAX package; running statistics are carried in and out, not
+mutated.  Training-mode batch norm normalizes with the BIASED batch
+variance and updates the running statistics with the same biased
+variance, ``decay * running + (1 - decay) * batch``: ``F.batch_norm``
+would update them with the unbiased variance and ``momentum = 1 -
+decay``, so it is not used.  The JAX package's bf16 branches (statistics
+accumulated in f32 under a bf16 policy) come with the precision tiers.
+
+``dropout`` is the fallback of ``ops/helpers.dropout`` for tensors under
+the threshold-dropout kernel's gate.  Its mask is a Bernoulli draw from
+an explicit ``torch.Generator``; the JAX version draws from
 ``jax.random.bernoulli``, so the two give the same keep distribution but
 different masks.
 """
@@ -11,6 +20,55 @@ different masks.
 from __future__ import annotations
 
 import torch
+
+
+def _stat_axes(x):
+    """Feature axis 1: statistics over axis 0 for [N, C], over (0, 2, 3)
+    for NCHW; the broadcast shape of a per-feature vector."""
+    if x.ndim == 2:
+        return (0,), (1, -1)
+    return (0, 2, 3), (1, -1, 1, 1)
+
+
+def batch_norm_train(x, gamma, beta, running_mean, running_var, *,
+                     decay: float = 0.9, eps: float = 1e-5):
+    """Training-mode batch norm over feature axis 1 (dense [N, C] or conv
+    NCHW) -> (y, new running mean, new running var).  ``decay`` is the
+    reference's BatchNormalization.decay (momentum on the running
+    statistics)."""
+    axes, shape = _stat_axes(x)
+    mean = torch.mean(x, dim=axes)
+    var = torch.var(x, dim=axes, unbiased=False)
+    xn = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + eps)
+    y = gamma.reshape(shape) * xn + beta.reshape(shape)
+    new_mean = decay * running_mean + (1 - decay) * mean
+    new_var = decay * running_var + (1 - decay) * var
+    return y, new_mean, new_var
+
+
+def batch_norm_infer(x, gamma, beta, running_mean, running_var, *,
+                     eps: float = 1e-5):
+    """Inference-mode batch norm from the carried running statistics."""
+    _, shape = _stat_axes(x)
+    xn = ((x - running_mean.reshape(shape))
+          / torch.sqrt(running_var.reshape(shape) + eps))
+    return gamma.reshape(shape) * xn + beta.reshape(shape)
+
+
+def local_response_norm(x, *, k: float = 2.0, n: int = 5,
+                        alpha: float = 1e-4, beta: float = 0.75):
+    """Across-channel LRN on NCHW (AlexNet-style): x over (k + alpha * the
+    sum of squares over a window of ``n`` channels centred on each)^beta,
+    with no ``alpha / n`` scaling (ref: LocalResponseNormalization.java:69,
+    defaults k=2, n=5, alpha=1e-4, beta=0.75)."""
+    half = n // 2
+    padded = torch.nn.functional.pad(torch.square(x),
+                                     (0, 0, 0, 0, half, half))
+    C = x.shape[1]
+    summed = padded[:, 0:C]
+    for i in range(1, n):
+        summed = summed + padded[:, i:i + C]
+    return x / torch.pow(k + alpha * summed, beta)
 
 
 def dropout(x, rate: float, generator: torch.Generator):

@@ -9,15 +9,16 @@ JSON-RPC over HTTP around :class:`DeepLearning4jEntryPoint`:
 comes from the :class:`ModelCache` (loaded and warmed once), concurrent
 requests coalesce through one :class:`MicroBatcher` per model, and
 admission control rejects a request that would push the queued rows past
-``max_queue_rows`` (HTTP 503 + ``Retry-After``).  ``fit`` trains the
-cached model on a directory of exported ``.npz`` minibatches, writes the
-trained zip and drops the cache entry; ``evaluate`` scores a model on such
-a directory (ref: DeepLearning4jEntryPoint.fit :21-33).  ``GET /healthz``
+``max_queue_rows`` (HTTP 503 + ``Retry-After``).  A model path is a zip,
+or a Keras ``.h5`` / ``.hdf5`` file loaded through Keras import.
+``fit`` trains the cached model on a directory of minibatches (exported
+``.npz`` files or the reference's HDF5 layouts), writes the trained zip
+and drops the cache entry; ``evaluate`` scores a model on such a
+directory (ref: DeepLearning4jEntryPoint.fit :21-33).  ``GET /healthz``
 answers liveness.  Everything runs on the CUDA device unless the entry
 point is built with ``device="cpu"``.
 
-Not ported yet: the HDF5 minibatch layouts of ``fit`` / ``evaluate``
-(they come with Keras import), bucketed ``fit``,
+Not ported yet: bucketed ``fit``,
 ``predict(data_dir=...)``, decode sessions and speculative decode,
 tenants and fair share, SLOs, readiness, the metrics and trace endpoints.
 """
@@ -26,7 +27,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -36,6 +36,8 @@ from typing import Optional
 import numpy as np
 
 from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.keras_import.hdf5_data import (
+    _BATCH_RE, HDF5MiniBatchDataSetIterator)
 from deeplearning4j_tpu_torch.nn.serialization import (
     read_updater_state, write_model)
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike
@@ -43,14 +45,12 @@ from deeplearning4j_tpu_torch.resilience.errors import (
     DeadlineExceededError, OverloadedError)
 from deeplearning4j_tpu_torch.scaleout.data import PathDataSetIterator
 from deeplearning4j_tpu_torch.server.batcher import MicroBatcher
-from deeplearning4j_tpu_torch.server.model_cache import ModelCache
+from deeplearning4j_tpu_torch.server.model_cache import (
+    ModelCache, is_keras_path)
 
 # the RPC methods a client may call
 RPC_METHODS = frozenset(("predict", "warmup", "invalidate", "stats",
                          "healthz", "fit", "evaluate"))
-
-# the reference's HDF5 minibatch file name (HDF5MiniBatchDataSetIterator)
-_H5_BATCH = re.compile(r"^batch_(\d+)\.h5$")
 
 
 class DeepLearning4jEntryPoint:
@@ -106,19 +106,21 @@ class DeepLearning4jEntryPoint:
 
     # ---- training ----
     @staticmethod
-    def _data_iterator(data_dir: str) -> PathDataSetIterator:
-        """The minibatches of ``data_dir``: its ``.npz`` exports
-        (``scaleout/data.PathDataSetIterator``).  A directory in one of the
-        reference's HDF5 layouts (``features/`` + ``labels/`` subdirs, or
-        ``batch_%d.h5`` files) raises: reading it needs h5py and Keras
-        import, not ported yet."""
+    def _data_iterator(data_dir: str):
+        """Minibatch source for a data directory, by layout:
+
+        * ``features/`` + ``labels/`` subdirs of ``batch_%d.h5`` — the
+          reference's HDF5 layout (HDF5MiniBatchDataSetIterator.java:24);
+        * ``batch_%d.h5`` files carrying features+labels datasets;
+        * ``.npz`` exports (``scaleout/data.PathDataSetIterator``).
+        """
         d = Path(data_dir)
-        if ((d / "features").is_dir() and (d / "labels").is_dir()) or \
-                any(_H5_BATCH.match(p.name) for p in d.iterdir()):
-            raise NotImplementedError(
-                f"{data_dir} holds HDF5 minibatches; they are read through "
-                f"Keras import, which is not ported to "
-                f"deeplearning4j_tpu_torch yet (ROADMAP A2)")
+        if (d / "features").is_dir() and (d / "labels").is_dir():
+            return HDF5MiniBatchDataSetIterator(d / "features", d / "labels")
+        # the iterator's own strict batch_%d.h5 pattern decides: a stray
+        # non-conforming .h5 does not hijack a directory of .npz exports
+        if any(_BATCH_RE.match(p.name) for p in d.iterdir()):
+            return HDF5MiniBatchDataSetIterator(d)
         return PathDataSetIterator.from_dir(d)
 
     def fit(self, model_path: str, data_dir: str, epochs: int = 1,
@@ -130,7 +132,7 @@ class DeepLearning4jEntryPoint:
         entry, which no longer matches its file.  Returns the last score
         and the written path."""
         model = self.model_cache.get(model_path)
-        if model.opt_states is None:
+        if model.opt_states is None and not is_keras_path(model_path):
             upd = read_updater_state(model_path)
             if upd is not None:
                 model.set_updater_state_flat(upd)

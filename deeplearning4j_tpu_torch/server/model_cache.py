@@ -5,10 +5,12 @@ resident model; a changed mtime is a stale reload (the file on disk
 wins); LRU eviction bounds the resident models (``capacity``);
 ``warmup_dims`` runs ``warmup_inference`` over the serving batch ladder
 on load (or on the first hit that knows the request shape).  Models load
-onto the cache's device: CUDA unless the caller asks for the CPU.
+onto the cache's device: CUDA unless the caller asks for the CPU.  A
+``.h5`` / ``.hdf5`` path is a Keras model, loaded through Keras import;
+anything else is a ModelSerializer zip.
 
-Blue/green rollouts, quantized serving, Keras loading, load retries and
-the load circuit breaker are not ported yet.
+Blue/green rollouts, quantized serving, load retries and the load
+circuit breaker are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,21 @@ from collections import OrderedDict
 from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.nn.serialization import load_model
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
+
+
+def is_keras_path(path) -> bool:
+    return str(path).endswith((".h5", ".hdf5"))
+
+
+def default_loader(path: str, device: DeviceLike = None,
+                   load_updater: bool = True):
+    """Checkpoint sniffing shared with the gateway: Keras ``.h5`` through
+    keras_import, anything else through ``load_model``."""
+    if is_keras_path(path):
+        from deeplearning4j_tpu_torch.keras_import import KerasModelImport
+        return KerasModelImport.import_keras_model_and_weights(
+            str(path), device=device)
+    return load_model(path, device=device, load_updater=load_updater)
 
 
 class ModelCache:
@@ -68,8 +85,8 @@ class ModelCache:
                 self._count("misses")
                 e = {"mtime": mtime,
                      # serving needs no updater state on the device
-                     "model": load_model(key, device=self.device,
-                                         load_updater=False),
+                     "model": default_loader(key, device=self.device,
+                                             load_updater=False),
                      "warmup": None, "loaded_at": time.time()}
                 self._entries[key] = e
                 while len(self._entries) > self.capacity:

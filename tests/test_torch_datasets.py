@@ -790,15 +790,27 @@ def test_gateway_fit_evaluate_over_http(tmp_path):
 
 @pytest.mark.parametrize("layout", ["subdirs", "batch_files"])
 def test_gateway_hdf5_layouts_raise_naming_keras_import(tmp_path, layout):
+    """The reference's HDF5 layouts go to Keras import's
+    ``HDF5MiniBatchDataSetIterator``, as in JAX's gateway: subdirs
+    without ``batch_%d.h5`` files raise its FileNotFoundError in both
+    packages (reading real files: ``tests/test_torch_keras_import.py``)."""
+    from deeplearning4j_tpu_torch.keras_import.hdf5_data import (
+        HDF5MiniBatchDataSetIterator)
     d = tmp_path / "h5"
     if layout == "subdirs":
         (d / "features").mkdir(parents=True)
         (d / "labels").mkdir()
+        for ep in (gateway.DeepLearning4jEntryPoint, JaxEntryPoint):
+            with pytest.raises(FileNotFoundError, match="batch_"):
+                ep._data_iterator(str(d))
     else:
         d.mkdir()
         (d / "batch_0.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A2"):
-        gateway.DeepLearning4jEntryPoint._data_iterator(str(d))
+        it = gateway.DeepLearning4jEntryPoint._data_iterator(str(d))
+        assert isinstance(it, HDF5MiniBatchDataSetIterator)
+        assert [p.name for p in it._files] == ["batch_0.h5"]
+        assert type(JaxEntryPoint._data_iterator(str(d))).__name__ == \
+            "HDF5MiniBatchDataSetIterator"
     # a stray .h5 that is not batch_%d.h5 leaves the .npz path in place
     _shards(tmp_path / "npz", n=2)
     (tmp_path / "npz" / "batch_old.h5").write_bytes(b"")

@@ -684,3 +684,92 @@ def test_attention_fit_step_launch_counts_on_the_card(cuda_device):
                        for t in range(8)], dim=1)
     assert counts() == before
     torch.testing.assert_close(steps, got[:, :8], rtol=1e-5, atol=1e-5)
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (its Keras VGG16-BN builders
+    and the new-layer nets); it imports only the standard library and
+    numpy at load."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 48), (16, 8, 12, 12)])
+def test_batch_norm_on_the_card_matches_the_cpu(cuda_device, shape):
+    """Training batch norm (output, running statistics, gradients) and
+    inference batch norm on the card against the CPU: outputs and
+    statistics rtol 1e-5, gradients rtol 1e-4 (a second reduction over
+    the upstream gradient), atol 1e-6 (reductions in another order; the
+    CPU parity tests' tolerances)."""
+    from deeplearning4j_tpu_torch.ops import normalization as norm
+    rng = np.random.default_rng(7)
+    c = shape[1]
+    arrays = [rng.normal(size=shape) * 2 + 0.5, rng.uniform(0.5, 1.5, c),
+              rng.normal(size=c), rng.normal(size=c), rng.uniform(0.5, 1.5, c)]
+    r = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        x, g, b, m, v = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                         for a in arrays)
+        leaves = [t.requires_grad_() for t in (x, g, b)]
+        y, nm, nv = norm.batch_norm_train(*leaves, m, v, decay=0.99, eps=1e-3)
+        grads = torch.autograd.grad((y * r.to(dev)).sum(), leaves)
+        yi = norm.batch_norm_infer(x.detach(), g.detach(), b.detach(), m, v)
+        results.append([t.detach().cpu() for t in (y, nm, nv, yi, *grads)])
+    for n, (a, b) in enumerate(zip(*results)):
+        torch.testing.assert_close(a, b, rtol=1e-5 if n < 4 else 1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_imported_vgg16_bn_on_the_card_matches_the_cpu(cuda_device):
+    """A thin VGG16-BN through the port's Keras import (chip_smoke's
+    configuration and seeded weights): ``output()`` through the conv
+    kernel (13 launches) within the whole-network tolerance of the CPU's;
+    then one ``fit`` step with the same seed words: 13 conv and 20
+    dropout launches, the score rtol 1e-4 and the running statistics
+    rtol 1e-4, atol 1e-5 (both continuous in the forward; the kernel
+    step's updates against the plain step's, relu masks and max pools
+    pinned, are chip_smoke's train_keras_vgg16_bn)."""
+    cs = _chip_smoke()
+    widths = {"blocks": ((2, 8, 0.3), (2, 16, 0.4), (3, 16, 0.4),
+                         (3, 32, 0.4), (3, 32, 0.4)), "head": 32}
+    gpu = cs.import_keras_vgg16_bn(cuda_device, **widths)
+    cpu = cs.import_keras_vgg16_bn("cpu", **widths)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(128, 3, 32, 32)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 128)]
+    before = ck.fused_conv2d_bias_act.launches
+    out = gpu.output(x).cpu()
+    assert ck.fused_conv2d_bias_act.launches - before == 13
+    torch.testing.assert_close(out, cpu.output(x), rtol=cs.NET_RTOL,
+                               atol=cs.NET_ATOL)
+    seeds = rng.integers(0, 1 << 32, size=(len(gpu.layers), 2))
+    before = (ck.fused_conv2d_bias_act.launches,
+              ck.fused_threshold_dropout.launches)
+    gpu._fit_batch(DataSet(x, y), seeds=seeds)
+    assert (ck.fused_conv2d_bias_act.launches - before[0],
+            ck.fused_threshold_dropout.launches - before[1]) == (13, 20)
+    cpu._fit_batch(DataSet(x, y), seeds=seeds)
+    np.testing.assert_allclose(gpu.score(), cpu.score(), rtol=1e-4)
+    for gs, cs_ in zip(gpu.net_state, cpu.net_state):
+        for k in cs_:
+            torch.testing.assert_close(gs[k].cpu(), cs_[k], rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_new_layer_nets_on_the_card_match_the_cpu(cuda_device):
+    """chip_smoke's ``new_layers`` phase: ZeroPadding, LRN, batch norm,
+    Activation, GlobalPooling (NCHW and masked sequences), Embedding
+    (indices and one-hot), a LossLayer head and the three new
+    preprocessors, ``output()`` and one ``fit`` step, card against CPU."""
+    res = _chip_smoke().phase_new_layers(torch, ck)
+    assert set(res) == {"cnn", "rnn_pool", "embedding", "embedding_one_hot",
+                        "preproc"}

@@ -132,9 +132,12 @@ def test_training_only_global_fields_round_trip():
 
 
 def test_unported_layer_type_raises_on_load():
+    """A layer class of the JAX package that the port lacks (the
+    mixture-of-experts layer, ROADMAP A5) raises on load, naming it."""
+    assert "MixtureOfExpertsLayer" in jax_layers.LAYER_REGISTRY
     d = json.loads(_port_conf("lenet").to_json())
-    d["layers"][1]["@class"] = "BatchNormalization"
-    with pytest.raises(NotImplementedError, match="BatchNormalization"):
+    d["layers"][1]["@class"] = "MixtureOfExpertsLayer"
+    with pytest.raises(NotImplementedError, match="MixtureOfExpertsLayer"):
         network.MultiLayerConfiguration.from_dict(d)
 
 
@@ -154,6 +157,70 @@ def test_zip_round_trip_is_byte_identical(name, tmp_path):
     assert conf_dict.pop("@model") == "MultiLayerNetwork"
     back = jax_network.MultiLayerConfiguration.from_dict(conf_dict)
     assert json.loads(back.to_json()) == json.loads(jnet.conf.to_json())
+
+
+def _bn_conf(layers, net, input_type):
+    """Conv -> BatchNormalization -> relu -> dense -> BatchNormalization
+    -> softmax output, built with either package's builder."""
+    return (net.NeuralNetConfiguration.builder().seed(4).learning_rate(0.1)
+            .updater("nesterovs").list()
+            .layer(layers.ConvolutionLayer(n_out=4, kernel=(3, 3),
+                                           activation="identity"))
+            .layer(layers.BatchNormalization(decay=0.5))
+            .layer(layers.ActivationLayer(activation="relu"))
+            .layer(layers.DenseLayer(n_out=6, activation="tanh"))
+            .layer(layers.BatchNormalization(decay=0.5))
+            .layer(layers.OutputLayer(n_out=3, activation="softmax",
+                                      loss="mcxent"))
+            .set_input_type(input_type.convolutional(6, 6, 2)).build())
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_batch_norm_zip_round_trip_carries_no_running_statistics(writer,
+                                                                 tmp_path):
+    """A BatchNormalization net trained one step (its running statistics
+    moved off 0 and 1) and written by either package restores in both
+    with the same params and coefficients.bin; the zip holds the
+    configuration, the coefficients and the updater state, and no running
+    statistics, so both packages restore them as zeros and ones, as the
+    JAX package's ModelSerializer zip does (nn/serialization.py:37-49)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(8, 2, 6, 6)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+    if writer == "jax":
+        src = JaxNet(_bn_conf(jax_layers, jax_network, JaxInputType)).init()
+        src.fit(x, y)
+        jax_ser.write_model(src, tmp_path / "bn.zip")
+        moved = np.asarray(src.net_state[1]["var"])
+    else:
+        src = MultiLayerNetwork(_bn_conf(L, network, InputType),
+                                device="cpu").init()
+        src.fit(x, y)
+        ser.write_model(src, tmp_path / "bn.zip")
+        moved = src.net_state[1]["var"].numpy()
+    assert not np.allclose(moved, 1.0)
+    with zipfile.ZipFile(tmp_path / "bn.zip") as zf:
+        assert sorted(zf.namelist()) == sorted(
+            [ser.CONFIG_NAME, ser.COEFFICIENTS_NAME, ser.UPDATER_NAME])
+        coefficients = zf.read(ser.COEFFICIENTS_NAME)
+    net = ser.restore_multi_layer_network(tmp_path / "bn.zip", device="cpu")
+    jnet = jax_ser.restore_multi_layer_network(tmp_path / "bn.zip")
+    np.testing.assert_array_equal(net.params().numpy(),
+                                  np.asarray(jnet.params()))
+    assert net.params().numpy().astype("<f4").tobytes() == coefficients
+    for s, js in zip(net.net_state, jnet.net_state):
+        assert sorted(s) == sorted(js)
+        for k in s:
+            want = 0.0 if k == "mean" else 1.0
+            np.testing.assert_array_equal(s[k].numpy(), np.asarray(js[k]))
+            assert bool((s[k] == want).all())
+    ser.write_model(net, tmp_path / "again.zip")
+    with zipfile.ZipFile(tmp_path / "again.zip") as zf:
+        assert zf.read(ser.COEFFICIENTS_NAME) == coefficients
+    x_new = rng.normal(size=(4, 2, 6, 6)).astype(np.float32)
+    np.testing.assert_allclose(net.output(x_new).numpy(),
+                               np.asarray(jnet.output(x_new)), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("pallas", ["dense", "pallas"])
@@ -272,4 +339,21 @@ def test_port_imports_no_jax():
     walked = proc.stdout.splitlines()[1].split()
     assert {"deeplearning4j_tpu_torch.parallel",
             "deeplearning4j_tpu_torch.parallel.sequence",
-            "deeplearning4j_tpu_torch.models.attention"} <= set(walked)
+            "deeplearning4j_tpu_torch.models.attention",
+            "deeplearning4j_tpu_torch.keras_import.importer",
+            "deeplearning4j_tpu_torch.keras_import.hdf5_data"} <= set(walked)
+
+
+def test_port_loads_without_h5py():
+    """Keras import, the model cache and the gateway load without h5py
+    (the card's machine has none): it is imported only where a ``.h5``
+    file is read."""
+    code = (
+        "import sys\n"
+        "import deeplearning4j_tpu_torch.keras_import\n"
+        "import deeplearning4j_tpu_torch.server.gateway\n"
+        "sys.exit(1 if 'h5py' in sys.modules or 'keras' in sys.modules "
+        "else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
