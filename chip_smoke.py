@@ -128,6 +128,46 @@ exits non-zero:
                same params and state: ``output()``, then one ``fit`` step
                with the same seed words (score, params and state, rtol
                1e-4, atol 1e-5).
+8g. resnet50_kernels — the conv kernel against its plain version at every
+               distinct stride-1 conv shape of ResNet-50 (1x1 and 3x3,
+               Cin 64-2,048 at 56/28/14/7 px) at the training batch 128
+               and at every bucket of the serve ladder (1-32 rows); at
+               batch 128 each shape timed as in phase 3, and the set of
+               the 46 stride-1 convs of one forward summed: kernel, plain,
+               cuDNN f32 and TF32, and the 3xTF32 and f32 bounds.
+8h. serve_resnet50 — ResNet-50 (``resnet50()``: 224x224, 1,000 classes, 174
+               vertices, 25,583,592 params, 53,120 running statistics;
+               seeded weights, ``resnet_weights``) written as a zip and
+               served by one ``Server`` (max_batch 32) over HTTP: a
+               ``warmup`` RPC, then 16 ``predict`` requests of 1-2 rows
+               from 4 client threads.  Classes must equal argmax of a
+               direct ``output()``; exactly 46 conv launches and 7 conv
+               fallbacks (the 7x7/2 stem and six 1x1/2 convs) per served
+               batch.  Then ``output()`` at batch 32, five timed calls
+               (median reported), 46 launches each, against a forward
+               through the plain conv within the whole-network tolerance.
+8i. train_resnet50 — the main path of graph training: ``resnet50()``
+               (Nesterovs, lr 0.1) from the same seeded weights, 3 timed
+               ``fit`` steps at batch 128 on seeded synthetic 224x224
+               batches through the async pipeline (``AsyncMultiDataSetIterator``
+               staging each batch onto the card), cuDNN's TF32 off so the
+               7 dense-chain convs compute f32 like the JAX reference:
+               exactly 46 conv and 1 xent launches a step.  A fourth step
+               keeps its relu outputs and max-pool input and is held to
+               the plain graph step from the same params, updater state
+               and BN statistics (plain conv, plain xent, relu masks and
+               max-pool argmax pinned, padding included): score 1e-4,
+               updates 5e-4 and BN running mean and var 1e-4 in relative
+               2-norm, and near ties within 1e-4 of a layer's scale where
+               the plain forward's own decision differs.  Samples/s over
+               steps 2-3, peak memory over steps 1-3.
+8j. keras_functional — a small functional residual net (Conv2D,
+               BatchNormalization, Activation, Add, Concatenate,
+               GlobalAveragePooling2D, Dense; ``keras_functional_config``)
+               imported as a ComputationGraph from its Keras configuration
+               and seeded weight arrays (no h5py): ``output()`` and one
+               ``fit`` step on the card against the same graph on the CPU
+               (the new_layers rule).
 9. lstm_kernel — the peephole-LSTM step kernel against its plain version
                (c', h', rtol = atol = 1e-5) at (N, H) = (32, 200), (4, 200),
                (1, 200), (3, 8), (5, 24), (64, 256), and at the tiling's
@@ -194,6 +234,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -320,6 +361,30 @@ VGG_BN_EVAL_ROWS = 1024
 # magnitude: a near tie, ten times the conv check's ATOL.
 BN_STATS_RTOL = 1e-4
 TIE_RTOL = 1e-4
+# ResNet-50 (He et al. 2015; the JAX package's models/resnet.py, BASELINE
+# config 5) at its published widths: 224x224x3, 1,000 classes, 174
+# vertices, 53 convs and 53 batch norms.  46 convs are stride 1 and go
+# through the conv kernel; the 7x7/2 stem and the six 1x1/2 convs take
+# the dense chain.  Served with the ladder up to 32 rows (4 clients, 16
+# requests of 1-2 rows), trained at batch 128 (Nesterovs, lr 0.1, the
+# recipe's defaults) on seeded synthetic batches: there is no ImageNet
+# in the repo.
+# A conv whose output goes straight into a training-mode batch norm has
+# a bias whose gradient is 0 in exact arithmetic (the norm takes each
+# channel's mean off): its update is rounding noise in either step, ~1e-7
+# of the conv weight's update in a CPU rehearsal, so the relative rule
+# cannot hold it.  Its update is held instead below BN_BIAS_NOISE of the
+# weight update's 2-norm, in both steps.
+BN_BIAS_NOISE = 1e-5
+RESNET_HW, RESNET_CLASSES = 224, 1000
+RESNET_VERTICES, RESNET_PARAMS, RESNET_STATS = 174, 25_583_592, 53_120
+RESNET_KERNEL_CONVS, RESNET_DENSE_CONVS = 46, 7
+RESNET_SERVE_BATCH, RESNET_CLIENTS, RESNET_REQUESTS = 32, 4, 16
+RESNET_TRAIN_BATCH, RESNET_STEPS = 128, 3
+SERVE_LADDER = (1, 2, 4, 8, 16, 32)
+# The small functional residual net of keras_functional: 16x16x3 inputs,
+# batch 64, 10 classes.
+FUNC_HW, FUNC_BATCH, FUNC_CLASSES = 16, 64, 10
 # new_layers: the same nets on the card and on the CPU, from the same
 # params and state: rtol 1e-4 (float32 sums in other orders, conv through
 # the kernel on the card), atol 1e-5 for values near zero (the conv
@@ -554,7 +619,10 @@ def graph_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
 
 def conv_shapes(model: str, batch: int):
     """Every conv of a model as (N, Cin, H, W, Cout, K, pad, activation),
-    in forward order (repeats included)."""
+    in forward order (repeats included); for ResNet-50 its 46 stride-1
+    convs, block by block."""
+    if model == "resnet50":
+        return resnet50_kernel_convs(batch)
     if model == "lenet":
         return [(batch, 1, 28, 28, 20, 5, 0, "identity"),
                 (batch, 20, 12, 12, 50, 5, 0, "identity")]
@@ -568,6 +636,28 @@ def conv_shapes(model: str, batch: int):
             out.append((batch, cin, hw, hw, ch, 3, 1, act))
             cin = ch
         hw //= 2
+    return out
+
+
+def resnet50_kernel_convs(batch: int):
+    """ResNet-50's stride-1 convs (those of the conv kernel) as
+    (N, Cin, H, W, Cout, K, pad, activation), block by block: a block's
+    1x1 ``_a`` (stride 2 in the first block of stages 1-3), 3x3 ``_b``,
+    1x1 ``_c`` and, in stage 0's first block, the 1x1 projection."""
+    from deeplearning4j_tpu_torch.models.resnet import STAGES
+    out, cin, hw = [], 64, 56
+    for si, (n_blocks, ch) in enumerate(STAGES):
+        for bi in range(n_blocks):
+            strided = bi == 0 and si > 0
+            if strided:
+                hw //= 2
+            else:
+                out.append((batch, cin, hw, hw, ch, 1, 0, "identity"))
+            out.append((batch, ch, hw, hw, ch, 3, 1, "identity"))
+            out.append((batch, ch, hw, hw, 4 * ch, 1, 0, "identity"))
+            if bi == 0 and not strided:
+                out.append((batch, cin, hw, hw, 4 * ch, 1, 0, "identity"))
+            cin = 4 * ch
     return out
 
 
@@ -768,15 +858,8 @@ def phase_serve(torch, ck):
                           for k in ("batches", "rows", "batch_size_hist",
                                     "queue_ms", "compute_ms", "total_ms")}
         conv_calls += n_convs * res["batcher"]["batches"]
-        # classes must equal argmax of a direct output() on the card
-        for x, (mode, answer) in zip(requests[name], res.pop("answers")):
-            want = net.output(x).argmax(dim=-1).cpu().numpy().tolist()
-            cls = answer["classes"]
-            got = cls if mode == "argmax" else [c[0] for c in cls]
-            shape = [len(x)] if mode == "argmax" else [len(x), 3]
-            if got != want or answer["shape"] != shape:
-                raise AssertionError(f"{name}: served {answer} for direct "
-                                     f"classes {want}")
+        _check_served_classes(name, requests[name], res.pop("answers"),
+                              net.output)
         res["classes_equal_direct_output"] = True
         # the same forward alone, host copy included: what the batcher's
         # compute time would be without the HTTP threads beside it
@@ -791,6 +874,19 @@ def phase_serve(torch, ck):
          conv_calls_of_served_batches=conv_calls, conv_fallbacks=fallbacks,
          warmup_conv_launches=warm_launches, max_memory_allocated=peak)
     return launches
+
+
+def _check_served_classes(name, xs, answers, direct) -> None:
+    """Each request's served classes (argmax, or the best of top 3) must
+    equal argmax of ``direct(x)``, a direct forward on the card."""
+    for x, (mode, answer) in zip(xs, answers):
+        want = direct(x).argmax(dim=-1).cpu().numpy().tolist()
+        cls = answer["classes"]
+        got = cls if mode == "argmax" else [c[0] for c in cls]
+        shape = [len(x)] if mode == "argmax" else [len(x), 3]
+        if got != want or answer["shape"] != shape:
+            raise AssertionError(f"{name}: served {answer} for direct "
+                                 f"classes {want}")
 
 
 def _conv_fallbacks() -> float:
@@ -820,8 +916,9 @@ def _rpc(url, method, params):
         return json.loads(r.read())["result"]
 
 
-def _drive(url, path, xs):
-    """64 predict requests from 8 client threads; latency per request.
+def _drive(url, path, xs, clients: int = 8):
+    """The predict requests ``xs`` from ``clients`` client threads;
+    latency per request.
     The request bodies are encoded before the clock starts, so the client
     threads, which share this process with the server, only send and
     wait."""
@@ -840,7 +937,7 @@ def _drive(url, path, xs):
     errors = []
 
     def client(k):
-        for i in range(k, len(xs), 8):
+        for i in range(k, len(xs), clients):
             req = urllib.request.Request(
                 url, data=bodies[i],
                 headers={"Content-Type": "application/json"})
@@ -853,7 +950,8 @@ def _drive(url, path, xs):
             lat[i] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
     for t in threads:
         t.start()
     for t in threads:
@@ -1197,21 +1295,40 @@ def _pinned(torch, layer, i, h, outputs, ties):
     ``ties`` the elements or windows where the plain forward's own choice
     differs and the largest gap there, relative to the layer input's
     largest magnitude."""
+    kept = outputs[i] if type(layer).__name__ == "ActivationLayer" else \
+        outputs[i - 1]
+    return _pin(torch, layer, i, h, kept, ties)
+
+
+def _pin(torch, layer, label, h, kept, ties):
+    """A relu ActivationLayer or max-pool SubsamplingLayer on ``h`` with
+    the kernel step's choice: for a relu, ``kept`` is the kernel step's
+    relu output (its mask is kept); for a pool, ``kept`` is the kernel
+    step's pool input (its argmax of each window, padding included, is
+    taken).  Appends the near ties to ``ties`` (see :func:`_pinned`)."""
     import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import convolution as conv_ops
     scale = float(h.detach().abs().max())
     if type(layer).__name__ == "ActivationLayer":
-        keep = outputs[i] > 0
+        keep = kept > 0
         flips = keep != (h > 0)
         gap = h.abs()[flips]
         out = torch.where(keep, h, 0.0)
     else:
         k, st = tuple(layer.kernel), tuple(layer.stride)
-        _, idx = F.max_pool2d(outputs[i - 1], k, st, return_indices=True)
-        own, own_idx = F.max_pool2d(h, k, st, return_indices=True)
-        out = h.flatten(2).gather(2, idx.flatten(2)).view_as(idx)
+        (pt, pb), (pl, pr) = conv_ops.explicit_pads(
+            h.shape[2:], k, st, tuple(layer.padding), (1, 1),
+            layer.convolution_mode)
+
+        def padded(t):
+            return F.pad(t, (pl, pr, pt, pb), value=float("-inf"))
+        _, idx = F.max_pool2d(padded(kept), k, st, return_indices=True)
+        hp = padded(h)
+        own, own_idx = F.max_pool2d(hp, k, st, return_indices=True)
+        out = hp.flatten(2).gather(2, idx.flatten(2)).view_as(idx)
         flips = own_idx != idx
         gap = (own - out).abs()[flips]
-    ties.append({"layer": i, "kind": type(layer).__name__,
+    ties.append({"layer": label, "kind": type(layer).__name__,
                  "elements": int(flips.numel()), "flips": int(flips.sum()),
                  "max_rel_gap": float(gap.max()) / scale if gap.numel()
                  else 0.0})
@@ -1823,6 +1940,639 @@ def phase_new_layers(torch, ck) -> dict:
                                        conf.preprocessors.items()},
                      "max_abs_err": max(errs.values())}
     emit("new_layers", nets=res, rtol=NEW_LAYERS_RTOL, atol=NEW_LAYERS_ATOL)
+    return res
+
+
+def resnet_weights(net, seed: int):
+    """Seeded params and batch-norm state for a ResNet graph, as numpy
+    dicts by vertex: He-scaled conv and dense weights, biases and BN
+    ``beta`` ~ 0.05 N(0, 1), BN ``gamma`` in [0.5, 0.8] (below 1, so the
+    residual sums stay near unit scale without batch statistics), running
+    means ~ 0.1 N(0, 1) and variances in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    params, state = {}, {}
+    for name in net.order:
+        params[name] = {}
+        for k, v in net.net_params[name].items():
+            shape = tuple(v.shape)
+            if k == "W":
+                fan = int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
+                a = rng.standard_normal(shape) * np.sqrt(2.0 / fan)
+            elif k == "gamma":
+                a = rng.uniform(0.5, 0.8, shape)
+            else:
+                a = 0.05 * rng.standard_normal(shape)
+            params[name][k] = a.astype(f32)
+        state[name] = {
+            k: (0.1 * rng.standard_normal(tuple(v.shape)) if k == "mean"
+                else rng.uniform(0.5, 1.5, tuple(v.shape))).astype(f32)
+            for k, v in net.net_state[name].items()}
+    return params, state
+
+
+def seeded_resnet50(device, seed: int = SEED):
+    """``resnet50()`` at its published widths with :func:`resnet_weights`'s
+    params, calibrated on a seeded batch of 32 images as training would
+    leave it, for the running statistics a zip restores (``init``'s: a
+    zip holds no layer state, as in the JAX package): each batch norm's
+    gamma and beta normalize its input's batch statistics, and the output
+    layer's bias takes away the batch's mean of ``W h``.  Without that
+    the relus' positive means carry nearly the same logits to every image
+    (13 of 16 random rows took one class), and served classes would
+    check little."""
+    import torch
+    from deeplearning4j_tpu_torch.models import resnet50
+    net = resnet50(device=device).init()
+    net.load_jax_params(resnet_weights(net, seed)[0])
+    inp, out = net.conf.network_inputs[0], net.conf.network_outputs[0]
+    x = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(RESNET_SERVE_BATCH, 3, RESNET_HW, RESNET_HW)).astype(
+            np.float32)).to(net.device)
+    zero = {n: {k: torch.zeros_like(t) for k, t in s.items()}
+            for n, s in net.net_state.items()}
+    with torch.no_grad():
+        batch = net._forward_all(net.net_params, zero, {inp: x}, {},
+                                 train=True)[2]
+        for n, s in batch.items():
+            if not s:
+                continue
+            lc = net.conf.vertices[n].layer_conf()
+            keep = 1 - lc.decay                 # decay * 0 + (1 - decay) b
+            p, r = net.net_params[n], net.net_state[n]
+            # gamma (x - mean) / sd + beta == g' (x - r_mean) / r_sd + b'
+            sd = torch.sqrt(s["var"] / keep + lc.eps)
+            r_sd = torch.sqrt(r["var"] + lc.eps)
+            p["beta"].sub_(p["gamma"] * (s["mean"] / keep - r["mean"]) / sd)
+            p["gamma"].mul_(r_sd / sd)
+        z = net._forward_all(net.net_params, net.net_state, {inp: x}, {},
+                             train=False, preout_for=[out])[1][out]
+        b = net.net_params[out]["b"]
+        b.sub_(z.mean(dim=0) - b)
+    return net
+
+
+def _input_dependent(probs, what: str) -> dict:
+    """Raises unless ResNet-50's class probabilities ``probs`` [rows,
+    classes] depend on the image: no row's softmax saturated (max below
+    0.99) and at least a quarter of the rows' argmax classes distinct."""
+    classes = probs.argmax(dim=1)
+    res = {"max_probability": float(probs.max()),
+           "distinct_classes": int(classes.unique().numel()),
+           "rows": len(probs)}
+    if res["max_probability"] >= 0.99 or \
+            4 * res["distinct_classes"] < res["rows"]:
+        raise AssertionError(f"{what}: the output barely depends on the "
+                             f"input: {res}")
+    return res
+
+
+def _resnet_checked(net) -> dict:
+    """ResNet-50's vertex, conv, batch-norm, param and statistic counts,
+    checked."""
+    kinds = [type(net.conf.vertices[n].layer_conf()).__name__
+             if hasattr(net.conf.vertices[n], "layer_conf") else
+             type(net.conf.vertices[n]).__name__ for n in net.order]
+    counts = {k: kinds.count(k) for k in ("ConvolutionLayer",
+                                          "BatchNormalization")}
+    stats = sum(v.numel() for s in net.net_state.values() for v in s.values())
+    if len(net.order) != RESNET_VERTICES or net.n_params != RESNET_PARAMS \
+            or stats != RESNET_STATS or counts != {
+                "ConvolutionLayer": 53, "BatchNormalization": 53}:
+        raise AssertionError(f"ResNet-50 has {len(net.order)} vertices, "
+                             f"{counts}, {net.n_params} params, {stats} "
+                             f"statistics")
+    return {"vertices": len(net.order), "layers": counts,
+            "n_params": net.n_params, "running_statistics": stats}
+
+
+def bn_fed_convs(net) -> set:
+    """The conv vertices of a graph whose output only a batch norm reads."""
+    readers = {}
+    for n in net.order:
+        for i in net.conf.vertex_inputs[n]:
+            readers.setdefault(i, []).append(n)
+
+    def kind(n):
+        v = net.conf.vertices[n]
+        return type(v.layer_conf()).__name__ if hasattr(v, "layer_conf") \
+            else type(v).__name__
+    return {n for n in net.order if kind(n) == "ConvolutionLayer"
+            and [kind(r) for r in readers.get(n, [])] ==
+            ["BatchNormalization"]}
+
+
+def _plain_graph_forward(torch, ck, net, x):
+    """The graph's inference forward with every stride-1 conv through the
+    plain version, in full f32."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import ConvolutionLayer
+    acts = {net.conf.network_inputs[0]: x}
+    with torch.inference_mode(), ck.full_f32_convs():
+        for name in net.order:
+            v = net.conf.vertices[name]
+            ins = [acts[i] for i in net.conf.vertex_inputs[name]]
+            layer = v.layer_conf() if hasattr(v, "layer_conf") else None
+            p = net.net_params[name]
+            if isinstance(layer, ConvolutionLayer) and \
+                    tuple(layer.stride) == (1, 1):
+                acts[name] = ck.conv2d_bias_act_reference(
+                    ins[0], p["W"], p["b"], tuple(layer.padding),
+                    layer.convolution_mode, layer.activation)
+            else:
+                acts[name], _, _ = v.forward(p, net.net_state[name], ins)
+    return acts[net.conf.network_outputs[0]]
+
+
+def _pinned_vertices(net) -> dict:
+    """The relu ActivationLayer and max-pool vertices of a graph, each
+    with the vertex whose output the pin reads: the relu vertex itself,
+    or the pool's input."""
+    out = {}
+    for name in net.order:
+        v = net.conf.vertices[name]
+        layer = v.layer_conf() if hasattr(v, "layer_conf") else None
+        kind = type(layer).__name__
+        if kind == "ActivationLayer" and layer.activation == "relu":
+            out[name] = name
+        elif kind == "SubsamplingLayer" and layer.pooling_type == "max":
+            out[name] = net.conf.vertex_inputs[name][0]
+    return out
+
+
+class _RecordedVertexOutputs:
+    """While active, the vertices of graph ``net`` named in ``names`` keep
+    their forward's output (detached) in ``outputs`` by name."""
+
+    def __init__(self, net, names):
+        self.net, self.names, self.outputs = net, set(names), {}
+
+    def __enter__(self):
+        for name in self.names:
+            v = self.net.conf.vertices[name]
+
+            def forward(*args, _fwd=v.forward, _n=name, **kw):
+                out = _fwd(*args, **kw)
+                self.outputs[_n] = out[0].detach()
+                return out
+            v.forward = forward           # shadows the class's method
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            del self.net.conf.vertices[name].forward
+
+
+def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
+                      states, kept=None):
+    """One training step of graph ``net`` (one loss head, softmax +
+    mcxent, no dropout) from ``params`` / ``opt_states`` / ``states`` with
+    every kernel replaced by its plain version: stride-1 convs through
+    cuDNN (TF32 off), the loss through the plain softmax cross-entropy,
+    gradients by autograd; batch norm, the strided convs of the dense
+    chain and the update are the graph's own.  With ``kept`` (the kernel
+    step's outputs, :class:`_RecordedVertexOutputs` over
+    :func:`_pinned_vertices`) each relu and max pool takes the kernel
+    step's mask or argmax (:func:`_pin`).  Returns (score, new params, new
+    states, near ties)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        BatchNormalization, ConvolutionLayer)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    leaves = {n: {k: v.detach().clone().requires_grad_()
+                  for k, v in lp.items()} for n, lp in params.items()}
+    new_states = {n: dict(s) for n, s in states.items()}
+    pins = _pinned_vertices(net) if kept is not None else {}
+    out_name = net.conf.network_outputs[0]
+    acts = dict(zip(net.conf.network_inputs, xs))
+    remaining = dict(net._readers)
+    ties = []
+    with ck.full_f32_convs():
+        for name in net.order:
+            v = net.conf.vertices[name]
+            ins = [acts[i] for i in net.conf.vertex_inputs[name]]
+            layer = v.layer_conf() if hasattr(v, "layer_conf") else None
+            p = leaves[name]
+            if layer is not None and layer.dropout:
+                raise ValueError("the plain graph step has no dropout")
+            if name == out_name:
+                h = torch.addmm(p["b"], ins[0], p["W"])
+            elif isinstance(layer, ConvolutionLayer) and \
+                    tuple(layer.stride) == (1, 1):
+                h = ck.conv2d_bias_act_reference(
+                    ins[0], p["W"], p["b"], tuple(layer.padding),
+                    layer.convolution_mode, layer.activation)
+            elif isinstance(layer, BatchNormalization):
+                h, ns, _ = layer.forward(p, new_states[name], ins[0], True)
+                new_states[name] = {k: t.detach() for k, t in ns.items()}
+            elif name in pins:
+                h = _pin(torch, layer, name, ins[0], kept[pins[name]], ties)
+            else:
+                h, _, _ = v.forward(p, {}, ins, True)
+            acts[name] = h
+            for i in net.conf.vertex_inputs[name]:
+                remaining[i] -= 1
+                if remaining[i] == 0:
+                    acts.pop(i)
+        loss, _ = ck.softmax_xent_reference(acts[out_name], ys[0])
+        score = loss.mean()
+        flat = iter(torch.autograd.grad(
+            score, [t for lp in leaves.values() for t in lp.values()]))
+    grads = {n: {k: next(flat) for k in lp} for n, lp in leaves.items()}
+    del acts, leaves
+    scratch = ComputationGraph(net.conf, device=net.device)
+    scratch.net_params = {n: {k: t.detach().clone() for k, t in lp.items()}
+                          for n, lp in params.items()}
+    scratch.opt_states = opt_states
+    scratch._apply_updates(grads, it)
+    return float(score.detach()), scratch.net_params, new_states, ties
+
+
+def _tf32_off(phase):
+    """``phase`` runs with TF32 off in cuDNN and in matmuls; both flags
+    are restored when it returns, so later phases run as they would
+    without it."""
+    @functools.wraps(phase)
+    def run(torch, *args):
+        flags = torch.backends.cudnn, torch.backends.cuda.matmul
+        prev = [f.allow_tf32 for f in flags]
+        for f in flags:
+            f.allow_tf32 = False
+        try:
+            return phase(torch, *args)
+        finally:
+            for f, p in zip(flags, prev):
+                f.allow_tf32 = p
+    return run
+
+
+@_tf32_off
+def phase_resnet50_kernels(torch, ck) -> tuple:
+    """The conv kernel at every distinct stride-1 conv shape of ResNet-50,
+    at batch 128 (timed) and the serve ladder (untimed) -> (records, the
+    summed set of one batch-128 forward's 46 stride-1 convs)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    records, ladder, seen = [], [], set()
+    for batch in (RESNET_TRAIN_BATCH,) + SERVE_LADDER:
+        timed = batch == RESNET_TRAIN_BATCH
+        for shape in conv_shapes("resnet50", batch):
+            if shape in seen:
+                continue
+            seen.add(shape)
+            rec = check_conv(torch, ck, shape, gen, timed=timed)
+            rec["model"] = "resnet50"
+            (records if timed else ladder).append(rec)
+    by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
+    rows = [by_shape[(tuple(s[:7]), s[7])]
+            for s in conv_shapes("resnet50", RESNET_TRAIN_BATCH)]
+    agg = {k: sum(r[k] for r in rows) for k in SET_SUMS}
+    agg.update(convs=len(rows), tflops=agg["flops"] / agg["ms"] / 1e9,
+               share_of_bound=agg["bound_ms"] / agg["ms"])
+    if len(rows) != RESNET_KERNEL_CONVS:
+        raise AssertionError(f"{len(rows)} stride-1 convs in ResNet-50")
+    emit("resnet50_kernels", tf32=False, rtol=RTOL, atol_scaled=ATOL,
+         timed_set={f"resnet50_{RESNET_TRAIN_BATCH}": agg},
+         bound_note="as in the kernels line", shapes=records,
+         untimed_shapes=ladder)
+    return records + ladder, agg
+
+
+@_tf32_off
+def phase_serve_resnet50(torch, ck) -> dict:
+    """ResNet-50 served from a zip the port wrote: 16 requests of 1-2 rows
+    from 4 clients through Server -> predict -> ModelCache ->
+    MicroBatcher -> ComputationGraph.output; then output() at batch 32."""
+    from deeplearning4j_tpu_torch.nn.serialization import write_model
+    from deeplearning4j_tpu_torch.server import (
+        DeepLearning4jEntryPoint, Server)
+    net = seeded_resnet50("cuda")
+    sizes = _resnet_checked(net)
+    rng = np.random.default_rng(SEED + 21)
+    dims = (3, RESNET_HW, RESNET_HW)
+    xs = [rng.normal(size=(int(rng.integers(1, 3)),) + dims).astype(
+        np.float32) for _ in range(RESNET_REQUESTS)]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "resnet50.zip")
+        write_model(net, path)
+        del net
+        server = Server(DeepLearning4jEntryPoint(
+            device="cuda", max_batch=RESNET_SERVE_BATCH)).start()
+        try:
+            url = f"http://127.0.0.1:{server.port}/"
+            t0 = time.perf_counter()
+            warm = _rpc(url, "warmup", {"model_path": path,
+                                        "feature_dims": list(dims)})
+            warmup_s = time.perf_counter() - t0
+            fallbacks = _conv_fallbacks()
+            _zero_counts(ck)                           # main path starts
+            drive = _drive(url, path, xs, clients=RESNET_CLIENTS)
+            launches = _kernel_counts(ck)              # main path ends
+            fallbacks = _conv_fallbacks() - fallbacks
+            batcher = server.entry_point.stats()["serving"][
+                str(Path(path).resolve())]
+            served = server.entry_point.model_cache.get(path)
+        finally:
+            server.stop()
+    peak = torch.cuda.max_memory_allocated()
+    # 16 requests check the served classes and the launches; their rate
+    # and latencies would measure nothing, so they are not reported
+    res = {"requests": drive["requests"], "rows": drive["rows"],
+           "batcher": {k: batcher[k] for k in (
+               "batches", "rows", "batch_size_hist")}}
+    batches = res["batcher"]["batches"]
+    _check_served_classes("resnet50", xs, drive["answers"],
+                          lambda x: served.output(x)[0])
+    spread_served = _input_dependent(served.output(np.concatenate(xs))[0],
+                                     "ResNet-50's served rows")
+    if launches != _want(ck, conv2d_bias_act=RESNET_KERNEL_CONVS * batches) \
+            or fallbacks != RESNET_DENSE_CONVS * batches:
+        raise AssertionError(f"{batches} served batches: launches "
+                             f"{launches}, {fallbacks} conv fallbacks")
+    x32 = torch.randn((RESNET_SERVE_BATCH,) + dims,
+                      generator=torch.Generator().manual_seed(SEED + 22))
+    x32 = x32.cuda()
+    walls, per_call = [], []
+    for _ in range(5):
+        before = ck.fused_conv2d_bias_act.launches
+        t0 = time.perf_counter()
+        out = served.output(x32)[0]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_call.append(ck.fused_conv2d_bias_act.launches - before)
+    ref = _plain_graph_forward(torch, ck, served, x32)
+    sums = out.sum(dim=1)
+    if tuple(out.shape) != (RESNET_SERVE_BATCH, RESNET_CLASSES) or \
+            not bool(torch.isfinite(out).all()) or \
+            not torch.allclose(sums, torch.ones_like(sums), atol=1e-5) or \
+            set(per_call) != {RESNET_KERNEL_CONVS}:
+        raise AssertionError(f"ResNet-50 output at batch 32: {per_call}")
+    torch.testing.assert_close(out, ref, rtol=NET_RTOL, atol=NET_ATOL)
+    spread_32 = _input_dependent(out, "ResNet-50's output at batch 32")
+    res.update(sizes, warmup_s=warmup_s, warmup_buckets=warm["buckets"],
+               served_rows_spread=spread_served, output_32_spread=spread_32,
+               launches=launches, conv_fallbacks=fallbacks,
+               classes_equal_direct_output=True,
+               output_32_ms=float(np.median(walls)),
+               output_32_ms_each=walls, conv_launches_per_forward=per_call,
+               output_32_max_abs_vs_plain=float((out - ref).abs().max()),
+               classes_32=out.argmax(dim=1)[:16].tolist(),
+               max_memory_allocated=peak)
+    emit("serve_resnet50", **res)
+    return res
+
+
+@_tf32_off
+def phase_train_resnet50(torch, ck) -> dict:
+    """ResNet-50 trained with ``fit`` through the async pipeline at batch
+    128: 3 timed steps, then one whose relu outputs and pool input are
+    kept and which is held to the plain graph step."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    net = seeded_resnet50("cuda")
+    _resnet_checked(net)
+    rng = np.random.default_rng(SEED + 23)
+    dims = (3, RESNET_HW, RESNET_HW)
+    data = [DataSet(*_random_batch(rng, RESNET_TRAIN_BATCH, dims,
+                                   RESNET_CLASSES))
+            for _ in range(RESNET_STEPS + 1)]
+    steps = []
+    fit_batch = net._fit_batch
+
+    def timed_batch(mds, seeds=None):     # each step, timed and counted
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        fit_batch(mds, seeds)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        steps.append({"step": len(steps) + 1, "score": net.score(),
+                      "seconds": dt,
+                      "samples_per_s": RESNET_TRAIN_BATCH / dt,
+                      "staged_on": str(mds.features[0].device),
+                      "launches": {n: after[n] - counts[n] for n in after}})
+    net._fit_batch = timed_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(data[:RESNET_STEPS]))
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    before = (_clone_tree(net.net_params), _clone_tree(net.opt_states),
+              _clone_tree(net.net_state), net.iteration)
+    recorded = _RecordedVertexOutputs(net, set(
+        _pinned_vertices(net).values()))
+    with recorded:
+        net.fit(ListDataSetIterator(data[RESNET_STEPS:]))
+    launches = _kernel_counts(ck)                      # main path ends
+    del net._fit_batch
+    want = _want(ck, conv2d_bias_act=RESNET_KERNEL_CONVS, softmax_xent=1)
+    for st in steps:
+        if st["launches"] != want or not np.isfinite(st["score"]) or \
+                st["staged_on"] != "cuda:0":
+            raise AssertionError(f"ResNet-50 step {st}: launches must be "
+                                 f"{want}, the batch staged on the card and "
+                                 f"the score finite")
+    params0, opt0, states0, it = before
+    x, y = (torch.from_numpy(a).cuda() for a in (data[-1].features,
+                                                  data[-1].labels))
+    plain_score, plain_params, plain_states, ties = _plain_graph_step(
+        torch, ck, net, params0, opt0, [x], [y], it, states0,
+        recorded.outputs)
+    del recorded, opt0
+    kernel_score = steps[-1]["score"]
+    errs, stat_errs, bias_noise = {}, {}, {}
+    noise_only = bn_fed_convs(net)
+    for n in net.order:
+        for k, t in net.net_params[n].items():
+            upd = t - params0[n][k]
+            plain_upd = plain_params[n][k] - params0[n][k]
+            if n in noise_only and k == "b":
+                w_upd = float(torch.linalg.vector_norm(
+                    plain_params[n]["W"] - params0[n]["W"]))
+                bias_noise[f"{n}_b"] = max(
+                    float(torch.linalg.vector_norm(upd)),
+                    float(torch.linalg.vector_norm(plain_upd))) / w_upd
+            else:
+                errs[f"{n}_{k}"] = _rel_norm(torch, upd, plain_upd)
+        for k, t in net.net_state[n].items():
+            stat_errs[f"{n}_{k}"] = _rel_norm(torch, t, plain_states[n][k])
+    del params0, states0, plain_params
+    timed = steps[1:RESNET_STEPS]
+    res = {"batch": RESNET_TRAIN_BATCH, "steps": steps,
+           "samples_per_s_after_first": RESNET_TRAIN_BATCH * len(timed)
+           / sum(st["seconds"] for st in timed),
+           "fit_seconds_3_steps": fit_s,
+           "launches": launches, "max_memory_allocated": peak,
+           "plain_step": {"score": plain_score, "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "max_update_rel_err": max(errs.values()),
+                          "worst_updates": dict(sorted(
+                              errs.items(), key=lambda kv: -kv[1])[:8]),
+                          "max_bn_stats_rel_err": max(stat_errs.values()),
+                          "bn_fed_conv_biases": len(bias_noise),
+                          "max_bn_fed_bias_update_over_w_update": max(
+                              bias_noise.values()),
+                          "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL,
+                          "bn_stats_rtol": BN_STATS_RTOL,
+                          "bn_bias_noise": BN_BIAS_NOISE,
+                          "near_ties": ties, "tie_rtol": TIE_RTOL}}
+    emit("train_resnet50", **res)
+    ps = res["plain_step"]
+    if ps["score_rel_diff"] > STEP_RTOL or \
+            ps["max_update_rel_err"] > STEP_UPDATE_RTOL or \
+            len(bias_noise) != 53 or \
+            ps["max_bn_fed_bias_update_over_w_update"] > BN_BIAS_NOISE or \
+            ps["max_bn_stats_rel_err"] > BN_STATS_RTOL or \
+            len(ties) != len(_pinned_vertices(net)) or \
+            max(t["max_rel_gap"] for t in ties) > TIE_RTOL:
+        raise AssertionError("ResNet-50 step through the kernels disagrees "
+                             "with the plain step")
+    return res
+
+
+def keras_functional_config() -> dict:
+    """The Keras ``model_config`` (Keras 3 functional layout) of a small
+    residual net on FUNC_HW x FUNC_HW x 3 images: conv1 -> bn1 -> relu1
+    -> conv2 -> bn2 (8 channels), added to relu1 (Add) -> relu2,
+    concatenated with a 1x1 conv of itself (Concatenate) ->
+    GlobalAveragePooling2D -> Dense(FUNC_CLASSES, softmax)."""
+    width = 8
+    layers = []
+
+    def tensor(src):
+        return {"class_name": "__keras_tensor__",
+                "config": {"shape": None, "dtype": "float32",
+                           "keras_history": [src, 0, 0]}}
+
+    def add(cls, name, inputs, **cfg):
+        args = ([tensor(i) for i in inputs] if len(inputs) > 1
+                else tensor(inputs[0]))
+        layers.append({"class_name": cls, "name": name,
+                       "config": {"name": name, **cfg},
+                       "inbound_nodes": [{"args": [args], "kwargs": {}}]})
+    layers.append({"class_name": "InputLayer", "name": "input",
+                   "config": {"name": "input",
+                              "batch_shape": [None, FUNC_HW, FUNC_HW, 3],
+                              "dtype": "float32"}, "inbound_nodes": []})
+    conv = {"kernel_size": [3, 3], "strides": [1, 1], "padding": "same",
+            "activation": "linear"}
+    add("Conv2D", "conv1", ["input"], filters=width, **conv)
+    add("BatchNormalization", "bn1", ["conv1"], momentum=0.99,
+        epsilon=1e-3)
+    add("Activation", "relu1", ["bn1"], activation="relu")
+    add("Conv2D", "conv2", ["relu1"], filters=width, **conv)
+    add("BatchNormalization", "bn2", ["conv2"], momentum=0.99,
+        epsilon=1e-3)
+    add("Add", "add", ["bn2", "relu1"])
+    add("Activation", "relu2", ["add"], activation="relu")
+    add("Conv2D", "branch", ["relu2"], filters=width // 2,
+        kernel_size=[1, 1], strides=[1, 1], padding="valid",
+        activation="relu")
+    add("Concatenate", "concat", ["relu2", "branch"], axis=-1)
+    add("GlobalAveragePooling2D", "gap", ["concat"])
+    add("Dense", "predictions", ["gap"], units=FUNC_CLASSES,
+        activation="softmax")
+    return {"class_name": "Functional",
+            "config": {"name": "residual_cnn", "layers": layers,
+                       "input_layers": [["input", 0, 0]],
+                       "output_layers": [["predictions", 0, 0]]}}
+
+
+def keras_functional_weights(config: dict, seed: int) -> dict:
+    """Keras-layout weight arrays for :func:`keras_functional_config`,
+    drawn from a numpy seed (the shapes of keras_vgg16_bn_weights)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    widths = {"input": 3}
+    weights = {}
+    for ld in config["config"]["layers"][1:]:
+        cls, cfg = ld["class_name"], ld["config"]
+        ins = [a["config"]["keras_history"][0] for a in (
+            ld["inbound_nodes"][0]["args"][0]
+            if isinstance(ld["inbound_nodes"][0]["args"][0], list)
+            else [ld["inbound_nodes"][0]["args"][0]])]
+        cin = widths[ins[0]]
+        if cls == "Conv2D":
+            kh, kw = cfg["kernel_size"]
+            cout = cfg["filters"]
+            weights[cfg["name"]] = {
+                "kernel": (rng.standard_normal((kh, kw, cin, cout))
+                           * np.sqrt(2.0 / (kh * kw * cin))).astype(f32),
+                "bias": (0.05 * rng.standard_normal(cout)).astype(f32)}
+            widths[cfg["name"]] = cout
+        elif cls == "Dense":
+            units = cfg["units"]
+            weights[cfg["name"]] = {
+                "kernel": (rng.standard_normal((cin, units))
+                           * np.sqrt(2.0 / cin)).astype(f32),
+                "bias": (0.05 * rng.standard_normal(units)).astype(f32)}
+            widths[cfg["name"]] = units
+        elif cls == "BatchNormalization":
+            weights[cfg["name"]] = {
+                "gamma": rng.uniform(0.8, 1.2, cin).astype(f32),
+                "beta": (0.1 * rng.standard_normal(cin)).astype(f32),
+                "moving_mean": (0.1 * rng.standard_normal(cin)).astype(f32),
+                "moving_variance": rng.uniform(0.5, 1.5, cin).astype(f32)}
+            widths[cfg["name"]] = cin
+        else:
+            widths[cfg["name"]] = (sum(widths[i] for i in ins)
+                                   if cls == "Concatenate" else cin)
+    return weights
+
+
+def import_keras_functional(device, seed: int = SEED):
+    """The functional net through the port's Keras import: its
+    configuration, then its weight arrays with a dict lookup (no h5py)."""
+    from deeplearning4j_tpu_torch.keras_import import KerasModelImport
+    config = keras_functional_config()
+    net = KerasModelImport._build(config, {}, device)
+    KerasModelImport._load_weights(net, keras_functional_weights(config,
+                                                                 seed))
+    return net
+
+
+@_tf32_off
+def phase_keras_functional(torch, ck) -> dict:
+    """The functional residual net imported on the card and on the CPU
+    from the same configuration and weights: ``output()``, then one
+    ``fit`` step (score, params and running statistics), card against
+    CPU, with the conv launches of the card's run."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    cpu = import_keras_functional("cpu")
+    gpu = import_keras_functional("cuda")
+    kinds = sorted({type(v).__name__ if not hasattr(v, "layer_conf") else
+                    type(v.layer_conf()).__name__
+                    for v in gpu.conf.vertices.values()})
+    rng = np.random.default_rng(SEED + 24)
+    x, y = _random_batch(rng, FUNC_BATCH, (3, FUNC_HW, FUNC_HW),
+                         FUNC_CLASSES)
+    _zero_counts(ck)                                   # main path starts
+    out = gpu.output(x)[0]
+    seeds = rng.integers(0, 1 << 32, size=(len(gpu.order), 2))
+    gpu._fit_batch(DataSet(x, y), seeds=seeds)
+    launches = _kernel_counts(ck)                      # main path ends
+    errs = {"output": _assert_near(torch, out, cpu.output(x)[0],
+                                   "functional output")}
+    cpu._fit_batch(DataSet(x, y), seeds=seeds)
+    errs["score"] = abs(gpu.score() - cpu.score()) / abs(cpu.score())
+    if errs["score"] > NEW_LAYERS_RTOL:
+        raise AssertionError(f"functional net: scores {gpu.score()} (card) "
+                             f"and {cpu.score()} (CPU)")
+    for n in cpu.order:
+        for tree, ctree in ((gpu.net_params, cpu.net_params),
+                            (gpu.net_state, cpu.net_state)):
+            for k in ctree[n]:
+                errs[f"{n}_{k}"] = _assert_near(torch, tree[n][k],
+                                                ctree[n][k], f"{n} {k}")
+    # 3 convs, each in the forward of output() and of the training step
+    if launches != _want(ck, conv2d_bias_act=6):
+        raise AssertionError(f"functional net launched {launches}")
+    res = {"vertices": len(gpu.order), "kinds": kinds,
+           "n_params": gpu.n_params, "launches": launches,
+           "max_abs_err": max(errs.values()), "rtol": NEW_LAYERS_RTOL,
+           "atol": NEW_LAYERS_ATOL}
+    emit("keras_functional", **res)
     return res
 
 
@@ -2495,8 +3245,9 @@ def phase_sample_attention(torch, ck, net, it) -> dict:
 
 
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
-            gateway_fit, keras_vgg, train_keras_vgg, lstm, train_char,
-            sample_char, flash, train_att, output_att, sample_att) -> dict:
+            gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
+            train_resnet, functional, lstm, train_char, sample_char, flash,
+            train_att, output_att, sample_att) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -2505,7 +3256,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     launch at the attention model's (4, 8, 8192, 64), causal; each carries
     its 3xTF32 bound, the f32 CUDA-core bound beside it and HGMMA in its
     SASS; dq and dk/dv SDPA f32's backward, which computes the pair in one
-    call.  ``launches`` counts every main path's run."""
+    call.  ``launches`` counts every main path's run.  The conv entry
+    carries beside it the summed set of ResNet-50's 46 stride-1 convs at
+    batch 128 (``resnet50_128``)."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -2524,6 +3277,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "train_keras_vgg16_bn": train_keras_vgg["launches"],
              "evaluate_keras_vgg16_bn":
                  train_keras_vgg["evaluate"]["launches"],
+             "serve_resnet50": serve_resnet["launches"],
+             "train_resnet50": train_resnet["launches"],
+             "keras_functional": functional["launches"],
              "train_charrnn": train_char["launches"],
              "sample_charrnn": sample_char["launches"],
              "train_attention": train_att["launches"],
@@ -2552,6 +3308,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "bound_f32_simt_ms": sum(r["bound_f32_simt_ms"] for r in rows),
         "library_ms": sum(r["library_ms"] for r in rows),
         "library_tf32_ms": sum(r["library_tf32_ms"] for r in rows),
+        "resnet50_128": {k: resnet_set[k] for k in (
+            "convs", "ms", "plain_ms", "library_ms", "library_tf32_ms",
+            "bound_ms", "bound_f32_simt_ms", "tflops", "share_of_bound")},
     }, {
         "name": "softmax_xent",
         "route": "cuda",
@@ -2651,6 +3410,10 @@ def main() -> int:
     keras_vgg = phase_keras_vgg16_bn(torch, ck)
     train_keras_vgg = phase_train_keras_vgg16_bn(torch, ck)
     phase_new_layers(torch, ck)
+    resnet_records, resnet_set = phase_resnet50_kernels(torch, ck)
+    serve_resnet = phase_serve_resnet50(torch, ck)
+    train_resnet = phase_train_resnet50(torch, ck)
+    functional = phase_keras_functional(torch, ck)
     lstm = phase_lstm_kernel(torch, ck)
     train_char, net, it = phase_train_charrnn(torch, ck)
     sample_char = phase_sample_charrnn(torch, ck, net, it)
@@ -2660,10 +3423,12 @@ def main() -> int:
     output_att = phase_output_attention(torch, ck, net, it)
     sample_att = phase_sample_attention(torch, ck, net, it)
 
-    print(json.dumps(summary(records, serve_launches, xd, train_vgg,
-                             train_lenet, lenet_pipe, gateway_fit, keras_vgg,
-                             train_keras_vgg, lstm, train_char, sample_char,
-                             flash, train_att, output_att, sample_att)))
+    print(json.dumps(summary(records + resnet_records, serve_launches, xd,
+                             train_vgg, train_lenet, lenet_pipe, gateway_fit,
+                             keras_vgg, train_keras_vgg, resnet_set,
+                             serve_resnet, train_resnet, functional, lstm,
+                             train_char, sample_char, flash, train_att,
+                             output_att, sample_att)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,4 +16,9 @@ from deeplearning4j_tpu_torch.nn.conf.network import (  # noqa: F401
     MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
+    ComputationGraphConfiguration,
+    GraphBuilder,
+)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: F401

@@ -1,8 +1,9 @@
-"""DataSet — a copy of ``deeplearning4j_tpu/datasets/dataset.py`` ``DataSet``.
+"""DataSet and MultiDataSet — copies of ``deeplearning4j_tpu/datasets/dataset.py``.
 
 Arrays are host numpy until the input pipeline stages a batch onto the
 network's device (``datasets/iterators.stage_batch``), which leaves torch
-tensors in their place; ``MultiLayerNetwork`` takes either.
+tensors in their place; ``MultiLayerNetwork`` and ``ComputationGraph``
+take either.
 """
 
 from __future__ import annotations
@@ -57,3 +58,24 @@ class DataSet:
             else np.concatenate([d.features_mask for d in datasets]),
             None if datasets[0].labels_mask is None
             else np.concatenate([d.labels_mask for d in datasets]))
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multi-input/multi-output container (ref: nd4j MultiDataSet, used by
+    ComputationGraph.fit)."""
+
+    features: List[np.ndarray]
+    labels: List[np.ndarray]
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+    @staticmethod
+    def of(ds: DataSet) -> "MultiDataSet":
+        """A DataSet as a one-input, one-output MultiDataSet (what
+        ``ComputationGraph.fit`` does with one)."""
+        return MultiDataSet([ds.features], [ds.labels], [ds.features_mask],
+                            [ds.labels_mask])

@@ -35,11 +35,13 @@ of three measurements and 8-12 % lower in the other two
 interpreter lock with a host-bound loop.  A batch that cannot be staged
 raises at its position: there is no fallback to host arrays.
 
+The ``MultiDataSet`` iterators (``ListMultiDataSetIterator``,
+``AsyncMultiDataSetIterator``) feed the ComputationGraph through the same
+pipeline; staging moves every array of the features and labels lists.
 Not ported yet: ``reader_retry_from_conf`` and the ``reader.next_raw``
 fault site (the port's ``resilience`` has no retry policy or fault
-injection), and the ``MultiDataSet`` iterators (they come with the
-ComputationGraph).  Everything meters into the ``dl4j_pipeline_*`` families
-of the port's metrics registry.
+injection).  Everything meters into the ``dl4j_pipeline_*`` families of
+the port's metrics registry.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import monitor
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 
 log = logging.getLogger(__name__)
 
@@ -228,9 +230,29 @@ def _pipeline_metrics() -> dict:
 _ARRAYS = ("features", "labels", "features_mask", "labels_mask")
 
 
+def _arrays(d) -> list:
+    """The arrays of a DataSet (features, labels, masks) or of a
+    MultiDataSet (every features, labels and mask entry), in a fixed
+    order that :func:`_rebuild` reads back."""
+    if isinstance(d, MultiDataSet):
+        return [a for arrs in (d.features, d.labels, d.features_masks,
+                               d.labels_masks) for a in (arrs or [])]
+    return [getattr(d, k) for k in _ARRAYS]
+
+
+def _rebuild(d, arrays: list):
+    """``d`` with its arrays replaced, in :func:`_arrays` order."""
+    if not isinstance(d, MultiDataSet):
+        return DataSet(*arrays)
+    it = iter(arrays)
+    return MultiDataSet(*([next(it) for _ in arrs] if arrs is not None
+                          else None
+                          for arrs in (d.features, d.labels,
+                                       d.features_masks, d.labels_masks)))
+
+
 def _batch_nbytes(d) -> int:
-    arrs = [getattr(d, k) for k in _ARRAYS] if isinstance(d, DataSet) \
-        else [d]
+    arrs = _arrays(d) if isinstance(d, (DataSet, MultiDataSet)) else [d]
     return sum(int(getattr(a, "nbytes", 0) or 0) for a in arrs
                if a is not None)
 
@@ -267,8 +289,9 @@ def staging_stream(device: torch.device):
     return stream
 
 
-def stage_batch(d: DataSet, device: torch.device) -> DataSet:
-    """A DataSet's arrays on ``device``, for the caller's current stream.
+def stage_batch(d, device: torch.device):
+    """A DataSet's (or MultiDataSet's) arrays on ``device``, for the
+    caller's current stream.
     On the CPU: torch copies of the arrays.  On a CUDA device, a batch of
     fewer than :data:`PINNED_STAGING_BYTES` host bytes is copied on the
     current stream without blocking; a larger one is copied into pinned
@@ -279,16 +302,15 @@ def stage_batch(d: DataSet, device: torch.device) -> DataSet:
     (numpy's) may change once this returns.  Raises if a copy cannot be
     made."""
     device = torch.device(device)
-    arrays = [None if a is None else _host_tensor(a)
-              for a in (getattr(d, k) for k in _ARRAYS)]
+    arrays = [None if a is None else _host_tensor(a) for a in _arrays(d)]
     if device.type != "cuda":
-        return DataSet(*(None if t is None else t.to(device, copy=True)
-                         for t in arrays))
+        return _rebuild(d, [None if t is None else t.to(device, copy=True)
+                            for t in arrays])
     host_bytes = sum(t.nbytes for t in arrays
                      if t is not None and t.device.type == "cpu")
     if host_bytes < PINNED_STAGING_BYTES:
-        return DataSet(*(None if t is None else
-                         t.to(device, non_blocking=True) for t in arrays))
+        return _rebuild(d, [None if t is None else
+                            t.to(device, non_blocking=True) for t in arrays])
     stream = staging_stream(device)
     with torch.cuda.stream(stream):
         tensors = [None if t is None else
@@ -301,7 +323,7 @@ def stage_batch(d: DataSet, device: torch.device) -> DataSet:
     for t in tensors:
         if t is not None:
             t.record_stream(consumer)
-    return DataSet(*tensors)
+    return _rebuild(d, tensors)
 
 
 def _make_etl(collate, normalizer, transform):
@@ -672,3 +694,52 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def batch_size(self):
         return self.underlying.batch_size()
+
+
+class MultiDataSetIterator:
+    """Iterator contract for multi-input/output batches
+    (ref: nd4j MultiDataSetIterator consumed by ComputationGraph.fit)."""
+
+    def has_next(self) -> bool:
+        raise NotImplementedError
+
+    def next(self):
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        raise NotImplementedError
+
+    def __iter__(self):
+        self.reset()
+        while self.has_next():
+            yield self.next()
+
+
+class ListMultiDataSetIterator(MultiDataSetIterator):
+    """Pre-built MultiDataSet minibatches."""
+
+    def __init__(self, batches):
+        self._data = list(batches)
+        self._i = 0
+
+    def has_next(self):
+        return self._i < len(self._data)
+
+    def next(self):
+        d = self._data[self._i]
+        self._i += 1
+        return d
+
+    def reset(self):
+        self._i = 0
+
+
+class AsyncMultiDataSetIterator(AsyncDataSetIterator):
+    """The pipeline of :class:`AsyncDataSetIterator` for MultiDataSet
+    iterators (ref: datasets/iterator/AsyncMultiDataSetIterator.java): the
+    same feeder, workers and reorder buffer; staging moves every array of
+    the features and labels lists, and None masks stay None."""
+
+    def batch_size(self):  # MultiDataSet iterators need not expose this
+        fn = getattr(self.underlying, "batch_size", None)
+        return fn() if fn else 0

@@ -23,9 +23,13 @@ arrays: a mapping, or a callable such as the ``.h5`` reader
 ``_find_weights``, so a configuration and weight arrays built in code
 import without h5py.  h5py is imported only by the functions that read
 ``.h5`` files.  A functional (non-Sequential) model builds a
-ComputationGraph, which is not ported yet (ROADMAP A4): importing one
-raises.  Entry points build the network on the CUDA device unless the
-caller passes ``device="cpu"``.
+``ComputationGraph`` whose vertices carry the Keras layer names: Add,
+Average, Maximum, Subtract and Multiply become ``ElementWiseVertex``es,
+Concatenate a ``MergeVertex``, Flatten and Reshape name their input (the
+graph inserts the flatten before a dense layer), and an LSTM without
+``return_sequences`` is followed by a ``LastTimeStepVertex``
+``"<name>-last"``.  Entry points build the network on the CUDA device
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -37,10 +41,15 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ElementWiseVertex, GraphBuilder, LastTimeStepVertex, LayerVertex,
+    MergeVertex, PreprocessorVertex)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.conf.network import (
+    GlobalConf, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike
 
@@ -168,11 +177,22 @@ def _input_type_from_shape(shape) -> Optional[InputType]:
     return None
 
 
-def _functional_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "a functional (non-Sequential) Keras model imports as a "
-        "ComputationGraph, which is not ported to deeplearning4j_tpu_torch "
-        "yet (ROADMAP A4)")
+def _loss_of(training_config: dict) -> Optional[str]:
+    """The port's loss name for a Keras training configuration's loss."""
+    loss = training_config.get("loss")
+    if isinstance(loss, dict):
+        loss = next(iter(loss.values()), None)
+    if isinstance(loss, dict):  # keras3 serialized loss object
+        loss = loss.get("config", {}).get("name")
+    return _LOSS_MAP.get(str(loss).lower()) if loss else None
+
+
+def _read_config(path_or_json) -> dict:
+    if isinstance(path_or_json, str) and \
+            path_or_json.lstrip().startswith("{"):
+        return json.loads(path_or_json)
+    with open(path_or_json) as fh:
+        return json.load(fh)
 
 
 class KerasModelImport:
@@ -194,19 +214,16 @@ class KerasModelImport:
         return net
 
     @staticmethod
-    def import_keras_model_and_weights(path, device: DeviceLike = None
-                                       ) -> MultiLayerNetwork:
-        """A Sequential model → MultiLayerNetwork; a functional one
-        raises (its ComputationGraph is ROADMAP A4)."""
+    def import_keras_model_and_weights(path, device: DeviceLike = None):
+        """A Sequential model → MultiLayerNetwork; a functional one →
+        ComputationGraph (ref: importKerasModelAndWeights → KerasModel)."""
         import h5py
         with h5py.File(path, "r") as f:
             model_config = json.loads(f.attrs["model_config"])
-            if model_config.get("class_name") != "Sequential":
-                raise _functional_not_ported()
             training_config = (json.loads(f.attrs["training_config"])
                                if "training_config" in f.attrs else {})
-            net = KerasModelImport._build_sequential(
-                model_config, training_config, device)
+            net = KerasModelImport._build(model_config, training_config,
+                                          device)
             KerasModelImport._load_weights(
                 net, lambda name: KerasModelImport._find_weights(f, name))
         return net
@@ -216,15 +233,19 @@ class KerasModelImport:
             path_or_json, device: DeviceLike = None) -> MultiLayerNetwork:
         """The network of a Keras ``model_config`` (a JSON string or a
         file holding it), uninitialized; ``_load_weights`` fills it."""
-        if isinstance(path_or_json, str) and \
-                path_or_json.lstrip().startswith("{"):
-            model_config = json.loads(path_or_json)
-        else:
-            with open(path_or_json) as fh:
-                model_config = json.load(fh)
-        return KerasModelImport._build_sequential(model_config, {}, device)
+        return KerasModelImport._build_sequential(
+            _read_config(path_or_json), {}, device)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _build(model_config: dict, training_config: dict,
+               device: DeviceLike = None):
+        if model_config.get("class_name") == "Sequential":
+            return KerasModelImport._build_sequential(
+                model_config, training_config, device)
+        return KerasModelImport._build_functional(
+            model_config, training_config, device)
+
     @staticmethod
     def _build_sequential(model_config: dict, training_config: dict,
                           device: DeviceLike = None) -> MultiLayerNetwork:
@@ -233,12 +254,7 @@ class KerasModelImport:
                 "Use import_keras_model_and_weights for functional models")
         cfg = model_config["config"]
         layer_dicts = cfg["layers"] if isinstance(cfg, dict) else cfg
-        loss = training_config.get("loss")
-        if isinstance(loss, dict):
-            loss = next(iter(loss.values()), None)
-        if isinstance(loss, dict):  # keras3 serialized loss object
-            loss = loss.get("config", {}).get("name")
-        loss = _LOSS_MAP.get(str(loss).lower()) if loss else None
+        loss = _loss_of(training_config)
 
         mapper = KerasLayerMapper()
         input_type = None
@@ -278,6 +294,94 @@ class KerasModelImport:
         net = MultiLayerNetwork(b.build(), device=device)
         net.keras_layer_names = keras_names
         return net
+
+    @staticmethod
+    def _inbound_names(layer_dict: dict) -> List[str]:
+        """Upstream layer names from ``inbound_nodes`` (the Keras 2
+        nested-list and the Keras 3 ``keras_history`` layouts)."""
+        names: List[str] = []
+
+        def walk(obj):
+            if isinstance(obj, dict):
+                hist = obj.get("config", {}).get("keras_history") \
+                    if obj.get("class_name") == "__keras_tensor__" else None
+                if hist:
+                    names.append(hist[0])
+                    return
+                for val in obj.values():
+                    walk(val)
+            elif isinstance(obj, (list, tuple)):
+                if (len(obj) >= 3 and isinstance(obj[0], str)
+                        and isinstance(obj[1], int)
+                        and isinstance(obj[2], int)):
+                    names.append(obj[0])  # keras2 [name, node, tensor, {}]
+                    return
+                for val in obj:
+                    walk(val)
+
+        walk(layer_dict.get("inbound_nodes", []))
+        return names
+
+    @staticmethod
+    def _build_functional(model_config: dict, training_config: dict,
+                          device: DeviceLike = None) -> ComputationGraph:
+        """Functional-API configuration → ComputationGraph
+        (ref: KerasModel.java:59)."""
+        cfg = model_config["config"]
+
+        def spec_names(specs) -> List[str]:
+            # [["a", 0, 0], ["b", 0, 0]] (several) or ["a", 0, 0] (keras3)
+            if specs and isinstance(specs[0], str):
+                return [specs[0]]
+            return [sp[0] for sp in specs]
+
+        input_names = spec_names(cfg.get("input_layers", []))
+        output_names = spec_names(cfg.get("output_layers", []))
+        loss = _loss_of(training_config)
+        mapper = KerasLayerMapper()
+        b = GraphBuilder(GlobalConf()).add_inputs(*input_names)
+        alias: Dict[str, str] = {}  # keras name → vertex name
+        input_types: Dict[str, InputType] = {}
+        merges = {"Add": "add", "Average": "average", "Maximum": "max",
+                  "Subtract": "subtract", "Multiply": "product"}
+        for ld in cfg["layers"]:
+            cls = ld["class_name"]
+            lcfg = ld.get("config", {})
+            name = lcfg.get("name", ld.get("name"))
+            ins = [alias.get(i, i)
+                   for i in KerasModelImport._inbound_names(ld)]
+            if cls == "InputLayer":
+                shape = (lcfg.get("batch_shape")
+                         or lcfg.get("batch_input_shape"))
+                it = _input_type_from_shape(shape[1:]) if shape else None
+                if it:
+                    input_types[name] = it
+                alias[name] = name
+                continue
+            if cls in merges:
+                b.add_vertex(name, ElementWiseVertex(op=merges[cls]), *ins)
+                alias[name] = name
+                continue
+            if cls in ("Concatenate", "Merge"):
+                b.add_vertex(name, MergeVertex(), *ins)
+                alias[name] = name
+                continue
+            layer = (None if cls in ("Flatten", "Reshape") else
+                     mapper.map(cls, lcfg, name in output_names, loss))
+            if layer is None:
+                # structural only: the flatten before a dense layer is
+                # inserted by the graph
+                alias[name] = ins[0]
+                continue
+            b.add_layer(name, layer, *ins)
+            alias[name] = name
+            if cls == "LSTM" and not lcfg.get("return_sequences", False):
+                b.add_vertex(f"{name}-last", LastTimeStepVertex(), name)
+                alias[name] = f"{name}-last"
+        b.set_outputs(*[alias.get(n, n) for n in output_names])
+        if input_types:
+            b.set_input_types(*[input_types[n] for n in input_names])
+        return ComputationGraph(b.build(), device=device)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -366,22 +470,40 @@ class KerasModelImport:
                 {k: tensor(v) for k, v in state.items()})
 
     @staticmethod
-    def _load_weights(net: MultiLayerNetwork, weights: WeightLookup) -> None:
+    def _load_weights(net, weights: WeightLookup) -> None:
         """``net.init()``, then each Keras-named layer's params and state
         from ``weights``: a mapping or a callable from a Keras layer name
-        to its dict of arrays (a name it lacks keeps the layer's init)."""
+        to its dict of arrays (a name it lacks keeps the layer's init).
+        A MultiLayerNetwork's layers carry their Keras names in
+        ``keras_layer_names``; a ComputationGraph's vertices are named by
+        them, and a dense vertex takes the flatten of an upstream
+        ``PreprocessorVertex`` (the graph's ``"-cnn2ff"``)."""
         lookup = weights if callable(weights) else \
             (lambda name: weights.get(name, {}))
         net.init()
-        for li, (layer, kname) in enumerate(zip(net.layers,
-                                                net.keras_layer_names)):
+        if isinstance(net, ComputationGraph):
+            slots = []
+            for name in net.order:
+                v = net.conf.vertices[name]
+                if not isinstance(v, LayerVertex):
+                    continue
+                up = net.conf.vertices.get(
+                    (net.conf.vertex_inputs[name] or [None])[0])
+                slots.append((name, v.layer_conf(), name,
+                              up.proc() if isinstance(up, PreprocessorVertex)
+                              else None))
+        else:
+            slots = [(li, layer, kname, net.conf.preprocessors.get(li))
+                     for li, (layer, kname) in enumerate(
+                         zip(net.layers, net.keras_layer_names))]
+        for key, layer, kname, proc in slots:
             if kname is None or not layer.has_params():
                 continue
             w = lookup(kname)
             if not w:
                 continue
             p, s = KerasModelImport._map_layer_weights(
-                layer, w, net.net_params[li], net.net_state[li], net.device,
-                flatten_proc=net.conf.preprocessors.get(li))
-            net.net_params[li] = p
-            net.net_state[li] = s
+                layer, w, net.net_params[key], net.net_state[key],
+                net.device, flatten_proc=proc)
+            net.net_params[key] = p
+            net.net_state[key] = s

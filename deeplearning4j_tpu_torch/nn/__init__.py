@@ -1,2 +1,3 @@
-"""Network engine of the port: configurations, the MultiLayerNetwork,
-the flat parameter view, the zip format and the bridge from JAX params."""
+"""Network engine of the port: configurations, the MultiLayerNetwork and
+the ComputationGraph, the flat parameter view, the zip format and the
+bridge from JAX params."""

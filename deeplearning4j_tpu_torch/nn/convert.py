@@ -4,14 +4,16 @@ The port keeps the JAX package's layouts (OIHW conv weights, dense ``W``
 as [n_in, n_out]) and its updater-state structure (per layer ``()`` or a
 dict of dicts of arrays), so a JAX ``MultiLayerNetwork``'s ``net_params``
 and ``opt_states`` map onto the port's one to one, and so does its
-``net_state`` (batch norm's running ``mean`` / ``var``, RNN carries).  The caller hands them
-over as numpy arrays (``np.asarray`` of each leaf); this module imports
-nothing of JAX.
+``net_state`` (batch norm's running ``mean`` / ``var``, RNN carries).  A
+JAX ``ComputationGraph`` keeps the same per-layer entries in dicts keyed
+by vertex name, and each function here takes that form too, returning a
+dict.  The caller hands them over as numpy arrays (``np.asarray`` of each
+leaf); this module imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -19,13 +21,22 @@ import torch
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
 
 
-def params_from_jax(jax_params: List[Dict[str, np.ndarray]],
-                    device: DeviceLike = None) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer param dicts of numpy arrays → float32 tensors on
-    ``device`` (the CUDA device unless the caller asks for the CPU)."""
+def _per_entry(entries, fn):
+    """``fn`` over each layer's (or vertex's) entry, keeping a list a
+    list and a dict keyed by vertex name a dict."""
+    if isinstance(entries, Mapping):
+        return {name: fn(e) for name, e in entries.items()}
+    return [fn(e) for e in entries]
+
+
+def params_from_jax(jax_params, device: DeviceLike = None):
+    """Per-layer (list) or per-vertex (dict) param dicts of numpy arrays →
+    float32 tensors on ``device`` (the CUDA device unless the caller asks
+    for the CPU)."""
     dev = resolve_device(device)
-    return [{k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-             for k, v in lp.items()} for lp in jax_params]
+    return _per_entry(jax_params, lambda lp: {
+        k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+        for k, v in lp.items()})
 
 
 def _to_torch(tree, dev):
@@ -36,18 +47,20 @@ def _to_torch(tree, dev):
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(dev)
 
 
-def opt_states_from_jax(jax_opt_states: List[Any],
-                        device: DeviceLike = None) -> List[Any]:
-    """Per-layer updater states of numpy arrays (``()`` for SGD, else
-    e.g. ``{"m": {"W": ..., "b": ...}, "v": {...}}``) → the same structure
-    of float32 tensors on ``device``."""
-    return _to_torch(list(jax_opt_states), resolve_device(device))
-
-
-def state_from_jax(jax_state: List[Dict[str, Any]],
-                   device: DeviceLike = None) -> List[Dict[str, Any]]:
-    """Per-layer state dicts of numpy arrays (a JAX ``net_state``: batch
-    norm's ``{"mean", "var"}``, ``{}`` for stateless layers) → the same
-    structure of float32 tensors on ``device``."""
+def opt_states_from_jax(jax_opt_states, device: DeviceLike = None):
+    """Per-layer (list) or per-vertex (dict) updater states of numpy
+    arrays (``()`` for SGD, else e.g. ``{"m": {"W": ..., "b": ...}, "v":
+    {...}}``) → the same structure of float32 tensors on ``device``."""
     dev = resolve_device(device)
-    return [_to_torch(dict(s), dev) for s in jax_state]
+    if isinstance(jax_opt_states, Mapping):
+        return _per_entry(jax_opt_states, lambda o: _to_torch(o, dev))
+    return _to_torch(list(jax_opt_states), dev)
+
+
+def state_from_jax(jax_state, device: DeviceLike = None):
+    """Per-layer (list) or per-vertex (dict) state dicts of numpy arrays
+    (a JAX ``net_state``: batch norm's ``{"mean", "var"}``, ``{}`` for
+    stateless layers) → the same structure of float32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return _per_entry(jax_state, lambda s: _to_torch(dict(s), dev))

@@ -1,0 +1,598 @@
+"""ComputationGraph — the port of ``deeplearning4j_tpu/nn/graph.py``:
+networks over a DAG of vertices, with several inputs and outputs.
+
+(ref: nn/graph/ComputationGraph.java: topologicalOrder :122, init :312,
+fit(MultiDataSetIterator) :828, feedForward :1212.)  The vertices run
+eagerly, one after another in the configuration's topological order, on
+the graph's device (CUDA unless the caller asks for the CPU); a training
+step sums the output layers' losses (the mean over the batch for
+``mini_batch``, else the sum, plus l1/l2) and takes its gradient by
+autograd, then updates each vertex's params with its layer's learning
+rule (gradient normalization, LR schedule).
+
+Params, layer state (batch norm's running statistics) and updater state
+are dicts keyed by vertex name, the JAX package's layout; ``params()``
+and ``updater_state_flat()`` flatten them in topological order (the
+zip's ``coefficients.bin`` and ``updaterState.bin``, byte for byte the
+JAX package's).  A step's dropout randomness is an explicit ``[n_vertices,
+2]`` array of uint32 seed words, one row per vertex in topological order
+(vertices without params included, as JAX folds the step's key with the
+vertex's index), drawn from the graph's own generator unless the caller
+passes it.  ``fit`` wraps an iterator in ``AsyncMultiDataSetIterator`` as
+``MultiLayerNetwork.fit`` wraps its own, staging each batch onto the
+device as the step takes it.  Updater state is made at the first
+training step or restore, so a graph that only serves holds none.
+
+Not ported yet: truncated BPTT and ``rnn_time_step`` of a graph,
+``fit(fused_steps=K)``, ``pretrain``, ``backprop_gradient`` /
+``apply_gradients``, ``quantize_inference``, ``feed_forward``,
+``summary``, ``clone``, frozen vertices (transfer learning), gradient
+checkpointing, sharding and listeners.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    AsyncDataSetIterator, AsyncMultiDataSetIterator)
+from deeplearning4j_tpu_torch.nn import params as param_util
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ComputationGraphConfiguration, DuplicateToTimeSeriesVertex,
+    LastTimeStepVertex, LayerVertex)
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    BaseOutputLayer, EmbeddingLayer, GravesBidirectionalLSTM, GravesLSTM,
+    LossLayer, RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    BIAS_KEYS, WEIGHT_KEYS, _detach, _tree_fill, _tree_leaves, _updater_for)
+from deeplearning4j_tpu_torch.ops import bucketing
+from deeplearning4j_tpu_torch.ops import updaters as upd_ops
+from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
+
+
+def _strip_rnn(state: Dict[str, dict]) -> Dict[str, dict]:
+    return {n: {k: v for k, v in s.items() if k != "rnn_state"}
+            for n, s in state.items()}
+
+
+class ComputationGraph:
+    def __init__(self, conf: ComputationGraphConfiguration,
+                 device: DeviceLike = None):
+        self.conf = conf
+        self.order = conf.topological_order()
+        self.device = resolve_device(device)
+        self.net_params: Optional[Dict[str, dict]] = None
+        self.net_state: Dict[str, dict] = {n: {} for n in self.order}
+        self.opt_states: Optional[Dict[str, object]] = None
+        vertices = conf.vertices
+        self.updaters = {
+            n: (_updater_for(vertices[n].layer_conf())
+                if isinstance(vertices[n], LayerVertex)
+                else upd_ops.make("sgd")) for n in self.order}
+        self.iteration = 0
+        self.epoch = 0
+        self._score = float("nan")
+        self._generator = torch.Generator().manual_seed(
+            int(conf.global_conf.seed))
+        # the loss heads, by name, in the order of conf.network_outputs
+        self.output_layers = {}
+        for n in conf.network_outputs:
+            v = vertices[n]
+            if isinstance(v, LayerVertex) and isinstance(
+                    v.layer_conf(), (BaseOutputLayer, LossLayer)):
+                self.output_layers[n] = v.layer_conf()
+        # how many vertices read each activation: the forward drops an
+        # activation once its last reader has run
+        self._readers: Dict[str, int] = {}
+        for n in self.order:
+            for i in self._reads(n):
+                self._readers[i] = self._readers.get(i, 0) + 1
+        self._embedding_inputs = {
+            i for n in self.order for i in conf.vertex_inputs[n]
+            if i in conf.network_inputs
+            and isinstance(vertices[n], LayerVertex)
+            and isinstance(vertices[n].layer_conf(), EmbeddingLayer)}
+
+    def _reads(self, name: str) -> List[str]:
+        """The activations vertex ``name`` takes: its inputs, and for a
+        DuplicateToTimeSeriesVertex of one input its reference sequence."""
+        v = self.conf.vertices[name]
+        ins = list(self.conf.vertex_inputs[name])
+        if isinstance(v, DuplicateToTimeSeriesVertex) and v.ts_input \
+                and len(ins) == 1:
+            ins.append(v.ts_input)
+        return ins
+
+    # ------------------------------------------------------------------
+    def init(self, generator: Optional[torch.Generator] = None
+             ) -> "ComputationGraph":
+        """Draw every vertex's params and set its initial state, in
+        topological order.  Without a generator the draws come from a CPU
+        generator seeded with the configuration's seed."""
+        conf = self.conf
+        if generator is None:
+            generator = torch.Generator().manual_seed(
+                int(conf.global_conf.seed))
+        types: Dict[str, InputType] = {}
+        if conf.input_types:
+            types.update(zip(conf.network_inputs, conf.input_types))
+        params, states = {}, {}
+        for name in self.order:
+            v = conf.vertices[name]
+            in_types = [types.get(i) for i in conf.vertex_inputs[name]]
+            if any(t is None for t in in_types):
+                in_types = [self._declared_input_type(name)]
+            states[name] = v.initial_state(in_types, self.device)
+            params[name], types[name] = v.initialize(generator, in_types,
+                                                     self.device)
+        self.net_params, self.net_state = params, states
+        return self
+
+    def _declared_input_type(self, name: str) -> InputType:
+        """A vertex's input type from its layer's ``n_in`` when the graph
+        declares no input types (the JAX package's best effort)."""
+        v = self.conf.vertices[name]
+        n_in = (getattr(v.layer_conf(), "n_in", None)
+                if isinstance(v, LayerVertex) else None)
+        if not n_in:
+            raise ValueError(
+                f"Vertex '{name}': upstream type unknown — call "
+                f"set_input_types() on the GraphBuilder or set n_in")
+        if isinstance(v.layer_conf(), (GravesLSTM, GravesBidirectionalLSTM,
+                                       RnnOutputLayer)):
+            return InputType.recurrent(n_in)
+        return InputType.feed_forward(n_in)
+
+    def load_jax_params(self, jax_params) -> "ComputationGraph":
+        """Take the params of a JAX ``ComputationGraph`` (its
+        ``net_params``, a dict by vertex of numpy arrays) — same layouts."""
+        from deeplearning4j_tpu_torch.nn.convert import params_from_jax
+        self.net_params = params_from_jax(dict(jax_params), self.device)
+        return self
+
+    def load_jax_state(self, jax_state) -> "ComputationGraph":
+        """Take the vertex states of a JAX ``ComputationGraph`` (its
+        ``net_state``): batch norm's running statistics."""
+        from deeplearning4j_tpu_torch.nn.convert import state_from_jax
+        self.net_state = state_from_jax(dict(jax_state), self.device)
+        return self
+
+    # ------------------------------------------------------------------
+    def _as_float(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32).to(self.device)
+
+    def _as_input(self, name: str, x) -> torch.Tensor:
+        """Features as float32 on the graph's device; integer indices stay
+        integers when an EmbeddingLayer reads this input."""
+        if name in self._embedding_inputs:
+            t = torch.as_tensor(x)
+            if not torch.is_floating_point(t):
+                return t.to(device=self.device, dtype=torch.int64)
+        return self._as_float(x)
+
+    def _inputs(self, features: Sequence) -> Dict[str, torch.Tensor]:
+        return {n: self._as_input(n, x)
+                for n, x in zip(self.conf.network_inputs, features)}
+
+    def _masks(self, masks) -> Optional[List[Optional[torch.Tensor]]]:
+        if masks is None:
+            return None
+        return [None if m is None else self._as_float(m) for m in masks]
+
+    def _forward_all(self, params, state, inputs: Dict[str, torch.Tensor],
+                     masks: Dict[str, Optional[torch.Tensor]], train: bool,
+                     seeds=None, preout_for: Sequence[str] = ()):
+        """Every vertex in topological order -> (activations of the
+        network outputs, pre-activations of the vertices in
+        ``preout_for``, new states, output masks).  A vertex in
+        ``preout_for`` (an output layer) records its PRE-activation (the
+        stable fused losses work on it) and, in training, drops its
+        input; in training vertex ``vi`` gets the seed words
+        ``seeds[vi]``.  An activation is dropped once its last reader has
+        run, so a training step holds only what autograd saves."""
+        acts = dict(inputs)
+        out_masks = dict(masks)
+        new_states: Dict[str, dict] = {}
+        preouts: Dict[str, torch.Tensor] = {}
+        remaining = dict(self._readers)
+        keep = set(self.conf.network_outputs)
+        for vi, name in enumerate(self.order):
+            v = self.conf.vertices[name]
+            reads = self._reads(name)
+            ins = [acts[i] for i in reads]
+            ms = [out_masks.get(i) for i in reads]
+            # named-input semantics (ref: rnn/LastTimeStepVertex.java takes
+            # its mask from a NAMED network input)
+            if isinstance(v, LastTimeStepVertex) and v.mask_input:
+                ms = [out_masks.get(v.mask_input)]
+            seed = None if seeds is None else seeds[vi]
+            if name in preout_for:
+                lc = v.layer_conf()
+                x = ins[0]
+                if train:
+                    x = lc._maybe_dropout(x, True, seed)
+                pre = lc.preoutput(
+                    lc._maybe_drop_connect(params[name], train, seed), x)
+                preouts[name] = pre
+                new_states[name] = state[name]
+                if self._readers.get(name):
+                    acts[name] = lc._act(pre)
+                out_masks[name] = ms[0] if ms else None
+            else:
+                y, ns, m = v.forward(params[name], state[name], ins, train,
+                                     seed, ms)
+                acts[name] = y
+                new_states[name] = ns
+                out_masks[name] = m
+            for i in reads:
+                remaining[i] -= 1
+                if remaining[i] == 0 and i not in keep:
+                    acts.pop(i, None)
+        return ({n: acts[n] for n in self.conf.network_outputs if n in acts},
+                preouts, new_states, out_masks)
+
+    def _reg_penalty(self, params):
+        """l1/l2 on the layer vertices' weights and biases (zero unless
+        the configuration enables regularization)."""
+        total = 0.0
+        for name in self.order:
+            v = self.conf.vertices[name]
+            if not isinstance(v, LayerVertex):
+                continue
+            layer = v.layer_conf()
+            l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
+            l1b, l2b = layer.l1_bias or 0.0, layer.l2_bias or 0.0
+            for k, val in params[name].items():
+                a, b = ((l1, l2) if k in WEIGHT_KEYS
+                        else (l1b, l2b) if k in BIAS_KEYS else (0.0, 0.0))
+                if a:
+                    total = total + a * torch.sum(torch.abs(val))
+                if b:
+                    total = total + 0.5 * b * torch.sum(val * val)
+        return total
+
+    @staticmethod
+    def _resolve_label_mask(preout, lm, out_mask):
+        """The label mask of one output: the given one, else the output's
+        own mask when it is a per-step mask; an expanded [N, T, 1] time
+        mask is squeezed (the JAX package's rule)."""
+        if lm is None:
+            lm = out_mask if (out_mask is not None
+                              and out_mask.ndim == preout.ndim - 1) else None
+        if lm is not None and preout.ndim == 3 and lm.ndim == 3 \
+                and lm.shape[-1] == 1:
+            lm = lm[..., 0]
+        return lm
+
+    def _per_example_scores(self, preouts, out_masks, ys, lmasks):
+        """Per output layer, its loss of each example."""
+        out = {}
+        for oi, name in enumerate(self.conf.network_outputs):
+            lc = self.output_layers.get(name)
+            if lc is None:
+                continue
+            pre = preouts[name]
+            lm = self._resolve_label_mask(
+                pre, lmasks[oi] if lmasks is not None else None,
+                out_masks.get(name))
+            out[name] = lc.compute_score(ys[oi], pre, lm)
+        return out
+
+    def _score_of(self, params, preouts, out_masks, ys, lmasks):
+        """The summed output losses (each the mean over the batch for
+        ``mini_batch``, else the sum) plus l1/l2."""
+        mean = self.conf.global_conf.mini_batch
+        score = 0.0
+        for per_ex in self._per_example_scores(preouts, out_masks, ys,
+                                               lmasks).values():
+            score = score + (per_ex.mean() if mean else per_ex.sum())
+        return score + self._reg_penalty(params)
+
+    # ------------------------------------------------------------------
+    def output(self, *inputs):
+        """The network outputs for a batch (one array or tensor per
+        network input), as a tuple of tensors on the graph's device, one
+        per network output; no stored RNN state is used."""
+        if self.net_params is None:
+            self.init()
+        with torch.inference_mode():
+            outs, _, _, _ = self._forward_all(
+                self.net_params, _strip_rnn(self.net_state),
+                self._inputs(inputs), {}, False)
+        return tuple(outs[n] for n in self.conf.network_outputs)
+
+    def warmup_inference(self, feature_dims, max_batch: int = 32,
+                         batch_sizes=None) -> dict:
+        """Run ``output`` once for every batch bucket of the serving
+        ladder (``ops/bucketing.warmup_ladder``), so first requests do
+        not pay for the kernel build, the libraries' first calls or the
+        allocator's first allocations.  ``feature_dims`` is one
+        per-example shape per network input (a single shape is used for
+        all of them)."""
+        if self.net_params is None:
+            self.init()
+        dims = list(feature_dims)
+        if not dims or not isinstance(dims[0], (tuple, list)):
+            dims = [tuple(dims)] * len(self.conf.network_inputs)
+        dims = [tuple(int(d) for d in t) for t in dims]
+        ladder = bucketing.warmup_ladder(
+            batch_sizes or self.conf.global_conf.bucket_batch_sizes,
+            max_batch)
+        t0 = time.perf_counter()
+        for nb in ladder:
+            self.output(*[torch.zeros((nb,) + t, device=self.device)
+                          for t in dims])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"buckets": ladder,
+                "warmup_sec": round(time.perf_counter() - t0, 3)}
+
+    # ---- training ----
+    def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
+        """fit(MultiDataSet | DataSet | iterator | (features, labels))
+        (ref: ComputationGraph.fit :828): ``epochs`` passes, one training
+        step per batch.  An iterator (of DataSets or MultiDataSets) that is
+        not already asynchronous is wrapped in an
+        ``AsyncMultiDataSetIterator`` with ``pipeline_workers`` workers,
+        ``pipeline_prefetch`` raw batches queued and at most
+        ``pipeline_staging_depth`` transformed batches waiting, unless
+        ``pipeline_workers`` is 0; each batch is staged onto the graph's
+        device as the step takes it, and the pipeline is closed on
+        return."""
+        if labels is not None:
+            data = MultiDataSet([np.asarray(data)], [np.asarray(labels)])
+        if isinstance(data, DataSet):
+            data = MultiDataSet.of(data)
+        if self.net_params is None:
+            self.init()
+        if isinstance(data, MultiDataSet):
+            for _ in range(epochs):
+                self._fit_batch(data)
+                self.epoch += 1
+            return self
+        it = data
+        g = self.conf.global_conf
+        if (g.pipeline_workers > 0
+                and not isinstance(it, AsyncDataSetIterator)
+                and getattr(it, "async_supported", lambda: True)()):
+            it = AsyncMultiDataSetIterator(
+                it, queue_size=g.pipeline_prefetch,
+                workers=g.pipeline_workers,
+                staging_depth=g.pipeline_staging_depth, device=self.device,
+                transform=_as_multi)
+        # the MultiDataSetIterator protocol where there is one; a plain
+        # iterable works too
+        has_protocol = (callable(getattr(it, "has_next", None))
+                        and callable(getattr(it, "next", None)))
+        try:
+            for _ in range(epochs):
+                if callable(getattr(it, "reset", None)):
+                    it.reset()
+                if has_protocol:
+                    while it.has_next():
+                        self._fit_batch(_as_multi(it.next()))
+                else:
+                    for item in it:
+                        self._fit_batch(_as_multi(item))
+                self.epoch += 1
+        finally:
+            if isinstance(it, AsyncDataSetIterator):
+                it.close()
+        return self
+
+    def _draw_seeds(self) -> torch.Tensor:
+        """One step's dropout seed words, [n_vertices, 2] uint32 values
+        (as int64), from the graph's generator."""
+        return torch.randint(0, 1 << 32, (len(self.order), 2),
+                             generator=self._generator, dtype=torch.int64)
+
+    def _fit_batch(self, mds, seeds=None) -> None:
+        """One training step on ``mds`` (a MultiDataSet or DataSet);
+        ``seeds`` gives its dropout seed words ([n_vertices, 2]), else
+        they are drawn from the graph's generator."""
+        mds = _as_multi(mds)
+        if self.conf.backprop_type == "truncatedbptt" and \
+                any(np.ndim(f) == 3 for f in mds.features):
+            raise NotImplementedError(
+                "truncated BPTT of a ComputationGraph is not ported to "
+                "deeplearning4j_tpu_torch yet (ROADMAP A6)")
+        if not self.output_layers:
+            raise ValueError("ComputationGraph.fit() needs >=1 output layer "
+                             "vertex (OutputLayer/LossLayer)")
+        if self.net_params is None:
+            self.init()
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        step_seeds = (self._draw_seeds() if seeds is None else
+                      np.asarray(seeds, dtype=np.int64).reshape(
+                          len(self.order), 2)).tolist()
+        score, grads = self._grad_step(
+            self._inputs(mds.features),
+            [self._as_float(y) for y in mds.labels],
+            self._masks(mds.features_masks), self._masks(mds.labels_masks),
+            step_seeds)
+        self._apply_updates(grads, self.iteration)
+        self.rnn_clear_previous_state()
+        self._score = score
+        self.iteration += 1
+
+    def _grad_step(self, xs: Dict[str, torch.Tensor], ys, fmasks, lmasks,
+                   seeds):
+        """Score of the batch and its gradient per vertex and param; the
+        vertices' new states (detached) replace ``net_state``, as the JAX
+        step returns them."""
+        params = {n: {k: v.detach().requires_grad_() for k, v in lp.items()}
+                  for n, lp in self.net_params.items()}
+        masks = (dict(zip(self.conf.network_inputs, fmasks))
+                 if fmasks is not None else {})
+        with torch.enable_grad():
+            _, preouts, new_states, out_masks = self._forward_all(
+                params, self.net_state, xs, masks, True, seeds,
+                preout_for=list(self.output_layers))
+            score = self._score_of(params, preouts, out_masks, ys, lmasks)
+            if not self.conf.global_conf.minimize:
+                score = -score
+            flat = iter(torch.autograd.grad(
+                score, [v for lp in params.values() for v in lp.values()]))
+        grads = {n: {k: next(flat) for k in lp} for n, lp in params.items()}
+        self.net_state = _detach(new_states)
+        return score.detach(), grads
+
+    def _init_opt_states(self) -> Dict[str, object]:
+        return {n: self.updaters[n].init(self.net_params[n])
+                for n in self.order}
+
+    @torch.no_grad()
+    def _apply_updates(self, grads, it: int) -> None:
+        """Per vertex with a gradient: gradient normalization and the LR
+        (its layer's, else the global one) under the LR schedule, the
+        learning rule, then params -= update, in place."""
+        g = self.conf.global_conf
+        for name in self.order:
+            gi = grads.get(name)
+            if not gi:
+                continue
+            v = self.conf.vertices[name]
+            layer = v.layer_conf() if isinstance(v, LayerVertex) else None
+            base = g.learning_rate
+            if layer is not None:
+                gi = upd_ops.normalize_gradient(
+                    gi, layer.gradient_normalization,
+                    layer.gradient_normalization_threshold or 1.0)
+                if layer.learning_rate is not None:
+                    base = layer.learning_rate
+            lr = upd_ops.schedule_lr(
+                base, g.lr_policy, it, decay_rate=g.lr_policy_decay_rate,
+                steps=g.lr_policy_steps, power=g.lr_policy_power,
+                schedule_map=g.learning_rate_schedule)
+            upd, self.opt_states[name] = self.updaters[name].apply(
+                gi, self.opt_states[name], lr, it)
+            for k, u in upd.items():
+                self.net_params[name][k].sub_(u)
+
+    # ---- scores and evaluation ----
+    def _inference_preouts(self, mds: MultiDataSet):
+        with torch.inference_mode():
+            fm = self._masks(mds.features_masks)
+            masks = (dict(zip(self.conf.network_inputs, fm))
+                     if fm is not None else {})
+            _, preouts, _, out_masks = self._forward_all(
+                self.net_params, _strip_rnn(self.net_state),
+                self._inputs(mds.features), masks, False,
+                preout_for=list(self.output_layers))
+        return preouts, out_masks
+
+    def score(self, data=None) -> float:
+        """The loss of a DataSet or MultiDataSet (inference forward, l1/l2
+        included), or the score of the last training step."""
+        if data is None:
+            return float(self._score)
+        mds = _as_multi(data)
+        preouts, out_masks = self._inference_preouts(mds)
+        with torch.inference_mode():
+            return float(self._score_of(
+                self.net_params, preouts, out_masks,
+                [self._as_float(y) for y in mds.labels],
+                self._masks(mds.labels_masks)))
+
+    def score_examples(self, data, add_regularization_terms: bool = False
+                       ) -> np.ndarray:
+        """Per-example scores without minibatch averaging, summed over the
+        output layers (ref: ComputationGraph.scoreExamples);
+        ``add_regularization_terms`` adds the l1/l2 penalty to every
+        example's score.  Takes a DataSet, a MultiDataSet or an iterator
+        of them; returns a 1-D array over all examples."""
+        if self.net_params is None:
+            self.init()
+        batches = ([data] if isinstance(data, (DataSet, MultiDataSet))
+                   else data)
+        out = []
+        for item in batches:
+            mds = _as_multi(item)
+            preouts, out_masks = self._inference_preouts(mds)
+            with torch.inference_mode():
+                per = sum(self._per_example_scores(
+                    preouts, out_masks,
+                    [self._as_float(y) for y in mds.labels],
+                    self._masks(mds.labels_masks)).values())
+                if add_regularization_terms:
+                    per = per + self._reg_penalty(self.net_params)
+            out.append(per.cpu().numpy())
+        return np.concatenate(out)
+
+    def evaluate(self, iterator_or_dataset, output_idx: int = 0
+                 ) -> Evaluation:
+        """Classification evaluation of output ``output_idx`` over every
+        batch (a DataSet, a MultiDataSet or an iterator of them)."""
+        ev = Evaluation()
+        if isinstance(iterator_or_dataset, (DataSet, MultiDataSet)):
+            batches = [iterator_or_dataset]
+        else:
+            iterator_or_dataset.reset()
+            batches = iterator_or_dataset
+        for item in batches:
+            mds = _as_multi(item)
+            outs = self.output(*mds.features)
+            ev.eval(mds.labels[output_idx], outs[output_idx])
+        return ev
+
+    def rnn_clear_previous_state(self) -> None:
+        """Drop any stored RNN carry (ref: rnnClearPreviousState :1608)."""
+        self.net_state = _strip_rnn(self.net_state)
+
+    # ---- flat views ----
+    def params(self) -> torch.Tensor:
+        """Flat 1-D param vector: vertices in topological order."""
+        return param_util.flatten([self.net_params[n] for n in self.order])
+
+    def set_params(self, flat) -> None:
+        new = param_util.unflatten(flat, [self.net_params[n]
+                                          for n in self.order])
+        self.net_params = dict(zip(self.order, new))
+
+    def num_params(self) -> int:
+        return param_util.num_params([self.net_params[n]
+                                      for n in self.order])
+
+    n_params = property(num_params)
+
+    def updater_state_flat(self) -> torch.Tensor:
+        """The updater state as one flat vector, in the JAX package's
+        ``tree_leaves`` order over the vertices in topological order (the
+        ``updaterState.bin`` layout)."""
+        leaves = _tree_leaves([self.opt_states[n] for n in self.order]
+                              if self.opt_states else [])
+        if not leaves:
+            return torch.zeros((0,), dtype=torch.float32)
+        return torch.cat([l.reshape(-1) for l in leaves])
+
+    def set_updater_state_flat(self, flat) -> None:
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        flat = torch.as_tensor(flat, dtype=torch.float32).reshape(-1)
+        ordered = [self.opt_states[n] for n in self.order]
+        leaves = _tree_leaves(ordered)
+        n = sum(l.numel() for l in leaves)
+        if flat.numel() != n:
+            raise ValueError(f"Updater state size mismatch: model {n} vs "
+                             f"flat {flat.numel()}")
+        parts, off = [], 0
+        for l in leaves:
+            parts.append(flat[off:off + l.numel()].reshape(l.shape).to(
+                device=l.device, dtype=l.dtype).clone())
+            off += l.numel()
+        self.opt_states = dict(zip(self.order,
+                                   _tree_fill(ordered, iter(parts))))
+
+
+def _as_multi(item):
+    """A DataSet as a one-input, one-output MultiDataSet; a MultiDataSet
+    as it is."""
+    return MultiDataSet.of(item) if isinstance(item, DataSet) else item

@@ -1,5 +1,5 @@
 """The ModelSerializer zip — the port of ``deeplearning4j_tpu/nn/serialization.py``
-for MultiLayerNetwork.
+for MultiLayerNetwork and ComputationGraph.
 
 A zip holding ``configuration.json`` (the configuration dict tagged with
 ``"@model"``), ``coefficients.bin`` (the flat param vector of
@@ -8,8 +8,10 @@ updater state, ``updaterState.bin`` (that state flattened in the JAX
 package's ``tree_leaves`` order, little-endian float32).  The format is
 the JAX package's byte for byte: a zip either package writes restores in
 the other, and re-writing a restored model gives the same
-``coefficients.bin`` and ``updaterState.bin``.  A ComputationGraph zip,
-or one the original Java DL4J wrote, raises.
+``coefficients.bin`` and ``updaterState.bin`` (a graph's flattened in
+its topological order).  ``load_model`` tells the two apart by the
+configuration (``is_graph_conf``).  A zip the original Java DL4J wrote
+raises: its migration is not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -59,26 +61,54 @@ def restore_multi_layer_network(path: Union[str, Path],
         MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
+    conf_dict, flat, upd = _read_zip(path, load_updater)
+    if "confs" in conf_dict:
+        raise _java_zip()
+    return _restored(MultiLayerNetwork(
+        MultiLayerConfiguration.from_dict(conf_dict), device=device),
+        flat, upd)
+
+
+def restore_computation_graph(path: Union[str, Path],
+                              device: DeviceLike = None,
+                              load_updater: bool = True):
+    """(ref: ModelSerializer.restoreComputationGraph)"""
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf_dict, flat, upd = _read_zip(path, load_updater)
+    if "networkInputs" in conf_dict:
+        raise _java_zip()
+    return _restored(ComputationGraph(
+        ComputationGraphConfiguration.from_dict(conf_dict), device=device),
+        flat, upd)
+
+
+def _read_zip(path, load_updater: bool):
+    """(configuration dict without its ``@model`` tag, flat params, flat
+    updater state or None) of a zip."""
     with zipfile.ZipFile(path, "r") as zf:
         conf_dict = json.loads(zf.read(CONFIG_NAME))
-        if "confs" in conf_dict:
-            raise NotImplementedError(
-                "a zip written by the Java DL4J: its migration is not "
-                "ported to deeplearning4j_tpu_torch yet")
-        if is_graph_conf(conf_dict):
-            raise NotImplementedError(
-                "ComputationGraph is not ported to deeplearning4j_tpu_torch "
-                "yet")
         conf_dict.pop("@model", None)
         flat = np.frombuffer(zf.read(COEFFICIENTS_NAME), dtype="<f4")
         upd = (np.frombuffer(zf.read(UPDATER_NAME), dtype="<f4")
                if load_updater and UPDATER_NAME in zf.namelist() else None)
-    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_dict),
-                            device=device).init()
+    return conf_dict, flat, upd
+
+
+def _restored(net, flat, upd):
+    net.init()
     net.set_params(flat.copy())
     if upd is not None:
         net.set_updater_state_flat(upd.copy())
     return net
+
+
+def _java_zip() -> NotImplementedError:
+    return NotImplementedError(
+        "a zip written by the Java DL4J: its migration is not ported to "
+        "deeplearning4j_tpu_torch yet (ROADMAP A6)")
 
 
 def read_updater_state(path: Union[str, Path]):
@@ -92,7 +122,10 @@ def read_updater_state(path: Union[str, Path]):
 
 def load_model(path: Union[str, Path], device: DeviceLike = None,
                load_updater: bool = True):
-    """Restore a model zip (ref: util/ModelGuesser.java); only the
-    MultiLayerNetwork is ported."""
-    return restore_multi_layer_network(path, device=device,
-                                       load_updater=load_updater)
+    """Restore a model zip, a MultiLayerNetwork or a ComputationGraph by
+    its configuration (ref: util/ModelGuesser.java)."""
+    with zipfile.ZipFile(path, "r") as zf:
+        conf_dict = json.loads(zf.read(CONFIG_NAME))
+    restore = (restore_computation_graph if is_graph_conf(conf_dict)
+               else restore_multi_layer_network)
+    return restore(path, device=device, load_updater=load_updater)

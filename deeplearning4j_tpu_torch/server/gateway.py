@@ -5,8 +5,10 @@ JSON-RPC over HTTP around :class:`DeepLearning4jEntryPoint`:
     POST / {"method": "predict", "params": {...}}
         → {"result": {...}} or {"error": "..."}
 
-``predict(features=...)`` serves a saved MultiLayerNetwork zip: the model
-comes from the :class:`ModelCache` (loaded and warmed once), concurrent
+``predict(features=...)`` serves a saved MultiLayerNetwork or
+ComputationGraph zip (a graph serves its first output, as the JAX
+gateway does): the model comes from the :class:`ModelCache` (loaded and
+warmed once), concurrent
 requests coalesce through one :class:`MicroBatcher` per model, and
 admission control rejects a request that would push the queued rows past
 ``max_queue_rows`` (HTTP 503 + ``Retry-After``).  A model path is a zip,
@@ -101,7 +103,7 @@ class DeepLearning4jEntryPoint:
             out = self._batcher_for(model_path, model).predict(
                 x, timeout_ms=deadline_ms)
         else:
-            out = model.output(x).cpu().numpy()
+            out = self._infer_fn(model)(x).cpu().numpy()
         return self._format_predictions(out, top_k, argmax_only)
 
     # ---- training ----
@@ -150,7 +152,7 @@ class DeepLearning4jEntryPoint:
 
     def evaluate(self, model_path: str, data_dir: str) -> dict:
         """Accuracy and F1 of ``model_path`` on the minibatches of
-        ``data_dir`` (``MultiLayerNetwork.evaluate``)."""
+        ``data_dir`` (the model's ``evaluate``)."""
         model = self.model_cache.get(model_path)
         ev = model.evaluate(self._data_iterator(data_dir))
         return {"accuracy": ev.accuracy(), "f1": ev.f1()}
@@ -224,13 +226,22 @@ class DeepLearning4jEntryPoint:
                 return entry[1]
             old = entry[1] if entry is not None else None
             batcher = MicroBatcher(
-                model.output, max_batch=self.max_batch,
+                self._infer_fn(model), max_batch=self.max_batch,
                 bucket_sizes=model.conf.global_conf.bucket_batch_sizes,
                 name=os.path.basename(key))
             self._batchers[key] = (model, batcher)
         if old is not None:
             old.stop()
         return batcher
+
+    @staticmethod
+    def _infer_fn(model):
+        """The model's ``output`` on a row batch; a ComputationGraph's
+        first output."""
+        def infer(x):
+            out = model.output(x)
+            return out[0] if isinstance(out, tuple) else out
+        return infer
 
     @staticmethod
     def _format_predictions(out, top_k=None, argmax_only=False) -> dict:

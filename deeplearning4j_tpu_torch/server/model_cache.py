@@ -7,7 +7,8 @@ wins); LRU eviction bounds the resident models (``capacity``);
 on load (or on the first hit that knows the request shape).  Models load
 onto the cache's device: CUDA unless the caller asks for the CPU.  A
 ``.h5`` / ``.hdf5`` path is a Keras model, loaded through Keras import;
-anything else is a ModelSerializer zip.
+anything else is a ModelSerializer zip, of a MultiLayerNetwork or a
+ComputationGraph (``load_model`` tells them apart).
 
 Blue/green rollouts, quantized serving, load retries and the load
 circuit breaker are not ported yet.

@@ -142,8 +142,13 @@ def test_every_activation_through_the_cluster_split(cuda_device, act):
 
 def _main_path_convs():
     """(N, Cin, H, Cout, K, pad) of every conv of LeNet, VGG16-CIFAR10 and
-    VGG16-224 at every batch a main path runs."""
-    out = set()
+    VGG16-224, and of ResNet-50's stride-1 convs, at every batch a main
+    path runs."""
+    cs = _chip_smoke()
+    out = {(n, cin, h, cout, k, pad)
+           for n in cs.SERVE_LADDER + (cs.RESNET_TRAIN_BATCH,)
+           for n, cin, h, _, cout, k, pad, _ in cs.conv_shapes("resnet50",
+                                                                n)}
     for n in (1, 2, 4, 8, 16, 32, 64, 128):
         out |= {(n, 1, 28, 20, 5, 0), (n, 20, 12, 50, 5, 0)}
     for hw, batches in ((32, (1, 2, 4, 8, 16, 32, 128)), (224, (1, 8, 128))):
@@ -266,6 +271,7 @@ def _emulate_conv_kernel(x, w, pad, sms):
     ((3, 16, 4, 4), (70, 16, 3, 3), 1),       # 4x4 maps, Cout not 8k
     ((1, 5, 13, 11), (8, 5, 7, 7), 3),        # 7x7, odd H and W
     ((2, 40, 3, 3), (10, 40, 1, 1), 0),       # 1x1: 32 channels a slice
+    ((2, 2048, 7, 7), (24, 2048, 1, 1), 0),   # ResNet-50's K = 2,048
 ])
 def test_kernel_tiling_writes_every_output_once(cuda_device, x_shape,
                                                 w_shape, pad):
@@ -773,3 +779,106 @@ def test_new_layer_nets_on_the_card_match_the_cpu(cuda_device):
     res = _chip_smoke().phase_new_layers(torch, ck)
     assert set(res) == {"cnn", "rnn_pool", "embedding", "embedding_one_hot",
                         "preproc"}
+
+
+def _thin_resnet(device, classes=512):
+    """A thin bottleneck ResNet graph (``models/resnet``'s blocks: a 3x3
+    stem, a 3x3/2 max pool padded by 1, two stages of two bottlenecks of
+    4 and 8 channels, the second strided) on 16x16 inputs, with 512
+    classes so a batch of 128 takes the xent kernel."""
+    from deeplearning4j_tpu_torch.models import resnet as rm
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    g = network.GlobalConf(seed=3, learning_rate=0.01, updater="nesterovs",
+                           weight_init="relu")
+    b = GraphBuilder(g).add_inputs("in")
+    x = rm._conv_bn(b, "stem", "in", 8, (3, 3), (1, 1), padding=(1, 1))
+    b.add_layer("stem_pool", L.SubsamplingLayer(
+        pooling_type="max", kernel=(3, 3), stride=(2, 2), padding=(1, 1)), x)
+    x = "stem_pool"
+    for si, ch in enumerate((4, 8)):
+        for bi in range(2):
+            stride = (2, 2) if (bi == 0 and si > 0) else (1, 1)
+            x = rm._bottleneck(b, f"s{si}b{bi}", x, ch, stride,
+                               project=(bi == 0))
+    b.add_layer("gap", L.GlobalPoolingLayer(pooling_type="avg"), x)
+    b.add_layer("fc", L.OutputLayer(n_out=classes, activation="softmax",
+                                    loss="mcxent"), "gap")
+    conf = (b.set_outputs("fc")
+            .set_input_types(InputType.convolutional(16, 16, 3)).build())
+    return ComputationGraph(conf, device=device)
+
+
+@pytest.mark.gpu
+def test_graph_on_the_card_matches_the_cpu(cuda_device):
+    """A thin ResNet graph with chip_smoke's seeded weights on the card
+    and on the CPU: ``output()`` through the conv kernel (one launch per
+    stride-1 conv, 13 of 15) within the whole-network tolerance; one
+    ``fit`` step at batch 128 with 13 conv and 1 xent launches, the score
+    rtol 1e-4 and the running statistics rtol 1e-4, atol 1e-5 (both
+    continuous in the forward; the updates against the plain step, with
+    relu masks and the max pool pinned, are chip_smoke's
+    train_resnet50)."""
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    cs = _chip_smoke()
+    cpu = _thin_resnet("cpu").init()
+    params, state = cs.resnet_weights(cpu, 7)
+    cpu.load_jax_params(params).load_jax_state(state)
+    gpu = _thin_resnet(cuda_device).init()
+    gpu.load_jax_params(params).load_jax_state(state)
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(128, 3, 16, 16)).astype(np.float32)
+    y = np.eye(512, dtype=np.float32)[rng.integers(0, 512, 128)]
+    before = ck.fused_conv2d_bias_act.launches
+    out = gpu.output(x)[0].cpu()
+    assert ck.fused_conv2d_bias_act.launches - before == 13
+    torch.testing.assert_close(out, cpu.output(x)[0], rtol=cs.NET_RTOL,
+                               atol=cs.NET_ATOL)
+    before = (ck.fused_conv2d_bias_act.launches,
+              ck.fused_softmax_xent.launches)
+    gpu.fit(MultiDataSet([x], [y]))
+    assert (ck.fused_conv2d_bias_act.launches - before[0],
+            ck.fused_softmax_xent.launches - before[1]) == (13, 1)
+    cpu.fit(MultiDataSet([x], [y]))
+    np.testing.assert_allclose(gpu.score(), cpu.score(), rtol=1e-4)
+    for n in cpu.order:
+        for k, t in cpu.net_state[n].items():
+            torch.testing.assert_close(gpu.net_state[n][k].cpu(), t,
+                                       rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_graph_fit_through_the_pipeline_stages_on_the_card(cuda_device):
+    """``ComputationGraph.fit`` over an iterator wraps it in the async
+    pipeline, which stages every batch onto the card; the score equals a
+    synchronous fit's (``pipeline_workers=0``) under cuDNN's
+    deterministic algorithms."""
+    from deeplearning4j_tpu_torch.datasets import ListMultiDataSetIterator
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    cs = _chip_smoke()
+    rng = np.random.default_rng(10)
+    data = [MultiDataSet([rng.normal(size=(32, 3, 16, 16)).astype(
+        np.float32)], [np.eye(512, dtype=np.float32)[
+            rng.integers(0, 512, 32)]]) for _ in range(3)]
+    scores, seen = [], []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for workers in (1, 0):
+            net = _thin_resnet(cuda_device).init()
+            net.conf.global_conf.pipeline_workers = workers
+            params, state = cs.resnet_weights(net, 7)
+            net.load_jax_params(params).load_jax_state(state)
+            fit_batch = net._fit_batch
+
+            def spy(mds, seeds=None, _f=fit_batch):
+                f = mds.features[0]
+                seen.append(isinstance(f, torch.Tensor) and f.is_cuda)
+                _f(mds, seeds)
+            net._fit_batch = spy
+            net.fit(ListMultiDataSetIterator(data))
+            scores.append(net.score())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert seen == [True] * 3 + [False] * 3
+    assert scores[0] == scores[1]

@@ -38,6 +38,7 @@ from deeplearning4j_tpu.keras_import import hdf5_data as jax_hdf5  # noqa: E402
 from deeplearning4j_tpu.nn import serialization as jax_ser  # noqa: E402
 from deeplearning4j_tpu.nn.conf import layers as jax_layers  # noqa: E402
 from deeplearning4j_tpu.nn.conf import network as jax_network  # noqa: E402
+from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxGraph  # noqa: E402
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet  # noqa: E402
 from deeplearning4j_tpu.ops import pallas_kernels as pk  # noqa: E402
 from deeplearning4j_tpu.server import model_cache as jax_cache  # noqa: E402
@@ -50,6 +51,7 @@ from deeplearning4j_tpu_torch.keras_import.importer import (  # noqa: E402
     KerasLayerMapper)
 from deeplearning4j_tpu_torch.nn import serialization as ser  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import layers as L  # noqa: E402
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: E402
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from deeplearning4j_tpu_torch.server import gateway  # noqa: E402
 from deeplearning4j_tpu_torch.server.model_cache import ModelCache  # noqa: E402
@@ -385,9 +387,49 @@ def test_lstm_return_sequences_false_import(tmp_path):
                            _labels(rng, 6, 3)) for _ in range(2)])
 
 
+def _import_both_graphs(path):
+    """Both packages' imports of a functional ``path``: ComputationGraphs
+    with the same configuration, topological order, params and running
+    statistics."""
+    jnet = JaxImport.import_keras_model_and_weights(path)
+    net = KerasModelImport.import_keras_model_and_weights(path, device="cpu")
+    assert isinstance(net, ComputationGraph)
+    assert isinstance(jnet, JaxGraph)
+    assert json.loads(net.conf.to_json()) == json.loads(jnet.conf.to_json())
+    assert net.order == jnet.order
+    for n in jnet.order:
+        for mine, theirs in ((net.net_params[n], jnet.net_params[n]),
+                             (net.net_state[n], jnet.net_state[n])):
+            assert sorted(mine) == sorted(theirs)
+            for k in theirs:
+                np.testing.assert_array_equal(mine[k].numpy(),
+                                              np.asarray(theirs[k]))
+    return net, jnet
+
+
+def _graph_fit_both(net, jnet, batches):
+    """One ``fit`` step a batch in both packages (SGD, the importer's
+    default); the score after each step and every param and running
+    statistic after the last within the fit rule."""
+    for x, y in batches:
+        net.fit(x, y)
+        jnet.fit(x, y)
+        np.testing.assert_allclose(net.score(), float(jnet.score()),
+                                   rtol=FIT_RTOL)
+    for n in jnet.order:
+        for mine, theirs in ((net.net_params[n], jnet.net_params[n]),
+                             (net.net_state[n], jnet.net_state[n])):
+            for k in theirs:
+                np.testing.assert_allclose(mine[k].numpy(),
+                                           np.asarray(theirs[k]),
+                                           rtol=FIT_RTOL, atol=FIT_ATOL,
+                                           err_msg=f"{n} {k}")
+
+
 def test_functional_model_import(tmp_path):
-    """A functional model imports as a ComputationGraph in JAX; the port
-    has none yet and raises, naming ROADMAP A4."""
+    """A functional model imports as a ComputationGraph in both packages:
+    the same configuration and params, outputs as JAX's and Keras's, and
+    2 fit steps as JAX's; the Sequential entry point refuses it."""
     inp = keras.Input((8,), name="inp")
     d1 = layers.Dense(8, activation="relu", name="d1")(inp)
     d2 = layers.Dense(8, activation="relu", name="d2")(d1)
@@ -396,14 +438,98 @@ def test_functional_model_import(tmp_path):
     km = keras.Model(inp, out)
     km.compile(loss="categorical_crossentropy", optimizer="sgd")
     path = _save(km, tmp_path, "func.h5")
-    from deeplearning4j_tpu.nn.graph import ComputationGraph
-    assert isinstance(JaxImport.import_keras_model_and_weights(path),
-                      ComputationGraph)
-    with pytest.raises(NotImplementedError, match="A4"):
-        KerasModelImport.import_keras_model_and_weights(path, device="cpu")
+    net, jnet = _import_both_graphs(path)
+    assert type(net.conf.vertices["res"]).__name__ == "ElementWiseVertex"
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6, 8)).astype(np.float32)
+    got = net.output(x)[0].numpy()
+    np.testing.assert_allclose(got, np.asarray(jnet.output(x)[0]),
+                               rtol=JAX_TOL, atol=JAX_TOL)
+    np.testing.assert_allclose(got, km.predict(x, verbose=0), rtol=1e-5,
+                               atol=1e-6)
+    _graph_fit_both(net, jnet, [(rng.normal(size=(10, 8)).astype(
+        np.float32), _labels(rng, 10, 4)) for _ in range(2)])
     with pytest.raises(ValueError, match="functional"):
         KerasModelImport.import_keras_sequential_model_and_weights(
             path, device="cpu")
+
+
+def _keras_residual_cnn(hw=16, width=8, classes=10):
+    """chip_smoke.keras_functional_config's net built with Keras's
+    functional API, with its layer names."""
+    inp = keras.Input((hw, hw, 3), name="input")
+    x = layers.Conv2D(width, (3, 3), padding="same", name="conv1")(inp)
+    x = layers.BatchNormalization(name="bn1")(x)
+    r1 = layers.Activation("relu", name="relu1")(x)
+    x = layers.Conv2D(width, (3, 3), padding="same", name="conv2")(r1)
+    x = layers.BatchNormalization(name="bn2")(x)
+    x = layers.Add(name="add")([x, r1])
+    r2 = layers.Activation("relu", name="relu2")(x)
+    br = layers.Conv2D(width // 2, (1, 1), activation="relu",
+                       name="branch")(r2)
+    x = layers.Concatenate(name="concat")([r2, br])
+    x = layers.GlobalAveragePooling2D(name="gap")(x)
+    out = layers.Dense(classes, activation="softmax", name="predictions")(x)
+    return keras.Model(inp, out, name="residual_cnn")
+
+
+def test_functional_residual_conv_import(tmp_path):
+    """A residual conv net (Conv2D, BatchNormalization with perturbed
+    moving statistics, Activation, Add, Concatenate,
+    GlobalAveragePooling2D, Dense) written by Keras: both importers,
+    outputs against JAX's and Keras's, 2 fit steps as JAX's."""
+    keras.utils.set_random_seed(1)
+    km = _keras_residual_cnn(12, 6, 5)
+    rng = np.random.default_rng(11)
+    for layer in km.layers:
+        if isinstance(layer, layers.BatchNormalization):
+            n = layer.moving_mean.shape[0]
+            layer.moving_mean.assign(rng.normal(size=n).astype(np.float32)
+                                     * 0.1)
+            layer.moving_variance.assign(
+                rng.uniform(0.5, 1.5, n).astype(np.float32))
+    km.compile(loss="categorical_crossentropy", optimizer="sgd")
+    net, jnet = _import_both_graphs(_save(km, tmp_path, "res_cnn.h5"))
+    kinds = {type(v).__name__ for v in net.conf.vertices.values()}
+    assert {"ElementWiseVertex", "MergeVertex", "LayerVertex"} <= kinds
+    x_keras = rng.normal(size=(4, 12, 12, 3)).astype(np.float32)
+    x = np.transpose(x_keras, (0, 3, 1, 2))
+    got = net.output(x)[0].numpy()
+    np.testing.assert_allclose(got, np.asarray(jnet.output(x)[0]),
+                               rtol=JAX_TOL, atol=JAX_TOL)
+    np.testing.assert_allclose(got, km.predict(x_keras, verbose=0),
+                               rtol=1e-4, atol=1e-5)
+    _graph_fit_both(net, jnet, [(rng.normal(size=(8, 3, 12, 12)).astype(
+        np.float32), _labels(rng, 8, 5)) for _ in range(2)])
+
+
+def test_chip_functional_configuration_is_what_keras_writes():
+    """The functional configuration chip_smoke.py builds as a dict
+    imports to the same graph and parameter shapes as the one Keras
+    writes for the same net; its seeded weight arrays have Keras's
+    shapes for every layer."""
+    cs = _chip_smoke()
+    km = _keras_residual_cnn()
+    config = cs.keras_functional_config()
+    nets = [KerasModelImport._build(c, {}, "cpu")
+            for c in (json.loads(km.to_json()), config)]
+    assert json.loads(nets[0].conf.to_json()) == \
+        json.loads(nets[1].conf.to_json())
+    assert nets[0].order == nets[1].order
+    weights = cs.keras_functional_weights(config, cs.SEED)
+    keras_shapes = {l.name: sorted(tuple(w.shape) for w in l.get_weights())
+                    for l in km.layers if l.get_weights()}
+    assert keras_shapes == {n: sorted(a.shape for a in w.values())
+                            for n, w in weights.items()}
+    KerasModelImport._load_weights(nets[1], weights)
+    nets[0].init()
+    assert {n: {k: tuple(v.shape) for k, v in lp.items()}
+            for n, lp in nets[0].net_params.items()} == \
+        {n: {k: tuple(v.shape) for k, v in lp.items()}
+         for n, lp in nets[1].net_params.items()}
+    n_stats = sum(v.numel() for s in nets[1].net_state.values()
+                  for v in s.values())
+    assert nets[1].n_params == km.count_params() - n_stats
 
 
 def test_vgg16_cifar_import_north_star(tmp_path):

@@ -17,7 +17,10 @@ buffer's high-water mark, ``evaluate``'s accuracy), the gateway's ``fit`` second
 char-RNN training characters/s, the
 flash kernels' and SDPA's times, attention training (characters/s after the
 first step, step seconds, peak memory), attention ``output()`` ms and
-sampling ms per character, and the build's seconds.  It prints one JSON line per run, with the run's last
+sampling ms per character, VGG16-BN's ``output()`` ms and training
+samples/s, ResNet-50's 46-conv set (kernel and cuDNN ms), serving
+(requests/s, p50, ``output()`` ms at batch 32) and training (samples/s,
+peak memory), and the build's seconds.  It prints one JSON line per run, with the run's last
 line of output, and writes every run's phase lines to ``--out``.  It exits non-zero if any run fails; the failed
 run's last lines of output are in the file.  Comparing the two trees is
 fair only within one such call: the card, its power limit and the host
@@ -92,6 +95,23 @@ def _numbers(ph: dict) -> dict:
         nums["flash_ms"] = {k: r["ms"] for k, r in f["timed"].items()}
         nums["sdpa_ms"] = {k: f.get(f"library_ms_{k}") for k in
                            ("forward", "backward", "forward_backward")}
+    if "keras_vgg16_bn" in ph:
+        nums["vgg16_bn_output_ms"] = {
+            n: b["output_ms"] for n, b in ph["keras_vgg16_bn"]["batches"].items()}
+    if "train_keras_vgg16_bn" in ph:
+        nums["vgg16_bn_samples_per_s"] = \
+            ph["train_keras_vgg16_bn"]["samples_per_s_after_first"]
+    if "resnet50_kernels" in ph:
+        t = ph["resnet50_kernels"]["timed_set"]["resnet50_128"]
+        nums["resnet50_conv_set_ms"] = {k: t[k] for k in (
+            "ms", "library_ms", "library_tf32_ms", "bound_ms")}
+    if "serve_resnet50" in ph:
+        t = ph["serve_resnet50"]
+        nums["resnet50_output_32_ms"] = t["output_32_ms"]
+    if "train_resnet50" in ph:
+        t = ph["train_resnet50"]
+        nums["resnet50_samples_per_s"] = t["samples_per_s_after_first"]
+        nums["resnet50_peak_bytes"] = t["max_memory_allocated"]
     if "train_attention" in ph:
         t = ph["train_attention"]
         nums["attention_chars_per_s"] = t["chars_per_s_after_first"]
