@@ -225,6 +225,33 @@ exits non-zero:
                (the KV ring, no kernel) and ``sample_text``; the streams'
                outputs must equal ``output()`` on the 300-character prefix
                (through the forward kernel) within 1e-5.
+16. w2v_step — the embedding trainers' steps (plain torch, no Pallas
+               kernel on this path): ``skipgram_step``, ``cbow_step`` (W =
+               11) and ``infer_step`` at full width (V = 71,290, text8's
+               vocabulary at min count 5; D = 128; B = 2,048; K = 6; HS and
+               NS on; C = the seeded vocabulary's longest Huffman code) on
+               the card against the port's CPU functions on the same seeded
+               inputs (Zipf-heavy duplicates, a padded tail), by
+               W2V_STEP_RTOL; CUDA-event ms, host enqueue ms, device
+               activities and busy ms a flush (``torch.profiler``), bytes
+               and the bytes bound.
+17. train_word2vec — the main path: ``Word2Vec.Builder()...build().fit()``
+               with bench.py's protocol (layer 128, window 5, 5 negatives,
+               no HS, min frequency 1, 1 epoch, batch 2,048) on
+               ``text8_scale_corpus`` (1,000,000 seeded tokens in 20-word
+               sentences over exactly 71,290 words, 20 planted topics):
+               words/s, pairs/s, flushes, host ms of pair generation, peak
+               memory, then the first 1,000 sentences again under the
+               profiler (idle share, activities and host ms a flush).  The
+               50 most frequent topic words' 10 nearest words must share
+               their topic at W2V_TOPICAL_MIN or more on the trained
+               table, and less on the initial one.
+18. embeddings_card_vs_cpu — small ParagraphVectors (DBOW and DM, with
+               ``infer_vector``), GloVe and DeepWalk fits on the card
+               against the same fits on the CPU (W2V_FIT_RTOL; GloVe's
+               loss W2V_GLOVE_LOSS_RTOL), and a ParagraphVectors zip
+               written on the card and read on the CPU: equal vocabulary,
+               codes, points and tables.
 
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -3244,6 +3271,483 @@ def phase_sample_attention(torch, ck, net, it) -> dict:
     return res
 
 
+# Word2Vec at text8's vocabulary scale (BASELINE config 4; text8 is not in
+# the repo): V = 71,290 words (text8's vocabulary at min count 5), layer
+# 128, bench.py's protocol (window 5, 5 negatives, no HS, min frequency 1,
+# 1 epoch, flushes of 2,048 pairs).  The corpus is seeded and synthetic:
+# 1,000,000 tokens in 20-word sentences; 1,290 shared background words and
+# 20 topics of 3,500 words; each sentence belongs to one topic and draws
+# each token from its topic's Zipf words (80 % of the tokens) or the
+# background's Zipf words.  Topics of 3,500 words hold enough tokens each
+# for one epoch to separate them: at a tenth of the scale, 20 topics of 350
+# words left the trained table below the initial one on the check below
+# (0.024 against 0.054), 2 topics of 3,500 reached 1.0 (CPU rehearsals).
+W2V_VOCAB, W2V_LAYER, W2V_BATCH, W2V_WINDOW, W2V_NEGATIVE = (
+    71_290, 128, 2_048, 5, 5)
+W2V_TOKENS, W2V_SENT, W2V_TOPICS, W2V_BACKGROUND = 1_000_000, 20, 20, 1_290
+W2V_TOPIC_SHARE = 0.8
+# The step phase at full width: K = 6 negative columns (target + 5), HS
+# and NS both on, CBOW windows of W = 2 x 5 + 1 (one PV-DM label slot).
+W2V_K, W2V_W = W2V_NEGATIVE + 1, 2 * W2V_WINDOW + 1
+# Card vs CPU, one step: relative 2-norm of the difference of the two
+# updates (new - old) over the CPU's update, per table.  Both f32; the
+# card's index_add_ adds duplicate rows in no fixed order and the dots sum
+# in another order.  The CPU port against JAX's XLA step reads ~1e-7, and
+# up to 1.8e-6 on a table whose rows take ~30 contributions of both signs
+# in a chunk (tests/test_torch_embeddings.py); Zipf-heavy rows at full
+# width take more: 5e-5.
+W2V_STEP_RTOL = 5e-5
+# Whole small fits, card vs CPU: relative 2-norm of the difference of the
+# final tables over the CPU fit's change from its initial table.  The CPU
+# port against JAX reads <= 4.3e-7 after whole fits (rule 1e-5 there); the
+# card's unordered atomics add rounding at every step: 1e-4.  GloVe's last
+# epoch loss, a sum of small squared residuals, moves 20x more than its
+# table (8.1e-6 for 4.3e-7 on the CPU): 1e-3.
+W2V_FIT_RTOL = 1e-4
+W2V_GLOVE_LOSS_RTOL = 1e-3
+# The dependence check: for the W2V_QUERIES most frequent topic words, the
+# share of their W2V_NEAREST nearest words (``words_nearest``) that belong
+# to their topic.  Chance is 3,500 / 71,290 = 4.9 %.  CPU rehearsals of
+# this corpus at half the scale (10 topics of 3,500, 645 background words,
+# 500,000 tokens) read 1.0 trained and 0.10 initial, at a tenth (2 topics)
+# 1.0 and 0.50; the check asks for W2V_TOPICAL_MIN on the trained table and
+# less on the initial one.
+W2V_QUERIES, W2V_NEAREST, W2V_TOPICAL_MIN = 50, 10, 0.5
+# flushes under the profiler for the idle share
+W2V_TRACE_SENTENCES = 1_000
+
+
+def text8_scale_corpus(seed: int, vocab: int = W2V_VOCAB,
+                       tokens: int = W2V_TOKENS, sent: int = W2V_SENT,
+                       topics: int = W2V_TOPICS,
+                       background: int = W2V_BACKGROUND):
+    """-> (sentences, topic of each word id or -1 for background).
+
+    Word i is "w{i}"; every one of the ``vocab`` words occurs at least
+    once: a word the draw missed replaces a background token of a
+    sentence of its own topic."""
+    rng = np.random.default_rng(seed)
+    per_topic = (vocab - background) // topics
+    if background + per_topic * topics != vocab:
+        raise ValueError("vocab - background must split into the topics")
+    n_sent = tokens // sent
+    sent_topic = rng.integers(0, topics, n_sent)
+
+    def zipf(n):
+        p = 1.0 / np.arange(1, n + 1)
+        return p / p.sum()
+
+    topical = rng.random((n_sent, sent)) < W2V_TOPIC_SHARE
+    bg = rng.choice(background, size=(n_sent, sent), p=zipf(background))
+    tw = (background + sent_topic[:, None] * per_topic
+          + rng.choice(per_topic, size=(n_sent, sent), p=zipf(per_topic)))
+    ids = np.where(topical, tw, bg)
+    missing = np.flatnonzero(np.bincount(ids.ravel(), minlength=vocab) == 0)
+    by_topic = [np.flatnonzero(sent_topic == t) for t in range(topics)]
+    for word in missing:
+        t = (word - background) // per_topic if word >= background else None
+        rows = by_topic[t] if t is not None else np.arange(n_sent)
+        while True:
+            r = rows[rng.integers(rows.size)]
+            free = np.flatnonzero(~topical[r])
+            if free.size:
+                c = free[rng.integers(free.size)]
+                ids[r, c], topical[r, c] = word, True
+                break
+    if np.count_nonzero(np.bincount(ids.ravel(), minlength=vocab)) != vocab:
+        raise AssertionError("the corpus does not hold every word")
+    topic_of = np.full(vocab, -1)
+    topic_of[background:] = np.arange(vocab - background) // per_topic
+    words = np.array([f"w{i}" for i in range(vocab)])
+    return [" ".join(row) for row in words[ids]], topic_of
+
+
+def _step_inputs(sv, rng, n_rows):
+    """One flush of seeded inputs for the three steps at full width, from
+    the port's own batch assembly (``_BatchBuffer._hs_neg_arrays``):
+    centers and contexts drawn by frequency (Zipf-heavy duplicates)."""
+    from deeplearning4j_tpu_torch.embeddings.sequencevectors import (
+        _BatchBuffer)
+    B, W = W2V_BATCH, W2V_W
+    freqs = np.array([w.element_frequency for w in sv.vocab.vocab_words()])
+    p = freqs / freqs.sum()
+    points_m, codes_m, cmask_m = sv._code_matrices()
+    buf = _BatchBuffer(sv.lookup_table, sv.conf, points_m, codes_m, cmask_m,
+                       rng, W)
+    center = rng.choice(n_rows, size=B, p=p).astype(np.int32)
+    ctx = rng.choice(n_rows, size=B, p=p).astype(np.int32)
+    pair_mask = np.ones(B, np.float32)
+    pair_mask[-7:] = 0.0                           # a padded tail
+    alpha = np.full(B, 0.025, np.float32) * pair_mask
+    hs_ns = buf._hs_neg_arrays(center, pair_mask)
+    win = rng.choice(n_rows, size=(B, W), p=p).astype(np.int32)
+    wmask = (np.arange(W)[None, :]
+             < rng.integers(1, W + 1, size=(B, 1))).astype(np.float32)
+    wmask *= pair_mask[:, None]
+    vec = ((rng.random((B, W2V_LAYER), dtype=np.float32) - 0.5)
+           / W2V_LAYER)
+    return {"skipgram": (ctx,) + hs_ns + (alpha,),
+            "cbow": (win, wmask) + hs_ns + (alpha,),
+            "infer": hs_ns + (alpha,), "vec": vec}
+
+
+def _device_trace(torch, fn) -> dict:
+    """One call of ``fn`` under the profiler: wall ms, device activities
+    (kernels, copies, memsets), busy ms (union of their intervals) and the
+    device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, copies = [], 0
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA":
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        copies += "memcpy" in ev.name.lower()
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / 1e6 / wall, "device_activities":
+            len(spans), "copies": copies}
+
+
+def _step_bytes(B, D, C, K, W=1) -> int:
+    """Bytes one step must move: each gathered row read once and written
+    once (syn0's W rows a pair, C syn1 rows, K syn1neg rows), and its
+    integer and float inputs read once."""
+    rows = B * (W + C + K)
+    inputs = B * (W * 2 + C * 3 + K * 3 + 1) * 4
+    return rows * D * 4 * 2 + inputs
+
+
+@_tf32_off
+def phase_w2v_step(torch) -> dict:
+    """``skipgram_step``, ``cbow_step`` and ``infer_step`` at full width on
+    the card against the port's CPU functions on the same seeded inputs."""
+    from deeplearning4j_tpu_torch.embeddings import (
+        SequenceVectors, VectorsConfiguration, kernels)
+    from deeplearning4j_tpu_torch.embeddings.lookup import TABLES
+    from deeplearning4j_tpu_torch.embeddings.sequencevectors import (
+        step_branches, to_device)
+    from deeplearning4j_tpu_torch.text import AbstractCache, Huffman
+    from deeplearning4j_tpu_torch.text.sequence import VocabWord
+    sents, _ = text8_scale_corpus(SEED)
+    counts = {}
+    for s in sents:
+        for tok in s.split():
+            counts[tok] = counts.get(tok, 0) + 1
+    vocab = AbstractCache()
+    for label, n in counts.items():
+        vocab.add_token(VocabWord(label, float(n)))
+    vocab.build_index()
+    Huffman(vocab.vocab_words()).build()
+    cuda = torch.device("cuda")
+    conf = VectorsConfiguration(
+        layer_size=W2V_LAYER, window=W2V_WINDOW, negative=W2V_NEGATIVE,
+        use_hierarchic_softmax=True, min_word_frequency=1,
+        batch_size=W2V_BATCH, seed=SEED)
+    sv = SequenceVectors(conf, vocab=vocab, device=cuda)
+    sv.build_vocab()
+    rng = np.random.default_rng(SEED)
+    t = sv.lookup_table
+    V, D = vocab.num_words(), W2V_LAYER
+    C = sv._code_matrices()[0].shape[1]
+    for name in ("syn1", "syn1neg"):           # nonzero output tables
+        n = getattr(t, name).shape[0]
+        t.set_array(name, rng.normal(0, 0.1, (n, D)).astype(np.float32))
+    start = {name: t.array(name) for name in TABLES}
+    inputs = _step_inputs(sv, rng, V)
+    branches = step_branches(sv.conf)
+    out = {"V": V, "D": D, "B": W2V_BATCH, "C": C, "K": W2V_K, "W": W2V_W}
+
+    def run(kind, device, tables):
+        args = to_device(device, *inputs[kind])
+        if kind == "infer":
+            vec = torch.tensor(inputs["vec"], device=device)
+            return lambda: (kernels.infer_step(vec, tables["syn1"],
+                                               tables["syn1neg"], *args,
+                                               **branches),)
+        step = kernels.skipgram_step if kind == "skipgram" \
+            else kernels.cbow_step
+        return lambda: step(*(tables[n] for n in TABLES), *args, **branches)
+
+    for kind in ("skipgram", "cbow", "infer"):
+        tabs = {dev: {n: torch.tensor(a, device=dev)
+                      for n, a in start.items()} for dev in ("cpu", "cuda")}
+        got = run(kind, cuda, tabs["cuda"])()
+        want = run(kind, torch.device("cpu"), tabs["cpu"])()
+        names = ("vec",) if kind == "infer" else TABLES
+        old = ([torch.tensor(inputs["vec"])] if kind == "infer"
+               else [torch.tensor(start[n]) for n in TABLES])
+        errs = {}
+        for name, g, w, o in zip(names, got, want, old):
+            errs[name] = _rel_norm(torch, g.cpu() - o, w - o)
+            if not errs[name] <= W2V_STEP_RTOL or not bool(
+                    torch.isfinite(g).all()):
+                raise AssertionError(
+                    f"w2v_step {kind} {name}: card vs CPU {errs[name]:.3g}"
+                    f" > {W2V_STEP_RTOL}")
+        fn = run(kind, cuda, tabs["cuda"])
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        trace = _device_trace(torch, fn)
+        W = W2V_W if kind == "cbow" else (0 if kind == "infer" else 1)
+        nbytes = _step_bytes(W2V_BATCH, D, C, W2V_K, W)
+        out[kind] = {"rel_err": errs, "rule": W2V_STEP_RTOL,
+                     "ms": time_ms(torch, fn, reps=10),
+                     "host_enqueue_ms": float(np.median(host)),
+                     "launches": trace["device_activities"],
+                     "busy_ms": trace["busy_ms"],
+                     "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                     "bound_by": "bytes"}
+    emit("w2v_step", **out)
+    return out
+
+
+def _topical_share(model, topic_of, queries) -> float:
+    """Share of the queries' nearest words (``words_nearest``) in their
+    own topic."""
+    hits = 0
+    for q in queries:
+        near = model.words_nearest(q, top=W2V_NEAREST)
+        hits += sum(topic_of[int(w[1:])] == topic_of[int(q[1:])]
+                    for w in near)
+    return hits / (len(queries) * W2V_NEAREST)
+
+
+@_tf32_off
+def phase_train_word2vec(torch) -> dict:
+    """``Word2Vec.Builder()...build().fit()`` on the card at full width,
+    bench.py's protocol, on the seeded text8-scale corpus."""
+    from deeplearning4j_tpu_torch.embeddings import (
+        InMemoryLookupTable, SequenceVectors, Word2Vec, kernels,
+        sequencevectors)
+    from deeplearning4j_tpu_torch.text import CollectionSentenceIterator
+    t0 = time.perf_counter()
+    sents, topic_of = text8_scale_corpus(SEED)
+    corpus_s = time.perf_counter() - t0
+
+    def builder(sentences):
+        return (Word2Vec.Builder()
+                .iterate(CollectionSentenceIterator(sentences))
+                .layer_size(W2V_LAYER).window_size(W2V_WINDOW)
+                .negative_sample(W2V_NEGATIVE)
+                .use_hierarchic_softmax(False).min_word_frequency(1)
+                .epochs(1).batch_size(W2V_BATCH).seed(7).device("cuda"))
+
+    w2v = builder(sents).build()
+    t0 = time.perf_counter()
+    w2v.build_vocab()
+    vocab_s = time.perf_counter() - t0
+    if w2v.vocab_size() != W2V_VOCAB:
+        raise AssertionError(f"vocabulary {w2v.vocab_size()} != {W2V_VOCAB}")
+    initial = w2v.lookup_table.get_weights()
+    counted = {"flushes": 0, "pairs": 0, "pair_s": 0.0}
+    pairs_fn, step_fn = sequencevectors.skipgram_pairs, kernels.skipgram_step
+
+    def pairs(*a):
+        t = time.perf_counter()
+        ctx, ctr = pairs_fn(*a)
+        counted["pair_s"] += time.perf_counter() - t
+        counted["pairs"] += ctx.size
+        return ctx, ctr
+
+    def step(*a, **k):
+        counted["flushes"] += 1
+        return step_fn(*a, **k)
+
+    sequencevectors.skipgram_pairs, kernels.skipgram_step = pairs, step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        w2v.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        sequencevectors.skipgram_pairs, kernels.skipgram_step = (
+            pairs_fn, step_fn)
+    peak = torch.cuda.max_memory_allocated() - held
+    trained = w2v.lookup_table.get_weights()
+    if not np.isfinite(trained).all():
+        raise AssertionError("train_word2vec: non-finite vectors")
+    # the most frequent topic words
+    queries = [w.label for w in w2v.vocab.vocab_words()
+               if topic_of[int(w.label[1:])] >= 0][:W2V_QUERIES]
+    fresh = SequenceVectors(w2v.conf, vocab=w2v.vocab, device="cuda")
+    fresh.lookup_table = InMemoryLookupTable.from_arrays(
+        w2v.vocab, initial, device="cuda")
+    share = _topical_share(w2v, topic_of, queries)
+    share0 = _topical_share(fresh, topic_of, queries)
+    if not (share >= W2V_TOPICAL_MIN > share0):
+        raise AssertionError(
+            f"train_word2vec: topical share {share:.3f} trained, {share0:.3f}"
+            f" initial; the check needs >= {W2V_TOPICAL_MIN} and below it")
+    # a traced window: the first sentences again, on the trained vocab
+    part = builder(sents[:W2V_TRACE_SENTENCES]).vocab_cache(w2v.vocab).build()
+    part.build_vocab()
+    before = counted["flushes"]
+    kernels.skipgram_step = step
+    try:
+        trace = _device_trace(torch, part.fit)
+    finally:
+        kernels.skipgram_step = step_fn
+    window_flushes = counted["flushes"] - before
+    out = {"V": w2v.vocab_size(), "D": W2V_LAYER, "B": W2V_BATCH,
+           "tokens": W2V_TOKENS, "sentences": len(sents),
+           "corpus_s": corpus_s, "vocab_s": vocab_s, "fit_s": fit_s,
+           "words_per_s": W2V_TOKENS / fit_s,
+           "pairs": counted["pairs"], "pairs_per_s": counted["pairs"] / fit_s,
+           "flushes": counted["flushes"] - window_flushes,
+           "pair_generation_host_ms": counted["pair_s"] * 1e3,
+           "peak_bytes_above_start": peak, "topical_share": share,
+           "topical_share_initial": share0, "topical_min": W2V_TOPICAL_MIN,
+           "trace": {**trace, "flushes": window_flushes,
+                     "activities_per_flush":
+                         trace["device_activities"] / max(window_flushes, 1),
+                     "host_ms_per_flush":
+                         trace["wall_ms"] / max(window_flushes, 1)}}
+    emit("train_word2vec", **out)
+    return out
+
+
+def _two_topic_corpus(seed: int = 42, n: int = 300):
+    """Two tight topical clusters of 8-word sentences (the JAX suite's
+    word2vec corpus)."""
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "puppy", "kitten"]
+    fruits = ["apple", "banana", "mango", "pear"]
+    sents = []
+    for _ in range(n):
+        group = animals if rng.random() < 0.5 else fruits
+        sents.append(" ".join(group[rng.integers(len(group))]
+                              for _ in range(8)))
+    return sents
+
+
+def _fit_rel(torch, card, cpu, init) -> float:
+    """||card - cpu|| / ||cpu - init|| (2-norms) of two fits' tables."""
+    return _rel_norm(torch, torch.from_numpy(card - init),
+                     torch.from_numpy(cpu - init))
+
+
+@_tf32_off
+def phase_embeddings_card_vs_cpu(torch) -> dict:
+    """Small ParagraphVectors (DBOW and DM, with ``infer_vector``), GloVe
+    and DeepWalk fits on the card against the same fits on the CPU, and
+    a model zip written on the card and read on the CPU."""
+    from deeplearning4j_tpu_torch.embeddings import (
+        Glove, ParagraphVectors, WordVectorSerializer)
+    from deeplearning4j_tpu_torch.embeddings.lookup import TABLES
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.text import (
+        CollectionSentenceIterator, LabelAwareListSentenceIterator)
+    sents = _two_topic_corpus()
+    labels = ["animal" if any(w in s for w in ("cat", "dog")) else "fruit"
+              for s in sents]
+    out, models = {}, {}
+
+    def check(what, card, cpu, init):
+        rel = _fit_rel(torch, card, cpu, init)
+        if not rel <= W2V_FIT_RTOL or not np.isfinite(card).all():
+            raise AssertionError(f"{what}: card vs CPU {rel:.3g} > "
+                                 f"{W2V_FIT_RTOL}")
+        out[what] = rel
+
+    for algo in ("DBOW", "DM"):
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            pv = (ParagraphVectors.Builder()
+                  .iterate(LabelAwareListSentenceIterator(sents, labels))
+                  .layer_size(24).window_size(4).epochs(3)
+                  .learning_rate(0.05).min_word_frequency(1)
+                  .negative_sample(5).batch_size(512).seed(3)
+                  .sequence_learning_algorithm(algo).device(dev).build())
+            pv.build_vocab()
+            init = pv.lookup_table.get_weights()
+            pv.fit()
+            fits[dev] = pv
+        for name in TABLES:
+            a = fits["cpu"].lookup_table.array(name)
+            check(f"pv_{algo.lower()}_{name}",
+                  fits["cuda"].lookup_table.array(name), a,
+                  init if name == "syn0" else np.zeros_like(a))
+        inferred = {dev: fits[dev].infer_vector(
+            "cat dog puppy kitten cat dog", steps=20, learning_rate=0.05)
+            for dev in fits}
+        check(f"pv_{algo.lower()}_infer_vector", inferred["cuda"],
+              inferred["cpu"], np.zeros_like(inferred["cpu"]))
+        models[algo] = fits["cuda"]
+
+    glove = {}
+    for dev in ("cuda", "cpu"):
+        g = (Glove.Builder().iterate(CollectionSentenceIterator(sents))
+             .layer_size(16).window_size(4).epochs(20).learning_rate(0.05)
+             .min_word_frequency(1).seed(11).device(dev).build())
+        glove[dev] = (g.fit(), g.lookup_table.get_weights())
+    loss_rel = abs(glove["cuda"][0] - glove["cpu"][0]) / abs(glove["cpu"][0])
+    if not loss_rel <= W2V_GLOVE_LOSS_RTOL:
+        raise AssertionError(f"glove loss: card vs CPU {loss_rel:.3g}")
+    out["glove_loss"] = loss_rel
+    check("glove_syn0", glove["cuda"][1], glove["cpu"][1],
+          np.zeros_like(glove["cpu"][1]))
+
+    g = Graph(12)
+    for base in (0, 6):
+        for i in range(6):
+            for j in range(i + 1, 6):
+                g.add_edge(base + i, base + j)
+    g.add_edge(0, 6)
+    walks = {}
+    for dev in ("cuda", "cpu"):
+        dw = (DeepWalk.Builder().vector_size(16).window_size(3)
+              .learning_rate(0.05).epochs(3).seed(5).device(dev).build())
+        dw._walks_per_vertex = 10
+        dw.fit_graph(g, walk_length=20, seed=6)
+        walks[dev] = dw
+    init = (np.random.default_rng(5).random((12, 16), dtype=np.float32)
+            - 0.5) / 16
+    for name in TABLES:
+        a = walks["cpu"].lookup_table.array(name)
+        check(f"deepwalk_{name}", walks["cuda"].lookup_table.array(name), a,
+              init if name == "syn0" else np.zeros_like(a))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "pv.zip")
+        WordVectorSerializer.write_word2vec_model(models["DM"], path)
+        back = WordVectorSerializer.read_word2vec_model(
+            path, cls=ParagraphVectors, device="cpu")
+    src = models["DM"]
+    if back.vocab.words() != src.vocab.words() or any(
+            a.codes != b.codes or a.points != b.points
+            for a, b in zip(back.vocab.vocab_words(),
+                            src.vocab.vocab_words())):
+        raise AssertionError("zip: vocabulary differs after the round trip")
+    for name in TABLES:
+        if not np.array_equal(back.lookup_table.array(name),
+                              src.lookup_table.array(name)):
+            raise AssertionError(f"zip: {name} differs after the round trip")
+    out["zip_round_trip"] = "equal"
+    out["rule"] = W2V_FIT_RTOL
+    emit("embeddings_card_vs_cpu", **out)
+    return out
+
+
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
@@ -3422,6 +3926,10 @@ def main() -> int:
     train_att, net, it = phase_train_attention(torch, ck)
     output_att = phase_output_attention(torch, ck, net, it)
     sample_att = phase_sample_attention(torch, ck, net, it)
+    del net
+    phase_w2v_step(torch)
+    phase_train_word2vec(torch)
+    phase_embeddings_card_vs_cpu(torch)
 
     print(json.dumps(summary(records + resnet_records, serve_launches, xd,
                              train_vgg, train_lenet, lenet_pipe, gateway_fit,

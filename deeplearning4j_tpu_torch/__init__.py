@@ -1,7 +1,8 @@
 """deeplearning4j_tpu_torch — the PyTorch/CUDA port of deeplearning4j_tpu.
 
 The JAX package beside it stays the reference; this package mirrors its
-layout (``ops/``, ``nn/``, ``nn/conf/``, ``models/``, ``server/``) and its
+layout (``ops/``, ``nn/``, ``nn/conf/``, ``models/``, ``server/``,
+``text/``, ``embeddings/``, ``graph/``) and its
 public layouts (NCHW activations, OIHW conv weights, dense ``W`` as
 ``[n_in, n_out]``), so a model, its JSON configuration and its
 ``coefficients.bin`` move between the two unchanged.  Hot ops run as

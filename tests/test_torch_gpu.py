@@ -8,7 +8,9 @@ Tolerances against the plain versions: conv rtol 1e-4, atol 1e-5
 (float32 sums in different orders; TF32 off for the plain version); xent,
 the LSTM step and the flash kernels rtol = atol = 1e-5 (the JAX suite's
 for its fused kernels, tighter than its flash suite's); dropout bit for
-bit.
+bit.  The word2vec steps and a small Word2Vec fit, card against CPU:
+chip_smoke.py's W2V_STEP_RTOL and W2V_FIT_RTOL (relative 2-norms; the
+card's ``index_add_`` adds duplicate rows in no fixed order).
 """
 
 import numpy as np
@@ -882,3 +884,94 @@ def test_graph_fit_through_the_pipeline_stages_on_the_card(cuda_device):
         torch.backends.cudnn.deterministic = prev
     assert seen == [True] * 3 + [False] * 3
     assert scores[0] == scores[1]
+
+
+def _w2v_case(device, seed=3, V=300, D=32, B=512, C=9, K=6, W=11):
+    """Tables and one flush of seeded inputs (Zipf-heavy duplicates, a
+    padded tail) for the word2vec steps, as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, V + 1)
+    p /= p.sum()
+    pair = np.ones(B, np.float32)
+    pair[-5:] = 0.0
+    center = rng.choice(V, B, p=p)
+    nidx = np.concatenate([center[:, None], rng.choice(V, (B, K - 1), p=p)],
+                          1)
+    nmask = np.ones((B, K), np.float32)
+    nmask[:, 1:] = nidx[:, 1:] != center[:, None]
+    arrays = {
+        "tables": [((rng.random((V, D)) - 0.5) / D).astype(np.float32),
+                   rng.normal(0, 0.1, (V - 1, D)).astype(np.float32),
+                   rng.normal(0, 0.1, (V, D)).astype(np.float32)],
+        "ctx": rng.choice(V, B, p=p), "win": rng.choice(V, (B, W), p=p),
+        "wmask": (np.arange(W)[None] < rng.integers(1, W + 1, (B, 1))
+                  ).astype(np.float32) * pair[:, None],
+        "heads": [rng.integers(0, V - 1, (B, C)),
+                  rng.integers(0, 2, (B, C)).astype(np.float32),
+                  (np.arange(C)[None] < rng.integers(1, C + 1, (B, 1))
+                   ).astype(np.float32) * pair[:, None],
+                  nidx, (np.arange(K) == 0).astype(np.float32)[None].repeat(
+                      B, 0), nmask * pair[:, None],
+                  (0.025 * pair).astype(np.float32)]}
+
+    def put(a):
+        a = np.asarray(a)
+        return torch.tensor(a.astype(np.int64) if a.dtype.kind in "iu"
+                            else a, device=device)
+    return {k: ([put(a) for a in v] if isinstance(v, list) else put(v))
+            for k, v in arrays.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["skipgram", "cbow"])
+def test_w2v_step_on_cuda_matches_cpu(cuda_device, kind):
+    """One ``skipgram_step`` / ``cbow_step`` on the card against the same
+    step on the CPU: per table, the relative 2-norm of the difference of
+    the two updates within chip_smoke.py's W2V_STEP_RTOL (5e-5; the card
+    adds duplicate rows in no fixed order, so equality is not expected)."""
+    from deeplearning4j_tpu_torch.embeddings import kernels
+    cs = _chip_smoke()
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        case = _w2v_case(dev)
+        old = [t.clone() for t in case["tables"]]
+        if kind == "skipgram":
+            kernels.skipgram_step(*case["tables"], case["ctx"],
+                                  *case["heads"])
+        else:
+            kernels.cbow_step(*case["tables"], case["win"], case["wmask"],
+                              *case["heads"])
+        runs[dev.type] = [(t - o).cpu() for t, o in zip(case["tables"], old)]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert cs._rel_norm(torch, got, want) <= cs.W2V_STEP_RTOL
+
+
+@pytest.mark.gpu
+def test_word2vec_fit_on_cuda_matches_cpu(cuda_device):
+    """A small Word2Vec fit (skip-gram, HS and 5 negatives) on the card
+    against the same fit on the CPU: per table, ||card - cpu|| within
+    chip_smoke.py's W2V_FIT_RTOL (1e-4) of the CPU fit's change."""
+    from deeplearning4j_tpu_torch.embeddings import Word2Vec
+    from deeplearning4j_tpu_torch.embeddings.lookup import TABLES
+    from deeplearning4j_tpu_torch.text import CollectionSentenceIterator
+    cs = _chip_smoke()
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        w2v = (Word2Vec.Builder()
+               .iterate(CollectionSentenceIterator(cs._two_topic_corpus()))
+               .layer_size(32).window_size(4).epochs(3).learning_rate(0.05)
+               .min_word_frequency(1).negative_sample(5)
+               .use_hierarchic_softmax(True).batch_size(512).seed(12345)
+               .device(dev).build())
+        w2v.build_vocab()
+        init = w2v.lookup_table.get_weights()
+        w2v.fit()
+        fits[dev] = w2v
+    for name in TABLES:
+        want = fits["cpu"].lookup_table.array(name)
+        base = init if name == "syn0" else np.zeros_like(want)
+        rel = cs._fit_rel(torch, fits["cuda"].lookup_table.array(name),
+                          want, base)
+        assert rel <= cs.W2V_FIT_RTOL, (name, rel)
+    assert set(fits["cuda"].words_nearest("cat", top=3)) == \
+        set(fits["cpu"].words_nearest("cat", top=3))
