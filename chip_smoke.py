@@ -252,6 +252,45 @@ exits non-zero:
                loss W2V_GLOVE_LOSS_RTOL), and a ParagraphVectors zip
                written on the card and read on the CPU: equal vocabulary,
                codes, points and tables.
+19. textcnn_kernels — the conv kernel's full-width route (a filter as wide
+               as its input: OW = 1) at the text CNN's convs, [32, 1, 256,
+               D] x [100, 1, h, D] for h = 3, 4, 5 at D = 300 and 128,
+               against its plain version and timed as in phase 3 (cuDNN
+               f32 and TF32, the 3xTF32 bound), summed per D; the plan
+               must be the full-width route's and both of its instances
+               must hold HGMMA.
+20. train_textcnn — the text CNN (``textcnn_conf``: Kim 2014's three
+               branches of 100 maps, max over time, merged, dropout 0.5 on
+               the softmax layer's input, Adam lr 0.01) as a
+               ComputationGraph over the Word2Vec of phase 17: documents
+               of 12 same-topic sentences of its corpus (240 tokens),
+               class "low" for topics below 10, batches of 32 from
+               ``CnnSentenceDataSetIterator`` (one gather from the
+               card's table), ``fit`` through the async pipeline for 3
+               epochs: exactly 3 conv and 2 dropout launches a step, no
+               conv on the dense chain; step 3 against the plain graph
+               step (the same hash dropout masks, the global max pools'
+               argmax pinned; score 1e-4, updates 5e-4); ``evaluate`` on
+               the held-out fifth, accuracy at least
+               TEXTCNN_MIN_ACCURACY.  Samples/s, peak memory, the
+               iterator's ms a batch alone and 20 steps under the
+               profiler (busy ms and idle share).
+21. cluster_tsne — ``KMeansClustering(k=20)`` on the trained table
+               (71,290 x 128): seconds, iterations and the share of topic
+               words whose cluster's majority is their topic; Lloyd's loop
+               from one set of centres on the card and on the CPU (equal
+               assignments but for near ties, centres 1e-5); exact
+               ``Tsne`` of the 10,000 most frequent words at the
+               reference's defaults (1,000 iterations): seconds, peak
+               memory, the share of each topic word's 10 nearest map
+               points in its topic, at least TSNE_KEEP of that share by
+               cosine in the table; ``_x2p_dense`` and the loop from one
+               y0, card against CPU.
+22. nearest_neighbors — the whole table's VPTree (cosine), built and
+               timed; a ``NearestNeighborsServer`` over the 2,000 most
+               frequent words answers 100 /knn and 100 /knnnew requests
+               from 4 clients; each answer against brute force from one
+               GEMM on the card, up to ties.
 
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -695,15 +734,21 @@ def valid_taps(size: int, k: int, pad: int, out: int) -> int:
     return sum(min(k, size + pad - o) - max(0, pad - o) for o in range(out))
 
 
-def check_conv(torch, ck, shape, gen, timed: bool = True) -> dict:
-    """Kernel vs plain version at one shape; raises on disagreement."""
+def check_conv(torch, ck, shape, gen, timed: bool = True,
+               replay: bool = False) -> dict:
+    """Kernel vs plain version at one shape (N, Cin, H, W, Cout, K, pad,
+    activation), K an int or (KH, KW); raises on disagreement.  With
+    ``replay``, each timed call is also timed by replaying a CUDA graph
+    of 20 calls (``*graph_ms``): for convs of ~0.1 ms, whose single call
+    between two events also times the host's launch."""
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import activations as act_ops
     N, Cin, H, W, Cout, K, p, act = shape
+    KH, KW = (K, K) if isinstance(K, int) else K
     dev = torch.device("cuda")
     x = torch.randn((N, Cin, H, W), generator=gen, device=dev)
-    w = torch.randn((Cout, Cin, K, K), generator=gen, device=dev) * \
-        (2.0 / (Cin * K * K)) ** 0.5
+    w = torch.randn((Cout, Cin, KH, KW), generator=gen, device=dev) * \
+        (2.0 / (Cin * KH * KW)) ** 0.5
     b = torch.randn((Cout,), generator=gen, device=dev) * 0.1
     pad = (p, p)
     y = ck.fused_conv2d_bias_act(x, w, b, pad=pad, activation=act)
@@ -724,8 +769,8 @@ def check_conv(torch, ck, shape, gen, timed: bool = True) -> dict:
     if not timed:
         return rec
     OH, OW = y.shape[2], y.shape[3]
-    flops = 2 * N * Cout * Cin * valid_taps(H, K, p, OH) * \
-        valid_taps(W, K, p, OW)
+    flops = 2 * N * Cout * Cin * valid_taps(H, KH, p, OH) * \
+        valid_taps(W, KW, p, OW)
     nbytes = 4 * (x.numel() + w.numel() + b.numel() + y.numel())
     # the kernel's bound: f32-accurate products on the tensor cores, three
     # TF32 products each; the f32 FMAs of the CUDA cores bound a kernel
@@ -745,9 +790,18 @@ def check_conv(torch, ck, shape, gen, timed: bool = True) -> dict:
         flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         bound_f32_simt_ms=max(t_simt, t_bytes) * 1e3)
+    if replay:
+        rec.update(
+            graph_ms=graph_ms(torch, lambda: ck.fused_conv2d_bias_act(
+                x, w, b, pad=pad, activation=act)),
+            plain_graph_ms=graph_ms(torch, lambda: ck.conv2d_bias_act_reference(
+                x, w, b, pad, "truncate", act)),
+            library_graph_ms=graph_ms(torch, library))
     torch.backends.cudnn.allow_tf32 = True
     try:
         rec["library_tf32_ms"] = time_ms(torch, library)
+        if replay:
+            rec["library_tf32_graph_ms"] = graph_ms(torch, library)
     finally:
         torch.backends.cudnn.allow_tf32 = False
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -771,6 +825,8 @@ def hgmma_count(ck, library, kernel: str) -> int:
 
 SET_SUMS = ("ms", "plain_ms", "library_ms", "library_tf32_ms", "bound_ms",
             "bound_f32_simt_ms", "flops", "bytes")
+GRAPH_SUMS = ("graph_ms", "plain_graph_ms", "library_graph_ms",
+              "library_tf32_graph_ms")
 
 
 def phase_kernels(torch, ck):
@@ -1328,11 +1384,12 @@ def _pinned(torch, layer, i, h, outputs, ties):
 
 
 def _pin(torch, layer, label, h, kept, ties):
-    """A relu ActivationLayer or max-pool SubsamplingLayer on ``h`` with
-    the kernel step's choice: for a relu, ``kept`` is the kernel step's
-    relu output (its mask is kept); for a pool, ``kept`` is the kernel
-    step's pool input (its argmax of each window, padding included, is
-    taken).  Appends the near ties to ``ties`` (see :func:`_pinned`)."""
+    """A relu ActivationLayer, max-pool SubsamplingLayer or global max
+    GlobalPoolingLayer on ``h`` with the kernel step's choice: for a relu,
+    ``kept`` is the kernel step's relu output (its mask is kept); for a
+    pool, ``kept`` is the kernel step's pool input (its argmax of each
+    window, padding included, or of each map is taken).  Appends the near
+    ties to ``ties`` (see :func:`_pinned`)."""
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import convolution as conv_ops
     scale = float(h.detach().abs().max())
@@ -1341,6 +1398,12 @@ def _pin(torch, layer, label, h, kept, ties):
         flips = keep != (h > 0)
         gap = h.abs()[flips]
         out = torch.where(keep, h, 0.0)
+    elif type(layer).__name__ == "GlobalPoolingLayer":
+        flat = h.flatten(2)
+        idx = kept.flatten(2).argmax(2, keepdim=True)
+        out = flat.gather(2, idx)[..., 0]
+        flips = flat.argmax(2, keepdim=True)[..., 0] != idx[..., 0]
+        gap = (flat.amax(2) - out)[flips]
     else:
         k, st = tuple(layer.kernel), tuple(layer.stride)
         (pt, pb), (pl, pr) = conv_ops.explicit_pads(
@@ -2111,9 +2174,9 @@ def _plain_graph_forward(torch, ck, net, x):
 
 
 def _pinned_vertices(net) -> dict:
-    """The relu ActivationLayer and max-pool vertices of a graph, each
-    with the vertex whose output the pin reads: the relu vertex itself,
-    or the pool's input."""
+    """The relu ActivationLayer and max-pool vertices (windows or global)
+    of a graph, each with the vertex whose output the pin reads: the relu
+    vertex itself, or the pool's input."""
     out = {}
     for name in net.order:
         v = net.conf.vertices[name]
@@ -2121,7 +2184,8 @@ def _pinned_vertices(net) -> dict:
         kind = type(layer).__name__
         if kind == "ActivationLayer" and layer.activation == "relu":
             out[name] = name
-        elif kind == "SubsamplingLayer" and layer.pooling_type == "max":
+        elif kind in ("SubsamplingLayer", "GlobalPoolingLayer") and \
+                layer.pooling_type == "max":
             out[name] = net.conf.vertex_inputs[name][0]
     return out
 
@@ -2150,11 +2214,13 @@ class _RecordedVertexOutputs:
 
 
 def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
-                      states, kept=None):
+                      states, kept=None, seeds=None):
     """One training step of graph ``net`` (one loss head, softmax +
-    mcxent, no dropout) from ``params`` / ``opt_states`` / ``states`` with
-    every kernel replaced by its plain version: stride-1 convs through
-    cuDNN (TF32 off), the loss through the plain softmax cross-entropy,
+    mcxent) from ``params`` / ``opt_states`` / ``states`` with every
+    kernel replaced by its plain version: stride-1 convs through cuDNN
+    (TF32 off), dropout through the plain hash with the step's ``seeds``
+    (one pair of words per vertex in topological order, as the kernel
+    step took them), the loss through the plain softmax cross-entropy,
     gradients by autograd; batch norm, the strided convs of the dense
     chain and the update are the graph's own.  With ``kept`` (the kernel
     step's outputs, :class:`_RecordedVertexOutputs` over
@@ -2173,13 +2239,19 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
     remaining = dict(net._readers)
     ties = []
     with ck.full_f32_convs():
-        for name in net.order:
+        for vi, name in enumerate(net.order):
             v = net.conf.vertices[name]
             ins = [acts[i] for i in net.conf.vertex_inputs[name]]
             layer = v.layer_conf() if hasattr(v, "layer_conf") else None
             p = leaves[name]
             if layer is not None and layer.dropout:
-                raise ValueError("the plain graph step has no dropout")
+                if seeds is None or not (0.0 < layer.dropout < 1.0) or \
+                        not ck.dropout_fused_supported(ins[0].shape,
+                                                       ins[0].dtype):
+                    raise ValueError(f"{name}: the plain graph step drops "
+                                     f"out through the hash only")
+                ins = [ck.threshold_dropout_reference(
+                    ins[0], layer.dropout, seeds[vi])] + ins[1:]
             if name == out_name:
                 h = torch.addmm(p["b"], ins[0], p["W"])
             elif isinstance(layer, ConvolutionLayer) and \
@@ -3530,9 +3602,10 @@ def _topical_share(model, topic_of, queries) -> float:
 
 
 @_tf32_off
-def phase_train_word2vec(torch) -> dict:
+def phase_train_word2vec(torch) -> tuple:
     """``Word2Vec.Builder()...build().fit()`` on the card at full width,
-    bench.py's protocol, on the seeded text8-scale corpus."""
+    bench.py's protocol, on the seeded text8-scale corpus -> (record, the
+    trained model, the corpus's sentences, the topic of each word id)."""
     from deeplearning4j_tpu_torch.embeddings import (
         InMemoryLookupTable, SequenceVectors, Word2Vec, kernels,
         sequencevectors)
@@ -3623,7 +3696,7 @@ def phase_train_word2vec(torch) -> dict:
                      "host_ms_per_flush":
                          trace["wall_ms"] / max(window_flushes, 1)}}
     emit("train_word2vec", **out)
-    return out
+    return out, w2v, sents, topic_of
 
 
 def _two_topic_corpus(seed: int = 42, n: int = 300):
@@ -3748,10 +3821,533 @@ def phase_embeddings_card_vs_cpu(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The text CNN, k-means, t-SNE and the nearest-neighbour server
+# ---------------------------------------------------------------------------
+
+# Kim (2014, "Convolutional Neural Networks for Sentence Classification",
+# §3.1) and dl4j-examples' CnnSentenceClassificationExample: filter heights
+# 3, 4 and 5 of 100 maps each over a sentence's word vectors (ReLU), max
+# over time, the three merged, dropout 0.5 (retain 0.5) on the output
+# layer's input, softmax over 2 classes, Adam at lr 0.01, batch 32,
+# sentences of L = 256 tokens.  The kernel checks take D = 300
+# (GoogleNews' vectors) on seeded inputs, and D = 128; the trained path
+# reads the Word2Vec of train_word2vec (D = 128): neither 300-d vectors nor
+# IMDB reviews are in the repo.
+TEXTCNN_HEIGHTS, TEXTCNN_MAPS, TEXTCNN_CLASSES = (3, 4, 5), 100, 2
+TEXTCNN_BATCH, TEXTCNN_LEN, TEXTCNN_D = 32, 256, 300
+TEXTCNN_LR, TEXTCNN_RETAIN = 0.01, 0.5
+# A document: 12 sentences of one topic of the text8-scale corpus (240
+# tokens, within L); class "low" if its topic is below half the topics.
+# 80 % of the documents, cut to whole batches, train for TEXTCNN_EPOCHS
+# epochs through the async pipeline; the rest are held out.
+TEXTCNN_DOC_SENTENCES, TEXTCNN_TRAIN_SHARE, TEXTCNN_EPOCHS = 12, 0.8, 3
+# The held-out accuracy the trained net must reach: the trained table
+# puts each topic's words together (train_word2vec's topical share), so
+# the topic of 240 words is plain.
+TEXTCNN_MIN_ACCURACY = 0.9
+# The step of the fit held to the plain graph step: early, while the loss
+# is far above the rounding of its logits.  A CPU rehearsal (4 topics) read
+# a loss of 8.6e-5 at step 10 and ~1e-8 at the end, where two orders of
+# rounding differ by 5e-4 and a third of it.  Not the first step either:
+# Adam's first update is lr * sign(g), and an element whose gradient lies
+# within rounding of 0 would flip a whole lr.
+TEXTCNN_CHECK_STEP = 3
+# After the checks, where a step's time goes: the iterator's batches alone
+# (the feeder thread's work), then TEXTCNN_TRACE_STEPS fit steps under the
+# profiler (busy and idle share of the card).
+TEXTCNN_TRACE_STEPS = 20
+# k-means on the trained table: one cluster per planted topic; the share
+# of topic words whose cluster's majority topic is their own is reported,
+# not held to a rule: a CPU rehearsal's table (4 topics, 200,000 tokens)
+# points every word one way (mean cosine 0.97 within a topic, 0.97
+# across), so euclidean k-means splits it by other directions and read
+# chance, 0.25, raw, centred or normalised, while each word's nearest words
+# kept their topic.  Held instead, card vs CPU: Lloyd's loop from the
+# card's k-means++ centres over the KMEANS_CHECK_ROWS most frequent words:
+# the same iterations; the same assignments but for near ties, a word
+# whose two nearest centres (the CPU's) lie within KMEANS_TIE of its
+# squared distance (an H100 run read one such word of 10,000); the
+# centres within KMEANS_RTOL in relative 2-norm (one GEMM and a one-hot
+# product summed in other orders; a tied word moves two centres by its
+# share of a cluster).
+KMEANS_MAX_ITER, KMEANS_CHECK_ROWS = 100, 10_000
+KMEANS_TIE, KMEANS_RTOL = 1e-4, 1e-5
+# Exact t-SNE of the TSNE_WORDS most frequent words at the reference's
+# defaults (perplexity 30, 1,000 iterations, lr 500).  The map must keep
+# the table's neighbourhoods: the share of each topic word's 10 nearest
+# points in the map that share its topic must reach TSNE_KEEP of the same
+# share among its 10 nearest words by cosine in the table (t-SNE keeps
+# local neighbourhoods; it cannot make the table's own better).  The
+# share itself depends on how well the words are trained: 0.78 in the map
+# against 0.69 in the table for 2,000 words of a 4-topic CPU rehearsal,
+# 0.35 against 0.40 for 10,000 words of the 20-topic table on an H100.
+# Card vs CPU on the TSNE_CHECK_WORDS most frequent words: P by
+# tests/test_torch_clustering.py's rule (1e-5 + 1e-4 |P|);
+# the loop from one y0 in relative 2-norm, TSNE_LOOP_RTOL, for 3
+# iterations at the defaults and for 50 at settings under which the loop
+# contracts (lr 20, exaggeration 2, both switches at 25): at the defaults
+# the early, exaggerated iterations double any rounding gap every
+# iteration (that file's docstring), on either device.
+TSNE_WORDS, TSNE_CHECK_WORDS, TSNE_NEAREST, TSNE_KEEP = (
+    10_000, 2_000, 10, 0.7)
+TSNE_LOOP_RTOL = 1e-4
+TSNE_STABLE = dict(n_iter=50, lr=20.0, switch_momentum_iter=25,
+                   stop_lying_iter=25, exaggeration=2.0)
+# The nearest-neighbour server (cosine, as words_nearest) over the NN_ROWS
+# most frequent words of the trained table: NN_QUERIES /knn and as many
+# /knnnew requests of NN_K neighbours from NN_CLIENTS threads; each answer
+# against brute force, one GEMM on the card: the same distances within
+# NN_TOL, in order, and every returned word within NN_TOL of the k-th
+# distance (ties).  The VPTree is the JAX package's host recursion, ~40 us
+# a node in a CPU rehearsal, and it cannot prune on this table (every word
+# points one way, cluster_tsne's note): a query visits every node, ~3 s
+# over all 71,290 words.  So the whole table's tree is built and timed,
+# and NN_ROWS are served.
+NN_ROWS, NN_QUERIES, NN_K, NN_CLIENTS, NN_TOL = 2_000, 100, 10, 4, 1e-5
+
+
+def textcnn_conf(gc, layers, global_cls, input_type, width=TEXTCNN_D,
+                 length=TEXTCNN_LEN, maps=TEXTCNN_MAPS,
+                 heights=TEXTCNN_HEIGHTS, classes=TEXTCNN_CLASSES,
+                 seed=SEED, **global_kw):
+    """The text CNN as a ComputationGraph configuration, with either
+    package's modules (``gc`` graph_conf, ``layers``, GlobalConf,
+    InputType): per filter height h a ConvolutionLayer of (h, width),
+    stride 1, truncate, ReLU, then GlobalPoolingLayer(max); a MergeVertex
+    of the pooled maps; an OutputLayer (softmax, mcxent) that drops its
+    input.  The example's ConvolutionMode.Same with stride (1, width)
+    would send JAX's conv to its dense path; stride 1 with truncate gives
+    the same max over time."""
+    g = global_cls(seed=seed, learning_rate=TEXTCNN_LR, updater="adam",
+                   weight_init="relu", **global_kw)
+    b = gc.GraphBuilder(g).add_inputs("words")
+    for h in heights:
+        b = b.add_layer(f"cnn{h}", layers.ConvolutionLayer(
+            n_out=maps, kernel=(h, width), stride=(1, 1),
+            activation="relu"), "words")
+        b = b.add_layer(f"pool{h}", layers.GlobalPoolingLayer(
+            pooling_type="max"), f"cnn{h}")
+    b = b.add_vertex("merge", gc.MergeVertex(),
+                     *[f"pool{h}" for h in heights])
+    b = b.add_layer("out", layers.OutputLayer(
+        n_out=classes, activation="softmax", loss="mcxent",
+        dropout=TEXTCNN_RETAIN), "merge")
+    return b.set_outputs("out").set_input_types(
+        input_type.convolutional(length, width, 1)).build()
+
+
+def textcnn_convs(width: int):
+    """The text CNN's convs as check_conv shapes: (N, Cin, H, W, Cout,
+    (KH, KW), pad, activation)."""
+    return [(TEXTCNN_BATCH, 1, TEXTCNN_LEN, width, TEXTCNN_MAPS, (h, width),
+             0, "relu") for h in TEXTCNN_HEIGHTS]
+
+
+@_tf32_off
+def phase_textcnn_kernels(torch, ck) -> dict:
+    """The conv kernel's full-width route at the text CNN's shapes, D =
+    300 and 128, against its plain version, timed as in phase 3 and by
+    CUDA-graph replay."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    records, sets = [], {}
+    for width in (TEXTCNN_D, W2V_LAYER):
+        rows = []
+        for shape in textcnn_convs(width):
+            N, Cin, H, W, Cout, (KH, KW), _, _ = shape
+            plan = ck.conv_plan(N, Cin, KH, KW, Cout, H - KH + 1, 1, sms)
+            if plan is None or plan["fw"] != 1:
+                raise AssertionError(f"{shape}: plan {plan}, not the "
+                                     f"full-width route")
+            rec = check_conv(torch, ck, shape, gen, replay=True)
+            rec.update(model=f"textcnn_{width}", plan=plan)
+            rows.append(rec)
+        agg = {k: sum(r[k] for r in rows) for k in SET_SUMS + GRAPH_SUMS}
+        agg["graph_share_of_bound"] = agg["bound_ms"] / agg["graph_ms"]
+        agg.update(convs=len(rows), tflops=agg["flops"] / agg["ms"] / 1e9,
+                   share_of_bound=agg["bound_ms"] / agg["ms"])
+        sets[f"textcnn_{width}"] = agg
+        records += rows
+    res = {"records": records, "sets": sets,
+           "sass_hgmma": hgmma_count(ck, ck.CONV_LIBRARY,
+                                     r"conv_wgmma_kernelILi\d+ELb1E")}
+    emit("textcnn_kernels", tf32=False, rtol=RTOL, atol_scaled=ATOL,
+         timed_sets=sets, full_width_sass_hgmma=res["sass_hgmma"],
+         bound_note="as in the kernels line", shapes=records)
+    return res
+
+
+def textcnn_documents(sents, topic_of):
+    """Documents of TEXTCNN_DOC_SENTENCES sentences of one topic (a
+    sentence's topic: the most common among its topic words), shuffled
+    -> (documents, labels)."""
+    ids = np.array([[int(w[1:]) for w in s.split()] for s in sents])
+    topics = topic_of[ids]
+    counts = np.stack([(topics == t).sum(1) for t in range(W2V_TOPICS)], 1)
+    sent_topic = counts.argmax(1)
+    docs, labels = [], []
+    for t in range(W2V_TOPICS):
+        rows = np.flatnonzero(sent_topic == t)
+        for i in range(0, rows.size - TEXTCNN_DOC_SENTENCES + 1,
+                       TEXTCNN_DOC_SENTENCES):
+            docs.append(" ".join(sents[r] for r in
+                                 rows[i:i + TEXTCNN_DOC_SENTENCES]))
+            labels.append("low" if t < W2V_TOPICS // 2 else "high")
+    order = np.random.default_rng(SEED + 31).permutation(len(docs))
+    return [docs[i] for i in order], [labels[i] for i in order]
+
+
+@_tf32_off
+def phase_train_textcnn(torch, ck, w2v, sents, topic_of) -> dict:
+    """The text CNN over the trained Word2Vec: ``fit`` through the async
+    pipeline on ``CnnSentenceDataSetIterator`` batches, one of its steps
+    (TEXTCNN_CHECK_STEP) against the plain graph step, then ``evaluate``
+    on held-out documents."""
+    from deeplearning4j_tpu_torch.nn.conf import graph_conf as gc
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import GlobalConf
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.text.cnn_iterator import (
+        CnnSentenceDataSetIterator, CollectionLabeledSentenceProvider)
+    docs, labels = textcnn_documents(sents, topic_of)
+    n_train = int(len(docs) * TEXTCNN_TRAIN_SHARE) // TEXTCNN_BATCH * \
+        TEXTCNN_BATCH
+
+    def batches(lo, hi):
+        return CnnSentenceDataSetIterator(
+            CollectionLabeledSentenceProvider(docs[lo:hi], labels[lo:hi]),
+            w2v, batch_size=TEXTCNN_BATCH, max_sentence_length=TEXTCNN_LEN)
+    train, held = batches(0, n_train), batches(n_train, len(docs))
+    width = w2v.lookup_table.vector_length
+    net = ComputationGraph(textcnn_conf(gc, L, GlobalConf, InputType,
+                                        width=width), device="cuda").init()
+    steps, checked = [], {}
+    fit_batch = net._fit_batch
+    pins = _pinned_vertices(net)
+
+    def timed_batch(mds, seeds=None):     # each step, timed and counted
+        check = len(steps) + 1 == TEXTCNN_CHECK_STEP
+        recording = contextlib.nullcontext()
+        if check:       # keep its state, seed words and pool inputs
+            seeds = net._draw_seeds().tolist()
+            checked["before"] = (
+                _clone_tree(net.net_params), _clone_tree(net.opt_states),
+                _clone_tree(net.net_state), net.iteration, seeds, mds)
+            recording = checked["recorded"] = _RecordedVertexOutputs(
+                net, set(pins.values()))
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        with recording:
+            fit_batch(mds, seeds)
+        torch.cuda.synchronize()
+        after = _kernel_counts(ck)
+        steps.append({"seconds": time.perf_counter() - t0,
+                      "score": net.score(),
+                      "staged_on": str(mds.features[0].device),
+                      "launches": {n: after[n] - counts[n] for n in after}})
+        if check:
+            checked["after"] = (net.score(), _clone_tree(net.net_params))
+    net._fit_batch = timed_batch
+    fallbacks = _conv_fallbacks()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    net.fit(train, epochs=TEXTCNN_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    del net._fit_batch
+    want = _want(ck, conv2d_bias_act=len(TEXTCNN_HEIGHTS),
+                 threshold_dropout=2)
+    bad = [st for st in steps if st["launches"] != want
+           or st["staged_on"] != "cuda:0"]
+    if len(steps) != TEXTCNN_EPOCHS * n_train // TEXTCNN_BATCH or bad:
+        raise AssertionError(f"text CNN: {len(steps)} steps; each must "
+                             f"launch {want} on the card: {bad[:2]}")
+    before = _kernel_counts(ck)
+    t0 = time.perf_counter()
+    ev = net.evaluate(held)
+    eval_s = time.perf_counter() - t0
+    after = _kernel_counts(ck)
+    eval_launches = {n: after[n] - before[n] for n in after}
+    held_batches = -(-(len(docs) - n_train) // TEXTCNN_BATCH)
+    accuracy = float(ev.accuracy())
+    # the checked step against the plain graph step from its state
+    params0, opt0, states0, it, seeds, mds = checked["before"]
+    kernel_score, kernel_params = checked["after"]
+    plain_score, plain_params, _, ties = _plain_graph_step(
+        torch, ck, net, params0, opt0, list(mds.features),
+        list(mds.labels), it, states0, checked["recorded"].outputs,
+        seeds=seeds)
+    errs = {f"{n}_{k}": _rel_norm(torch, t - params0[n][k],
+                                  plain_params[n][k] - params0[n][k])
+            for n in net.order for k, t in kernel_params[n].items()}
+    fallbacks = _conv_fallbacks() - fallbacks
+    window = TEXTCNN_TRACE_STEPS * TEXTCNN_BATCH
+    etl, t0 = batches(0, window), time.perf_counter()
+    while etl.has_next():
+        etl.next()
+    torch.cuda.synchronize()
+    etl_ms = (time.perf_counter() - t0) * 1e3 / TEXTCNN_TRACE_STEPS
+    trace = _device_trace(torch, lambda: net.fit(batches(0, window)))
+    timed = steps[1:]
+    res = {"documents": len(docs), "train_documents": n_train,
+           "held_out_documents": len(docs) - n_train,
+           "tokens_per_document": TEXTCNN_DOC_SENTENCES * W2V_SENT,
+           "D": width, "L": TEXTCNN_LEN, "batch": TEXTCNN_BATCH,
+           "steps": len(steps), "fit_s": fit_s,
+           "samples_per_s": len(steps) * TEXTCNN_BATCH / fit_s,
+           "step_ms_median": float(np.median(
+               [st["seconds"] for st in timed])) * 1e3,
+           "scores": [st["score"] for st in steps[:10]] + [
+               steps[-1]["score"]],
+           "max_memory_allocated": peak, "launches": launches,
+           "launches_per_step": want, "conv_fallbacks": fallbacks,
+           "split": {"iterator_ms_per_batch": etl_ms,
+                     "traced_steps": TEXTCNN_TRACE_STEPS,
+                     "wall_ms_per_step": trace["wall_ms"]
+                     / TEXTCNN_TRACE_STEPS,
+                     "busy_ms_per_step": trace["busy_ms"]
+                     / TEXTCNN_TRACE_STEPS,
+                     "idle_share": trace["idle_share"],
+                     "device_activities_per_step":
+                         trace["device_activities"] / TEXTCNN_TRACE_STEPS},
+           "evaluate": {"seconds": eval_s, "launches": eval_launches,
+                        "accuracy": accuracy,
+                        "min_accuracy": TEXTCNN_MIN_ACCURACY},
+           "plain_step": {"step": TEXTCNN_CHECK_STEP, "score": plain_score,
+                          "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "max_update_rel_err": max(errs.values()),
+                          "updates": errs, "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL,
+                          "near_ties": ties, "tie_rtol": TIE_RTOL}}
+    emit("train_textcnn", **res)
+    ps = res["plain_step"]
+    if eval_launches != _want(ck, conv2d_bias_act=len(TEXTCNN_HEIGHTS)
+                              * held_batches) or fallbacks:
+        raise AssertionError(f"text CNN evaluate: launches {eval_launches},"
+                             f" {fallbacks} conv fallbacks")
+    if accuracy < TEXTCNN_MIN_ACCURACY:
+        raise AssertionError(f"text CNN held-out accuracy {accuracy} < "
+                             f"{TEXTCNN_MIN_ACCURACY}")
+    if ps["score_rel_diff"] > STEP_RTOL or \
+            ps["max_update_rel_err"] > STEP_UPDATE_RTOL or \
+            len(ties) != len(TEXTCNN_HEIGHTS) or \
+            max(t["max_rel_gap"] for t in ties) > TIE_RTOL:
+        raise AssertionError("text CNN step through the kernels disagrees "
+                             "with the plain step")
+    return res
+
+
+def _topic_rows(w2v, topic_of):
+    """The planted topic of each row of the table (-1: background)."""
+    return np.array([topic_of[int(w[1:])] for w in w2v.vocab.words()])
+
+
+@_tf32_off
+def phase_cluster_tsne(torch, w2v, topic_of) -> dict:
+    """KMeansClustering on the trained table and exact t-SNE of the most
+    frequent words on the card, each checked against the CPU."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, kmeans
+    from deeplearning4j_tpu_torch.plot import Tsne, tsne
+    table = w2v.lookup_table.syn0
+    topics = _topic_rows(w2v, topic_of)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km = KMeansClustering(W2V_TOPICS, max_iter=KMEANS_MAX_ITER, seed=SEED)
+    km.apply_to(table)
+    out["kmeans_s"] = time.perf_counter() - t0
+    assign, on_topic = km.assignments_, topics >= 0
+    majority_hits = sum(
+        np.bincount(topics[on_topic & (assign == k)],
+                    minlength=W2V_TOPICS).max()
+        for k in range(W2V_TOPICS) if (on_topic & (assign == k)).any())
+    out.update(kmeans_rows=int(table.shape[0]), k=W2V_TOPICS,
+               kmeans_iterations=km.iterations_,
+               kmeans_cluster_sizes=np.bincount(
+                   assign, minlength=W2V_TOPICS).tolist(),
+               kmeans_topic_share=majority_hits / int(on_topic.sum()))
+    sub = table[:KMEANS_CHECK_ROWS]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    with kmeans.full_f32_matmul():
+        c0 = kmeans.kmeans_pp(sub, W2V_TOPICS, gen)
+    card = kmeans.lloyd(sub, c0, KMEANS_MAX_ITER, km.tol)
+    cpu = kmeans.lloyd(sub.cpu(), c0.cpu(), KMEANS_MAX_ITER, km.tol)
+    c_card, c_cpu = card[0].cpu(), cpu[0]
+    differ = (card[1].cpu() != cpu[1]).nonzero()[:, 0]
+    d2 = kmeans.dist2(sub.cpu()[differ], c_cpu)
+    near = d2.topk(2, dim=1, largest=False).values
+    gaps = ((near[:, 1] - near[:, 0]) / near[:, 1].clamp_min(1e-30))
+    out["kmeans_card_vs_cpu"] = {
+        "rows": KMEANS_CHECK_ROWS, "iterations": [card[2], cpu[2]],
+        "assignments_differ": int(differ.numel()),
+        "max_tie_gap": float(gaps.max()) if differ.numel() else 0.0,
+        "centres_rel_err": _rel_norm(torch, c_card, c_cpu),
+        "tie": KMEANS_TIE, "rtol": KMEANS_RTOL}
+    chk = out["kmeans_card_vs_cpu"]
+    if card[2] != cpu[2] or chk["max_tie_gap"] > KMEANS_TIE or \
+            chk["centres_rel_err"] > KMEANS_RTOL:
+        raise AssertionError(f"k-means card vs CPU: {chk}")
+
+    x = table[:TSNE_WORDS]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = Tsne(perplexity=30.0, n_iter=1000, learning_rate=500.0,
+             seed=SEED).fit_transform(x.cpu().numpy())
+    out["tsne_s"] = time.perf_counter() - t0
+    out["tsne_peak_bytes_above_start"] = \
+        torch.cuda.max_memory_allocated() - held
+    t_sub = topics[:TSNE_WORDS]
+    mine = t_sub >= 0
+
+    def topic_share(dist):
+        near = dist.fill_diagonal_(float("inf")).topk(
+            TSNE_NEAREST, largest=False).indices.cpu().numpy()
+        return float((t_sub[near[mine]] == t_sub[mine][:, None]).mean())
+    xn = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    with torch.no_grad():
+        share = topic_share(tsne._sq_dists(torch.from_numpy(y).cuda()))
+        table_share = topic_share(1.0 - xn @ xn.T)
+    counts = np.bincount(t_sub[mine])
+    out.update(tsne_words=TSNE_WORDS, tsne_topic_words=int(mine.sum()),
+               tsne_map_topic_share=share, tsne_table_topic_share=table_share,
+               tsne_chance_share=float((counts ** 2).sum()
+                                       / counts.sum() ** 2),
+               tsne_keep=TSNE_KEEP)
+    if y.shape != (TSNE_WORDS, 2) or not np.isfinite(y).all() or \
+            share < TSNE_KEEP * table_share:
+        emit("cluster_tsne", **out)
+        raise AssertionError(f"t-SNE map: shape {y.shape}, topic share "
+                             f"{share} against the table's {table_share}")
+
+    xs = x[:TSNE_CHECK_WORDS]
+    p_card = tsne._x2p_dense(xs, 30.0)
+    p_cpu = tsne._x2p_dense(xs.cpu(), 30.0)
+    p_err = (p_card.cpu() - p_cpu).abs()
+    p_excess = float((p_err / (1e-5 + 1e-4 * p_cpu.abs())).max())
+    n = TSNE_CHECK_WORDS
+    ps = torch.clamp_min((p_cpu + p_cpu.T) / (2.0 * n), 1e-12)
+    y0 = torch.from_numpy((1e-4 * np.random.default_rng(SEED + 33).normal(
+        size=(n, 2))).astype(np.float32))
+    loops = {}
+    for name, kw in (("defaults_3", dict(
+            n_iter=3, lr=500.0, switch_momentum_iter=100,
+            stop_lying_iter=250, exaggeration=12.0)),
+            ("contracting_50", TSNE_STABLE)):
+        a = tsne._tsne_exact(ps.cuda(), y0.cuda(), **kw).cpu()
+        b = tsne._tsne_exact(ps, y0, **kw)
+        loops[name] = _rel_norm(torch, a, b)
+    out["tsne_card_vs_cpu"] = {"words": n, "p_max_abs_err":
+                               float(p_err.max()), "p_excess": p_excess,
+                               "loop_rel_err": loops,
+                               "loop_rtol": TSNE_LOOP_RTOL}
+    emit("cluster_tsne", **out)
+    if p_excess > 1.0 or max(loops.values()) > TSNE_LOOP_RTOL:
+        raise AssertionError(f"t-SNE card vs CPU: {out['tsne_card_vs_cpu']}")
+    return out
+
+
+def phase_nearest_neighbors(torch, w2v) -> dict:
+    """The trained table's VPTree (cosine), built and timed; a
+    NearestNeighborsServer over its NN_ROWS most frequent words, queried
+    over HTTP by word index (/knn) and by base64 vector (/knnnew); each
+    answer against brute force from one GEMM on the card."""
+    from deeplearning4j_tpu_torch.clustering import VPTree
+    from deeplearning4j_tpu_torch.server import NearestNeighborsServer
+    from deeplearning4j_tpu_torch.server.nearestneighbors import (
+        ndarray_to_base64)
+    full = w2v.lookup_table.get_weights()
+    t0 = time.perf_counter()
+    VPTree(full, distance="cosine")
+    full_build_s = time.perf_counter() - t0
+    table = full[:NN_ROWS]
+    t0 = time.perf_counter()
+    srv = NearestNeighborsServer(table, distance="cosine")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 34)
+    words = rng.choice(table.shape[0], size=2 * NN_QUERIES, replace=False)
+    bodies = [("/knn", {"ndarrayIndex": int(i), "k": NN_K})
+              for i in words[:NN_QUERIES]]
+    fresh = table[words[NN_QUERIES:]] + 0.01 * rng.normal(
+        size=(NN_QUERIES, table.shape[1])).astype(np.float32)
+    bodies += [("/knnnew", {**ndarray_to_base64(q), "k": NN_K})
+               for q in fresh]
+    answers, latency = [None] * len(bodies), [0.0] * len(bodies)
+    base = f"http://{srv.host}:{srv.port}"
+
+    def client(c):
+        for j in range(c, len(bodies), NN_CLIENTS):
+            route, body = bodies[j]
+            req = urllib.request.Request(
+                base + route, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers[j] = json.loads(r.read())["results"]
+            latency[j] = time.perf_counter() - t
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(NN_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        serve_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    if any(a is None for a in answers):
+        raise AssertionError("nearest_neighbors: a request got no answer")
+    t = torch.from_numpy(table).cuda()
+    tn = t / t.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    q = torch.cat([tn[torch.from_numpy(words[:NN_QUERIES]).cuda()],
+                   torch.from_numpy(fresh).cuda()])
+    q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    with torch.no_grad():
+        dist = 1.0 - q @ tn.T                                # one GEMM
+    dist[torch.arange(NN_QUERIES), torch.from_numpy(
+        words[:NN_QUERIES]).cuda()] = float("inf")           # /knn skips i
+    best = dist.topk(NN_K, largest=False)
+    kth = best.values[:, -1].cpu().numpy()
+    ref = best.values.cpu().numpy()
+    dist = dist.cpu().numpy()
+    worst = 0.0
+    for j, res in enumerate(answers):
+        idx = [r["index"] for r in res]
+        got = np.array([r["distance"] for r in res])
+        if len(res) != NN_K or np.any(np.diff(got) < 0):
+            raise AssertionError(f"nearest_neighbors: answer {j}: {res}")
+        worst = max(worst, float(np.abs(got - ref[j]).max()),
+                    float((dist[j, idx] - kth[j]).max()))
+    out = {"table_rows": int(full.shape[0]),
+           "vptree_build_s_table": full_build_s,
+           "rows": int(table.shape[0]), "D": int(table.shape[1]),
+           "distance": "cosine", "vptree_build_s": build_s,
+           "requests": len(bodies), "clients": NN_CLIENTS, "k": NN_K,
+           "serve_s": serve_s, "requests_per_s": len(bodies) / serve_s,
+           "latency_ms_p50": float(np.median(latency)) * 1e3,
+           "latency_ms_max": float(np.max(latency)) * 1e3,
+           "max_gap_to_brute_force": worst, "tol": NN_TOL}
+    emit("nearest_neighbors", **out)
+    if worst > NN_TOL:
+        raise AssertionError(f"nearest_neighbors: answers {worst} from "
+                             f"brute force")
+    return out
+
+
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
-            train_att, output_att, sample_att) -> dict:
+            train_att, output_att, sample_att, textcnn, train_tc) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -3762,7 +4358,8 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     SASS; dq and dk/dv SDPA f32's backward, which computes the pair in one
     call.  ``launches`` counts every main path's run.  The conv entry
     carries beside it the summed set of ResNet-50's 46 stride-1 convs at
-    batch 128 (``resnet50_128``)."""
+    batch 128 (``resnet50_128``) and of the text CNN's three full-width
+    convs at D = 300 and 128 (``textcnn_300``, ``textcnn_128``)."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -3788,7 +4385,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "sample_charrnn": sample_char["launches"],
              "train_attention": train_att["launches"],
              "output_attention": output_att["launches"],
-             "sample_attention": sample_att["launches"]}
+             "sample_attention": sample_att["launches"],
+             "train_textcnn": train_tc["launches"],
+             "evaluate_textcnn": train_tc["evaluate"]["launches"]}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -3804,7 +4403,8 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:577",
         "launches": launches("conv2d_bias_act"),
         "launches_by_path": by_path("conv2d_bias_act"),
-        "max_abs_err": max(r["max_abs_err"] for r in records),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in records + textcnn["records"]),
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
@@ -3815,6 +4415,12 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "resnet50_128": {k: resnet_set[k] for k in (
             "convs", "ms", "plain_ms", "library_ms", "library_tf32_ms",
             "bound_ms", "bound_f32_simt_ms", "tflops", "share_of_bound")},
+        **{name: {k: agg[k] for k in (
+            "convs", "ms", "plain_ms", "library_ms", "library_tf32_ms",
+            "bound_ms", "bound_f32_simt_ms", "tflops", "share_of_bound")
+            + GRAPH_SUMS + ("graph_share_of_bound",)}
+           for name, agg in textcnn["sets"].items()},
+        "full_width_sass_hgmma": textcnn["sass_hgmma"],
     }, {
         "name": "softmax_xent",
         "route": "cuda",
@@ -3928,15 +4534,19 @@ def main() -> int:
     sample_att = phase_sample_attention(torch, ck, net, it)
     del net
     phase_w2v_step(torch)
-    phase_train_word2vec(torch)
+    _, w2v, sents, topic_of = phase_train_word2vec(torch)
     phase_embeddings_card_vs_cpu(torch)
+    textcnn = phase_textcnn_kernels(torch, ck)
+    train_tc = phase_train_textcnn(torch, ck, w2v, sents, topic_of)
+    phase_cluster_tsne(torch, w2v, topic_of)
+    phase_nearest_neighbors(torch, w2v)
 
     print(json.dumps(summary(records + resnet_records, serve_launches, xd,
                              train_vgg, train_lenet, lenet_pipe, gateway_fit,
                              keras_vgg, train_keras_vgg, resnet_set,
                              serve_resnet, train_resnet, functional, lstm,
                              train_char, sample_char, flash, train_att,
-                             output_att, sample_att)))
+                             output_att, sample_att, textcnn, train_tc)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,7 +2,7 @@
 
 The JAX package beside it stays the reference; this package mirrors its
 layout (``ops/``, ``nn/``, ``nn/conf/``, ``models/``, ``server/``,
-``text/``, ``embeddings/``, ``graph/``) and its
+``text/``, ``embeddings/``, ``graph/``, ``clustering/``, ``plot/``) and its
 public layouts (NCHW activations, OIHW conv weights, dense ``W`` as
 ``[n_in, n_out]``), so a model, its JSON configuration and its
 ``coefficients.bin`` move between the two unchanged.  Hot ops run as

@@ -55,6 +55,22 @@
 //    the cluster through distributed shared memory.
 //  * Epilogue: bias + activation on the f32 accumulator in registers, and
 //    one store of each output, in NCHW.
+//
+// The full-width route.  A filter that spans the input's whole padded width
+// (KW == W + pl + pr, so OW == 1: the convs of a text CNN over word
+// vectors, h x D) has no halo to stage: its taps run past kMaxK, and a
+// tile's halo of (128 + KH - 1) rows of W floats would not fit a stage.  It
+// is a plain GEMM instead: M = N * OH output rows, N = Cout, K = Cin*KH*KW.
+// Output row (n, oh) reads x[n, :, oh - pt : oh - pt + KH, :], so A's row
+// (n, oh) starts at n*Cin*H*W + (oh - pt)*W and K index (c, kh, kw) sits
+// c*H*W + kh*W + kw - pl from it: KH*W contiguous floats per channel when
+// there is no width padding.  Each slice stages its A tile, 128 rows by 64
+// K in a row pitch of 68 floats (conflict-free fragment reads), straight
+// from x with cp.async: 16-byte copies where W, pl and KW are multiples of
+// 4 and x is 16-byte aligned, else 4-byte copies; zeros where a row or
+// column falls in the padding, past K or past M.  The weights, the wgmma
+// mainloop, the cluster split and the epilogue are the halo route's.
+// Shapes the halo route takes stay on it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -71,9 +87,10 @@ constexpr int kThreads = 256;          // two warpgroups of 64 pixel rows
 constexpr int kBM = 128;               // output pixels per block
 constexpr int kBK = 64;                // K per slice: two 128-byte rows
 constexpr int kStages = 2;             // cp.async ring depth
-constexpr int kMaxK = 7;               // largest KH / KW the kernel takes
+constexpr int kMaxK = 7;               // largest KH / KW of the halo route
 constexpr int kMaxTW = 32;             // widest tile, in output columns
 constexpr int kHaloMaxFloats = 6144;   // staged halo per stage, 24 KB
+constexpr int kAPitch = kBK + 4;       // full-width route: A tile row pitch
 constexpr int kMaxCluster = 8;         // portable thread block cluster size
 constexpr int kWRowPad = 64;           // split weights' rows: Cout up to this
 constexpr int kSmemMax = 231424;       // dynamic shared memory: 227 KB less 1 KB
@@ -118,11 +135,14 @@ __device__ __forceinline__ float activate(float v, int act) {
 // ---------------------------------------------------------------------------
 
 struct Plan {
+  int fw;                 // 1: the full-width route (OW == 1), 0: the halo
   int bn;                 // output channels per block: 32 or 64
   int ni, th, tw;         // images, rows and columns of a tile of pixels
-  int hr, hp;             // staged halo rows and row pitch
-  int nch;                // input channels staged per slice
-  int halo_floats;        // staged halo per stage (multiple of 32)
+                          // (full width: 1, kBM rows of M = N*OH, 1)
+  int hr, hp;             // staged halo rows and row pitch (full width: the
+                          // A tile's kBM rows and kAPitch)
+  int nch;                // input channels staged per slice (full width: 0)
+  int halo_floats;        // staged halo (A tile) per stage (multiple of 32)
   int tiles_n, tiles_h, tiles_w, tiles_c;   // image groups, row and column
                                             // tiles, Cout tiles
   int slices;             // K slices of kBK: Kpad / kBK
@@ -172,14 +192,14 @@ void choose_tile(int N, int OH, int OW, int KH, int KW, Plan* p) {
   }
 }
 
-// Where the kernel applies, in closed form (ops/cuda_kernels.py's
-// conv_fused_supported is the same test): KH, KW <= kMaxK; K <= 2^30; a
-// halo element's offset in x from its tile's first image is an int (a tile
-// holds several images only when one image fits in kBM pixels, and H <=
-// OH + KH - 1, W <= OW + KW - 1 for a stride-1 conv); and the grid fits
-// CUDA's 2^31 - 1 blocks (every tile has an output pixel, and a cluster
-// split only multiplies grids below two blocks per SM).
-bool supported(int N, int Cin, int KH, int KW, int Cout, int OH, int OW) {
+// Where the halo route applies, in closed form: KH, KW <= kMaxK; K <=
+// 2^30; a halo element's offset in x from its tile's first image is an int
+// (a tile holds several images only when one image fits in kBM pixels, and
+// H <= OH + KH - 1, W <= OW + KW - 1 for a stride-1 conv); and the grid
+// fits CUDA's 2^31 - 1 blocks (every tile has an output pixel, and a
+// cluster split only multiplies grids below two blocks per SM).
+bool halo_supported(int N, int Cin, int KH, int KW, int Cout, int OH,
+                    int OW) {
   if (N < 1 || Cin < 1 || Cout < 1 || OH < 1 || OW < 1 || KH < 1 ||
       KW < 1 || KH > kMaxK || KW > kMaxK)
     return false;
@@ -189,6 +209,30 @@ bool supported(int N, int Cin, int KH, int KW, int Cout, int OH, int OW) {
   if (ni * Cin * (OH + KH - 1) * (OW + KW - 1) > 0x7FFFFFFFLL) return false;
   return static_cast<long long>(N) * pix * cdiv(Cout, Cout <= 32 ? 32 : 64) <=
          0x7FFFFFFFLL;
+}
+
+// Where the full-width route applies: OW == 1 (a stride-1 filter as wide as
+// the padded input), KH and KW of any size with K <= 2^30; an element's
+// offset in x from its image is an int (Cin*H*W <= Cin*(OH+KH-1)*KW); M =
+// N*OH is an int; and the grid of M tiles by Cout tiles fits.
+bool full_width_supported(int N, int Cin, int KH, int KW, int Cout, int OH,
+                          int OW) {
+  if (N < 1 || Cin < 1 || Cout < 1 || OH < 1 || OW != 1 || KH < 1 || KW < 1)
+    return false;
+  if (static_cast<long long>(Cin) * KH * KW > (1LL << 30)) return false;
+  if (static_cast<long long>(Cin) * (OH + KH - 1) * KW > 0x7FFFFFFFLL)
+    return false;
+  const long long m = static_cast<long long>(N) * OH;
+  return m <= 0x7FFFFFFFLL &&
+         (m + kBM - 1) / kBM * cdiv(Cout, Cout <= 32 ? 32 : 64) <=
+             0x7FFFFFFFLL;
+}
+
+// Where the kernel applies (ops/cuda_kernels.py's conv_fused_supported is
+// the same test): either route; a shape both take goes the halo route.
+bool supported(int N, int Cin, int KH, int KW, int Cout, int OH, int OW) {
+  return halo_supported(N, Cin, KH, KW, Cout, OH, OW) ||
+         full_width_supported(N, Cin, KH, KW, Cout, OH, OW);
 }
 
 // The most shared memory a plan asks for: the ring, whose halo is at most
@@ -201,23 +245,46 @@ constexpr int kRingMax =
 static_assert(64 / 2 * kThreads * 4 <= kRingMax, "parked sums exceed ring");
 static_assert(kRingMax + kHaloMaxFloats * 4 + 1024 <= kSmemMax,
               "a plan could ask for more shared memory than a block has");
+// the full-width route's ring (A tile instead of the halo) and row tables
+constexpr int kRingFw =
+    kStages * ((2 * 64 * kBK * 4 + kBM * kAPitch * 4 + kBK * 4 + 1023) /
+               1024 * 1024);
+static_assert(kRingFw + kBM * 12 + 1024 <= kSmemMax,
+              "the full-width plan asks for more shared memory than a block "
+              "has");
 
 // The whole launch plan, for a shape supported() accepts.
 void plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW, int sms,
           Plan* p) {
   const int taps = KH * KW;
   const int kpad = cdiv(Cin * taps, kBK) * kBK;
+  p->fw = halo_supported(N, Cin, KH, KW, Cout, OH, OW) ? 0 : 1;
   p->bn = Cout <= 32 ? 32 : 64;
-  // channels that kBK consecutive K indices can touch, and no more than the
-  // padded K holds
-  p->nch = imin((kBK + taps - 2) / taps + 1, (kpad - 1) / taps + 1);
-  choose_tile(N, OH, OW, KH, KW, p);
-  p->hr = p->th + KH - 1;
-  p->hp = p->tw + KW - 1;
-  p->halo_floats = cdiv(p->nch * p->ni * p->hr * p->hp, 32) * 32;
-  p->tiles_n = cdiv(N, p->ni);
-  p->tiles_h = cdiv(OH, p->th);
-  p->tiles_w = cdiv(OW, p->tw);
+  if (p->fw) {
+    // one tile: kBM rows of M = N*OH, staged as [kBM][kAPitch]
+    p->nch = 0;
+    p->ni = 1;
+    p->th = kBM;
+    p->tw = 1;
+    p->hr = kBM;
+    p->hp = kAPitch;
+    p->halo_floats = kBM * kAPitch;
+    p->tiles_n = 1;
+    p->tiles_h = static_cast<int>(
+        (static_cast<long long>(N) * OH + kBM - 1) / kBM);
+    p->tiles_w = 1;
+  } else {
+    // channels that kBK consecutive K indices can touch, and no more than
+    // the padded K holds
+    p->nch = imin((kBK + taps - 2) / taps + 1, (kpad - 1) / taps + 1);
+    choose_tile(N, OH, OW, KH, KW, p);
+    p->hr = p->th + KH - 1;
+    p->hp = p->tw + KW - 1;
+    p->halo_floats = cdiv(p->nch * p->ni * p->hr * p->hp, 32) * 32;
+    p->tiles_n = cdiv(N, p->ni);
+    p->tiles_h = cdiv(OH, p->th);
+    p->tiles_w = cdiv(OW, p->tw);
+  }
   p->tiles_c = cdiv(Cout, p->bn);
   p->slices = kpad / kBK;
   const long long blocks = static_cast<long long>(p->tiles_n) * p->tiles_h *
@@ -233,14 +300,17 @@ void plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW, int sms,
   const int ring = kStages * p->stage_bytes;
   const int part = p->bn / 2 * kThreads * 4;      // parked accumulators
   p->table_off = ring > part ? ring : part;
-  // + the halo plane's source offsets (4 bytes each) + alignment slack
-  p->smem = p->table_off + p->ni * p->hr * p->hp * 4 + 1024;
+  // + the halo plane's source offsets (4 bytes each), or the full-width
+  // tile's row offsets (8 bytes) and first input rows (4), + alignment slack
+  p->smem = p->table_off +
+            (p->fw ? kBM * 12 : p->ni * p->hr * p->hp * 4) + 1024;
 }
 
 struct Shape {
   int N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act;
   int kpad;               // row length of the split weights
   long long lo_off;       // floats from w_hi to w_lo
+  int vec;                // full width: A's copies are 16 bytes, else 4
 };
 
 // ---------------------------------------------------------------------------
@@ -264,7 +334,7 @@ __global__ void split_tf32_kernel(const float* __restrict__ w,
   ws[total + i] = __uint_as_float(tf32_rna(lo));
 }
 
-template <int BN>
+template <int BN, bool FW>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
                   const float* __restrict__ b, float* __restrict__ y,
@@ -287,45 +357,70 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
   t /= p.tiles_c;
   const int ow0 = (t % p.tiles_w) * p.tw;
   t /= p.tiles_w;
-  const int oh0 = (t % p.tiles_h) * p.th;
-  const int n0 = (t / p.tiles_h) * p.ni;
+  const int oh0 = (t % p.tiles_h) * p.th;   // full width: the tile's first
+  const int n0 = (t / p.tiles_h) * p.ni;    // row of M, and n0 = 0
   const int co0 = ct * BN;
 
-  // the halo plane [NI][TH+KH-1][TW+KW-1]: each element's offset in x from
-  // image n0's channel 0, -1 where it is padding; the taps' offsets in it
   const int taps = s.KH * s.KW;
   const int plane = p.ni * p.hr * p.hp;
   const long long chw = static_cast<long long>(s.H) * s.W;
-  int* src_off = reinterpret_cast<int*>(smem + p.table_off);
-  for (int e = tid; e < plane; e += kThreads) {
-    const int li = e / (p.hr * p.hp), rem = e % (p.hr * p.hp);
-    const int ih = oh0 - s.pt + rem / p.hp, iw = ow0 - s.pl + rem % p.hp;
-    src_off[e] = (n0 + li < s.N && ih >= 0 && ih < s.H && iw >= 0 &&
-                  iw < s.W)
-                     ? static_cast<int>(li * s.Cin * chw + ih * s.W + iw)
-                     : -1;
-  }
   const float* xn = x + static_cast<long long>(n0) * s.Cin * chw;
-  for (int i = tid; i < taps; i += kThreads)
-    tap_off[i] = (i / s.KW) * p.hp + i % s.KW;
+  // Halo route: the halo plane [NI][TH+KH-1][TW+KW-1], each element's
+  // offset in x from image n0's channel 0, -1 where it is padding, and the
+  // taps' offsets in it.  Full width: each tile row's offset in x of its
+  // first input row, oh - pt, and that row's index (dead rows: far out).
+  int* src_off = reinterpret_cast<int*>(smem + p.table_off);
+  long long* row_off = reinterpret_cast<long long*>(smem + p.table_off);
+  int* row_ih = reinterpret_cast<int*>(smem + p.table_off + kBM * 8);
+  const int M = s.N * s.OH;
+  if constexpr (FW) {
+    for (int r = tid; r < kBM; r += kThreads) {
+      const int m = oh0 + r;
+      const int n = m / s.OH, oh = m % s.OH;
+      row_off[r] = m < M ? static_cast<long long>(n) * s.Cin * chw +
+                               static_cast<long long>(oh - s.pt) * s.W
+                         : 0;
+      row_ih[r] = m < M ? oh - s.pt : -(1 << 30);
+    }
+  } else {
+    for (int e = tid; e < plane; e += kThreads) {
+      const int li = e / (p.hr * p.hp), rem = e % (p.hr * p.hp);
+      const int ih = oh0 - s.pt + rem / p.hp, iw = ow0 - s.pl + rem % p.hp;
+      src_off[e] = (n0 + li < s.N && ih >= 0 && ih < s.H && iw >= 0 &&
+                    iw < s.W)
+                       ? static_cast<int>(li * s.Cin * chw + ih * s.W + iw)
+                       : -1;
+    }
+    for (int i = tid; i < taps; i += kThreads)
+      tap_off[i] = (i / s.KW) * p.hp + i % s.KW;
+  }
 
   // this thread's two pixel rows of the tile (accumulator rows g and g+8)
   const int pix = p.th * p.tw;
-  const int live_rows = p.ni * pix;
+  const int live_rows = FW ? imin(kBM, M - oh0) : p.ni * pix;
   int rbase[2];
   long long yoff[2];
   bool live[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * h;
-    const int rn = r / pix, rem = r % pix;
-    const int rh = rem / p.tw, rw = rem % p.tw;
-    live[h] = r < live_rows && n0 + rn < s.N && oh0 + rh < s.OH &&
-              ow0 + rw < s.OW;
-    rbase[h] = live[h] ? (rn * p.hr + rh) * p.hp + rw : 0;
-    yoff[h] = live[h] ? (static_cast<long long>(n0 + rn) * s.Cout * s.OH +
-                         oh0 + rh) * s.OW + ow0 + rw
-                      : 0;
+    if constexpr (FW) {
+      const int m = oh0 + r;
+      live[h] = r < live_rows;
+      rbase[h] = r * kAPitch;
+      yoff[h] = live[h] ? static_cast<long long>(m / s.OH) * s.Cout * s.OH +
+                              m % s.OH
+                        : 0;
+    } else {
+      const int rn = r / pix, rem = r % pix;
+      const int rh = rem / p.tw, rw = rem % p.tw;
+      live[h] = r < live_rows && n0 + rn < s.N && oh0 + rh < s.OH &&
+                ow0 + rw < s.OW;
+      rbase[h] = live[h] ? (rn * p.hr + rh) * p.hp + rw : 0;
+      yoff[h] = live[h] ? (static_cast<long long>(n0 + rn) * s.Cout * s.OH +
+                           oh0 + rh) * s.OW + ow0 + rw
+                        : 0;
+    }
   }
   const bool wg_live = wg * 64 < live_rows;     // warpgroup-uniform
 
@@ -352,6 +447,12 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
       ++c;
     }
   };
+  // Full width: this thread's column of the A tile (four columns with
+  // 16-byte copies) and its first row; it copies every rstep-th row.
+  const int fw_col = s.vec ? 4 * (tid & 15) : tid & (kBK - 1);
+  const int fw_row = s.vec ? tid >> 4 : tid / kBK;
+  const int fw_rstep = s.vec ? kThreads / 16 : kThreads / kBK;
+  const int K = s.Cin * taps;
 
   // issue the copies of slice `sl` into ring stage `st` (slices in order)
   auto load = [&](int sl, int st) {
@@ -370,28 +471,50 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
                  ws + half * s.lo_off +
                      static_cast<long long>(co0 + n) * s.kpad + k0 + 4 * c);
     }
-    // the halo of the channels this slice touches, zero outside the image
     const uint32_t halo = sa + 2 * BN * kBK * 4;
-    int c = c_first, e = e_first;
-    for (int f = tid; f < p.nch * plane; f += kThreads) {
-      const int g = src_off[e];
-      const bool ok = g >= 0 && c_lo + c < s.Cin;
-      cp_async4(halo + f * 4, ok ? xn + (c_lo + c) * chw + g : x, ok ? 4 : 0);
-      c += c_step;
-      e += e_step;
-      if (e >= plane) {
-        e -= plane;
-        ++c;
+    if constexpr (FW) {
+      // the A tile [kBM][kAPitch]: K index k (and, with 16-byte copies,
+      // the next three, in the same input row) of every rstep-th row; zero
+      // where the row or column is padding, past K, or a dead row
+      const int k = k0 + fw_col;
+      const int c = k / taps, rt = k % taps;
+      const int kh = rt / s.KW, iw = rt % s.KW - s.pl;
+      const bool k_ok = k < K && iw >= 0 && iw < s.W;
+      const long long koff = c * chw + static_cast<long long>(kh) * s.W + iw;
+      for (int r = fw_row; r < kBM; r += fw_rstep) {
+        const bool ok = k_ok && static_cast<unsigned>(row_ih[r] + kh) <
+                                    static_cast<unsigned>(s.H);
+        const float* src = ok ? x + row_off[r] + koff : x;
+        const uint32_t dst = halo + (r * kAPitch + fw_col) * 4;
+        if (s.vec)
+          cp_async16_zfill(dst, src, ok ? 16 : 0);
+        else
+          cp_async4(dst, src, ok ? 4 : 0);
       }
+    } else {
+      // the halo of the channels this slice touches, zero outside the image
+      int c = c_first, e = e_first;
+      for (int f = tid; f < p.nch * plane; f += kThreads) {
+        const int g = src_off[e];
+        const bool ok = g >= 0 && c_lo + c < s.Cin;
+        cp_async4(halo + f * 4, ok ? xn + (c_lo + c) * chw + g : x,
+                  ok ? 4 : 0);
+        c += c_step;
+        e += e_step;
+        if (e >= plane) {
+          e -= plane;
+          ++c;
+        }
+      }
+      // each K index's offset into the halo
+      if (tid < kBK) {
+        int* koff = reinterpret_cast<int*>(smem + st * p.stage_bytes +
+                                           2 * BN * kBK * 4 + halo_bytes);
+        koff[tid] = (kc - c_lo) * plane + tap_off[kt];
+      }
+      advance(c_lo, t_lo);
+      advance(kc, kt);
     }
-    // each K index's offset into the halo
-    if (tid < kBK) {
-      int* koff = reinterpret_cast<int*>(smem + st * p.stage_bytes +
-                                         2 * BN * kBK * 4 + halo_bytes);
-      koff[tid] = (kc - c_lo) * plane + tap_off[kt];
-    }
-    advance(c_lo, t_lo);
-    advance(kc, kt);
   };
 
   // Two-level sum: each slice's 24 products go into a fresh wgmma
@@ -403,7 +526,7 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.0f;
 
-  __syncthreads();                      // src_off, tap_off
+  __syncthreads();                      // src_off, tap_off or the row tables
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < ns) load(s_begin + i, i);
@@ -435,8 +558,11 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int kk = 2 * qt + u;
-          const int k_a = koff[8 * kk + (lane & 3)];
-          const int k_b = koff[8 * kk + (lane & 3) + 4];
+          // full width: the A tile's columns are the slice's K indices
+          const int k_a = FW ? 8 * kk + (lane & 3)
+                             : koff[8 * kk + (lane & 3)];
+          const int k_b = FW ? 8 * kk + (lane & 3) + 4
+                             : koff[8 * kk + (lane & 3) + 4];
           const float v[4] = {halo[rbase[0] + k_a], halo[rbase[1] + k_a],
                               halo[rbase[0] + k_b], halo[rbase[1] + k_b]};
 #pragma unroll
@@ -510,7 +636,7 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ ws,
   cluster.sync();   // no block leaves while another reads its shared memory
 }
 
-template <int BN>
+template <int BN, bool FW>
 cudaError_t launch(const float* x, const float* ws, const float* b, float* y,
                    const Shape& s, const Plan& p, cudaStream_t stream) {
   static bool attr_set[64] = {};
@@ -518,8 +644,8 @@ cudaError_t launch(const float* x, const float* ws, const float* b, float* y,
   cudaGetDevice(&dev);
   if (dev < 64 && !attr_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemMax);
+        conv_wgmma_kernel<BN, FW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
@@ -537,8 +663,8 @@ cudaError_t launch(const float* x, const float* ws, const float* b, float* y,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.cs > 1 ? 1 : 0;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, conv_wgmma_kernel<BN>, x, ws, b,
-                                       y, s, p);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, conv_wgmma_kernel<BN, FW>, x,
+                                       ws, b, y, s, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -554,9 +680,9 @@ int device_sms() {
 
 extern "C" {
 
-// The plan for a conv on a card with `sms` SMs, as 18 ints: bn, ni, th, tw,
+// The plan for a conv on a card with `sms` SMs, as 19 ints: bn, ni, th, tw,
 // hr, hp, nch, halo_floats, tiles_n, tiles_h, tiles_w, tiles_c, slices, cs,
-// per_rank, stage_bytes, smem, blocks (grid size).  Returns 0, or
+// per_rank, stage_bytes, smem, fw, blocks (grid size).  Returns 0, or
 // cudaErrorInvalidValue where the kernel does not apply.
 int dl4j_conv2d_plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW,
                      int sms, int* out) {
@@ -564,12 +690,12 @@ int dl4j_conv2d_plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW,
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
   plan(N, Cin, KH, KW, Cout, OH, OW, sms, &p);
-  const int v[18] = {p.bn, p.ni, p.th, p.tw, p.hr, p.hp, p.nch,
+  const int v[19] = {p.bn, p.ni, p.th, p.tw, p.hr, p.hp, p.nch,
                      p.halo_floats, p.tiles_n, p.tiles_h, p.tiles_w,
                      p.tiles_c, p.slices, p.cs, p.per_rank, p.stage_bytes,
-                     p.smem,
+                     p.smem, p.fw,
                      p.tiles_n * p.tiles_h * p.tiles_w * p.tiles_c * p.cs};
-  for (int i = 0; i < 18; ++i) out[i] = v[i];
+  for (int i = 0; i < 19; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -577,8 +703,9 @@ int dl4j_conv2d_plan(int N, int Cin, int KH, int KW, int Cout, int OH, int OW,
 // and whatever OH/OW imply at the bottom/right), w[Cout, Cin, KH, KW]) + b).
 // `ws` is scratch for the split weights: 2 * roundup(Cout, 64) *
 // roundup(Cin * KH * KW, 64) floats, 16-byte aligned.  All tensors contiguous
-// f32 on the device.  Launches the split pass and the conv on `stream` and
-// returns cudaGetLastError() (0 on success).
+// f32 on the device.  Launches the split pass and the conv (the halo route,
+// or the full-width route where OW == 1 and the halo route does not apply)
+// on `stream` and returns cudaGetLastError() (0 on success).
 int dl4j_conv2d_bias_act_f32(const float* x, const float* w, const float* b,
                              float* y, float* ws, int N, int Cin, int H, int W,
                              int Cout, int KH, int KW, int pt, int pl, int OH,
@@ -592,17 +719,24 @@ int dl4j_conv2d_bias_act_f32(const float* x, const float* w, const float* b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int K = Cin * KH * KW;
   const int rows = cdiv(Cout, kWRowPad) * kWRowPad;
+  // full width: 16-byte copies of A where every run of four K indices is
+  // four floats of one input row, 16-byte aligned
+  const int vec = W % 4 == 0 && pl % 4 == 0 && KW % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
   Shape s = {N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act,
-             p.slices * kBK, static_cast<long long>(rows) * p.slices * kBK};
+             p.slices * kBK, static_cast<long long>(rows) * p.slices * kBK,
+             vec};
   const long long total = s.lo_off;
   split_tf32_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
                       st>>>(w, ws, Cout, K, s.kpad, total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  switch (p.bn) {
-    case 32: err = launch<32>(x, ws, b, y, s, p, st); break;
-    default: err = launch<64>(x, ws, b, y, s, p, st); break;
-  }
+  if (p.fw)
+    err = p.bn == 32 ? launch<32, true>(x, ws, b, y, s, p, st)
+                     : launch<64, true>(x, ws, b, y, s, p, st);
+  else
+    err = p.bn == 32 ? launch<32, false>(x, ws, b, y, s, p, st)
+                     : launch<64, false>(x, ws, b, y, s, p, st);
   return static_cast<int>(err);
 }
 

@@ -10,7 +10,10 @@ activations of :data:`CONV_FUSED_ACTS`, applied before the single write
 of the output.  It is an implicit GEMM on the tensor cores (``wgmma``),
 f32-accurate through three TF32 products per product (3xTF32), fed by a
 ring of ``cp.async`` copies; it is bound by operations, and the source
-file's header says how the design answers that.  Its backward recomputes
+file's header says how the design answers that.  A filter as wide as the
+padded input (OW == 1: a text CNN's h x D over word vectors) takes the
+kernel's full-width route, a plain GEMM whose A tiles are copied straight
+from x, with the same products and epilogue.  Its backward recomputes
 through the plain conv and differentiates that, as ``_conv_vjp_bwd``
 (:639) does, with TF32 off for those convs.
 
@@ -105,8 +108,9 @@ _CONV_ACT_IDS = {
 CONV_FUSED_ACTS = frozenset(_CONV_ACT_IDS)
 
 # The conv kernel's constants that its gate needs (constexpr in
-# csrc/conv_bias_act.cu, which the tests parse): largest KH/KW, output
-# pixels per tile, K per slice, the split weights' row padding.
+# csrc/conv_bias_act.cu, which the tests parse): largest KH/KW of the halo
+# route, output pixels (rows of M) per tile, K per slice, the split
+# weights' row padding.
 CONV_MAX_K = 7
 _CONV_BM = 128
 _CONV_BK = 64
@@ -280,7 +284,7 @@ def _cdiv(a: int, b: int) -> int:
 # The fields of a plan, in the order dl4j_conv2d_plan writes them.
 CONV_PLAN_FIELDS = ("bn", "ni", "th", "tw", "hr", "hp", "nch", "halo_floats",
                     "tiles_n", "tiles_h", "tiles_w", "tiles_c", "slices",
-                    "cs", "per_rank", "stage_bytes", "smem", "blocks")
+                    "cs", "per_rank", "stage_bytes", "smem", "fw", "blocks")
 
 
 def conv_plan(N, Cin, KH, KW, Cout, OH, OW, sms: int):
@@ -306,12 +310,16 @@ def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
                          pad=(0, 0), border_mode: str = "truncate") -> bool:
     """Support predicate of the conv kernel: stride 1, dilation 1, f32,
     one of :data:`CONV_FUSED_ACTS`, and the closed-form limits of
-    ``supported()`` in csrc/conv_bias_act.cu: KH and KW at most 7, K =
-    Cin*KH*KW at most 2^30, a halo offset from a tile's first image that
-    fits an int, and a grid of at most 2^31 - 1 blocks.  Unlike the TPU
-    gate it has no per-image budget: the kernel tiles the output, so VGG16
-    at 224x224 (a 226x226x64 padded input) is accepted.  Unlike the TPU
-    gate it takes f32 only, not bf16."""
+    ``supported()`` in csrc/conv_bias_act.cu, for either route.  The halo
+    route: KH and KW at most 7, K = Cin*KH*KW at most 2^30, a halo offset
+    from a tile's first image that fits an int, and a grid of at most
+    2^31 - 1 blocks.  The full-width route, for a filter as wide as the
+    padded input (OW == 1, a text CNN's h x D): KH and KW of any size, K at
+    most 2^30, Cin*(OH+KH-1)*KW (which bounds an offset in an image) and
+    N*OH within an int, and the grid within 2^31 - 1.  Unlike the TPU gate
+    it has no per-image budget: the kernel tiles the output, so VGG16 at
+    224x224 (a 226x226x64 padded input) is accepted.  Unlike the TPU gate
+    it takes f32 only, not bf16."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     if tuple(stride) != (1, 1) or tuple(dilation) != (1, 1):
@@ -326,6 +334,12 @@ def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
         return False
     (pt, pb), (pl_, pr) = conv_pads(KH, KW, pad, border_mode)
     OH, OW = H + pt + pb - KH + 1, W + pl_ + pr - KW + 1
+    return (_conv_halo_supported(N, Cin, KH, KW, Cout, OH, OW)
+            or _conv_full_width_supported(N, Cin, KH, KW, Cout, OH, OW))
+
+
+def _conv_halo_supported(N, Cin, KH, KW, Cout, OH, OW) -> bool:
+    """``halo_supported()`` of csrc/conv_bias_act.cu."""
     if min(N, Cin, Cout, OH, OW, KH, KW) < 1 or max(KH, KW) > CONV_MAX_K:
         return False
     if Cin * KH * KW > 2 ** 30:
@@ -337,6 +351,17 @@ def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
     # every tile has an output pixel; a K split only multiplies grids
     # below two blocks per SM
     return N * OH * OW * _cdiv(Cout, 32 if Cout <= 32 else 64) <= _INT_MAX
+
+
+def _conv_full_width_supported(N, Cin, KH, KW, Cout, OH, OW) -> bool:
+    """``full_width_supported()`` of csrc/conv_bias_act.cu: OW == 1."""
+    if min(N, Cin, Cout, OH, KH, KW) < 1 or OW != 1:
+        return False
+    if Cin * KH * KW > 2 ** 30 or Cin * (OH + KH - 1) * KW > _INT_MAX:
+        return False
+    return N * OH <= _INT_MAX and \
+        _cdiv(N * OH, _CONV_BM) * _cdiv(Cout, 32 if Cout <= 32 else 64) \
+        <= _INT_MAX
 
 
 def conv2d_bias_act_reference(x, w, b, pad=(0, 0),

@@ -225,11 +225,19 @@ def test_conv_plan_mirror_matches_source_constants():
     assert {k: consts[k] for k in ("kMaxK", "kBM", "kBK", "kWRowPad")} == {
         "kMaxK": ck.CONV_MAX_K, "kBM": ck._CONV_BM, "kBK": ck._CONV_BK,
         "kWRowPad": ck._CONV_W_ROW_PAD}
-    body = re.search(r"bool supported\((.*?)\n\}", src, re.S).group(1)
+    def body(name):
+        return re.search(rf"bool {name}\((.*?)\n\}}", src, re.S).group(1)
     for rule in ("KH > kMaxK", "(1LL << 30)", "pix <= kBM",
                  "(OH + KH - 1) * (OW + KW - 1) > 0x7FFFFFFFLL",
                  "cdiv(Cout, Cout <= 32 ? 32 : 64)"):
-        assert rule in body, rule
+        assert rule in body("halo_supported"), rule
+    for rule in ("OW != 1", "(1LL << 30)",
+                 "Cin) * (OH + KH - 1) * KW > 0x7FFFFFFFLL",
+                 "m <= 0x7FFFFFFFLL", "cdiv(Cout, Cout <= 32 ? 32 : 64)"):
+        assert rule in body("full_width_supported"), rule
+    assert "return halo_supported(N, Cin, KH, KW, Cout, OH, OW) ||\n" \
+        "         full_width_supported(N, Cin, KH, KW, Cout, OH, OW);" in \
+        body("supported")
     assert src.count("if (!supported(N, Cin, KH, KW, Cout, OH, OW))") == 2
     prose = " ".join(re.sub(r"\s*//\s*", " ", src).split())
     fields = re.search(r"as (\d+) ints: ([\w, ]+?)(?: \(grid size\))?\.",

@@ -10,7 +10,10 @@ the LSTM step and the flash kernels rtol = atol = 1e-5 (the JAX suite's
 for its fused kernels, tighter than its flash suite's); dropout bit for
 bit.  The word2vec steps and a small Word2Vec fit, card against CPU:
 chip_smoke.py's W2V_STEP_RTOL and W2V_FIT_RTOL (relative 2-norms; the
-card's ``index_add_`` adds duplicate rows in no fixed order).
+card's ``index_add_`` adds duplicate rows in no fixed order).  The text
+CNN's step and k-means from the same centres, card against CPU, rtol
+1e-4 / 1e-5; t-SNE's P by 1e-5 + 1e-4 |P| and its loop by chip_smoke.py's
+TSNE_LOOP_RTOL (tests/test_torch_clustering.py says why).
 """
 
 import numpy as np
@@ -975,3 +978,191 @@ def test_word2vec_fit_on_cuda_matches_cpu(cuda_device):
         assert rel <= cs.W2V_FIT_RTOL, (name, rel)
     assert set(fits["cuda"].words_nearest("cat", top=3)) == \
         set(fits["cpu"].words_nearest("cat", top=3))
+
+
+# ---------------------------------------------------------------------------
+# The conv kernel's full-width route, k-means and t-SNE on the card
+# ---------------------------------------------------------------------------
+
+# (x shape, w shape, pad): filters as wide as the padded input (OW = 1)
+CONV_FULL_WIDTH = {
+    "textcnn_300_h3": ((32, 1, 256, 300), (100, 1, 3, 300), (0, 0)),
+    "textcnn_300_h5": ((32, 1, 256, 300), (100, 1, 5, 300), (0, 0)),
+    "textcnn_128_h4": ((32, 1, 256, 128), (100, 1, 4, 128), (0, 0)),
+    "one_sentence_dead_rows": ((1, 1, 40, 300), (100, 1, 5, 300), (0, 0)),
+    "w13_four_byte_copies_cout20": ((3, 2, 17, 13), (20, 2, 4, 13), (0, 0)),
+    "height_and_width_padding": ((2, 3, 9, 12), (70, 3, 3, 16), (1, 2)),
+    "kh8_narrow": ((5, 4, 30, 7), (9, 4, 8, 7), (0, 0)),
+    "channels_k_past_a_slice": ((4, 6, 33, 20), (40, 6, 6, 20), (2, 0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CONV_FULL_WIDTH))
+def test_full_width_route_matches_plain_version(cuda_device, case):
+    x_shape, w_shape, pad = CONV_FULL_WIDTH[case]
+    x, w, b = _he_inputs(x_shape, w_shape, cuda_device)
+    N, Cin, H, W = x_shape
+    Cout, _, KH, KW = w_shape
+    OH = H + 2 * pad[0] - KH + 1
+    plan = ck.conv_plan(N, Cin, KH, KW, Cout, OH, 1, _sms(cuda_device))
+    assert plan["fw"] == 1
+    assert plan["tiles_h"] * ck._CONV_BM >= N * OH
+    assert plan["bn"] * plan["tiles_c"] >= Cout
+    assert plan["slices"] * ck._CONV_BK >= Cin * KH * KW
+    assert plan["smem"] <= 227 * 1024
+    launches = ck.fused_conv2d_bias_act.launches
+    y = ck.fused_conv2d_bias_act(x, w, b, pad=pad, activation="relu")
+    ref = ck.conv2d_bias_act_reference(x, w, b, pad, "truncate", "relu")
+    assert tuple(y.shape) == (N, Cout, OH, 1)
+    _assert_conv_close(y, ref)
+    assert ck.fused_conv2d_bias_act.launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", sorted(ck.CONV_FUSED_ACTS))
+def test_full_width_route_every_activation(cuda_device, act):
+    x, w, b = _he_inputs((6, 2, 21, 24), (36, 2, 5, 24), cuda_device)
+    y = ck.fused_conv2d_bias_act(x, w, b, activation=act)
+    _assert_conv_close(y, ck.conv2d_bias_act_reference(
+        x, w, b, (0, 0), "truncate", act))
+
+
+@pytest.mark.gpu
+def test_full_width_route_unaligned_input(cuda_device):
+    """An input that starts off a 16-byte boundary takes the 4-byte
+    copies."""
+    x, w, b = _he_inputs((2, 1, 20, 64), (16, 1, 3, 64), cuda_device)
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    xs = flat[1:].view_as(x)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16
+    _assert_conv_close(ck.fused_conv2d_bias_act(xs, w, b),
+                       ck.conv2d_bias_act_reference(x, w, b))
+
+
+@pytest.mark.gpu
+def test_full_width_route_runs_on_the_tensor_cores(cuda_device):
+    """Both full-width instances, conv_wgmma_kernel<BN, true>, hold HGMMA
+    in the conv library's SASS."""
+    counts = ck.sass_hgmma_counts(ck.CONV_LIBRARY)
+    fw = {f: n for f, n in counts.items()
+          if "conv_wgmma_kernel" in f and "Lb1E" in f}
+    assert len(fw) == 2 and all(fw.values()), counts
+
+
+def _emulate_full_width(x, w, pad, sms):
+    """The full-width route's indexing in numpy (float64): the library's
+    plan, each block's rows of M = N*OH, the cluster ranks' K slices, A's
+    rows copied from x at row offset + K offset with zeros in the padding.
+    Returns y with NaN where no block wrote; raises on a double write."""
+    N, Cin, H, W = x.shape
+    Cout, _, KH, KW = w.shape
+    OH = H + 2 * pad[0] - KH + 1
+    p = ck.conv_plan(N, Cin, KH, KW, Cout, OH, 1, sms)
+    BK, BM = ck._CONV_BK, ck._CONV_BM
+    K = Cin * KH * KW
+    ws = np.zeros((-(-Cout // 64) * 64 + 64, p["slices"] * BK))
+    ws[:Cout, :K] = w.reshape(Cout, -1)
+    flat = x.reshape(-1)
+    y = np.full((N, Cout, OH, 1), np.nan)
+    for block in range(p["blocks"] // p["cs"]):
+        ct, t = block % p["tiles_c"], block // p["tiles_c"]
+        m = t * BM + np.arange(BM)
+        live = m < N * OH
+        n, oh = m // OH, m % OH
+        row_off = n * Cin * H * W + (oh - pad[0]) * W
+        acc = 0.0
+        for rank in range(p["cs"]):
+            for sl in range(rank * p["per_rank"],
+                            min(p["slices"], (rank + 1) * p["per_rank"])):
+                k = sl * BK + np.arange(BK)
+                c, kh, iw = k // (KH * KW), k % (KH * KW) // KW, \
+                    k % KW - pad[1]
+                koff = c * H * W + kh * W + iw
+                ok = ((k < K) & (iw >= 0) & (iw < W))[None, :] & live[:, None] \
+                    & (oh[:, None] - pad[0] + kh[None, :] >= 0) \
+                    & (oh[:, None] - pad[0] + kh[None, :] < H)
+                src = np.where(ok, row_off[:, None] + koff[None, :], 0)
+                a = np.where(ok, flat[src], 0.0)
+                co0 = ct * p["bn"]
+                acc = acc + a @ ws[co0:co0 + p["bn"], sl * BK:(sl + 1) * BK].T
+        co = ct * p["bn"] + np.arange(p["bn"])
+        for r in np.flatnonzero(live):
+            out = y[n[r], co[co < Cout], oh[r], 0]
+            assert np.isnan(out).all(), "an output written twice"
+            y[n[r], co[co < Cout], oh[r], 0] = acc[r, co < Cout]
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CONV_FULL_WIDTH))
+def test_full_width_tiling_writes_every_output_once(cuda_device, case):
+    x_shape, w_shape, pad = CONV_FULL_WIDTH[case]
+    if x_shape[0] * x_shape[2] * w_shape[0] > 300_000:
+        x_shape = (2,) + x_shape[1:]           # the indexing, not the size
+    rng = np.random.default_rng(4)
+    x, w = rng.normal(size=x_shape), rng.normal(size=w_shape)
+    y = _emulate_full_width(x, w, pad, _sms(cuda_device))
+    assert not np.isnan(y).any()
+    ref = torch.nn.functional.conv2d(torch.from_numpy(x), torch.from_numpy(w),
+                                     padding=pad)
+    np.testing.assert_allclose(y, ref.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_text_cnn_step_on_the_card_matches_the_cpu(cuda_device):
+    """chip_smoke.py's text CNN at D = 32, one fit step on the card (3
+    full-width conv and 2 dropout launches) against the same step on the
+    CPU with the same seed words: score rtol 1e-4, params 1e-4 / 1e-5."""
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.conf import graph_conf as gc
+    from deeplearning4j_tpu_torch.nn.conf.network import GlobalConf
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    cs = _chip_smoke()
+    nets = {dev: ComputationGraph(cs.textcnn_conf(
+        gc, L, GlobalConf, InputType, width=32, length=40, maps=64,
+        pipeline_workers=0), device=dev).init() for dev in ("cuda", "cpu")}
+    nets["cuda"].set_params(nets["cpu"].params())
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(32, 1, 40, 32)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, 32)]
+    seeds = nets["cpu"]._draw_seeds()
+    conv0 = ck.fused_conv2d_bias_act.launches
+    drop0 = ck.fused_threshold_dropout.launches
+    for net in nets.values():
+        net._fit_batch(MultiDataSet([x], [y]), seeds=seeds)
+    assert ck.fused_conv2d_bias_act.launches - conv0 == 3
+    assert ck.fused_threshold_dropout.launches - drop0 == 2
+    assert nets["cuda"].score() == pytest.approx(nets["cpu"].score(),
+                                                 rel=1e-4)
+    torch.testing.assert_close(nets["cuda"].params().cpu(),
+                               nets["cpu"].params(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_kmeans_and_tsne_on_the_card_match_the_cpu(cuda_device):
+    """Lloyd's loop from the same centres and t-SNE's P and loop (the
+    contracting settings of tests/test_torch_clustering.py) on the card
+    against the CPU."""
+    from deeplearning4j_tpu_torch.clustering import kmeans
+    from deeplearning4j_tpu_torch.plot import tsne
+    cs = _chip_smoke()
+    rng = np.random.default_rng(8)
+    x = np.concatenate([rng.normal(size=(300, 16)) + c
+                        for c in (0, 6, -6)]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    c0 = xt[[0, 300, 600, 5]]
+    card = kmeans.lloyd(xt.cuda(), c0.cuda(), 100, 1e-4)
+    cpu = kmeans.lloyd(xt, c0, 100, 1e-4)
+    assert card[2] == cpu[2]
+    assert torch.equal(card[1].cpu(), cpu[1])
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
+    p_card, p_cpu = tsne._x2p_dense(xt.cuda(), 30.0), tsne._x2p_dense(xt, 30.0)
+    torch.testing.assert_close(p_card.cpu(), p_cpu, rtol=1e-4, atol=1e-5)
+    ps = torch.clamp_min((p_cpu + p_cpu.T) / (2.0 * len(x)), 1e-12)
+    y0 = torch.from_numpy((1e-4 * rng.normal(size=(len(x), 2))).astype(
+        np.float32))
+    a = tsne._tsne_exact(ps.cuda(), y0.cuda(), **cs.TSNE_STABLE).cpu()
+    b = tsne._tsne_exact(ps, y0, **cs.TSNE_STABLE)
+    assert cs._rel_norm(torch, a, b) <= cs.TSNE_LOOP_RTOL
