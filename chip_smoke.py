@@ -161,7 +161,51 @@ exits non-zero:
                2-norm, and near ties within 1e-4 of a layer's scale where
                the plain forward's own decision differs.  Samples/s over
                steps 2-3, peak memory over steps 1-3.
-8j. keras_functional — a small functional residual net (Conv2D,
+8j. transfer_vgg16_224 — transfer learning as dl4j-examples 0.8's
+               ``EditAtBottleneckOthersFrozen``: ``vgg16(dropout=0.5)``
+               with seeded weights written as a zip (timed) and restored,
+               then ``TransferLearning.Builder``: Nesterovs lr 5e-5, layers
+               0-17 (13 convs, 5 pools) frozen, fc2 cut to 1,024 outputs
+               (xavier), the 1,000-class head replaced by Dense(256, relu)
+               and a 5-class softmax.  20 ``fit`` steps at batch 32 (2
+               epochs of 320 seeded 224x224 images in 5 classes) with
+               ScoreIterationListener(5), CollectScoresIterationListener and
+               PerformanceListener: exactly 13 conv and 3 dropout launches
+               a step (fc1 reads the frozen stack, which takes no gradient,
+               so its dropout has no backward), no conv backward
+               (``_ConvBiasAct.backwards``), no conv fallback; frozen params
+               ``torch.equal`` before and after; 20 collected scores; the
+               last step against the plain step (the rules of phase 7).
+               Samples/s over steps 2-20 beside phase 7's full step, step
+               ms, peak memory.
+8k. featurize_vgg16_224 — ``TransferLearningHelper(net, 17)``: the head
+               (``unfrozen_network``) on the features of a batch equals the
+               whole net on its images (NET_RTOL / NET_ATOL); then the 320
+               images featurized at batch 32 (13 conv launches a batch,
+               images/s) and the head fit on the features for 2 epochs (3
+               dropout launches a step).
+8l. early_stop_and_resume — on the featurized head: ``EarlyStoppingTrainer``
+               (MaxEpochs(10), ScoreImprovementEpoch(2), a
+               ``DataSetLossCalculator`` on the last 64 rows held out, a
+               ``LocalFileModelSaver``): the best model's zip read back
+               gives the output the saved net gave and ``get_best()``'s,
+               scores finite; its host ms a step beside a plain ``fit`` over
+               the same batches.  Then, under cuDNN's deterministic
+               algorithms, 2 epochs at batch 16 with a CheckpointListener
+               every 4 iterations, cut by an exception of the phase's own
+               after 10 batches of the second epoch (the phase asserts it
+               was raised), and finished by a fresh head under
+               ``fault_tolerance(resume=True)``: params and updater state
+               ``torch.equal`` to the uncut fit's.
+8m. transfer_resnet50 — ``TransferLearning.GraphBuilder`` on phase 8h's
+               calibrated ResNet-50: every vertex through ``gap`` frozen,
+               ``fc`` replaced by a 5-class ``fc5``; 5 ``fit`` steps at
+               batch 32: exactly 46 conv launches and 7 conv fallbacks a
+               step, no conv backward, frozen params and batch-norm
+               statistics ``torch.equal``; the last step against the plain
+               graph step (phase 8i's rules; the statistics equal).
+               Samples/s beside phase 8i's, peak memory.
+8n. keras_functional — a small functional residual net (Conv2D,
                BatchNormalization, Activation, Add, Concatenate,
                GlobalAveragePooling2D, Dense; ``keras_functional_config``)
                imported as a ComputationGraph from its Keras configuration
@@ -278,8 +322,9 @@ exits non-zero:
 21. cluster_tsne — ``KMeansClustering(k=20)`` on the trained table
                (71,290 x 128): seconds, iterations and the share of topic
                words whose cluster's majority is their topic; Lloyd's loop
-               from one set of centres on the card and on the CPU (equal
-               assignments but for near ties, centres 1e-5); exact
+               from one set of centres on the card and on the CPU (centres
+               1e-5; equal assignments but for words whose two clusters
+               the centres' difference can swap); exact
                ``Tsne`` of the 10,000 most frequent words at the
                reference's defaults (1,000 iterations): seconds, peak
                memory, the share of each topic word's 10 nearest map
@@ -448,6 +493,27 @@ RESNET_KERNEL_CONVS, RESNET_DENSE_CONVS = 46, 7
 RESNET_SERVE_BATCH, RESNET_CLIENTS, RESNET_REQUESTS = 32, 4, 16
 RESNET_TRAIN_BATCH, RESNET_STEPS = 128, 3
 SERVE_LADDER = (1, 2, 4, 8, 16, 32)
+# Transfer learning, dl4j-examples 0.8 transferlearning/vgg16
+# (EditAtBottleneckOthersFrozen, FeaturizedPreSave / FitFromFeaturized)
+# with seeded weights and images in place of ImageNet's weights and
+# flower_photos, which are not in the repo: VGG16-224's 13 convs and 5
+# pools (layers 0-17) frozen, fc2 cut to 1,024 outputs, then Dense(256)
+# and a 5-class softmax; Nesterovs at lr 5e-5; batch 32 over 320 images
+# in 5 classes (2 epochs, 20 steps).  fc1 and fc2 keep dropout 0.5.
+TRANSFER_CLASSES, TRANSFER_FROZEN, TRANSFER_FC2, TRANSFER_HIDDEN = 5, 17, \
+    1024, 256
+TRANSFER_HW = 224
+TRANSFER_LR, TRANSFER_SEED = 5e-5, 12345
+TRANSFER_IMAGES, TRANSFER_BATCH, TRANSFER_EPOCHS = 320, 32, 2
+# Early stopping on the featurized head: MaxEpochs(10), ScoreImprovement(2),
+# the last 64 featurized images held out; resume: checkpoints every 4
+# iterations of 2 epochs at batch 16 (16 batches an epoch), the run cut
+# after 10 batches of its second epoch.
+EARLY_MAX_EPOCHS, EARLY_PATIENCE, EARLY_HELD = 10, 2, 64
+RESUME_BATCH, RESUME_EPOCHS, RESUME_EVERY, RESUME_CUT = 16, 2, 4, 10
+# ResNet-50 fine-tuned with everything through the global pool frozen and
+# a 5-class head: 5 fit steps at batch 32.
+TRANSFER_RESNET_BATCH, TRANSFER_RESNET_STEPS = 32, 5
 # The small functional residual net of keras_functional: 16x16x3 inputs,
 # batch 64, 10 classes.
 FUNC_HW, FUNC_BATCH, FUNC_CLASSES = 16, 64, 10
@@ -1435,14 +1501,15 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
     the network's own (plain PyTorch).  With ``kernel_outputs`` (the
     kernel step's layer outputs, :class:`_RecordedOutputs`) each relu
     layer and max pool takes the kernel step's mask or argmax
-    (:func:`_pinned`).  Returns (score, new params, dropout inputs, new
-    states, near ties)."""
+    (:func:`_pinned`).  A frozen layer (``FrozenLayerConf``) runs its
+    inner layer's inference forward and takes no gradient.  Returns
+    (score, new params, dropout inputs, new states, near ties)."""
     from deeplearning4j_tpu_torch.nn.conf.layers import (
         ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-        SubsamplingLayer)
+        SubsamplingLayer, unfrozen)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-    leaves = [{k: v.detach().clone().requires_grad_() for k, v in lp.items()}
-              for lp in params]
+    leaves = [{k: v.detach().clone().requires_grad_(not net.frozen[i])
+               for k, v in lp.items()} for i, lp in enumerate(params)]
     dropped = {}
     n = len(net.layers)
     new_states = [dict(s) for s in (states or [{} for _ in net.layers])]
@@ -1456,6 +1523,7 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
             if layer.dropout and 0.0 < layer.dropout < 1.0:
                 dropped[i] = h.detach()
                 h = ck.threshold_dropout_reference(h, layer.dropout, seeds[i])
+            frozen, layer = net.frozen[i], unfrozen(layer)
             if isinstance(layer, ConvolutionLayer):
                 h = ck.conv2d_bias_act_reference(
                     h, p["W"], p["b"], tuple(layer.padding),
@@ -1465,9 +1533,10 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
             elif isinstance(layer, DenseLayer):
                 h = layer._act(torch.addmm(p["b"], h, p["W"]))
             elif isinstance(layer, BatchNormalization):
-                h, ns, _ = layer.forward(p, new_states[i], h, train=True)
+                h, ns, _ = layer.forward(p, new_states[i], h,
+                                         train=not frozen)
                 new_states[i] = {k: v.detach() for k, v in ns.items()}
-            elif kernel_outputs is not None and (
+            elif kernel_outputs is not None and not frozen and (
                     (isinstance(layer, ActivationLayer)
                      and layer.activation == "relu")
                     or (isinstance(layer, SubsamplingLayer)
@@ -1478,8 +1547,10 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
         loss, _ = ck.softmax_xent_reference(h, y)
         score = loss.mean()
         flat = iter(torch.autograd.grad(
-            score, [v for lp in leaves for v in lp.values()]))
-    grads = [{k: next(flat) for k in lp} for lp in leaves]
+            score, [v for lp in leaves for v in lp.values()
+                    if v.requires_grad]))
+    grads = [{k: next(flat) for k, v in lp.items() if v.requires_grad}
+             for lp in leaves]
     scratch = MultiLayerNetwork(net.conf, device=net.device)
     scratch.net_params = [{k: v.detach().clone() for k, v in lp.items()}
                           for lp in params]
@@ -2225,12 +2296,14 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
     chain and the update are the graph's own.  With ``kept`` (the kernel
     step's outputs, :class:`_RecordedVertexOutputs` over
     :func:`_pinned_vertices`) each relu and max pool takes the kernel
-    step's mask or argmax (:func:`_pin`).  Returns (score, new params, new
-    states, near ties)."""
+    step's mask or argmax (:func:`_pin`).  A frozen vertex runs its inner
+    layer's inference forward (a batch norm on its running statistics) and
+    takes no gradient.  Returns (score, new params, new states, near
+    ties)."""
     from deeplearning4j_tpu_torch.nn.conf.layers import (
-        BatchNormalization, ConvolutionLayer)
+        BatchNormalization, ConvolutionLayer, unfrozen)
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-    leaves = {n: {k: v.detach().clone().requires_grad_()
+    leaves = {n: {k: v.detach().clone().requires_grad_(not net.frozen[n])
                   for k, v in lp.items()} for n, lp in params.items()}
     new_states = {n: dict(s) for n, s in states.items()}
     pins = _pinned_vertices(net) if kept is not None else {}
@@ -2243,8 +2316,9 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
             v = net.conf.vertices[name]
             ins = [acts[i] for i in net.conf.vertex_inputs[name]]
             layer = v.layer_conf() if hasattr(v, "layer_conf") else None
+            frozen, layer = net.frozen[name], unfrozen(layer)
             p = leaves[name]
-            if layer is not None and layer.dropout:
+            if layer is not None and layer.dropout and not frozen:
                 if seeds is None or not (0.0 < layer.dropout < 1.0) or \
                         not ck.dropout_fused_supported(ins[0].shape,
                                                        ins[0].dtype):
@@ -2260,7 +2334,8 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
                     ins[0], p["W"], p["b"], tuple(layer.padding),
                     layer.convolution_mode, layer.activation)
             elif isinstance(layer, BatchNormalization):
-                h, ns, _ = layer.forward(p, new_states[name], ins[0], True)
+                h, ns, _ = layer.forward(p, new_states[name], ins[0],
+                                         not frozen)
                 new_states[name] = {k: t.detach() for k, t in ns.items()}
             elif name in pins:
                 h = _pin(torch, layer, name, ins[0], kept[pins[name]], ties)
@@ -2274,8 +2349,10 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
         loss, _ = ck.softmax_xent_reference(acts[out_name], ys[0])
         score = loss.mean()
         flat = iter(torch.autograd.grad(
-            score, [t for lp in leaves.values() for t in lp.values()]))
-    grads = {n: {k: next(flat) for k in lp} for n, lp in leaves.items()}
+            score, [t for lp in leaves.values() for t in lp.values()
+                    if t.requires_grad]))
+    grads = {n: {k: next(flat) for k, t in lp.items() if t.requires_grad}
+             for n, lp in leaves.items()}
     del acts, leaves
     scratch = ComputationGraph(net.conf, device=net.device)
     scratch.net_params = {n: {k: t.detach().clone() for k, t in lp.items()}
@@ -2527,6 +2604,584 @@ def phase_train_resnet50(torch, ck) -> dict:
             max(t["max_rel_gap"] for t in ties) > TIE_RTOL:
         raise AssertionError("ResNet-50 step through the kernels disagrees "
                              "with the plain step")
+    return res
+
+
+def _timed_steps(torch, ck, net, snapshot_at=None):
+    """Shadow ``net._fit_batch`` (``del net._fit_batch`` restores it):
+    each step timed to the end of its kernels, with its launches, conv
+    backward calls and conv fallbacks.  Before step ``snapshot_at`` (from
+    1) the params, updater state, layer states, iteration, the step's
+    seed words and its batch are kept.  -> (steps, snapshot)"""
+    steps, snap = [], {}
+    fit_batch = net._fit_batch
+
+    def timed(ds, seeds=None):
+        if len(steps) + 1 == snapshot_at:
+            gen = net._generator.get_state()
+            snap.update(params=_clone_tree(net.net_params),
+                        opt=_clone_tree(net.opt_states),
+                        states=_clone_tree(net.net_state), it=net.iteration,
+                        seeds=net._draw_seeds().tolist(), batch=ds)
+            net._generator.set_state(gen)
+        counts, back = _kernel_counts(ck), ck._ConvBiasAct.backwards
+        fallbacks = _conv_fallbacks()
+        t0 = time.perf_counter()
+        fit_batch(ds, seeds)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        steps.append({"step": len(steps) + 1, "score": net.score(),
+                      "seconds": dt,
+                      "launches": {n: after[n] - counts[n] for n in after},
+                      "conv_backwards": ck._ConvBiasAct.backwards - back,
+                      "conv_fallbacks": _conv_fallbacks() - fallbacks})
+    net._fit_batch = timed
+    return steps, snap
+
+
+def _check_steps(steps, want, fallbacks, what):
+    """Every step launched ``want``, made no conv backward and ``fallbacks``
+    conv fallbacks, with a finite score."""
+    for st in steps:
+        if st["launches"] != want or st["conv_backwards"] != 0 or \
+                st["conv_fallbacks"] != fallbacks or \
+                not np.isfinite(st["score"]):
+            raise AssertionError(f"{what} step {st}: launches must be "
+                                 f"{want}, {fallbacks} conv fallbacks, no "
+                                 f"conv backward and the score finite")
+
+
+def _frozen_unmoved(torch, net, before) -> int:
+    """Raises unless every frozen entry's params and state equal
+    ``before`` (``torch.equal``); returns the tensors compared."""
+    n = 0
+    for key, (params, state) in before.items():
+        for got, want in ((net.net_params[key], params),
+                          (net.net_state[key], state)):
+            for k, t in want.items():
+                if not torch.equal(got[k], t):
+                    raise AssertionError(f"frozen {key} {k} moved")
+                n += 1
+    return n
+
+
+def _frozen_copy(net) -> dict:
+    keys = (range(len(net.layers)) if isinstance(net.frozen, list)
+            else net.order)
+    return {k: (_clone_tree(net.net_params[k]), _clone_tree(net.net_state[k]))
+            for k in keys if net.frozen[k]}
+
+
+def _update_errs(torch, net, plain_params, params0) -> dict:
+    """Per trained param: ||kernel update - plain update|| / ||plain
+    update||."""
+    keys = (range(len(net.layers)) if isinstance(net.frozen, list)
+            else net.order)
+    return {f"{k}_{name}": _rel_norm(torch, t - params0[k][name],
+                                     plain_params[k][name] - params0[k][name])
+            for k in keys if not net.frozen[k]
+            for name, t in net.net_params[k].items()}
+
+
+def transfer_images(seed: int = SEED + 30):
+    """TRANSFER_IMAGES seeded 224x224x3 images in TRANSFER_CLASSES classes,
+    as DataSets of TRANSFER_BATCH."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((TRANSFER_IMAGES, 3, TRANSFER_HW, TRANSFER_HW),
+                            np.float32)
+    y = np.eye(TRANSFER_CLASSES, dtype=np.float32)[
+        rng.integers(0, TRANSFER_CLASSES, TRANSFER_IMAGES)]
+    return [DataSet(x[i:i + TRANSFER_BATCH], y[i:i + TRANSFER_BATCH])
+            for i in range(0, TRANSFER_IMAGES, TRANSFER_BATCH)]
+
+
+@_tf32_off
+def phase_transfer_vgg16_224(torch, ck, train_vgg) -> tuple:
+    """VGG16-224 with dropout, seeded, through a zip, fine-tuned at the
+    bottleneck with its conv stack frozen: 20 ``fit`` steps at batch 32
+    with three listeners; the last step against the plain step.
+    -> (result, the fine-tuned net, its batches)"""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import vgg16
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        DenseLayer, FrozenLayerConf, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.listeners import (
+        CollectScoresIterationListener, PerformanceListener,
+        ScoreIterationListener)
+    from deeplearning4j_tpu_torch.nn.serialization import (
+        restore_multi_layer_network, write_model)
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    src = vgg16(TRANSFER_HW, TRANSFER_HW, dropout=0.5, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "vgg16_224.zip"
+        t0 = time.perf_counter()
+        write_model(src, path)
+        zip_write_s = time.perf_counter() - t0
+        zip_bytes = path.stat().st_size
+        del src
+        t0 = time.perf_counter()
+        src = restore_multi_layer_network(path, device="cuda")
+        zip_read_s = time.perf_counter() - t0
+    net = (TransferLearning.Builder(src)
+           .fine_tune_configuration(FineTuneConfiguration(
+               updater="nesterovs", learning_rate=TRANSFER_LR,
+               seed=TRANSFER_SEED))
+           .set_feature_extractor(TRANSFER_FROZEN)
+           .n_out_replace(TRANSFER_FROZEN + 2, TRANSFER_FC2, "xavier")
+           .remove_output_layer()
+           .add_layer(DenseLayer(n_out=TRANSFER_HIDDEN, activation="relu"))
+           .add_layer(OutputLayer(n_out=TRANSFER_CLASSES,
+                                  activation="softmax", loss="mcxent"))
+           .build())
+    del src
+    kinds = [type(l).__name__ for l in net.layers]
+    if kinds != ["FrozenLayerConf"] * (TRANSFER_FROZEN + 1) + [
+            "DenseLayer", "DenseLayer", "DenseLayer", "OutputLayer"] or \
+            [l.dropout for l in net.layers[TRANSFER_FROZEN + 1:]] != \
+            [0.5, 0.5, 0.0, 0.0] or not all(
+                isinstance(l, FrozenLayerConf) for l in
+                net.layers[:TRANSFER_FROZEN + 1]):
+        raise AssertionError(f"fine-tuned VGG16: {kinds}")
+    data = transfer_images()
+    before = _frozen_copy(net)
+    collect, perf = CollectScoresIterationListener(), PerformanceListener()
+    net.set_listeners(ScoreIterationListener(5), collect, perf)
+    n_steps = TRANSFER_EPOCHS * len(data)
+    steps, snap = _timed_steps(torch, ck, net, snapshot_at=n_steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(ck)                                   # main path starts
+    net.fit(ListDataSetIterator(data), epochs=TRANSFER_EPOCHS)
+    launches = _kernel_counts(ck)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    del net._fit_batch
+    # fc1 reads the frozen stack's output, which takes no gradient: its
+    # dropout has no backward; fc2's has
+    _check_steps(steps, _want(ck, conv2d_bias_act=13, threshold_dropout=3),
+                 0, "fine-tuned VGG16-224")
+    unmoved = _frozen_unmoved(torch, net, before)
+    scores = [s for _, s in collect.scores]
+    if len(scores) != n_steps or not np.isfinite(scores).all() or \
+            len(perf.history) != n_steps - 1:
+        raise AssertionError(f"listeners: {len(scores)} scores, "
+                             f"{len(perf.history)} rates")
+    x, y = (t if torch.is_tensor(t) else torch.from_numpy(t).cuda()
+            for t in (snap["batch"].features, snap["batch"].labels))
+    plain_score, plain_params, dropped, _, _ = _plain_train_step(
+        torch, ck, net, snap["params"], snap["opt"], x, y, snap["seeds"],
+        snap["it"])
+    for i, h in dropped.items():
+        rate, seed = net.layers[i].dropout, snap["seeds"][i]
+        ones = torch.ones_like(h)
+        if not (torch.equal(ck.fused_threshold_dropout(h, rate, seed),
+                            ck.threshold_dropout_reference(h, rate, seed))
+                and torch.equal(ck.fused_threshold_dropout(ones, rate, seed),
+                                ck.threshold_dropout_reference(ones, rate,
+                                                               seed))):
+            raise AssertionError(f"layer {i}: dropout masks differ")
+    errs = _update_errs(torch, net, plain_params, snap["params"])
+    kernel_score = steps[-1]["score"]
+    timed = steps[1:]
+    step_ms = [st["seconds"] * 1e3 for st in timed]
+    res = {"batch": TRANSFER_BATCH, "steps": len(steps),
+           "frozen_layers": TRANSFER_FROZEN + 1, "n_params": net.n_params,
+           "zip": {"bytes": zip_bytes, "write_s": zip_write_s,
+                   "read_s": zip_read_s},
+           "samples_per_s_after_first": TRANSFER_BATCH * len(timed)
+           / sum(st["seconds"] for st in timed),
+           "step_ms_median": float(np.median(step_ms)),
+           "step_ms_min_max": [min(step_ms), max(step_ms)],
+           "full_step_samples_per_s_batch_128":
+               train_vgg["samples_per_s_after_first"],
+           "launches_per_step": steps[-1]["launches"],
+           "conv_backwards": sum(st["conv_backwards"] for st in steps),
+           "launches": launches, "max_memory_allocated": peak,
+           "frozen_tensors_unmoved": unmoved,
+           "collected_scores": len(scores),
+           "scores_first_last": [scores[0], scores[-1]],
+           "listener_samples_per_s_median": float(np.median(
+               [r["samples_per_sec"] for r in perf.history])),
+           "plain_step": {"score": plain_score, "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "update_rel_err": errs,
+                          "max_update_rel_err": max(errs.values()),
+                          "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL,
+                          "dropout_masks_identical": sorted(dropped)}}
+    emit("transfer_vgg16_224", **res)
+    if res["plain_step"]["score_rel_diff"] > STEP_RTOL or \
+            max(errs.values()) > STEP_UPDATE_RTOL or \
+            sorted(dropped) != [TRANSFER_FROZEN + 1, TRANSFER_FROZEN + 2]:
+        raise AssertionError("fine-tuned VGG16-224 step through the kernels "
+                             "disagrees with the plain step")
+    net.set_listeners()
+    return res, net, data
+
+
+@_tf32_off
+def phase_featurize_vgg16_224(torch, ck, net, data) -> tuple:
+    """The frozen stack run once over the images
+    (``TransferLearningHelper.featurize``), then the unfrozen head fit on
+    the features for 2 epochs.  -> (result, helper, features)"""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        TransferLearningHelper)
+    helper = TransferLearningHelper(net, TRANSFER_FROZEN)
+    head = helper.unfrozen_network()
+    # the head on the features is the whole net on the images
+    first = helper.featurize(data[0])
+    got, want = head.output(first.features), net.output(data[0].features)
+    torch.testing.assert_close(got, want, rtol=NET_RTOL, atol=NET_ATOL)
+    head_vs_net = float((got - want).abs().max())
+    torch.cuda.synchronize()
+    feats, per_batch = [], []
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    for ds in data:
+        before = ck.fused_conv2d_bias_act.launches
+        feats.append(helper.featurize(ds))
+        per_batch.append(ck.fused_conv2d_bias_act.launches - before)
+    torch.cuda.synchronize()
+    featurize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    head.fit(ListDataSetIterator(feats), epochs=TRANSFER_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    steps = TRANSFER_EPOCHS * len(feats)
+    shape = tuple(feats[0].features.shape)
+    res = {"images": TRANSFER_IMAGES, "batch": TRANSFER_BATCH,
+           "feature_shape": shape, "featurize_s": featurize_s,
+           "images_per_s": TRANSFER_IMAGES / featurize_s,
+           "conv_launches_per_batch": per_batch,
+           "head_vs_net_max_abs": head_vs_net, "rtol": NET_RTOL,
+           "atol": NET_ATOL, "head_fit_steps": steps, "head_fit_s": fit_s,
+           "head_ms_per_step": fit_s / steps * 1e3,
+           "head_score": head.score(), "launches": launches}
+    emit("featurize_vgg16_224", **res)
+    side = TRANSFER_HW // 32                   # five 2x2 pools
+    if set(per_batch) != {13} or shape != (TRANSFER_BATCH, 512, side, side) \
+            or \
+            launches != _want(ck, conv2d_bias_act=13 * len(data),
+                              threshold_dropout=3 * steps) or \
+            not np.isfinite(res["head_score"]):
+        raise AssertionError(f"featurize: {per_batch} conv launches a "
+                             f"batch, features {shape}, launches {launches}")
+    return res, helper, feats
+
+
+def _timed_saves(listener, saves: dict):
+    """``listener`` (a CheckpointListener) with each save's seconds and
+    size appended to ``saves``."""
+    save = listener._save
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        saves["save_s"].append(time.perf_counter() - t0)
+        saves["bytes"] = path.stat().st_size
+        return path
+    listener._save = timed
+    return listener
+
+
+@contextlib.contextmanager
+def _timed_restore(saves: dict):
+    """While active, each ``checkpoint.restore_into`` (``fit``'s resume)
+    appends its seconds to ``saves["restore_s"]``."""
+    from deeplearning4j_tpu_torch.nn import checkpoint
+    restore = checkpoint.restore_into
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        meta = restore(*args, **kw)
+        saves["restore_s"].append(time.perf_counter() - t0)
+        return meta
+    checkpoint.restore_into = timed
+    try:
+        yield
+    finally:
+        checkpoint.restore_into = restore
+
+
+class _Interrupted(Exception):
+    """The deliberate stop of early_stop_and_resume's interrupted fit."""
+
+
+def _cut_after(data, limit):
+    """A ListDataSetIterator over ``data`` that raises :class:`_Interrupted`
+    when its ``limit``-th batch in all is asked for."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    class CutAfter(ListDataSetIterator):
+        served = 0
+
+        def next(self):
+            self.served += 1
+            if self.served == limit:
+                raise _Interrupted()
+            return super().next()
+    return CutAfter(data)
+
+
+def _rebatch(torch, feats, rows: int, batch: int):
+    """The first ``rows`` featurized rows again as DataSets of ``batch``."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    x = torch.cat([f.features for f in feats])[:rows]
+    y = np.concatenate([np.asarray(f.labels) for f in feats])[:rows]
+    return [DataSet(x[i:i + batch], y[i:i + batch])
+            for i in range(0, rows, batch)]
+
+
+@_tf32_off
+def phase_early_stop_and_resume(torch, ck, helper, feats) -> dict:
+    """The featurized head (dropout in fc1 and fc2) under
+    ``EarlyStoppingTrainer`` with a ``LocalFileModelSaver``, against a
+    plain ``fit`` over the same batches; then a fit cut by an exception
+    and resumed from its checkpoints, against the same fit uncut."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.nn.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_tpu_torch.nn.serialization import (
+        restore_multi_layer_network)
+    rows = TRANSFER_IMAGES - EARLY_HELD
+    train = _rebatch(torch, feats, rows, TRANSFER_BATCH)
+    held = _rebatch(torch, feats[rows // TRANSFER_BATCH:], EARLY_HELD,
+                    EARLY_HELD)[0]
+    head = helper.unfrozen_network()
+    spent = {"score_s": 0.0, "save_s": 0.0, "get_best_s": 0.0}
+    saved_out = {}
+    _zero_counts(ck)                                   # main path starts
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = LocalFileModelSaver(tmp, device="cuda")
+        calc = DataSetLossCalculator(held)
+        save_best, get_best, score = (saver.save_best, saver.get_best,
+                                      calc.calculate_score)
+
+        def timed_save(model):
+            t0 = time.perf_counter()
+            save_best(model)
+            spent["save_s"] += time.perf_counter() - t0
+            saved_out["best"] = model.output(held.features)
+
+        def timed_get_best():
+            t0 = time.perf_counter()
+            best = get_best()
+            spent["get_best_s"] += time.perf_counter() - t0
+            return best
+
+        def timed_score(model):
+            t0 = time.perf_counter()
+            out = score(model)
+            spent["score_s"] += time.perf_counter() - t0
+            return out
+        saver.save_best, saver.get_best = timed_save, timed_get_best
+        calc.calculate_score = timed_score
+        cfg = EarlyStoppingConfiguration(
+            score_calculator=calc, model_saver=saver,
+            epoch_termination_conditions=[
+                MaxEpochsTerminationCondition(EARLY_MAX_EPOCHS),
+                ScoreImprovementEpochTerminationCondition(EARLY_PATIENCE)])
+        t0 = time.perf_counter()
+        result = EarlyStoppingTrainer(cfg, head,
+                                      ListDataSetIterator(train)).fit()
+        torch.cuda.synchronize()
+        es_s = time.perf_counter() - t0
+        best_zip = restore_multi_layer_network(Path(tmp) / "bestModel.zip",
+                                               device="cuda")
+        zip_out = best_zip.output(held.features)
+        best_out = result.best_model.output(held.features)
+    plain = helper.unfrozen_network()
+    t0 = time.perf_counter()
+    plain.fit(ListDataSetIterator(train), epochs=result.total_epochs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if plain.iteration != head.iteration:
+        raise AssertionError(f"{plain.iteration} plain steps for "
+                             f"{head.iteration} early-stopping steps")
+    # the trainer's own time a step: its fit calls and score reads
+    es_ms = (es_s - spent["score_s"] - spent["save_s"] -
+             spent["get_best_s"]) / head.iteration * 1e3
+    # resume: the run cut after RESUME_CUT batches of its second epoch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    saves = {"save_s": [], "restore_s": []}
+    try:
+        data = _rebatch(torch, feats, rows, RESUME_BATCH)
+        ref = helper.unfrozen_network()
+        ref.fit(ListDataSetIterator(data), epochs=RESUME_EPOCHS)
+        with tempfile.TemporaryDirectory() as tmp:
+            cut = helper.unfrozen_network()
+            cut.set_listeners(_timed_saves(CheckpointListener(
+                tmp, save_every_n_iterations=RESUME_EVERY), saves))
+            raised = False
+            t0 = time.perf_counter()
+            try:
+                cut.fit(_cut_after(data, len(data) + RESUME_CUT + 1),
+                        epochs=RESUME_EPOCHS)
+            except _Interrupted:
+                raised = True
+            cut_s = time.perf_counter() - t0
+            if not raised or cut.iteration != len(data) + RESUME_CUT:
+                raise AssertionError(f"the cut fit ended at iteration "
+                                     f"{cut.iteration}, raised {raised}")
+            kept = len(CheckpointListener.checkpoints(tmp))
+            resumed = helper.unfrozen_network()
+            resumed.conf.global_conf.ft_resume = True
+            resumed.set_listeners(_timed_saves(CheckpointListener(
+                tmp, save_every_n_iterations=RESUME_EVERY), saves))
+            t0 = time.perf_counter()
+            with _timed_restore(saves):
+                resumed.fit(ListDataSetIterator(data), epochs=RESUME_EPOCHS)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    launches = _kernel_counts(ck)                      # main path ends
+    resumed_from = (len(data) + RESUME_CUT) // RESUME_EVERY * RESUME_EVERY
+    steps = (head.iteration + plain.iteration + ref.iteration +
+             cut.iteration + resumed.iteration - resumed_from)
+    equal = (torch.equal(resumed.params(), ref.params())
+             and torch.equal(resumed.updater_state_flat(),
+                             ref.updater_state_flat()))
+    res = {"early_stopping": {
+               "termination_reason": result.termination_reason,
+               "termination_details": result.termination_details,
+               "total_epochs": result.total_epochs,
+               "best_model_epoch": result.best_model_epoch,
+               "best_model_score": result.best_model_score,
+               "score_vs_epoch": result.score_vs_epoch,
+               "iterations": head.iteration, "seconds": es_s,
+               "score_s": spent["score_s"], "save_s": spent["save_s"],
+               "get_best_s": spent["get_best_s"], "ms_per_step": es_ms,
+               "plain_fit_ms_per_step": plain_s / plain.iteration * 1e3,
+               "best_zip_equals_saved_output":
+                   bool(torch.equal(zip_out, saved_out["best"])),
+               "best_zip_equals_get_best":
+                   bool(torch.equal(zip_out, best_out))},
+           "resume": {"batch": RESUME_BATCH, "epochs": RESUME_EPOCHS,
+                      "batches_per_epoch": len(data),
+                      "save_every": RESUME_EVERY,
+                      "cut_at_iteration": cut.iteration,
+                      "checkpoints_kept": kept,
+                      "checkpoint_bytes": saves["bytes"],
+                      "saves": len(saves["save_s"]),
+                      "save_s_each": saves["save_s"],
+                      "restore_s": saves["restore_s"],
+                      "resumed_from_iteration": resumed_from,
+                      "iterations": resumed.iteration, "cut_s": cut_s,
+                      "resume_s": resume_s,
+                      "cudnn_deterministic": True,
+                      "params_and_updater_equal": equal,
+                      "params_rel_norm": _rel_norm(torch, resumed.params(),
+                                                   ref.params())},
+           "launches": launches}
+    emit("early_stop_and_resume", **res)
+    es_res = res["early_stopping"]
+    if not np.isfinite(list(result.score_vs_epoch.values())).all() or \
+            not es_res["best_zip_equals_saved_output"] or \
+            not es_res["best_zip_equals_get_best"] or not equal or \
+            resumed.iteration != ref.iteration or \
+            resumed.epoch != ref.epoch or \
+            launches != _want(ck, threshold_dropout=3 * steps):
+        raise AssertionError("early stopping or resume failed its checks")
+    return res
+
+
+@_tf32_off
+def phase_transfer_resnet50(torch, ck, train_resnet) -> dict:
+    """ResNet-50 (``seeded_resnet50``) with every vertex through the global
+    pool frozen and a 5-class head, 5 ``fit`` steps at batch 32; the last
+    against the plain graph step."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        TransferLearning)
+    src = seeded_resnet50("cuda")
+    net = (TransferLearning.GraphBuilder(src)
+           .set_feature_extractor("gap")
+           .remove_vertex_and_connections("fc")
+           .add_layer("fc5", OutputLayer(n_out=TRANSFER_CLASSES,
+                                         activation="softmax",
+                                         loss="mcxent"), "gap")
+           .set_outputs("fc5").build())
+    states_kept = all(torch.equal(net.net_state[n][k], t)
+                      for n, s in src.net_state.items() if n in net.net_state
+                      for k, t in s.items())
+    del src
+    trained = [n for n in net.order
+               if not net.frozen[n] and net.net_params[n]]
+    if trained != ["fc5"] or not states_kept:
+        raise AssertionError(f"ResNet-50 transfer trains {trained}; source "
+                             f"statistics kept: {states_kept}")
+    rng = np.random.default_rng(SEED + 31)
+    data = [DataSet(*_random_batch(rng, TRANSFER_RESNET_BATCH,
+                                   (3, RESNET_HW, RESNET_HW),
+                                   TRANSFER_CLASSES))
+            for _ in range(TRANSFER_RESNET_STEPS)]
+    before = _frozen_copy(net)
+    steps, snap = _timed_steps(torch, ck, net,
+                               snapshot_at=TRANSFER_RESNET_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(ck)                                   # main path starts
+    net.fit(ListDataSetIterator(data))
+    launches = _kernel_counts(ck)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    del net._fit_batch
+    _check_steps(steps, _want(ck, conv2d_bias_act=RESNET_KERNEL_CONVS),
+                 RESNET_DENSE_CONVS, "ResNet-50 transfer")
+    unmoved = _frozen_unmoved(torch, net, before)
+    x, y = (t if torch.is_tensor(t) else torch.from_numpy(t).cuda()
+            for t in (snap["batch"].features[0], snap["batch"].labels[0]))
+    plain_score, plain_params, plain_states, _ = _plain_graph_step(
+        torch, ck, net, snap["params"], snap["opt"], [x], [y], snap["it"],
+        snap["states"])
+    errs = _update_errs(torch, net, plain_params, snap["params"])
+    stats_equal = all(torch.equal(plain_states[n][k], t)
+                      for n, s in net.net_state.items()
+                      for k, t in s.items())
+    timed = steps[1:]
+    kernel_score = steps[-1]["score"]
+    res = {"batch": TRANSFER_RESNET_BATCH, "steps": len(steps),
+           "frozen_vertices": sum(net.frozen.values()),
+           "trained": trained, "source_statistics_kept": states_kept,
+           "samples_per_s_after_first": TRANSFER_RESNET_BATCH * len(timed)
+           / sum(st["seconds"] for st in timed),
+           "step_ms": [st["seconds"] * 1e3 for st in steps],
+           "full_step_samples_per_s_batch_128":
+               train_resnet["samples_per_s_after_first"],
+           "full_step_max_memory_allocated":
+               train_resnet["max_memory_allocated"],
+           "launches_per_step": steps[-1]["launches"],
+           "conv_fallbacks_per_step": steps[-1]["conv_fallbacks"],
+           "conv_backwards": sum(st["conv_backwards"] for st in steps),
+           "launches": launches, "max_memory_allocated": peak,
+           "frozen_tensors_unmoved": unmoved,
+           "plain_step": {"score": plain_score, "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "update_rel_err": errs,
+                          "max_update_rel_err": max(errs.values()),
+                          "bn_stats_equal": stats_equal,
+                          "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL}}
+    emit("transfer_resnet50", **res)
+    ps = res["plain_step"]
+    if ps["score_rel_diff"] > STEP_RTOL or \
+            ps["max_update_rel_err"] > STEP_UPDATE_RTOL or not stats_equal:
+        raise AssertionError("ResNet-50 transfer step through the kernels "
+                             "disagrees with the plain step")
     return res
 
 
@@ -4347,7 +5002,8 @@ def phase_nearest_neighbors(torch, w2v) -> dict:
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
-            train_att, output_att, sample_att, textcnn, train_tc) -> dict:
+            train_att, output_att, sample_att, textcnn, train_tc,
+            transfer_paths) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -4387,7 +5043,8 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "output_attention": output_att["launches"],
              "sample_attention": sample_att["launches"],
              "train_textcnn": train_tc["launches"],
-             "evaluate_textcnn": train_tc["evaluate"]["launches"]}
+             "evaluate_textcnn": train_tc["evaluate"]["launches"],
+             **transfer_paths}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -4523,6 +5180,18 @@ def main() -> int:
     resnet_records, resnet_set = phase_resnet50_kernels(torch, ck)
     serve_resnet = phase_serve_resnet50(torch, ck)
     train_resnet = phase_train_resnet50(torch, ck)
+    transfer_vgg, net, data = phase_transfer_vgg16_224(torch, ck, train_vgg)
+    featurize, helper, feats = phase_featurize_vgg16_224(torch, ck, net,
+                                                         data)
+    early_resume = phase_early_stop_and_resume(torch, ck, helper, feats)
+    del net, data, helper, feats
+    transfer_resnet = phase_transfer_resnet50(torch, ck, train_resnet)
+    torch.cuda.empty_cache()
+    transfer_paths = {
+        "transfer_vgg16_224": transfer_vgg["launches"],
+        "featurize_vgg16_224": featurize["launches"],
+        "early_stop_and_resume": early_resume["launches"],
+        "transfer_resnet50": transfer_resnet["launches"]}
     functional = phase_keras_functional(torch, ck)
     lstm = phase_lstm_kernel(torch, ck)
     train_char, net, it = phase_train_charrnn(torch, ck)
@@ -4546,7 +5215,8 @@ def main() -> int:
                              keras_vgg, train_keras_vgg, resnet_set,
                              serve_resnet, train_resnet, functional, lstm,
                              train_char, sample_char, flash, train_att,
-                             output_att, sample_att, textcnn, train_tc)))
+                             output_att, sample_att, textcnn, train_tc,
+                             transfer_paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

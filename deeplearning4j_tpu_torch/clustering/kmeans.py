@@ -78,13 +78,22 @@ def lloyd(points: torch.Tensor, centers: torch.Tensor, max_iter: int,
     than ``tol`` (max abs), assign each point to its nearest centre and
     move each centre to its points' mean; a centre with no points stays.
     The first test passes as JAX's does (its ``prev`` starts 2 tol + 1
-    away)."""
+    away).  The distances are taken from the points and centres less the
+    points' mean, which leaves them unchanged in exact arithmetic: the
+    one-GEMM form cancels whatever the points share, so on vectors that
+    point one way (a trained word-vector table) float32 distances from
+    the raw points decide near ties by rounding and the loop leaves the
+    float64 loop's path, where centred it keeps to it
+    (``tests/test_torch_clustering.py``).  JAX's kernel takes them from
+    the raw points."""
     k = centers.shape[0]
     it = 0
     moved = float("inf")
+    mean = points.mean(0)
+    centred = points - mean
     with full_f32_matmul():
         while it < max_iter and moved > tol:
-            assign = torch.argmin(dist2(points, centers), dim=1)
+            assign = torch.argmin(dist2(centred, centers - mean), dim=1)
             onehot = torch.nn.functional.one_hot(assign, k).to(points.dtype)
             counts = onehot.sum(0)
             sums = onehot.T @ points
@@ -93,7 +102,7 @@ def lloyd(points: torch.Tensor, centers: torch.Tensor, max_iter: int,
             moved = float((new - centers).abs().max())
             centers = new
             it += 1
-        assign = torch.argmin(dist2(points, centers), dim=1)
+        assign = torch.argmin(dist2(centred, centers - mean), dim=1)
     return centers, assign, it
 
 

@@ -13,7 +13,9 @@ convolutional family ``ConvolutionLayer``, ``SubsamplingLayer``,
 ``LocalResponseNormalization`` and ``GlobalPoolingLayer``; the recurrent
 family ``GravesLSTM``, ``GravesBidirectionalLSTM``, ``RnnOutputLayer`` and
 ``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]); and
-``SelfAttentionLayer``, whose core goes through ``parallel/sequence``.
+``SelfAttentionLayer``, whose core goes through ``parallel/sequence``;
+and ``FrozenLayerConf``, the transfer-learning wrapper (``unfrozen``
+gives the layer it wraps, for type dispatch).
 ``initialize`` returns ``(params, output type)`` and ``initial_state``
 the layer's starting state (BatchNormalization's running ``mean`` and
 ``var``; empty for the others), which the JAX package's ``initialize``
@@ -731,3 +733,53 @@ class SelfAttentionLayer(Layer):
 
     def output_type(self, input_type):
         return InputType.recurrent(self.n_out, input_type.timesteps)
+
+
+@register_layer
+@dataclasses.dataclass
+class FrozenLayerConf(Layer):
+    """Wraps another layer whose params training leaves as they are
+    (ref: nn/layers/FrozenLayer.java; transfer learning).  Its JSON is the
+    JAX package's, ``{"@class": "FrozenLayerConf", "inner": {...}}``.  The
+    forward is the inner layer's with ``train`` off, so a frozen layer
+    drops nothing and a frozen batch norm reads and keeps its running
+    statistics.  The engines skip the wrapper's params in the gradient
+    and the update.  Its own hyperparameters (``l1``, ``l2``,
+    ``updater``, ...) are the wrapper's, unset unless given, as in the
+    JAX package: the inner layer's regularization does not reach the
+    score, and its updater state is the wrapper's rule's."""
+
+    inner: Optional[dict] = None  # the serialized inner layer
+
+    def _inner(self) -> Layer:
+        """The inner layer, built once from ``inner``."""
+        built = self.__dict__.get("_built")
+        if built is None:
+            built = Layer.from_dict(self.inner)
+            self.__dict__["_built"] = built
+        return built
+
+    def has_params(self):
+        return self._inner().has_params()
+
+    def initialize(self, generator, input_type, device):
+        return self._inner().initialize(generator, input_type, device)
+
+    def initial_state(self, input_type, device):
+        return self._inner().initial_state(input_type, device)
+
+    def forward(self, params, state, x, train=False, seed=None, mask=None):
+        return self._inner().forward(params, state, x, False, seed, mask)
+
+    def output_type(self, input_type):
+        return self._inner().output_type(input_type)
+
+    @staticmethod
+    def wrap(layer: Layer) -> "FrozenLayerConf":
+        return FrozenLayerConf(inner=layer.to_dict())
+
+
+def unfrozen(layer: Layer) -> Layer:
+    """The layer a :class:`FrozenLayerConf` wraps, or ``layer`` itself:
+    what a dispatch on the layer's type looks at."""
+    return layer._inner() if isinstance(layer, FrozenLayerConf) else layer

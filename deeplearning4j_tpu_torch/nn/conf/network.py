@@ -169,8 +169,9 @@ class NeuralNetConfiguration:
 
 class Builder:
     """Fluent setters of the global hyperparameters; the names follow
-    the JAX package's builder.  Its precision tiers, sharding,
-    distribution and fault-tolerance knobs are not ported yet."""
+    the JAX package's builder.  Its precision tiers, sharding and
+    distribution knobs, and the reader retries of its fault tolerance,
+    are not ported yet."""
 
     def __init__(self):
         self._g = GlobalConf()
@@ -260,6 +261,18 @@ class Builder:
             self._g.pipeline_prefetch = int(prefetch)
         if staging_depth is not None:
             self._g.pipeline_staging_depth = int(staging_depth)
+        return self
+
+    def fault_tolerance(self, resume: Optional[bool] = None,
+                        checkpoint_dir=None):
+        """Crash-safe training: under ``resume=True`` a fresh network's
+        ``fit`` restores the newest valid checkpoint (written by an
+        attached ``CheckpointListener``, or found in ``checkpoint_dir``)
+        and skips the input it had trained on (``nn/checkpoint.py``)."""
+        if resume is not None:
+            self._g.ft_resume = bool(resume)
+        if checkpoint_dir is not None:
+            self._g.ft_checkpoint_dir = str(checkpoint_dir)
         return self
 
     def list(self) -> "ListBuilder":

@@ -23,15 +23,22 @@ passes it.  ``fit`` wraps an iterator in ``AsyncMultiDataSetIterator`` as
 device as the step takes it.  Updater state is made at the first
 training step or restore, so a graph that only serves holds none.
 
+Listeners, crash-safe resume and the engine methods (``feed_forward``,
+``clone``, ``summary``, ``param_table`` / ``get_param`` / ``set_param``)
+are ``MultiLayerNetwork``'s.  A vertex whose layer is a
+``FrozenLayerConf`` (transfer learning) runs its inference forward, and
+the step asks autograd for no gradient of its params and updates none,
+so a frozen stack records no backward at all.
+
 Not ported yet: truncated BPTT and ``rnn_time_step`` of a graph,
 ``fit(fused_steps=K)``, ``pretrain``, ``backprop_gradient`` /
-``apply_gradients``, ``quantize_inference``, ``feed_forward``,
-``summary``, ``clone``, frozen vertices (transfer learning), gradient
-checkpointing, sharding and listeners.
+``apply_gradients``, ``quantize_inference``, gradient checkpointing and
+sharding.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -41,17 +48,20 @@ import torch
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
     AsyncDataSetIterator, AsyncMultiDataSetIterator)
+from deeplearning4j_tpu_torch.nn import checkpoint as ckpt_mod
 from deeplearning4j_tpu_torch.nn import params as param_util
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration, DuplicateToTimeSeriesVertex,
     LastTimeStepVertex, LayerVertex)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BaseOutputLayer, EmbeddingLayer, GravesBidirectionalLSTM, GravesLSTM,
-    LossLayer, RnnOutputLayer)
+    BaseOutputLayer, EmbeddingLayer, FrozenLayerConf,
+    GravesBidirectionalLSTM, GravesLSTM, LossLayer, RnnOutputLayer, unfrozen)
 from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
+from deeplearning4j_tpu_torch.nn.listeners import IterationListener
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    BIAS_KEYS, WEIGHT_KEYS, _detach, _tree_fill, _tree_leaves, _updater_for)
+    BIAS_KEYS, WEIGHT_KEYS, _clone, _detach, _tree_fill, _tree_leaves,
+    _updater_for, fit_epochs, render_table)
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
@@ -76,8 +86,14 @@ class ComputationGraph:
             n: (_updater_for(vertices[n].layer_conf())
                 if isinstance(vertices[n], LayerVertex)
                 else upd_ops.make("sgd")) for n in self.order}
+        self.frozen = {n: isinstance(vertices[n], LayerVertex)
+                       and isinstance(vertices[n].layer_conf(),
+                                      FrozenLayerConf) for n in self.order}
         self.iteration = 0
         self.epoch = 0
+        self.listeners: List[IterationListener] = []
+        self.last_batch_size = 0
+        self.last_etl_time_ms = 0.0
         self._score = float("nan")
         self._generator = torch.Generator().manual_seed(
             int(conf.global_conf.seed))
@@ -98,7 +114,8 @@ class ComputationGraph:
             i for n in self.order for i in conf.vertex_inputs[n]
             if i in conf.network_inputs
             and isinstance(vertices[n], LayerVertex)
-            and isinstance(vertices[n].layer_conf(), EmbeddingLayer)}
+            and isinstance(unfrozen(vertices[n].layer_conf()),
+                           EmbeddingLayer)}
 
     def _reads(self, name: str) -> List[str]:
         """The activations vertex ``name`` takes: its inputs, and for a
@@ -139,14 +156,15 @@ class ComputationGraph:
         """A vertex's input type from its layer's ``n_in`` when the graph
         declares no input types (the JAX package's best effort)."""
         v = self.conf.vertices[name]
-        n_in = (getattr(v.layer_conf(), "n_in", None)
-                if isinstance(v, LayerVertex) else None)
+        layer = unfrozen(v.layer_conf()) if isinstance(v, LayerVertex) \
+            else None
+        n_in = getattr(layer, "n_in", None)
         if not n_in:
             raise ValueError(
                 f"Vertex '{name}': upstream type unknown — call "
                 f"set_input_types() on the GraphBuilder or set n_in")
-        if isinstance(v.layer_conf(), (GravesLSTM, GravesBidirectionalLSTM,
-                                       RnnOutputLayer)):
+        if isinstance(layer, (GravesLSTM, GravesBidirectionalLSTM,
+                              RnnOutputLayer)):
             return InputType.recurrent(n_in)
         return InputType.feed_forward(n_in)
 
@@ -188,7 +206,8 @@ class ComputationGraph:
 
     def _forward_all(self, params, state, inputs: Dict[str, torch.Tensor],
                      masks: Dict[str, Optional[torch.Tensor]], train: bool,
-                     seeds=None, preout_for: Sequence[str] = ()):
+                     seeds=None, preout_for: Sequence[str] = (),
+                     keep_all: bool = False):
         """Every vertex in topological order -> (activations of the
         network outputs, pre-activations of the vertices in
         ``preout_for``, new states, output masks).  A vertex in
@@ -196,13 +215,17 @@ class ComputationGraph:
         stable fused losses work on it) and, in training, drops its
         input; in training vertex ``vi`` gets the seed words
         ``seeds[vi]``.  An activation is dropped once its last reader has
-        run, so a training step holds only what autograd saves."""
+        run, so a training step holds only what autograd saves; under
+        ``keep_all`` every activation is kept and returned, the inputs'
+        included."""
         acts = dict(inputs)
         out_masks = dict(masks)
         new_states: Dict[str, dict] = {}
         preouts: Dict[str, torch.Tensor] = {}
         remaining = dict(self._readers)
         keep = set(self.conf.network_outputs)
+        if keep_all:
+            keep |= set(acts) | set(self.order)
         for vi, name in enumerate(self.order):
             v = self.conf.vertices[name]
             reads = self._reads(name)
@@ -235,6 +258,8 @@ class ComputationGraph:
                 remaining[i] -= 1
                 if remaining[i] == 0 and i not in keep:
                     acts.pop(i, None)
+        if keep_all:
+            return acts, preouts, new_states, out_masks
         return ({n: acts[n] for n in self.conf.network_outputs if n in acts},
                 preouts, new_states, out_masks)
 
@@ -335,6 +360,16 @@ class ComputationGraph:
                 "warmup_sec": round(time.perf_counter() - t0, 3)}
 
     # ---- training ----
+    def set_listeners(self, *listeners: IterationListener
+                      ) -> "ComputationGraph":
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener: IterationListener
+                     ) -> "ComputationGraph":
+        self.listeners.append(listener)
+        return self
+
     def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
         """fit(MultiDataSet | DataSet | iterator | (features, labels))
         (ref: ComputationGraph.fit :828): ``epochs`` passes, one training
@@ -345,17 +380,18 @@ class ComputationGraph:
         ``pipeline_staging_depth`` transformed batches waiting, unless
         ``pipeline_workers`` is 0; each batch is staged onto the graph's
         device as the step takes it, and the pipeline is closed on
-        return."""
+        return.  Listeners and ``fault_tolerance(resume=True)`` as in
+        ``MultiLayerNetwork.fit``."""
         if labels is not None:
             data = MultiDataSet([np.asarray(data)], [np.asarray(labels)])
         if isinstance(data, DataSet):
             data = MultiDataSet.of(data)
         if self.net_params is None:
             self.init()
+        skip = ckpt_mod.maybe_auto_resume(self)
         if isinstance(data, MultiDataSet):
-            for _ in range(epochs):
-                self._fit_batch(data)
-                self.epoch += 1
+            fit_epochs(self, epochs, skip, lambda: None, lambda: [data],
+                       self._fit_batch)
             return self
         it = data
         g = self.conf.global_conf
@@ -371,17 +407,19 @@ class ComputationGraph:
         # iterable works too
         has_protocol = (callable(getattr(it, "has_next", None))
                         and callable(getattr(it, "next", None)))
+
+        def batches():
+            if has_protocol:
+                while it.has_next():
+                    yield it.next()
+            else:
+                yield from it
+        reset = getattr(it, "reset", None)
+        fit_batch = self._fit_batch
         try:
-            for _ in range(epochs):
-                if callable(getattr(it, "reset", None)):
-                    it.reset()
-                if has_protocol:
-                    while it.has_next():
-                        self._fit_batch(_as_multi(it.next()))
-                else:
-                    for item in it:
-                        self._fit_batch(_as_multi(item))
-                self.epoch += 1
+            fit_epochs(self, epochs, skip,
+                       reset if callable(reset) else lambda: None, batches,
+                       lambda item: fit_batch(_as_multi(item)))
         finally:
             if isinstance(it, AsyncDataSetIterator):
                 it.close()
@@ -389,7 +427,7 @@ class ComputationGraph:
 
     def _draw_seeds(self) -> torch.Tensor:
         """One step's dropout seed words, [n_vertices, 2] uint32 values
-        (as int64), from the graph's generator."""
+        (as int64), from the graph's generator: one draw a step."""
         return torch.randint(0, 1 << 32, (len(self.order), 2),
                              generator=self._generator, dtype=torch.int64)
 
@@ -410,6 +448,7 @@ class ComputationGraph:
             self.init()
         if self.opt_states is None:
             self.opt_states = self._init_opt_states()
+        self.last_batch_size = mds.num_examples()
         step_seeds = (self._draw_seeds() if seeds is None else
                       np.asarray(seeds, dtype=np.int64).reshape(
                           len(self.order), 2)).tolist()
@@ -422,13 +461,17 @@ class ComputationGraph:
         self.rnn_clear_previous_state()
         self._score = score
         self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
 
     def _grad_step(self, xs: Dict[str, torch.Tensor], ys, fmasks, lmasks,
                    seeds):
-        """Score of the batch and its gradient per vertex and param; the
+        """Score of the batch and its gradient per vertex and param (none
+        for a frozen vertex, whose forward then records no backward); the
         vertices' new states (detached) replace ``net_state``, as the JAX
         step returns them."""
-        params = {n: {k: v.detach().requires_grad_() for k, v in lp.items()}
+        params = {n: {k: v.detach().requires_grad_(not self.frozen[n])
+                      for k, v in lp.items()}
                   for n, lp in self.net_params.items()}
         masks = (dict(zip(self.conf.network_inputs, fmasks))
                  if fmasks is not None else {})
@@ -440,8 +483,10 @@ class ComputationGraph:
             if not self.conf.global_conf.minimize:
                 score = -score
             flat = iter(torch.autograd.grad(
-                score, [v for lp in params.values() for v in lp.values()]))
-        grads = {n: {k: next(flat) for k in lp} for n, lp in params.items()}
+                score, [v for lp in params.values() for v in lp.values()
+                        if v.requires_grad]))
+        grads = {n: {k: next(flat) for k, v in lp.items() if v.requires_grad}
+                 for n, lp in params.items()}
         self.net_state = _detach(new_states)
         return score.detach(), grads
 
@@ -451,13 +496,14 @@ class ComputationGraph:
 
     @torch.no_grad()
     def _apply_updates(self, grads, it: int) -> None:
-        """Per vertex with a gradient: gradient normalization and the LR
-        (its layer's, else the global one) under the LR schedule, the
-        learning rule, then params -= update, in place."""
+        """Per vertex with a gradient and not frozen: gradient
+        normalization and the LR (its layer's, else the global one) under
+        the LR schedule, the learning rule, then params -= update, in
+        place."""
         g = self.conf.global_conf
         for name in self.order:
             gi = grads.get(name)
-            if not gi:
+            if not gi or self.frozen[name]:
                 continue
             v = self.conf.vertices[name]
             layer = v.layer_conf() if isinstance(v, LayerVertex) else None
@@ -590,6 +636,86 @@ class ComputationGraph:
             off += l.numel()
         self.opt_states = dict(zip(self.order,
                                    _tree_fill(ordered, iter(parts))))
+
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """Named params keyed ``"<vertexName>_<paramName>"`` (ref:
+        Model.paramTable on ComputationGraph)."""
+        if self.net_params is None:
+            self.init()
+        return {f"{n}_{k}": v for n in self.order
+                for k, v in self.net_params[n].items()}
+
+    def _split_param_key(self, key: str):
+        # vertex names may hold '_' and so may param names (f_W, b_RW):
+        # the longest vertex name that prefixes the key owns it
+        for n in sorted(self.net_params, key=len, reverse=True):
+            if key.startswith(n + "_"):
+                return n, key[len(n) + 1:]
+        raise KeyError(f"no vertex owns param key '{key}'")
+
+    def get_param(self, key: str) -> torch.Tensor:
+        name, k = self._split_param_key(key)
+        return self.net_params[name][k]
+
+    def set_param(self, key: str, value) -> None:
+        """(ref: Model.setParam); the shape must be the param's."""
+        name, k = self._split_param_key(key)
+        cur = self.net_params[name][k]
+        value = torch.as_tensor(value, dtype=cur.dtype).to(cur.device)
+        if value.shape != cur.shape:
+            raise ValueError(f"setParam('{key}'): shape "
+                             f"{tuple(value.shape)} != {tuple(cur.shape)}")
+        self.net_params[name] = {**self.net_params[name], k: value.clone()}
+
+    # ---- inspection and copies ----
+    def feed_forward(self, *inputs, train: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+        """Every vertex's activation by name, the network inputs included
+        (ref: ComputationGraph.feedForward :1143).  ``train`` runs the
+        training forward (dropout with seed words drawn from the graph's
+        generator) without keeping its new states."""
+        if self.net_params is None:
+            self.init()
+        with torch.inference_mode():
+            acts, _, _, _ = self._forward_all(
+                self.net_params, _strip_rnn(self.net_state),
+                self._inputs(inputs), {}, train,
+                self._draw_seeds().tolist() if train else None,
+                keep_all=True)
+        return acts
+
+    def summary(self) -> str:
+        """Printable vertex table in topological order: name, vertex type,
+        inputs, param count (ref: ComputationGraph.summary)."""
+        if self.net_params is None:
+            self.init()
+        rows = [("VertexName", "VertexType", "Inputs", "ParamCount")]
+        total = 0
+        for name in self.order:
+            v = self.conf.vertices[name]
+            n = sum(t.numel() for t in self.net_params[name].values())
+            total += n
+            vtype = (type(v.layer_conf()).__name__
+                     if isinstance(v, LayerVertex) else type(v).__name__)
+            rows.append((name, vtype,
+                         ",".join(self.conf.vertex_inputs[name]) or "-",
+                         f"{n:,}"))
+        return render_table(rows, [
+            f"Total parameters: {total:,}",
+            f"Inputs: {', '.join(self.conf.network_inputs)}",
+            f"Outputs: {', '.join(self.conf.network_outputs)}"])
+
+    def clone(self) -> "ComputationGraph":
+        """A graph of a copy of the configuration with copies of the
+        params, vertex states and updater state, on the same device, at
+        the same iteration; no listeners."""
+        net = ComputationGraph(copy.deepcopy(self.conf), device=self.device)
+        if self.net_params is not None:
+            net.net_params = _clone(self.net_params)
+            net.net_state = _clone(self.net_state)
+            net.opt_states = _clone(self.opt_states)
+        net.iteration = self.iteration
+        return net
 
 
 def _as_multi(item):

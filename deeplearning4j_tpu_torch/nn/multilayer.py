@@ -32,14 +32,27 @@ from call to call; a standard step drops it afterwards.
 ``evaluate`` fills an ``nn/evaluation.Evaluation`` from ``output``;
 ``score_examples`` gives the loss of every example.
 
+Listeners (``nn/listeners.py``, ``set_listeners`` / ``add_listener``) are
+called after every step and, for a ``TrainingListener``, around every
+epoch of ``fit``, as the JAX package calls them; a network without
+listeners adds no work to a step.  A layer wrapped in ``FrozenLayerConf``
+(transfer learning, ``nn/transferlearning.py``) runs its inference
+forward, takes no gradient and no update.  Under
+``conf.fault_tolerance(resume=True)`` ``fit`` first restores the newest
+valid checkpoint (``nn/checkpoint.py``) and skips the epochs and batches
+it had trained.  ``feed_forward``, ``clone``, ``summary``,
+``param_table`` / ``get_param`` / ``set_param`` and ``get_layer_params``
+are the JAX package's.
+
 Not ported yet: ``fit(fused_steps=K)``, sharding and distributed
-training, checkpoint resume and listeners.
+training.
 """
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,13 +60,16 @@ import torch
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
     AsyncDataSetIterator, DataSetIterator, ListDataSetIterator)
+from deeplearning4j_tpu_torch.nn import checkpoint as ckpt_mod
 from deeplearning4j_tpu_torch.nn import params as param_util
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    BaseOutputLayer, EmbeddingLayer, GravesBidirectionalLSTM, GravesLSTM,
-    Layer, LossLayer)
+    BaseOutputLayer, EmbeddingLayer, FrozenLayerConf,
+    GravesBidirectionalLSTM, GravesLSTM, Layer, LossLayer, unfrozen)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
+from deeplearning4j_tpu_torch.nn.listeners import (
+    IterationListener, TrainingListener)
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
@@ -61,6 +77,21 @@ from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
 
 WEIGHT_KEYS = {"W", "RW", "f_W", "f_RW", "b_W", "b_RW"}
 BIAS_KEYS = {"b", "f_b", "b_b"}
+
+
+def render_table(rows: Sequence[Tuple[str, ...]], footer: Sequence[str] = ()):
+    """Fixed-width text table: rows[0] is the header; footer lines follow
+    a rule.  Shared by MultiLayerNetwork.summary and
+    ComputationGraph.summary."""
+    ncols = len(rows[0])
+    widths = [max(len(r[c]) for r in rows) for c in range(ncols)]
+    lines = ["  ".join(r[c].ljust(widths[c]) for c in range(ncols))
+             for r in rows]
+    sep = "-" * len(lines[0])
+    lines.insert(1, sep)
+    lines.append(sep)
+    lines.extend(footer)
+    return "\n".join(lines)
 
 
 def _updater_for(layer: Layer) -> upd_ops.Updater:
@@ -112,6 +143,53 @@ def _detach(tree):
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
+def _clone(tree):
+    """``tree`` with every tensor copied (detached)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(t) for t in tree]
+    if isinstance(tree, tuple):
+        items = [_clone(t) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            tuple(items)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def fit_epochs(model, epochs: int, skip: Tuple[int, int], reset, batches,
+               fit_batch) -> None:
+    """Both engines' epoch loop: ``epochs`` passes of ``fit_batch`` over
+    ``batches()``, each after ``reset()``, inside the epoch hooks of the
+    model's TrainingListeners.  ``skip`` (epochs, batches of the next
+    epoch) were trained before a resume: those epochs are passed over and
+    those batches consumed without training, so the stream stands where
+    an uninterrupted fit's would.  ``model.last_etl_time_ms`` gets the
+    host ms each batch took to come."""
+    skip_epochs, skip_batches = skip
+    training = [l for l in model.listeners if isinstance(l, TrainingListener)]
+    for ep in range(epochs):
+        if ep < skip_epochs:
+            continue
+        to_skip = skip_batches if ep == skip_epochs else 0
+        # where the epoch notionally began: CheckpointListener records how
+        # many batches into the epoch a save lands
+        model._epoch_start_iter = model.iteration - to_skip
+        for lst in training:
+            lst.on_epoch_start(model)
+        reset()
+        t_etl = time.perf_counter()
+        for item in batches():
+            if to_skip > 0:
+                to_skip -= 1
+            else:
+                model.last_etl_time_ms = (time.perf_counter() - t_etl) * 1e3
+                fit_batch(item)
+            t_etl = time.perf_counter()
+        for lst in training:
+            lst.on_epoch_end(model)
+        model.epoch += 1
+
+
 def _tree_fill(tree, leaves):
     """``tree`` with its leaves replaced, in :func:`_tree_leaves` order,
     by the next items of the iterator ``leaves``."""
@@ -136,10 +214,14 @@ class MultiLayerNetwork:
         # network that only serves holds none
         self.opt_states: Optional[List] = None
         self.updaters = [_updater_for(l) for l in self.layers]
-        self.frozen = [type(l).__name__ == "FrozenLayerConf"
-                       for l in self.layers]
+        self.frozen = [isinstance(l, FrozenLayerConf) for l in self.layers]
         self.iteration = 0
         self.epoch = 0
+        self.listeners: List[IterationListener] = []
+        # what PerformanceListener reads: the last step's rows and the
+        # host ms its batch took to come out of the iterator
+        self.last_batch_size = 0
+        self.last_etl_time_ms = 0.0
         self._score = float("nan")
         # the source of each step's dropout seed words
         self._generator = torch.Generator().manual_seed(
@@ -167,7 +249,7 @@ class MultiLayerNetwork:
     def _input_type_chain_start(self) -> InputType:
         if self.conf.input_type is not None:
             return self.conf.input_type
-        first = self.layers[0]
+        first = unfrozen(self.layers[0])
         n_in = getattr(first, "n_in", None)
         if n_in:
             if isinstance(first, (GravesLSTM, GravesBidirectionalLSTM)):
@@ -195,7 +277,7 @@ class MultiLayerNetwork:
         """Features as float32 on the network's device; integer indices
         stay integers when the first layer is an EmbeddingLayer, which
         gathers rows with them (as the JAX package's does)."""
-        if isinstance(self.layers[0], EmbeddingLayer):
+        if isinstance(unfrozen(self.layers[0]), EmbeddingLayer):
             t = torch.as_tensor(x)
             if not torch.is_floating_point(t):
                 return t.to(device=self.device, dtype=torch.int64)
@@ -209,14 +291,14 @@ class MultiLayerNetwork:
 
     def _forward(self, params, state, x: torch.Tensor, mask=None,
                  train: bool = False, seeds=None, stateful_rnn: bool = False,
-                 stop: Optional[int] = None
+                 stop: Optional[int] = None, acts: Optional[list] = None
                  ) -> Tuple[torch.Tensor, List[dict], Optional[torch.Tensor]]:
         """The per-layer forward loop (preprocessor hook, state and mask
         threading, the JAX package's ``_forward_core``) -> (output, new
         per-layer states, output mask).  Unless ``stateful_rnn``, each
         layer starts without its stored ``rnn_state``.  ``stop`` runs only
         ``layers[:stop]``; in training layer i gets the seed words
-        ``seeds[i]``."""
+        ``seeds[i]``; ``acts``, a list, receives every layer's output."""
         layers = self.layers if stop is None else self.layers[:stop]
         new_states = []
         for i, layer in enumerate(layers):
@@ -229,6 +311,8 @@ class MultiLayerNetwork:
                                         None if seeds is None else seeds[i],
                                         mask)
             new_states.append(ns)
+            if acts is not None:
+                acts.append(x)
         return x, new_states, mask
 
     def _forward_to_preout(self, params, state, x, mask, train: bool,
@@ -283,6 +367,16 @@ class MultiLayerNetwork:
                 "warmup_sec": round(time.perf_counter() - t0, 3)}
 
     # ---- training ----
+    def set_listeners(self, *listeners: IterationListener
+                      ) -> "MultiLayerNetwork":
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener: IterationListener
+                     ) -> "MultiLayerNetwork":
+        self.listeners.append(listener)
+        return self
+
     def fit(self, data, labels=None, epochs: int = 1
             ) -> "MultiLayerNetwork":
         """fit(DataSetIterator) | fit(DataSet) | fit(x, y)
@@ -294,7 +388,11 @@ class MultiLayerNetwork:
         batches queued and at most ``pipeline_staging_depth`` transformed
         batches waiting on the host, unless ``pipeline_workers`` is 0;
         each batch is staged onto the network's device as the step takes
-        it, and the pipeline is closed on return."""
+        it, and the pipeline is closed on return.  Under
+        ``conf.fault_tolerance(resume=True)`` a fresh network first
+        restores the newest valid checkpoint and skips, without training
+        on them, the epochs and the batches of the next epoch it had
+        trained (``nn/checkpoint.maybe_auto_resume``)."""
         if labels is not None:
             data = DataSet(np.asarray(data), np.asarray(labels))
         if isinstance(data, DataSet):
@@ -304,6 +402,7 @@ class MultiLayerNetwork:
                             f"(features, labels), not {type(data).__name__}")
         if self.net_params is None:
             self.init()
+        skip = ckpt_mod.maybe_auto_resume(self)
         it = data
         g = self.conf.global_conf
         if (g.pipeline_workers > 0 and it.async_supported()
@@ -312,12 +411,12 @@ class MultiLayerNetwork:
                 it, queue_size=g.pipeline_prefetch,
                 workers=g.pipeline_workers,
                 staging_depth=g.pipeline_staging_depth, device=self.device)
+
+        def batches():
+            while it.has_next():
+                yield it.next()
         try:
-            for _ in range(epochs):
-                it.reset()
-                while it.has_next():
-                    self._fit_batch(it.next())
-                self.epoch += 1
+            fit_epochs(self, epochs, skip, it.reset, batches, self._fit_batch)
         finally:
             # release the pipeline's threads, also when a step raised
             if isinstance(it, AsyncDataSetIterator):
@@ -326,7 +425,8 @@ class MultiLayerNetwork:
 
     def _draw_seeds(self) -> torch.Tensor:
         """One step's dropout seed words, [n_layers, 2] uint32 values (as
-        int64), from the network's generator."""
+        int64), from the network's generator: one draw a step, so a
+        resume replays ``iteration`` draws (``nn/checkpoint``)."""
         return torch.randint(0, 1 << 32, (len(self.layers), 2),
                              generator=self._generator, dtype=torch.int64)
 
@@ -343,6 +443,7 @@ class MultiLayerNetwork:
             self.init()
         if self.opt_states is None:
             self.opt_states = self._init_opt_states()
+        self.last_batch_size = ds.num_examples()
         if self.conf.backprop_type == "truncatedbptt" and \
                 np.ndim(ds.features) == 3:
             self._fit_tbptt(ds)
@@ -366,6 +467,8 @@ class MultiLayerNetwork:
             self.rnn_clear_previous_state()
             self._score = score
             self.iteration += 1
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration)
 
     def _fit_tbptt(self, ds: DataSet) -> None:
         """Truncated BPTT (ref: MultiLayerNetwork.doTruncatedBPTT :1227):
@@ -390,6 +493,8 @@ class MultiLayerNetwork:
             self._apply_updates(grads, self.iteration)
             self._score = score
             self.iteration += 1
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration)
 
     def _grad_step(self, x, y, fmask, lmask, seeds):
         """Score of the batch and its gradient per layer and param.  The
@@ -605,3 +710,76 @@ class MultiLayerNetwork:
         return param_util.num_params(self.net_params)
 
     n_params = property(num_params)
+
+    def get_layer_params(self, i: int) -> dict:
+        return self.net_params[i]
+
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """Named params keyed ``"<layerIdx>_<paramName>"``, e.g. ``"0_W"``,
+        ``"1_b"`` (ref: Model.paramTable)."""
+        if self.net_params is None:
+            self.init()
+        return {f"{i}_{k}": v for i, lp in enumerate(self.net_params)
+                for k, v in lp.items()}
+
+    def get_param(self, key: str) -> torch.Tensor:
+        """(ref: Model.getParam("0_W"))"""
+        i, k = key.split("_", 1)
+        return self.net_params[int(i)][k]
+
+    def set_param(self, key: str, value) -> None:
+        """(ref: Model.setParam); the shape must be the param's."""
+        i, k = key.split("_", 1)
+        cur = self.net_params[int(i)][k]
+        value = torch.as_tensor(value, dtype=cur.dtype).to(cur.device)
+        if value.shape != cur.shape:
+            raise ValueError(f"setParam('{key}'): shape "
+                             f"{tuple(value.shape)} != {tuple(cur.shape)}")
+        self.net_params[int(i)] = {**self.net_params[int(i)],
+                                   k: value.clone()}
+
+    # ---- inspection and copies ----
+    def feed_forward(self, x, train: bool = False, mask=None
+                     ) -> List[torch.Tensor]:
+        """Every layer's activation, in layer order (ref: feedForward
+        :696-788).  ``train`` runs the training forward (dropout with seed
+        words drawn from the network's generator, batch statistics)
+        without keeping its new states."""
+        if self.net_params is None:
+            self.init()
+        acts: List[torch.Tensor] = []
+        with torch.inference_mode():
+            self._forward(self.net_params, self.net_state,
+                          self._as_input(x), self._as_mask(mask), train,
+                          self._draw_seeds().tolist() if train else None,
+                          acts=acts)
+        return acts
+
+    def summary(self) -> str:
+        """Printable layer table: index, type, param shapes, param count
+        (ref: MultiLayerNetwork.summary :2689)."""
+        if self.net_params is None:
+            self.init()
+        rows = [("Idx", "LayerType", "ParamShapes", "ParamCount")]
+        total = 0
+        for i, (layer, lp) in enumerate(zip(self.layers, self.net_params)):
+            n = sum(v.numel() for v in lp.values())
+            total += n
+            shapes = ", ".join(f"{k}{tuple(int(d) for d in v.shape)}"
+                               for k, v in sorted(lp.items()))
+            rows.append((str(i), type(layer).__name__, shapes or "-",
+                         f"{n:,}"))
+        return render_table(rows, [f"Total parameters: {total:,}"])
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of a copy of the configuration with copies of the
+        params, layer states (a KV ring included: ``attend_cached``
+        writes it in place) and updater state, on the same device, at
+        the same iteration; no listeners (as the JAX package's)."""
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device)
+        if self.net_params is not None:
+            net.net_params = _clone(self.net_params)
+            net.net_state = _clone(self.net_state)
+            net.opt_states = _clone(self.opt_states)
+        net.iteration = self.iteration
+        return net

@@ -5,12 +5,16 @@ A zip holding ``configuration.json`` (the configuration dict tagged with
 ``"@model"``), ``coefficients.bin`` (the flat param vector of
 ``nn/params.py``, little-endian float32) and, once the network has
 updater state, ``updaterState.bin`` (that state flattened in the JAX
-package's ``tree_leaves`` order, little-endian float32).  The format is
-the JAX package's byte for byte: a zip either package writes restores in
-the other, and re-writing a restored model gives the same
+package's ``tree_leaves`` order, little-endian float32).  The members
+are the JAX package's byte for byte: a zip either package writes
+restores in the other, and re-writing a restored model gives the same
 ``coefficients.bin`` and ``updaterState.bin`` (a graph's flattened in
-its topological order).  ``load_model`` tells the two apart by the
-configuration (``is_graph_conf``).  A zip the original Java DL4J wrote
+its topological order).  The two float32 members are stored, not
+deflated as the JAX package writes them: deflate barely shrinks float32
+weights and costs host time in proportion to their size, which a
+checkpoint pays at every save (``tools/zip_save_cost.py`` times a
+tree's save); every zip reader takes either.  ``load_model`` tells the
+two apart by the configuration (``is_graph_conf``).  A zip the original Java DL4J wrote
 raises: its migration is not ported (ROADMAP A6).
 """
 
@@ -30,22 +34,28 @@ COEFFICIENTS_NAME = "coefficients.bin"
 UPDATER_NAME = "updaterState.bin"
 
 
-def _f32_bytes(t) -> bytes:
-    return t.detach().cpu().numpy().astype("<f4").tobytes()
+def _f32_bytes(t) -> memoryview:
+    """A float32 tensor's little-endian bytes, without a copy on the host
+    beyond the one from the device."""
+    return memoryview(np.ascontiguousarray(t.detach().cpu().numpy(),
+                                           dtype="<f4")).cast("B")
 
 
-def write_model(model, path: Union[str, Path]) -> None:
+def write_model(model, path: Union[str, Path],
+                save_updater: bool = True) -> None:
     """(ref: ModelSerializer.writeModel); the updater state goes in when
-    the model has one."""
+    the model has one, unless ``save_updater`` is off."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     conf_dict = model.conf.to_dict()
     conf_dict["@model"] = type(model).__name__
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(CONFIG_NAME, json.dumps(conf_dict, indent=2))
-        zf.writestr(COEFFICIENTS_NAME, _f32_bytes(model.params()))
-        if model.opt_states is not None:
-            zf.writestr(UPDATER_NAME, _f32_bytes(model.updater_state_flat()))
+        zf.writestr(COEFFICIENTS_NAME, _f32_bytes(model.params()),
+                    zipfile.ZIP_STORED)
+        if save_updater and model.opt_states is not None:
+            zf.writestr(UPDATER_NAME, _f32_bytes(model.updater_state_flat()),
+                        zipfile.ZIP_STORED)
 
 
 def is_graph_conf(conf_dict: dict) -> bool:

@@ -432,7 +432,11 @@ class _ConvBiasAct(torch.autograd.Function):
     conv + bias + activation and differentiate that — one extra conv
     buys gradients that are exactly the dense path's, as the JAX
     package's ``_conv_vjp_bwd`` does (it has no Pallas backward either).
-    Those convs run in full f32 (:func:`full_f32_convs`)."""
+    Those convs run in full f32 (:func:`full_f32_convs`).  ``backwards``
+    counts the backward calls (a frozen conv, whose inputs take no
+    gradient, makes none)."""
+
+    backwards = 0
 
     @staticmethod
     def forward(ctx, x, w, b, pad, border_mode, act):
@@ -442,6 +446,7 @@ class _ConvBiasAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _ConvBiasAct.backwards += 1
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad(), full_f32_convs():

@@ -49,11 +49,23 @@ def _x2p_dense(x: torch.Tensor, perplexity: float, tol: float = 1e-5,
     row hits the target perplexity (ref: Tsne x2p /
     computeGaussianPerplexity).  All N bisections advance together for
     ``iters`` steps; ``tol`` is kept for the JAX signature, which does not
-    read it either."""
-    n = x.shape[0]
-    d = _sq_dists(x)
+    read it either.  d² is formed in float64 and rounded to ``x``'s
+    dtype: the one-GEMM form cancels whatever the points share, so on
+    vectors that point one way (a trained word-vector table) float32 d²
+    carries rounding that exp(-beta d²) makes ~1e-4 of an entry, and the
+    card and the CPU round it differently; formed in float64, P keeps to
+    the float64 P on either (``tests/test_torch_clustering.py``).  JAX's
+    forms d² in float32."""
+    return _p_from_sq_dists(_sq_dists(x.double()).to(x.dtype), perplexity,
+                            iters)
+
+
+def _p_from_sq_dists(d: torch.Tensor, perplexity: float,
+                     iters: int = 50) -> torch.Tensor:
+    """:func:`_x2p_dense`'s bisection on the squared distances ``d``."""
+    n = d.shape[0]
     log_u = float(np.log(perplexity))
-    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    eye = torch.eye(n, dtype=torch.bool, device=d.device)
 
     def entropy_and_p(beta):
         p = torch.where(eye, 0.0, torch.exp(-d * beta[:, None]))
@@ -61,9 +73,9 @@ def _x2p_dense(x: torch.Tensor, perplexity: float, tol: float = 1e-5,
         h = torch.log(sum_p) + beta * (d * p).sum(1) / sum_p
         return h, p / sum_p[:, None]
 
-    beta = torch.ones((n,), dtype=x.dtype, device=x.device)
-    lo = torch.full((n,), -float("inf"), dtype=x.dtype, device=x.device)
-    hi = torch.full((n,), float("inf"), dtype=x.dtype, device=x.device)
+    beta = torch.ones((n,), dtype=d.dtype, device=d.device)
+    lo = torch.full((n,), -float("inf"), dtype=d.dtype, device=d.device)
+    hi = torch.full((n,), float("inf"), dtype=d.dtype, device=d.device)
     for _ in range(iters):
         h, _ = entropy_and_p(beta)
         too_high = h > log_u          # entropy too high -> beta too small

@@ -12,9 +12,10 @@ Tolerances, float32 unless said:
   generator, so on separated blobs it gives the same partition up to a
   permutation of the labels;
 * ``_x2p_dense``: P within 1e-5 + 1e-4 |P|: both sides form d² as
-  |x|² - 2 x·y + |y|² in f32, whose cancellation for points ~14 from the
-  origin leaves d² ~1e-5 relative apart between two orders of summation,
-  and exp(-beta d²) turns that into ~1e-4 of an entry (6.6e-5 measured);
+  |x|² - 2 x·y + |y|² (JAX in f32, the port in f64), whose cancellation
+  in f32 for points ~14 from the origin leaves d² ~1e-5 relative off, and
+  exp(-beta d²) turns that into ~1e-4 of an entry (6.6e-5 measured with
+  both in f32);
 * ``_tsne_exact``: 1e-5 in relative 2-norm.  The loop amplifies rounding
   differences by its own dynamics: at the reference's defaults (lr 500,
   exaggeration 12) on a few hundred points the gap between two orders of
@@ -195,6 +196,28 @@ def test_lloyd_from_jax_centres_equals_jax(k, max_iter):
                                atol=1e-5)
 
 
+def test_lloyd_decides_as_float64_on_vectors_sharing_a_direction():
+    """Points that share one direction (mean cosine about 0.99, as a
+    trained word-vector table's words do) and 20 clusters: Lloyd's loop
+    in float32 takes the float64 loop's iterations and assignments, and
+    its centres lie within 1e-6 of the float64 ones in relative 2-norm.
+    Distances from the raw points cancel the shared direction and lose
+    that (the port takes them from the centred points)."""
+    rng = np.random.default_rng(5)
+    n, d, k = 4_000, 128, 20
+    topics = 0.03 * rng.normal(size=(k, d))
+    x = (rng.normal(size=d) + topics[rng.integers(0, k, n)]
+         + 0.1 * rng.normal(size=(n, d))).astype(np.float32)
+    c0 = x[rng.choice(n, k, replace=False)]
+    c32, a32, it32 = kmeans.lloyd(torch.from_numpy(x),
+                                  torch.from_numpy(c0), 100, 1e-4)
+    c64, a64, it64 = kmeans.lloyd(torch.from_numpy(x).double(),
+                                  torch.from_numpy(c0).double(), 100, 1e-4)
+    assert it32 == it64
+    np.testing.assert_array_equal(a32.numpy(), a64.numpy())
+    assert _rel(c32.double().numpy(), c64.numpy()) <= 1e-6
+
+
 def test_lloyd_keeps_an_empty_cluster():
     x = np.array([[0.0, 0.0], [0.1, 0.0], [5.0, 5.0]], np.float32)
     centres = np.array([[0.0, 0.0], [5.0, 5.0], [50.0, 50.0]], np.float32)
@@ -261,6 +284,24 @@ def test_x2p_dense_equals_jax():
         got = tsne._x2p_dense(torch.from_numpy(x), perplexity).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
+
+
+def test_x2p_dense_keeps_to_float64_on_vectors_sharing_a_direction():
+    """Points that share one direction (norm ~4.7, mean cosine about
+    0.94, as a trained word-vector table's words do), 2,000 of them in 20
+    topics: float32 P lies within 1e-5 + 1e-4 |P| of the float64 P, the
+    rule the card is held to against the CPU.  d² formed in float32
+    cancels the shared direction and misses the rule twice over (the
+    port forms it in float64)."""
+    rng = np.random.default_rng(0)
+    n, d, k = 2_000, 128, 20
+    topics = 0.03 * rng.normal(size=(k, d))
+    x = torch.from_numpy((0.4 * rng.normal(size=d)
+                          + topics[rng.integers(0, k, n)]
+                          + 0.1 * rng.normal(size=(n, d))).astype(np.float32))
+    got = tsne._x2p_dense(x, 30.0).double()
+    want = tsne._x2p_dense(x.double(), 30.0)
+    assert ((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all()
 
 
 @pytest.mark.parametrize("n_iter,lr,switch,stop,exaggeration", [

@@ -1166,3 +1166,102 @@ def test_kmeans_and_tsne_on_the_card_match_the_cpu(cuda_device):
     a = tsne._tsne_exact(ps.cuda(), y0.cuda(), **cs.TSNE_STABLE).cpu()
     b = tsne._tsne_exact(ps, y0, **cs.TSNE_STABLE)
     assert cs._rel_norm(torch, a, b) <= cs.TSNE_LOOP_RTOL
+
+
+def _frozen_cnn(device, dropout=None, resume=False):
+    """Two 3x3 relu convs frozen under a trained dense layer (dropout on
+    its input) and a softmax head, on 8x8x3 images."""
+    b = (network.NeuralNetConfiguration.builder().seed(21)
+         .learning_rate(0.05).updater("nesterovs").weight_init("relu"))
+    if resume:
+        b.fault_tolerance(resume=True)
+    b = b.list()
+    b.layer(L.ConvolutionLayer(n_out=8, kernel=(3, 3), padding=(1, 1),
+                               activation="relu"))
+    b.layer(L.ConvolutionLayer(n_out=8, kernel=(3, 3), padding=(1, 1),
+                               activation="relu"))
+    b.layer(L.DenseLayer(n_out=32, activation="relu", dropout=dropout))
+    b.layer(L.OutputLayer(n_out=4, activation="softmax", loss="mcxent"))
+    conf = b.set_input_type(InputType.convolutional(8, 8, 3)).build()
+    conf.layers = [L.FrozenLayerConf.wrap(l) if i < 2 else l
+                   for i, l in enumerate(conf.layers)]
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _frozen_batches(n=6, rows=64, seed=5):
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.normal(size=(rows, 3, 8, 8)).astype(np.float32),
+                    np.eye(4, dtype=np.float32)[rng.integers(0, 4, rows)])
+            for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_frozen_convs_record_no_backward(cuda_device):
+    """Frozen convs launch their kernel forward and never its backward;
+    their params do not move while the dense layers train."""
+    net = _frozen_cnn(cuda_device)
+    frozen = [{k: v.clone() for k, v in net.net_params[i].items()}
+              for i in (0, 1)]
+    launches, backwards = (ck.fused_conv2d_bias_act.launches,
+                           ck._ConvBiasAct.backwards)
+    before = net.net_params[2]["W"].clone()
+    net.fit(ListDataSetIterator(_frozen_batches(3)))
+    torch.cuda.synchronize()
+    assert ck.fused_conv2d_bias_act.launches - launches == 2 * 3
+    assert ck._ConvBiasAct.backwards == backwards
+    for i, p in zip((0, 1), frozen):
+        for k, v in p.items():
+            assert torch.equal(net.net_params[i][k], v)
+    assert not torch.equal(net.net_params[2]["W"], before)
+    # unfrozen, the same convs take their backward
+    conf = net.conf
+    conf.layers = [L.unfrozen(l) for l in conf.layers]
+    MultiLayerNetwork(conf, device=cuda_device).init().fit(
+        ListDataSetIterator(_frozen_batches(1)))
+    assert ck._ConvBiasAct.backwards == backwards + 2
+
+
+@pytest.mark.gpu
+def test_resumed_fit_on_the_card_equals_uninterrupted(cuda_device,
+                                                      tmp_path):
+    """On the card, with the dropout kernel on the dense layer's input and
+    cuDNN deterministic: a fit cut by an exception after 8 of 12 batches
+    and resumed from its checkpoint (every 4 iterations) ends with the
+    params and updater state of the uncut fit (``torch.equal``)."""
+    from deeplearning4j_tpu_torch.nn.checkpoint import CheckpointListener
+
+    class Cut(Exception):
+        pass
+
+    class CutAfter(ListDataSetIterator):
+        served = 0
+
+        def next(self):
+            self.served += 1
+            if self.served == 9:
+                raise Cut()
+            return super().next()
+    data = _frozen_batches()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        drops = ck.fused_threshold_dropout.launches
+        ref = _frozen_cnn(cuda_device, dropout=0.5)
+        ref.fit(ListDataSetIterator(data), epochs=2)
+        assert ck.fused_threshold_dropout.launches - drops == 12
+        cut = _frozen_cnn(cuda_device, dropout=0.5)
+        cut.set_listeners(CheckpointListener(tmp_path,
+                                             save_every_n_iterations=4))
+        with pytest.raises(Cut):
+            cut.fit(CutAfter(data), epochs=2)
+        assert cut.iteration == 8
+        resumed = _frozen_cnn(cuda_device, dropout=0.5, resume=True)
+        resumed.set_listeners(CheckpointListener(tmp_path,
+                                                 save_every_n_iterations=4))
+        resumed.fit(ListDataSetIterator(data), epochs=2)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert resumed.iteration == ref.iteration == 12
+    assert torch.equal(resumed.params(), ref.params())
+    assert torch.equal(resumed.updater_state_flat(),
+                       ref.updater_state_flat())
