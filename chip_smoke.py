@@ -212,6 +212,60 @@ exits non-zero:
                and seeded weight arrays (no h5py): ``output()`` and one
                ``fit`` step on the card against the same graph on the CPU
                (the new_layers rule).
+8o. bf16_kernels — the bf16 forms (``precision("bfloat16")``'s kernels):
+               the conv's against its plain version (bf16 inputs upcast,
+               f32, one rounding) by the bf16 conv rule (BF16_CONV_ATOL:
+               equal or one bf16 ulp apart, or within 1e-5 of the output's
+               scale), with the shares that differ, on one 32-row batch of
+               each served model, VGG16-224 at 8 and 128, ResNet-50's 46
+               stride-1 convs at 128 and the text CNN's D = 300 set (the
+               full-width route), each distinct shape timed by CUDA events
+               and each set replayed from a CUDA graph, beside cuDNN bf16
+               and the bf16 bound (FLOPs at PEAK_BF16_FLOPS or 2-byte
+               elements); checked untimed on the serving ladders; bf16
+               HGMMA in the SASS of all four instances.  Dropout's bf16
+               form ``torch.equal`` to its plain version forward and
+               backward at VGG16-224's four launches and the edges, its
+               masks the f32 form's, timed beside ``F.dropout`` on bf16.
+8p. train_vgg16_224_bf16 — phase 7's network under precision("bfloat16"),
+               3 timed ``fit`` steps at 128: exactly 13 bf16 conv, 1 (f32)
+               xent and 4 bf16 dropout launches a step, 13 conv backwards,
+               no conv or dropout fallback; masters, updater state and
+               gradients f32.  The third step records its layer outputs:
+               the kernel's 13 outputs against the plain version on the
+               step's own conv inputs; the step against the plain bf16
+               step (max-pool argmax pinned, the same seed words; score,
+               updates and near ties by the BF16_* rules, dropout masks
+               equal and the f32 form's) and against the f32 kernel step
+               from the same state (update cosine at least 0.98).
+               Samples/s and peak memory (steps 1-2) beside phase 7's.
+8q. train_resnet50_bf16 — phase 8i's graph under precision("bfloat16"),
+               from seeded_resnet50(batch_norms=False) with each residual
+               branch's last gamma 0 (zero-gamma), 10 timed steps at
+               128 and an eleventh: exactly 46 bf16 conv and 1 xent launches
+               and 7 dense-chain convs a step; masters, updater state, BN
+               statistics and gradients f32; the fourth (cuDNN
+               deterministic) against the plain version conv by conv on
+               its own inputs, against the plain bf16 graph step (relu
+               masks and max-pool argmax pinned; score, updates, BN
+               statistics, BN-fed biases' noise and near ties by the BF16_*
+               rules), against the f32 kernel step (update cosine at
+               least 0.98), and the plain step with its conv summed in
+               the kernel's order (no kernel) against the plain step by
+               the same rules, that the state allows the comparison.
+8r. serve_bf16 — VGG16-224 ``output()`` at 8 and 32 rows and ResNet-50's
+               (seeded_resnet50(batch_norms=False)) at 32 under
+               precision("bfloat16"): float32 probabilities within
+               BF16_PROBS_REL of the f32 net's on the same params (and
+               ResNet-50's centred log-probabilities within
+               BF16_LOGITS_REL),
+               13 and 46 bf16 conv launches a forward, ms and peak memory;
+               the bf16 ResNet-50 written as a zip and served by one
+               ``Server`` to 4 clients (16 requests of 1-2 rows): exactly
+               46 bf16 conv launches and 7 fallbacks a served batch, each
+               request's classes those of a direct bf16 ``output()`` of its
+               rows at one of the ladder's batch sizes, the rows' classes
+               spread over the input.
 9. lstm_kernel — the peephole-LSTM step kernel against its plain version
                (c', h', rtol = atol = 1e-5) at (N, H) = (32, 200), (4, 200),
                (1, 200), (3, 8), (5, 24), (64, 256), and at the tiling's
@@ -492,6 +546,8 @@ RESNET_VERTICES, RESNET_PARAMS, RESNET_STATS = 174, 25_583_592, 53_120
 RESNET_KERNEL_CONVS, RESNET_DENSE_CONVS = 46, 7
 RESNET_SERVE_BATCH, RESNET_CLIENTS, RESNET_REQUESTS = 32, 4, 16
 RESNET_TRAIN_BATCH, RESNET_STEPS = 128, 3
+# train_resnet50_bf16's steps before the one it compares (its docstring).
+RESNET_BF16_STEPS = 10
 SERVE_LADDER = (1, 2, 4, 8, 16, 32)
 # Transfer learning, dl4j-examples 0.8 transferlearning/vgg16
 # (EditAtBottleneckOthersFrozen, FeaturizedPreSave / FitFromFeaturized)
@@ -522,6 +578,68 @@ FUNC_HW, FUNC_BATCH, FUNC_CLASSES = 16, 64, 10
 # the kernel on the card), atol 1e-5 for values near zero (the conv
 # check's).
 NEW_LAYERS_RTOL, NEW_LAYERS_ATOL = 1e-4, 1e-5
+# The bf16 tier.  Published dense bf16 peak of the H100 SXM's tensor cores.
+PEAK_BF16_FLOPS = 989e12
+# The conv kernel's bf16 form against its plain version (bf16 inputs upcast,
+# the whole function in f32, one rounding to bf16): both round an f32 sum to
+# bf16, and the sums differ by the order of summation, so an element equals
+# the plain one or lies one bf16 ulp from it, except where the f32 sums
+# themselves differ by more than that ulp: near zero, where a value below
+# ~1e-4 of the output's largest magnitude has an ulp smaller than the f32
+# check's ATOL floor.  The rule: |y - ref| <= ulp(ref) + ATOL * max|ref|,
+# ulp(v) = 2^(e - 7) for |v| in [2^e, 2^(e+1)).  The share of elements
+# that differ and the share beyond one ulp are reported.
+BF16_CONV_ATOL = ATOL
+# A bf16 step's update against the f32 step's from the same state: the
+# cosine of the whole-network update vectors at least JAX's 0.98
+# (tests/test_precision.py:114-128).
+BF16_COSINE_MIN = 0.98
+# The bf16 training phases hold their last step against the plain bf16
+# step (phase 7's and 8i's comparisons under the policy) by rules set from
+# tools/bf16_rule_probe.py on the CPU, before any card run of these phases:
+# VGG16's and ResNet-50's layouts at a quarter of their widths, batch 16 and
+# 8, the conv replaced by the plain version summed in the kernel's order (64-K
+# slices, partials added in f32), third step, worst of 3 seeds.  Measured:
+# score 1.75e-3 (ResNet; VGG 4.1e-5), update 0.0512 (ResNet; VGG 0.0372), BN
+# running mean and var 2.27e-3, a BN-fed conv bias's update over its
+# weight's 1.79e-3, a pinned relu's or pool's near tie 0.0188 of the layer's
+# scale (ResNet; VGG 0.0037); the cosine with the f32 step 0.9985 (0.9998).
+# Each rule is twice the larger measurement.  A BN-fed conv's bias update
+# is rounding noise (0 in exact arithmetic), as in phase 8i; in bf16 its
+# size over the weight's update is 2^-9's, not 2^-24's, and grows with the
+# width (the probe's 1.79e-3; 2.9e-3 to 3.7e-3 on an H100 at full width,
+# kernel and plain step alike), so it is reported, and the kernel step's
+# noise is held to the plain step's own: each such bias's update over the
+# plain step's, either way up, at most BF16_BN_BIAS_OVER_PLAIN, twice the
+# probe's 1.57 (the zero-gamma net's fourth step; third steps 1.14-1.40).
+# At full width a ResNet-50 step is more sensitive than at a quarter: on
+# an H100 the plain step against itself with the conv in the kernel's
+# order, no kernel in either, read updates 0.17-0.30 apart from the
+# calibrated and the seeded net and 0.10-0.15 at the zero-gamma net's
+# fourth step, at or beyond the update rule.  The rules stay; ResNet-50's
+# phase compares the eleventh step of the zero-gamma net, where that
+# witness reads 0.05-0.08 and is held too (PERF.md).  The probe at the
+# zero-gamma net, fourth step: score 2.1e-3, update 0.0274, BN 9.1e-4,
+# ties 6.8e-3, cosine 0.9979.
+BF16_STEP_RTOL = 3.5e-3
+BF16_UPDATE_RTOL = 0.103
+BF16_BN_STATS_RTOL = 4.6e-3
+BF16_TIE_RTOL = 0.038
+BF16_BN_BIAS_OVER_PLAIN = 3.14
+# bf16 output() probabilities against the f32 net's on the same params, in
+# relative 2-norm: twice the probe's measurement at the quarter widths from
+# the seeded params, VGG16 0.0363 (8 rows), ResNet-50 (batch_norms=False)
+# 0.00493 (32 rows).  Near-uniform rows (ResNet-50's largest probability is
+# about 1.4 in 1,000) pass that for any classes, so ResNet-50's log-
+# probabilities less each row's mean, its logits less theirs, are held
+# too, at twice the probe's 0.0553; two unrelated outputs read about 1.4.
+# From the calibrated net the probe read 0.455 and 0.702 (top-1 as f32's
+# on 1 row in 8): normalized at every layer, that net is chaotic.
+BF16_PROBS_REL = {"vgg16_224": 0.073, "resnet50": 0.0099}
+BF16_LOGITS_REL = {"resnet50": 0.111}
+# bf16 probabilities sum to 1 within twice the worst case of rounding each
+# to bf16 (2^-9 relative).
+BF16_PROBS_SUM_ATOL = 2 ** -8
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
 
@@ -876,11 +994,12 @@ def check_conv(torch, ck, shape, gen, timed: bool = True,
     return rec
 
 
-def hgmma_count(ck, library, kernel: str) -> int:
-    """HGMMA (wgmma) instructions in the SASS of every kernel function of
+def hgmma_count(ck, library, kernel: str, operand: str = "") -> int:
+    """HGMMA (wgmma) instructions (with ``operand``, those whose SASS line
+    names it, e.g. ``BF16``) in the SASS of every kernel function of
     ``library`` whose mangled name matches the regex ``kernel``; raises if
     one of them has none."""
-    counts = {f: n for f, n in ck.sass_hgmma_counts(library).items()
+    counts = {f: n for f, n in ck.sass_hgmma_counts(library, operand).items()
               if re.search(kernel, f)}
     if not counts or not all(counts.values()):
         raise AssertionError(f"{kernel} in {library.source.name}: HGMMA "
@@ -1252,16 +1371,19 @@ def check_xent(torch, ck, N, V, gen, soft=False, timed=False,
 
 
 def check_dropout(torch, ck, shape, rate, gen, timed=False,
-                  offset=0) -> dict:
+                  offset=0, dtype=None) -> dict:
     """The dropout kernel against its plain version, bit for bit, forward
     and backward; ``offset`` takes x as a view that starts that many
-    floats into its storage."""
+    elements into its storage.  With ``dtype`` bfloat16 the bf16 form, whose
+    mask must also be the f32 form's at the same seed words."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     n = int(np.prod(shape))
-    x = torch.randn((n + offset,), generator=gen, device=dev)[offset:]
-    x = x.reshape(shape)
+    x = torch.randn((n + offset,), generator=gen, device=dev)
     g = torch.randn(shape, generator=gen, device=dev)
+    if dtype is not None:
+        x, g = x.to(dtype), g.to(dtype)
+    x = x[offset:].reshape(shape)
     seed = tuple(int(v) for v in torch.randint(
         0, 1 << 32, (2,), generator=torch.Generator().manual_seed(n)))
     xr = x.clone().requires_grad_()
@@ -1273,22 +1395,28 @@ def check_dropout(torch, ck, shape, rate, gen, timed=False,
     if not (torch.equal(y, ref) and torch.equal(xr.grad, ref_g)):
         raise AssertionError(f"dropout kernel differs from its plain version "
                              f"at {shape} rate {rate} offset {offset}")
-    kept = float((ck.fused_threshold_dropout(torch.ones_like(x), rate, seed)
-                  != 0).float().mean())
+    mask = ck.fused_threshold_dropout(torch.ones_like(x), rate, seed) != 0
+    kept = float(mask.float().mean())
     if abs(kept - rate) > 0.01 + 5 / n ** 0.5:
         raise AssertionError(f"dropout kept {kept} of {shape} at {rate}")
+    if dtype is not None and not torch.equal(mask, ck.fused_threshold_dropout(
+            torch.ones(shape, device=dev), rate, seed) != 0):
+        raise AssertionError(f"{dtype} dropout mask differs from the f32 "
+                             f"form's at {shape} rate {rate}")
     rec = {"shape": list(shape), "rate": rate, "offset": offset,
+           "dtype": str(x.dtype).replace("torch.", ""),
            "kept": kept, "equal_forward": True, "equal_backward": True,
            "max_abs_err": max(float((y.detach() - ref).abs().max()),
                               float((xr.grad - ref_g).abs().max()))}
     if timed:
-        nbytes = 8 * n                      # read x, write y
+        nbytes = 2 * x.element_size() * n   # read x, write y
         # forward: successive calls take successive inputs of a ring of
         # more than the 50 MB L2, so each call reads its input from device
         # memory.  Backward: the launch ``_ThresholdDropout.backward``
         # makes, on one gradient every call, which stays in L2 as the
         # gradient the next layer's backward has just written does.
-        ring = [x] + [x.clone() for _ in range(-(-50_000_000 // (4 * n)))]
+        ring = [x] + [x.clone() for _ in range(
+            -(-50_000_000 // (x.element_size() * n)))]
         turn = iter(range(1 << 30))
 
         def cold(fn):
@@ -1385,10 +1513,13 @@ def phase_xent_dropout_kernels(torch, ck) -> dict:
 
 
 def _launchers(ck) -> dict:
-    """Every kernel wrapper of the port by its name in the kernels line."""
+    """Every kernel wrapper of the port by its name in the kernels line
+    (a bf16 form by its own count)."""
     return {"conv2d_bias_act": ck.fused_conv2d_bias_act,
+            "conv2d_bias_act_bf16": ck.fused_conv2d_bias_act.bf16,
             "softmax_xent": ck.fused_softmax_xent,
             "threshold_dropout": ck.fused_threshold_dropout,
+            "threshold_dropout_bf16": ck.fused_threshold_dropout.bf16,
             "lstm_step": ck.fused_lstm_step,
             "flash_forward": ck.flash_forward,
             "flash_dq": ck.flash_dq,
@@ -1492,7 +1623,7 @@ def _pin(torch, layer, label, h, kept, ties):
 
 
 def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
-                      states=None, kernel_outputs=None):
+                      states=None, kernel_outputs=None, policy=None):
     """One training step of ``net`` from ``params`` / ``opt_states`` (and
     the layers' ``states``: batch norm's running statistics) with every
     kernel replaced by its plain version: conv through cuDNN (TF32 off),
@@ -1502,12 +1633,18 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
     kernel step's layer outputs, :class:`_RecordedOutputs`) each relu
     layer and max pool takes the kernel step's mask or argmax
     (:func:`_pinned`).  A frozen layer (``FrozenLayerConf``) runs its
-    inner layer's inference forward and takes no gradient.  Returns
-    (score, new params, dropout inputs, new states, near ties)."""
+    inner layer's inference forward and takes no gradient.  Under a mixed
+    precision ``policy`` (``ops/dtypes``) the params and x are cast to the
+    compute dtype inside the differentiated function and the output
+    layer's pre-activation to the accumulation dtype before the loss, as
+    the engine casts them.  Returns (score, new params, dropout inputs,
+    new states, near ties)."""
     from deeplearning4j_tpu_torch.nn.conf.layers import (
         ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
         SubsamplingLayer, unfrozen)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dtypes
+    policy = policy or dtypes.FLOAT32
     leaves = [{k: v.detach().clone().requires_grad_(not net.frozen[i])
                for k, v in lp.items()} for i, lp in enumerate(params)]
     dropped = {}
@@ -1515,11 +1652,12 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
     new_states = [dict(s) for s in (states or [{} for _ in net.layers])]
     ties = []
     with ck.full_f32_convs():
-        h = x
+        h = policy.cast_to_compute(x)
+        cast = policy.cast_to_compute(leaves)
         for i, layer in enumerate(net.layers):
             if i in net.conf.preprocessors:
                 h, _ = net.conf.preprocessors[i](h)
-            p = leaves[i]
+            p = cast[i]
             if layer.dropout and 0.0 < layer.dropout < 1.0:
                 dropped[i] = h.detach()
                 h = ck.threshold_dropout_reference(h, layer.dropout, seeds[i])
@@ -1544,7 +1682,7 @@ def _plain_train_step(torch, ck, net, params, opt_states, x, y, seeds, it,
                 h = _pinned(torch, layer, i, h, kernel_outputs, ties)
             else:
                 h, _, _ = layer.forward(p, {}, h)
-        loss, _ = ck.softmax_xent_reference(h, y)
+        loss, _ = ck.softmax_xent_reference(policy.cast_to_accum(h), y)
         score = loss.mean()
         flat = iter(torch.autograd.grad(
             score, [v for lp in leaves for v in lp.values()
@@ -2132,7 +2270,7 @@ def resnet_weights(net, seed: int):
     return params, state
 
 
-def seeded_resnet50(device, seed: int = SEED):
+def seeded_resnet50(device, seed: int = SEED, batch_norms: bool = True):
     """``resnet50()`` at its published widths with :func:`resnet_weights`'s
     params, calibrated on a seeded batch of 32 images as training would
     leave it, for the running statistics a zip restores (``init``'s: a
@@ -2141,7 +2279,13 @@ def seeded_resnet50(device, seed: int = SEED):
     layer's bias takes away the batch's mean of ``W h``.  Without that
     the relus' positive means carry nearly the same logits to every image
     (13 of 16 random rows took one class), and served classes would
-    check little."""
+    check little.  Without ``batch_norms`` only the output bias is
+    calibrated: the batch norms keep :func:`resnet_weights`' gamma and
+    beta, and on init's statistics (mean 0, variance 1) scale each channel
+    by its gamma, below 1, in place of normalizing it.  The bf16 phases
+    take that net: normalized at every layer, the calibrated one is
+    chaotic, a rounding anywhere growing through its depth to the output
+    (tools/bf16_rule_probe.py, PERF.md)."""
     import torch
     from deeplearning4j_tpu_torch.models import resnet50
     net = resnet50(device=device).init()
@@ -2156,7 +2300,7 @@ def seeded_resnet50(device, seed: int = SEED):
         batch = net._forward_all(net.net_params, zero, {inp: x}, {},
                                  train=True)[2]
         for n, s in batch.items():
-            if not s:
+            if not s or not batch_norms:
                 continue
             lc = net.conf.vertices[n].layer_conf()
             keep = 1 - lc.decay                 # decay * 0 + (1 - decay) b
@@ -2284,8 +2428,34 @@ class _RecordedVertexOutputs:
             del self.net.conf.vertices[name].forward
 
 
+def reordered_conv(ck, x, w, b, pad=(0, 0), border_mode="truncate",
+                   activation="identity"):
+    """The plain version's function with the sum over K taken as the conv
+    kernel takes it: slices of whole input channels, at most 64 K each
+    (one channel where a channel's taps exceed 64), each slice's partial
+    apart, the partials added in order in f32; then the bias, the
+    activation and one rounding to x's dtype.  No kernel runs: the spread
+    between it and the plain version is what the order of an f32 sum
+    alone makes."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import activations as act_ops
+    dt = x.dtype
+    x, w, b = x.float(), w.float(), b.float()
+    KH, KW = w.shape[2], w.shape[3]
+    (pt, pb), (pl, pr) = ck.conv_pads(KH, KW, pad, border_mode)
+    xp = F.pad(x, (pl, pr, pt, pb))
+    step = max(1, ck._CONV_BK // (KH * KW))
+    y = None
+    for c in range(0, x.shape[1], step):
+        part = F.conv2d(xp[:, c:c + step], w[:, c:c + step])
+        y = part if y is None else y + part
+    y = act_ops.get(activation or "identity")(y + b.reshape(1, -1, 1, 1))
+    return y.to(dt)
+
+
 def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
-                      states, kept=None, seeds=None):
+                      states, kept=None, seeds=None, policy=None,
+                      reordered=False):
     """One training step of graph ``net`` (one loss head, softmax +
     mcxent) from ``params`` / ``opt_states`` / ``states`` with every
     kernel replaced by its plain version: stride-1 convs through cuDNN
@@ -2298,17 +2468,22 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
     :func:`_pinned_vertices`) each relu and max pool takes the kernel
     step's mask or argmax (:func:`_pin`).  A frozen vertex runs its inner
     layer's inference forward (a batch norm on its running statistics) and
-    takes no gradient.  Returns (score, new params, new states, near
-    ties)."""
+    takes no gradient.  A mixed precision ``policy`` casts as in
+    :func:`_plain_train_step`.  With ``reordered`` each stride-1 conv
+    gives :func:`reordered_conv`'s value and the plain version's gradient:
+    the same step with the conv's sum in the kernel's order, no kernel in
+    it.  Returns (score, new params, new states, near ties)."""
     from deeplearning4j_tpu_torch.nn.conf.layers import (
         BatchNormalization, ConvolutionLayer, unfrozen)
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dtypes
+    policy = policy or dtypes.FLOAT32
     leaves = {n: {k: v.detach().clone().requires_grad_(not net.frozen[n])
                   for k, v in lp.items()} for n, lp in params.items()}
     new_states = {n: dict(s) for n, s in states.items()}
     pins = _pinned_vertices(net) if kept is not None else {}
     out_name = net.conf.network_outputs[0]
-    acts = dict(zip(net.conf.network_inputs, xs))
+    acts = dict(zip(net.conf.network_inputs, policy.cast_to_compute(xs)))
     remaining = dict(net._readers)
     ties = []
     with ck.full_f32_convs():
@@ -2317,7 +2492,7 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
             ins = [acts[i] for i in net.conf.vertex_inputs[name]]
             layer = v.layer_conf() if hasattr(v, "layer_conf") else None
             frozen, layer = net.frozen[name], unfrozen(layer)
-            p = leaves[name]
+            p = policy.cast_to_compute(leaves[name])
             if layer is not None and layer.dropout and not frozen:
                 if seeds is None or not (0.0 < layer.dropout < 1.0) or \
                         not ck.dropout_fused_supported(ins[0].shape,
@@ -2333,6 +2508,12 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
                 h = ck.conv2d_bias_act_reference(
                     ins[0], p["W"], p["b"], tuple(layer.padding),
                     layer.convolution_mode, layer.activation)
+                if reordered:
+                    h = h + (reordered_conv(
+                        ck, ins[0].detach(), p["W"].detach(),
+                        p["b"].detach(), tuple(layer.padding),
+                        layer.convolution_mode, layer.activation) - h
+                    ).detach()
             elif isinstance(layer, BatchNormalization):
                 h, ns, _ = layer.forward(p, new_states[name], ins[0],
                                          not frozen)
@@ -2346,7 +2527,8 @@ def _plain_graph_step(torch, ck, net, params, opt_states, xs, ys, it,
                 remaining[i] -= 1
                 if remaining[i] == 0:
                     acts.pop(i)
-        loss, _ = ck.softmax_xent_reference(acts[out_name], ys[0])
+        loss, _ = ck.softmax_xent_reference(
+            policy.cast_to_accum(acts[out_name]), ys[0])
         score = loss.mean()
         flat = iter(torch.autograd.grad(
             score, [t for lp in leaves.values() for t in lp.values()
@@ -3182,6 +3364,770 @@ def phase_transfer_resnet50(torch, ck, train_resnet) -> dict:
             ps["max_update_rel_err"] > STEP_UPDATE_RTOL or not stats_equal:
         raise AssertionError("ResNet-50 transfer step through the kernels "
                              "disagrees with the plain step")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tier: the bf16 forms of the conv and dropout kernels, and
+# VGG16-224 and ResNet-50 trained and served under precision("bfloat16")
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(torch, t):
+    """The spacing of bf16 numbers at |t|, as f32: 2^(e - 7) for |t| in
+    [2^e, 2^(e+1)), and the smallest normal's spacing below it."""
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    _, e = torch.frexp(a)                     # a = m 2^e, m in [0.5, 1)
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def bf16_conv_compare(torch, y, ref) -> dict:
+    """The bf16 conv rule (BF16_CONV_ATOL): the share of elements that
+    differ from the plain version's, the share beyond one bf16 ulp, and
+    the largest |y - ref| over what the rule allows (``max_excess``, at
+    most 1)."""
+    yf, rf = y.float(), ref.float()
+    diff = (yf - rf).abs()
+    ulp = bf16_ulp(torch, rf)
+    scale = float(rf.abs().max())
+    excess = float((diff / (ulp + BF16_CONV_ATOL * scale)).max())
+    n = diff.numel()
+    return {"elements": n, "share_differ": float((diff > 0).sum()) / n,
+            "share_beyond_one_ulp": float((diff > ulp).sum()) / n,
+            "max_excess": excess, "max_abs_err": float(diff.max()),
+            "ref_scale": scale,
+            "ok": excess <= 1.0 and bool(torch.isfinite(yf).all())}
+
+
+def check_conv_bf16(torch, ck, shape, gen, timed: bool = True):
+    """The conv kernel's bf16 form against its plain version at one shape
+    (as :func:`check_conv`; bf16 x, He-scaled w and b), by the bf16 conv
+    rule; raises on disagreement -> (record, (kernel, plain, library)
+    callables on the same inputs)."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import activations as act_ops
+    N, Cin, H, W, Cout, K, p, act = shape
+    KH, KW = (K, K) if isinstance(K, int) else K
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    x = torch.randn((N, Cin, H, W), generator=gen, device=dev).to(bf)
+    w = (torch.randn((Cout, Cin, KH, KW), generator=gen, device=dev)
+         * (2.0 / (Cin * KH * KW)) ** 0.5).to(bf)
+    b = (torch.randn((Cout,), generator=gen, device=dev) * 0.1).to(bf)
+    pad = (p, p)
+    act_fn = act_ops.get(act)
+
+    def kernel():
+        return ck.fused_conv2d_bias_act(x, w, b, pad=pad, activation=act)
+
+    def plain():
+        return ck.conv2d_bias_act_reference(x, w, b, pad, "truncate", act)
+
+    def library():
+        return act_fn(F.conv2d(x, w, b, padding=pad))
+    y, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    rec = {"shape": [N, Cin, H, W, Cout, K, p], "activation": act,
+           "dtype": str(y.dtype).replace("torch.", ""),
+           **bf16_conv_compare(torch, y, ref)}
+    if y.dtype != bf or not rec["ok"]:
+        raise AssertionError(f"the conv kernel's bf16 form disagrees with "
+                             f"its plain version: {rec}")
+    del y, ref
+    if not timed:
+        return rec, None
+    OH = H + 2 * p - KH + 1
+    OW = W + 2 * p - KW + 1
+    flops = 2 * N * Cout * Cin * valid_taps(H, KH, p, OH) * \
+        valid_taps(W, KW, p, OW)
+    nbytes = 2 * (x.numel() + w.numel() + b.numel() + N * Cout * OH * OW)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rec.update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
+               library_ms=time_ms(torch, library), flops=flops,
+               bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    return rec, (kernel, plain, library)
+
+
+BF16_SET_SUMS = ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
+                 "bytes")
+
+
+def bf16_conv_set(torch, ck, shapes, gen, graph_calls: int) -> tuple:
+    """A set of convs (a model's forward at one batch, a repeated shape as
+    often as it runs) through the bf16 form: each distinct shape checked
+    and timed by CUDA events, the sums over the set, and the whole set
+    replayed from a CUDA graph of ``graph_calls`` passes (kernel, plain
+    and library apart) -> (records, sums)."""
+    recs, fns = {}, {}
+    for s in shapes:
+        if s not in recs:
+            recs[s], fns[s] = check_conv_bf16(torch, ck, s, gen)
+    agg = {k: sum(recs[s][k] for s in shapes) for k in BF16_SET_SUMS}
+    for key, i in (("graph_ms", 0), ("plain_graph_ms", 1),
+                   ("library_graph_ms", 2)):
+        agg[key] = graph_ms(torch, lambda i=i: [fns[s][i]() for s in shapes],
+                            calls=graph_calls, reps=3)
+    del fns
+    torch.cuda.empty_cache()
+    elements = sum(recs[s]["elements"] for s in shapes)
+    agg.update(
+        convs=len(shapes), tflops=agg["flops"] / agg["ms"] / 1e9,
+        share_of_bound=agg["bound_ms"] / agg["ms"],
+        graph_share_of_bound=agg["bound_ms"] / agg["graph_ms"],
+        max_excess=max(r["max_excess"] for r in recs.values()),
+        max_abs_err=max(r["max_abs_err"] for r in recs.values()),
+        share_differ=sum(recs[s]["share_differ"] * recs[s]["elements"]
+                         for s in shapes) / elements,
+        share_beyond_one_ulp=sum(recs[s]["share_beyond_one_ulp"]
+                                 * recs[s]["elements"] for s in shapes)
+        / elements)
+    return list(recs.values()), agg
+
+
+# the timed bf16 conv sets: (name, shapes, CUDA-graph passes); every conv
+# of the two served models at 32 rows (the kernels line's set), VGG16-224
+# at its serving and training batches, ResNet-50's 46 stride-1 convs at
+# its training batch, the text CNN's three full-width convs at D = 300
+def bf16_conv_sets():
+    return [("lenet_32", conv_shapes("lenet", 32), 10),
+            ("vgg16_cifar10_32", conv_shapes("vgg16_cifar10", 32), 5),
+            ("vgg16_224_8", conv_shapes("vgg16_224", 8), 2),
+            (f"vgg16_224_{VGG_BATCH}", conv_shapes("vgg16_224", VGG_BATCH),
+             1),
+            (f"resnet50_{RESNET_TRAIN_BATCH}",
+             conv_shapes("resnet50", RESNET_TRAIN_BATCH), 1),
+            (f"textcnn_{TEXTCNN_D}", textcnn_convs(TEXTCNN_D), 10)]
+
+
+@_tf32_off
+def phase_bf16_kernels(torch, ck) -> dict:
+    """The bf16 forms of the conv and dropout kernels against their plain
+    versions: the conv on :func:`bf16_conv_sets` (timed) and on the serving
+    ladders' other batches (checked), by the bf16 conv rule; dropout
+    ``torch.equal`` forward and backward at VGG16-224's four launches and
+    the edges, with masks equal to the f32 form's; bf16 HGMMA in the conv
+    library's SASS."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    sets, records = {}, []
+    for name, shapes, calls in bf16_conv_sets():
+        recs, agg = bf16_conv_set(torch, ck, shapes, gen, calls)
+        for r in recs:
+            r["set"] = name
+        records += recs
+        sets[name] = agg
+    seen = {tuple(r["shape"]) + (r["activation"],) for r in records}
+    untimed = []
+    for model, batches in (("resnet50", SERVE_LADDER),
+                           ("vgg16_224", (1, 32))):
+        for batch in batches:
+            for s in conv_shapes(model, batch):
+                key = tuple(s[:7]) + (s[7],)
+                if key not in seen:
+                    seen.add(key)
+                    rec, _ = check_conv_bf16(torch, ck, s, gen, timed=False)
+                    untimed.append(rec)
+    bf = torch.bfloat16
+    fc_in = [(VGG_BATCH, 25088), (VGG_BATCH, 4096)]
+    drop = [check_dropout(torch, ck, s, 0.5, gen, timed=True, dtype=bf)
+            for s in fc_in]
+    drop += [check_dropout(torch, ck, s, r, gen, offset=o, dtype=bf)
+             for s, r, o in (((VGG_BATCH, 25088), 0.8, 0),
+                             ((VGG_BATCH, 4096), 0.8, 0),
+                             ((3, 4099), 0.5, 0), ((3, 4099), 0.8, 0),
+                             ((VGG_BATCH, 4096), 0.5, 1), ((4097,), 0.5, 0))]
+    res = {"sets": sets, "records": records, "untimed": untimed,
+           "dropout": drop,
+           "sass_bf16_hgmma": hgmma_count(ck, ck.CONV_LIBRARY,
+                                          "conv_wgmma_bf16_kernel", "BF16"),
+           "full_width_sass_bf16_hgmma": hgmma_count(
+               ck, ck.CONV_LIBRARY, r"conv_wgmma_bf16_kernelILi\d+ELb1E",
+               "BF16")}
+    emit("bf16_kernels", tf32=False, conv_rule="|y - ref| <= ulp_bf16(ref) "
+         "+ BF16_CONV_ATOL * max|ref|", conv_atol_scaled=BF16_CONV_ATOL,
+         bound_note="bound_ms: FLOPs at PEAK_BF16_FLOPS or 2-byte elements "
+                    "at PEAK_BYTES; library_ms: cuDNN bf16 conv + "
+                    "activation; dropout's F.dropout on bf16, forward + "
+                    "its mask-multiply backward",
+         timed_sets=sets, shapes=records, untimed_shapes=untimed,
+         dropout=drop, sass_bf16_hgmma=res["sass_bf16_hgmma"],
+         full_width_sass_bf16_hgmma=res["full_width_sass_bf16_hgmma"])
+    return res
+
+
+def _tensor_leaves(tree):
+    """The tensors of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str)
+                for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return [tree] if hasattr(tree, "dtype") else []
+
+
+def _dtypes_of(tree) -> list:
+    return sorted({str(t.dtype).replace("torch.", "")
+                   for t in _tensor_leaves(tree)})
+
+
+def _f32_step_cosine(torch, net, snap, bf16_params) -> dict:
+    """The bf16 step's update against the f32 kernel step's from the same
+    params, updater state, layer states, seed words and batch (``snap``,
+    :func:`_timed_steps`): the cosine of the two whole-network update
+    vectors, JAX's rule (tests/test_precision.py:114-128), and each one's
+    2-norm.  The network is left as it was."""
+    g = net.conf.global_conf
+    keep = (g.precision, net.net_params, net.opt_states, net.net_state,
+            net.iteration, net._score)
+    net.net_params = _clone_tree(snap["params"])
+    net.opt_states = _clone_tree(snap["opt"])
+    net.net_state, net.iteration = _clone_tree(snap["states"]), snap["it"]
+    g.precision = None
+    try:
+        net._fit_batch(snap["batch"], snap["seeds"])
+        f32_params = net.net_params
+    finally:
+        (g.precision, net.net_params, net.opt_states, net.net_state,
+         net.iteration, net._score) = keep
+    dot = na = nb = 0.0
+    for p0, a, b in zip(_tensor_leaves(snap["params"]),
+                        _tensor_leaves(bf16_params),
+                        _tensor_leaves(f32_params)):
+        ua, ub = (a - p0).double(), (b - p0).double()
+        dot += float((ua * ub).sum())
+        na += float((ua * ua).sum())
+        nb += float((ub * ub).sum())
+    return {"cosine": dot / (na * nb) ** 0.5, "bf16_update_norm": na ** 0.5,
+            "f32_update_norm": nb ** 0.5, "cosine_min": BF16_COSINE_MIN}
+
+
+def _recording_grad_dtypes(net) -> set:
+    """Shadow ``net._apply_updates`` (``del net._apply_updates`` restores
+    it): the dtypes of every gradient it is given go into the returned
+    set."""
+    seen = set()
+    apply = net._apply_updates
+
+    def recording(grads, it):
+        seen.update(_dtypes_of(grads))
+        return apply(grads, it)
+    net._apply_updates = recording
+    return seen
+
+
+def _check_bf16_steps(steps, want, conv_backwards, fallbacks, what):
+    for st in steps:
+        if st["launches"] != want or \
+                st["conv_backwards"] != conv_backwards or \
+                st["conv_fallbacks"] != fallbacks or \
+                not np.isfinite(st["score"]):
+            raise AssertionError(f"{what} step {st}: launches must be "
+                                 f"{want}, {conv_backwards} conv backwards, "
+                                 f"{fallbacks} conv fallbacks and the score "
+                                 f"finite")
+
+
+def _f32_masters(net, what) -> dict:
+    """Raises unless params, updater state and layer states are all f32."""
+    res = {"params": _dtypes_of(net.net_params),
+           "updater_state": _dtypes_of(net.opt_states),
+           "layer_states": _dtypes_of(net.net_state)}
+    if any(v not in ([], ["float32"]) for v in res.values()):
+        raise AssertionError(f"{what}: masters, updater state and layer "
+                             f"states must be float32: {res}")
+    return res
+
+
+def phase_train_vgg16_224_bf16(torch, ck, train_vgg) -> dict:
+    """VGG16-224 with dropout 0.5 as phase 7, under precision("bfloat16"):
+    3 timed ``fit`` steps at batch 128, the last recording its layer
+    outputs; the kernel's 13 outputs of that step against the plain version
+    on its own conv inputs; the step against the plain bf16 step (max-pool
+    argmax pinned) and against the f32 kernel step from the same params."""
+    from deeplearning4j_tpu_torch.models import vgg16
+    from deeplearning4j_tpu_torch.ops import dtypes
+    torch.backends.cudnn.allow_tf32 = True           # as phase 7
+    net = vgg16(dropout=0.5, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    net.conf.global_conf.precision = "bfloat16"
+    x, y = _random_batch(np.random.default_rng(SEED), VGG_BATCH,
+                         (3, 224, 224), 1000)
+    steps, snap = _timed_steps(torch, ck, net, snapshot_at=VGG_STEPS)
+    grad_dtypes = _recording_grad_dtypes(net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    drop_fallbacks = _fallbacks("dropout")
+    _zero_counts(ck)                                   # main path starts
+    for k in range(VGG_STEPS - 1):
+        net.fit(x, y)
+    peak = torch.cuda.max_memory_allocated()   # steps 1-2: the third keeps
+    with _RecordedOutputs(net) as recorded:    # its layer outputs besides
+        net.fit(x, y)
+    launches = _kernel_counts(ck)                      # main path ends
+    drop_fallbacks = _fallbacks("dropout") - drop_fallbacks
+    del net._fit_batch, net._apply_updates
+    masters = _f32_masters(net, "VGG16-224 bf16")
+    want = _want(ck, conv2d_bias_act_bf16=13, softmax_xent=1,
+                 threshold_dropout_bf16=4)
+    _check_bf16_steps(steps, want, 13, 0, "VGG16-224 bf16")
+    xd = net._as_float(snap["batch"].features)
+    yd = net._as_float(snap["batch"].labels)
+    seeds = snap["seeds"]
+    outs = recorded.outputs
+    on_path = _path_convs_vs_plain(torch, ck, [
+        (i, layer, outs[i - 1] if i else dtypes.BF16.cast_to_compute(xd),
+         dtypes.BF16.cast_to_compute(snap["params"][i]), outs[i])
+        for i, layer in enumerate(net.layers)
+        if type(layer).__name__ == "ConvolutionLayer"])
+    plain_score, plain_params, dropped, _, ties = _plain_train_step(
+        torch, ck, net, snap["params"], _clone_tree(snap["opt"]), xd, yd,
+        seeds, snap["it"], kernel_outputs=recorded.outputs,
+        policy=dtypes.BF16)
+    del recorded, outs
+    masks = {}
+    for i, h in dropped.items():                 # bf16 kernel vs plain on
+        rate = net.layers[i].dropout             # the same inputs, masks
+        ones = torch.ones_like(h)                # equal to the f32 form's
+        kmask = ck.fused_threshold_dropout(ones, rate, seeds[i]) != 0
+        plain_mask = ck.threshold_dropout_reference(ones, rate, seeds[i]) != 0
+        f32_mask = ck.fused_threshold_dropout(ones.float(), rate,
+                                              seeds[i]) != 0
+        masks[i] = {"dtype": str(h.dtype).replace("torch.", ""),
+                    "equal_outputs": torch.equal(
+                        ck.fused_threshold_dropout(h, rate, seeds[i]),
+                        ck.threshold_dropout_reference(h, rate, seeds[i])),
+                    "equal_masks": torch.equal(kmask, plain_mask),
+                    "equal_f32_masks": torch.equal(kmask, f32_mask)}
+    errs = _update_errs(torch, net, plain_params, snap["params"])
+    del plain_params
+    kernel_score = steps[-1]["score"]
+    cosine = _f32_step_cosine(torch, net, snap, net.net_params)
+    res = {"batch": VGG_BATCH, "precision": "bfloat16", "steps": steps,
+           "samples_per_s_after_first": VGG_BATCH * (len(steps) - 1)
+           / sum(s["seconds"] for s in steps[1:]),
+           "f32_samples_per_s_after_first":
+               train_vgg["samples_per_s_after_first"],
+           "launches": launches, "dropout_fallbacks": drop_fallbacks,
+           "max_memory_allocated_steps_1_2": peak,
+           "f32_max_memory_allocated": train_vgg["max_memory_allocated"],
+           "dtypes": {**masters, "gradients": sorted(grad_dtypes)},
+           "convs_on_path_vs_plain": on_path,
+           "plain_step": {"score": plain_score, "kernel_score": kernel_score,
+                          "score_rel_diff": abs(plain_score - kernel_score)
+                          / abs(plain_score),
+                          "max_update_rel_err": max(errs.values()),
+                          "worst_updates": dict(sorted(
+                              errs.items(), key=lambda kv: -kv[1])[:6]),
+                          "score_rtol": BF16_STEP_RTOL,
+                          "update_rtol": BF16_UPDATE_RTOL,
+                          "near_ties": ties, "tie_rtol": BF16_TIE_RTOL,
+                          "dropout": masks},
+           "f32_step": cosine}
+    emit("train_vgg16_224_bf16", **res)
+    ps = res["plain_step"]
+    if ps["score_rel_diff"] > BF16_STEP_RTOL or \
+            ps["max_update_rel_err"] > BF16_UPDATE_RTOL or \
+            len(ties) != 5 or \
+            max(t["max_rel_gap"] for t in ties) > BF16_TIE_RTOL or \
+            len(masks) != 2 or \
+            not all(all(v for k, v in m.items() if k != "dtype")
+                    and m["dtype"] == "bfloat16" for m in masks.values()) or \
+            grad_dtypes != {"float32"} or \
+            cosine["cosine"] < BF16_COSINE_MIN or drop_fallbacks != 0:
+        raise AssertionError("VGG16-224's bf16 step disagrees with the plain "
+                             "bf16 step or the f32 step")
+    return res
+
+
+def _path_convs_vs_plain(torch, ck, items) -> dict:
+    """The conv kernel's bf16 outputs of a training step against the plain
+    version on the same step's inputs (its own activations, not random
+    data), by the bf16 conv rule: ``items`` are (name, layer, x, params in
+    bf16, kernel output).  Raises on disagreement."""
+    worst = {"convs": 0, "elements": 0, "max_excess": 0.0,
+             "share_differ": 0.0, "share_beyond_one_ulp": 0.0}
+    for name, layer, x, p, y in items:
+        ref = ck.conv2d_bias_act_reference(
+            x, p["W"], p["b"], tuple(layer.padding), layer.convolution_mode,
+            layer.activation)
+        rec = bf16_conv_compare(torch, y, ref)
+        if not rec["ok"]:
+            raise AssertionError(f"conv {name} of the bf16 step disagrees "
+                                 f"with the plain version on its own "
+                                 f"inputs: {rec}")
+        worst["convs"] += 1
+        worst["elements"] += rec["elements"]
+        for k in ("max_excess", "share_differ", "share_beyond_one_ulp"):
+            worst[k] = max(worst[k], rec[k])
+    return worst
+
+
+@_tf32_off
+def phase_train_resnet50_bf16(torch, ck, train_resnet) -> dict:
+    """ResNet-50 as phase 8i under precision("bfloat16"), from
+    ``seeded_resnet50(batch_norms=False)`` with the last batch norm of each
+    residual branch at gamma 0, as large-batch ResNet-50 training starts
+    (Goyal et al. 2017, "Accurate, Large Minibatch SGD", 5.1):
+    RESNET_BF16_STEPS ``fit`` steps at batch 128 through the async
+    pipeline, then one more under cuDNN's deterministic algorithms
+    recording every vertex's output.  Held: the kernel's 46 outputs
+    against the plain version on that step's own conv inputs (the bf16
+    conv rule); the step against the plain bf16 graph step from the same
+    state (relu masks and max-pool argmax pinned) by the bf16 rules:
+    score, updates, BN running statistics, near ties, each BN-fed conv
+    bias's update over the plain step's; against the f32 kernel step
+    (cosine); and, that the state allows the comparison, the plain step
+    with its conv summed in the kernel's order (``reordered``, no kernel
+    in it) against the plain step by the same rules.  A bf16 step parts
+    from one with its sums in another order as far as bf16 and f32 do in
+    phase 8i's calibrated net and in the seeded one with every residual
+    branch live (updates 0.17 and 0.30 apart with no kernel in either),
+    and at this net's fourth step the stage-3 batch norms' gammas still
+    move 0.146; at its eleventh 0.064 (PERF.md)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.layers import ConvolutionLayer
+    from deeplearning4j_tpu_torch.ops import dtypes
+    net = seeded_resnet50("cuda", batch_norms=False)
+    for n in net.order:                   # zero-gamma residual branches
+        if n.endswith("_c_bn"):
+            net.net_params[n]["gamma"].zero_()
+    net.conf.global_conf.precision = "bfloat16"
+    rng = np.random.default_rng(SEED + 23)
+    dims = (3, RESNET_HW, RESNET_HW)
+    data = [DataSet(*_random_batch(rng, RESNET_TRAIN_BATCH, dims,
+                                   RESNET_CLASSES))
+            for _ in range(RESNET_BF16_STEPS + 1)]
+    steps, snap = _timed_steps(torch, ck, net,
+                               snapshot_at=RESNET_BF16_STEPS + 1)
+    grad_dtypes = _recording_grad_dtypes(net)
+    out_name = net.conf.network_outputs[0]
+    recorded = _RecordedVertexOutputs(
+        net, [n for n in net.order if n != out_name])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        _zero_counts(ck)                               # main path starts
+        net.fit(ListDataSetIterator(data[:RESNET_BF16_STEPS]))
+        peak = torch.cuda.max_memory_allocated()       # the timed steps
+        torch.backends.cudnn.deterministic = True
+        with recorded:
+            net.fit(ListDataSetIterator(data[RESNET_BF16_STEPS:]))
+        launches = _kernel_counts(ck)                  # main path ends
+        del net._fit_batch, net._apply_updates
+        masters = _f32_masters(net, "ResNet-50 bf16")
+        want = _want(ck, conv2d_bias_act_bf16=RESNET_KERNEL_CONVS,
+                     softmax_xent=1)
+        _check_bf16_steps(steps, want, RESNET_KERNEL_CONVS,
+                          RESNET_DENSE_CONVS, "ResNet-50 bf16")
+        mds = snap["batch"]
+        params0, states0 = snap["params"], snap["states"]
+        outs = recorded.outputs
+        convs = []
+        for n in net.order:
+            layer = net.conf.vertices[n].layer_conf() \
+                if hasattr(net.conf.vertices[n], "layer_conf") else None
+            if isinstance(layer, ConvolutionLayer) and \
+                    tuple(layer.stride) == (1, 1):
+                convs.append((n, layer, outs[net.conf.vertex_inputs[n][0]],
+                              dtypes.BF16.cast_to_compute(params0[n]),
+                              outs[n]))
+        on_path = _path_convs_vs_plain(torch, ck, convs)
+        del convs
+        xs = [net._as_float(t) for t in mds.features]
+        ys = [net._as_float(t) for t in mds.labels]
+        step = (net.score(), net.net_params, net.net_state)
+        score, params, states, ties = _plain_graph_step(
+            torch, ck, net, params0, _clone_tree(snap["opt"]), xs, ys,
+            snap["it"], states0, outs, policy=dtypes.BF16)
+        plain = _with_ties(_graph_step_vs(
+            torch, net, params0, step, (score, params, states)), ties)
+        # the witness: the plain step with the conv summed in the kernel's
+        # order, against the plain step; no kernel in either
+        w_score, w_params, w_states, w_ties = _plain_graph_step(
+            torch, ck, net, params0, _clone_tree(snap["opt"]), xs, ys,
+            snap["it"], states0, outs, policy=dtypes.BF16, reordered=True)
+        witness = _with_ties(_graph_step_vs(
+            torch, net, params0, (w_score, w_params, w_states),
+            (score, params, states)), w_ties)
+        del params, states, w_params, w_states
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del recorded, outs
+    cosine = _f32_step_cosine(torch, net, snap, net.net_params)
+    timed = steps[1:RESNET_BF16_STEPS]
+    res = {"batch": RESNET_TRAIN_BATCH, "precision": "bfloat16",
+           "net": "seeded_resnet50(batch_norms=False), *_c_bn gamma 0",
+           "steps": steps,
+           "samples_per_s_after_first": RESNET_TRAIN_BATCH * len(timed)
+           / sum(st["seconds"] for st in timed),
+           "f32_samples_per_s_after_first":
+               train_resnet["samples_per_s_after_first"],
+           "launches": launches, "max_memory_allocated_timed_steps": peak,
+           "f32_max_memory_allocated": train_resnet["max_memory_allocated"],
+           "dtypes": {**masters, "gradients": sorted(grad_dtypes)},
+           "convs_on_path_vs_plain": on_path,
+           "plain_step": {**plain, "score_rtol": BF16_STEP_RTOL,
+                          "update_rtol": BF16_UPDATE_RTOL,
+                          "bn_stats_rtol": BF16_BN_STATS_RTOL,
+                          "bn_bias_over_plain": BF16_BN_BIAS_OVER_PLAIN,
+                          "tie_rtol": BF16_TIE_RTOL},
+           "reordered_plain_step_vs_plain": witness,
+           "f32_step": cosine}
+    emit("train_resnet50_bf16", **res)
+    pins = len(_pinned_vertices(net))
+    bad = [what for what, rec in (("the kernel step", plain),
+                                  ("the reordered plain step", witness))
+           if rec["score_rel_diff"] > BF16_STEP_RTOL or
+           rec["max_update_rel_err"] > BF16_UPDATE_RTOL or
+           rec["bn_fed_conv_biases"] != 53 or
+           rec["max_bn_fed_bias_update_over_plain"] >
+           BF16_BN_BIAS_OVER_PLAIN or
+           rec["max_bn_stats_rel_err"] > BF16_BN_STATS_RTOL or
+           rec["pinned_vertices"] != pins or
+           rec["max_tie_gap"] > BF16_TIE_RTOL]
+    if bad or grad_dtypes != {"float32"} or \
+            cosine["cosine"] < BF16_COSINE_MIN:
+        raise AssertionError(f"ResNet-50's bf16 step: {bad} against the "
+                             f"plain bf16 step, gradients {grad_dtypes}, "
+                             f"f32 cosine {cosine['cosine']}")
+    return res
+
+
+def _graph_step_vs(torch, net, params0, step, plain) -> dict:
+    """A graph's step against a plain step from ``params0``, each given as
+    (score, new params, new states): the score, every param's update in
+    relative 2-norm but a BN-fed conv's bias, the running statistics, and
+    each BN-fed conv bias's update (0 in exact arithmetic, so held apart,
+    as phase 8i holds it) over its weight's in both steps and over the
+    plain step's, either way up."""
+    (score, params, states), (p_score, p_params, p_states) = step, plain
+    errs, stat_errs, noise, fed_errs = {}, {}, {}, {}
+    fed = bn_fed_convs(net)
+    for n in net.order:
+        for k, t in params[n].items():
+            upd = t - params0[n][k]
+            plain_upd = p_params[n][k] - params0[n][k]
+            if n not in fed or k != "b":
+                errs[f"{n}_{k}"] = _rel_norm(torch, upd, plain_upd)
+            else:
+                a = float(torch.linalg.vector_norm(upd))
+                b = float(torch.linalg.vector_norm(plain_upd))
+                fed_errs[f"{n}_{k}"] = max(a / b, b / a)
+                w_upd = float(torch.linalg.vector_norm(
+                    p_params[n]["W"] - params0[n]["W"]))
+                noise[f"{n}_b"] = (
+                    float(torch.linalg.vector_norm(upd)) / w_upd,
+                    float(torch.linalg.vector_norm(plain_upd)) / w_upd)
+        for k, t in states[n].items():
+            stat_errs[f"{n}_{k}"] = _rel_norm(torch, t, p_states[n][k])
+    return {"score": p_score, "step_score": score,
+            "score_rel_diff": abs(p_score - score) / abs(p_score),
+            "max_update_rel_err": max(errs.values()),
+            "worst_updates": dict(sorted(errs.items(),
+                                         key=lambda kv: -kv[1])[:6]),
+            "max_bn_stats_rel_err": max(stat_errs.values()),
+            "bn_fed_conv_biases": len(noise),
+            "max_bn_fed_bias_update_over_w_update": max(
+                max(v) for v in noise.values()),
+            "worst_bn_fed_biases_step_and_plain": dict(sorted(
+                noise.items(), key=lambda kv: -max(kv[1]))[:4]),
+            "max_bn_fed_bias_update_over_plain": max(fed_errs.values())}
+
+
+def _with_ties(rec, ties) -> dict:
+    """``rec`` with the near ties' count and largest gap."""
+    return {**rec, "pinned_vertices": len(ties),
+            "relu_and_pool_flips": sum(t["flips"] for t in ties),
+            "max_tie_gap": max(t["max_rel_gap"] for t in ties)}
+
+
+def _timed_output(torch, ck, fn, calls: int = 3):
+    """``calls`` timed calls of ``fn`` (to the end of their kernels) ->
+    (last output, wall ms each, bf16 conv launches each)."""
+    walls, per_call, out = [], [], None
+    for _ in range(calls):
+        before = ck.fused_conv2d_bias_act.bf16.launches
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_call.append(ck.fused_conv2d_bias_act.bf16.launches - before)
+    return out, walls, per_call
+
+
+def _probs_vs_f32(torch, net, x, out) -> dict:
+    """``out`` against the f32 net's output on the same params and input
+    (the network's precision set back after): ||out - f32|| / ||f32||;
+    the same of the log-probabilities less each row's mean (the logits
+    less theirs), which near-uniform rows cannot pass by being uniform:
+    two unrelated outputs of equal spread read about 1.4 apart; and the
+    share of rows whose top class is the f32 net's."""
+    g = net.conf.global_conf
+    prec, g.precision = g.precision, None
+    try:
+        ref = net.output(x)
+    finally:
+        g.precision = prec
+    ref = ref[0] if isinstance(ref, tuple) else ref
+
+    def centred(p):
+        lp = p.double().clamp_min(1e-300).log()
+        return lp - lp.mean(dim=1, keepdim=True)
+    return {"probs_rel_vs_f32": _rel_norm(torch, out, ref),
+            "logits_rel_vs_f32": _rel_norm(torch, centred(out),
+                                           centred(ref)),
+            "top1_equal_f32": float((out.argmax(1) == ref.argmax(1))
+                                    .float().mean())}
+
+
+def _check_output_bf16(torch, out, rows, classes, per_call, convs, rel,
+                       model, what):
+    sums = out.sum(dim=1)
+    if out.dtype != torch.float32 or tuple(out.shape) != (rows, classes) \
+            or not bool(torch.isfinite(out).all()) or \
+            not torch.allclose(sums, torch.ones_like(sums),
+                               atol=BF16_PROBS_SUM_ATOL) or \
+            set(per_call) != {convs} or \
+            rel["probs_rel_vs_f32"] > BF16_PROBS_REL[model] or \
+            rel["logits_rel_vs_f32"] > BF16_LOGITS_REL.get(model, np.inf):
+        raise AssertionError(f"{what}: {out.dtype} {tuple(out.shape)}, "
+                             f"launches {per_call}, against the f32 net's "
+                             f"{rel}")
+
+
+def _check_served_classes_bf16(name, xs, answers, direct, ladder) -> list:
+    """Each request's served classes (argmax, or the best of top 3) must
+    equal argmax of a direct bf16 ``output()`` of its rows at one of the
+    batch sizes the batcher can have served them at: its rows zero-padded
+    to a bucket of ``ladder``.  Rows are independent at inference, but a
+    conv's plan, and so its order of summation, follows the batch size,
+    and bf16 rounds what that order changes.  -> the bucket each request
+    matched first."""
+    matched = []
+    for x, (mode, answer) in zip(xs, answers):
+        cls = answer["classes"]
+        got = cls if mode == "argmax" else [c[0] for c in cls]
+        shape = [len(x)] if mode == "argmax" else [len(x), 3]
+        hit = None
+        for nb in ladder:
+            if nb < len(x):
+                continue
+            xp = np.zeros((nb,) + x.shape[1:], np.float32)
+            xp[:len(x)] = x
+            if direct(xp)[:len(x)].argmax(dim=-1).cpu().numpy().tolist() \
+                    == got:
+                hit = nb
+                break
+        if hit is None or answer["shape"] != shape:
+            raise AssertionError(f"{name}: served {answer}, which no direct "
+                                 f"bf16 output at {ladder} gives")
+        matched.append(hit)
+    return matched
+
+
+@_tf32_off
+def phase_serve_bf16(torch, ck) -> dict:
+    """Serving under precision("bfloat16"): VGG16-224 ``output()`` at 8 and
+    32 rows and ResNet-50's (``seeded_resnet50(batch_norms=False)``) at
+    32, each returning f32 within BF16_PROBS_REL of the f32 net's, and
+    ResNet-50's within BF16_LOGITS_REL in log-probabilities; then the bf16
+    ResNet-50
+    written as a zip and served by one ``Server`` to 4 clients, 16
+    requests of 1-2 rows."""
+    from deeplearning4j_tpu_torch.models import vgg16
+    from deeplearning4j_tpu_torch.nn.serialization import write_model
+    from deeplearning4j_tpu_torch.server import (
+        DeepLearning4jEntryPoint, Server)
+    res = {"probs_rel_rule": BF16_PROBS_REL,
+           "logits_rel_rule": BF16_LOGITS_REL}
+    conv_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    net = vgg16(device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    net.conf.global_conf.precision = "bfloat16"
+    cpu_gen = torch.Generator().manual_seed(SEED + 41)
+    for rows in (8, 32):
+        x = torch.randn((rows, 3, 224, 224), generator=cpu_gen).cuda()
+        out, walls, per_call = _timed_output(torch, ck,
+                                             lambda: net.output(x))
+        vs = _probs_vs_f32(torch, net, x, out)
+        res[f"vgg16_224_output_{rows}"] = {
+            "ms": float(np.median(walls)), "ms_each": walls,
+            "conv_launches_per_forward": per_call, "dtype": str(out.dtype),
+            **vs}
+        _check_output_bf16(torch, out, rows, 1000, per_call, 13, vs,
+                           "vgg16_224", f"VGG16-224 bf16 output at {rows}")
+        conv_launches += sum(per_call)
+    res["vgg16_224_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del net, out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = seeded_resnet50("cuda", batch_norms=False)
+    net.conf.global_conf.precision = "bfloat16"
+    dims = (3, RESNET_HW, RESNET_HW)
+    x32 = torch.randn((RESNET_SERVE_BATCH,) + dims,
+                      generator=torch.Generator().manual_seed(SEED + 22))
+    x32 = x32.cuda()
+    out, walls, per_call = _timed_output(torch, ck,
+                                         lambda: net.output(x32)[0], 5)
+    vs = _probs_vs_f32(torch, net, x32, out)
+    res["resnet50_output_32"] = {
+        "ms": float(np.median(walls)), "ms_each": walls,
+        "conv_launches_per_forward": per_call, "dtype": str(out.dtype), **vs,
+        "spread": _input_dependent(out, "ResNet-50's bf16 output at 32")}
+    _check_output_bf16(torch, out, RESNET_SERVE_BATCH, RESNET_CLASSES,
+                       per_call, RESNET_KERNEL_CONVS, vs, "resnet50",
+                       "ResNet-50 bf16 output at 32")
+    res["output_launches"] = {"conv2d_bias_act_bf16":
+                              conv_launches + sum(per_call)}
+    res["resnet50_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(SEED + 21)
+    xs = [rng.normal(size=(int(rng.integers(1, 3)),) + dims).astype(
+        np.float32) for _ in range(RESNET_REQUESTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "resnet50_bf16.zip")
+        write_model(net, path)
+        del net, out
+        server = Server(DeepLearning4jEntryPoint(
+            device="cuda", max_batch=RESNET_SERVE_BATCH)).start()
+        try:
+            url = f"http://127.0.0.1:{server.port}/"
+            warm = _rpc(url, "warmup", {"model_path": path,
+                                        "feature_dims": list(dims)})
+            fallbacks = _conv_fallbacks()
+            _zero_counts(ck)                           # main path starts
+            drive = _drive(url, path, xs, clients=RESNET_CLIENTS)
+            launches = _kernel_counts(ck)              # main path ends
+            fallbacks = _conv_fallbacks() - fallbacks
+            batcher = server.entry_point.stats()["serving"][
+                str(Path(path).resolve())]
+            served = server.entry_point.model_cache.get(path)
+        finally:
+            server.stop()
+    batches = batcher["batches"]
+    ladder = [n for n in SERVE_LADDER if n <= RESNET_SERVE_BATCH]
+    matched = _check_served_classes_bf16(
+        "resnet50 bf16", xs, drive["answers"],
+        lambda x: served.output(x)[0], ladder)
+    spread = _input_dependent(served.output(np.concatenate(xs))[0],
+                              "ResNet-50's bf16 served rows")
+    res["serve_resnet50"] = {
+        "precision": served.conf.global_conf.precision,
+        "requests": drive["requests"], "rows": drive["rows"],
+        "warmup_buckets": warm["buckets"],
+        "batcher": {k: batcher[k] for k in ("batches", "rows",
+                                            "batch_size_hist")},
+        "launches": launches, "conv_fallbacks": fallbacks,
+        "classes_equal_direct_output_at_bucket": matched,
+        "served_rows_spread": spread}
+    emit("serve_bf16", **res)
+    if served.conf.global_conf.precision != "bfloat16" or launches != _want(
+            ck, conv2d_bias_act_bf16=RESNET_KERNEL_CONVS * batches) or \
+            fallbacks != RESNET_DENSE_CONVS * batches:
+        raise AssertionError(f"{batches} served bf16 batches: launches "
+                             f"{launches}, {fallbacks} conv fallbacks")
+    del served
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5003,7 +5949,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
             train_att, output_att, sample_att, textcnn, train_tc,
-            transfer_paths) -> dict:
+            transfer_paths, bf16) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -5015,7 +5961,11 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     call.  ``launches`` counts every main path's run.  The conv entry
     carries beside it the summed set of ResNet-50's 46 stride-1 convs at
     batch 128 (``resnet50_128``) and of the text CNN's three full-width
-    convs at D = 300 and 128 (``textcnn_300``, ``textcnn_128``)."""
+    convs at D = 300 and 128 (``textcnn_300``, ``textcnn_128``).  The bf16
+    forms have entries of their own: the conv's times, bound (bf16 FLOPs)
+    and cuDNN bf16 over the same 32-row batches, with every timed set of
+    ``bf16_kernels`` beside them; dropout's over VGG16-224's four launches
+    in bf16, ``F.dropout`` on bf16 as the library call."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -5044,7 +5994,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "sample_attention": sample_att["launches"],
              "train_textcnn": train_tc["launches"],
              "evaluate_textcnn": train_tc["evaluate"]["launches"],
-             **transfer_paths}
+             **transfer_paths, **bf16["paths"]}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -5053,6 +6003,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         return {k: p.get(name, 0) for k, p in paths.items()}
     xent, xent_wide = xd["xent"][:2]
     drop = [r for r in xd["dropout"] if "ms" in r]   # forward + backward
+    bk = bf16["kernels"]
+    bsets = bk["sets"]
+    bserved = [bsets[k] for k in ("lenet_32", "vgg16_cifar10_32")]
+    bdrop = [r for r in bk["dropout"] if "ms" in r]
     return {"kernels": [{
         "name": "conv2d_bias_act",
         "route": "cuda",
@@ -5106,6 +6060,37 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "bound_ms": sum(r["bound_ms"] for r in drop),
         "bound_by": "bytes",
         "library_ms": sum(r["library_ms"] for r in drop),
+    }, {
+        "name": "conv2d_bias_act_bf16",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/conv_bias_act.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:577",
+        "launches": launches("conv2d_bias_act_bf16"),
+        "launches_by_path": by_path("conv2d_bias_act_bf16"),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in bk["records"] + bk["untimed"]),
+        "ms": sum(a["ms"] for a in bserved),
+        "plain_ms": sum(a["plain_ms"] for a in bserved),
+        "bound_ms": sum(a["bound_ms"] for a in bserved),
+        "bound_by": "operations" if sum(a["flops"] for a in bserved)
+        / PEAK_BF16_FLOPS >= sum(a["bytes"] for a in bserved) / PEAK_BYTES
+        else "bytes",
+        "library_ms": sum(a["library_ms"] for a in bserved),
+        "sets": bsets,
+        "sass_bf16_hgmma": bk["sass_bf16_hgmma"],
+    }, {
+        "name": "threshold_dropout_bf16",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/threshold_dropout.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:827",
+        "launches": launches("threshold_dropout_bf16"),
+        "launches_by_path": by_path("threshold_dropout_bf16"),
+        "max_abs_err": max(r["max_abs_err"] for r in bk["dropout"]),
+        "ms": sum(r["ms"] for r in bdrop),
+        "plain_ms": sum(r["plain_ms"] for r in bdrop),
+        "bound_ms": sum(r["bound_ms"] for r in bdrop),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in bdrop),
     }, {
         "name": "lstm_step",
         "route": "cuda",
@@ -5187,6 +6172,17 @@ def main() -> int:
     del net, data, helper, feats
     transfer_resnet = phase_transfer_resnet50(torch, ck, train_resnet)
     torch.cuda.empty_cache()
+    bf16_kernels = phase_bf16_kernels(torch, ck)
+    train_vgg_bf16 = phase_train_vgg16_224_bf16(torch, ck, train_vgg)
+    torch.cuda.empty_cache()
+    train_resnet_bf16 = phase_train_resnet50_bf16(torch, ck, train_resnet)
+    torch.cuda.empty_cache()
+    serve_bf16 = phase_serve_bf16(torch, ck)
+    bf16 = {"kernels": bf16_kernels, "paths": {
+        "train_vgg16_224_bf16": train_vgg_bf16["launches"],
+        "train_resnet50_bf16": train_resnet_bf16["launches"],
+        "output_bf16": serve_bf16["output_launches"],
+        "serve_resnet50_bf16": serve_bf16["serve_resnet50"]["launches"]}}
     transfer_paths = {
         "transfer_vgg16_224": transfer_vgg["launches"],
         "featurize_vgg16_224": featurize["launches"],
@@ -5216,7 +6212,7 @@ def main() -> int:
                              serve_resnet, train_resnet, functional, lstm,
                              train_char, sample_char, flash, train_att,
                              output_att, sample_att, textcnn, train_tc,
-                             transfer_paths)))
+                             transfer_paths, bf16)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -71,12 +71,29 @@
 // column falls in the padding, past K or past M.  The weights, the wgmma
 // mainloop, the cluster split and the epilogue are the halo route's.
 // Shapes the halo route takes stay on it.
+//
+// The bf16 form (dl4j_conv2d_bias_act_bf16) computes what the TPU kernel
+// computes for bf16 x, w and b: products accumulated in f32, bias and
+// activation on the f32 accumulator, one round-to-nearest-even store of y in
+// bf16.  A bf16 product is exact in f32, so one wgmma.m64nBNk16.f32.bf16.bf16
+// per 16-deep K step replaces the three tf32 products, and what it bounds is
+// the operations at the 989 TFLOP/s bf16 peak.  It keeps the f32 form's plan,
+// tables, ring, cluster split and stage layout (a 64-deep bf16 slice is one
+// 128-byte swizzled row a channel, the byte depth of a tf32 atom): the
+// weights are reordered once per call into K-major bf16 rows, with no split;
+// the halo is staged in bf16 by ordinary loads, eight in flight a thread (a
+// 2-byte element has no cp.async), and the full-width route's A tile by
+// 8-byte cp.async copies of four bf16 where the f32 form takes 16 bytes.  A
+// thread gathers its A fragments, two bf16 a register, straight from the
+// halo, and a slice's four products go into a fresh accumulator that the
+// CUDA cores add to the f32 sum, as in the f32 form.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_bf16.cuh"
 #include "hopper_tf32.cuh"
 
 namespace cg = cooperative_groups;
@@ -669,6 +686,355 @@ cudaError_t launch(const float* x, const float* ws, const float* b, float* y,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form
+// ---------------------------------------------------------------------------
+
+// w [rows_w][K] -> ws [rows][kpad] (bf16 bits), zero beyond rows_w and K.
+__global__ void reorder_bf16_kernel(const uint16_t* __restrict__ w,
+                                    uint16_t* __restrict__ ws, int rows_w,
+                                    int K, int kpad, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int n = static_cast<int>(i / kpad);
+  const int k = static_cast<int>(i % kpad);
+  ws[i] = (n < rows_w && k < K) ? w[static_cast<long long>(n) * K + k]
+                                : static_cast<uint16_t>(0);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// The bf16 form of conv_wgmma_kernel: the same plan, tables, ring, cluster
+// split and epilogue; bf16 x, w, b and y (as their bits); one bf16 product a
+// 16-deep K step.  A stage holds the weights' [BN][64] bf16 tile at its
+// start (one 128-byte swizzled row a channel), and the halo (the A tile) and
+// the K offsets at the f32 form's offsets, so the f32 plan's stage size and
+// shared memory serve it.
+template <int BN, bool FW>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_wgmma_bf16_kernel(const uint16_t* __restrict__ x,
+                       const uint16_t* __restrict__ ws,
+                       const uint16_t* __restrict__ b,
+                       uint16_t* __restrict__ y, Shape s, Plan p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int tap_off[kMaxK * kMaxK];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;    // the swizzle needs 1 KB
+  uint8_t* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+
+  int rank = 0;
+  if (p.cs > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
+  int t = blockIdx.x / p.cs;
+  const int ct = t % p.tiles_c;
+  t /= p.tiles_c;
+  const int ow0 = (t % p.tiles_w) * p.tw;
+  t /= p.tiles_w;
+  const int oh0 = (t % p.tiles_h) * p.th;
+  const int n0 = (t / p.tiles_h) * p.ni;
+  const int co0 = ct * BN;
+
+  const int taps = s.KH * s.KW;
+  const int plane = p.ni * p.hr * p.hp;
+  const long long chw = static_cast<long long>(s.H) * s.W;
+  const uint16_t* xn = x + static_cast<long long>(n0) * s.Cin * chw;
+  int* src_off = reinterpret_cast<int*>(smem + p.table_off);
+  long long* row_off = reinterpret_cast<long long*>(smem + p.table_off);
+  int* row_ih = reinterpret_cast<int*>(smem + p.table_off + kBM * 8);
+  const int M = s.N * s.OH;
+  if constexpr (FW) {
+    for (int r = tid; r < kBM; r += kThreads) {
+      const int m = oh0 + r;
+      const int n = m / s.OH, oh = m % s.OH;
+      row_off[r] = m < M ? static_cast<long long>(n) * s.Cin * chw +
+                               static_cast<long long>(oh - s.pt) * s.W
+                         : 0;
+      row_ih[r] = m < M ? oh - s.pt : -(1 << 30);
+    }
+  } else {
+    for (int e = tid; e < plane; e += kThreads) {
+      const int li = e / (p.hr * p.hp), rem = e % (p.hr * p.hp);
+      const int ih = oh0 - s.pt + rem / p.hp, iw = ow0 - s.pl + rem % p.hp;
+      src_off[e] = (n0 + li < s.N && ih >= 0 && ih < s.H && iw >= 0 &&
+                    iw < s.W)
+                       ? static_cast<int>(li * s.Cin * chw + ih * s.W + iw)
+                       : -1;
+    }
+    for (int i = tid; i < taps; i += kThreads)
+      tap_off[i] = (i / s.KW) * p.hp + i % s.KW;
+  }
+
+  const int pix = p.th * p.tw;
+  const int live_rows = FW ? imin(kBM, M - oh0) : p.ni * pix;
+  int rbase[2];
+  long long yoff[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * h;
+    if constexpr (FW) {
+      const int m = oh0 + r;
+      live[h] = r < live_rows;
+      rbase[h] = r * kAPitch;
+      yoff[h] = live[h] ? static_cast<long long>(m / s.OH) * s.Cout * s.OH +
+                              m % s.OH
+                        : 0;
+    } else {
+      const int rn = r / pix, rem = r % pix;
+      const int rh = rem / p.tw, rw = rem % p.tw;
+      live[h] = r < live_rows && n0 + rn < s.N && oh0 + rh < s.OH &&
+                ow0 + rw < s.OW;
+      rbase[h] = live[h] ? (rn * p.hr + rh) * p.hp + rw : 0;
+      yoff[h] = live[h] ? (static_cast<long long>(n0 + rn) * s.Cout * s.OH +
+                           oh0 + rh) * s.OW + ow0 + rw
+                        : 0;
+    }
+  }
+  const bool wg_live = wg * 64 < live_rows;     // warpgroup-uniform
+
+  const int s_begin = rank * p.per_rank;
+  const int s_end = imin(p.slices, s_begin + p.per_rank);
+  const int ns = s_end > s_begin ? s_end - s_begin : 0;
+  const int w_bytes = 2 * BN * kBK * 4;         // the f32 form's weights
+  const int halo_bytes = p.halo_floats * 4;     // and halo, in bytes
+  const int c_first = tid / plane, e_first = tid % plane;
+  const int c_step = kThreads / plane, e_step = kThreads % plane;
+  const int k_first = s_begin * kBK;
+  int c_lo = k_first / taps, t_lo = k_first % taps;
+  const int kidx = tid % kBK;
+  int kc = (k_first + kidx) / taps, kt = (k_first + kidx) % taps;
+  auto advance = [&](int& c, int& t) {
+    c += kBK / taps;
+    t += kBK % taps;
+    if (t >= taps) {
+      t -= taps;
+      ++c;
+    }
+  };
+  // Full width: this thread's column of the A tile (four columns with
+  // 8-byte copies) and its first row; it copies every rstep-th row.
+  const int fw_col = s.vec ? 4 * (tid & 15) : tid & (kBK - 1);
+  const int fw_row = s.vec ? tid >> 4 : tid / kBK;
+  const int fw_rstep = s.vec ? kThreads / 16 : kThreads / kBK;
+  const int K = s.Cin * taps;
+
+  // the copies and loads of slice `sl` into ring stage `st` (slices in
+  // order); a stage's ordinary stores are published by the block barrier
+  // that also publishes its copies
+  auto load = [&](int sl, int st) {
+    const uint32_t sa = base + st * p.stage_bytes;
+    uint8_t* stage = smem + st * p.stage_bytes;
+    const int k0 = sl * kBK;
+    // the weights' [BN][64] tile: row n's 16-byte chunk c goes to chunk
+    // c ^ (n % 8)
+#pragma unroll
+    for (int j = 0; j < BN * (kBK / 8) / kThreads; ++j) {
+      const int e = tid + j * kThreads;
+      const int n = e / (kBK / 8), c = e % (kBK / 8);
+      cp_async16(sa + n * 128 + ((c ^ (n & 7)) << 4),
+                 ws + static_cast<long long>(co0 + n) * s.kpad + k0 + 8 * c);
+    }
+    uint16_t* halo = reinterpret_cast<uint16_t*>(stage + w_bytes);
+    if constexpr (FW) {
+      const int k = k0 + fw_col;
+      const int c = k / taps, rt = k % taps;
+      const int kh = rt / s.KW, iw = rt % s.KW - s.pl;
+      const bool k_ok = k < K && iw >= 0 && iw < s.W;
+      const long long koff = c * chw + static_cast<long long>(kh) * s.W + iw;
+      if (s.vec) {
+        for (int r = fw_row; r < kBM; r += fw_rstep) {
+          const bool ok = k_ok && static_cast<unsigned>(row_ih[r] + kh) <
+                                      static_cast<unsigned>(s.H);
+          cp_async8_zfill(sa + w_bytes + (r * kAPitch + fw_col) * 2,
+                          ok ? x + row_off[r] + koff : x, ok ? 8 : 0);
+        }
+      } else {
+        for (int r0 = fw_row; r0 < kBM; r0 += 8 * fw_rstep) {
+          uint16_t v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int r = r0 + j * fw_rstep;
+            const bool ok = r < kBM && k_ok &&
+                            static_cast<unsigned>(row_ih[r] + kh) <
+                                static_cast<unsigned>(s.H);
+            v[j] = ok ? __ldg(x + row_off[r] + koff)
+                      : static_cast<uint16_t>(0);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int r = r0 + j * fw_rstep;
+            if (r < kBM) halo[r * kAPitch + fw_col] = v[j];
+          }
+        }
+      }
+    } else {
+      // the halo of the channels this slice touches, zero outside the
+      // image: eight loads in flight, then their stores
+      const int total = p.nch * plane;
+      int c = c_first, e = e_first;
+      for (int f0 = tid; f0 < total; f0 += 8 * kThreads) {
+        uint16_t v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int g = src_off[e];
+          const bool ok = f0 + j * kThreads < total && g >= 0 &&
+                          c_lo + c < s.Cin;
+          v[j] = ok ? __ldg(xn + (c_lo + c) * chw + g)
+                    : static_cast<uint16_t>(0);
+          c += c_step;
+          e += e_step;
+          if (e >= plane) {
+            e -= plane;
+            ++c;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (f0 + j * kThreads < total) halo[f0 + j * kThreads] = v[j];
+      }
+      if (tid < kBK) {
+        int* koff = reinterpret_cast<int*>(stage + w_bytes + halo_bytes);
+        koff[tid] = (kc - c_lo) * plane + tap_off[kt];
+      }
+      advance(c_lo, t_lo);
+      advance(kc, kt);
+    }
+  };
+
+  // each slice's four products into a fresh accumulator, added to `acc` by
+  // the CUDA cores (the f32 form's two-level sum)
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.0f;
+
+  __syncthreads();                      // src_off, tap_off or the row tables
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < ns) load(s_begin + i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ns; ++i) {
+    cp_async_wait<kStages - 2>();       // this thread's copies of slice i
+    fence_proxy_async();
+    __syncthreads();                    // everyone's; stage i-1 is free
+    if (wg_live) {
+      const int st = i % kStages;
+      const uint8_t* stage = smem + st * p.stage_bytes;
+      const uint16_t* halo = reinterpret_cast<const uint16_t*>(stage + w_bytes);
+      const int* koff =
+          reinterpret_cast<const int*>(stage + w_bytes + halo_bytes);
+      const uint32_t sa = base + st * p.stage_bytes;
+      // A fragments of the slice's four K steps: K 2t, 2t+1 (q = 0) and
+      // 2t+8, 2t+9 (q = 1) of rows g (register 2q) and g+8 (2q+1)
+      uint32_t a[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int k = 16 * kk + 8 * q + 2 * (lane & 3);
+          const int o0 = FW ? k : koff[k];
+          const int o1 = FW ? k + 1 : koff[k + 1];
+          a[kk][2 * q] = pack_bf16(halo[rbase[0] + o0], halo[rbase[0] + o1]);
+          a[kk][2 * q + 1] =
+              pack_bf16(halo[rbase[1] + o0], halo[rbase[1] + o1]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)    // 16 K are 32 bytes, >> 4
+        WgmmaBf16<BN>::mma(part, a[kk], sw128_desc(sa) + 2 * kk, kk > 0);
+      wgmma_commit();
+    }
+    const int nx = i + kStages - 1;
+    if (nx < ns) load(s_begin + nx, nx % kStages);
+    cp_async_commit();
+    if (wg_live) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        fence_operand(part[j]);
+        acc[j] += part[j];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const long long plane_out = static_cast<long long>(s.OH) * s.OW;
+  if (p.cs == 1) {
+    if (!wg_live) return;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int co = co0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+      const int h = (i >> 1) & 1;
+      if (live[h] && co < s.Cout)
+        y[yoff[h] + co * plane_out] = float_to_bf16_bits(
+            activate(acc[i] + bf16_bits_to_float(b[co]), s.act));
+    }
+    return;
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  float* parked = reinterpret_cast<float*>(smem);   // [BN / 2][kThreads]
+  __syncthreads();                                  // the ring is drained
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) parked[i * kThreads + tid] = acc[i];
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    if (i % p.cs != rank) continue;
+    float sum = 0.0f;
+    for (int q = 0; q < p.cs; ++q)
+      sum += cluster.map_shared_rank(parked, q)[i * kThreads + tid];
+    const int co = co0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+    const int h = (i >> 1) & 1;
+    if (live[h] && co < s.Cout)
+      y[yoff[h] + co * plane_out] = float_to_bf16_bits(
+          activate(sum + bf16_bits_to_float(b[co]), s.act));
+  }
+  cluster.sync();   // no block leaves while another reads its shared memory
+}
+
+template <int BN, bool FW>
+cudaError_t launch_bf16(const uint16_t* x, const uint16_t* ws,
+                        const uint16_t* b, uint16_t* y, const Shape& s,
+                        const Plan& p, cudaStream_t stream) {
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !attr_set[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv_wgmma_bf16_kernel<BN, FW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  const long long blocks = static_cast<long long>(p.tiles_n) * p.tiles_h *
+                           p.tiles_w * p.tiles_c * p.cs;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cs > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, conv_wgmma_bf16_kernel<BN, FW>,
+                                       x, ws, b, y, s, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 int device_sms() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
@@ -737,6 +1103,47 @@ int dl4j_conv2d_bias_act_f32(const float* x, const float* w, const float* b,
   else
     err = p.bn == 32 ? launch<32, false>(x, ws, b, y, s, p, st)
                      : launch<64, false>(x, ws, b, y, s, p, st);
+  return static_cast<int>(err);
+}
+
+// The bf16 form: x, w, b and y bf16 (as their bits), the same shapes and
+// padding as dl4j_conv2d_bias_act_f32, f32 accumulation, y rounded once to
+// the nearest bf16.  `ws` is scratch for the reordered weights:
+// roundup(Cout, 64) * roundup(Cin * KH * KW, 64) bf16, 16-byte aligned.
+// Launches the reorder pass and the conv on `stream` and returns
+// cudaGetLastError() (0 on success).
+int dl4j_conv2d_bias_act_bf16(const uint16_t* x, const uint16_t* w,
+                              const uint16_t* b, uint16_t* y, uint16_t* ws,
+                              int N, int Cin, int H, int W, int Cout, int KH,
+                              int KW, int pt, int pl, int OH, int OW, int act,
+                              void* stream) {
+  if (!supported(N, Cin, KH, KW, Cout, OH, OW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  plan(N, Cin, KH, KW, Cout, OH, OW, device_sms(), &p);
+  if (reinterpret_cast<uintptr_t>(ws) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int K = Cin * KH * KW;
+  const int rows = cdiv(Cout, kWRowPad) * kWRowPad;
+  // full width: 8-byte copies of A where every run of four K indices is
+  // four bf16 of one input row, 8-byte aligned
+  const int vec = W % 4 == 0 && pl % 4 == 0 && KW % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  Shape s = {N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, act,
+             p.slices * kBK, static_cast<long long>(rows) * p.slices * kBK,
+             vec};
+  const long long total = s.lo_off;     // the reordered weights' elements
+  reorder_bf16_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                        st>>>(w, ws, Cout, K, s.kpad, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.fw)
+    err = p.bn == 32 ? launch_bf16<32, true>(x, ws, b, y, s, p, st)
+                     : launch_bf16<64, true>(x, ws, b, y, s, p, st);
+  else
+    err = p.bn == 32 ? launch_bf16<32, false>(x, ws, b, y, s, p, st)
+                     : launch_bf16<64, false>(x, ws, b, y, s, p, st);
   return static_cast<int>(err);
 }
 

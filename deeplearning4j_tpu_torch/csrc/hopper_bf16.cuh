@@ -1,0 +1,92 @@
+// PTX wrappers for the bf16 forms of the kernels that multiply on Hopper's
+// tensor cores (sm_90a): bf16 <-> f32 by bits, an 8-byte cp.async, and the
+// wgmma.m64nNk16.f32.bf16.bf16 products with A in registers and B in shared
+// memory.  The copies, fences and the swizzled shared-memory descriptor are
+// hopper_tf32.cuh's: a 16-deep bf16 K step is 32 bytes, the byte depth of an
+// 8-deep tf32 step, so the same 128-byte-swizzle tiles and descriptors serve
+// both.
+//
+// Included by conv_bias_act.cu; ops/cuda_kernels.py hashes this header with
+// each source that includes it.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// A bf16's bits as the f32 of the same value (exact).
+__device__ __forceinline__ float bf16_bits_to_float(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// An f32 rounded to the nearest bf16, ties to even, as its bits.
+__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// 8 bytes, or zeros when src_bytes is 0 (nothing is read then); src and the
+// shared-memory destination 8-byte aligned.
+__device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src,
+                                                int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// D[64 x BN] = A[64 x 16] (bf16, registers) * B[16 x BN] (bf16, shared
+// memory, K-major, described by desc_b) + (scale_d ? D : 0), f32 D.  A's
+// fragment, two bf16 a register (the lower K in the low half): a[0] (row g,
+// K 2t, 2t+1), a[1] (row g+8, K 2t, 2t+1), a[2] (row g, K 2t+8, 2t+9), a[3]
+// (row g+8, K 2t+8, 2t+9), with g = lane/4 + 16*warp-in-warpgroup, t =
+// lane%4.  D's element i: row g + 8 * ((i / 2) % 2), column 8 (i / 4) + 2 t
+// + i % 2, as for the tf32 products.  The three immediates after the
+// predicate: A and B not negated, B not transposed (K-major).
+template <int BN>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+}  // namespace

@@ -13,8 +13,10 @@ checkpoint under a checkpoint's name.  Each save also rewrites
 ``checkpoint_manifest.json`` (the same protocol) with, per checkpoint,
 the iteration, the completed epochs and how many batches into the next
 epoch the save landed, the keys of the JAX package's manifest; its
-``sharding``, ``dist`` and ``precision`` are null, as the JAX package
-writes them for a model that is not sharded, not distributed and f32.
+``sharding`` and ``dist`` are null, as the JAX package writes them for a
+model that is not sharded and not distributed, and ``precision`` is the
+JAX package's ``_precision_meta`` (:143-165): null for f32, else the
+compute dtype and the quantization knobs of the configuration.
 A checkpoint either package writes validates and restores in the other.
 
 ``resume_from_checkpoint`` loads the newest checkpoint that validates
@@ -184,9 +186,9 @@ class CheckpointListener(TrainingListener):
                 "iteration_in_epoch": iteration_in_epoch,
                 "timestamp": int(time.time() * 1000),
                 "model_class": type(model).__name__,
-                # a model of the port is neither sharded, nor distributed,
-                # nor below f32
-                "sharding": None, "dist": None, "precision": None}
+                # a model of the port is neither sharded nor distributed
+                "sharding": None, "dist": None,
+                "precision": precision_meta(model)}
         self._update_manifest(meta)
         # the single-entry index older readers take
         _atomic_write_text(self.dir / INDEX_NAME, json.dumps(meta))
@@ -226,6 +228,23 @@ class CheckpointListener(TrainingListener):
     def last_checkpoint(directory) -> Optional[Path]:
         ckpts = CheckpointListener.checkpoints(directory)
         return ckpts[-1] if ckpts else None
+
+
+def precision_meta(model) -> Optional[dict]:
+    """The precision tiers of the configuration at save time, as the JAX
+    package's ``_precision_meta`` writes them: None when everything is
+    f32, else ``{"compute": <dtype name>, "infer_quant": ..., "grad_quant":
+    ...}``.  The coefficients in the zip are always the f32 masters, so a
+    checkpoint restores under any tier."""
+    from deeplearning4j_tpu_torch.ops import dtypes as dtype_ops
+    g = model.conf.global_conf
+    tiers = {"compute": dtype_ops.policy_name(model._policy()),
+             "infer_quant": g.precision_infer_quant,
+             "grad_quant": g.dist_grad_quant}
+    if tiers["compute"] == "float32" and not tiers["infer_quant"] \
+            and not tiers["grad_quant"]:
+        return None
+    return tiers
 
 
 def read_manifest(directory) -> List[dict]:

@@ -4,9 +4,10 @@ The ``NeuralNetConfiguration.builder() … .list() … .build()`` DSL, with
 the global-then-per-layer merge, nIn inference and preprocessor insertion
 from ``InputType``, and ``MultiLayerConfiguration.to_json`` /
 ``from_json``.  The JSON is the JAX package's: a configuration written by
-either package builds the same network in the other.  Global fields this
-port does not act on yet (training, precision, sharding, distribution)
-are kept and written back, not dropped.
+either package builds the same network in the other.  ``precision`` is
+acted on (``ops/dtypes.py``: bf16 compute over f32 masters); the global
+fields this port does not act on yet (quantized serving and gradients,
+sharding, distribution) are kept and written back, not dropped.
 """
 
 from __future__ import annotations
@@ -169,7 +170,8 @@ class NeuralNetConfiguration:
 
 class Builder:
     """Fluent setters of the global hyperparameters; the names follow
-    the JAX package's builder.  Its precision tiers, sharding and
+    the JAX package's builder.  Of its precision tiers the compute policy
+    is acted on, the quantization knobs are stored; its sharding and
     distribution knobs, and the reader retries of its fault tolerance,
     are not ported yet."""
 
@@ -245,6 +247,28 @@ class Builder:
     def gradient_normalization(self, mode: str, threshold: float = 1.0):
         self._g.gradient_normalization = mode
         self._g.gradient_normalization_threshold = float(threshold)
+        return self
+
+    _UNSET = object()
+
+    def precision(self, p=_UNSET, *, compute: Optional[str] = None,
+                  infer_quant=_UNSET, grad_allreduce=_UNSET):
+        """Precision tiers, as the JAX package's builder (:316-336).
+        ``compute`` (or the positional ``p``): the compute policy of both
+        engines (``ops/dtypes.py``) — 'bfloat16' (bf16 activations and
+        conv / matmul inputs, f32 accumulation, f32 master params and
+        updater state), 'float32', 'float64', or None / 'auto' (float32
+        on this port's devices).  ``infer_quant`` ('int8' | 'fp8') and
+        ``grad_allreduce`` ('int8') are stored and written to the
+        configuration, not acted on yet (ROADMAP A6.6)."""
+        if compute is not None:
+            self._g.precision = compute
+        elif p is not Builder._UNSET:
+            self._g.precision = p
+        if infer_quant is not Builder._UNSET:
+            self._g.precision_infer_quant = infer_quant
+        if grad_allreduce is not Builder._UNSET:
+            self._g.dist_grad_quant = grad_allreduce
         return self
 
     def input_pipeline(self, workers: Optional[int] = None,

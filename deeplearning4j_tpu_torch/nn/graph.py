@@ -23,6 +23,13 @@ passes it.  ``fit`` wraps an iterator in ``AsyncMultiDataSetIterator`` as
 device as the step takes it.  Updater state is made at the first
 training step or restore, so a graph that only serves holds none.
 
+The configuration's ``precision`` (``ops/dtypes.py``) is applied where the
+JAX package applies it (:245-266, :819-841, :967-983, :1096-1099), as in
+``MultiLayerNetwork``: params and inputs cast to the compute dtype inside
+the differentiated step, the loss heads' pre-activations to the
+accumulation dtype, new states and outputs back to the param dtype; the
+vertices keep the dtype they are given.
+
 Listeners, crash-safe resume and the engine methods (``feed_forward``,
 ``clone``, ``summary``, ``param_table`` / ``get_param`` / ``set_param``)
 are ``MultiLayerNetwork``'s.  A vertex whose layer is a
@@ -63,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     BIAS_KEYS, WEIGHT_KEYS, _clone, _detach, _tree_fill, _tree_leaves,
     _updater_for, fit_epochs, render_table)
 from deeplearning4j_tpu_torch.ops import bucketing
+from deeplearning4j_tpu_torch.ops import dtypes as dtype_ops
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
 
@@ -81,6 +89,7 @@ class ComputationGraph:
         self.net_params: Optional[Dict[str, dict]] = None
         self.net_state: Dict[str, dict] = {n: {} for n in self.order}
         self.opt_states: Optional[Dict[str, object]] = None
+        self._resolved = dtype_ops.Resolved()
         vertices = conf.vertices
         self.updaters = {
             n: (_updater_for(vertices[n].layer_conf())
@@ -321,17 +330,24 @@ class ComputationGraph:
         return score + self._reg_penalty(params)
 
     # ------------------------------------------------------------------
+    def _policy(self) -> dtype_ops.Policy:
+        return self._resolved(self.conf.global_conf.precision)
+
     def output(self, *inputs):
         """The network outputs for a batch (one array or tensor per
         network input), as a tuple of tensors on the graph's device, one
-        per network output; no stored RNN state is used."""
+        per network output; no stored RNN state is used.  Under a mixed
+        policy they come back in the param dtype (float32)."""
         if self.net_params is None:
             self.init()
+        policy = self._policy()
         with torch.inference_mode():
+            pc, xs = policy.cast_to_compute((self.net_params,
+                                             self._inputs(inputs)))
             outs, _, _, _ = self._forward_all(
-                self.net_params, _strip_rnn(self.net_state),
-                self._inputs(inputs), {}, False)
-        return tuple(outs[n] for n in self.conf.network_outputs)
+                pc, _strip_rnn(self.net_state), xs, {}, False)
+        return tuple(policy.cast_to_param(outs[n])
+                     for n in self.conf.network_outputs)
 
     def warmup_inference(self, feature_dims, max_batch: int = 32,
                          batch_sizes=None) -> dict:
@@ -470,15 +486,22 @@ class ComputationGraph:
         for a frozen vertex, whose forward then records no backward); the
         vertices' new states (detached) replace ``net_state``, as the JAX
         step returns them."""
+        policy = self._policy()
         params = {n: {k: v.detach().requires_grad_(not self.frozen[n])
                       for k, v in lp.items()}
                   for n, lp in self.net_params.items()}
         masks = (dict(zip(self.conf.network_inputs, fmasks))
                  if fmasks is not None else {})
+        xs, masks = policy.cast_to_compute((xs, masks))
         with torch.enable_grad():
+            # the cast inside the differentiated function: f32 gradients
+            # of the f32 masters
             _, preouts, new_states, out_masks = self._forward_all(
-                params, self.net_state, xs, masks, True, seeds,
-                preout_for=list(self.output_layers))
+                policy.cast_to_compute(params), self.net_state, xs, masks,
+                True, seeds, preout_for=list(self.output_layers))
+            preouts = {n: policy.cast_to_accum(v)
+                       for n, v in preouts.items()}
+            new_states = policy.cast_to_param(new_states)
             score = self._score_of(params, preouts, out_masks, ys, lmasks)
             if not self.conf.global_conf.minimize:
                 score = -score
@@ -525,15 +548,18 @@ class ComputationGraph:
 
     # ---- scores and evaluation ----
     def _inference_preouts(self, mds: MultiDataSet):
+        policy = self._policy()
         with torch.inference_mode():
             fm = self._masks(mds.features_masks)
             masks = (dict(zip(self.conf.network_inputs, fm))
                      if fm is not None else {})
+            pc, xs, masks = policy.cast_to_compute(
+                (self.net_params, self._inputs(mds.features), masks))
             _, preouts, _, out_masks = self._forward_all(
-                self.net_params, _strip_rnn(self.net_state),
-                self._inputs(mds.features), masks, False,
+                pc, _strip_rnn(self.net_state), xs, masks, False,
                 preout_for=list(self.output_layers))
-        return preouts, out_masks
+        return ({n: policy.cast_to_accum(v) for n, v in preouts.items()},
+                out_masks)
 
     def score(self, data=None) -> float:
         """The loss of a DataSet or MultiDataSet (inference forward, l1/l2
@@ -676,13 +702,15 @@ class ComputationGraph:
         generator) without keeping its new states."""
         if self.net_params is None:
             self.init()
+        policy = self._policy()
         with torch.inference_mode():
+            pc, xs = policy.cast_to_compute((self.net_params,
+                                             self._inputs(inputs)))
             acts, _, _, _ = self._forward_all(
-                self.net_params, _strip_rnn(self.net_state),
-                self._inputs(inputs), {}, train,
+                pc, _strip_rnn(self.net_state), xs, {}, train,
                 self._draw_seeds().tolist() if train else None,
                 keep_all=True)
-        return acts
+        return policy.cast_to_param(acts)
 
     def summary(self) -> str:
         """Printable vertex table in topological order: name, vertex type,

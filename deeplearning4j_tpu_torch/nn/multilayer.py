@@ -32,6 +32,17 @@ from call to call; a standard step drops it afterwards.
 ``evaluate`` fills an ``nn/evaluation.Evaluation`` from ``output``;
 ``score_examples`` gives the loss of every example.
 
+The configuration's ``precision`` (``ops/dtypes.py``) is applied where the
+JAX package applies it (:334-350, :430-467, :1214-1233): a training step
+casts the params and inputs to the compute dtype inside the
+differentiated function, so autograd through the cast gives float32
+gradients of the float32 masters; the output layer's pre-activation goes
+to the accumulation dtype before the loss, and the layers' new states
+back to the param dtype.  ``output``, ``score``, ``score_examples``,
+``rnn_time_step`` and ``feed_forward`` cast their params and inputs the
+same way, and ``output`` returns float32.  Master params, updater state
+and batch norm's running statistics stay float32.
+
 Listeners (``nn/listeners.py``, ``set_listeners`` / ``add_listener``) are
 called after every step and, for a ``TrainingListener``, around every
 epoch of ``fit``, as the JAX package calls them; a network without
@@ -71,6 +82,7 @@ from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.listeners import (
     IterationListener, TrainingListener)
 from deeplearning4j_tpu_torch.ops import bucketing
+from deeplearning4j_tpu_torch.ops import dtypes as dtype_ops
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
@@ -214,6 +226,7 @@ class MultiLayerNetwork:
         # network that only serves holds none
         self.opt_states: Optional[List] = None
         self.updaters = [_updater_for(l) for l in self.layers]
+        self._resolved = dtype_ops.Resolved()
         self.frozen = [isinstance(l, FrozenLayerConf) for l in self.layers]
         self.iteration = 0
         self.epoch = 0
@@ -333,15 +346,22 @@ class MultiLayerNetwork:
                                                         seed), x),
                 new_states, mask)
 
+    def _policy(self) -> dtype_ops.Policy:
+        return self._resolved(self.conf.global_conf.precision)
+
     def output(self, x, mask=None) -> torch.Tensor:
         """Network output for a batch (numpy array or tensor), as a tensor
-        on the network's device; no stored RNN state is used."""
+        on the network's device; no stored RNN state is used.  Under a
+        mixed policy the forward runs in the compute dtype and the output
+        comes back in the param dtype (float32)."""
         if self.net_params is None:
             self.init()
+        policy = self._policy()
         with torch.inference_mode():
-            out, _, _ = self._forward(self.net_params, self.net_state,
-                                      self._as_input(x), self._as_mask(mask))
-            return out
+            pc, xc, mc = policy.cast_to_compute(
+                (self.net_params, self._as_input(x), self._as_mask(mask)))
+            out, _, _ = self._forward(pc, self.net_state, xc, mc)
+            return policy.cast_to_param(out)
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions."""
@@ -502,13 +522,20 @@ class MultiLayerNetwork:
         truncated BPTT) and the layers' new states, detached, replace it,
         as the JAX step returns them."""
         g = self.conf.global_conf
+        policy = self._policy()
         params = [{k: v.detach().requires_grad_(not self.frozen[i])
                    for k, v in lp.items()}
                   for i, lp in enumerate(self.net_params)]
+        x, fmask = policy.cast_to_compute((x, fmask))
         with torch.enable_grad():
+            # the cast inside the differentiated function: the gradients
+            # of the f32 masters come back in f32
             preout, new_states, m = self._forward_to_preout(
-                params, self.net_state, x, fmask, True, seeds,
+                policy.cast_to_compute(params), self.net_state, x, fmask,
+                True, seeds,
                 stateful_rnn=self.conf.backprop_type == "truncatedbptt")
+            preout = policy.cast_to_accum(preout)
+            new_states = policy.cast_to_param(new_states)
             lm = lmask if lmask is not None else (
                 m if m is not None and m.ndim == preout.ndim - 1 else None)
             per_ex = self.layers[-1].compute_score(y, preout, lm)
@@ -581,10 +608,8 @@ class MultiLayerNetwork:
             return float(self._score)
         g = self.conf.global_conf
         with torch.inference_mode():
-            preout, _, m = self._forward_to_preout(
-                self.net_params, self.net_state,
-                self._as_input(dataset.features),
-                self._as_mask(dataset.features_mask), False)
+            preout, _, m = self._inference_preout(
+                dataset.features, dataset.features_mask)
             lm = (self._as_mask(dataset.labels_mask)
                   if dataset.labels_mask is not None else
                   m if m is not None and m.ndim == preout.ndim - 1 else None)
@@ -607,10 +632,8 @@ class MultiLayerNetwork:
         out = []
         with torch.inference_mode():
             for ds in batches:
-                preout, _, m = self._forward_to_preout(
-                    self.net_params, self.net_state,
-                    self._as_input(ds.features),
-                    self._as_mask(ds.features_mask), False)
+                preout, _, m = self._inference_preout(ds.features,
+                                                      ds.features_mask)
                 lm = (self._as_mask(ds.labels_mask)
                       if ds.labels_mask is not None else
                       m if m is not None and m.ndim == preout.ndim - 1
@@ -621,6 +644,18 @@ class MultiLayerNetwork:
                     per = per + self._reg_penalty(self.net_params)
                 out.append(per.cpu().numpy())
         return np.concatenate(out)
+
+    def _inference_preout(self, features, features_mask):
+        """The inference forward to the output layer's pre-activation,
+        under the precision policy -> (preout in the accumulation dtype,
+        new states, mask)."""
+        policy = self._policy()
+        pc, xc, mc = policy.cast_to_compute(
+            (self.net_params, self._as_input(features),
+             self._as_mask(features_mask)))
+        preout, states, m = self._forward_to_preout(pc, self.net_state, xc,
+                                                    mc, False)
+        return policy.cast_to_accum(preout), states, m
 
     def evaluate(self, iterator_or_dataset) -> Evaluation:
         """Classification evaluation (ref: MultiLayerNetwork.evaluate):
@@ -648,12 +683,17 @@ class MultiLayerNetwork:
         decodes against its KV ring (the JAX package's ``_rnn_step_raw``)."""
         if self.net_params is None:
             self.init()
+        policy = self._policy()
+        # the carries take the compute dtype; batch norm's statistics stay
+        state = [{k: policy.cast_to_compute(v) if k == "rnn_state" else v
+                  for k, v in s.items()} for s in self.net_state]
         with torch.no_grad(), seq_ops.kv_decode_scope():
-            out, new_states, _ = self._forward(
-                self.net_params, self.net_state, self._as_input(x),
-                self._as_mask(mask), stateful_rnn=True)
-        self._merge_rnn_state(new_states)
-        return out
+            pc, xc, mc = policy.cast_to_compute(
+                (self.net_params, self._as_input(x), self._as_mask(mask)))
+            out, new_states, _ = self._forward(pc, state, xc, mc,
+                                               stateful_rnn=True)
+        self._merge_rnn_state(policy.cast_to_param(new_states))
+        return policy.cast_to_param(out)
 
     def _merge_rnn_state(self, new_states) -> None:
         """Keep the layers' new ``rnn_state`` and nothing else of their
@@ -747,13 +787,15 @@ class MultiLayerNetwork:
         without keeping its new states."""
         if self.net_params is None:
             self.init()
+        policy = self._policy()
         acts: List[torch.Tensor] = []
         with torch.inference_mode():
-            self._forward(self.net_params, self.net_state,
-                          self._as_input(x), self._as_mask(mask), train,
+            pc, xc, mc = policy.cast_to_compute(
+                (self.net_params, self._as_input(x), self._as_mask(mask)))
+            self._forward(pc, self.net_state, xc, mc, train,
                           self._draw_seeds().tolist() if train else None,
                           acts=acts)
-        return acts
+        return policy.cast_to_param(acts)
 
     def summary(self) -> str:
         """Printable layer table: index, type, param shapes, param count

@@ -366,11 +366,14 @@ class TransferLearningHelper:
         net = self.full
         if net.net_params is None:
             net.init()
+        policy = net._policy()
         with torch.inference_mode():
-            feat, _, _ = net._forward(
-                net.net_params, net.net_state, net._as_input(dataset.features),
-                net._as_mask(dataset.features_mask),
-                stop=self.frozen_until + 1)
+            pc, xc, mc = policy.cast_to_compute(
+                (net.net_params, net._as_input(dataset.features),
+                 net._as_mask(dataset.features_mask)))
+            feat, _, _ = net._forward(pc, net.net_state, xc, mc,
+                                      stop=self.frozen_until + 1)
+            feat = policy.cast_to_param(feat)
         return DataSet(feat, dataset.labels, dataset.features_mask,
                        dataset.labels_mask)
 

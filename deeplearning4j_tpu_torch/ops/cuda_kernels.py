@@ -15,7 +15,13 @@ padded input (OW == 1: a text CNN's h x D over word vectors) takes the
 kernel's full-width route, a plain GEMM whose A tiles are copied straight
 from x, with the same products and epilogue.  Its backward recomputes
 through the plain conv and differentiates that, as ``_conv_vjp_bwd``
-(:639) does, with TF32 off for those convs.
+(:639) does, with TF32 off for those convs.  Its bf16 form, for bf16 x, w
+and b (the TPU kernel takes both types), multiplies on the tensor cores in
+bf16 with f32 accumulation (``wgmma...f32.bf16.bf16``, one product where
+f32 takes three) and stores y once, rounded to bf16; its backward
+recomputes from the bf16 inputs upcast to f32 and rounds the gradients to
+bf16, as JAX's ``_conv_ref_nhwc`` (:620) does through its f32 conv and the
+cast back.
 
 ``fused_softmax_xent`` (``csrc/softmax_xent.cu``) replaces
 ``_softmax_xent_kernel`` (:466, launched by ``fused_softmax_xent`` :500):
@@ -31,8 +37,10 @@ the saved gradient, as ``_sxr_bwd`` (:535) does.
 inverted dropout whose mask is a counter-hash threshold test, so the
 backward is the same kernel on the gradient with the same seed words and
 no mask is stored.  Kernel and plain version are bit-identical to the
-JAX ``threshold_dropout_reference`` (:907).  Both xent and dropout are
-bound by bytes.
+JAX ``threshold_dropout_reference`` (:907).  Its bf16 form keeps the f32
+form's masks and scales in f32 before one rounding to bf16, as
+``_threshold_dropout_math`` (:811) does.  Both xent and dropout are bound
+by bytes.
 
 ``fused_lstm_step`` (``csrc/lstm_step.cu``) replaces ``_lstm_step_kernel``
 (:703, launched by ``_lstm_forward`` :730 through ``fused_lstm_step``
@@ -69,7 +77,10 @@ Rules every kernel here keeps:
   integer attribute (``fused_conv2d_bias_act.launches``,
   ``fused_softmax_xent.launches``, ``fused_threshold_dropout.launches``,
   ``fused_lstm_step.launches``, ``flash_forward.launches``,
-  ``flash_dq.launches``, ``flash_dkv.launches``), and nowhere else.
+  ``flash_dq.launches``, ``flash_dkv.launches``), and nowhere else; a bf16
+  form has a count of its own (``fused_conv2d_bias_act.bf16.launches``,
+  ``fused_threshold_dropout.bf16.launches``), and the f32 counts hold f32
+  launches only.
 """
 
 from __future__ import annotations
@@ -203,6 +214,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 CONV_LIBRARY = KernelLibrary(
     CSRC / "conv_bias_act.cu",
     {"dl4j_conv2d_bias_act_f32": ([_P] * 5 + [_I] * 12 + [_P], _I),
+     "dl4j_conv2d_bias_act_bf16": ([_P] * 5 + [_I] * 12 + [_P], _I),
      "dl4j_conv2d_plan": ([_I] * 8 + [_P], _I)})
 XENT_LIBRARY = KernelLibrary(
     CSRC / "softmax_xent.cu",
@@ -212,6 +224,8 @@ XENT_LIBRARY = KernelLibrary(
 DROPOUT_LIBRARY = KernelLibrary(
     CSRC / "threshold_dropout.cu",
     {"dl4j_threshold_dropout_f32": (
+        [_P, _P, _U, _U, _U, _U, ctypes.c_float, _P], _I),
+     "dl4j_threshold_dropout_bf16": (
         [_P, _P, _U, _U, _U, _U, ctypes.c_float, _P], _I)})
 LSTM_LIBRARY = KernelLibrary(
     CSRC / "lstm_step.cu",
@@ -233,10 +247,11 @@ def build_libraries() -> None:
         list(pool.map(KernelLibrary.get, LIBRARIES))
 
 
-def sass_hgmma_counts(library: KernelLibrary) -> dict:
+def sass_hgmma_counts(library: KernelLibrary, operand: str = "") -> dict:
     """HGMMA (wgmma) instructions in each kernel function of ``library``'s
-    SASS, counted in ``cuobjdump -sass``'s listing: {mangled name: count}.
-    Builds the library."""
+    SASS, counted in ``cuobjdump -sass``'s listing: {mangled name: count};
+    with ``operand`` (``"BF16"``, ``"TF32"``) only those whose line names
+    it.  Builds the library."""
     library.get()
     sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
                            str(library.path())], capture_output=True,
@@ -247,7 +262,7 @@ def sass_hgmma_counts(library: KernelLibrary) -> dict:
         if head:
             function = head.group(1)
             counts[function] = 0
-        elif function is not None and "HGMMA" in line:
+        elif function is not None and "HGMMA" in line and operand in line:
             counts[function] += 1
     return counts
 
@@ -262,6 +277,19 @@ def _count(fn) -> None:
 
 
 _launch_lock = threading.Lock()
+
+
+class LaunchCount:
+    """The launch count of a kernel form that shares its wrapper with
+    another (a bf16 form): ``launches``, a plain integer."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# The dtypes the conv and dropout kernels take: each has an f32 and a bf16
+# form, as the TPU kernels take both.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -301,16 +329,23 @@ def conv_plan(N, Cin, KH, KW, Cout, OH, OW, sms: int):
 def conv_split_floats(Cout: int, Cin: int, KH: int, KW: int) -> int:
     """Floats of the scratch that holds the split weights, w_hi and w_lo,
     each [Cout padded to 64][Cin*KH*KW padded to a K slice, 64]."""
-    return 2 * _cdiv(Cout, _CONV_W_ROW_PAD) * _CONV_W_ROW_PAD * \
+    return 2 * conv_reordered_elements(Cout, Cin, KH, KW)
+
+
+def conv_reordered_elements(Cout: int, Cin: int, KH: int, KW: int) -> int:
+    """Elements of the bf16 form's reordered weights, [Cout padded to
+    64][Cin*KH*KW padded to a K slice, 64]."""
+    return _cdiv(Cout, _CONV_W_ROW_PAD) * _CONV_W_ROW_PAD * \
         _cdiv(Cin * KH * KW, _CONV_BK) * _CONV_BK
 
 
 def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
                          dilation=(1, 1), activation: str = "identity",
                          pad=(0, 0), border_mode: str = "truncate") -> bool:
-    """Support predicate of the conv kernel: stride 1, dilation 1, f32,
-    one of :data:`CONV_FUSED_ACTS`, and the closed-form limits of
-    ``supported()`` in csrc/conv_bias_act.cu, for either route.  The halo
+    """Support predicate of the conv kernel: stride 1, dilation 1, f32 or
+    bf16 (the two forms), one of :data:`CONV_FUSED_ACTS`, and the
+    closed-form limits of ``supported()`` in csrc/conv_bias_act.cu, for
+    either route.  The halo
     route: KH and KW at most 7, K = Cin*KH*KW at most 2^30, a halo offset
     from a tile's first image that fits an int, and a grid of at most
     2^31 - 1 blocks.  The full-width route, for a filter as wide as the
@@ -318,15 +353,14 @@ def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
     most 2^30, Cin*(OH+KH-1)*KW (which bounds an offset in an image) and
     N*OH within an int, and the grid within 2^31 - 1.  Unlike the TPU gate
     it has no per-image budget: the kernel tiles the output, so VGG16 at
-    224x224 (a 226x226x64 padded input) is accepted.  Unlike the TPU gate
-    it takes f32 only, not bf16."""
+    224x224 (a 226x226x64 padded input) is accepted."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     if tuple(stride) != (1, 1) or tuple(dilation) != (1, 1):
         return False
     if (activation or "identity").lower() not in CONV_FUSED_ACTS:
         return False
-    if dtype != torch.float32:
+    if dtype not in KERNEL_DTYPES:
         return False
     N, Cin, H, W = (int(d) for d in x_shape)
     Cout, Cin_w, KH, KW = (int(d) for d in w_shape)
@@ -369,7 +403,14 @@ def conv2d_bias_act_reference(x, w, b, pad=(0, 0),
                               activation: str = "identity"):
     """The plain PyTorch version: ``F.conv2d`` on the padded input, +
     bias, + activation.  The CPU path of the wrapper, and the yardstick
-    of correctness for the kernel on the card."""
+    of correctness for the kernel on the card.  bf16 x, w and b are
+    upcast to f32, the whole function runs in f32 and the result is
+    rounded once to bf16, the semantics of the TPU kernel's bf16 form
+    (:577-597); under autograd the gradients come back in bf16."""
+    if x.dtype == torch.bfloat16:
+        return conv2d_bias_act_reference(
+            x.float(), w.float(), b.float(), pad, border_mode,
+            activation).to(torch.bfloat16)
     KH, KW = w.shape[2], w.shape[3]
     (pt, pb), (pl_, pr) = conv_pads(KH, KW, pad, border_mode)
     y = F.conv2d(F.pad(x, (pl_, pr, pt, pb)), w)
@@ -392,14 +433,18 @@ def full_f32_convs():
 
 
 def _launch_conv(x, w, b, pad, border_mode, act):
-    """One launch of the conv kernel on CUDA tensors x, w, b."""
+    """One launch of the conv kernel on CUDA tensors x, w, b: the f32 form
+    for float32, the bf16 form for bfloat16."""
     if not (x.is_cuda and w.is_cuda and b.is_cuda):
         raise ValueError(f"conv kernel needs CUDA tensors, got x on "
                          f"{x.device}, w on {w.device}, b on {b.device}")
     if not (w.device == x.device == b.device):
         raise ValueError("x, w and b must be on one device")
-    if w.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError("conv kernel takes float32 x, w and b")
+    if x.dtype not in KERNEL_DTYPES or w.dtype != x.dtype or \
+            b.dtype != x.dtype:
+        raise ValueError(f"conv kernel takes x, w and b of one dtype, "
+                         f"float32 or bfloat16; got x {x.dtype}, w "
+                         f"{w.dtype}, b {b.dtype}")
     if b.shape != (w.shape[0],):
         raise ValueError(f"bias shape {tuple(b.shape)} != ({w.shape[0]},)")
     lib = CONV_LIBRARY.get()
@@ -408,22 +453,30 @@ def _launch_conv(x, w, b, pad, border_mode, act):
     Cout, _, KH, KW = w.shape
     (pt, pb), (pl_, pr) = conv_pads(KH, KW, pad, border_mode)
     OH, OW = H + pt + pb - KH + 1, W + pl_ + pr - KW + 1
-    y = torch.empty((N, Cout, OH, OW), dtype=torch.float32, device=x.device)
-    ws = torch.empty((conv_split_floats(Cout, Cin, KH, KW),),
-                     dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    y = torch.empty((N, Cout, OH, OW), dtype=x.dtype, device=x.device)
+    if bf16:
+        ws = torch.empty((conv_reordered_elements(Cout, Cin, KH, KW),),
+                         dtype=torch.bfloat16, device=x.device)
+        launch = lib.dl4j_conv2d_bias_act_bf16
+    else:
+        ws = torch.empty((conv_split_floats(Cout, Cin, KH, KW),),
+                         dtype=torch.float32, device=x.device)
+        launch = lib.dl4j_conv2d_bias_act_f32
     # the library plans and launches on the current device: switch to x's
     # only when it is another (a small share of a small conv's host time)
     with (contextlib.nullcontext()
           if x.device.index == torch.cuda.current_device()
           else torch.cuda.device(x.device)):
-        err = lib.dl4j_conv2d_bias_act_f32(
+        err = launch(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             ws.data_ptr(), N, Cin, H, W, Cout, KH, KW, pt, pl_, OH, OW,
             _CONV_ACT_IDS[act], _stream(x))
     if err != 0:
         raise RuntimeError(f"conv kernel launch failed: CUDA error {err} "
-                           f"for x{tuple(x.shape)} w{tuple(w.shape)}")
-    _count(fused_conv2d_bias_act)
+                           f"for x{tuple(x.shape)} w{tuple(w.shape)} "
+                           f"{x.dtype}")
+    _count(fused_conv2d_bias_act.bf16 if bf16 else fused_conv2d_bias_act)
     return y
 
 
@@ -432,9 +485,11 @@ class _ConvBiasAct(torch.autograd.Function):
     conv + bias + activation and differentiate that — one extra conv
     buys gradients that are exactly the dense path's, as the JAX
     package's ``_conv_vjp_bwd`` does (it has no Pallas backward either).
-    Those convs run in full f32 (:func:`full_f32_convs`).  ``backwards``
-    counts the backward calls (a frozen conv, whose inputs take no
-    gradient, makes none)."""
+    Those convs run in full f32 (:func:`full_f32_convs`); for the bf16
+    form they run on the bf16 inputs upcast to f32, and the gradients come
+    back rounded to bf16, the dtypes of the inputs.  ``backwards`` counts
+    the backward calls (a frozen conv, whose inputs take no gradient,
+    makes none)."""
 
     backwards = 0
 
@@ -481,6 +536,7 @@ def fused_conv2d_bias_act(x, w, b, stride=(1, 1), pad=(0, 0),
 
 
 fused_conv2d_bias_act.launches = 0
+fused_conv2d_bias_act.bf16 = LaunchCount()
 
 
 # ---------------------------------------------------------------------------
@@ -596,11 +652,11 @@ DROPOUT_MIN_ELEMENTS = 1 << 12
 
 
 def dropout_fused_supported(shape, dtype) -> bool:
-    """Support predicate of the dropout tier, the JAX gate (:919) for f32:
-    at least 4,096 elements, so that skipping the mask tensor beats the
-    launch; fewer than 2^32, the range of the kernel's uint32 element
+    """Support predicate of the dropout tier, the JAX gate (:919): f32 or
+    bf16, at least 4,096 elements, so that skipping the mask tensor beats
+    the launch; fewer than 2^32, the range of the kernel's uint32 element
     ids."""
-    if dtype != torch.float32:
+    if dtype not in KERNEL_DTYPES:
         return False
     n = 1
     for d in shape:
@@ -647,13 +703,17 @@ def mix32(idx, s0: int, s1: int):
 
 def threshold_dropout_reference(x, rate: float, seed):
     """The plain version: the kernel's mask and scaling from the C-order
-    element ids of x, bit-identical to the kernel."""
+    element ids of x, bit-identical to the kernel.  A bf16 x is scaled in
+    f32 and rounded once to bf16, with the f32 form's mask."""
     if rate >= 1.0 or rate <= 0.0:
         return x
     s0, s1 = dropout_seed_words(seed)
     idx = torch.arange(x.numel(), dtype=torch.int64,
                        device=x.device).reshape(x.shape)
     keep = (mix32(idx, s0, s1) >> 8) < dropout_threshold(rate)
+    if x.dtype == torch.bfloat16:
+        return torch.where(keep, x.float() * dropout_scale(rate),
+                           0.0).to(torch.bfloat16)
     # a float32 tensor times a Python float multiplies in float32, and the
     # scale is a float32 value: the same one rounding as the kernel's
     return torch.where(keep, x * dropout_scale(rate), 0.0)
@@ -664,24 +724,28 @@ def _threshold_dropout(x, rate: float, seed):
     tensor, one kernel launch for any other."""
     if x.device.type == "cpu":
         return threshold_dropout_reference(x, rate, seed)
-    if not x.is_cuda or x.dtype != torch.float32 or x.numel() >= 2 ** 32:
-        raise ValueError(f"dropout kernel takes a CUDA float32 tensor of "
-                         f"fewer than 2^32 elements, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
+    if not x.is_cuda or x.dtype not in KERNEL_DTYPES or \
+            x.numel() >= 2 ** 32:
+        raise ValueError(f"dropout kernel takes a CUDA float32 or bfloat16 "
+                         f"tensor of fewer than 2^32 elements, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    bf16 = x.dtype == torch.bfloat16
     lib = DROPOUT_LIBRARY.get()
     x = x.detach().contiguous()
     if x.data_ptr() % 16:
         x = x.clone()            # the kernel moves 16 bytes per access
     y = torch.empty_like(x)
     s0, s1 = dropout_seed_words(seed)
+    launch = (lib.dl4j_threshold_dropout_bf16 if bf16
+              else lib.dl4j_threshold_dropout_f32)
     with torch.cuda.device(x.device):
-        err = lib.dl4j_threshold_dropout_f32(
+        err = launch(
             x.data_ptr(), y.data_ptr(), x.numel(), s0, s1,
             dropout_threshold(rate), dropout_scale(rate), _stream(x))
     if err != 0:
         raise RuntimeError(f"dropout kernel launch failed: CUDA error {err} "
-                           f"for x{tuple(x.shape)}")
-    _count(fused_threshold_dropout)
+                           f"for x{tuple(x.shape)} {x.dtype}")
+    _count(fused_threshold_dropout.bf16 if bf16 else fused_threshold_dropout)
     return y
 
 
@@ -709,6 +773,7 @@ def fused_threshold_dropout(x, rate: float, seed):
 
 
 fused_threshold_dropout.launches = 0
+fused_threshold_dropout.bf16 = LaunchCount()
 
 
 # ---------------------------------------------------------------------------

@@ -114,11 +114,15 @@ def drop_connect(w, rate: float, seed):
     return torch.where(keep.bool(), w / rate, torch.zeros_like(w))
 
 
-def softmax_xent_wanted(n_rows: int, vocab: int) -> bool:
+def softmax_xent_wanted(n_rows: int, vocab: int,
+                        dtype=torch.float32) -> bool:
     """Decision for ``ops/losses.mcxent`` (shape and mask legality are the
     caller's check): the fused loss for vocab >= 128 and
-    rows * vocab >= 65,536."""
-    ok = vocab >= XENT_MIN_VOCAB and n_rows * vocab >= XENT_MIN_ELEMENTS
+    rows * vocab >= 65,536, in a dtype the kernel takes (f32: the
+    precision policy casts a bf16 pre-activation to f32 before the loss;
+    the f64 policy of gradient checks takes the dense form)."""
+    ok = vocab >= XENT_MIN_VOCAB and n_rows * vocab >= XENT_MIN_ELEMENTS \
+        and ck.softmax_xent_supported((n_rows, vocab), dtype)
     record_selection("softmax_xent", ok)
     return ok
 

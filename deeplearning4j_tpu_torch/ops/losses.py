@@ -80,7 +80,7 @@ def _fused_xent_wanted(labels, preout, mask) -> bool:
     n_rows = 1
     for d in preout.shape[:-1]:
         n_rows *= d
-    return helpers.softmax_xent_wanted(n_rows, V)
+    return helpers.softmax_xent_wanted(n_rows, V, preout.dtype)
 
 
 def mcxent(labels, preout, activation="softmax", mask=None):

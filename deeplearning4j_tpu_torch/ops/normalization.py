@@ -7,8 +7,12 @@ mutated.  Training-mode batch norm normalizes with the BIASED batch
 variance and updates the running statistics with the same biased
 variance, ``decay * running + (1 - decay) * batch``: ``F.batch_norm``
 would update them with the unbiased variance and ``momentum = 1 -
-decay``, so it is not used.  The JAX package's bf16 branches (statistics
-accumulated in f32 under a bf16 policy) come with the precision tiers.
+decay``, so it is not used.  Under the bf16 policy both take the JAX
+package's bf16 branches: the statistics are computed and carried in f32
+(bf16 means and variances over N*H*W elements lose too many bits) and the
+normalized value is cast back to the activation's dtype before gamma and
+beta, so a bf16 network stays bf16 through batch norm, in training and in
+inference alike, and the next conv gets bf16.
 
 ``dropout`` is the fallback of ``ops/helpers.dropout`` for tensors under
 the threshold-dropout kernel's gate.  Its mask is a Bernoulli draw from
@@ -30,28 +34,38 @@ def _stat_axes(x):
     return (0, 2, 3), (1, -1, 1, 1)
 
 
+def _stat_dtype(x):
+    """The dtype batch statistics are kept in: f32 for a bf16 x."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+
 def batch_norm_train(x, gamma, beta, running_mean, running_var, *,
                      decay: float = 0.9, eps: float = 1e-5):
     """Training-mode batch norm over feature axis 1 (dense [N, C] or conv
     NCHW) -> (y, new running mean, new running var).  ``decay`` is the
     reference's BatchNormalization.decay (momentum on the running
-    statistics)."""
+    statistics).  A bf16 x gets f32 statistics and a bf16 y (:17-38)."""
     axes, shape = _stat_axes(x)
-    mean = torch.mean(x, dim=axes)
-    var = torch.var(x, dim=axes, unbiased=False)
-    xn = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + eps)
+    xs = x.to(_stat_dtype(x))
+    mean = torch.mean(xs, dim=axes)
+    var = torch.var(xs, dim=axes, unbiased=False)
+    xn = ((xs - mean.reshape(shape))
+          / torch.sqrt(var.reshape(shape) + eps)).to(x.dtype)
     y = gamma.reshape(shape) * xn + beta.reshape(shape)
-    new_mean = decay * running_mean + (1 - decay) * mean
-    new_var = decay * running_var + (1 - decay) * var
+    new_mean = decay * running_mean.to(xs.dtype) + (1 - decay) * mean
+    new_var = decay * running_var.to(xs.dtype) + (1 - decay) * var
     return y, new_mean, new_var
 
 
 def batch_norm_infer(x, gamma, beta, running_mean, running_var, *,
                      eps: float = 1e-5):
-    """Inference-mode batch norm from the carried running statistics."""
+    """Inference-mode batch norm from the carried running statistics.  A
+    bf16 x is normalized in f32 (the statistics' dtype) and cast back, so
+    the output keeps x's dtype (:41-54)."""
     _, shape = _stat_axes(x)
-    xn = ((x - running_mean.reshape(shape))
-          / torch.sqrt(running_var.reshape(shape) + eps))
+    sd = _stat_dtype(x)
+    xn = ((x.to(sd) - running_mean.to(sd).reshape(shape))
+          / torch.sqrt(running_var.to(sd).reshape(shape) + eps)).to(x.dtype)
     return gamma.reshape(shape) * xn + beta.reshape(shape)
 
 

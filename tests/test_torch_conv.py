@@ -188,8 +188,8 @@ _F32 = torch.float32
     ((2, 3, 16, 16), (4, 3, 3, 3), {"stride": (2, 2)}, False),
     ((2, 3, 16, 16), (4, 3, 3, 3), {"dilation": (2, 2)}, False),
     ((2, 3, 16, 16), (4, 3, 3, 3), {"dtype": torch.float64}, False),
-    # the JAX gate takes bf16; the port's kernel is f32 only
-    ((2, 3, 16, 16), (4, 3, 3, 3), {"dtype": torch.bfloat16}, False),
+    # f16: neither the JAX gate nor the kernel takes it
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"dtype": torch.float16}, False),
     ((2, 3, 16, 16), (4, 3, 3, 3), {"activation": "softmax"}, False),
     ((2, 3, 16, 16), (4, 3, 9, 9), {}, False),
     ((2, 3, 16, 16), (4, 3, 7, 8), {}, False),
@@ -208,6 +208,8 @@ _F32 = torch.float32
     ((1, 2 ** 21, 40, 40), (4, 2 ** 21, 3, 3), {}, False),
     # at most 2^31 - 1 blocks
     ((2 ** 16, 1, 200, 200), (64, 1, 1, 1), {}, False),
+    # bf16: the JAX gate takes it, and so does the kernel's bf16 form
+    ((2, 3, 16, 16), (4, 3, 3, 3), {"dtype": torch.bfloat16}, True),
 ])
 def test_gate_rejects_what_the_kernel_does_not_take(x, w, kwargs, accepted):
     kwargs = dict(kwargs)
@@ -238,7 +240,8 @@ def test_conv_plan_mirror_matches_source_constants():
     assert "return halo_supported(N, Cin, KH, KW, Cout, OH, OW) ||\n" \
         "         full_width_supported(N, Cin, KH, KW, Cout, OH, OW);" in \
         body("supported")
-    assert src.count("if (!supported(N, Cin, KH, KW, Cout, OH, OW))") == 2
+    # the plan and both entry points (f32 and bf16) guard
+    assert src.count("if (!supported(N, Cin, KH, KW, Cout, OH, OW))") == 3
     prose = " ".join(re.sub(r"\s*//\s*", " ", src).split())
     fields = re.search(r"as (\d+) ints: ([\w, ]+?)(?: \(grid size\))?\.",
                        prose)

@@ -1265,3 +1265,173 @@ def test_resumed_fit_on_the_card_equals_uninterrupted(cuda_device,
     assert torch.equal(resumed.params(), ref.params())
     assert torch.equal(resumed.updater_state_flat(),
                        ref.updater_state_flat())
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forms of the conv and dropout kernels
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(x_shape, w_shape, device, seed=5):
+    """_he_inputs' magnitudes, rounded to bf16."""
+    return (t.to(torch.bfloat16) for t in _he_inputs(x_shape, w_shape,
+                                                      device, seed))
+
+
+def _assert_bf16_conv_close(y, ref):
+    """chip_smoke.py's bf16 conv rule: equal, one bf16 ulp apart, or within
+    1e-5 of the output's largest magnitude (f32 sums in two orders)."""
+    rec = _chip_smoke().bf16_conv_compare(torch, y, ref)
+    assert y.dtype == torch.bfloat16 and rec["ok"], rec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CONV_BRANCHES) +
+                         sorted(CONV_FULL_WIDTH))
+def test_bf16_conv_matches_plain_version_on_the_card(cuda_device, case):
+    """Both routes of the bf16 form, where the plan branches, against the
+    plain version (bf16 inputs upcast, f32, one rounding); the launch is
+    counted on the bf16 form's own count."""
+    x_shape, w_shape, pad = {**CONV_BRANCHES, **CONV_FULL_WIDTH}[case]
+    pad = (pad, pad) if isinstance(pad, int) else pad
+    x, w, b = _bf16_inputs(x_shape, w_shape, cuda_device)
+    f32, bf16 = (ck.fused_conv2d_bias_act.launches,
+                 ck.fused_conv2d_bias_act.bf16.launches)
+    y = ck.fused_conv2d_bias_act(x, w, b, pad=pad, activation="relu")
+    ref = ck.conv2d_bias_act_reference(x, w, b, pad, "truncate", "relu")
+    _assert_bf16_conv_close(y, ref)
+    assert ck.fused_conv2d_bias_act.launches == f32
+    assert ck.fused_conv2d_bias_act.bf16.launches == bf16 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", sorted(ck.CONV_FUSED_ACTS))
+def test_bf16_conv_every_activation_both_routes(cuda_device, act):
+    for xs, ws in (((4, 20, 12, 12), (50, 20, 5, 5)),
+                   ((6, 2, 21, 24), (36, 2, 5, 24))):
+        x, w, b = _bf16_inputs(xs, ws, cuda_device)
+        _assert_bf16_conv_close(
+            ck.fused_conv2d_bias_act(x, w, b, activation=act),
+            ck.conv2d_bias_act_reference(x, w, b, (0, 0), "truncate", act))
+
+
+@pytest.mark.gpu
+def test_bf16_conv_unaligned_full_width_input(cuda_device):
+    """A full-width input off an 8-byte boundary takes 2-byte loads."""
+    x, w, b = _bf16_inputs((2, 1, 20, 64), (16, 1, 3, 64), cuda_device)
+    flat = torch.empty(x.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    xs = flat[1:].view_as(x)
+    xs.copy_(x)
+    assert xs.data_ptr() % 8
+    _assert_bf16_conv_close(ck.fused_conv2d_bias_act(xs, w, b),
+                            ck.conv2d_bias_act_reference(x, w, b))
+
+
+@pytest.mark.gpu
+def test_bf16_conv_gradients_are_the_plain_versions_in_bf16(cuda_device):
+    """The bf16 form's backward recomputes the plain version in f32 from
+    the upcast bf16 inputs: its gradients are bf16 and equal the plain
+    version's autograd, with cuDNN's TF32 allowed or not."""
+    x, w, b = _bf16_inputs((4, 8, 16, 16), (16, 8, 3, 3), cuda_device)
+    torch.backends.cudnn.allow_tf32 = True
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = ck.fused_conv2d_bias_act(*leaves, pad=(1, 1), activation="relu")
+    g = torch.randn(y.shape, device=cuda_device).to(torch.bfloat16)
+    got = torch.autograd.grad(y, leaves, g)
+    with ck.full_f32_convs():
+        ref_leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        ref = ck.conv2d_bias_act_reference(*ref_leaves, (1, 1), "truncate",
+                                           "relu")
+        want = torch.autograd.grad(ref, ref_leaves, g)
+    for a, e in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, e)
+
+
+@pytest.mark.gpu
+def test_bf16_conv_rejects_mixed_dtypes(cuda_device):
+    x, w, b = _bf16_inputs((2, 3, 8, 8), (4, 3, 3, 3), cuda_device)
+    with pytest.raises(ValueError):
+        ck.fused_conv2d_bias_act(x, w.float(), b)
+
+
+@pytest.mark.gpu
+def test_bf16_conv_runs_bf16_products_on_the_tensor_cores(cuda_device):
+    """Every instance of conv_wgmma_bf16_kernel holds bf16 HGMMA in the
+    conv library's SASS."""
+    counts = ck.sass_hgmma_counts(ck.CONV_LIBRARY, "BF16")
+    mine = {f: n for f, n in counts.items() if "conv_wgmma_bf16_kernel" in f}
+    assert len(mine) == 4 and all(mine.values()), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 4096), (128, 25088), (3, 4099),
+                                   (4097,)])
+@pytest.mark.parametrize("rate", [0.5, 0.8])
+def test_bf16_dropout_is_bit_identical_on_the_card(cuda_device, shape,
+                                                   rate):
+    """The bf16 form against its plain version with torch.equal, forward
+    and backward, its mask the f32 form's, on the bf16 count."""
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda_device).to(bf)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda_device).to(bf)
+    seed = (2654435761, 12345)
+    f32, bf16 = (ck.fused_threshold_dropout.launches,
+                 ck.fused_threshold_dropout.bf16.launches)
+    xr = x.clone().requires_grad_()
+    y = ck.fused_threshold_dropout(xr, rate, seed)
+    y.backward(g)
+    assert (ck.fused_threshold_dropout.launches,
+            ck.fused_threshold_dropout.bf16.launches) == (f32, bf16 + 2)
+    assert y.dtype == xr.grad.dtype == bf
+    assert torch.equal(y, ck.threshold_dropout_reference(x, rate, seed))
+    assert torch.equal(xr.grad, ck.threshold_dropout_reference(g, rate, seed))
+    assert torch.equal(y.cpu(), ck.threshold_dropout_reference(x.cpu(), rate,
+                                                               seed))
+    ones = torch.ones(shape, device=cuda_device)
+    assert torch.equal(ck.fused_threshold_dropout(ones.to(bf), rate, seed)
+                       != 0, ck.fused_threshold_dropout(ones, rate, seed) != 0)
+
+
+@pytest.mark.gpu
+def test_bf16_dropout_unaligned_view(cuda_device):
+    x = torch.randn(4097, device=cuda_device).to(torch.bfloat16)
+    view = x[1:]
+    assert view.data_ptr() % 16
+    assert torch.equal(ck.fused_threshold_dropout(view, 0.5, (3, 4)),
+                       ck.threshold_dropout_reference(view, 0.5, (3, 4)))
+
+
+@pytest.mark.gpu
+def test_bf16_net_fit_on_the_card_launches_the_bf16_forms(cuda_device):
+    """A small conv + dropout net under precision("bfloat16") trains on the
+    card through the bf16 forms only, its masters, updater state and
+    output float32."""
+    b = (network.NeuralNetConfiguration.builder().seed(3).learning_rate(0.05)
+         .updater("nesterovs").precision("bfloat16").list()
+         .layer(L.ConvolutionLayer(n_out=16, kernel=(3, 3), padding=(1, 1),
+                                   activation="relu"))
+         .layer(L.SubsamplingLayer(pooling_type="max"))
+         .layer(L.DenseLayer(n_out=64, activation="relu", dropout=0.5))
+         .layer(L.OutputLayer(n_out=10, activation="softmax",
+                              loss="mcxent"))
+         .set_input_type(InputType.convolutional(16, 16, 3)))
+    net = MultiLayerNetwork(b.build(), device=cuda_device).init()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(128, 3, 16, 16)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 128)]
+    conv, drop = (ck.fused_conv2d_bias_act, ck.fused_threshold_dropout)
+    before = (conv.launches, conv.bf16.launches, drop.launches,
+              drop.bf16.launches)
+    net.fit(x, y)
+    assert (conv.launches, conv.bf16.launches, drop.launches,
+            drop.bf16.launches) == (before[0], before[1] + 1, before[2],
+                                    before[3] + 2)
+    assert np.isfinite(net.score())
+    leaves = [t for lp in net.net_params for t in lp.values()]
+    assert all(t.dtype == torch.float32 for t in leaves)
+    out = net.output(x[:4])
+    assert out.dtype == torch.float32 and out.shape == (4, 10)

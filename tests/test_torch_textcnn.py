@@ -239,7 +239,7 @@ def test_gate_keeps_the_halo_routes_answers():
     ((2, 3, 9, 1), (7, 3, 3, 9), {"border_mode": "same"}, True),
     ((2, 3, 9, 12), (7, 3, 3, 12), {"border_mode": "same"}, False),
     ((32, 1, 256, 300), (100, 1, 5, 300), {"stride": (1, 300)}, False),
-    ((32, 1, 256, 300), (100, 1, 5, 300), {"dtype": torch.bfloat16}, False),
+    ((32, 1, 256, 300), (100, 1, 5, 300), {"dtype": torch.float16}, False),
     ((32, 1, 4, 300), (100, 1, 5, 300), {}, False),           # KH > H
     # K = Cin * KH * KW at most 2^30
     ((1, 2 ** 30 // 1500, 5, 300), (4, 2 ** 30 // 1500, 5, 300), {}, True),
@@ -250,6 +250,8 @@ def test_gate_keeps_the_halo_routes_answers():
     ((1, 2 ** 10, 2048, 1), (4, 2 ** 10, 2, 1), {}, True),
     # M = N OH within an int
     ((2 ** 21, 1, 1025, 8), (4, 1, 2, 8), {}, False),
+    # the bf16 form takes the full-width route too
+    ((32, 1, 256, 300), (100, 1, 5, 300), {"dtype": torch.bfloat16}, True),
 ])
 def test_full_width_gate_limits(x, w, kwargs, accepted):
     kwargs = dict(kwargs)

@@ -108,7 +108,8 @@ def test_dropout_gate_and_dense_fallback():
     layer's words; the choice is metered by op."""
     assert ck.dropout_fused_supported((64, 64), torch.float32)
     assert not ck.dropout_fused_supported((63, 64), torch.float32)
-    assert not ck.dropout_fused_supported((64, 64), torch.bfloat16)
+    assert ck.dropout_fused_supported((64, 64), torch.bfloat16)
+    assert not ck.dropout_fused_supported((64, 64), torch.float16)
     reg = monitor.get_registry()
     fb = reg.counter("dl4j_kernel_fallback_total", "", labels=("op",)
                      ).labels(op="dropout")
