@@ -640,6 +640,46 @@ BF16_LOGITS_REL = {"resnet50": 0.111}
 # bf16 probabilities sum to 1 within twice the worst case of rounding each
 # to bf16 (2^-9 relative).
 BF16_PROBS_SUM_ATOL = 2 ** -8
+# The bf16 sequence models (the char-RNN and the attention model above under
+# precision("bfloat16")).  Kernel against plain version, set from the
+# arithmetic before any card run: the lstm step's bf16 form and its plain
+# version round the same f32 function, summed in other orders, once: the
+# bf16 conv rule (|y - ref| <= ulp(ref) + BF16_CONV_ATOL max|ref|).  The
+# flash kernels' bf16 forms take P and dS as hi + lo pairs (2^-18 of p
+# dropped) and sum on the tensor cores, which truncate as they add: over
+# the 1,024 products of a row at T = 8,192 that is up to ~1.2e-4 of the
+# row's scale, so out, dq, dk and dv are held to |y - ref| <= ulp(ref) +
+# BF16_FLASH_ATOL max|ref|, twice that; lse (f32) to FLASH_TOL.
+BF16_FLASH_ATOL = 2.0 ** -12
+# The steps, outputs and samples are held to rules from
+# ``python3 tools/bf16_rule_probe.py --model charrnn`` and ``--model
+# attention`` (CPU, quarter widths, the char-RNN at full width too, worst
+# of 3 seeds), set before any card run of these phases: twice the worst
+# reading of the plain bf16 step against the kernels' emulation (the lstm
+# product in the kernel's order, each sum moved by an f32 rounding; P and
+# dS as hi + lo pairs, every product in the kernels' tiles) and against
+# itself with only its sums reordered; the f32 cosine's floor twice the
+# worst reading's distance from 1 below 1.  Attention, one Adam step at
+# T = 512: score 5.89e-6, gradients 4.40e-3, updates 0.0708 (Adam's first
+# step is lr sign(g) where |g| >> eps, so a gradient element near 0 that
+# changes sign moves its update by 2 lr), f32 cosine 0.99096 (rule JAX's
+# 0.98); output() against f32's 0.00916; the KV ring against output()
+# 0.00410.  The char-RNN's readings lie far below the f32 phase's own
+# rules (score 0, updates 1.78e-6, gradients 3.9e-7; ring and output()
+# equal): sums of products of bf16 numbers are exact in f32 more often
+# than not, so a reordered sum seldom flips a rounding.  Its rules are
+# then the f32 phase's (CHAR_SCORE_RTOL, CHAR_UPDATE_RTOL), and the
+# samples' one bf16 rounding (2^-8), not twice 0; its f32 cosine read
+# 0.779 (full width: RMSProp divides each gradient by its running size, so
+# bf16's roundings move the small ones' updates far) -> 0.55.
+CHAR_BF16_MINIBATCHES, ATT_BF16_STEPS = 3, 3
+CHAR_BF16_SCORE_RTOL, CHAR_BF16_UPDATE_RTOL = CHAR_SCORE_RTOL, \
+    CHAR_UPDATE_RTOL
+CHAR_BF16_COSINE_MIN, CHAR_BF16_SAMPLE_REL = 0.55, 2.0 ** -8
+ATT_BF16_SCORE_RTOL, ATT_BF16_GRAD_RTOL, ATT_BF16_UPDATE_RTOL = \
+    1.2e-5, 8.8e-3, 0.142
+ATT_BF16_COSINE_MIN = BF16_COSINE_MIN
+ATT_BF16_PROBS_REL, ATT_BF16_SAMPLE_REL = 0.0184, 0.0082
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
 
@@ -994,17 +1034,18 @@ def check_conv(torch, ck, shape, gen, timed: bool = True,
     return rec
 
 
-def hgmma_count(ck, library, kernel: str, operand: str = "") -> int:
+def hgmma_count(ck, library, kernel: str, operand: str = "",
+                instruction: str = "HGMMA") -> int:
     """HGMMA (wgmma) instructions (with ``operand``, those whose SASS line
-    names it, e.g. ``BF16``) in the SASS of every kernel function of
-    ``library`` whose mangled name matches the regex ``kernel``; raises if
-    one of them has none."""
-    counts = {f: n for f, n in ck.sass_hgmma_counts(library, operand).items()
-              if re.search(kernel, f)}
+    names it, e.g. ``BF16``; with ``instruction`` ``"HMMA"``, mma.sync's) in
+    the SASS of every kernel function of ``library`` whose mangled name
+    matches the regex ``kernel``; raises if one of them has none."""
+    counts = {f: n for f, n in ck.sass_hgmma_counts(
+        library, operand, instruction).items() if re.search(kernel, f)}
     if not counts or not all(counts.values()):
-        raise AssertionError(f"{kernel} in {library.source.name}: HGMMA "
-                             f"counts {counts}; the kernel does not run on "
-                             f"the tensor cores")
+        raise AssertionError(f"{kernel} in {library.source.name}: "
+                             f"{instruction} counts {counts}; the kernel does "
+                             f"not run on the tensor cores")
     return sum(counts.values())
 
 
@@ -1521,9 +1562,13 @@ def _launchers(ck) -> dict:
             "threshold_dropout": ck.fused_threshold_dropout,
             "threshold_dropout_bf16": ck.fused_threshold_dropout.bf16,
             "lstm_step": ck.fused_lstm_step,
+            "lstm_step_bf16": ck.fused_lstm_step.bf16,
             "flash_forward": ck.flash_forward,
+            "flash_forward_bf16": ck.flash_forward.bf16,
             "flash_dq": ck.flash_dq,
-            "flash_dkv": ck.flash_dkv}
+            "flash_dq_bf16": ck.flash_dq.bf16,
+            "flash_dkv": ck.flash_dkv,
+            "flash_dkv_bf16": ck.flash_dkv.bf16}
 
 
 def _kernel_counts(ck):
@@ -3380,16 +3425,16 @@ def bf16_ulp(torch, t):
     return torch.ldexp(torch.ones_like(a), e - 8)
 
 
-def bf16_conv_compare(torch, y, ref) -> dict:
-    """The bf16 conv rule (BF16_CONV_ATOL): the share of elements that
-    differ from the plain version's, the share beyond one bf16 ulp, and
-    the largest |y - ref| over what the rule allows (``max_excess``, at
-    most 1)."""
+def bf16_conv_compare(torch, y, ref, atol: float = BF16_CONV_ATOL) -> dict:
+    """The bf16 conv rule (|y - ref| <= ulp(ref) + ``atol`` max|ref|,
+    BF16_CONV_ATOL unless given): the share of elements that differ from
+    the plain version's, the share beyond one bf16 ulp, and the largest
+    |y - ref| over what the rule allows (``max_excess``, at most 1)."""
     yf, rf = y.float(), ref.float()
     diff = (yf - rf).abs()
     ulp = bf16_ulp(torch, rf)
     scale = float(rf.abs().max())
-    excess = float((diff / (ulp + BF16_CONV_ATOL * scale)).max())
+    excess = float((diff / (ulp + atol * scale)).max())
     n = diff.numel()
     return {"elements": n, "share_differ": float((diff > 0).sum()) / n,
             "share_beyond_one_ulp": float((diff > ulp).sum()) / n,
@@ -4301,11 +4346,11 @@ def _plain_lstm_step(ck):
     return mock.patch.object(ck, "fused_lstm_step", ck.lstm_step_reference)
 
 
-def _lstm_bound(N, H):
+def _lstm_bound(N, H, elem: int = 4):
     """(bytes, FLOPs) of one step: zx, h, c, RW, p3 read once, c', h'
-    written once; the [N, H] x [H, 4H] product and ~20 operations per
-    (n, j) of gate math."""
-    nbytes = 4 * (N * 4 * H + 2 * N * H + 4 * H * H + 3 * H + 2 * N * H)
+    written once, ``elem`` bytes each (2 for the bf16 form); the [N, H] x
+    [H, 4H] product and ~20 operations per (n, j) of gate math."""
+    nbytes = elem * (N * 4 * H + 2 * N * H + 4 * H * H + 3 * H + 2 * N * H)
     return nbytes, 2 * N * H * 4 * H + 20 * N * H
 
 
@@ -4566,12 +4611,14 @@ def _flash_inputs(torch, gen, B, H, T, D, mask="none"):
     return q, k, v, g, km
 
 
-def _flash_work(B, H, T, D, causal):
+def _flash_work(B, H, T, D, causal, elem: int = 4):
     """(FLOPs, bytes) of the forward, dq and dk/dv kernels on inputs of
     this shape: 2 D FLOPs per (query, key) pair attended and product (2,
-    3 and 4 products); each input read once, each output written once."""
+    3 and 4 products); each input read once, each output written once;
+    q, k, v, dout and the outputs of ``elem`` bytes (2 for the bf16 forms),
+    the mask, lse and delta f32."""
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-    big, rows = 4 * B * H * T * D, 4 * B * H * T
+    big, rows = elem * B * H * T * D, 4 * B * H * T
     mask = 4 * B * T
     return {"flash_forward": (4 * D * pairs, 3 * big + mask + big + rows),
             "flash_dq": (6 * D * pairs, 4 * big + mask + 2 * rows + big),
@@ -4941,6 +4988,683 @@ def phase_sample_attention(torch, ck, net, it) -> dict:
            "time_step_vs_output_max_abs": float((steps - full).abs().max()),
            "tol": ATT_OUT_TOL}
     emit("sample_attention", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the sequence models in bf16
+# ---------------------------------------------------------------------------
+
+def _plain_lstm_launch(ck):
+    """Within the block the lstm step's autograd Function runs its plain
+    version (``lstm_step_reference``) where it would launch the kernel, and
+    keeps its backward (``lstm_step_formula`` in the inputs' dtype): the
+    plain step of either dtype, no launch counted."""
+    from unittest import mock
+    return mock.patch.object(ck, "_launch_lstm_step", ck.lstm_step_reference)
+
+
+def check_lstm_step_bf16(torch, ck, N, H, gen, timed=False) -> dict:
+    """The lstm kernel's bf16 form against its plain version at one (N, H),
+    zx a row-strided view as ``lstm_scan`` passes it, by the bf16 conv
+    rule on c' and h'; the launch counted on the bf16 form's count only."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    zx = torch.randn((N, 3, 4 * H), generator=gen, device=dev).to(bf)[:, 1]
+    h = torch.randn((N, H), generator=gen, device=dev).to(bf)
+    c = torch.randn((N, H), generator=gen, device=dev).to(bf)
+    rw = (torch.randn((H, 4 * H), generator=gen, device=dev)
+          * H ** -0.5).to(bf)
+    p3 = (torch.randn((3, H), generator=gen, device=dev) * 0.1).to(bf)
+    f32_before, before = ck.fused_lstm_step.launches, \
+        ck.fused_lstm_step.bf16.launches
+    got = ck.fused_lstm_step(zx, h, c, rw, p3)
+    want = ck.lstm_step_reference(zx, h, c, rw, p3)
+    torch.cuda.synchronize()
+    cmp = {n: bf16_conv_compare(torch, a, e)
+           for n, a, e in zip(("c", "h"), got, want)}
+    rec = {"shape": [N, H], "c": cmp["c"], "h": cmp["h"],
+           "max_abs_err": max(r["max_abs_err"] for r in cmp.values())}
+    if any(a.dtype != bf for a in got) or \
+            not all(r["ok"] for r in cmp.values()) or \
+            ck.fused_lstm_step.bf16.launches != before + 1 or \
+            ck.fused_lstm_step.launches != f32_before:
+        raise AssertionError(f"the lstm kernel's bf16 form disagrees with "
+                             f"its plain version: {rec}")
+    if timed:
+        nbytes, flops = _lstm_bound(N, H, elem=2)   # FLOPs at bf16's peak
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        rec.update(
+            ms=graph_ms(torch, lambda: ck.fused_lstm_step(zx, h, c, rw, p3),
+                        calls=50),
+            call_ms=time_ms(torch, lambda: ck.fused_lstm_step(
+                zx, h, c, rw, p3)),
+            plain_ms=graph_ms(torch, lambda: ck.lstm_step_reference(
+                zx, h, c, rw, p3), calls=50),
+            bytes=nbytes, flops=flops, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return rec
+
+
+def check_flash_bf16(torch, ck, gen, B, H, T, D, causal, mask) -> dict:
+    """Each flash kernel's bf16 form against its plain version on the same
+    bf16 inputs (the plain lse and f32 delta feed both backward kernels):
+    out, dq, dk and dv by the bf16 flash rule, lse by FLASH_TOL; a query
+    row with no live key gives out 0 and lse -1e30."""
+    bf = torch.bfloat16
+    q, k, v, g, km = _flash_inputs(torch, gen, B, H, T, D, mask)
+    q, k, v, g = (t.to(bf) for t in (q, k, v, g))
+    s = D ** -0.5
+    out, lse = ck.flash_forward(q, k, v, km, causal, s)
+    rout, rlse = ck.flash_forward_reference(q, k, v, km, causal, s)
+    delta = ck.flash_delta(g, rout)
+    dq = ck.flash_dq(q, k, v, km, g, rlse, delta, causal, s)
+    dk, dv = ck.flash_dkv(q, k, v, km, g, rlse, delta, causal, s)
+    rdq = ck.flash_dq_reference(q, k, v, km, g, rlse, delta, causal, s)
+    rdk, rdv = ck.flash_dkv_reference(q, k, v, km, g, rlse, delta, causal, s)
+    torch.cuda.synchronize()
+    case = (B, H, T, D, causal, mask)
+    rules, errs = {}, {}
+    for name, got, want in (("out", out, rout), ("dq", dq, rdq),
+                            ("dk", dk, rdk), ("dv", dv, rdv)):
+        r = bf16_conv_compare(torch, got, want, BF16_FLASH_ATOL)
+        if got.dtype != bf or not r["ok"]:
+            raise AssertionError(f"flash bf16 {name} at {case} disagrees "
+                                 f"with its plain version: {r}")
+        rules[name] = {k: r[k] for k in ("share_differ",
+                                         "share_beyond_one_ulp",
+                                         "max_excess")}
+        errs[name] = r["max_abs_err"]
+    torch.testing.assert_close(lse, rlse, rtol=FLASH_TOL, atol=FLASH_TOL,
+                               msg=lambda m: f"flash bf16 lse at {case}: {m}")
+    errs["lse"] = float((lse - rlse).abs().max())
+    if mask == "dead_row" and not (bool((out[-1] == 0).all())
+                                   and bool((lse[-1] == ck.NEG_INF).all())):
+        raise AssertionError("a fully masked batch row must give out 0 and "
+                             "lse -1e30")
+    return {"shape": [B, H, T, D], "causal": causal, "mask": mask,
+            "max_abs_err": errs, "rule": rules}
+
+
+# the bf16 flash instances in the flash library's SASS
+FLASH_BF16_FUNCTIONS = {"flash_forward": "flash_fwd_bf16",
+                        "flash_dq": "flash_dq_bf16",
+                        "flash_dkv": "flash_dkv_bf16"}
+# work of the bf16 forms over the one-pass products: P V (forward), dS K
+# (dq), P^T dO and dS^T Q (dk/dv) take two products each (hi + lo)
+FLASH_BF16_SPLIT_WORK = {"flash_forward": 1.5, "flash_dq": 4 / 3,
+                         "flash_dkv": 1.5}
+
+
+def phase_bf16_sequence_kernels(torch, ck) -> dict:
+    """The bf16 forms of the lstm step and the three flash kernels against
+    their plain versions: the lstm step at every N the main paths run and
+    at ragged edges; flash at the training shape, masked, non-causal, head
+    dims 32-128, ragged T and a dead row; timed at the main paths' shapes
+    beside the bound (one-pass bf16 products, and the split's work) and
+    ``F.scaled_dot_product_attention`` on bf16; bf16 HMMA (mma.sync) in
+    every bf16 flash instance's SASS."""
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    steps = [check_lstm_step_bf16(torch, ck, n, CHAR_HIDDEN, gen, timed=True)
+             for n in (CHAR_BATCH, SAMPLE_STREAMS, 1)]
+    steps += [check_lstm_step_bf16(torch, ck, n, h, gen)
+              for n, h in ((3, 8), (5, 24), (64, 256), (3, 1024), (7, 264),
+                           (40, 8), (17, 200))]
+    B, H, T, D = ATT_BATCH, ATT_HEADS, ATT_SEQ, ATT_WIDTH // ATT_HEADS
+    cases = [(B, H, T, D, True, "none"), (1, 2, ATT_SEQ, 64, True, "none"),
+             (2, 2, 200, 64, False, "tail"), (2, 2, 200, 64, True, "tail"),
+             (2, 2, 256, 32, True, "none"), (2, 2, 256, 96, True, "none"),
+             (2, 2, 256, 128, False, "none"), (2, 2, 130, 64, True, "none"),
+             (2, 2, 256, 64, True, "dead_row"),
+             (2, 2, 200, 128, False, "dead_row"),
+             (1, 2, ATT_PLAIN_SEQ, 64, True, "none"),
+             (1, 2, 300, 64, True, "none")]
+    checks = [check_flash_bf16(torch, ck, gen, *c) for c in cases]
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    q, k, v, g, km = _flash_inputs(torch, gen, B, H, T, D)
+    q, k, v, g = (t.to(bf) for t in (q, k, v, g))
+    s = D ** -0.5
+    out, lse = ck.flash_forward(q, k, v, km, True, s)
+    delta = ck.flash_delta(g, out)
+    calls = {
+        "flash_forward": (
+            lambda: ck.flash_forward(q, k, v, km, True, s),
+            lambda: ck.flash_forward_reference(q, k, v, km, True, s)),
+        "flash_dq": (
+            lambda: ck.flash_dq(q, k, v, km, g, lse, delta, True, s),
+            lambda: ck.flash_dq_reference(q, k, v, km, g, lse, delta, True,
+                                          s)),
+        "flash_dkv": (
+            lambda: ck.flash_dkv(q, k, v, km, g, lse, delta, True, s),
+            lambda: ck.flash_dkv_reference(q, k, v, km, g, lse, delta, True,
+                                           s))}
+    work = _flash_work(B, H, T, D, True, elem=2)
+    timed = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = work[name]
+        rec = {"ms": time_ms(torch, kernel, reps=5, warmup=1),
+               "plain_ms": time_ms(torch, plain, reps=3, warmup=1),
+               "flops": flops, "bytes": nbytes}
+        torch.cuda.empty_cache()
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["split_work"] = FLASH_BF16_SPLIT_WORK[name]
+        rec["bound_split_ms"] = max(t_ops * FLASH_BF16_SPLIT_WORK[name],
+                                    t_bytes) * 1e3
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        timed[name] = rec
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qs, ks, vs), g)
+    with torch.no_grad():
+        lib_fwd = time_ms(torch, sdpa, reps=5, warmup=1)
+    lib_both = time_ms(torch, sdpa_fwd_bwd, reps=5, warmup=1)
+    lib_graph = sdpa()
+
+    def sdpa_bwd():
+        torch.autograd.grad(lib_graph, (qs, ks, vs), g, retain_graph=True)
+    lib_bwd = time_ms(torch, sdpa_bwd, reps=5, warmup=1)
+    lib_out = lib_graph.detach()
+    del lib_graph
+    lib_vs_kernel = bf16_conv_compare(torch, lib_out, out, BF16_FLASH_ATOL)
+    res = {"lstm_rule": "|y - ref| <= ulp_bf16(ref) + BF16_CONV_ATOL * "
+                        "max|ref|",
+           "flash_rule": "|y - ref| <= ulp_bf16(ref) + BF16_FLASH_ATOL * "
+                         "max|ref|; lse FLASH_TOL",
+           "flash_atol_scaled": BF16_FLASH_ATOL, "lstm_steps": steps,
+           "lstm_us_per_step": steps[0]["ms"] * 1e3,
+           "lstm_plain_us_per_step": steps[0]["plain_ms"] * 1e3,
+           "lstm_bound_us_per_step": steps[0]["bound_ms"] * 1e3,
+           "lstm_library_note": "no single PyTorch call computes a "
+                                "peephole LSTM step: torch.lstm_cell has no "
+                                "peepholes",
+           "flash_checks": checks, "timed_shape": [B, H, T, D],
+           "causal": True, "timed": timed,
+           "sass_bf16_hmma": {
+               name: hgmma_count(ck, ck.FLASH_LIBRARY, pattern, "BF16",
+                                 "HMMA")
+               for name, pattern in FLASH_BF16_FUNCTIONS.items()},
+           "library_ms_forward": lib_fwd,
+           "library_ms_forward_backward": lib_both,
+           "library_ms_backward": lib_bwd,
+           "kernels_ms_forward_backward": sum(r["ms"]
+                                              for r in timed.values()),
+           "kernels_ms_backward": timed["flash_dq"]["ms"]
+           + timed["flash_dkv"]["ms"],
+           "library_vs_kernel": lib_vs_kernel,
+           "library_note": "F.scaled_dot_product_attention (bf16, causal), "
+                           "timed only: its forward for flash_forward; its "
+                           "backward alone computes dq, dk and dv in one "
+                           "call and is set against the pair"}
+    emit("bf16_sequence_kernels", **res)
+    return res
+
+
+def _seq_step_runs(torch, ck, net, x, y, start, modes) -> dict:
+    """One gradient step and update of ``net`` on the batch (x, y) per mode,
+    each from ``start`` = (params, updater state, layer states, iteration):
+    ``modes`` maps a name to (a context manager factory, the precision to
+    run under).  -> {name: (score, params, gradients, launches)}; the
+    network is left as it was."""
+    g = net.conf.global_conf
+    keep = (g.precision, net.net_params, net.opt_states, net.net_state,
+            net.iteration, net._score)
+    runs = {}
+    try:
+        for name, (ctx, precision) in modes.items():
+            net.net_params, net.opt_states, net.net_state = (
+                _clone_tree(t) for t in start[:3])
+            g.precision = precision
+            before = _kernel_counts(ck)
+            with ctx():
+                score, grads = net._grad_step(x, y, None, None, None)
+                kept = _clone_tree(grads)
+                net._apply_updates(grads, start[3])
+            after = _kernel_counts(ck)
+            runs[name] = (float(score), net.net_params, kept,
+                          {n: after[n] - before[n] for n in after
+                           if after[n] != before[n]})
+    finally:
+        (g.precision, net.net_params, net.opt_states, net.net_state,
+         net.iteration, net._score) = keep
+    return runs
+
+
+def _steps_vs(torch, run, ref, p0, skip=()) -> dict:
+    """A step (score, params, gradients) against a reference step from the
+    same params ``p0``: the score's relative difference, and per tensor
+    (but ``skip``) the relative 2-norm of the gradient's and the update's
+    difference; the largest of each and the four worst updates."""
+    grads = {f"{i}_{k}": _rel_norm(torch, run[2][i][k], lp[k])
+             for i, lp in enumerate(ref[2]) for k in lp if k not in skip}
+    updates = {f"{i}_{k}": _rel_norm(torch, run[1][i][k] - p0[i][k],
+                                     lp[k] - p0[i][k])
+               for i, lp in enumerate(ref[1]) for k in lp if k not in skip}
+    return {"score": run[0], "ref_score": ref[0],
+            "score_rel_diff": abs(run[0] - ref[0]) / abs(ref[0]),
+            "max_grad_rel_err": max(grads.values()),
+            "max_update_rel_err": max(updates.values()),
+            "grad_rel_err": grads, "update_rel_err": updates,
+            "worst_updates": dict(sorted(updates.items(),
+                                         key=lambda kv: -kv[1])[:4])}
+
+
+def _update_cosine(torch, p0, pa, pb) -> float:
+    """The cosine of two whole-network updates from ``p0``."""
+    dot = na = nb = 0.0
+    for t0, a, b in zip(_tensor_leaves(p0), _tensor_leaves(pa),
+                        _tensor_leaves(pb)):
+        ua, ub = (a - t0).double(), (b - t0).double()
+        dot += float((ua * ub).sum())
+        na += float((ua * ua).sum())
+        nb += float((ub * ub).sum())
+    return dot / (na * nb) ** 0.5
+
+
+def seq_bf16_modes(plain_ctx, kernel_ctx=contextlib.nullcontext):
+    """The three runs a bf16 sequence step is held to: through the kernels
+    (``kernel_ctx``), through the plain versions (``plain_ctx``), and the
+    f32 step."""
+    return {"kernel": (kernel_ctx, "bfloat16"),
+            "plain": (plain_ctx, "bfloat16"),
+            "f32": (contextlib.nullcontext, None)}
+
+
+def compare_seq_bf16(torch, runs, p0, score_rtol, update_rtol, cosine_min,
+                     grad_rtol=None, skip=()) -> dict:
+    """The kernel step against the plain bf16 step (score, updates and, with
+    ``grad_rtol``, gradients, by the rules given) and against the f32 step
+    (the cosine of the updates); ``ok`` says whether all hold."""
+    vs_plain = _steps_vs(torch, runs["kernel"], runs["plain"], p0, skip)
+    vs_f32 = _steps_vs(torch, runs["kernel"], runs["f32"], p0, skip)
+    cos = _update_cosine(torch, p0, runs["kernel"][1], runs["f32"][1])
+    ok = (vs_plain["score_rel_diff"] <= score_rtol
+          and vs_plain["max_update_rel_err"] <= update_rtol
+          and (grad_rtol is None or vs_plain["max_grad_rel_err"] <= grad_rtol)
+          and cos >= cosine_min)
+    return {"vs_plain": vs_plain,
+            "vs_f32": {k: vs_f32[k] for k in ("score", "ref_score",
+                                              "score_rel_diff",
+                                              "max_grad_rel_err",
+                                              "max_update_rel_err")},
+            "f32_update_cosine": cos, "score_rtol": score_rtol,
+            "update_rtol": update_rtol, "grad_rtol": grad_rtol,
+            "cosine_min": cosine_min, "ok": ok}
+
+
+def phase_train_charrnn_bf16(torch, ck, train_char) -> tuple:
+    """The char-RNN of ``train_charrnn`` under precision("bfloat16"):
+    CHAR_BF16_MINIBATCHES minibatches of 32 x 1,000 characters, exactly
+    2 x 1,000 launches of the lstm kernel's bf16 form each and no other
+    kernel, f32 masters and gradients; then one TBPTT segment from the
+    trained state through the kernel, through the plain bf16 step and in
+    f32, by the rules of the constants."""
+    from deeplearning4j_tpu_torch.models import CharacterIterator, char_rnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=CHAR_SEQ, batch=CHAR_BATCH, seed=0)
+    net = char_rnn(it.vocab_size, CHAR_HIDDEN, CHAR_LAYERS,
+                   tbptt_length=CHAR_TBPTT, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    net.conf.global_conf.precision = "bfloat16"
+    grad_dtypes = _recording_grad_dtypes(net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    minibatches = []
+    fallbacks = _fallbacks("lstm_step")
+    _zero_counts(ck)                                   # main path starts
+    for k in range(CHAR_BF16_MINIBATCHES):
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        net.fit(it.next())
+        score = net.score()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        minibatches.append({
+            "minibatch": k + 1, "score": score, "seconds": dt,
+            "chars_per_s": CHAR_BATCH * CHAR_SEQ / dt,
+            "launches": {n: after[n] - counts[n] for n in after}})
+    launches = _kernel_counts(ck)                      # main path ends
+    fallbacks = _fallbacks("lstm_step") - fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    del net._apply_updates
+    masters = _f32_masters(net, "char-RNN bf16")
+    want = _want(ck, lstm_step_bf16=CHAR_LAYERS * CHAR_SEQ)
+    for mb in minibatches:
+        if mb["launches"] != want or not np.isfinite(mb["score"]):
+            raise AssertionError(f"char-RNN bf16 minibatch {mb}: launches "
+                                 f"must be {want} and the score finite")
+    if fallbacks or grad_dtypes != {"float32"} or \
+            net.iteration != CHAR_BF16_MINIBATCHES * CHAR_SEQ // CHAR_TBPTT:
+        raise AssertionError(f"char-RNN bf16: {fallbacks} lstm fallbacks, "
+                             f"gradients {grad_dtypes}, {net.iteration} "
+                             f"TBPTT steps")
+    ds = it.next()
+    x = torch.from_numpy(ds.features[:, :CHAR_TBPTT]).cuda()
+    y = torch.from_numpy(ds.labels[:, :CHAR_TBPTT]).cuda()
+    start = (_clone_tree(net.net_params), _clone_tree(net.opt_states),
+             _clone_tree(net.net_state), net.iteration)
+    runs = _seq_step_runs(torch, ck, net, x, y, start, seq_bf16_modes(
+        lambda: _plain_lstm_launch(ck)))
+    seg = compare_seq_bf16(torch, runs, start[0], CHAR_BF16_SCORE_RTOL,
+                           CHAR_BF16_UPDATE_RTOL, CHAR_BF16_COSINE_MIN)
+    seg["launches"] = {n: r[3] for n, r in runs.items()}
+    f32_rate = train_char["chars_per_s_after_first"]
+    res = {"precision": "bfloat16", "vocab": it.vocab_size,
+           "batch": CHAR_BATCH, "seq": CHAR_SEQ, "tbptt": CHAR_TBPTT,
+           "segments": net.iteration, "minibatches": minibatches,
+           "chars_per_s_after_first": CHAR_BATCH * CHAR_SEQ
+           * (CHAR_BF16_MINIBATCHES - 1)
+           / sum(m["seconds"] for m in minibatches[1:]),
+           "f32_chars_per_s_after_first": f32_rate,
+           "launches": launches, "lstm_fallbacks": fallbacks,
+           "max_memory_allocated": peak,
+           "f32_max_memory_allocated": train_char["max_memory_allocated"],
+           "dtypes": {**masters, "gradients": sorted(grad_dtypes)},
+           "segment": seg}
+    emit("train_charrnn_bf16", **res)
+    if not seg["ok"] or seg["launches"]["kernel"] != {
+            "lstm_step_bf16": 2 * CHAR_TBPTT} or seg["launches"]["plain"]:
+        raise AssertionError(f"char-RNN bf16 segment through the kernel "
+                             f"disagrees with the plain bf16 step or the f32 "
+                             f"step: {seg}")
+    return res, net, it
+
+
+def phase_sample_charrnn_bf16(torch, ck, net, it) -> dict:
+    """``rnn_time_step`` sampling and ``sample_text`` on the bf16 char-RNN:
+    2 launches of the bf16 form a step and no other kernel; 50 characters
+    fed one at a time against ``output()`` on the same prefix (relative
+    2-norm of the probabilities, CHAR_BF16_SAMPLE_REL); probabilities sum
+    to 1 within BF16_PROBS_SUM_ATOL."""
+    from deeplearning4j_tpu_torch.models import sample_text
+    V = it.vocab_size
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(SEED)
+    net.rnn_clear_previous_state()
+    cur = rng.integers(0, V, SAMPLE_STREAMS)
+    picks = []
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_CHARS):
+        out = net.rnn_time_step(eye[cur][:, None, :])[:, -1]
+        p = out.double().cpu().numpy()
+        cur = np.array([rng.choice(V, p=q / q.sum()) for q in p])
+        picks.append(cur)
+    stream_s = time.perf_counter() - t0
+    stream_launches = ck.fused_lstm_step.bf16.launches
+    seed_text, length = "The ", 100
+    t0 = time.perf_counter()
+    text = sample_text(net, it, seed_text, length=length, rng_seed=SEED)
+    text_s = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    want_stream = CHAR_LAYERS * SAMPLE_CHARS
+    want = _want(ck, lstm_step_bf16=CHAR_LAYERS * (
+        SAMPLE_CHARS + len(seed_text) + length))
+    if stream_launches != want_stream or launches != want:
+        raise AssertionError(f"bf16 sampling launched {launches} "
+                             f"({stream_launches} over the streams); want "
+                             f"{want_stream} over the streams and {want}")
+    if len(text) != len(seed_text) + length or \
+            any(ch not in it.char_to_idx for ch in text):
+        raise AssertionError(f"sample_text gave {text!r}")
+    x = it.next().features[:SAMPLE_STREAMS, :CHAR_TBPTT]
+    full = net.output(x)
+    net.rnn_clear_previous_state()
+    steps = torch.cat([net.rnn_time_step(x[:, t:t + 1])
+                       for t in range(CHAR_TBPTT)], dim=1)
+    rel = _rel_norm(torch, steps, full)
+    sums = float((full.sum(dim=-1) - 1).abs().max())
+    res = {"precision": "bfloat16", "streams": SAMPLE_STREAMS,
+           "chars": SAMPLE_CHARS,
+           "ms_per_char": stream_s / SAMPLE_CHARS * 1e3,
+           "stream_launches": stream_launches,
+           "sample_text_ms_per_char": text_s / (len(seed_text) + length)
+           * 1e3, "launches": launches,
+           "first_stream": "".join(it.idx_to_char[int(p[0])] for p in picks),
+           "sample_text": text,
+           "time_step_vs_output_rel_norm": rel,
+           "time_step_vs_output_max_abs": float((steps - full).abs().max()),
+           "sample_rel_rule": CHAR_BF16_SAMPLE_REL,
+           "probs_sum_max_err": sums}
+    emit("sample_charrnn_bf16", **res)
+    if rel > CHAR_BF16_SAMPLE_REL or sums > BF16_PROBS_SUM_ATOL or \
+            full.dtype != torch.float32:
+        raise AssertionError(f"bf16 char-RNN: rnn_time_step against "
+                             f"output() {rel} (rule {CHAR_BF16_SAMPLE_REL}), "
+                             f"sums off by {sums}")
+    return res
+
+
+def _attention_start(net, start):
+    """The state ``_attention_step_vs_plain`` compares from: the initial
+    params with Wq, Wk of both layers times ATT_PEAK_QK and layer 0's Wv,
+    Wo times ATT_SPREAD_V (its docstring says why), a fresh updater."""
+    begin = _clone_tree(start)
+    for i in range(ATT_LAYERS):
+        for k in ("Wq", "Wk"):
+            begin[i][k] *= ATT_PEAK_QK
+    for k in ("Wv", "Wo"):
+        begin[0][k] *= ATT_SPREAD_V
+    return begin, net._init_opt_states()
+
+
+def phase_train_attention_bf16(torch, ck, train_att) -> tuple:
+    """The attention model of ``train_attention`` under
+    precision("bfloat16"): ATT_BF16_STEPS ``fit`` steps of 4 x 8,192
+    characters, exactly 2 launches of each bf16 flash form a step, no
+    other kernel and no attention fallback, peak memory below one dense
+    bf16 score tensor, f32 masters; then one step at ATT_PLAIN_SEQ from
+    ``_attention_step_vs_plain``'s state through the kernels, through the
+    plain versions in bf16 and in f32, by the rules of the constants (the
+    key bias bk held to none: its gradient is rounding noise)."""
+    from deeplearning4j_tpu_torch.models import CharacterIterator, attention_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=ATT_SEQ, batch=ATT_BATCH, seed=0)
+    net = attention_lm(it.vocab_size, ATT_WIDTH, ATT_HEADS, ATT_LAYERS,
+                       ATT_SEQ, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    net.conf.global_conf.precision = "bfloat16"
+    start = _clone_tree(net.net_params)
+    grad_dtypes = _recording_grad_dtypes(net)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    fallbacks = _fallbacks("attention")
+    _zero_counts(ck)                                   # main path starts
+    for k in range(ATT_BF16_STEPS):
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        net.fit(it.next())
+        score = net.score()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        steps.append({"step": k + 1, "score": score, "seconds": dt,
+                      "chars_per_s": ATT_BATCH * ATT_SEQ / dt,
+                      "launches": {n: after[n] - counts[n] for n in after}})
+    launches = _kernel_counts(ck)                      # main path ends
+    fallbacks = _fallbacks("attention") - fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    del net._apply_updates
+    masters = _f32_masters(net, "attention bf16")
+    want = _want(ck, flash_forward_bf16=ATT_LAYERS, flash_dq_bf16=ATT_LAYERS,
+                 flash_dkv_bf16=ATT_LAYERS)
+    for st in steps:
+        if st["launches"] != want or not np.isfinite(st["score"]):
+            raise AssertionError(f"attention bf16 step {st}: launches must "
+                                 f"be {want} and the score finite")
+    dense_scores = 2 * ATT_BATCH * ATT_HEADS * ATT_SEQ ** 2
+    if fallbacks or peak >= dense_scores or grad_dtypes != {"float32"}:
+        raise AssertionError(f"attention bf16: {fallbacks} fallbacks, peak "
+                             f"{peak} B (one dense bf16 score tensor is "
+                             f"{dense_scores} B), gradients {grad_dtypes}")
+    ds = it.next()
+    x = torch.from_numpy(ds.features[:, :ATT_PLAIN_SEQ]).cuda()
+    y = torch.from_numpy(ds.labels[:, :ATT_PLAIN_SEQ]).cuda()
+    begin, opt0 = _attention_start(net, start)
+    runs = _seq_step_runs(torch, ck, net, x, y,
+                          (begin, opt0, net.net_state, 0),
+                          seq_bf16_modes(lambda: _plain_flash(ck)))
+    step = compare_seq_bf16(torch, runs, begin, ATT_BF16_SCORE_RTOL,
+                            ATT_BF16_UPDATE_RTOL, ATT_BF16_COSINE_MIN,
+                            ATT_BF16_GRAD_RTOL, skip=("bk",))
+    step["launches"] = {n: r[3] for n, r in runs.items()}
+    step.update(seq=ATT_PLAIN_SEQ, peak_qk=ATT_PEAK_QK,
+                spread_v=ATT_SPREAD_V)
+    res = {"precision": "bfloat16", "vocab": it.vocab_size,
+           "batch": ATT_BATCH, "seq": ATT_SEQ, "width": ATT_WIDTH,
+           "heads": ATT_HEADS, "layers": ATT_LAYERS, "steps": steps,
+           "chars_per_s_after_first": ATT_BATCH * ATT_SEQ
+           * (ATT_BF16_STEPS - 1) / sum(st["seconds"] for st in steps[1:]),
+           "f32_chars_per_s_after_first":
+               train_att["chars_per_s_after_first"],
+           "launches": launches, "attention_fallbacks": fallbacks,
+           "max_memory_allocated": peak,
+           "f32_max_memory_allocated": train_att["max_memory_allocated"],
+           "one_dense_bf16_score_tensor_bytes": dense_scores,
+           "dtypes": {**masters, "gradients": sorted(grad_dtypes)},
+           "plain_step": step}
+    emit("train_attention_bf16", **res)
+    res["initial_params"] = start
+    kernel_want = {n: ATT_LAYERS for n in ("flash_forward_bf16",
+                                           "flash_dq_bf16",
+                                           "flash_dkv_bf16")}
+    if not step["ok"] or step["launches"]["kernel"] != kernel_want or \
+            step["launches"]["plain"]:
+        raise AssertionError(f"attention bf16 step through the kernels "
+                             f"disagrees with the plain bf16 step or the "
+                             f"f32 step: {step}")
+    return res, net, it
+
+
+def _bf16_output_vs_f32(torch, ck, net, x, params) -> dict:
+    """``output()`` on ``params`` in bf16 through the kernels, in bf16
+    through the plain versions (a kernel-free witness) and in f32:
+    relative 2-norms of the probabilities.  The network's params and
+    precision are put back."""
+    g, keep = net.conf.global_conf, net.net_params
+    net.net_params = params
+    try:
+        out_k = net.output(x)
+        with _plain_flash(ck):
+            out_p = net.output(x)
+        g.precision = None
+        out_f = net.output(x)
+    finally:
+        g.precision, net.net_params = "bfloat16", keep
+    return {"kernel_vs_f32": _rel_norm(torch, out_k, out_f),
+            "plain_vs_f32": _rel_norm(torch, out_p, out_f),
+            "kernel_vs_plain": _rel_norm(torch, out_k, out_p)}
+
+
+def phase_output_attention_bf16(torch, ck, net, it, initial) -> dict:
+    """``output()`` of the bf16 attention model on 4 x 8,192 characters:
+    2 launches of the bf16 flash forward a call and no other kernel;
+    probabilities f32, finite, summing to 1 within BF16_PROBS_SUM_ATOL.
+    Against the f32 network's on the same params, through the kernels and
+    through the plain bf16 versions (no kernel): on the trained params
+    (reported: 3 steps at the recipe's lr saturate this width, and there
+    both bf16 outputs read 0.0764 from f32's and 0 from each other on an
+    H100, bf16's own distance), and on the initial params ``initial``,
+    where both are held to ATT_BF16_PROBS_REL (relative 2-norm; both read
+    0.0042 there)."""
+    ds = it.next()
+    x = torch.from_numpy(ds.features).cuda()
+    net.output(x)
+    torch.cuda.synchronize()
+    walls = []
+    _zero_counts(ck)                                   # main path starts
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = net.output(x)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernel_counts(ck)                      # main path ends
+    sums = float((out.sum(dim=-1) - 1).abs().max())
+    vs_f32 = {"trained": _bf16_output_vs_f32(torch, ck, net, x,
+                                             net.net_params),
+              "initial": _bf16_output_vs_f32(torch, ck, net, x, initial)}
+    res = {"precision": "bfloat16", "batch": ATT_BATCH, "seq": ATT_SEQ,
+           "wall_ms": float(np.median(walls)), "wall_ms_each": walls,
+           "launches": launches,
+           "chars_per_s": ATT_BATCH * ATT_SEQ / float(np.median(walls)) * 1e3,
+           "probs_vs_f32": vs_f32, "probs_rel_rule": ATT_BF16_PROBS_REL,
+           "probs_sum_max_err": sums}
+    emit("output_attention_bf16", **res)
+    held = vs_f32["initial"]
+    if launches != _want(ck, flash_forward_bf16=3 * ATT_LAYERS) or \
+            tuple(out.shape) != (ATT_BATCH, ATT_SEQ, it.vocab_size) or \
+            out.dtype != torch.float32 or \
+            not bool(torch.isfinite(out).all()) or \
+            sums > BF16_PROBS_SUM_ATOL or \
+            max(held["kernel_vs_f32"], held["plain_vs_f32"]) > \
+            ATT_BF16_PROBS_REL:
+        raise AssertionError(f"bf16 attention output(): {res}")
+    return res
+
+
+def phase_sample_attention_bf16(torch, ck, net, it) -> dict:
+    """KV-ring sampling of the bf16 attention model as
+    ``sample_attention`` (no kernel: the ring is plain torch in bf16), the
+    ring's answers against ``output()`` on the whole 300-character prefix
+    (the bf16 flash forward) by ATT_BF16_SAMPLE_REL in relative 2-norm."""
+    from deeplearning4j_tpu_torch.models import sample_text
+    V = it.vocab_size
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(SEED)
+    net.rnn_clear_previous_state()
+    cur = rng.integers(0, V, SAMPLE_STREAMS)
+    picks, outs = [cur], []
+    _zero_counts(ck)                                   # main path starts
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_CHARS):
+        out = net.rnn_time_step(eye[cur][:, None, :])[:, -1]
+        outs.append(out)
+        p = out.double().cpu().numpy()
+        cur = np.array([rng.choice(V, p=q / q.sum()) for q in p])
+        picks.append(cur)
+    stream_s = time.perf_counter() - t0
+    seed_text, length = "The ", 100
+    t0 = time.perf_counter()
+    text = sample_text(net, it, seed_text, length=length, rng_seed=SEED)
+    text_s = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    if any(launches.values()):
+        raise AssertionError(f"bf16 KV-ring sampling launched {launches}")
+    if len(text) != len(seed_text) + length or \
+            any(ch not in it.char_to_idx for ch in text):
+        raise AssertionError(f"sample_text gave {text!r}")
+    prefix = np.stack(picks[:SAMPLE_CHARS], axis=1)
+    before = ck.flash_forward.bf16.launches
+    full = net.output(eye[prefix])
+    full_launches = ck.flash_forward.bf16.launches - before
+    steps = torch.stack(outs, dim=1)
+    rel = _rel_norm(torch, steps, full)
+    res = {"precision": "bfloat16", "streams": SAMPLE_STREAMS,
+           "chars": SAMPLE_CHARS, "window": net.layers[0].cache_window,
+           "ms_per_char": stream_s / SAMPLE_CHARS * 1e3,
+           "sample_text_ms_per_char": text_s / (len(seed_text) + length)
+           * 1e3, "launches": launches,
+           "first_stream": "".join(it.idx_to_char[int(p[0])] for p in picks),
+           "sample_text": text, "output_launches": full_launches,
+           "time_step_vs_output_rel_norm": rel,
+           "time_step_vs_output_max_abs": float((steps - full).abs().max()),
+           "sample_rel_rule": ATT_BF16_SAMPLE_REL}
+    emit("sample_attention_bf16", **res)
+    if rel > ATT_BF16_SAMPLE_REL or full_launches != ATT_LAYERS:
+        raise AssertionError(f"bf16 KV ring against output(): {rel} (rule "
+                             f"{ATT_BF16_SAMPLE_REL}), {full_launches} "
+                             f"forward launches")
     return res
 
 
@@ -5949,7 +6673,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
             train_att, output_att, sample_att, textcnn, train_tc,
-            transfer_paths, bf16) -> dict:
+            transfer_paths, bf16, seq_bf16) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -5965,7 +6689,10 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     forms have entries of their own: the conv's times, bound (bf16 FLOPs)
     and cuDNN bf16 over the same 32-row batches, with every timed set of
     ``bf16_kernels`` beside them; dropout's over VGG16-224's four launches
-    in bf16, ``F.dropout`` on bf16 as the library call."""
+    in bf16, ``F.dropout`` on bf16 as the library call.  The bf16 forms
+    of the lstm step (one step at (32, 200), 2-byte bytes) and of the flash
+    kernels (at (4, 8, 8192, 64), causal: the one-pass bf16 bound, the
+    split's work beside it, SDPA bf16, bf16 HMMA in the SASS) likewise."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -5994,7 +6721,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "sample_attention": sample_att["launches"],
              "train_textcnn": train_tc["launches"],
              "evaluate_textcnn": train_tc["evaluate"]["launches"],
-             **transfer_paths, **bf16["paths"]}
+             **transfer_paths, **bf16["paths"], **seq_bf16["paths"]}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -6007,6 +6734,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     bsets = bk["sets"]
     bserved = [bsets[k] for k in ("lenet_32", "vgg16_cifar10_32")]
     bdrop = [r for r in bk["dropout"] if "ms" in r]
+    sk = seq_bf16["kernels"]
     return {"kernels": [{
         "name": "conv2d_bias_act",
         "route": "cuda",
@@ -6125,6 +6853,41 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             "library_ms_backward_pair": flash["library_ms_backward"]}),
     } for name, line, errs in (("flash_forward", 128, ("out", "lse")),
                                ("flash_dq", 238, ("dq",)),
+                               ("flash_dkv", 274, ("dk", "dv")))] + [{
+        "name": "lstm_step_bf16",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/lstm_step.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:703",
+        "launches": launches("lstm_step_bf16"),
+        "launches_by_path": by_path("lstm_step_bf16"),
+        "max_abs_err": max(r["max_abs_err"] for r in sk["lstm_steps"]),
+        "ms": sk["lstm_steps"][0]["ms"],
+        "plain_ms": sk["lstm_steps"][0]["plain_ms"],
+        "bound_ms": sk["lstm_steps"][0]["bound_ms"],
+        "bound_by": sk["lstm_steps"][0]["bound_by"],
+        "library_ms": None, "library_note": sk["lstm_library_note"],
+    }] + [{
+        "name": f"{name}_bf16",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line}",
+        "launches": launches(f"{name}_bf16"),
+        "launches_by_path": by_path(f"{name}_bf16"),
+        "max_abs_err": max(c["max_abs_err"][e] for c in sk["flash_checks"]
+                           for e in errs),
+        "ms": sk["timed"][name]["ms"],
+        "plain_ms": sk["timed"][name]["plain_ms"],
+        "bound_ms": sk["timed"][name]["bound_ms"],
+        "bound_by": sk["timed"][name]["bound_by"],
+        "bound_split_ms": sk["timed"][name]["bound_split_ms"],
+        "library_ms": (sk["library_ms_forward"]
+                       if name == "flash_forward" else None),
+        "library_note": sk["library_note"],
+        "sass_bf16_hmma": sk["sass_bf16_hmma"][name],
+        **({} if name == "flash_forward" else {
+            "library_ms_backward_pair": sk["library_ms_backward"]}),
+    } for name, line, errs in (("flash_forward", 128, ("out", "lse")),
+                               ("flash_dq", 238, ("dq",)),
                                ("flash_dkv", 274, ("dk", "dv")))]}
 
 
@@ -6198,6 +6961,26 @@ def main() -> int:
     output_att = phase_output_attention(torch, ck, net, it)
     sample_att = phase_sample_attention(torch, ck, net, it)
     del net
+    torch.cuda.empty_cache()
+    seq_kernels = phase_bf16_sequence_kernels(torch, ck)
+    train_char_bf16, net, it = phase_train_charrnn_bf16(torch, ck,
+                                                        train_char)
+    sample_char_bf16 = phase_sample_charrnn_bf16(torch, ck, net, it)
+    del net
+    torch.cuda.empty_cache()
+    train_att_bf16, net, it = phase_train_attention_bf16(torch, ck,
+                                                         train_att)
+    output_att_bf16 = phase_output_attention_bf16(
+        torch, ck, net, it, train_att_bf16.pop("initial_params"))
+    sample_att_bf16 = phase_sample_attention_bf16(torch, ck, net, it)
+    del net
+    torch.cuda.empty_cache()
+    seq_bf16 = {"kernels": seq_kernels, "paths": {
+        "train_charrnn_bf16": train_char_bf16["launches"],
+        "sample_charrnn_bf16": sample_char_bf16["launches"],
+        "train_attention_bf16": train_att_bf16["launches"],
+        "output_attention_bf16": output_att_bf16["launches"],
+        "sample_attention_bf16": sample_att_bf16["launches"]}}
     phase_w2v_step(torch)
     _, w2v, sents, topic_of = phase_train_word2vec(torch)
     phase_embeddings_card_vs_cpu(torch)
@@ -6212,7 +6995,7 @@ def main() -> int:
                              serve_resnet, train_resnet, functional, lstm,
                              train_char, sample_char, flash, train_att,
                              output_att, sample_att, textcnn, train_tc,
-                             transfer_paths, bf16)))
+                             transfer_paths, bf16, seq_bf16)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -132,6 +132,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_bf16.cuh"
 #include "hopper_tf32.cuh"
 
 namespace {
@@ -837,6 +838,460 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forms: forward, dq and dk/dv on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+//
+// The TPU kernels under precision("bfloat16") take bf16 q, k, v and dout,
+// upcast them, keep the scores, the softmax, lse, delta, p and ds in f32,
+// and round out, dq, dk and dv once (:133-177, :238-318).  Here every
+// product whose operands are bf16 tensors (S = q k^T, dP = dout v^T, and the
+// k, q, dout sides of the products with p and ds) is one bf16 mma.sync with
+// f32 sums: a bf16 x bf16 product is exact in f32.  P and dS are f32
+// intermediates: rounded to bf16 they would put outputs a bf16 ulp from the
+// reference's function in ~12 % of elements, so each goes in as a bf16 hi
+// + lo pair (hi = p to the nearest bf16, lo = p - hi to the nearest bf16),
+// two products into one f32 sum, what 3xTF32 is to the f32 forms; the
+// dropped lo.lo term is below 2^-16 of p.  The scale is applied to S in f32
+// after the product.
+//
+// A block is 4 warps; each warp owns 16 of the block's 64 rows and keeps
+// its accumulators in registers in mma's layout, and the 64-row tiles of
+// the other side go through shared memory ([64][DP + 8] bf16, zero past T
+// and in [D, DP)), loaded by the whole block between two barriers.  The
+// accumulator layout of S (and of dP) is the A fragment layout of the next
+// product, so p and ds never leave the registers: the forward multiplies
+// P V with P from its S registers; dq multiplies dS K; dk/dv computes the
+// transposed scores S^T = K Q^T and dP^T = V dO^T for its 16 keys a warp,
+// so that P^T dO and dS^T Q take P^T and dS^T from registers too.  The
+// operand read along a tile's rows (V in P V, K in dS K, dO and Q in dk/dv)
+// is gathered two bf16 at a time from shared memory.  No split pre-pass and
+// no scratch: K and V are read as they are.  A simple plan, right first:
+// the loads are synchronous, not overlapped with the products.
+//
+// Its bound at the long-context model's shape (B = 4, H = 8, T = 8192,
+// D = 64, causal): 275, 412 and 550 GFLOP of one-pass bf16 products for
+// the forward, dq and dk/dv, 0.28, 0.42 and 0.56 ms at the 989 TFLOP/s
+// bf16 peak; the hi + lo split makes the work 1.5, 1.33 and 1.5 times that.
+
+constexpr int kB16Rows = 64;       // a block's own rows, 16 a warp
+constexpr int kB16Tile = 64;       // rows of a streamed tile
+constexpr int kB16Threads = 128;
+
+// A tile of 64 rows [64][LD] bf16 in shared memory, LD = DP + 8 (16 bytes
+// of padding: the fragment gathers meet no bank conflict).
+template <int DP>
+struct B16 {
+  static constexpr int LD = DP + 8;
+  static constexpr int TILE = kB16Tile * LD;          // elements
+  static constexpr int KS = DP / 16;                   // k-steps over D
+  static constexpr int ND = DP / 8;                    // 8-wide tiles of D
+  // the forward: q, k and v tiles and the key bias; dq: q, dout, k and v
+  // tiles and the key bias; dk/dv: k, v, q and dout tiles, lse and delta
+  static constexpr int FWD_SMEM = 3 * TILE * 2 + kB16Tile * 4;
+  static constexpr int DQ_SMEM = 4 * TILE * 2 + kB16Tile * 4;
+  static constexpr int DKV_SMEM = 4 * TILE * 2 + 2 * kB16Tile * 4;
+  static_assert(DKV_SMEM <= kSmemMax, "the plan exceeds shared memory");
+};
+
+// Rows r0 + [0, 64) of a [T][D] bf16 matrix into a [64][LD] tile, zero past
+// T and in [D, DP): 8-byte loads (D % 4 == 0, the base 16-byte aligned).
+template <int DP>
+__device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
+                                               const uint16_t* src, int r0,
+                                               int T, int D) {
+  constexpr int C4 = DP / 4;
+  for (int e = threadIdx.x; e < kB16Tile * C4; e += kB16Threads) {
+    const int r = e / C4, c4 = e - r * C4;
+    uint2 x = make_uint2(0u, 0u);
+    if (r0 + r < T && 4 * c4 < D)
+      x = __ldg(reinterpret_cast<const uint2*>(
+          src + static_cast<size_t>(r0 + r) * D + 4 * c4));
+    *reinterpret_cast<uint2*>(dst + r * B16<DP>::LD + 4 * c4) = x;
+  }
+}
+
+// The A fragment of rows m0 + [0, 16) and columns k0 + [0, 16) of a tile.
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint16_t* t,
+                                       int m0, int k0, int g, int tq) {
+  const uint16_t* p = t + (m0 + g) * LD + k0 + 2 * tq;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+}
+
+// The B fragment B[k][n] = t[n0 + n][k0 + k]: column n is a tile row.
+template <int LD>
+__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
+                                            const uint16_t* t, int n0, int k0,
+                                            int g, int tq) {
+  const uint16_t* p = t + (n0 + g) * LD + k0 + 2 * tq;
+  b0 = *reinterpret_cast<const uint32_t*>(p);
+  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// The B fragment B[k][n] = t[k0 + k][n0 + n]: row k is a tile row, gathered
+// two bf16 at a time.
+template <int LD>
+__device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
+                                            const uint16_t* t, int k0, int n0,
+                                            int g, int tq) {
+  const uint16_t* p = t + (k0 + 2 * tq) * LD + n0 + g;
+  b0 = p[0] | (static_cast<uint32_t>(p[LD]) << 16);
+  b1 = p[8 * LD] | (static_cast<uint32_t>(p[9 * LD]) << 16);
+}
+
+// x0, x1 (K 2t, 2t+1 of a row) as bf16 hi and lo pairs: hi = x to the
+// nearest bf16, lo = x - hi (exact in f32) to the nearest bf16.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint16_t h0 = float_to_bf16_bits(x0), h1 = float_to_bf16_bits(x1);
+  const uint16_t l0 = float_to_bf16_bits(x0 - bf16_bits_to_float(h0));
+  const uint16_t l1 = float_to_bf16_bits(x1 - bf16_bits_to_float(h1));
+  hi = h0 | (static_cast<uint32_t>(h1) << 16);
+  lo = l0 | (static_cast<uint32_t>(l1) << 16);
+}
+
+// acc[ND][4] += X[16 x 64] T[64 x DP] for a warp: X in the accumulator
+// layout of eight 16 x 8 products (x[n][i]: row g + 8 (i / 2), column
+// 8 n + 2 t + i % 2), fed as hi + lo A fragments; T the tile t read along
+// its rows (B[k][n] = t[k][n]).
+template <int DP>
+__device__ __forceinline__ void mma_split_rows(float (&acc)[B16<DP>::ND][4],
+                                               const float (&x)[8][4],
+                                               const uint16_t* t, int g,
+                                               int tq) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t ah[4], al[4];
+    split_pair(x[2 * j][0], x[2 * j][1], ah[0], al[0]);
+    split_pair(x[2 * j][2], x[2 * j][3], ah[1], al[1]);
+    split_pair(x[2 * j + 1][0], x[2 * j + 1][1], ah[2], al[2]);
+    split_pair(x[2 * j + 1][2], x[2 * j + 1][3], ah[3], al[3]);
+#pragma unroll
+    for (int nd = 0; nd < B16<DP>::ND; ++nd) {
+      uint32_t b0, b1;
+      frag_b_cols<B16<DP>::LD>(b0, b1, t, 16 * j, 8 * nd, g, tq);
+      mma_bf16_16816(acc[nd], ah, b0, b1);
+      mma_bf16_16816(acc[nd], al, b0, b1);
+    }
+  }
+}
+
+// s[8][4] = A[16 x DP] B^T for a warp: A rows m0 + [0, 16) of tile a, B the
+// 64 rows of tile b (S = q k^T, dP = dout v^T and their transposes).
+template <int DP>
+__device__ __forceinline__ void mma_rows_rows(float (&s)[8][4],
+                                              const uint16_t* a, int m0,
+                                              const uint16_t* b, int g,
+                                              int tq) {
+  constexpr int LD = B16<DP>::LD;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < B16<DP>::KS; ++kk) {
+    uint32_t fa[4];
+    frag_a<LD>(fa, a, m0, 16 * kk, g, tq);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t b0, b1;
+      frag_b_rows<LD>(b0, b1, b, 8 * n, 16 * kk, g, tq);
+      mma_bf16_16816(s[n], fa, b0, b1);
+    }
+  }
+}
+
+// Rows r and r + 8 of a warp's [16][DP] accumulators (times `mul`) rounded
+// to bf16 into a [T][D] matrix; rows past T and columns past D are not
+// stored.
+template <int DP>
+__device__ __forceinline__ void store_rows_bf16(
+    uint16_t* dst, const float (&acc)[B16<DP>::ND][4], int r, int T, int D,
+    int tq, float mul0, float mul1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (row >= T) continue;
+    const float mul = h ? mul1 : mul0;
+#pragma unroll
+    for (int nd = 0; nd < B16<DP>::ND; ++nd) {
+      const int d = 8 * nd + 2 * tq;
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D + d) =
+            float_to_bf16_bits(acc[nd][2 * h] * mul) |
+            (static_cast<uint32_t>(float_to_bf16_bits(acc[nd][2 * h + 1] *
+                                                      mul)) << 16);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kB16Threads)
+flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+               const uint16_t* __restrict__ v, const float* __restrict__ mask,
+               uint16_t* __restrict__ out, float* __restrict__ lse, int H,
+               int T, int D, int causal, float scale) {
+  using P = B16<DP>;
+  constexpr int LD = P::LD, ND = P::ND;
+  extern __shared__ __align__(16) uint8_t smem_b16[];
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_b16);
+  uint16_t* ks = qs + P::TILE;
+  uint16_t* vs = ks + P::TILE;
+  float* bias = reinterpret_cast<float*>(vs + P::TILE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  // every head's last query rows, which visit the most key tiles, first
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kB16Rows;
+  const int w0 = r0 + 16 * warp;          // the warp's rows w0 + [0, 16)
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const float* maskb = mask + static_cast<size_t>(bh / H) * T;
+  load_tile_bf16<DP>(qs, q + base, r0, T, D);
+  const int ntiles = (T + kB16Tile - 1) / kB16Tile;
+  const int n_tiles =
+      causal ? min(ntiles, (r0 + kB16Rows - 1) / kB16Tile + 1) : ntiles;
+  const float sl2 = scale * 1.4426950408889634f;   // the log2 domain
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nd][i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kB16Tile;
+    __syncthreads();                     // the last tile is read
+    load_tile_bf16<DP>(ks, k + base, k0, T, D);
+    load_tile_bf16<DP>(vs, v + base, k0, T, D);
+    if (tid < kB16Tile)
+      bias[tid] = k0 + tid < T && maskb[k0 + tid] > 0.0f ? 0.0f : -INFINITY;
+    __syncthreads();
+    if (causal && k0 > w0 + 15) continue;   // no live key for these rows
+
+    float s[8][4];
+    mma_rows_rows<DP>(s, qs, 16 * warp, ks, g, tq);
+    // x = s scale log2(e) + bias, the causal mask; the row max over the 4
+    // threads of a row
+    const bool diag = causal && k0 + kB16Tile - 1 > w0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = 8 * n + 2 * tq + (i & 1);
+        float x = fmaf(s[n][i], sl2, bias[col]);
+        if (diag && k0 + col > w0 + g + 8 * h) x = -INFINITY;
+        s[n][i] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m2[h], mx[h]);
+      mu[h] = m_new == -INFINITY ? 0.0f : m_new;   // no live key yet: p = 0
+      alpha[h] = exp2f(m2[h] - mu[h]);             // 0 while m2 is -inf
+      m2[h] = m_new;
+      l[h] *= alpha[h];                            // this thread's share
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[nd][i] *= alpha[i >> 1];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(s[n][i] - mu[i >> 1]);
+        l[i >> 1] += p;
+        s[n][i] = p;
+      }
+    mma_split_rows<DP>(o, s, vs, g, tq);           // O += P V
+  }
+
+  // out = o / l and lse = (m2 + log2 l) ln 2 for the thread's two rows; a
+  // row with no live key gives 0 and kDeadLse
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const bool live = l[h] > 0.0f;
+    inv[h] = live ? 1.0f / l[h] : 0.0f;
+    const int r = w0 + g + 8 * h;
+    if (tq == 0 && r < T)
+      lse[static_cast<size_t>(bh) * T + r] =
+          live ? (m2[h] + log2f(l[h])) * 0.6931471805599453f : kDeadLse;
+  }
+  store_rows_bf16<DP>(out + base, o, w0 + g, T, D, tq, inv[0], inv[1]);
+}
+
+// dq for 64 query rows a block: stream key tiles, dS = p (dP - delta),
+// dq += dS k; dq scale rounded once.
+template <int DP>
+__global__ void __launch_bounds__(kB16Threads)
+flash_dq_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+              const uint16_t* __restrict__ v, const float* __restrict__ mask,
+              const uint16_t* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, uint16_t* __restrict__ dq,
+              int H, int T, int D, int causal, float scale) {
+  using P = B16<DP>;
+  constexpr int ND = P::ND;
+  extern __shared__ __align__(16) uint8_t smem_b16[];
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_b16);
+  uint16_t* dos = qs + P::TILE;
+  uint16_t* ks = dos + P::TILE;
+  uint16_t* vs = ks + P::TILE;
+  float* bias = reinterpret_cast<float*>(vs + P::TILE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kB16Rows;
+  const int w0 = r0 + 16 * warp;
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const size_t base_t = static_cast<size_t>(bh) * T;
+  const float* maskb = mask + static_cast<size_t>(bh / H) * T;
+  load_tile_bf16<DP>(qs, q + base, r0, T, D);
+  load_tile_bf16<DP>(dos, dout + base, r0, T, D);
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;
+  float row_lse[2], row_delta[2];
+  bool row_live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = w0 + g + 8 * h;
+    row_lse[h] = r < T ? lse[base_t + r] : kDeadLse;
+    row_delta[h] = r < T ? delta[base_t + r] : 0.0f;
+    row_live[h] = row_lse[h] > 0.5f * kDeadLse;
+  }
+  const int ntiles = (T + kB16Tile - 1) / kB16Tile;
+  const int n_tiles =
+      causal ? min(ntiles, (r0 + kB16Rows - 1) / kB16Tile + 1) : ntiles;
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kB16Tile;
+    __syncthreads();
+    load_tile_bf16<DP>(ks, k + base, k0, T, D);
+    load_tile_bf16<DP>(vs, v + base, k0, T, D);
+    if (tid < kB16Tile)
+      bias[tid] = k0 + tid < T && maskb[k0 + tid] > 0.0f ? 0.0f : -INFINITY;
+    __syncthreads();
+    if (causal && k0 > w0 + 15) continue;
+
+    float s[8][4], dp[8][4];
+    mma_rows_rows<DP>(s, qs, 16 * warp, ks, g, tq);     // S = q k^T
+    mma_rows_rows<DP>(dp, dos, 16 * warp, vs, g, tq);   // dP = dout v^T
+    // p from lse, the exponent clamped on dead pairs and rows (0, never
+    // inf), and ds = p (dP - delta), in place of s
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = 8 * n + 2 * tq + (i & 1);
+        const bool live = row_live[h] && bias[col] == 0.0f &&
+                          (!causal || k0 + col <= w0 + g + 8 * h);
+        const float p =
+            exp2f(live ? s[n][i] * sl2 - row_lse[h] * kLog2e : -INFINITY);
+        s[n][i] = p * (dp[n][i] - row_delta[h]);
+      }
+    mma_split_rows<DP>(acc, s, ks, g, tq);             // dq += dS k
+  }
+  store_rows_bf16<DP>(dq + base, acc, w0 + g, T, D, tq, scale, scale);
+}
+
+// dk and dv for 64 keys a block: stream query tiles, compute the transposed
+// scores S^T = k q^T and dP^T = v dout^T for the warp's 16 keys, then
+// dv += P^T dout and dk += dS^T q; dk scale and dv rounded once.
+template <int DP>
+__global__ void __launch_bounds__(kB16Threads)
+flash_dkv_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+               const uint16_t* __restrict__ v, const float* __restrict__ mask,
+               const uint16_t* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int H,
+               int T, int D, int causal, float scale) {
+  using P = B16<DP>;
+  constexpr int ND = P::ND;
+  extern __shared__ __align__(16) uint8_t smem_b16[];
+  uint16_t* kbs = reinterpret_cast<uint16_t*>(smem_b16);
+  uint16_t* vbs = kbs + P::TILE;
+  uint16_t* qs = vbs + P::TILE;
+  uint16_t* dos = qs + P::TILE;
+  float* qlse = reinterpret_cast<float*>(dos + P::TILE);
+  float* qdelta = qlse + kB16Tile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int r0 = blockIdx.y * kB16Rows;   // first keys first under causal
+  const int w0 = r0 + 16 * warp;          // the warp's keys w0 + [0, 16)
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const size_t base_t = static_cast<size_t>(bh) * T;
+  const float* maskb = mask + static_cast<size_t>(bh / H) * T;
+  load_tile_bf16<DP>(kbs, k + base, r0, T, D);
+  load_tile_bf16<DP>(vbs, v + base, r0, T, D);
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;
+  bool key_live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = w0 + g + 8 * h;
+    key_live[h] = key < T && maskb[key] > 0.0f;
+  }
+  const int ntiles = (T + kB16Tile - 1) / kB16Tile;
+  const int first = causal ? r0 / kB16Tile : 0;
+  float adk[ND][4], adv[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) adk[nd][i] = adv[nd][i] = 0.0f;
+
+  for (int it = first; it < ntiles; ++it) {
+    const int q0 = it * kB16Tile;
+    __syncthreads();
+    load_tile_bf16<DP>(qs, q + base, q0, T, D);
+    load_tile_bf16<DP>(dos, dout + base, q0, T, D);
+    if (tid < kB16Tile) {
+      const bool ok = q0 + tid < T;
+      qlse[tid] = ok ? lse[base_t + q0 + tid] : kDeadLse;
+      qdelta[tid] = ok ? delta[base_t + q0 + tid] : 0.0f;
+    }
+    __syncthreads();
+    if (causal && q0 + kB16Tile - 1 < w0) continue;   // queries before keys
+
+    float st[8][4], dpt[8][4];
+    mma_rows_rows<DP>(st, kbs, 16 * warp, qs, g, tq);    // S^T = k q^T
+    mma_rows_rows<DP>(dpt, vbs, 16 * warp, dos, g, tq);  // dP^T = v dout^T
+    // p^T in place of st, ds^T in place of dpt: row = key, column = query
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = 8 * n + 2 * tq + (i & 1);
+        const float ql = qlse[col];
+        const bool live = key_live[h] && ql > 0.5f * kDeadLse &&
+                          (!causal || w0 + g + 8 * h <= q0 + col);
+        const float p =
+            exp2f(live ? st[n][i] * sl2 - ql * kLog2e : -INFINITY);
+        st[n][i] = p;
+        dpt[n][i] = p * (dpt[n][i] - qdelta[col]);
+      }
+    mma_split_rows<DP>(adv, st, dos, g, tq);   // dv += P^T dout
+    mma_split_rows<DP>(adk, dpt, qs, g, tq);   // dk += dS^T q
+  }
+  store_rows_bf16<DP>(dk + base, adk, w0 + g, T, D, tq, scale, scale);
+  store_rows_bf16<DP>(dv + base, adv, w0 + g, T, D, tq, 1.0f, 1.0f);
+}
+
 bool bad_shape(int BH, int H, int T, int D) {
   return BH < 1 || H < 1 || BH % H != 0 || BH > 65535 || T < 1 || D < 4 ||
          D > 128 || D % 4 != 0;
@@ -882,6 +1337,52 @@ int launch_bwd(const float* q, const float* k, const float* v,
   const dim3 grid(BH, blocks);
   flash_bwd<DPAD, DQ><<<grid, kBwdThreads, P::SMEM, stream>>>(
       q, k, v, mask, dout, lse, delta, out0, out1, H, T, D, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                    const float* mask, uint16_t* out, float* lse, int BH,
+                    int H, int T, int D, int causal, float scale,
+                    cudaStream_t stream) {
+  const int blocks = (T + kB16Rows - 1) / kB16Rows;
+  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = B16<DP>::FWD_SMEM;
+  cudaError_t err = allow_smem(flash_fwd_bf16<DP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_bf16<DP><<<dim3(BH, blocks), kB16Threads, smem, stream>>>(
+      q, k, v, mask, out, lse, H, T, D, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                   const float* mask, const uint16_t* dout, const float* lse,
+                   const float* delta, uint16_t* dq, int BH, int H, int T,
+                   int D, int causal, float scale, cudaStream_t stream) {
+  const int blocks = (T + kB16Rows - 1) / kB16Rows;
+  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = B16<DP>::DQ_SMEM;
+  cudaError_t err = allow_smem(flash_dq_bf16<DP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_dq_bf16<DP><<<dim3(BH, blocks), kB16Threads, smem, stream>>>(
+      q, k, v, mask, dout, lse, delta, dq, H, T, D, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                    const float* mask, const uint16_t* dout, const float* lse,
+                    const float* delta, uint16_t* dk, uint16_t* dv, int BH,
+                    int H, int T, int D, int causal, float scale,
+                    cudaStream_t stream) {
+  const int blocks = (T + kB16Rows - 1) / kB16Rows;
+  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = B16<DP>::DKV_SMEM;
+  cudaError_t err = allow_smem(flash_dkv_bf16<DP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_dkv_bf16<DP><<<dim3(BH, blocks), kB16Threads, smem, stream>>>(
+      q, k, v, mask, dout, lse, delta, dk, dv, H, T, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -936,6 +1437,48 @@ int dl4j_flash_dkv_f32(const float* q, const float* k, const float* v,
                  : launch_bwd<128, false>(q, k, v, mask, dout, lse, delta,
                                           dk, dv, BH, H, T, D, causal, scale,
                                           s);
+}
+
+// The bf16 forms: q, k, v (and dout) bf16 [BH, T, D], the key mask, lse and
+// delta f32; out (dq, dk, dv) bf16, lse f32.  The forward has no pre-pass
+// and takes no scratch.
+int dl4j_flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
+                        const uint16_t* v, const float* mask, uint16_t* out,
+                        float* lse, int BH, int H, int T, int D, int causal,
+                        float scale, void* stream) {
+  if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? launch_fwd_bf16<64>(q, k, v, mask, out, lse, BH, H, T, D,
+                                       causal, scale, s)
+                 : launch_fwd_bf16<128>(q, k, v, mask, out, lse, BH, H, T, D,
+                                        causal, scale, s);
+}
+
+int dl4j_flash_dq_bf16(const uint16_t* q, const uint16_t* k,
+                       const uint16_t* v, const float* mask,
+                       const uint16_t* dout, const float* lse,
+                       const float* delta, uint16_t* dq, int BH, int H, int T,
+                       int D, int causal, float scale, void* stream) {
+  if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? launch_dq_bf16<64>(q, k, v, mask, dout, lse, delta, dq,
+                                      BH, H, T, D, causal, scale, s)
+                 : launch_dq_bf16<128>(q, k, v, mask, dout, lse, delta, dq,
+                                       BH, H, T, D, causal, scale, s);
+}
+
+int dl4j_flash_dkv_bf16(const uint16_t* q, const uint16_t* k,
+                        const uint16_t* v, const float* mask,
+                        const uint16_t* dout, const float* lse,
+                        const float* delta, uint16_t* dk, uint16_t* dv,
+                        int BH, int H, int T, int D, int causal, float scale,
+                        void* stream) {
+  if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? launch_dkv_bf16<64>(q, k, v, mask, dout, lse, delta, dk,
+                                       dv, BH, H, T, D, causal, scale, s)
+                 : launch_dkv_bf16<128>(q, k, v, mask, dout, lse, delta, dk,
+                                        dv, BH, H, T, D, causal, scale, s);
 }
 
 }  // extern "C"

@@ -6,8 +6,11 @@
 // 8-deep tf32 step, so the same 128-byte-swizzle tiles and descriptors serve
 // both.
 //
-// Included by conv_bias_act.cu; ops/cuda_kernels.py hashes this header with
-// each source that includes it.
+// Also the warp-level m16n8k16 bf16 product (mma.sync) that the bf16 flash
+// kernels use.
+//
+// Included by conv_bias_act.cu, lstm_step.cu and flash_attention.cu;
+// ops/cuda_kernels.py hashes this header with each source that includes it.
 
 #pragma once
 
@@ -43,6 +46,22 @@ __device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src,
 // lane%4.  D's element i: row g + 8 * ((i / 2) % 2), column 8 (i / 4) + 2 t
 // + i % 2, as for the tf32 products.  The three immediates after the
 // predicate: A and B not negated, B not transposed (K-major).
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 accumulators, one
+// warp (mma.sync).  With g = lane / 4 and t = lane % 4, two bf16 a register
+// (the lower K in the low half): a[0] (row g, K 2t, 2t+1), a[1] (row g+8,
+// K 2t, 2t+1), a[2] (row g, K 2t+8, 2t+9), a[3] (row g+8, K 2t+8, 2t+9);
+// b0 (K 2t, 2t+1 of column g), b1 (K 2t+8, 2t+9 of column g); d[0], d[1]
+// (row g, columns 2t, 2t+1), d[2], d[3] (row g+8, the same columns).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 template <int BN>
 struct WgmmaBf16;
 

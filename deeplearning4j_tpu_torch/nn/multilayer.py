@@ -520,18 +520,29 @@ class MultiLayerNetwork:
         """Score of the batch and its gradient per layer and param.  The
         forward starts from ``net_state`` (its ``rnn_state`` only under
         truncated BPTT) and the layers' new states, detached, replace it,
-        as the JAX step returns them."""
+        as the JAX step returns them.
+
+        Under a mixed policy the carried ``rnn_state`` enters the forward in
+        the compute dtype, as ``rnn_time_step`` hands it (and the JAX
+        package's ``_rnn_step_raw``, :1217-1233): every TBPTT segment then
+        runs its recurrence in bf16, the first as the later ones.  The JAX
+        TBPTT step hands its layers the carry it stored, upcast to f32, so
+        there the segments after the first promote the recurrence to f32;
+        in the port a bf16 segment would otherwise meet an f32 carry in
+        ``h @ RW`` and raise."""
         g = self.conf.global_conf
         policy = self._policy()
         params = [{k: v.detach().requires_grad_(not self.frozen[i])
                    for k, v in lp.items()}
                   for i, lp in enumerate(self.net_params)]
         x, fmask = policy.cast_to_compute((x, fmask))
+        state = [{k: policy.cast_to_compute(v) if k == "rnn_state" else v
+                  for k, v in s.items()} for s in self.net_state]
         with torch.enable_grad():
             # the cast inside the differentiated function: the gradients
             # of the f32 masters come back in f32
             preout, new_states, m = self._forward_to_preout(
-                policy.cast_to_compute(params), self.net_state, x, fmask,
+                policy.cast_to_compute(params), state, x, fmask,
                 True, seeds,
                 stateful_rnn=self.conf.backprop_type == "truncatedbptt")
             preout = policy.cast_to_accum(preout)

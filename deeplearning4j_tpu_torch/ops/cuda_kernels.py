@@ -56,7 +56,14 @@ by ``_flash_bwd`` :341/:357): exact attention with an online softmax that
 never writes the [T, T] scores, its per-row log-sum-exp, and the two
 backward kernels that recompute the probabilities from it.
 ``flash_attention`` is the differentiable entry point
-(``_FlashAttention``, the ``custom_vjp`` of :397-414).  The JAX wrapper's
+(``_FlashAttention``, the ``custom_vjp`` of :397-414).  The bf16 forms of
+the lstm step and the three flash kernels keep the TPU kernels' f32
+arithmetic on bf16 inputs: the lstm step upcasts its five inputs and
+rounds c' and h' once; the flash kernels multiply bf16 operands on the
+tensor cores (``mma.sync...f32.bf16.bf16``, exact products, f32 sums),
+feed the f32 intermediates P and dS as a bf16 hi + lo pair (two products
+into one f32 sum), keep the softmax, lse and delta in f32 and round out,
+dq, dk and dv once.  The JAX wrapper's
 padding of D and T to 128 (:419-448) is a TPU lane artifact and is not
 copied: the kernels mask the last tile and take any head dim up to 128.
 All three are bound by operations.  The forward runs on the CUDA cores;
@@ -79,8 +86,10 @@ Rules every kernel here keeps:
   ``fused_lstm_step.launches``, ``flash_forward.launches``,
   ``flash_dq.launches``, ``flash_dkv.launches``), and nowhere else; a bf16
   form has a count of its own (``fused_conv2d_bias_act.bf16.launches``,
-  ``fused_threshold_dropout.bf16.launches``), and the f32 counts hold f32
-  launches only.
+  ``fused_threshold_dropout.bf16.launches``,
+  ``fused_lstm_step.bf16.launches``, ``flash_forward.bf16.launches``,
+  ``flash_dq.bf16.launches``, ``flash_dkv.bf16.launches``), and the f32
+  counts hold f32 launches only.
 """
 
 from __future__ import annotations
@@ -229,13 +238,17 @@ DROPOUT_LIBRARY = KernelLibrary(
         [_P, _P, _U, _U, _U, _U, ctypes.c_float, _P], _I)})
 LSTM_LIBRARY = KernelLibrary(
     CSRC / "lstm_step.cu",
-    {"dl4j_lstm_step_f32": ([_P, _I] + [_P] * 6 + [_I, _I, _P], _I)})
+    {"dl4j_lstm_step_f32": ([_P, _I] + [_P] * 6 + [_I, _I, _P], _I),
+     "dl4j_lstm_step_bf16": ([_P, _I] + [_P] * 6 + [_I, _I, _P], _I)})
 _F = ctypes.c_float
 FLASH_LIBRARY = KernelLibrary(
     CSRC / "flash_attention.cu",
     {"dl4j_flash_fwd_f32": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dq_f32": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
-     "dl4j_flash_dkv_f32": ([_P] * 9 + [_I] * 5 + [_F, _P], _I)})
+     "dl4j_flash_dkv_f32": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_fwd_bf16": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_dq_bf16": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_dkv_bf16": ([_P] * 9 + [_I] * 5 + [_F, _P], _I)})
 LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY,
              FLASH_LIBRARY)
 
@@ -247,11 +260,13 @@ def build_libraries() -> None:
         list(pool.map(KernelLibrary.get, LIBRARIES))
 
 
-def sass_hgmma_counts(library: KernelLibrary, operand: str = "") -> dict:
+def sass_hgmma_counts(library: KernelLibrary, operand: str = "",
+                      instruction: str = "HGMMA") -> dict:
     """HGMMA (wgmma) instructions in each kernel function of ``library``'s
     SASS, counted in ``cuobjdump -sass``'s listing: {mangled name: count};
     with ``operand`` (``"BF16"``, ``"TF32"``) only those whose line names
-    it.  Builds the library."""
+    it; with ``instruction`` ``"HMMA"`` the warp-level tensor-core products
+    (``mma.sync``) instead.  Builds the library."""
     library.get()
     sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
                            str(library.path())], capture_output=True,
@@ -262,7 +277,8 @@ def sass_hgmma_counts(library: KernelLibrary, operand: str = "") -> dict:
         if head:
             function = head.group(1)
             counts[function] = 0
-        elif function is not None and "HGMMA" in line and operand in line:
+        elif function is not None and instruction in line and \
+                operand in line:
             counts[function] += 1
     return counts
 
@@ -287,9 +303,18 @@ class LaunchCount:
         self.launches = 0
 
 
-# The dtypes the conv and dropout kernels take: each has an f32 and a bf16
-# form, as the TPU kernels take both.
+# The dtypes the conv, dropout, lstm and flash kernels take: each has an
+# f32 and a bf16 form, as the TPU kernels take both.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _one_dtype(what: str, **tensors) -> None:
+    """Raise unless the named tensors share one dtype: a kernel form takes
+    one, and the CPU path refuses what the card's would."""
+    dtypes = {n: t.dtype for n, t in tensors.items()}
+    if len(set(dtypes.values())) > 1:
+        raise ValueError(f"{what} takes inputs of one dtype; got " + ", ".join(
+            f"{n} {d}" for n, d in dtypes.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -785,19 +810,23 @@ _LSTM_ROWS_PER_BLOCK = 16    # kNB in csrc/lstm_step.cu
 
 def lstm_fused_supported(n: int, h: int, dtype) -> bool:
     """Support predicate of the lstm kernel: the JAX shape rule (h >= 8,
-    h % 8 == 0), f32, and at most 65,535 blocks of 16 rows.  The kernel
-    tiles the recurrent product over k, so the TPU's VMEM budget has no
-    counterpart and H is otherwise unbounded."""
-    if dtype != torch.float32 or h < 8 or h % 8:
+    h % 8 == 0), f32 or bf16 (the TPU kernel takes both, and the JAX
+    selection passes ``x.dtype``), and at most 65,535 blocks of 16 rows.
+    The kernel tiles the recurrent product over k, so the TPU's VMEM budget
+    has no counterpart and H is otherwise unbounded."""
+    if dtype not in KERNEL_DTYPES or h < 8 or h % 8:
         return False
     return 1 <= n <= _LSTM_ROWS_PER_BLOCK * _GRID_YZ_MAX
 
 
-def lstm_step_reference(zx, h, c, rw, p3):
-    """The plain version (``_lstm_step_reference``, :738): zx [N, 4H], h,
-    c [N, H], rw [H, 4H], p3 [3, H] (pI, pF, pO) -> (c', h'), gate layout
-    [i, f, o, c].  The CPU path of the wrapper, the function its backward
-    differentiates, and the kernel's yardstick on the card."""
+def lstm_step_formula(zx, h, c, rw, p3):
+    """``_lstm_step_reference`` (:738): zx [N, 4H], h, c [N, H], rw [H, 4H],
+    p3 [3, H] (pI, pF, pO) -> (c', h'), gate layout [i, f, o, c], every op
+    in the inputs' dtype.  The function the step's backward differentiates,
+    as ``_lstm_vjp_bwd`` (:764) differentiates it: in f32 it is the plain
+    version itself; in bf16 each op rounds to bf16, where the kernel (and
+    :func:`lstm_step_reference`) keeps the whole step in f32 and rounds c'
+    and h' once, so the two differ in bf16 by those roundings."""
     z = zx + h @ rw
     zi, zf, zo, zc = z.chunk(4, dim=-1)
     i = torch.sigmoid(zi + c * p3[0])
@@ -806,6 +835,18 @@ def lstm_step_reference(zx, h, c, rw, p3):
     c_new = f * c + i * g
     o = torch.sigmoid(zo + c_new * p3[2])
     return c_new, o * torch.tanh(c_new)
+
+
+def lstm_step_reference(zx, h, c, rw, p3):
+    """The plain version of the kernel (``_lstm_step_kernel``, :703-725):
+    every input upcast to f32, z = zx + h RW and the gate math in f32, h'
+    from the unrounded c', then c' and h' rounded once to c's and h's
+    dtypes.  The CPU path of the wrapper and the kernel's yardstick on the
+    card.  In f32 it is :func:`lstm_step_formula` op for op (``float()``
+    and ``to()`` return an f32 tensor itself)."""
+    c_new, h_new = lstm_step_formula(*(t.float() for t in (zx, h, c, rw,
+                                                           p3)))
+    return c_new.to(c.dtype), h_new.to(h.dtype)
 
 
 @contextlib.contextmanager
@@ -821,49 +862,56 @@ def full_f32_matmuls():
 
 
 def _launch_lstm_step(zx, h, c, rw, p3):
-    """One launch of the lstm kernel on CUDA tensors; zx may be a
-    row-strided view (one time step of [N, T, 4H])."""
+    """One launch of the lstm kernel on CUDA tensors of one dtype: the f32
+    form for float32, the bf16 form for bfloat16; zx may be a row-strided
+    view (one time step of [N, T, 4H]), its row stride in elements."""
     N, H = c.shape
     ok = (zx.shape == (N, 4 * H) and h.shape == (N, H)
           and rw.shape == (H, 4 * H) and p3.shape == (3, H)
-          and all(t.is_cuda and t.device == c.device
-                  and t.dtype == torch.float32
+          and c.dtype in KERNEL_DTYPES
+          and all(t.is_cuda and t.device == c.device and t.dtype == c.dtype
                   for t in (zx, h, c, rw, p3)))
     if not ok:
         raise ValueError(
-            f"lstm kernel takes float32 CUDA tensors on one device, zx "
-            f"[N, 4H], h, c [N, H], rw [H, 4H], p3 [3, H]; got zx "
-            f"{tuple(zx.shape)} {zx.dtype} on {zx.device}, h "
-            f"{tuple(h.shape)}, c {tuple(c.shape)} on {c.device}, rw "
-            f"{tuple(rw.shape)}, p3 {tuple(p3.shape)}")
+            f"lstm kernel takes CUDA tensors of one dtype, float32 or "
+            f"bfloat16, on one device, zx [N, 4H], h, c [N, H], rw [H, 4H], "
+            f"p3 [3, H]; got zx {tuple(zx.shape)} {zx.dtype} on {zx.device}, "
+            f"h {tuple(h.shape)} {h.dtype}, c {tuple(c.shape)} {c.dtype} on "
+            f"{c.device}, rw {tuple(rw.shape)} {rw.dtype}, p3 "
+            f"{tuple(p3.shape)} {p3.dtype}")
     lib = LSTM_LIBRARY.get()
     if zx.stride(1) != 1:
         zx = zx.contiguous()
     ld = zx.stride(0) if N > 1 else 4 * H
     h, c, rw, p3 = (t.contiguous() for t in (h, c, rw, p3))
-    c_new = torch.empty((N, H), dtype=torch.float32, device=c.device)
+    bf16 = c.dtype == torch.bfloat16
+    c_new = torch.empty((N, H), dtype=c.dtype, device=c.device)
     h_new = torch.empty_like(c_new)
+    launch = lib.dl4j_lstm_step_bf16 if bf16 else lib.dl4j_lstm_step_f32
     with torch.cuda.device(c.device):
-        err = lib.dl4j_lstm_step_f32(
+        err = launch(
             zx.data_ptr(), ld, h.data_ptr(), c.data_ptr(), rw.data_ptr(),
             p3.data_ptr(), c_new.data_ptr(), h_new.data_ptr(), N, H,
             _stream(c))
     if err != 0:
         raise RuntimeError(f"lstm kernel launch failed: CUDA error {err} "
-                           f"for N={N} H={H}")
-    _count(fused_lstm_step)
+                           f"for N={N} H={H} {c.dtype}")
+    _count(fused_lstm_step.bf16 if bf16 else fused_lstm_step)
     return c_new, h_new
 
 
 class _LSTMStep(torch.autograd.Function):
-    """Forward: the kernel.  Backward: differentiate the plain version from
-    the saved inputs (``_lstm_vjp_bwd``, :764), with TF32 off for its
-    product.  Only the step's inputs are saved, not its [N, 4H] gates, so
-    a sequence of T steps keeps T small residuals."""
+    """Forward: the kernel on CUDA tensors, its plain version on CPU
+    tensors.  Backward: differentiate :func:`lstm_step_formula` from the
+    saved inputs, in their dtype (``_lstm_vjp_bwd``, :764), with TF32 off
+    for its product.  Only the step's inputs are saved, not its [N, 4H]
+    gates, so a sequence of T steps keeps T small residuals."""
 
     @staticmethod
     def forward(ctx, zx, h, c, rw, p3):
         ctx.save_for_backward(zx, h, c, rw, p3)
+        if c.device.type == "cpu":
+            return lstm_step_reference(zx, h, c, rw, p3)
         return _launch_lstm_step(zx, h, c, rw, p3)
 
     @staticmethod
@@ -874,7 +922,7 @@ class _LSTMStep(torch.autograd.Function):
             leaves = [t.detach().requires_grad_(n)
                       for t, n in zip(saved, need)]
             outs, grads_out = [], []
-            for y, g in zip(lstm_step_reference(*leaves), (g_c, g_h)):
+            for y, g in zip(lstm_step_formula(*leaves), (g_c, g_h)):
                 if g is not None:
                     outs.append(y)
                     grads_out.append(g)
@@ -884,19 +932,19 @@ class _LSTMStep(torch.autograd.Function):
 
 
 def fused_lstm_step(zx, h, c, rw, p3):
-    """One peephole-LSTM step -> (c', h'), f32, for shapes
-    :func:`lstm_fused_supported` accepts.  A CPU tensor takes the plain
-    version; any other tensor launches the kernel or raises.
+    """One peephole-LSTM step -> (c', h') in the inputs' dtype, f32 or bf16,
+    for shapes :func:`lstm_fused_supported` accepts.  A CPU tensor takes the
+    plain version; any other tensor launches the kernel or raises.
     Differentiable in all five inputs."""
     N, H = c.shape
     if not lstm_fused_supported(N, H, c.dtype):
         raise ValueError(f"lstm kernel does not take N={N} H={H} {c.dtype}")
-    if c.device.type == "cpu":
-        return lstm_step_reference(zx, h, c, rw, p3)
+    _one_dtype("lstm kernel", zx=zx, h=h, c=c, rw=rw, p3=p3)
     return _LSTMStep.apply(zx, h, c, rw, p3)
 
 
 fused_lstm_step.launches = 0
+fused_lstm_step.bf16 = LaunchCount()
 
 
 # ---------------------------------------------------------------------------
@@ -910,10 +958,11 @@ FLASH_MAX_D = 128            # the kernels' shared-memory plan
 
 def flash_attention_supported(q_shape, dtype, kv_len=None) -> bool:
     """Support predicate of the flash kernels: the JAX gate (T >= 128, head
-    dim >= 32, keys as long as the queries) and the kernels' own limits
-    (f32, head dim a multiple of 4 up to 128, B * H within CUDA's grid).
-    Any T above the gate works: the kernels mask the last tile."""
-    if len(q_shape) != 4 or dtype != torch.float32:
+    dim >= 32, keys as long as the queries; no dtype gate, :451-459) and
+    the kernels' own limits (f32 or bf16, head dim a multiple of 4 up to
+    128, B * H within CUDA's grid).  Any T above the gate works: the
+    kernels mask the last tile."""
+    if len(q_shape) != 4 or dtype not in KERNEL_DTYPES:
         return False
     B, H, T, D = (int(d) for d in q_shape)
     if kv_len is not None and int(kv_len) != T:
@@ -934,7 +983,11 @@ def _flash_live(key_mask, T: int, causal: bool):
 def flash_forward_reference(q, k, v, key_mask, causal: bool, scale: float):
     """The plain version of the forward kernel -> (out [B, H, T, D], lse
     [B, H, T]), materialising the [T, T] scores.  A query row with no live
-    key gets out = 0 and lse = -1e30."""
+    key gets out = 0 and lse = -1e30.  bf16 q, k, v are upcast and the
+    whole function runs in f32, out rounded once to q's dtype and lse f32,
+    as ``_flash_fwd_kernel`` (:133-177) computes them."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     s = (q @ k.transpose(-1, -2)) * scale
     s = s.masked_fill(~_flash_live(key_mask, q.shape[2], causal),
                       float("-inf"))
@@ -944,7 +997,7 @@ def flash_forward_reference(q, k, v, key_mask, causal: bool, scale: float):
     l = p.sum(dim=-1, keepdim=True)
     out = (p @ v) / torch.where(row_live, l, torch.ones_like(l))
     lse = torch.where(row_live, m + torch.log(l), torch.full_like(m, NEG_INF))
-    return out, lse.squeeze(-1)
+    return out.to(dtype), lse.squeeze(-1)
 
 
 def _flash_probs(q, k, key_mask, lse, causal: bool, scale: float):
@@ -958,129 +1011,166 @@ def _flash_probs(q, k, key_mask, lse, causal: bool, scale: float):
 
 def flash_dq_reference(q, k, v, key_mask, dout, lse, delta, causal: bool,
                        scale: float):
-    """The plain version of the dQ kernel: scale * (p * (dO V^T - delta)) K."""
+    """The plain version of the dQ kernel: scale * (p * (dO V^T - delta)) K,
+    bf16 inputs upcast, dq rounded once to q's dtype (:238-271)."""
+    dtype = q.dtype
+    q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
     p = _flash_probs(q, k, key_mask, lse, causal, scale)
     ds = p * (dout @ v.transpose(-1, -2) - delta[..., None])
-    return (ds @ k) * scale
+    return ((ds @ k) * scale).to(dtype)
 
 
 def flash_dkv_reference(q, k, v, key_mask, dout, lse, delta, causal: bool,
                         scale: float):
     """The plain version of the dK/dV kernel -> (dk, dv):
-    dk = scale * (p * (dO V^T - delta))^T Q, dv = p^T dO."""
+    dk = scale * (p * (dO V^T - delta))^T Q, dv = p^T dO, bf16 inputs
+    upcast, dk and dv rounded once to k's and v's dtypes (:274-318)."""
+    kt, vt = k.dtype, v.dtype
+    q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
     p = _flash_probs(q, k, key_mask, lse, causal, scale)
     ds = p * (dout @ v.transpose(-1, -2) - delta[..., None])
-    return (ds.transpose(-1, -2) @ q) * scale, p.transpose(-1, -2) @ dout
+    return (((ds.transpose(-1, -2) @ q) * scale).to(kt),
+            (p.transpose(-1, -2) @ dout).to(vt))
+
+
+# The flash inputs that take q's dtype; the key mask, lse and delta are f32
+# in both forms, as the TPU kernels take them.
+_FLASH_IN_Q_DTYPE = ("k", "v", "dout")
 
 
 def _flash_args(q, **named):
-    """Check a flash kernel's CUDA inputs — q, k, v, dout [B, H, T, D],
-    key_mask [B, T], lse, delta [B, H, T], float32 on q's device — and
-    return them contiguous, q first."""
+    """Check a flash kernel's CUDA inputs — q, k, v, dout [B, H, T, D] of
+    one dtype, float32 or bfloat16; key_mask [B, T], lse, delta [B, H, T]
+    float32; all on q's device — and return them contiguous and 16-byte
+    aligned, q first.  A mix of dtypes raises: the kernels read raw
+    pointers, so a bf16 tensor reaching an f32 form would be read as other
+    numbers."""
     B, H, T, D = q.shape
     shapes = {"k": (B, H, T, D), "v": (B, H, T, D), "dout": (B, H, T, D),
               "key_mask": (B, T), "lse": (B, H, T), "delta": (B, H, T)}
     ok = q.is_cuda and flash_attention_supported(q.shape, q.dtype) and all(
         tuple(t.shape) == shapes[n] and t.device == q.device
-        and t.dtype == torch.float32 for n, t in named.items())
+        and t.dtype == (q.dtype if n in _FLASH_IN_Q_DTYPE else torch.float32)
+        for n, t in named.items())
     if not ok:
         raise ValueError(
-            f"flash kernels take float32 CUDA tensors on one device, q, k, "
-            f"v, dout [B, H, T, D] with T >= {FLASH_MIN_T} and D in "
-            f"[{FLASH_MIN_D}, {FLASH_MAX_D}], D % 4 == 0; key_mask [B, T]; "
-            f"lse, delta [B, H, T]; got q {tuple(q.shape)} {q.dtype} on "
-            f"{q.device}, " + ", ".join(
+            f"flash kernels take CUDA tensors on one device: q, k, v, dout "
+            f"[B, H, T, D] of one dtype, float32 or bfloat16, with T >= "
+            f"{FLASH_MIN_T} and D in [{FLASH_MIN_D}, {FLASH_MAX_D}], "
+            f"D % 4 == 0; key_mask [B, T], lse, delta [B, H, T] float32; got "
+            f"q {tuple(q.shape)} {q.dtype} on {q.device}, " + ", ".join(
                 f"{n} {tuple(t.shape)} {t.dtype} on {t.device}"
                 for n, t in named.items()))
-    return [t.contiguous() for t in (q, *named.values())]
+    out = [t.contiguous() for t in (q, *named.values())]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in out]
 
 
-def _launch_flash(wrapper, symbol: str, inputs, outputs, causal: bool,
+def _launch_flash(wrapper, kind: str, inputs, outputs, causal: bool,
                   scale: float):
-    """Launch the flash kernel ``symbol`` on the checked CUDA ``inputs``
-    (q first, as :func:`_flash_args` returns them) into ``outputs``, and
-    count the launch on ``wrapper``."""
+    """Launch the flash kernel ``dl4j_flash_<kind>_<f32|bf16>`` on the
+    checked CUDA ``inputs`` (q first, as :func:`_flash_args` returns them)
+    into ``outputs``: the form is q's dtype, chosen here and nowhere else.
+    The launch is counted on ``wrapper`` (f32) or ``wrapper.bf16``."""
     q = inputs[0]
     B, H, T, D = q.shape
-    kernel = getattr(FLASH_LIBRARY.get(), symbol)
+    bf16 = q.dtype == torch.bfloat16
+    kernel = getattr(FLASH_LIBRARY.get(),
+                     f"dl4j_flash_{kind}_{'bf16' if bf16 else 'f32'}")
     with torch.cuda.device(q.device):
         err = kernel(*(t.data_ptr() for t in (*inputs, *outputs)), B * H, H,
                      T, D, int(causal), float(scale), _stream(q))
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
-                           f"error {err} for q{tuple(q.shape)}")
-    _count(wrapper)
+                           f"error {err} for q{tuple(q.shape)} {q.dtype}")
+    _count(wrapper.bf16 if bf16 else wrapper)
     return outputs
 
 
 def flash_fwd_scratch_bytes(bh: int, T: int, D: int) -> int:
-    """Bytes of the forward's split pre-pass scratch (``Fwd<DPAD>`` in
+    """Bytes of the f32 forward's split pre-pass scratch (``Fwd<DPAD>`` in
     ``csrc/flash_attention.cu``): ceil(T / KT) tiles per head of K and V^T
     split into tf32 hi and lo images (4 x KT x DPAD f32) and KT key biases;
-    KT = 64 keys at D <= 64 (DPAD 64), else 32 (DPAD 128)."""
+    KT = 64 keys at D <= 64 (DPAD 64), else 32 (DPAD 128).  The bf16
+    forward has no pre-pass and no scratch."""
     dpad, kt = (64, 64) if D <= 64 else (128, 32)
     return bh * _cdiv(T, kt) * (4 * kt * dpad * 4 + kt * 4)
 
 
 def flash_forward(q, k, v, key_mask, causal: bool, scale: float):
-    """(out, lse) of one attention core, q, k, v [B, H, T, D], key_mask
-    [B, T] (> 0 keeps the key).  A CPU tensor takes the plain version; any
-    other launches the forward kernel (after its split pre-pass, into a
-    scratch the wrapper allocates and frees) or raises."""
+    """(out, lse) of one attention core, q, k, v [B, H, T, D] f32 or bf16
+    (out in q's dtype, lse f32), key_mask [B, T] (> 0 keeps the key).  A CPU
+    tensor takes the plain version; any other launches the forward kernel
+    of q's dtype (the f32 form after its split pre-pass, into a scratch the
+    wrapper allocates and frees) or raises."""
+    _one_dtype("flash_forward", q=q, k=k, v=v)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, key_mask, causal, scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask)
     B, H, T, D = q.shape
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    scratch = torch.empty(flash_fwd_scratch_bytes(B * H, T, D),
-                          dtype=torch.uint8, device=q.device)
-    return _launch_flash(flash_forward, "dl4j_flash_fwd_f32", inputs,
-                         (torch.empty_like(inputs[0]), lse, scratch), causal,
+    outputs = (torch.empty_like(inputs[0]), lse)
+    if q.dtype == torch.float32:
+        outputs += (torch.empty(flash_fwd_scratch_bytes(B * H, T, D),
+                                dtype=torch.uint8, device=q.device),)
+    return _launch_flash(flash_forward, "fwd", inputs, outputs, causal,
                          scale)[:2]
 
 
 flash_forward.launches = 0
+flash_forward.bf16 = LaunchCount()
 
 
 def flash_dq(q, k, v, key_mask, dout, lse, delta, causal: bool,
              scale: float):
-    """dQ of one attention core from the forward's lse and
-    delta = sum(dout * out, -1).  A CPU tensor takes the plain version;
-    any other launches the dQ kernel or raises."""
+    """dQ (q's dtype) of one attention core from the forward's lse and
+    delta = sum(dout * out, -1), both f32.  A CPU tensor takes the plain
+    version; any other launches the dQ kernel of q's dtype or raises."""
+    _one_dtype("flash_dq", q=q, k=k, v=v, dout=dout)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, key_mask, dout, lse, delta, causal,
                                   scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask, dout=dout, lse=lse,
                          delta=delta)
-    return _launch_flash(flash_dq, "dl4j_flash_dq_f32", inputs,
+    return _launch_flash(flash_dq, "dq", inputs,
                          (torch.empty_like(inputs[0]),), causal, scale)[0]
 
 
 flash_dq.launches = 0
+flash_dq.bf16 = LaunchCount()
 
 
 def flash_dkv(q, k, v, key_mask, dout, lse, delta, causal: bool,
               scale: float):
     """(dK, dV) of one attention core, inputs as :func:`flash_dq`.  A CPU
-    tensor takes the plain version; any other launches the dK/dV kernel or
-    raises."""
+    tensor takes the plain version; any other launches the dK/dV kernel of
+    q's dtype or raises."""
+    _one_dtype("flash_dkv", q=q, k=k, v=v, dout=dout)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, key_mask, dout, lse, delta,
                                    causal, scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask, dout=dout, lse=lse,
                          delta=delta)
-    return _launch_flash(flash_dkv, "dl4j_flash_dkv_f32", inputs,
+    return _launch_flash(flash_dkv, "dkv", inputs,
                          (torch.empty_like(inputs[0]),
                           torch.empty_like(inputs[0])), causal, scale)
 
 
 flash_dkv.launches = 0
+flash_dkv.bf16 = LaunchCount()
+
+
+def flash_delta(dout, out):
+    """delta = sum(dO * O, -1) in f32 from dO and O in their own dtype, as
+    ``_flash_bwd`` (:333-334) computes it: a bf16 product summed in bf16
+    would round every term and the sum, and ds = p (dP - delta) cancels."""
+    return (dout.float() * out.float()).sum(dim=-1)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: :func:`flash_forward`, saving (q, k, v, mask, out, lse).
-    Backward: delta = sum(dO * out, -1) as a torch expression (XLA computes
-    it outside the kernels too, :333), then :func:`flash_dq` and
+    Backward: delta = sum(dO * out, -1) in f32 as a torch expression
+    (:func:`flash_delta`; XLA computes it outside the kernels too, :333),
+    then :func:`flash_dq` and
     :func:`flash_dkv`.  O(T) memory both ways: nothing [T, T] is saved."""
 
     @staticmethod
@@ -1094,7 +1184,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
         g = g.contiguous()
-        delta = (g * out).sum(dim=-1)
+        delta = flash_delta(g, out)
         dq = flash_dq(q, k, v, key_mask, g, lse, delta, *ctx.conf)
         dk, dv = flash_dkv(q, k, v, key_mask, g, lse, delta, *ctx.conf)
         return dq, dk, dv, None, None, None

@@ -20,7 +20,10 @@ tensor's device then decides inside the wrapper between the kernel
 (CUDA) and its plain version (CPU), so the CPU runs the same hash mask,
 the same fused loss and the same flash arithmetic as the card.  Each
 decision is metered in ``dl4j_kernel_selected_total`` /
-``dl4j_kernel_fallback_total`` by op.
+``dl4j_kernel_fallback_total`` by op.  The conv, dropout, lstm and
+attention kernels each have an f32 and a bf16 form, chosen by the
+tensor's dtype inside the wrapper; the xent kernel sees f32 only (the
+precision policy casts the pre-activation to f32 before the loss).
 
 Not ported, on purpose: the JAX package's ``kernel_self_test``
 disable-on-error (``_selftest_flash`` among them), ``ensure_validated``
@@ -137,7 +140,9 @@ def lstm_step_wanted(params: dict, x, gate_act, cell_act,
     """Decision for ``ops/recurrent.lstm_scan`` (``helpers.py:157`` of the
     JAX package): the fused step for the peephole cell with sigmoid gates
     and a tanh cell, where :func:`ck.lstm_fused_supported` takes the batch,
-    width and dtype; the composable cell otherwise."""
+    width and dtype (f32 or bf16, the input's, as the JAX selection passes
+    ``x.dtype``; under ``precision("bfloat16")`` the step's bf16 form); the
+    composable cell otherwise."""
     ok = (peephole
           and all(k in params for k in ("pI", "pF", "pO", "RW"))
           and any(gate_act is f for f in _SIGMOIDS)
@@ -152,7 +157,9 @@ def attention_wanted(q) -> bool:
     """Decision for ``parallel/sequence.dense_attention`` (``helpers.py:196``
     of the JAX package): the flash kernels for a [B, H, T, D] core that
     :func:`ck.flash_attention_supported` takes (T >= 128, 32 <= D <= 128,
-    f32); the dense softmax otherwise."""
+    f32 or bf16: the JAX gate has no dtype test, and under
+    ``precision("bfloat16")`` the kernels' bf16 forms keep the scores and
+    softmax in f32, as the TPU kernels do); the dense softmax otherwise."""
     ok = ck.flash_attention_supported(q.shape, q.dtype)
     record_selection("attention", ok)
     return ok

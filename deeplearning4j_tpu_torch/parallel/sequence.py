@@ -104,8 +104,11 @@ def dense_attention(q, k, v, *, causal: bool = False, key_mask=None,
     """Softmax attention, q, k, v [B, H, T, D], key_mask [B, Tk] (1 keeps
     the key).  Shapes the flash kernels take go to
     ``ops/cuda_kernels.flash_attention`` (O(T) memory both ways; the plain
-    versions on the CPU); the rest take the exact dense formula, which
-    materialises the [T, T] scores."""
+    versions on the CPU), in f32 or bf16: on bf16 q, k, v the kernels' bf16
+    forms keep the scores, the softmax and lse in f32 and round the output
+    once, as the JAX package's kernel does; the rest take the exact dense
+    formula, which materialises the [T, T] scores (in bf16 it rounds them
+    before the softmax)."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / D ** 0.5
     if allow_flash and q.shape[2] == k.shape[2] and \

@@ -191,6 +191,10 @@ def test_flash_backward_has_no_inf_on_dead_rows():
     ((2, 2, 256, 34), torch.float32, None, False),   # D % 4 != 0
     ((2, 2, 256, 64), torch.float64, None, False),
     ((2, 2, 256, 64), torch.float32, 255, False),    # keys != queries
+    ((2, 2, 8192, 64), torch.bfloat16, 8192, True),  # the bf16 forms
+    ((1, 1, 200, 32), torch.bfloat16, None, True),
+    ((2, 2, 127, 64), torch.bfloat16, None, False),
+    ((2, 2, 256, 160), torch.bfloat16, None, False),
 ])
 def test_flash_support_predicate(shape, dtype, kv_len, ok):
     """The JAX gate (T >= 128, D >= 32, as long as the queries) and the
@@ -205,6 +209,21 @@ def test_flash_attention_refuses_what_it_does_not_take():
     q = torch.zeros((1, 1, 64, 32))
     with pytest.raises(ValueError, match="does not take"):
         ck.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("name", ["flash_forward", "flash_dq", "flash_dkv"])
+def test_flash_wrappers_refuse_a_mix_of_dtypes(name):
+    """q, k, v and dout of one dtype, f32 or bf16, on every device: the
+    kernels read raw pointers, so a bf16 tensor must never reach an f32
+    form, nor an f32 tensor a bf16 one."""
+    q = torch.zeros((1, 1, 128, 32))
+    km, lse = torch.ones((1, 128)), torch.zeros((1, 1, 128))
+    bf = q.to(torch.bfloat16)
+    args = {"flash_forward": (q, bf, q, km, True, 0.1),
+            "flash_dq": (bf, bf, bf, km, q, lse, lse, True, 0.1),
+            "flash_dkv": (q, q, bf, km, q, lse, lse, True, 0.1)}[name]
+    with pytest.raises(ValueError, match="one dtype"):
+        getattr(ck, name)(*args)
 
 
 def _tf32(t):

@@ -16,6 +16,8 @@ CNN's step and k-means from the same centres, card against CPU, rtol
 TSNE_LOOP_RTOL (tests/test_torch_clustering.py says why).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1435,3 +1437,103 @@ def test_bf16_net_fit_on_the_card_launches_the_bf16_forms(cuda_device):
     assert all(t.dtype == torch.float32 for t in leaves)
     out = net.output(x[:4])
     assert out.dtype == torch.float32 and out.shape == (4, 10)
+
+
+# The bf16 forms of the lstm step and the flash kernels
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H", [(32, 200), (1, 200), (4, 200), (5, 24),
+                                 (3, 1024), (40, 8), (7, 264), (17, 200)])
+def test_bf16_lstm_kernel_matches_plain_version_on_the_card(cuda_device, N,
+                                                            H):
+    """The lstm kernel's bf16 form at the tiling's edges (as the f32 form's
+    test), zx a row-strided view: c' and h' by chip_smoke.py's bf16 rule
+    against the plain version (the five inputs upcast, the step in f32, one
+    rounding), counted on the bf16 form's count only; the gradients, which
+    both paths take from ``lstm_step_formula`` on the same saved inputs,
+    equal."""
+    from unittest import mock
+    cs = _chip_smoke()
+    rng = np.random.default_rng(N * 1000 + H)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda_device).to(torch.bfloat16)
+    zx = t(N, 3, 4 * H)[:, 1]
+    args = [zx, t(N, H), t(N, H), t(H, 4 * H, scale=0.1), t(3, H, scale=0.1)]
+    g_c, g_h = t(N, H), t(N, H)
+    f32, bf16 = ck.fused_lstm_step.launches, ck.fused_lstm_step.bf16.launches
+    runs = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_() for a in args]
+        with (mock.patch.object(ck, "_launch_lstm_step",
+                                ck.lstm_step_reference) if plain
+              else contextlib.nullcontext()):
+            c_new, h_new = ck.fused_lstm_step(*leaves)
+            grads = torch.autograd.grad((c_new, h_new), leaves, (g_c, g_h))
+        runs.append((c_new, h_new, grads))
+    assert ck.fused_lstm_step.bf16.launches == bf16 + 1
+    assert ck.fused_lstm_step.launches == f32
+    for got, ref in zip(runs[0][:2], runs[1][:2]):
+        rec = cs.bf16_conv_compare(torch, got, ref)
+        assert got.dtype == torch.bfloat16 and rec["ok"], rec
+    for a, e in zip(runs[0][2], runs[1][2]):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D,causal,mask", FLASH_CASES)
+def test_bf16_flash_kernels_match_plain_versions_on_the_card(
+        cuda_device, B, H, T, D, causal, mask):
+    """The three flash kernels' bf16 forms against their plain versions on
+    bf16 inputs, by chip_smoke.py's bf16 flash rule (``check_flash_bf16``:
+    out, dq, dk, dv one ulp + BF16_FLASH_ATOL of the scale, lse 1e-5, a dead
+    row 0 and -1e30), each counted on its bf16 form's count only."""
+    cs = _chip_smoke()
+    names = ("flash_forward", "flash_dq", "flash_dkv")
+    f32 = [getattr(ck, n).launches for n in names]
+    bf16 = [getattr(ck, n).bf16.launches for n in names]
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 1000 + T + D)
+    rec = cs.check_flash_bf16(torch, ck, gen, B, H, T, D, causal, mask)
+    assert [getattr(ck, n).launches for n in names] == f32
+    assert [getattr(ck, n).bf16.launches for n in names] == \
+        [b + 1 for b in bf16]
+    assert set(rec["max_abs_err"]) == {"out", "lse", "dq", "dk", "dv"}
+
+
+@pytest.mark.gpu
+def test_bf16_sequence_nets_launch_the_bf16_forms_on_the_card(cuda_device):
+    """A bf16 TBPTT minibatch of a small char-RNN launches the lstm step's
+    bf16 form once a layer and time step in every segment, the f32 form
+    never; a bf16 attention ``fit`` step launches each bf16 flash form once
+    a layer; ``output()`` the bf16 forward; masters and outputs f32."""
+    V, T = 12, 20
+    net = char_rnn(V, hidden=16, tbptt_length=5, device=cuda_device)
+    net.conf.global_conf.precision = "bfloat16"
+    net.init()
+    rng = np.random.default_rng(3)
+    eye = np.eye(V, dtype=np.float32)
+    x, y = eye[rng.integers(0, V, (4, T))], eye[rng.integers(0, V, (4, T))]
+    f32, bf16 = ck.fused_lstm_step.launches, ck.fused_lstm_step.bf16.launches
+    net.fit(x, y)
+    assert ck.fused_lstm_step.bf16.launches == bf16 + 2 * T
+    assert ck.fused_lstm_step.launches == f32
+    assert np.isfinite(net.score())
+    assert all(p.dtype == torch.float32 for lp in net.net_params
+               for p in lp.values())
+    Ta = 256
+    att = attention_lm(V, 64, 2, 2, Ta, learning_rate=0.01,
+                       device=cuda_device)
+    att.conf.global_conf.precision = "bfloat16"
+    att.init()
+    xa, ya = eye[rng.integers(0, V, (2, Ta))], eye[rng.integers(0, V, (2, Ta))]
+    names = ("flash_forward", "flash_dq", "flash_dkv")
+    before = [getattr(ck, n).bf16.launches for n in names]
+    f32 = [getattr(ck, n).launches for n in names]
+    att.fit(xa, ya)
+    assert [getattr(ck, n).bf16.launches - b
+            for n, b in zip(names, before)] == [2, 2, 2]
+    out = att.output(xa)
+    assert ck.flash_forward.bf16.launches == before[0] + 4
+    assert [getattr(ck, n).launches for n in names] == f32
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())

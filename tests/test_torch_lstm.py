@@ -166,7 +166,7 @@ def test_lstm_scan_matches_jax(masked, reverse, monkeypatch):
     (8, 63, torch.float32, False),      # ragged H
     (8, 4, torch.float32, False),       # tiny H
     (8, 64, torch.float64, False),      # the gradient check's dtype
-    (8, 64, torch.bfloat16, False),     # f32 only in the port
+    (8, 64, torch.bfloat16, True),      # the bf16 form, as the TPU kernel
     (0, 64, torch.float32, False),      # no rows
 ])
 def test_lstm_fused_supported_edges(n, h, dtype, want):
@@ -190,6 +190,8 @@ def test_supported_shapes_follow_the_jax_shape_rule():
     ("sigmoid", "softsign", None, torch.float32, False),
     ("sigmoid", "tanh", "pO", torch.float32, False),
     ("sigmoid", "tanh", None, torch.float64, False),
+    ("sigmoid", "tanh", None, torch.bfloat16, True),
+    ("hardsigmoid", "tanh", None, torch.bfloat16, False),
 ])
 def test_metered_selection(gate, cell, drop, dtype, selected, monkeypatch):
     """One decision per ``lstm_scan`` call, metered under op ``lstm_step``:
@@ -216,6 +218,22 @@ def test_metered_selection(gate, cell, drop, dtype, selected, monkeypatch):
         fb + (not selected)
     assert len(calls) == (3 if selected else 0)
     assert hs.shape == (2, 3, 8) and hs.dtype == dtype
+
+
+def test_fused_step_refuses_a_mix_of_dtypes():
+    """The kernel has an f32 and a bf16 form and takes one dtype: a call
+    that mixes them raises on every device (on the card a bf16 tensor would
+    otherwise reach the f32 form's pointers)."""
+    params = _lstm_params(4, 8, 3)
+    rw = _t(params["RW"])
+    p3 = torch.stack([_t(params[k]) for k in ("pI", "pF", "pO")])
+    zx, h, c = (torch.zeros(s) for s in ((2, 32), (2, 8), (2, 8)))
+    ck.fused_lstm_step(zx, h, c, rw, p3)                # one dtype: runs
+    for i in range(5):
+        args = [zx, h, c, rw, p3]
+        args[i] = args[i].to(torch.bfloat16)
+        with pytest.raises(ValueError, match="one dtype"):
+            ck.fused_lstm_step(*args)
 
 
 def test_cell_matches_jax_with_other_activations():

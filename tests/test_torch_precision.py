@@ -512,20 +512,30 @@ def _fallbacks(op: str) -> float:
         labels=("op",)).labels(op=op).value
 
 
+def _selected(op: str) -> float:
+    from deeplearning4j_tpu_torch import monitor
+    return monitor.get_registry().counter(
+        "dl4j_kernel_selected_total",
+        "ops routed to a hand-written CUDA kernel",
+        labels=("op",)).labels(op=op).value
+
+
 @pytest.mark.parametrize("model", ["char_rnn", "attention_lm"])
-def test_lstm_and_attention_take_the_dense_chain_under_bf16(model):
-    """The LSTM step's and flash attention's gates stay f32 in the port
-    (their bf16 forms are ROADMAP B11's next): under precision("bfloat16")
-    both ops take the dense chain, metered as fallbacks, and the network
-    trains and samples, its masters and output f32."""
+def test_lstm_and_attention_select_their_kernels_under_bf16(model):
+    """The LSTM step's and flash attention's gates take bf16 (their bf16
+    forms, on the CPU their plain versions): under precision("bfloat16")
+    both ops are selected in every forward, truncated BPTT's later segments
+    included, none falls back, and the network trains and samples, its
+    masters and output f32.  The attention net is 64 wide with 2 heads, the
+    flash gate's head dim of 32."""
     from deeplearning4j_tpu_torch import models
     V, T = 12, 128
     if model == "char_rnn":
-        net = models.char_rnn(V, hidden=16, layers=2, tbptt_length=T,
+        net = models.char_rnn(V, hidden=16, layers=2, tbptt_length=T // 4,
                               device="cpu")
         op = "lstm_step"
     else:
-        net = models.attention_lm(V, width=32, n_heads=2, layers=1,
+        net = models.attention_lm(V, width=64, n_heads=2, layers=1,
                                   seq_len=T, device="cpu")
         op = "attention"
     net.conf.global_conf.precision = "bfloat16"
@@ -534,15 +544,18 @@ def test_lstm_and_attention_take_the_dense_chain_under_bf16(model):
     idx = rng.integers(0, V, (2, T + 1))
     x = np.eye(V, dtype=np.float32)[idx[:, :-1]]
     y = np.eye(V, dtype=np.float32)[idx[:, 1:]]
-    before = _fallbacks(op)
+    before, selected = _fallbacks(op), _selected(op)
     net.fit(x, y)
-    assert _fallbacks(op) > before and np.isfinite(net.score())
+    forwards = 4 * 2 if model == "char_rnn" else 1
+    assert _selected(op) == selected + forwards
+    assert _fallbacks(op) == before and np.isfinite(net.score())
     assert all(t.dtype == torch.float32
                for t in CS._tensor_leaves(net.net_params))
     out = net.output(x)
     assert out.dtype == torch.float32 and out.shape == (2, T, V)
     step = net.rnn_time_step(x[:, :1])
     assert step.dtype == torch.float32
+    assert _fallbacks(op) == before
 
 
 def _selections(tier: str) -> float:

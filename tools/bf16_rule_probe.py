@@ -48,6 +48,43 @@ Then:
    mean; top-1 agreement), VGG's at 8 rows from its initial params,
    ResNet's at 32 fresh rows from the state's.
 
+With ``--model charrnn`` or ``--model attention`` it measures the bf16
+sequence models instead, the source of the rules of chip_smoke.py's
+``train_charrnn_bf16``, ``sample_charrnn_bf16``, ``train_attention_bf16``,
+``output_attention_bf16`` and ``sample_attention_bf16``:
+
+5. ``charrnn``: ``char_rnn`` at a quarter of its width (2 x GravesLSTM(48),
+   the multiple of 8 the kernel takes),
+   batch 8, sequences of 1,000 characters of SURVEY.md, TBPTT 50, RMSProp
+   at the recipe's lr, trained in bf16 for 3 minibatches (60 segments, as
+   chip_smoke trains it); then one segment from that state through the
+   plain bf16 step, through the lstm kernel's emulation (the plain step
+   with the recurrent product summed in the kernel's order: 8 ranges of k,
+   the partial sums added to zx one after another, each element of z then
+   moved by an f32 rounding at random; the same arithmetic otherwise, so
+   it is also the step with its sums reordered) and in f32:
+   the score, each param's update (relative 2-norm) and the cosine of the
+   whole update with the f32 step's.  Then ``rnn_time_step`` fed one
+   character at a time against ``output()`` on 4 rows of 50, and
+   ``output()`` against itself through the emulated kernel (relative
+   2-norm of the probabilities).  ``charrnn_full_width`` is the same at the
+   recipe's widths (2 x 200 units, batch 32): the char-RNN is small enough
+   to train on the CPU, and there a rounding flip of the reordered sum is
+   as likely per element as on the card and 17 times as many elements
+   can flip.
+6. ``attention``: ``attention_lm`` at a quarter of its width (128 wide, 2
+   heads of 64, 2 layers), batch 2: one Adam step at T = 512 from
+   chip_smoke's ``_attention_step_vs_plain`` state (Wq, Wk times
+   ATT_PEAK_QK, layer 0's Wv, Wo times ATT_SPREAD_V) through the plain bf16
+   flash versions, through the kernels' emulation (P and dS fed as bf16 hi
+   + lo pairs, every product summed over blocks of the kernels' tiles) and
+   through the plain versions with only their sums reordered that way, and
+   in f32: score, gradients and updates but the key bias's (relative
+   2-norm), the f32 cosine; then 3 bf16 ``fit`` steps at T = 2,048 and
+   ``output()`` against the f32 network's on the same params, the KV ring
+   against ``output()`` on a 300-character prefix, and ``output()`` against
+   itself through the emulated kernels.
+
 With ``--full-width`` it runs only 3's fourth-step case, ResNet-50 at its
 published widths on the card (batch 128, 224x224, TF32 off, cuDNN
 deterministic), one seed, in each of ``--states``: the plain bf16 step
@@ -62,6 +99,7 @@ and in PERF.md).  Runs in a minute or two on a few CPU threads.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import sys
@@ -357,6 +395,226 @@ def resnet_case(seed: int, before: int = 0, state: str = "calibrated",
                 **CS._probs_vs_f32(torch, served, xo, out)}
 
 
+# ---------------------------------------------------------------------------
+# the bf16 sequence models
+# ---------------------------------------------------------------------------
+
+_JITTER = torch.Generator().manual_seed(0)
+
+
+def reordered_lstm_step(zx, h, c, rw, p3):
+    """``ck.lstm_step_reference`` with h RW summed in the kernel's order
+    (the k range in 8 parts of ceil(H / 8), each part's product apart, the
+    parts added to zx one after another in f32), and then every element of
+    z moved by one f32 ulp up, down or not at random; c' and h' rounded
+    once.  Products of bf16 numbers are exact in f32 and their sums often
+    are, so two orders of summing seldom differ (the order alone moved no
+    update of a full-width segment on the CPU); the jitter gives every
+    element the rounding that another order may give it, and so c' and h'
+    as many bf16 rounding flips as sums of f32 numbers would."""
+    dt = c.dtype
+    zx, h, c, rw, p3 = (t.float() for t in (zx, h, c, rw, p3))
+    H = h.shape[1]
+    r = -(-H // 8)
+    z = zx
+    for k0 in range(0, H, r):
+        z = z + h[:, k0:k0 + r] @ rw[k0:k0 + r]
+    step = torch.randint(-1, 2, z.shape, generator=_JITTER).float()
+    z = z + step * torch.ldexp(torch.ones_like(z),
+                               torch.frexp(z)[1] - 24)
+    zi, zf, zo, zc = z.chunk(4, dim=-1)
+    i = torch.sigmoid(zi + c * p3[0])
+    f = torch.sigmoid(zf + c * p3[1])
+    g = torch.tanh(zc)
+    c_new = f * c + i * g
+    o = torch.sigmoid(zo + c_new * p3[2])
+    return c_new.to(dt), (o * torch.tanh(c_new)).to(dt)
+
+
+def emulated_lstm():
+    """Within the block the lstm step's forward (on the CPU: its plain
+    version) is :func:`reordered_lstm_step`; its backward stays."""
+    return mock.patch.object(ck, "lstm_step_reference", reordered_lstm_step)
+
+
+def _blocked(a, b, block):
+    """a @ b with the contraction summed in blocks of ``block``, the
+    blocks' products added one after another (the kernels' tile order)."""
+    out = None
+    for k0 in range(0, a.shape[-1], block):
+        part = a[..., k0:k0 + block] @ b[..., k0:k0 + block, :]
+        out = part if out is None else out + part
+    return out
+
+
+def _hi_lo(x):
+    """x as the bf16 flash kernels feed it: hi = x to the nearest bf16, lo =
+    x - hi to the nearest bf16, the pair's sum (exact in f32)."""
+    hi = x.to(BF).float()
+    return hi + (x - hi).to(BF).float()
+
+
+def _flash_math(split):
+    """The three flash plain versions with every product summed in the
+    kernels' blocks (16 of D in S and dP, 64 keys or queries elsewhere)
+    and, with ``split``, P and dS fed as :func:`_hi_lo` pairs: the kernels'
+    arithmetic (``split``) or the plain versions' sums reordered."""
+    sp = _hi_lo if split else (lambda x: x)
+
+    def mm(a, b, block):
+        return _blocked(a, b, block)
+
+    def probs(q, k, key_mask, lse, causal, scale):
+        s = mm(q, k.transpose(-1, -2), 16) * scale
+        live = ck._flash_live(key_mask, q.shape[2], causal) & \
+            (lse > ck.NEG_INF * 0.5)[..., None]
+        return torch.exp(torch.where(live, s - lse[..., None],
+                                     float("-inf")))
+
+    def forward(q, k, v, key_mask, causal, scale):
+        dt = q.dtype
+        q, k, v = q.float(), k.float(), v.float()
+        s = mm(q, k.transpose(-1, -2), 16) * scale
+        s = s.masked_fill(~ck._flash_live(key_mask, q.shape[2], causal),
+                          float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        row_live = m > float("-inf")
+        p = torch.exp(s - torch.where(row_live, m, torch.zeros_like(m)))
+        l = p.sum(dim=-1, keepdim=True)
+        out = mm(sp(p), v, 64) / torch.where(row_live, l, torch.ones_like(l))
+        lse = torch.where(row_live, m + torch.log(l),
+                          torch.full_like(m, ck.NEG_INF))
+        return out.to(dt), lse.squeeze(-1)
+
+    def dq(q, k, v, key_mask, dout, lse, delta, causal, scale):
+        dt = q.dtype
+        q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+        p = probs(q, k, key_mask, lse, causal, scale)
+        ds = p * (mm(dout, v.transpose(-1, -2), 16) - delta[..., None])
+        return (mm(sp(ds), k, 64) * scale).to(dt)
+
+    def dkv(q, k, v, key_mask, dout, lse, delta, causal, scale):
+        kt, vt = k.dtype, v.dtype
+        q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+        p = probs(q, k, key_mask, lse, causal, scale)
+        ds = p * (mm(dout, v.transpose(-1, -2), 16) - delta[..., None])
+        return ((mm(sp(ds).transpose(-1, -2), q, 64) * scale).to(kt),
+                mm(sp(p).transpose(-1, -2), dout, 64).to(vt))
+    return {"flash_forward": forward, "flash_dq": dq, "flash_dkv": dkv}
+
+
+@contextmanager
+def flash_math(split: bool):
+    """Within the block the flash wrappers compute :func:`_flash_math`."""
+    with contextlib.ExitStack() as stack:
+        for name, fn in _flash_math(split).items():
+            stack.enter_context(mock.patch.object(ck, name, fn))
+        yield
+
+
+INF_RULES = dict(score_rtol=float("inf"), update_rtol=float("inf"),
+                 cosine_min=-1.0)
+
+
+def _seq_readings(runs, p0, skip=()):
+    """compare_seq_bf16's readings of the kernel run against the plain and
+    the f32 runs, rules off."""
+    cmp = CS.compare_seq_bf16(torch, runs, p0, grad_rtol=float("inf"),
+                              skip=skip, **INF_RULES)
+    return {"score_rel_diff": cmp["vs_plain"]["score_rel_diff"],
+            "max_grad_rel_err": cmp["vs_plain"]["max_grad_rel_err"],
+            "max_update_rel_err": cmp["vs_plain"]["max_update_rel_err"],
+            "f32_update_cosine": cmp["f32_update_cosine"],
+            "f32_score_rel_diff": cmp["vs_f32"]["score_rel_diff"]}
+
+
+def _no_ctx():
+    return contextlib.nullcontext()
+
+
+# A quarter of the char-RNN's 200 units, to the multiple of 8 the lstm
+# kernel's gate takes.
+CHAR_PROBE_HIDDEN = 48
+
+
+def charrnn_case(seed: int, full: bool = False) -> dict:
+    from deeplearning4j_tpu_torch.models import CharacterIterator, char_rnn
+    hidden, batch = (CS.CHAR_HIDDEN, CS.CHAR_BATCH) if full else \
+        (CHAR_PROBE_HIDDEN, 8)
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=CS.CHAR_SEQ, batch=batch, seed=seed)
+    net = char_rnn(it.vocab_size, hidden, CS.CHAR_LAYERS,
+                   tbptt_length=CS.CHAR_TBPTT, device="cpu").init(
+        generator=torch.Generator().manual_seed(seed))
+    net.conf.global_conf.precision = "bfloat16"
+    for _ in range(CS.CHAR_BF16_MINIBATCHES):
+        net.fit(it.next())
+    ds = it.next()
+    x = torch.from_numpy(ds.features[:, :CS.CHAR_TBPTT])
+    y = torch.from_numpy(ds.labels[:, :CS.CHAR_TBPTT])
+    start = (CS._clone_tree(net.net_params), CS._clone_tree(net.opt_states),
+             CS._clone_tree(net.net_state), net.iteration)
+    runs = CS._seq_step_runs(torch, ck, net, x, y, start, CS.seq_bf16_modes(
+        _no_ctx, kernel_ctx=emulated_lstm))
+    res = _seq_readings(runs, start[0])
+    xs = ds.features[:4, :CS.CHAR_TBPTT]
+    full = net.output(xs)
+    net.rnn_clear_previous_state()
+    steps = torch.cat([net.rnn_time_step(xs[:, t:t + 1])
+                       for t in range(CS.CHAR_TBPTT)], dim=1)
+    with emulated_lstm():
+        emul = net.output(xs)
+    res.update(sample_rel=CS._rel_norm(torch, steps, full),
+               output_emulated_rel=CS._rel_norm(torch, emul, full))
+    return res
+
+
+def attention_case(seed: int) -> dict:
+    from deeplearning4j_tpu_torch.models import CharacterIterator, attention_lm
+    width, heads, T, Tfit = CS.ATT_WIDTH // 4, CS.ATT_HEADS // 4, 512, 2048
+    text = (ROOT / "SURVEY.md").read_text()
+    it = CharacterIterator(text, seq_length=T, batch=2, seed=seed)
+    net = attention_lm(it.vocab_size, width, heads, CS.ATT_LAYERS, Tfit,
+                       device="cpu").init(
+        generator=torch.Generator().manual_seed(seed))
+    net.conf.global_conf.precision = "bfloat16"
+    ds = it.next()
+    x, y = torch.from_numpy(ds.features), torch.from_numpy(ds.labels)
+    begin, opt0 = CS._attention_start(net, CS._clone_tree(net.net_params))
+    start = (begin, opt0, net.net_state, 0)
+    modes = CS.seq_bf16_modes(_no_ctx, kernel_ctx=lambda: flash_math(True))
+    runs = CS._seq_step_runs(torch, ck, net, x, y, start, modes)
+    res = _seq_readings(runs, begin, skip=("bk",))
+    modes["kernel"] = (lambda: flash_math(False), "bfloat16")
+    runs = CS._seq_step_runs(torch, ck, net, x, y, start, modes)
+    res.update({f"witness_{k}": v for k, v in
+                _seq_readings(runs, begin, skip=("bk",)).items()
+                if not k.startswith("f32")})
+    fit_it = CharacterIterator(text, seq_length=Tfit, batch=2, seed=seed)
+    for _ in range(CS.ATT_BF16_STEPS):
+        net.fit(fit_it.next())
+    xo = torch.from_numpy(fit_it.next().features)
+    out = net.output(xo)
+    with flash_math(True):
+        emul = net.output(xo)
+    g = net.conf.global_conf
+    g.precision = None
+    f32 = net.output(xo)
+    g.precision = "bfloat16"
+    V = it.vocab_size
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, V, (4, 300))
+    net.rnn_clear_previous_state()
+    steps = torch.cat([net.rnn_time_step(eye[prefix[:, t:t + 1]])
+                       for t in range(prefix.shape[1])], dim=1)
+    full = net.output(eye[prefix])
+    res.update(probs_vs_f32_rel=CS._rel_norm(torch, out, f32),
+               output_emulated_rel=CS._rel_norm(torch, emul, out),
+               sample_rel=CS._rel_norm(torch, steps, full))
+    return res
+
+
 def _worst(cases):
     """Per key, the largest value over the cases (the smallest cosine)."""
     out = {}
@@ -364,7 +622,7 @@ def _worst(cases):
         vals = [c[k] for c in cases]
         if isinstance(vals[0], dict):
             continue
-        out[k] = min(vals) if k.startswith(("cosine", "top1")) else \
+        out[k] = min(vals) if "cosine" in k or k.startswith("top1") else \
             max(vals)
     return out
 
@@ -379,11 +637,22 @@ def main(argv=None) -> int:
     ap.add_argument("--before", default="3",
                     help="with --full-width: the steps before the one "
                          "compared, one count for each of --states")
+    ap.add_argument("--model", default="cnn",
+                    choices=("cnn", "charrnn", "attention"),
+                    help="the conv networks (1-4), the char-RNN (5) or the "
+                         "attention model (6)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     res = {}
-    if args.full_width:
+    if args.model != "cnn":
+        torch.set_num_threads(min(4, torch.get_num_threads()))
+        seeds = [CS.SEED + i for i in range(args.seeds)]
+        runs = [(args.model, {"charrnn": charrnn_case,
+                              "attention": attention_case}[args.model], {})]
+        if args.model == "charrnn":
+            runs.append(("charrnn_full_width", charrnn_case, {"full": True}))
+    elif args.full_width:
         for flags in (torch.backends.cudnn, torch.backends.cuda.matmul):
             flags.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
