@@ -5085,10 +5085,13 @@ def check_flash_bf16(torch, ck, gen, B, H, T, D, causal, mask) -> dict:
             "max_abs_err": errs, "rule": rules}
 
 
-# the bf16 flash instances in the flash library's SASS
-FLASH_BF16_FUNCTIONS = {"flash_forward": "flash_fwd_bf16",
-                        "flash_dq": "flash_dq_bf16",
-                        "flash_dkv": "flash_dkv_bf16"}
+# the bf16 flash instances in the flash library's SASS (DP 64 and 128; not
+# the pre-passes, flash_*_bf16_split) and the tensor-core instruction with
+# BF16 operands each must hold: the forward and dk/dv on wgmma (HGMMA), dq
+# on mma.sync (HMMA)
+FLASH_BF16_FUNCTIONS = {"flash_forward": (r"flash_fwd_bf16ILi\d+E", "HGMMA"),
+                        "flash_dq": (r"flash_dq_bf16ILi\d+E", "HMMA"),
+                        "flash_dkv": (r"flash_dkv_bf16ILi\d+E", "HGMMA")}
 # work of the bf16 forms over the one-pass products: P V (forward), dS K
 # (dq), P^T dO and dS^T Q (dk/dv) take two products each (hi + lo)
 FLASH_BF16_SPLIT_WORK = {"flash_forward": 1.5, "flash_dq": 4 / 3,
@@ -5099,10 +5102,12 @@ def phase_bf16_sequence_kernels(torch, ck) -> dict:
     """The bf16 forms of the lstm step and the three flash kernels against
     their plain versions: the lstm step at every N the main paths run and
     at ragged edges; flash at the training shape, masked, non-causal, head
-    dims 32-128, ragged T and a dead row; timed at the main paths' shapes
-    beside the bound (one-pass bf16 products, and the split's work) and
-    ``F.scaled_dot_product_attention`` on bf16; bf16 HMMA (mma.sync) in
-    every bf16 flash instance's SASS."""
+    dims 32-128, ragged T and a dead row, and T at the edges of the
+    forward's and dk/dv's blocks and tiles (128, 129, 191-193, 257, 385);
+    timed at the main paths' shapes beside the bound (one-pass bf16
+    products, and the split's work) and ``F.scaled_dot_product_attention``
+    on bf16; in every bf16 flash instance's SASS, BF16 HGMMA (wgmma) for
+    the forward and dk/dv, BF16 HMMA (mma.sync) for dq."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
@@ -5120,6 +5125,14 @@ def phase_bf16_sequence_kernels(torch, ck) -> dict:
              (2, 2, 200, 128, False, "dead_row"),
              (1, 2, ATT_PLAIN_SEQ, 64, True, "none"),
              (1, 2, 300, 64, True, "none")]
+    # the edges of the redesigned forms' blocks (forward 192 query rows at
+    # DP = 64, 128 at 128; dk/dv 128 keys) and tiles (128 and 64 keys; 64
+    # queries in steps of 32), D = 32, 64 and 128
+    cases += [(1, 2, 128, 64, True, "none"), (1, 2, 129, 128, True, "none"),
+              (1, 2, 191, 32, False, "none"), (1, 2, 192, 64, True, "tail"),
+              (1, 2, 193, 64, False, "tail"), (1, 2, 257, 128, True, "tail"),
+              (2, 1, 385, 64, True, "dead_row"),
+              (2, 1, 129, 32, False, "dead_row")]
     checks = [check_flash_bf16(torch, ck, gen, *c) for c in cases]
     torch.cuda.empty_cache()
     bf = torch.bfloat16
@@ -5188,10 +5201,12 @@ def phase_bf16_sequence_kernels(torch, ck) -> dict:
                                 "peepholes",
            "flash_checks": checks, "timed_shape": [B, H, T, D],
            "causal": True, "timed": timed,
-           "sass_bf16_hmma": {
-               name: hgmma_count(ck, ck.FLASH_LIBRARY, pattern, "BF16",
-                                 "HMMA")
-               for name, pattern in FLASH_BF16_FUNCTIONS.items()},
+           "sass_bf16": {
+               name: hgmma_count(ck, ck.FLASH_LIBRARY, pattern, "BF16", instr)
+               for name, (pattern, instr) in FLASH_BF16_FUNCTIONS.items()},
+           "sass_bf16_instruction": {
+               name: instr
+               for name, (_, instr) in FLASH_BF16_FUNCTIONS.items()},
            "library_ms_forward": lib_fwd,
            "library_ms_forward_backward": lib_both,
            "library_ms_backward": lib_bwd,
@@ -6692,7 +6707,9 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     in bf16, ``F.dropout`` on bf16 as the library call.  The bf16 forms
     of the lstm step (one step at (32, 200), 2-byte bytes) and of the flash
     kernels (at (4, 8, 8192, 64), causal: the one-pass bf16 bound, the
-    split's work beside it, SDPA bf16, bf16 HMMA in the SASS) likewise."""
+    split's work beside it, SDPA bf16, and the BF16 tensor-core
+    instruction in the SASS: HGMMA for the forward and dk/dv, HMMA for dq)
+    likewise."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -6883,7 +6900,8 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "library_ms": (sk["library_ms_forward"]
                        if name == "flash_forward" else None),
         "library_note": sk["library_note"],
-        "sass_bf16_hmma": sk["sass_bf16_hmma"][name],
+        "sass_bf16": sk["sass_bf16"][name],
+        "sass_bf16_instruction": sk["sass_bf16_instruction"][name],
         **({} if name == "flash_forward" else {
             "library_ms_backward_pair": sk["library_ms_backward"]}),
     } for name, line, errs in (("flash_forward", 128, ("out", "lse")),

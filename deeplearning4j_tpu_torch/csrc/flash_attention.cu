@@ -839,14 +839,15 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forms: forward, dq and dk/dv on the tensor cores (mma.sync)
+// bf16 forms: the forward and dk/dv on wgmma after a split pre-pass; dq on
+// mma.sync
 // ---------------------------------------------------------------------------
 //
 // The TPU kernels under precision("bfloat16") take bf16 q, k, v and dout,
 // upcast them, keep the scores, the softmax, lse, delta, p and ds in f32,
 // and round out, dq, dk and dv once (:133-177, :238-318).  Here every
 // product whose operands are bf16 tensors (S = q k^T, dP = dout v^T, and the
-// k, q, dout sides of the products with p and ds) is one bf16 mma.sync with
+// k, q, dout sides of the products with p and ds) is a bf16 product with
 // f32 sums: a bf16 x bf16 product is exact in f32.  P and dS are f32
 // intermediates: rounded to bf16 they would put outputs a bf16 ulp from the
 // reference's function in ~12 % of elements, so each goes in as a bf16 hi
@@ -854,25 +855,179 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 // two products into one f32 sum, what 3xTF32 is to the f32 forms; the
 // dropped lo.lo term is below 2^-16 of p.  The scale is applied to S in f32
 // after the product.
+//   flash_fwd_bf16<DP>  <- `_flash_fwd_kernel` :128 (launched by `_flash_fwd` :196)
+//   flash_dq_bf16<DP>   <- `_flash_dq_kernel`  :238 (launched by `_flash_bwd` :341)
+//   flash_dkv_bf16<DP>  <- `_flash_dkv_kernel` :274 (launched by `_flash_bwd` :357)
 //
-// A block is 4 warps; each warp owns 16 of the block's 64 rows and keeps
-// its accumulators in registers in mma's layout, and the 64-row tiles of
-// the other side go through shared memory ([64][DP + 8] bf16, zero past T
-// and in [D, DP)), loaded by the whole block between two barriers.  The
-// accumulator layout of S (and of dP) is the A fragment layout of the next
-// product, so p and ds never leave the registers: the forward multiplies
-// P V with P from its S registers; dq multiplies dS K; dk/dv computes the
-// transposed scores S^T = K Q^T and dP^T = V dO^T for its 16 keys a warp,
-// so that P^T dO and dS^T Q take P^T and dS^T from registers too.  The
-// operand read along a tile's rows (V in P V, K in dS K, dO and Q in dk/dv)
-// is gathered two bf16 at a time from shared memory.  No split pre-pass and
-// no scratch: K and V are read as they are.  A simple plan, right first:
-// the loads are synchronous, not overlapped with the products.
-//
-// Its bound at the long-context model's shape (B = 4, H = 8, T = 8192,
+// Their bound at the long-context model's shape (B = 4, H = 8, T = 8192,
 // D = 64, causal): 275, 412 and 550 GFLOP of one-pass bf16 products for
 // the forward, dq and dk/dv, 0.28, 0.42 and 0.56 ms at the 989 TFLOP/s
-// bf16 peak; the hi + lo split makes the work 1.5, 1.33 and 1.5 times that.
+// bf16 peak; the hi + lo split makes the work 1.5, 1.33 and 1.5 times that
+// (0.42, 0.56 and 0.83 ms).  Operations bound all three: the forward's
+// inputs and outputs are 136 MB, 0.04 ms at 3.35 TB/s.
+//
+// The forward and dk/dv carry the f32 forward's plan over to bf16:
+//  * Every product is one wgmma.m64nNk16 bf16 with f32 accumulators, issued
+//    by the four warps of a warpgroup: mma.sync, the warp-level product, is
+//    a fraction of the card's bf16 rate.  A warpgroup owns 64 rows
+//    (queries in the forward, keys in dk/dv) and streams the other side's
+//    tiles through a ring of stages in shared memory, each tile one bulk
+//    copy counted on mbarriers (B16Ring).  Nothing synchronises the block
+//    inside the loop.  No warp is set aside to load: ptxas gives a thread
+//    of a block with a producer warpgroup 168 registers whatever
+//    setmaxnreg asks, so thread 0 loads between its own waits, never
+//    blocking on a stage.
+//  * A split pre-pass (flash_fwd_bf16_split, flash_dkv_bf16_split) writes
+//    each streamed tile once into a scratch as the products read it, in
+//    K-major images with the 128-byte swizzle: the forward's K [key][d]
+//    (B of S = Q K^T), V^T [d][key] (B of P V), the key bias (0, or -inf
+//    for a masked key or one past T) and whether the tile has such a key;
+//    dk/dv's Q and dO [query][d] (B of S^T = K Q^T and dP^T = V dO^T), Q^T
+//    and dO^T [d][query] (B of dK += dS^T Q and dV += P^T dO), lse log2(e)
+//    (+inf on a dead row, so its p is 2^-inf = 0 with no test) and delta.
+//    This, and not a transposed-B wgmma on MN-major tiles, because dk/dv
+//    reads Q and dO both ways and a plain bulk copy makes neither swizzled
+//    layout; a TMA tensor map would, but needs 16-byte row strides (D % 8
+//    == 0) where the gate takes D % 4 == 0.  The pre-pass also zero-fills
+//    past T and in [D, DP), so the loop does no bounds test; it costs 0.05
+//    (forward) and 0.07 ms (dk/dv) at that shape on an H100.
+//  * The block's own rows are A fragments in registers (Q; K and V at
+//    DP = 64), or K-major images in shared memory (K and V at DP = 128).
+//    For bf16 k16 the accumulator layout is the register-A fragment
+//    layout (a thread's elements 8 j + 2 m and 8 j + 2 m + 1 are its A
+//    register m of k-step j), so P, P^T and dS^T go from the S, S^T and
+//    dP^T accumulators to A with only the hi + lo split (split_bf16x2): no
+//    permutation, as the tf32 form needs, and no trip through shared
+//    memory.
+//  * The forward: three warpgroups (192 query rows) a block at DP = 64,
+//    two at 128 (registers: S 32 + P hi, lo 32 + O 32 or 64 + Q 16 or 32
+//    a thread); key tiles of 128 keys (64 at DP = 128), three stages,
+//    taken in steps of 64 keys.  Each warpgroup issues step j's S with
+//    step j - 1's P V behind it and waits for S alone, so the online
+//    softmax of step j (f32, log2 domain) runs while the tensor cores do
+//    P V.  O accumulates on the tensor cores over the row, rescaled by the
+//    CUDA cores between steps; lse comes out as the natural log.
+//  * dk/dv: 128 keys a block, 64 a warpgroup; tiles of 64 queries (three
+//    stages at DP = 64, two at 128) in steps of 32.  Each step issues its
+//    S^T and dP^T with the last step's dV += P^T_hi dO + P^T_lo dO and
+//    dK += dS^T_hi Q + dS^T_lo Q behind them, and p^T and ds^T run on the
+//    CUDA cores while those do.  dK is scaled once, then rounded once.
+//  * The softmax was the bottleneck, not the products (H100, that shape):
+//    exp2f's guard for results below 2^-126 (a test, two multiplies) and
+//    the bias and mask on every element made it ~17 instructions an
+//    element and serialised the exponentials; ex2.approx.ftz, a step with
+//    no masked key and off the diagonal taking p = 2^(s c - max) in one
+//    FMA, and fences that keep the arithmetic before the next wait took
+//    the forward from 1.45 to 1.0 ms and dk/dv from 2.1 to 1.9.  Issuing
+//    S a step ahead (two S accumulators) made ptxas serialise the wgmmas;
+//    the warpgroups taking turns on named barriers gained nothing.
+//  * Causal: a warpgroup waits for and releases the tiles past its
+//    diagonal without work, and masks only on diagonal steps.  The grid
+//    sends each head's longest blocks first (the forward's last query
+//    rows, dk/dv's first keys).
+
+// dq keeps a simpler plan: a block is 4 warps; each warp owns 16 of the
+// block's 64 query rows and keeps its accumulators in registers in
+// mma.sync's layout, and the 64-row key tiles go through shared memory
+// ([64][DP + 8] bf16, zero past T and in [D, DP)), loaded by the whole
+// block between two barriers.  The accumulator layout of S and dP is the
+// A fragment layout of the next product, so ds never leaves the
+// registers; K, read along the tile's rows in dS K, is gathered two bf16
+// at a time from shared memory.  No pre-pass and no scratch.  A simple
+// plan: the loads are synchronous, not overlapped with the products.
+
+// Byte offset of element (row n, k) in a K-major bf16 image of `rows` rows
+// stored as [k / 64][rows][64 bf16] atoms in the 128-byte swizzle (sw_off's
+// layout with 2-byte elements).
+__device__ __forceinline__ uint32_t sw16_off(int rows, int n, int k) {
+  return (k >> 6) * (rows * 128) + n * 128 +
+         ((((k & 63) >> 3) ^ (n & 7)) << 4) + (k & 7) * 2;
+}
+
+// The inverse of sw16_off: the row n and the first of the 8 k of 16-byte
+// chunk c of such an image.
+__device__ __forceinline__ void sw16_pos(int rows, int c, int& n, int& k) {
+  const int atom = c / (rows * 8), rem = c - atom * rows * 8;
+  n = rem >> 3;
+  k = atom * 64 + (((rem & 7) ^ (n & 7)) << 3);
+}
+
+// The descriptor of k-step kk (16 deep, 32 bytes) of such an image at
+// shared address `img`, all its rows.
+__device__ __forceinline__ uint64_t img_desc(uint32_t img, int rows, int kk) {
+  return sw128_desc(img + (kk >> 2) * (rows * 128)) + 2 * (kk & 3);
+}
+
+// Rows r0 + [0, R) of a [T][D] bf16 matrix into a [R][LD] tile in shared
+// memory, zero past T and in [D, DP): 8-byte loads (D % 4 == 0, the base
+// 16-byte aligned).
+template <int R, int DP, int LD>
+__device__ __forceinline__ void stage_rows(uint16_t* dst, const uint16_t* src,
+                                           int r0, int T, int D, int i,
+                                           int stride) {
+  constexpr int C4 = DP / 4;
+  for (int e = i; e < R * C4; e += stride) {
+    const int r = e / C4, c4 = e - r * C4;
+    uint2 x = make_uint2(0u, 0u);
+    if (r0 + r < T && 4 * c4 < D)
+      x = __ldg(reinterpret_cast<const uint2*>(
+          src + static_cast<size_t>(r0 + r) * D + 4 * c4));
+    *reinterpret_cast<uint2*>(dst + r * LD + 4 * c4) = x;
+  }
+}
+
+// Chunk c of the K-major image of a [R][LD] bf16 tile in shared memory:
+// the tile itself (image rows = its rows, k its columns) or, with `trans`,
+// its transpose (image rows = its columns, k its rows).
+template <int LD>
+__device__ __forceinline__ uint4 image_chunk(const uint16_t* tile, int rows,
+                                             int c, bool trans) {
+  int n, k;
+  sw16_pos(rows, c, n, k);
+  if (!trans) return *reinterpret_cast<const uint4*>(tile + n * LD + k);
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = tile[(k + 2 * j) * LD + n] |
+           (static_cast<uint32_t>(tile[(k + 2 * j + 1) * LD + n]) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Rows r0 + [0, 64) of a [T][D] bf16 matrix into a K-major image of 64 rows
+// at `img` in shared memory, zero past T and in [D, DP), by the 128 threads
+// of a warpgroup (i its thread); the caller fences and syncs.
+template <int DP>
+__device__ __forceinline__ void load_image64(uint8_t* img, const uint16_t* src,
+                                             int r0, int T, int D, int i) {
+  constexpr int C4 = DP / 4;
+  for (int e = i; e < 64 * C4; e += 128) {
+    const int n = e / C4, c4 = e - n * C4;
+    uint2 x = make_uint2(0u, 0u);
+    if (r0 + n < T && 4 * c4 < D)
+      x = __ldg(reinterpret_cast<const uint2*>(
+          src + static_cast<size_t>(r0 + n) * D + 4 * c4));
+    *reinterpret_cast<uint2*>(img + sw16_off(64, n, 4 * c4)) = x;
+  }
+}
+
+// x0, x1 (K 2t, 2t+1 of a row) as bf16 hi and lo pairs: hi = x to the
+// nearest bf16, lo = x - hi (exact in f32) to the nearest bf16.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint16_t h0 = float_to_bf16_bits(x0), h1 = float_to_bf16_bits(x1);
+  const uint16_t l0 = float_to_bf16_bits(x0 - bf16_bits_to_float(h0));
+  const uint16_t l1 = float_to_bf16_bits(x1 - bf16_bits_to_float(h1));
+  hi = h0 | (static_cast<uint32_t>(h1) << 16);
+  lo = l0 | (static_cast<uint32_t>(l1) << 16);
+}
+
+// Two f32 as the bf16 pair of one 32-bit store (the lower index low).
+__device__ __forceinline__ uint32_t pack_bf16x2(float x0, float x1) {
+  return float_to_bf16_bits(x0) |
+         (static_cast<uint32_t>(float_to_bf16_bits(x1)) << 16);
+}
+
+// ---- dq (mma.sync) -------------------------------------------------------
 
 constexpr int kB16Rows = 64;       // a block's own rows, 16 a warp
 constexpr int kB16Tile = 64;       // rows of a streamed tile
@@ -886,12 +1041,9 @@ struct B16 {
   static constexpr int TILE = kB16Tile * LD;          // elements
   static constexpr int KS = DP / 16;                   // k-steps over D
   static constexpr int ND = DP / 8;                    // 8-wide tiles of D
-  // the forward: q, k and v tiles and the key bias; dq: q, dout, k and v
-  // tiles and the key bias; dk/dv: k, v, q and dout tiles, lse and delta
-  static constexpr int FWD_SMEM = 3 * TILE * 2 + kB16Tile * 4;
+  // dq: q, dout, k and v tiles and the key bias
   static constexpr int DQ_SMEM = 4 * TILE * 2 + kB16Tile * 4;
-  static constexpr int DKV_SMEM = 4 * TILE * 2 + 2 * kB16Tile * 4;
-  static_assert(DKV_SMEM <= kSmemMax, "the plan exceeds shared memory");
+  static_assert(DQ_SMEM <= kSmemMax, "the plan exceeds shared memory");
 };
 
 // Rows r0 + [0, 64) of a [T][D] bf16 matrix into a [64][LD] tile, zero past
@@ -941,17 +1093,6 @@ __device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
   const uint16_t* p = t + (k0 + 2 * tq) * LD + n0 + g;
   b0 = p[0] | (static_cast<uint32_t>(p[LD]) << 16);
   b1 = p[8 * LD] | (static_cast<uint32_t>(p[9 * LD]) << 16);
-}
-
-// x0, x1 (K 2t, 2t+1 of a row) as bf16 hi and lo pairs: hi = x to the
-// nearest bf16, lo = x - hi (exact in f32) to the nearest bf16.
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const uint16_t h0 = float_to_bf16_bits(x0), h1 = float_to_bf16_bits(x1);
-  const uint16_t l0 = float_to_bf16_bits(x0 - bf16_bits_to_float(h0));
-  const uint16_t l1 = float_to_bf16_bits(x1 - bf16_bits_to_float(h1));
-  hi = h0 | (static_cast<uint32_t>(h1) << 16);
-  lo = l0 | (static_cast<uint32_t>(l1) << 16);
 }
 
 // acc[ND][4] += X[16 x 64] T[64 x DP] for a warp: X in the accumulator
@@ -1027,108 +1168,6 @@ __device__ __forceinline__ void store_rows_bf16(
                                                       mul)) << 16);
     }
   }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kB16Threads)
-flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, const float* __restrict__ mask,
-               uint16_t* __restrict__ out, float* __restrict__ lse, int H,
-               int T, int D, int causal, float scale) {
-  using P = B16<DP>;
-  constexpr int LD = P::LD, ND = P::ND;
-  extern __shared__ __align__(16) uint8_t smem_b16[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_b16);
-  uint16_t* ks = qs + P::TILE;
-  uint16_t* vs = ks + P::TILE;
-  float* bias = reinterpret_cast<float*>(vs + P::TILE);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.x;
-  // every head's last query rows, which visit the most key tiles, first
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kB16Rows;
-  const int w0 = r0 + 16 * warp;          // the warp's rows w0 + [0, 16)
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const float* maskb = mask + static_cast<size_t>(bh / H) * T;
-  load_tile_bf16<DP>(qs, q + base, r0, T, D);
-  const int ntiles = (T + kB16Tile - 1) / kB16Tile;
-  const int n_tiles =
-      causal ? min(ntiles, (r0 + kB16Rows - 1) / kB16Tile + 1) : ntiles;
-  const float sl2 = scale * 1.4426950408889634f;   // the log2 domain
-  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[nd][i] = 0.0f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kB16Tile;
-    __syncthreads();                     // the last tile is read
-    load_tile_bf16<DP>(ks, k + base, k0, T, D);
-    load_tile_bf16<DP>(vs, v + base, k0, T, D);
-    if (tid < kB16Tile)
-      bias[tid] = k0 + tid < T && maskb[k0 + tid] > 0.0f ? 0.0f : -INFINITY;
-    __syncthreads();
-    if (causal && k0 > w0 + 15) continue;   // no live key for these rows
-
-    float s[8][4];
-    mma_rows_rows<DP>(s, qs, 16 * warp, ks, g, tq);
-    // x = s scale log2(e) + bias, the causal mask; the row max over the 4
-    // threads of a row
-    const bool diag = causal && k0 + kB16Tile - 1 > w0;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = 8 * n + 2 * tq + (i & 1);
-        float x = fmaf(s[n][i], sl2, bias[col]);
-        if (diag && k0 + col > w0 + g + 8 * h) x = -INFINITY;
-        s[n][i] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
-    float alpha[2], mu[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m2[h], mx[h]);
-      mu[h] = m_new == -INFINITY ? 0.0f : m_new;   // no live key yet: p = 0
-      alpha[h] = exp2f(m2[h] - mu[h]);             // 0 while m2 is -inf
-      m2[h] = m_new;
-      l[h] *= alpha[h];                            // this thread's share
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[nd][i] *= alpha[i >> 1];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f(s[n][i] - mu[i >> 1]);
-        l[i >> 1] += p;
-        s[n][i] = p;
-      }
-    mma_split_rows<DP>(o, s, vs, g, tq);           // O += P V
-  }
-
-  // out = o / l and lse = (m2 + log2 l) ln 2 for the thread's two rows; a
-  // row with no live key gives 0 and kDeadLse
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const bool live = l[h] > 0.0f;
-    inv[h] = live ? 1.0f / l[h] : 0.0f;
-    const int r = w0 + g + 8 * h;
-    if (tq == 0 && r < T)
-      lse[static_cast<size_t>(bh) * T + r] =
-          live ? (m2[h] + log2f(l[h])) * 0.6931471805599453f : kDeadLse;
-  }
-  store_rows_bf16<DP>(out + base, o, w0 + g, T, D, tq, inv[0], inv[1]);
 }
 
 // dq for 64 query rows a block: stream key tiles, dS = p (dP - delta),
@@ -1209,87 +1248,733 @@ flash_dq_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   store_rows_bf16<DP>(dq + base, acc, w0 + g, T, D, tq, scale, scale);
 }
 
-// dk and dv for 64 keys a block: stream query tiles, compute the transposed
-// scores S^T = k q^T and dP^T = v dout^T for the warp's 16 keys, then
-// dv += P^T dout and dk += dS^T q; dk scale and dv rounded once.
+// 2^x by one MUFU.EX2 (ex2.approx.ftz.f32: relative error below 2^-22, a
+// result below 2^-126 flushed to 0).  exp2f wraps each in a test and two
+// multiplies for results below 2^-126, which cost the softmax a third of
+// its instructions and serialise the exponentials.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- the ring of streamed tiles ------------------------------------------
+
+// Whether the phase of `bar` with this parity has completed (no wait).
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// A ring of ST stages of streamed tiles in shared memory, each tile one
+// bulk copy counted on its stage's `full` mbarrier, released by every
+// thread of the block on its `empty` one.  No warp is set aside to load:
+// ptxas gives a thread of a block of 288 or 384 threads 168 registers
+// whatever setmaxnreg asks, where two consumer warpgroups need ~200, so a
+// block is its consumer warpgroups alone, and thread 0 issues the copies
+// without ever blocking on a stage: tile `next` goes out once its stage's
+// last tile is released, tried at every wait of thread 0 for a tile.
+// Warpgroup 0 waits for every tile, so every tile is loaded.
+template <int ST>
+struct B16Ring {
+  uint32_t ring, full, empty, tile_bytes, stage_bytes;
+  const uint8_t* src;
+  int n, next;
+
+  __device__ __forceinline__ bool try_load() {
+    if (next >= n) return false;
+    const int st = next % ST;
+    if (!mbar_test(empty + 8 * st, ((next / ST) & 1) ^ 1)) return false;
+    mbar_arrive_expect_tx(full + 8 * st, tile_bytes);
+    bulk_copy(ring + st * stage_bytes,
+              src + static_cast<size_t>(next) * tile_bytes, tile_bytes,
+              full + 8 * st);
+    ++next;
+    return true;
+  }
+  // Waits until tile `it` has arrived; the loading thread keeps the ring
+  // filling meanwhile (and traps after a second of clock cycles, as
+  // mbar_wait does).
+  __device__ __forceinline__ void wait(int it, bool loads) {
+    const uint32_t bar = full + 8 * (it % ST), parity = (it / ST) & 1;
+    if (!loads) {
+      mbar_wait(bar, parity);
+      return;
+    }
+    const long long start = clock64();
+    for (;;) {
+      while (try_load()) {
+      }
+      if (mbar_test(bar, parity)) return;
+      if (clock64() - start > 2000000000LL) __trap();
+    }
+  }
+  __device__ __forceinline__ void release(int it) {
+    mbar_arrive(empty + 8 * (it % ST));
+  }
+};
+
+// Initialises a ring's mbarriers (thread 0), then the block syncs.
+template <int ST>
+__device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, blockDim.x);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The A fragments of rows r0 + g, r0 + g + 8 of a [T][D] bf16 matrix, all
+// DP / 16 k-steps: register m of k-step kk holds head dims 16 kk + 2 t +
+// 8 (m / 2) and the next, of row r0 + g + 8 (m % 2); zero past T and D.
 template <int DP>
-__global__ void __launch_bounds__(kB16Threads)
-flash_dkv_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, const float* __restrict__ mask,
-               const uint16_t* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int H,
-               int T, int D, int causal, float scale) {
-  using P = B16<DP>;
-  constexpr int ND = P::ND;
-  extern __shared__ __align__(16) uint8_t smem_b16[];
-  uint16_t* kbs = reinterpret_cast<uint16_t*>(smem_b16);
-  uint16_t* vbs = kbs + P::TILE;
-  uint16_t* qs = vbs + P::TILE;
-  uint16_t* dos = qs + P::TILE;
-  float* qlse = reinterpret_cast<float*>(dos + P::TILE);
-  float* qdelta = qlse + kB16Tile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.x;
-  const int r0 = blockIdx.y * kB16Rows;   // first keys first under causal
-  const int w0 = r0 + 16 * warp;          // the warp's keys w0 + [0, 16)
+__device__ __forceinline__ void load_frags(uint32_t (&f)[DP / 16][4],
+                                           const uint16_t* src, int r0,
+                                           int T, int D, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = r0 + g + 8 * (m & 1), d = 16 * kk + 2 * t + 8 * (m >> 1);
+      f[kk][m] = r < T && d < D ? __ldg(reinterpret_cast<const uint32_t*>(
+                                      src + static_cast<size_t>(r) * D + d))
+                                : 0u;
+    }
+}
+
+// ---- the forward ----------------------------------------------------------
+
+// The forward's plan: a block of NWG warpgroups of 64 query rows; key
+// tiles of KT keys (the unit of the pre-pass and of a bulk copy), taken in
+// steps of NK = 64.  Three warpgroups at DP = 64, where a thread's S, P and
+// O take ~145 registers and a block of 384 threads gets 168: more warps to
+// hide the softmax's latency; two at DP = 128 (~190 registers).
+template <int DP>
+struct FwdB16 {
+  static constexpr int NWG = DP == 64 ? 3 : 2;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int ROWS = 64 * NWG;              // query rows of a block
+  static constexpr int KT = DP == 64 ? 128 : 64;     // keys of a tile
+  static constexpr int NK = 64;                      // keys of a step
+  static constexpr int SPT = KT / NK;                // steps a tile
+  static constexpr int NS = NK / 2;                  // S accumulators
+  static constexpr int NO = DP / 2;                  // O accumulators
+  static constexpr int KIMG = KT * DP * 2;           // the K or V^T image
+  // a tile in the scratch: K, V^T, the key bias, and (16 bytes) whether
+  // any key of the tile is masked or past T
+  static constexpr int TILE = 2 * KIMG + KT * 4 + 16;
+  static constexpr int STAGE = (TILE + 1023) / 1024 * 1024;
+  static constexpr int STAGES = 3;
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * STAGES + 1024;
+  static_assert(SMEM <= kSmemMax, "the plan exceeds a block's shared memory");
+  static_assert(TILE % 16 == 0 && TILE < (1 << 20), "one bulk copy a tile");
+  static_assert(KIMG % 1024 == 0, "images on the swizzle's 1 KB");
+};
+
+// The pre-pass: key tile `blockIdx.x` of head `blockIdx.y` into the
+// scratch: K and V^T images, zero past T and in [D, DP), and the key bias.
+template <int DP>
+__global__ void __launch_bounds__(kSplitThreads)
+flash_fwd_bf16_split(const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v,
+                     const float* __restrict__ mask,
+                     uint8_t* __restrict__ scratch, int H, int T, int D) {
+  using P = FwdB16<DP>;
+  constexpr int KT = P::KT, LD = DP + 8, CH = P::KIMG / 16;
+  __shared__ __align__(16) uint16_t ks[KT * LD], vs[KT * LD];
+  const int tile = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int k0 = tile * KT;
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const size_t base_t = static_cast<size_t>(bh) * T;
+  stage_rows<KT, DP, LD>(ks, k + base, k0, T, D, tid, kSplitThreads);
+  stage_rows<KT, DP, LD>(vs, v + base, k0, T, D, tid, kSplitThreads);
+  __syncthreads();
+  uint8_t* out =
+      scratch + (static_cast<size_t>(bh) * gridDim.x + tile) * P::TILE;
+  uint4* img = reinterpret_cast<uint4*>(out);
+  for (int c = tid; c < CH; c += kSplitThreads) {
+    img[c] = image_chunk<LD>(ks, KT, c, false);        // K [key][d]
+    img[CH + c] = image_chunk<LD>(vs, DP, c, true);    // V^T [d][key]
+  }
+  const int key = k0 + tid;
+  const bool live = tid < KT && key < T &&
+                    mask[static_cast<size_t>(bh / H) * T + key] > 0.0f;
+  if (tid < KT)
+    reinterpret_cast<float*>(out + 2 * P::KIMG)[tid] = live ? 0.0f : -INFINITY;
+  const int any_dead = __syncthreads_or(tid < KT && !live);
+  if (tid == 0)
+    *reinterpret_cast<int*>(out + 2 * P::KIMG + KT * 4) = any_dead;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FwdB16<DP>::THREADS, 1)
+flash_fwd_bf16(const uint16_t* __restrict__ q,
+               const uint8_t* __restrict__ scratch, uint16_t* __restrict__ out,
+               float* __restrict__ lse, int T, int D, int causal,
+               float scale) {
+  using P = FwdB16<DP>;
+  constexpr int KT = P::KT, NK = P::NK, SPT = P::SPT, NS = P::NS;
+  constexpr int NO = P::NO, ST = P::STAGES;
+  constexpr int KS = NK / 16;                        // k-steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;   // the swizzle's 1 KB
+  uint8_t* smem = smem_raw + (base - raw_addr);
+  const uint32_t full = base + P::BARS, empty = full + 8 * ST;
+
+  // every head's last query rows, which visit the most key tiles, first
+  const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * P::ROWS;
+  const int ntiles = (T + KT - 1) / KT;
+  const int n_tiles = causal ? min(ntiles, (r0 + P::ROWS - 1) / KT + 1)
+                             : ntiles;
+  init_ring<ST>(full, empty);
+  B16Ring<ST> ring{base, full, empty, P::TILE, P::STAGE,
+                   scratch + static_cast<size_t>(bh) * ntiles * P::TILE,
+                   n_tiles, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool loads = tid == 0;
+  if (loads)
+    while (ring.try_load()) {
+    }
+
+  // a warpgroup: query rows q0 + [0, 64); this thread's rows q0 + g and
+  // q0 + g + 8, and the accumulators' columns 8 j + 2 t + {0, 1}; Q as the
+  // A fragments of S = Q K^T, from registers
+  const int wg = warp >> 2, t = lane & 3;
+  const int g = 16 * (warp & 3) + (lane >> 2);
+  const int q0 = r0 + 64 * wg;
+  const size_t base_td = static_cast<size_t>(bh) * T * D;
+  uint32_t qf[DP / 16][4];
+  load_frags<DP>(qf, q + base_td, q0, T, D, g, t);
+
+  const float sl2 = scale * 1.4426950408889634f;   // the log2 domain
+  // the steps with a live key for these rows under `causal`
+  const int n_steps =
+      causal ? min(n_tiles * SPT, (q0 + 63) / NK + 1) : n_tiles * SPT;
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[NO], s[NS], alpha[2];
+  uint32_t ph[KS][4], pl[KS][4];     // the last step's P, hi and lo
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+
+  auto stage_at = [&](int u) { return ((u / SPT) % ST) * P::STAGE; };
+  auto fence_o_p = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) fence_operand(o[i]);
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        fence_reg(ph[j][m]);
+        fence_reg(pl[j][m]);
+      }
+  };
+  // S = Q K^T of step u into a fresh accumulator: B = rows (u % SPT) NK +
+  // [0, NK) of the tile's K image
+  auto issue_s = [&](int u) {
+    const uint32_t kimg = base + stage_at(u) + (u % SPT) * NK * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t db = img_desc(kimg, KT, kk);
+      if (kk == 0)
+        WgmmaBf16<NK>::init(s, qf[kk], db);
+      else
+        WgmmaBf16<NK>::mma(s, qf[kk], db, 1);
+    }
+    wgmma_commit();
+  };
+  // O += P V of step u: A = P hi, then P lo, from registers; B = its
+  // k-steps of the tile's V^T image
+  auto issue_pv = [&](int u) {
+    const uint32_t vt = base + stage_at(u) + P::KIMG;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t db = img_desc(vt, DP, (u % SPT) * KS + kk);
+      WgmmaBf16<DP>::mma(o, ph[kk], db, 1);
+      WgmmaBf16<DP>::mma(o, pl[kk], db, 1);
+    }
+    wgmma_commit();
+  };
+  // The online softmax of step u in f32 on the CUDA cores, in the log2
+  // domain: x = s scale log2(e) + bias, the row max over the 4 threads of a
+  // row, p = 2^(x - max) in place of s, alpha the rescale.  A step with no
+  // masked key off the diagonal (most of them) skips the bias and the mask
+  // and takes p = 2^(s scale log2(e) - max) in one FMA.
+  auto softmax = [&](int u) {
+    const int k0 = u * NK;
+    const uint8_t* tile = smem + stage_at(u) + 2 * P::KIMG;
+    const float* bias = reinterpret_cast<const float*>(tile) + (u % SPT) * NK;
+    const bool diag = causal && k0 + NK - 1 > q0;
+    const bool plain =
+        !diag && !*reinterpret_cast<const int*>(tile + KT * 4) && sl2 > 0.0f;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (plain) {
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        fence_operand(s[i]);
+        fence_operand(s[i + 1]);
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fmaxf(s[i], s[i + 1]));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mx[h] *= sl2;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        fence_operand(s[i]);
+        fence_operand(s[i + 1]);
+        const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * t;
+        const float2 b = *reinterpret_cast<const float2*>(bias + col);
+        float x0 = fmaf(s[i], sl2, b.x), x1 = fmaf(s[i + 1], sl2, b.y);
+        if (diag && k0 + col > q0 + g + 8 * h) x0 = -INFINITY;
+        if (diag && k0 + col + 1 > q0 + g + 8 * h) x1 = -INFINITY;
+        s[i] = x0;
+        s[i + 1] = x1;
+        mx[h] = fmaxf(mx[h], fmaxf(x0, x1));
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m2[h], mx[h]);
+      mu[h] = m_new == -INFINITY ? 0.0f : m_new;   // no live key yet: p = 0
+      alpha[h] = ex2(m2[h] - mu[h]);               // 0 while m2 is -inf
+      m2[h] = m_new;
+      l[h] *= alpha[h];                            // this thread's share
+    }
+    // p, and the row sums a pair at a time (elements i, i + 1 share a row)
+    if (plain) {
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int h = (i >> 1) & 1;
+        s[i] = ex2(fmaf(s[i], sl2, -mu[h]));
+        s[i + 1] = ex2(fmaf(s[i + 1], sl2, -mu[h]));
+        l[h] += s[i] + s[i + 1];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int h = (i >> 1) & 1;
+        s[i] = ex2(s[i] - mu[h]);
+        s[i + 1] = ex2(s[i + 1] - mu[h]);
+        l[h] += s[i] + s[i + 1];
+      }
+    }
+  };
+  // The wait asm orders memory, not registers: without these fences the
+  // compiler sinks the softmax's arithmetic below the next wait, out of
+  // the window where it overlaps the products.
+  auto pin_softmax = [&]() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) fence_operand(s[i]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      fence_operand(l[h]);
+      fence_operand(alpha[h]);
+      fence_operand(m2[h]);
+    }
+  };
+  // O rescaled, then P as the A fragments of P V: elements 8 j + 2 m and
+  // 8 j + 2 m + 1 are register m of k-step j
+  auto rescale_split = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        split_bf16x2(s[8 * j + 2 * m], s[8 * j + 2 * m + 1], ph[j][m],
+                     pl[j][m]);
+  };
+
+  // step 0 alone; then each step's S goes out with the last step's P V
+  // behind it, and the softmax runs while the tensor cores do P V
+  ring.wait(0, loads);
+  issue_s(0);
+  wgmma_wait<0>();
+  softmax(0);
+  rescale_split();
+  for (int u = 1; u < n_steps; ++u) {
+    if (u % SPT == 0) ring.wait(u / SPT, loads);
+    fence_o_p();
+    issue_s(u);
+    issue_pv(u - 1);
+    wgmma_wait<1>();                   // S
+    softmax(u);
+    pin_softmax();                     // done before the wait, not after
+    wgmma_wait<0>();                   // the last step's P V
+    fence_o_p();
+    if (u % SPT == 0) ring.release(u / SPT - 1);   // its tile is done
+    rescale_split();
+  }
+  fence_o_p();
+  issue_pv(n_steps - 1);
+  wgmma_wait<0>();
+  fence_o_p();
+  // the last tile these rows use, then those past their diagonal: waited
+  // for and released
+  ring.release((n_steps - 1) / SPT);
+  for (int it = (n_steps - 1) / SPT + 1; it < n_tiles; ++it) {
+    ring.wait(it, loads);
+    ring.release(it);
+  }
+
+  // out = o / l and lse = (m2 + log2 l) ln 2 for the thread's two rows; a
+  // row with no live key gives 0 and kDeadLse
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = q0 + g + 8 * h;
+    if (r >= T) continue;
+    const bool live = l[h] > 0.0f;
+    const float inv = live ? 1.0f / l[h] : 0.0f;
+    uint16_t* row = out + base_td + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int i = 2 * h; i < NO; i += 4) {
+      const int d = 8 * (i >> 2) + 2 * t;   // elements i, i + 1
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(row + d) =
+            pack_bf16x2(o[i] * inv, o[i + 1] * inv);
+    }
+    if (t == 0)
+      lse[static_cast<size_t>(bh) * T + r] =
+          live ? (m2[h] + log2f(l[h])) * 0.6931471805599453f : kDeadLse;
+  }
+}
+
+// ---- dk/dv ----------------------------------------------------------------
+
+// The dk/dv kernel's plan: a block of two warpgroups of 64 keys; query
+// tiles of QT queries, taken in steps of NQ: S^T and dP^T are m64n32, so
+// that one step's P^T and dS^T fragments and the next step's scores fit in
+// the registers beside dK and dV.  K and V are A fragments in registers at
+// DP = 64 (KVR), K-major images in shared memory at DP = 128.
+template <int DP>
+struct DkvB16 {
+  static constexpr int KEYS = 128;                   // keys of a block
+  static constexpr int QT = 64;                      // queries of a tile
+  static constexpr int NQ = 32;                      // queries of a step
+  static constexpr int SPT = QT / NQ;                // steps a tile
+  static constexpr int KQ = NQ / 16;                 // k-steps of a step
+  static constexpr int NO = DP / 2;                  // dK, dV accumulators
+  static constexpr bool KVR = DP == 64;
+  static constexpr int IMG = QT * DP * 2;            // one image of a tile
+  // a tile in the scratch: Q and dO [query][d], Q^T and dO^T [d][query],
+  // lse and delta
+  static constexpr int TILE = 4 * IMG + 2 * QT * 4;
+  static constexpr int STAGE = (TILE + 1023) / 1024 * 1024;
+  static constexpr int STAGES = DP == 64 ? 3 : 2;
+  static constexpr int FIX = 64 * DP * 2;            // a warpgroup's K or V
+  static constexpr int RING = KVR ? 0 : 2 * 2 * FIX;
+  static constexpr int THREADS = 256;                // two warpgroups
+  static constexpr int BARS = RING + STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * STAGES + 1024;
+  static_assert(SMEM <= kSmemMax, "the plan exceeds a block's shared memory");
+  static_assert(TILE % 16 == 0 && TILE < (1 << 20), "one bulk copy a tile");
+  static_assert(IMG % 1024 == 0 && FIX % 1024 == 0 && NQ % 8 == 0,
+                "images on the swizzle's 1 KB");
+};
+
+// The pre-pass: query tile `blockIdx.x` of head `blockIdx.y` into the
+// scratch: Q, dO, Q^T and dO^T images, zero past T and in [D, DP), then
+// lse log2(e) (+inf for a dead row or past T) and delta (0 past T).
+template <int DP>
+__global__ void __launch_bounds__(kSplitThreads)
+flash_dkv_bf16_split(const uint16_t* __restrict__ q,
+                     const uint16_t* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     uint8_t* __restrict__ scratch, int T, int D) {
+  using P = DkvB16<DP>;
+  constexpr int QT = P::QT, LD = DP + 8, CH = P::IMG / 16;
+  __shared__ __align__(16) uint16_t qs[QT * LD], gs[QT * LD];
+  const int tile = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int q0 = tile * QT;
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  stage_rows<QT, DP, LD>(qs, q + base, q0, T, D, tid, kSplitThreads);
+  stage_rows<QT, DP, LD>(gs, dout + base, q0, T, D, tid, kSplitThreads);
+  __syncthreads();
+  uint8_t* out =
+      scratch + (static_cast<size_t>(bh) * gridDim.x + tile) * P::TILE;
+  uint4* img = reinterpret_cast<uint4*>(out);
+  for (int c = tid; c < CH; c += kSplitThreads) {
+    img[c] = image_chunk<LD>(qs, QT, c, false);          // Q [query][d]
+    img[CH + c] = image_chunk<LD>(gs, QT, c, false);     // dO
+    img[2 * CH + c] = image_chunk<LD>(qs, DP, c, true);  // Q^T [d][query]
+    img[3 * CH + c] = image_chunk<LD>(gs, DP, c, true);  // dO^T
+  }
+  if (tid < QT) {
+    const bool ok = q0 + tid < T;
+    const size_t r = static_cast<size_t>(bh) * T + q0 + tid;
+    const float l = ok ? lse[r] : kDeadLse;
+    float* vec = reinterpret_cast<float*>(out + 4 * P::IMG);
+    // lse log2(e), and +inf for a row with no live key: its p = 2^-inf = 0
+    vec[tid] = l > 0.5f * kDeadLse ? l * 1.4426950408889634f : INFINITY;
+    vec[QT + tid] = ok ? delta[r] : 0.0f;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DkvB16<DP>::THREADS, 1)
+flash_dkv_bf16(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+               const float* __restrict__ mask,
+               const uint8_t* __restrict__ scratch, uint16_t* __restrict__ dk,
+               uint16_t* __restrict__ dv, int H, int T, int D, int causal,
+               float scale) {
+  using P = DkvB16<DP>;
+  constexpr int QT = P::QT, NQ = P::NQ, SPT = P::SPT, KQ = P::KQ;
+  constexpr int NO = P::NO, ST = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;   // the swizzle's 1 KB
+  uint8_t* smem = smem_raw + (base - raw_addr);
+  const uint32_t full = base + P::BARS, empty = full + 8 * ST;
+
+  // every head's first keys, which see the most query tiles, first
+  const int bh = blockIdx.x, b0 = blockIdx.y * P::KEYS;
+  const int ntq = (T + QT - 1) / QT;
+  const int first = causal ? b0 / QT : 0;
+  const int n_tiles = ntq - first;
+  init_ring<ST>(full, empty);
+  B16Ring<ST> ring{base + P::RING, full, empty, P::TILE, P::STAGE,
+                   scratch + (static_cast<size_t>(bh) * ntq + first) * P::TILE,
+                   n_tiles, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool loads = tid == 0;
+  if (loads)
+    while (ring.try_load()) {
+    }
+
+  // a warpgroup: keys kw0 + [0, 64); this thread's keys kw0 + g and
+  // kw0 + g + 8, and the accumulators' columns 8 j + 2 t + {0, 1} (queries
+  // in S^T and dP^T, head dims in dK and dV); K and V as the A operands of
+  // S^T and dP^T
+  const int wg = warp >> 2, t = lane & 3;
+  const int g = 16 * (warp & 3) + (lane >> 2);
+  const int kw0 = b0 + 64 * wg;
+  const size_t base_td = static_cast<size_t>(bh) * T * D;
+  constexpr int KF = P::KVR ? DP / 16 : 1;
+  uint32_t kf[KF][4], vf[KF][4];
+  const uint32_t kimg = base + wg * 2 * P::FIX, vimg = kimg + P::FIX;
+  if constexpr (P::KVR) {
+    load_frags<DP>(kf, k + base_td, kw0, T, D, g, t);
+    load_frags<DP>(vf, v + base_td, kw0, T, D, g, t);
+  } else {
+    load_image64<DP>(smem + wg * 2 * P::FIX, k + base_td, kw0, T, D,
+                     tid & 127);
+    load_image64<DP>(smem + wg * 2 * P::FIX + P::FIX, v + base_td, kw0, T, D,
+                     tid & 127);
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  }
+
   const float* maskb = mask + static_cast<size_t>(bh / H) * T;
-  load_tile_bf16<DP>(kbs, k + base, r0, T, D);
-  load_tile_bf16<DP>(vbs, v + base, r0, T, D);
-  constexpr float kLog2e = 1.4426950408889634f;
-  const float sl2 = scale * kLog2e;
   bool key_live[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = w0 + g + 8 * h;
+    const int key = kw0 + g + 8 * h;
     key_live[h] = key < T && maskb[key] > 0.0f;
   }
-  const int ntiles = (T + kB16Tile - 1) / kB16Tile;
-  const int first = causal ? r0 / kB16Tile : 0;
-  float adk[ND][4], adv[ND][4];
+  // whether a key of this warp's 16 is masked or past T (warp-uniform)
+  const bool warp_dead = __any_sync(0xffffffffu, !key_live[0] || !key_live[1]);
+  const float sl2 = scale * 1.4426950408889634f;   // the log2 domain
+  float adk[NO], adv[NO], s[NQ / 2], dp[NQ / 2];
+  uint32_t ph[KQ][4], pl[KQ][4], dh[KQ][4], dl[KQ][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) adk[nd][i] = adv[nd][i] = 0.0f;
+  for (int i = 0; i < NO; ++i) adk[i] = adv[i] = 0.0f;
 
-  for (int it = first; it < ntiles; ++it) {
-    const int q0 = it * kB16Tile;
-    __syncthreads();
-    load_tile_bf16<DP>(qs, q + base, q0, T, D);
-    load_tile_bf16<DP>(dos, dout + base, q0, T, D);
-    if (tid < kB16Tile) {
-      const bool ok = q0 + tid < T;
-      qlse[tid] = ok ? lse[base_t + q0 + tid] : kDeadLse;
-      qdelta[tid] = ok ? delta[base_t + q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-    if (causal && q0 + kB16Tile - 1 < w0) continue;   // queries before keys
-
-    float st[8][4], dpt[8][4];
-    mma_rows_rows<DP>(st, kbs, 16 * warp, qs, g, tq);    // S^T = k q^T
-    mma_rows_rows<DP>(dpt, vbs, 16 * warp, dos, g, tq);  // dP^T = v dout^T
-    // p^T in place of st, ds^T in place of dpt: row = key, column = query
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = 8 * n + 2 * tq + (i & 1);
-        const float ql = qlse[col];
-        const bool live = key_live[h] && ql > 0.5f * kDeadLse &&
-                          (!causal || w0 + g + 8 * h <= q0 + col);
-        const float p =
-            exp2f(live ? st[n][i] * sl2 - ql * kLog2e : -INFINITY);
-        st[n][i] = p;
-        dpt[n][i] = p * (dpt[n][i] - qdelta[col]);
-      }
-    mma_split_rows<DP>(adv, st, dos, g, tq);   // dv += P^T dout
-    mma_split_rows<DP>(adk, dpt, qs, g, tq);   // dk += dS^T q
+  // under `causal` the tiles before it0 hold only queries before these
+  // keys: waited for and released; then U steps of NQ queries
+  const int it0 = causal ? min(n_tiles, (kw0 - b0) / QT) : 0;
+  for (int it = 0; it < it0; ++it) {
+    ring.wait(it, loads);
+    ring.release(it);
   }
-  store_rows_bf16<DP>(dk + base, adk, w0 + g, T, D, tq, scale, scale);
-  store_rows_bf16<DP>(dv + base, adv, w0 + g, T, D, tq, 1.0f, 1.0f);
+  const int U = (n_tiles - it0) * SPT;
+  auto stage_at = [&](int u) {
+    return base + P::RING + ((it0 + u / SPT) % ST) * P::STAGE;
+  };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      fence_operand(adk[i]);
+      fence_operand(adv[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < KQ; ++j)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        fence_reg(ph[j][m]);
+        fence_reg(pl[j][m]);
+        fence_reg(dh[j][m]);
+        fence_reg(dl[j][m]);
+      }
+  };
+  // S^T = K Q^T and dP^T = V dO^T of step u into fresh accumulators: B =
+  // rows (u % SPT) NQ + [0, NQ) of the Q and dO images
+  auto issue_sdp = [&](int u) {
+    const uint32_t stage = stage_at(u) + (u % SPT) * NQ * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t dqb = img_desc(stage, QT, kk);
+      const uint64_t ddo = img_desc(stage + P::IMG, QT, kk);
+      if constexpr (P::KVR) {
+        if (kk == 0) {
+          WgmmaBf16<NQ>::init(s, kf[kk], dqb);
+          WgmmaBf16<NQ>::init(dp, vf[kk], ddo);
+        } else {
+          WgmmaBf16<NQ>::mma(s, kf[kk], dqb, 1);
+          WgmmaBf16<NQ>::mma(dp, vf[kk], ddo, 1);
+        }
+      } else {
+        const uint64_t dka = img_desc(kimg, 64, kk);
+        const uint64_t dva = img_desc(vimg, 64, kk);
+        if (kk == 0) {
+          WgmmaBf16SS<NQ>::init(s, dka, dqb);
+          WgmmaBf16SS<NQ>::init(dp, dva, ddo);
+        } else {
+          WgmmaBf16SS<NQ>::mma(s, dka, dqb, 1);
+          WgmmaBf16SS<NQ>::mma(dp, dva, ddo, 1);
+        }
+      }
+    }
+    wgmma_commit();
+  };
+  // dV += P^T dO and dK += dS^T Q of step u, hi and lo each: B = its
+  // k-steps of the dO^T and Q^T images
+  auto issue_dkv = [&](int u) {
+    const uint32_t stage = stage_at(u);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int kg = (u % SPT) * KQ + kk;
+      const uint64_t dgt = img_desc(stage + 3 * P::IMG, DP, kg);
+      const uint64_t dqt = img_desc(stage + 2 * P::IMG, DP, kg);
+      WgmmaBf16<DP>::mma(adv, ph[kk], dgt, 1);
+      WgmmaBf16<DP>::mma(adv, pl[kk], dgt, 1);
+      WgmmaBf16<DP>::mma(adk, dh[kk], dqt, 1);
+      WgmmaBf16<DP>::mma(adk, dl[kk], dqt, 1);
+    }
+    wgmma_commit();
+  };
+  // p^T from lse, the exponent clamped on dead pairs and rows (0, never
+  // inf), and ds^T = p^T (dP^T - delta) of step u, in f32 in place of s
+  // and dp (row = key, column = query)
+  // A step off the diagonal whose warp has no dead key (most of them)
+  // skips the mask: lse log2(e) is +inf on dead rows.
+  auto probs = [&](int u) {
+    const int q0 = (first + it0 + u / SPT) * QT + (u % SPT) * NQ;
+    const float* qlse = reinterpret_cast<const float*>(
+        smem + (stage_at(u) - base) + 4 * P::IMG) + (u % SPT) * NQ;
+    const float* qdelta = qlse + QT;
+    const bool diag = causal && q0 < kw0 + 63;
+    if (!diag && !warp_dead) {
+#pragma unroll
+      for (int i = 0; i < NQ / 2; i += 2) {
+        fence_operand(s[i]);
+        fence_operand(s[i + 1]);
+        fence_operand(dp[i]);
+        fence_operand(dp[i + 1]);
+        const int col = 8 * (i >> 2) + 2 * t;
+        const float2 ql = *reinterpret_cast<const float2*>(qlse + col);
+        const float2 dl = *reinterpret_cast<const float2*>(qdelta + col);
+        const float p0 = ex2(fmaf(s[i], sl2, -ql.x));
+        const float p1 = ex2(fmaf(s[i + 1], sl2, -ql.y));
+        s[i] = p0;
+        s[i + 1] = p1;
+        dp[i] = p0 * (dp[i] - dl.x);
+        dp[i + 1] = p1 * (dp[i + 1] - dl.y);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NQ / 2; ++i) {
+        fence_operand(s[i]);
+        fence_operand(dp[i]);
+        const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool live =
+            key_live[h] && (!diag || kw0 + g + 8 * h <= q0 + col);
+        const float p = ex2(live ? fmaf(s[i], sl2, -qlse[col]) : -INFINITY);
+        s[i] = p;
+        dp[i] = p * (dp[i] - qdelta[col]);
+      }
+    }
+  };
+  // P^T and dS^T as the A fragments: elements 8 j + 2 m and 8 j + 2 m + 1
+  // are register m of k-step j
+  auto split = [&]() {
+#pragma unroll
+    for (int j = 0; j < KQ; ++j)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        split_bf16x2(s[8 * j + 2 * m], s[8 * j + 2 * m + 1], ph[j][m],
+                     pl[j][m]);
+        split_bf16x2(dp[8 * j + 2 * m], dp[8 * j + 2 * m + 1], dh[j][m],
+                     dl[j][m]);
+      }
+  };
+
+  // step 0 alone; then each step's S^T and dP^T go out with the last
+  // step's dV and dK products behind them, and p^T and ds^T run while the
+  // tensor cores do those
+  if (U > 0) {
+    ring.wait(it0, loads);
+    issue_sdp(0);
+    wgmma_wait<0>();
+    probs(0);
+    split();
+    for (int u = 1; u < U; ++u) {
+      if (u % SPT == 0) ring.wait(it0 + u / SPT, loads);
+      fence_acc();
+      issue_sdp(u);
+      issue_dkv(u - 1);
+      wgmma_wait<1>();                 // S^T and dP^T
+      probs(u);
+#pragma unroll
+      for (int i = 0; i < NQ / 2; ++i) {   // done before the wait, not after
+        fence_operand(s[i]);
+        fence_operand(dp[i]);
+      }
+      wgmma_wait<0>();                 // the last step's dV and dK
+      fence_acc();
+      if (u % SPT == 0) ring.release(it0 + (u - 1) / SPT);
+      split();
+    }
+    fence_acc();
+    issue_dkv(U - 1);
+    wgmma_wait<0>();
+    fence_acc();
+    ring.release(it0 + (U - 1) / SPT);
+  }
+
+  // dk = adk scale and dv = adv, each rounded once, for the thread's keys
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kw0 + g + 8 * h;
+    if (key >= T) continue;
+    const size_t row = base_td + static_cast<size_t>(key) * D;
+#pragma unroll
+    for (int i = 2 * h; i < NO; i += 4) {
+      const int d = 8 * (i >> 2) + 2 * t;   // elements i, i + 1
+      if (d < D) {
+        *reinterpret_cast<uint32_t*>(dk + row + d) =
+            pack_bf16x2(adk[i] * scale, adk[i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + row + d) =
+            pack_bf16x2(adv[i], adv[i + 1]);
+      }
+    }
+  }
 }
 
 bool bad_shape(int BH, int H, int T, int D) {
@@ -1342,16 +2027,21 @@ int launch_bwd(const float* q, const float* k, const float* v,
 
 template <int DP>
 int launch_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
-                    const float* mask, uint16_t* out, float* lse, int BH,
-                    int H, int T, int D, int causal, float scale,
-                    cudaStream_t stream) {
-  const int blocks = (T + kB16Rows - 1) / kB16Rows;
-  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = B16<DP>::FWD_SMEM;
-  cudaError_t err = allow_smem(flash_fwd_bf16<DP>, smem);
+                    const float* mask, uint16_t* out, float* lse,
+                    uint8_t* scratch, int BH, int H, int T, int D, int causal,
+                    float scale, cudaStream_t stream) {
+  using P = FwdB16<DP>;
+  const int ntiles = (T + P::KT - 1) / P::KT;
+  const int nq = (T + P::ROWS - 1) / P::ROWS;
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_bf16_split<DP><<<dim3(ntiles, BH), kSplitThreads, 0, stream>>>(
+      k, v, mask, scratch, H, T, D);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16<DP><<<dim3(BH, blocks), kB16Threads, smem, stream>>>(
-      q, k, v, mask, out, lse, H, T, D, causal, scale);
+  err = allow_smem(flash_fwd_bf16<DP>, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_bf16<DP><<<dim3(BH, nq), P::THREADS, P::SMEM, stream>>>(
+      q, scratch, out, lse, T, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1373,16 +2063,22 @@ int launch_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
 template <int DP>
 int launch_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                     const float* mask, const uint16_t* dout, const float* lse,
-                    const float* delta, uint16_t* dk, uint16_t* dv, int BH,
-                    int H, int T, int D, int causal, float scale,
-                    cudaStream_t stream) {
-  const int blocks = (T + kB16Rows - 1) / kB16Rows;
+                    const float* delta, uint16_t* dk, uint16_t* dv,
+                    uint8_t* scratch, int BH, int H, int T, int D, int causal,
+                    float scale, cudaStream_t stream) {
+  using P = DkvB16<DP>;
+  const int ntq = (T + P::QT - 1) / P::QT;
+  const int blocks = (T + P::KEYS - 1) / P::KEYS;
   if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = B16<DP>::DKV_SMEM;
-  cudaError_t err = allow_smem(flash_dkv_bf16<DP>, smem);
+  flash_dkv_bf16_split<DP><<<dim3(ntq, BH), kSplitThreads, 0, stream>>>(
+      q, dout, lse, delta, scratch, T, D);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dkv_bf16<DP><<<dim3(BH, blocks), kB16Threads, smem, stream>>>(
-      q, k, v, mask, dout, lse, delta, dk, dv, H, T, D, causal, scale);
+  err = allow_smem(flash_dkv_bf16<DP>, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_dkv_bf16<DP><<<dim3(BH, blocks), P::THREADS, P::SMEM,
+                                                   stream>>>(
+      k, v, mask, scratch, dk, dv, H, T, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1440,18 +2136,22 @@ int dl4j_flash_dkv_f32(const float* q, const float* k, const float* v,
 }
 
 // The bf16 forms: q, k, v (and dout) bf16 [BH, T, D], the key mask, lse and
-// delta f32; out (dq, dk, dv) bf16, lse f32.  The forward has no pre-pass
-// and takes no scratch.
+// delta f32; out (dq, dk, dv) bf16, lse f32.  The forward and dk/dv take a
+// scratch for their split pre-pass, 16-byte aligned, overwritten: the
+// forward BH * ceil(T / KT) tiles of FwdB16<DP>::TILE bytes (KT = 128 and
+// TILE = 33,280 for D <= 64, else 64 and 33,024), dk/dv BH * ceil(T / 64)
+// tiles of DkvB16<DP>::TILE bytes (33,280 for D <= 64, else 66,048).
 int dl4j_flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
                         const uint16_t* v, const float* mask, uint16_t* out,
-                        float* lse, int BH, int H, int T, int D, int causal,
-                        float scale, void* stream) {
+                        float* lse, void* scratch, int BH, int H, int T, int D,
+                        int causal, float scale, void* stream) {
   if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch_fwd_bf16<64>(q, k, v, mask, out, lse, BH, H, T, D,
-                                       causal, scale, s)
-                 : launch_fwd_bf16<128>(q, k, v, mask, out, lse, BH, H, T, D,
-                                        causal, scale, s);
+  uint8_t* sc = static_cast<uint8_t*>(scratch);
+  return D <= 64 ? launch_fwd_bf16<64>(q, k, v, mask, out, lse, sc, BH, H, T,
+                                       D, causal, scale, s)
+                 : launch_fwd_bf16<128>(q, k, v, mask, out, lse, sc, BH, H, T,
+                                        D, causal, scale, s);
 }
 
 int dl4j_flash_dq_bf16(const uint16_t* q, const uint16_t* k,
@@ -1471,14 +2171,16 @@ int dl4j_flash_dkv_bf16(const uint16_t* q, const uint16_t* k,
                         const uint16_t* v, const float* mask,
                         const uint16_t* dout, const float* lse,
                         const float* delta, uint16_t* dk, uint16_t* dv,
-                        int BH, int H, int T, int D, int causal, float scale,
-                        void* stream) {
+                        void* scratch, int BH, int H, int T, int D, int causal,
+                        float scale, void* stream) {
   if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* sc = static_cast<uint8_t*>(scratch);
   return D <= 64 ? launch_dkv_bf16<64>(q, k, v, mask, dout, lse, delta, dk,
-                                       dv, BH, H, T, D, causal, scale, s)
+                                       dv, sc, BH, H, T, D, causal, scale, s)
                  : launch_dkv_bf16<128>(q, k, v, mask, dout, lse, delta, dk,
-                                        dv, BH, H, T, D, causal, scale, s);
+                                        dv, sc, BH, H, T, D, causal, scale,
+                                        s);
 }
 
 }  // extern "C"

@@ -60,16 +60,19 @@ backward kernels that recompute the probabilities from it.
 the lstm step and the three flash kernels keep the TPU kernels' f32
 arithmetic on bf16 inputs: the lstm step upcasts its five inputs and
 rounds c' and h' once; the flash kernels multiply bf16 operands on the
-tensor cores (``mma.sync...f32.bf16.bf16``, exact products, f32 sums),
-feed the f32 intermediates P and dS as a bf16 hi + lo pair (two products
-into one f32 sum), keep the softmax, lse and delta in f32 and round out,
-dq, dk and dv once.  The JAX wrapper's
+tensor cores (``wgmma...f32.bf16.bf16`` in the forward and dK/dV, after a
+split pre-pass that writes the streamed tiles as the products read them;
+``mma.sync...f32.bf16.bf16`` in dQ; exact products, f32 sums), feed the
+f32 intermediates P and dS as a bf16 hi + lo pair (two products into one
+f32 sum), keep the softmax, lse and delta in f32 and round out, dq, dk
+and dv once.  The JAX wrapper's
 padding of D and T to 128 (:419-448) is a TPU lane artifact and is not
 copied: the kernels mask the last tile and take any head dim up to 128.
-All three are bound by operations.  The forward runs on the CUDA cores;
-the two backward kernels are one ``wgmma`` template whose products run on
-the tensor cores in 3xTF32, except dP, which the CUDA cores sum in the
-order of a plain f32 matmul (the source's header says why).
+All three are bound by operations.  The f32 forms run on the tensor
+cores in 3xTF32 (the forward after its own split pre-pass; the two
+backward kernels one ``wgmma`` template), except the backward's dP,
+which the CUDA cores sum in the order of a plain f32 matmul (the
+source's header says why).
 
 Rules every kernel here keeps:
 
@@ -246,9 +249,9 @@ FLASH_LIBRARY = KernelLibrary(
     {"dl4j_flash_fwd_f32": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dq_f32": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dkv_f32": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
-     "dl4j_flash_fwd_bf16": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_fwd_bf16": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dq_bf16": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
-     "dl4j_flash_dkv_bf16": ([_P] * 9 + [_I] * 5 + [_F, _P], _I)})
+     "dl4j_flash_dkv_bf16": ([_P] * 10 + [_I] * 5 + [_F, _P], _I)})
 LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY,
              FLASH_LIBRARY)
 
@@ -1086,32 +1089,59 @@ def _launch_flash(wrapper, kind: str, inputs, outputs, causal: bool,
     return outputs
 
 
-def flash_fwd_scratch_bytes(bh: int, T: int, D: int) -> int:
-    """Bytes of the f32 forward's split pre-pass scratch (``Fwd<DPAD>`` in
-    ``csrc/flash_attention.cu``): ceil(T / KT) tiles per head of K and V^T
-    split into tf32 hi and lo images (4 x KT x DPAD f32) and KT key biases;
-    KT = 64 keys at D <= 64 (DPAD 64), else 32 (DPAD 128).  The bf16
-    forward has no pre-pass and no scratch."""
+def flash_bf16_plan(D: int) -> dict:
+    """The bf16 forward's and dK/dV's plans for head dim D (``FwdB16<DP>``,
+    ``DkvB16<DP>`` in ``csrc/flash_attention.cu``): ``dp`` the padded head
+    dim; ``fwd_tile`` the keys of a forward tile (the pre-pass's and a bulk
+    copy's unit), ``fwd_step`` the keys of a step (P V is summed a step at
+    a time); ``dkv_tile`` and ``dkv_step`` the same in queries for dK/dV
+    (dK and dV are summed a step at a time)."""
+    wide = D > 64
+    return {"dp": 128 if wide else 64, "fwd_tile": 64 if wide else 128,
+            "fwd_step": 64, "dkv_tile": 64, "dkv_step": 32}
+
+
+def flash_fwd_scratch_bytes(bh: int, T: int, D: int,
+                            dtype=torch.float32) -> int:
+    """Bytes of the forward's split pre-pass scratch: ceil(T / KT) tiles
+    per head.  f32 (``Fwd<DPAD>``): K and V^T split into tf32 hi and lo
+    images (4 x KT x DPAD f32) and KT key biases, KT = 64 keys at D <= 64
+    (DPAD 64), else 32 (DPAD 128).  bf16 (``FwdB16<DP>``): K and V^T bf16
+    images (2 x KT x DP bf16), KT key biases and a 16-byte flag, KT
+    :func:`flash_bf16_plan`'s ``fwd_tile``."""
+    if dtype == torch.bfloat16:
+        plan = flash_bf16_plan(D)
+        dp, kt = plan["dp"], plan["fwd_tile"]
+        return bh * _cdiv(T, kt) * (2 * kt * dp * 2 + kt * 4 + 16)
     dpad, kt = (64, 64) if D <= 64 else (128, 32)
     return bh * _cdiv(T, kt) * (4 * kt * dpad * 4 + kt * 4)
+
+
+def flash_dkv_scratch_bytes(bh: int, T: int, D: int) -> int:
+    """Bytes of the bf16 dK/dV kernel's split pre-pass scratch
+    (``DkvB16<DP>``): ceil(T / QT) query tiles per head of Q, dO, Q^T and
+    dO^T bf16 images (4 x QT x DP bf16), lse and delta (2 x QT f32), QT
+    :func:`flash_bf16_plan`'s ``dkv_tile``."""
+    plan = flash_bf16_plan(D)
+    dp, qt = plan["dp"], plan["dkv_tile"]
+    return bh * _cdiv(T, qt) * (4 * qt * dp * 2 + 2 * qt * 4)
 
 
 def flash_forward(q, k, v, key_mask, causal: bool, scale: float):
     """(out, lse) of one attention core, q, k, v [B, H, T, D] f32 or bf16
     (out in q's dtype, lse f32), key_mask [B, T] (> 0 keeps the key).  A CPU
     tensor takes the plain version; any other launches the forward kernel
-    of q's dtype (the f32 form after its split pre-pass, into a scratch the
-    wrapper allocates and frees) or raises."""
+    of q's dtype after its split pre-pass (into a scratch the wrapper
+    allocates and frees) or raises."""
     _one_dtype("flash_forward", q=q, k=k, v=v)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, key_mask, causal, scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask)
     B, H, T, D = q.shape
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    outputs = (torch.empty_like(inputs[0]), lse)
-    if q.dtype == torch.float32:
-        outputs += (torch.empty(flash_fwd_scratch_bytes(B * H, T, D),
-                                dtype=torch.uint8, device=q.device),)
+    outputs = (torch.empty_like(inputs[0]), lse,
+               torch.empty(flash_fwd_scratch_bytes(B * H, T, D, q.dtype),
+                           dtype=torch.uint8, device=q.device))
     return _launch_flash(flash_forward, "fwd", inputs, outputs, causal,
                          scale)[:2]
 
@@ -1143,16 +1173,21 @@ def flash_dkv(q, k, v, key_mask, dout, lse, delta, causal: bool,
               scale: float):
     """(dK, dV) of one attention core, inputs as :func:`flash_dq`.  A CPU
     tensor takes the plain version; any other launches the dK/dV kernel of
-    q's dtype or raises."""
+    q's dtype (the bf16 form after its split pre-pass, into a scratch the
+    wrapper allocates and frees) or raises."""
     _one_dtype("flash_dkv", q=q, k=k, v=v, dout=dout)
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, key_mask, dout, lse, delta,
                                    causal, scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask, dout=dout, lse=lse,
                          delta=delta)
-    return _launch_flash(flash_dkv, "dkv", inputs,
-                         (torch.empty_like(inputs[0]),
-                          torch.empty_like(inputs[0])), causal, scale)
+    outputs = (torch.empty_like(inputs[0]), torch.empty_like(inputs[0]))
+    if q.dtype == torch.bfloat16:
+        B, H, T, D = q.shape
+        outputs += (torch.empty(flash_dkv_scratch_bytes(B * H, T, D),
+                                dtype=torch.uint8, device=q.device),)
+    return _launch_flash(flash_dkv, "dkv", inputs, outputs, causal,
+                         scale)[:2]
 
 
 flash_dkv.launches = 0

@@ -16,6 +16,10 @@ docstring):
   JAX's or lies one bf16 ulp from it, or within ``ATOL`` (1e-5) of the
   output's largest magnitude where the ulp is smaller than the f32 sums'
   difference; lse (f32) at the f32 suite's 2e-4;
+* the bf16 flash kernels' arithmetic as ``tools/bf16_rule_probe.py``
+  emulates it (P and dS as hi + lo pairs, sums in the kernels' steps):
+  chip_smoke.py's bf16 flash rule, one ulp + 2^-12 of the output's largest
+  magnitude, the room the card's truncating sums need;
 * the LSTM step's gradients: both differentiate the step's formula in
   bf16, op by op, and round at other points (XLA fuses the elementwise
   chain), so they are held in relative 2-norm (``STEP_GRAD_REL``);
@@ -36,6 +40,10 @@ f32, so their recurrence promotes to f32.  The fit test casts JAX's carry
 to bf16 before each segment (a wrapper around its jitted step), so both
 run the same function.
 """
+
+import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -226,6 +234,86 @@ def test_flash_bf16_plain_versions_match_jax(B, H, T, D, causal, mask):
                             ("dv", dv, jdv)):
         assert got.dtype == BF and want.dtype == jnp.bfloat16, name
         _within_one_ulp(_f32(got), _f32(want)[:, :, :T], name)
+
+
+# chip_smoke.py's rule for a bf16 flash kernel against its plain version:
+# the tensor cores truncate as they add, so |y - ref| <= ulp(ref) +
+# BF16_FLASH_ATOL max|ref| (2^-12)
+BF16_FLASH_ATOL = 2.0 ** -12
+
+# T and D at the edges of the redesigned bf16 forward's blocks (192 query
+# rows at D <= 64, in steps of 64 keys) and of dK/dV's (128 keys; tiles of
+# 64 queries in steps of 32)
+EMULATED_FLASH_CASES = [
+    (1, 2, 128, 64, True, "none"),
+    (1, 1, 193, 32, False, "holes"),
+    (1, 1, 257, 128, True, "none"),
+    (2, 1, 200, 64, True, "dead_row"),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_emulation():
+    """``tools/bf16_rule_probe.py``'s emulation of the bf16 flash kernels'
+    arithmetic: {"flash_forward", "flash_dq", "flash_dkv"}."""
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "bf16_rule_probe.py"
+    spec = importlib.util.spec_from_file_location("bf16_rule_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._flash_math(split=True)
+
+
+def _within_flash_rule(got, want, what):
+    """|got - want| <= ulp(want) + BF16_FLASH_ATOL * max|want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    allowed = _ulp(want) + BF16_FLASH_ATOL * np.abs(want).max()
+    assert (diff <= allowed).all(), (
+        f"{what}: {int((diff > allowed).sum())} of {diff.size} elements "
+        f"beyond the rule; worst {float((diff / allowed).max())}")
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,mask", EMULATED_FLASH_CASES)
+def test_flash_bf16_kernel_emulation_matches_jax(B, H, T, D, causal, mask):
+    """The bf16 kernels' arithmetic as the CPU emulates it (P and dS fed as
+    bf16 hi + lo pairs; S and dP summed over 16 of D, P V over the
+    forward's 64-key steps, dK and dV over dK/dV's 32-query steps, dQ over
+    64 keys) against JAX's ``_flash_fwd`` and ``_flash_bwd`` on the same
+    bf16 inputs, run as :func:`test_flash_bf16_plain_versions_match_jax`
+    runs them: out, dq, dk and dv by chip_smoke.py's bf16 flash rule, lse
+    within LSE_TOL, out compared on live rows."""
+    emu = _kernel_emulation()
+    pairs, km = _flash_inputs(B, H, T, D, mask, seed=7 * T + D)
+    (tq, jq), (tk, jk), (tv, jv), (tg, jg) = pairs
+    scale = 1.0 / D ** 0.5
+    Tp = -(-T // 128) * 128
+
+    def pad(j):
+        return jnp.pad(j, [(0, 0), (0, 0), (0, Tp - T), (0, 0)])
+    jkm = jnp.asarray(tf._pad_t(km, 1, Tp))
+    jout, jlse = pk._flash_fwd(pad(jq), pad(jk), pad(jv), jkm,
+                               causal=causal, scale=scale)
+    jdq, jdk, jdv = pk._flash_bwd(pad(jq), pad(jk), pad(jv), jkm, jout, jlse,
+                                  pad(jg), causal=causal, scale=scale)
+    tkm = torch.from_numpy(km)
+    out, lse = emu["flash_forward"](tq, tk, tv, tkm, causal, scale)
+    live = np.broadcast_to(tf._live_rows(km, causal, T)[..., None],
+                           out.shape)
+    assert out.dtype == BF
+    _within_flash_rule(_f32(out)[live], _f32(jout)[:, :, :T][live], "out")
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jlse).reshape(B, H, Tp)[..., :T],
+                               rtol=LSE_TOL, atol=LSE_TOL)
+    delta = ck.flash_delta(tg, torch.from_numpy(
+        _f32(jout)[:, :, :T].copy()).to(BF))
+    dq = emu["flash_dq"](tq, tk, tv, tkm, tg, lse, delta, causal, scale)
+    dk, dv = emu["flash_dkv"](tq, tk, tv, tkm, tg, lse, delta, causal, scale)
+    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
+        assert got.dtype == BF, name
+        _within_flash_rule(_f32(got), _f32(want)[:, :, :T], name)
 
 
 def test_flash_backward_takes_delta_in_f32(monkeypatch):

@@ -214,6 +214,23 @@ def test_flash_kernels_run_on_the_tensor_cores(cuda_device):
     assert len(bwd) == 4 and all(bwd.values()), counts
 
 
+@pytest.mark.gpu
+def test_bf16_flash_kernels_run_on_the_tensor_cores(cuda_device):
+    """In the flash library's SASS every instance of the bf16 forward and
+    dK/dV (flash_fwd_bf16<DP>, flash_dkv_bf16<DP>, DP 64 and 128; not their
+    pre-passes) holds BF16 HGMMA (wgmma) and no HMMA, and every instance of
+    the bf16 dQ (flash_dq_bf16<DP>) BF16 HMMA (mma.sync)."""
+    hgmma = ck.sass_hgmma_counts(ck.FLASH_LIBRARY, "BF16")
+    hmma = ck.sass_hgmma_counts(ck.FLASH_LIBRARY, "BF16", "HMMA")
+    for kernel, on_wgmma in (("flash_fwd_bf16ILi", True),
+                             ("flash_dkv_bf16ILi", True),
+                             ("flash_dq_bf16ILi", False)):
+        want, other = (hgmma, hmma) if on_wgmma else (hmma, hgmma)
+        found = {f: n for f, n in want.items() if kernel in f}
+        assert len(found) == 2 and all(found.values()), (kernel, found)
+        assert not any(n for f, n in other.items() if kernel in f), kernel
+
+
 def _emulate_conv_kernel(x, w, pad, sms):
     """The kernel's indexing, block by block, in numpy (float64): the
     tiles of the library's own plan, the cluster ranks' K slices, the
@@ -600,6 +617,11 @@ FLASH_CASES = [
     (1, 3, 130, 32, True, "none"), (2, 2, 256, 96, True, "none"),
     (1, 2, 256, 128, False, "none"), (2, 2, 256, 64, True, "dead_row"),
     (2, 1, 320, 32, False, "dead_row"),
+    # the edges of the bf16 forward's blocks (192 query rows at D <= 64,
+    # 128 above) and of dK/dV's (128 keys, tiles of 64 queries)
+    (1, 2, 128, 64, True, "none"), (1, 2, 129, 128, True, "none"),
+    (1, 2, 191, 32, False, "none"), (1, 2, 193, 64, True, "tail"),
+    (2, 1, 385, 64, True, "dead_row"),
 ]
 
 

@@ -456,9 +456,11 @@ def _hi_lo(x):
 
 def _flash_math(split):
     """The three flash plain versions with every product summed in the
-    kernels' blocks (16 of D in S and dP, 64 keys or queries elsewhere)
-    and, with ``split``, P and dS fed as :func:`_hi_lo` pairs: the kernels'
-    arithmetic (``split``) or the plain versions' sums reordered."""
+    kernels' blocks and, with ``split``, P and dS fed as :func:`_hi_lo`
+    pairs: the kernels' arithmetic (``split``) or the plain versions' sums
+    reordered.  S and dP sum over 16 of D (one k16 product); the forward's
+    P V over its steps of keys and dK/dV's products over its steps of
+    queries (``ck.flash_bf16_plan``); dQ over 64 keys."""
     sp = _hi_lo if split else (lambda x: x)
 
     def mm(a, b, block):
@@ -481,7 +483,8 @@ def _flash_math(split):
         row_live = m > float("-inf")
         p = torch.exp(s - torch.where(row_live, m, torch.zeros_like(m)))
         l = p.sum(dim=-1, keepdim=True)
-        out = mm(sp(p), v, 64) / torch.where(row_live, l, torch.ones_like(l))
+        out = mm(sp(p), v, ck.flash_bf16_plan(q.shape[-1])["fwd_step"]) / \
+            torch.where(row_live, l, torch.ones_like(l))
         lse = torch.where(row_live, m + torch.log(l),
                           torch.full_like(m, ck.NEG_INF))
         return out.to(dt), lse.squeeze(-1)
@@ -498,8 +501,9 @@ def _flash_math(split):
         q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
         p = probs(q, k, key_mask, lse, causal, scale)
         ds = p * (mm(dout, v.transpose(-1, -2), 16) - delta[..., None])
-        return ((mm(sp(ds).transpose(-1, -2), q, 64) * scale).to(kt),
-                mm(sp(p).transpose(-1, -2), dout, 64).to(vt))
+        step = ck.flash_bf16_plan(q.shape[-1])["dkv_step"]
+        return ((mm(sp(ds).transpose(-1, -2), q, step) * scale).to(kt),
+                mm(sp(p).transpose(-1, -2), dout, step).to(vt))
     return {"flash_forward": forward, "flash_dq": dq, "flash_dkv": dkv}
 
 

@@ -28,11 +28,24 @@ param's gradient and Adam update), and once with the plain forward and the
 repo's backward kernels.  The steps run in turns, twice over: the update
 errors move with the work that ran before them (not traced), so a library
 is judged on both turns.
+
+``--bf16`` probes the bf16 forms instead, through the port's wrappers:
+
+    python3 tools/flash_probe.py --bf16 [--root DIR] [--time-only] [--reps N]
+
+the build, the HGMMA (BF16) or HMMA count of each bf16 instance in the
+SASS, each form against its plain version on chip_smoke.py's bf16 cases
+(``check_flash_bf16``: one bf16 ulp + BF16_FLASH_ATOL of the scale, lse
+FLASH_TOL, a dead row), then the CUDA-event time of each at the training
+shape beside SDPA bf16's.  ``--root`` imports the port from another
+checkout (a git-ignored copy of another commit), so two commits are timed
+on one card in one call, one process each, in turns.
 """
 
 import argparse
 import ast
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -100,6 +113,118 @@ def check(torch, ck, lib, gen, B, H, T, D, causal, mask) -> dict:
     return rec
 
 
+# the bf16 cases of chip_smoke.py's bf16_sequence_kernels but the longest
+BF16_CASES = [(2, 2, 200, 64, False, "tail"), (2, 2, 200, 64, True, "tail"),
+              (2, 2, 256, 32, True, "none"), (2, 2, 256, 96, True, "none"),
+              (2, 2, 256, 128, False, "none"), (2, 2, 130, 64, True, "none"),
+              (2, 2, 256, 64, True, "dead_row"),
+              (2, 2, 200, 128, False, "dead_row"),
+              (1, 2, 128, 64, True, "none"), (1, 2, 129, 128, True, "none"),
+              (1, 2, 191, 64, False, "tail"), (1, 2, 257, 64, True, "none"),
+              (1, 2, 257, 128, True, "tail"), (1, 2, 300, 32, True, "none"),
+              (1, 2, 2048, 64, True, "none")]
+
+
+def bf16_main(args) -> int:
+    """The bf16 forms: build, SASS, checks, times (see the module doc)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device", file=sys.stderr)
+        return 2
+    if args.root:
+        sys.path.insert(0, str(Path(args.root).resolve()))
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": cs.nvidia_smi()}), flush=True)
+    libs = {"repo": ck.FLASH_LIBRARY}
+    for spec in args.variant:
+        name, path = spec.split("=", 1)
+        libs[name] = ck.KernelLibrary(Path(path), ck.FLASH_LIBRARY._symbols)
+    for name, lib in libs.items():
+        t0 = time.perf_counter()
+        lib.get()
+        print(json.dumps({"build": name, "source": str(lib.source),
+                          "wall_s": time.perf_counter() - t0,
+                          "nvcc_s": lib.build_seconds, "ptxas": [
+                              l.strip() for l in lib.build_log.splitlines()
+                              if "bf16" in l or "wgmma" in l or "spill" in l
+                              or "registers" in l]}), flush=True)
+    if args.sass_out:
+        Path(args.sass_out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.sass_out).write_text(subprocess.run(
+            [ck._cuda_tool("cuobjdump"), "-sass", str(libs["repo"].path())],
+            capture_output=True, text=True, check=True).stdout)
+    repo, failed = ck.FLASH_LIBRARY, False
+    for name, lib in libs.items():
+        if args.time_only:
+            break
+        ck.FLASH_LIBRARY = lib
+        for what, instr in (("BF16", "HGMMA"), ("BF16", "HMMA")):
+            counts = {f: n for f, n in ck.sass_hgmma_counts(
+                lib, what, instr).items() if "bf16" in f}
+            print(json.dumps({"sass": instr, "lib": name, "operand": what,
+                              "counts": counts}), flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 50)
+        # a variant is checked on a few cases
+        for c in BF16_CASES if name == "repo" else BF16_CASES[-4:]:
+            try:
+                rec = cs.check_flash_bf16(torch, ck, gen, *c)
+                rec["ok"] = True
+            except AssertionError as e:
+                rec, failed = {"case": list(c), "ok": False,
+                               "error": str(e)[:2000]}, True
+            print(json.dumps({"check": rec, "lib": name}), flush=True)
+            torch.cuda.empty_cache()
+    ck.FLASH_LIBRARY = repo
+    B, H, T, D = cs.ATT_BATCH, cs.ATT_HEADS, cs.ATT_SEQ, \
+        cs.ATT_WIDTH // cs.ATT_HEADS
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q, k, v, g, km = cs._flash_inputs(torch, gen, B, H, T, D)
+    q, k, v, g = (t.to(bf) for t in (q, k, v, g))
+    s = D ** -0.5
+    out, lse = ck.flash_forward(q, k, v, km, True, s)
+    delta = ck.flash_delta(g, out)
+    order = [n for n in libs if n != "repo"]
+    turns = ["repo"] + order + order[::-1] + ["repo"] if order else ["repo"]
+    for name in turns:
+        ck.FLASH_LIBRARY = libs[name]
+        rec = {"time": name, "shape": [B, H, T, D]}
+        rec["fwd_ms"] = cs.time_ms(torch, lambda: ck.flash_forward(
+            q, k, v, km, True, s), reps=args.reps, warmup=1)
+        rec["dq_ms"] = cs.time_ms(torch, lambda: ck.flash_dq(
+            q, k, v, km, g, lse, delta, True, s), reps=args.reps, warmup=1)
+        rec["dkv_ms"] = cs.time_ms(torch, lambda: ck.flash_dkv(
+            q, k, v, km, g, lse, delta, True, s), reps=args.reps, warmup=1)
+        print(json.dumps(rec), flush=True)
+    ck.FLASH_LIBRARY = repo
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        for name, fn in (("fwd", lambda: ck.flash_forward(
+                             q, k, v, km, True, s)),
+                         ("dkv", lambda: ck.flash_dkv(
+                             q, k, v, km, g, lse, delta, True, s))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            print(json.dumps({"profile": name, "device_us_per_call": {
+                e.key[:60]: e.device_time_total / 3
+                for e in prof.key_averages() if e.device_time_total > 0}}),
+                flush=True)
+    if not args.time_only:
+        import torch.nn.functional as F
+        with torch.no_grad():
+            print(json.dumps({"sdpa_fwd_ms": cs.time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), reps=args.reps, warmup=1)}))
+    print(json.dumps({"ok": not failed}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -109,7 +234,20 @@ def main() -> int:
     ap.add_argument("--step", action="store_true",
                     help="also the T = 2,048 training step against the "
                          "plain versions, per library")
+    ap.add_argument("--bf16", action="store_true",
+                    help="probe the bf16 forms through the wrappers")
+    ap.add_argument("--root", help="with --bf16: the checkout whose port "
+                                   "is imported")
+    ap.add_argument("--time-only", action="store_true",
+                    help="with --bf16: only build and time")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --bf16: each kernel's device time under "
+                         "torch.profiler")
+    ap.add_argument("--sass-out", help="with --bf16: write the flash "
+                                       "library's SASS to this file")
     args = ap.parse_args()
+    if args.bf16:
+        return bf16_main(args)
     import torch
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device", file=sys.stderr)
