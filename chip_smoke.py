@@ -3544,11 +3544,38 @@ def bf16_conv_sets():
             (f"textcnn_{TEXTCNN_D}", textcnn_convs(TEXTCNN_D), 10)]
 
 
+# the edges of the bf16 form's halo route, checked untimed: Cout 32, 64 + 1
+# and 128 + 1 (BN 32 and 64, a ragged last Cout tile); a 1x1 and a 3x3 at
+# each of ResNet-50's plane sizes, 56, 28, 14 and 7 (x's planes 16-, 16-,
+# 8- and 2-byte aligned); several images a tile (7 x 7); N = 1 and a
+# cluster split (512 channels at 14 x 14, 2,048 at 7 x 7); Cin 3 and 20
+# (a slice of whole channels, K past one slice); and, on one shape, every
+# activation
+BF16_CONV_EDGES = [
+    (2, 64, 56, 56, 32, 1, 0, "identity"), (2, 64, 56, 56, 65, 3, 1, "relu"),
+    (2, 128, 28, 28, 129, 1, 0, "identity"),
+    (2, 128, 28, 28, 64, 3, 1, "relu"),
+    (2, 256, 14, 14, 65, 1, 0, "identity"),
+    (2, 256, 14, 14, 129, 3, 1, "relu"),
+    (3, 512, 7, 7, 129, 1, 0, "identity"), (3, 512, 7, 7, 32, 3, 1, "relu"),
+    (1, 512, 14, 14, 512, 3, 1, "relu"),
+    (1, 2048, 7, 7, 512, 1, 0, "identity"),
+    (1, 3, 9, 9, 32, 3, 1, "relu"), (2, 20, 12, 12, 50, 5, 0, "identity"),
+]
+
+
+def bf16_conv_edges(ck):
+    """:data:`BF16_CONV_EDGES`, then every activation on one shape."""
+    return BF16_CONV_EDGES + [(2, 40, 9, 9, 70, 3, 1, act)
+                              for act in sorted(ck.CONV_FUSED_ACTS)]
+
+
 @_tf32_off
 def phase_bf16_kernels(torch, ck) -> dict:
     """The bf16 forms of the conv and dropout kernels against their plain
-    versions: the conv on :func:`bf16_conv_sets` (timed) and on the serving
-    ladders' other batches (checked), by the bf16 conv rule; dropout
+    versions: the conv on :func:`bf16_conv_sets` (timed), on the serving
+    ladders' other batches and at the halo route's edges
+    (:func:`bf16_conv_edges`; checked), by the bf16 conv rule; dropout
     ``torch.equal`` forward and backward at VGG16-224's four launches and
     the edges, with masks equal to the f32 form's; bf16 HGMMA in the conv
     library's SASS."""
@@ -3571,6 +3598,9 @@ def phase_bf16_kernels(torch, ck) -> dict:
                     seen.add(key)
                     rec, _ = check_conv_bf16(torch, ck, s, gen, timed=False)
                     untimed.append(rec)
+    for s in bf16_conv_edges(ck):
+        rec, _ = check_conv_bf16(torch, ck, s, gen, timed=False)
+        untimed.append(rec)
     bf = torch.bfloat16
     fc_in = [(VGG_BATCH, 25088), (VGG_BATCH, 4096)]
     drop = [check_dropout(torch, ck, s, 0.5, gen, timed=True, dtype=bf)
@@ -5085,12 +5115,45 @@ def check_flash_bf16(torch, ck, gen, B, H, T, D, causal, mask) -> dict:
             "max_abs_err": errs, "rule": rules}
 
 
+def check_flash_dq_bf16_raw(torch, ck, gen, B, H, T, D, causal, mask) -> dict:
+    """The bf16 dQ kernel against its plain version where the wrappers'
+    gate (T >= 128) does not reach, launched directly on the library
+    (``ck._launch_flash``, counted on its count) with the plain lse and
+    f32 delta, by the bf16 flash rule.  A ``dead_row`` mask kills the
+    last batch row."""
+    bf = torch.bfloat16
+    q, k, v, g = (torch.randn((B, H, T, D), generator=gen, device="cuda")
+                  .mul(0.5).to(bf) for _ in range(4))
+    km = torch.ones((B, T), device="cuda")
+    if mask == "dead_row":
+        km[-1] = 0.0
+    s = D ** -0.5
+    rout, rlse = ck.flash_forward_reference(q, k, v, km, causal, s)
+    delta = ck.flash_delta(g, rout)
+    dq = torch.empty_like(q)
+    scratch = torch.empty(ck.flash_dq_scratch_bytes(B * H, T, D),
+                          dtype=torch.uint8, device="cuda")
+    ck._launch_flash(ck.flash_dq, "dq", [q, k, v, km, g, rlse, delta],
+                     (dq, scratch), causal, s)
+    want = ck.flash_dq_reference(q, k, v, km, g, rlse, delta, causal, s)
+    torch.cuda.synchronize()
+    r = bf16_conv_compare(torch, dq, want, BF16_FLASH_ATOL)
+    case = (B, H, T, D, causal, mask)
+    if not r["ok"]:
+        raise AssertionError(f"flash bf16 dq at {case} (direct launch) "
+                             f"disagrees with its plain version: {r}")
+    return {"shape": [B, H, T, D], "causal": causal, "mask": mask,
+            "direct_launch": True, "max_abs_err": {"dq": r["max_abs_err"]},
+            "rule": {"dq": {k: r[k] for k in ("share_differ",
+                                                "share_beyond_one_ulp",
+                                                "max_excess")}}}
+
+
 # the bf16 flash instances in the flash library's SASS (DP 64 and 128; not
 # the pre-passes, flash_*_bf16_split) and the tensor-core instruction with
-# BF16 operands each must hold: the forward and dk/dv on wgmma (HGMMA), dq
-# on mma.sync (HMMA)
+# BF16 operands each must hold: all three on wgmma (HGMMA)
 FLASH_BF16_FUNCTIONS = {"flash_forward": (r"flash_fwd_bf16ILi\d+E", "HGMMA"),
-                        "flash_dq": (r"flash_dq_bf16ILi\d+E", "HMMA"),
+                        "flash_dq": (r"flash_dq_bf16ILi\d+E", "HGMMA"),
                         "flash_dkv": (r"flash_dkv_bf16ILi\d+E", "HGMMA")}
 # work of the bf16 forms over the one-pass products: P V (forward), dS K
 # (dq), P^T dO and dS^T Q (dk/dv) take two products each (hi + lo)
@@ -5106,8 +5169,9 @@ def phase_bf16_sequence_kernels(torch, ck) -> dict:
     forward's and dk/dv's blocks and tiles (128, 129, 191-193, 257, 385);
     timed at the main paths' shapes beside the bound (one-pass bf16
     products, and the split's work) and ``F.scaled_dot_product_attention``
-    on bf16; in every bf16 flash instance's SASS, BF16 HGMMA (wgmma) for
-    the forward and dk/dv, BF16 HMMA (mma.sync) for dq."""
+    on bf16; in every bf16 flash instance's SASS, BF16 HGMMA (wgmma).  dQ
+    is also checked at its plan's edges below the wrappers' gate (T = 2,
+    63, 65, 127: :func:`check_flash_dq_bf16_raw`)."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
@@ -5133,7 +5197,17 @@ def phase_bf16_sequence_kernels(torch, ck) -> dict:
               (1, 2, 193, 64, False, "tail"), (1, 2, 257, 128, True, "tail"),
               (2, 1, 385, 64, True, "dead_row"),
               (2, 1, 129, 32, False, "dead_row")]
+    # the edges of dq's plan (128 query rows a block, 64-key tiles): T
+    # just under and over both, masked keys, a dead row, D 32, 64, 128
+    cases += [(1, 2, 255, 32, True, "tail"), (2, 1, 256, 128, True, "dead_row"),
+              (1, 1, 320, 64, False, "tail"), (2, 2, 191, 96, True, "none")]
     checks = [check_flash_bf16(torch, ck, gen, *c) for c in cases]
+    # (T = 1 is not among them: with one key p = 1 and dS = dP - delta is
+    # 0 by construction, so dq is rounding noise on both sides)
+    checks += [check_flash_dq_bf16_raw(torch, ck, gen, *c) for c in (
+        (1, 2, 2, 64, True, "none"), (2, 1, 2, 128, False, "dead_row"),
+        (1, 2, 63, 32, True, "none"), (2, 2, 65, 64, False, "dead_row"),
+        (1, 1, 65, 128, True, "none"), (2, 1, 127, 64, True, "dead_row"))]
     torch.cuda.empty_cache()
     bf = torch.bfloat16
     q, k, v, g, km = _flash_inputs(torch, gen, B, H, T, D)
@@ -6708,8 +6782,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
     of the lstm step (one step at (32, 200), 2-byte bytes) and of the flash
     kernels (at (4, 8, 8192, 64), causal: the one-pass bf16 bound, the
     split's work beside it, SDPA bf16, and the BF16 tensor-core
-    instruction in the SASS: HGMMA for the forward and dk/dv, HMMA for dq)
-    likewise."""
+    instruction in the SASS: HGMMA for all three) likewise."""
     served = [s for m in ("lenet", "vgg16_cifar10")
               for s in conv_shapes(m, 32)]
     by_shape = {(tuple(r["shape"]), r["activation"]): r for r in records}
@@ -6891,7 +6964,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "launches": launches(f"{name}_bf16"),
         "launches_by_path": by_path(f"{name}_bf16"),
         "max_abs_err": max(c["max_abs_err"][e] for c in sk["flash_checks"]
-                           for e in errs),
+                           for e in errs if e in c["max_abs_err"]),
         "ms": sk["timed"][name]["ms"],
         "plain_ms": sk["timed"][name]["plain_ms"],
         "bound_ms": sk["timed"][name]["bound_ms"],

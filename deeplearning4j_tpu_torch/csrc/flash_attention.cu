@@ -839,8 +839,8 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forms: the forward and dk/dv on wgmma after a split pre-pass; dq on
-// mma.sync
+// bf16 forms: the forward, dq and dk/dv on wgmma, each after a split
+// pre-pass
 // ---------------------------------------------------------------------------
 //
 // The TPU kernels under precision("bfloat16") take bf16 q, k, v and dout,
@@ -866,37 +866,39 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 // (0.42, 0.56 and 0.83 ms).  Operations bound all three: the forward's
 // inputs and outputs are 136 MB, 0.04 ms at 3.35 TB/s.
 //
-// The forward and dk/dv carry the f32 forward's plan over to bf16:
-//  * Every product is one wgmma.m64nNk16 bf16 with f32 accumulators, issued
-//    by the four warps of a warpgroup: mma.sync, the warp-level product, is
-//    a fraction of the card's bf16 rate.  A warpgroup owns 64 rows
-//    (queries in the forward, keys in dk/dv) and streams the other side's
-//    tiles through a ring of stages in shared memory, each tile one bulk
-//    copy counted on mbarriers (B16Ring).  Nothing synchronises the block
-//    inside the loop.  No warp is set aside to load: ptxas gives a thread
-//    of a block with a producer warpgroup 168 registers whatever
-//    setmaxnreg asks, so thread 0 loads between its own waits, never
-//    blocking on a stage.
-//  * A split pre-pass (flash_fwd_bf16_split, flash_dkv_bf16_split) writes
-//    each streamed tile once into a scratch as the products read it, in
-//    K-major images with the 128-byte swizzle: the forward's K [key][d]
-//    (B of S = Q K^T), V^T [d][key] (B of P V), the key bias (0, or -inf
-//    for a masked key or one past T) and whether the tile has such a key;
-//    dk/dv's Q and dO [query][d] (B of S^T = K Q^T and dP^T = V dO^T), Q^T
-//    and dO^T [d][query] (B of dK += dS^T Q and dV += P^T dO), lse log2(e)
-//    (+inf on a dead row, so its p is 2^-inf = 0 with no test) and delta.
-//    This, and not a transposed-B wgmma on MN-major tiles, because dk/dv
-//    reads Q and dO both ways and a plain bulk copy makes neither swizzled
-//    layout; a TMA tensor map would, but needs 16-byte row strides (D % 8
-//    == 0) where the gate takes D % 4 == 0.  The pre-pass also zero-fills
-//    past T and in [D, DP), so the loop does no bounds test; it costs 0.05
-//    (forward) and 0.07 ms (dk/dv) at that shape on an H100.
-//  * The block's own rows are A fragments in registers (Q; K and V at
-//    DP = 64), or K-major images in shared memory (K and V at DP = 128).
-//    For bf16 k16 the accumulator layout is the register-A fragment
-//    layout (a thread's elements 8 j + 2 m and 8 j + 2 m + 1 are its A
-//    register m of k-step j), so P, P^T and dS^T go from the S, S^T and
-//    dP^T accumulators to A with only the hi + lo split (split_bf16x2): no
+// The three carry the f32 forward's plan over to bf16:
+//  * Every product is one wgmma.m64nNk16 bf16 with f32 accumulators, issued by
+//    the four warps of a warpgroup: mma.sync, the warp-level product, is a
+//    fraction of the card's bf16 rate.  A warpgroup owns 64 rows (queries in
+//    the forward and dq, keys in dk/dv) and streams the other side's tiles
+//    through a ring of stages in shared memory, each tile one bulk copy counted
+//    on mbarriers (B16Ring).  Nothing synchronises the block inside the loop.
+//    No warp is set aside to load: ptxas gives a thread of a block with a
+//    producer warpgroup 168 registers whatever setmaxnreg asks, so thread 0
+//    loads between its own waits, never blocking on a stage.
+//  * A split pre-pass (flash_fwd_bf16_split, flash_dq_bf16_split,
+//    flash_dkv_bf16_split) writes each streamed tile once into a scratch as the
+//    products read it, in K-major images with the 128-byte swizzle: the
+//    forward's K [key][d] (B of S = Q K^T), V^T [d][key] (B of P V), the key
+//    bias (0, or -inf for a masked key or one past T) and whether the tile has
+//    such a key; dq's K and V [key][d] (B of S = Q K^T and dP = dO V^T), K^T
+//    [d][key] (B of dQ += dS K), the key bias and the flag; dk/dv's Q and dO
+//    [query][d] (B of S^T = K Q^T and dP^T = V dO^T), Q^T and dO^T [d][query]
+//    (B of dK += dS^T Q and dV += P^T dO), lse log2(e) (+inf on a dead row, so
+//    its p is 2^-inf = 0 with no test) and delta.  This, and not a
+//    transposed-B wgmma on MN-major tiles, because dq and dk/dv read K or Q
+//    and dO both ways and a plain bulk copy makes neither swizzled layout; a
+//    TMA tensor map would, but needs 16-byte row strides (D % 8 == 0) where
+//    the gate takes D % 4 == 0.  The pre-pass also zero-fills past T and in
+//    [D, DP), so the loop does no bounds test; it costs 0.05 (forward) and
+//    0.07 ms (dk/dv) at that shape on an H100.
+//  * The block's own rows are A fragments in registers (Q in the forward;
+//    Q and dO in dq, K and V in dk/dv at DP = 64), or K-major images in
+//    shared memory (dq's Q and dO, dk/dv's K and V at DP = 128).  For
+//    bf16 k16 the accumulator layout is the register-A fragment layout (a
+//    thread's elements 8 j + 2 m and 8 j + 2 m + 1 are its A register m of
+//    k-step j), so P, dS, P^T and dS^T go from the S, dP, S^T and dP^T
+//    accumulators to A with only the hi + lo split (split_bf16x2): no
 //    permutation, as the tf32 form needs, and no trip through shared
 //    memory.
 //  * The forward: three warpgroups (192 query rows) a block at DP = 64,
@@ -912,6 +914,14 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 //    S^T and dP^T with the last step's dV += P^T_hi dO + P^T_lo dO and
 //    dK += dS^T_hi Q + dS^T_lo Q behind them, and p^T and ds^T run on the
 //    CUDA cores while those do.  dK is scaled once, then rounded once.
+//  * dq: 128 queries a block, 64 a warpgroup; tiles of 64 keys (three
+//    stages at DP = 64, two at 128), one step a tile.  Each step issues its
+//    S = Q K^T and dP = dO V^T (m64n64) with the last step's dQ += dS_hi K
+//    + dS_lo K behind them, and p = 2^(s scale log2(e) - lse log2(e)) and
+//    dS = p (dP - delta) run on the CUDA cores while those do.  A thread's
+//    two rows keep lse log2(e) (+inf on a dead row or past T, so p = 0
+//    with no test) and delta in registers.  dQ accumulates on the tensor
+//    cores over the row, and is scaled once, then rounded once.
 //  * The softmax was the bottleneck, not the products (H100, that shape):
 //    exp2f's guard for results below 2^-126 (a test, two multiplies) and
 //    the bias and mask on every element made it ~17 instructions an
@@ -923,18 +933,8 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 //    the warpgroups taking turns on named barriers gained nothing.
 //  * Causal: a warpgroup waits for and releases the tiles past its
 //    diagonal without work, and masks only on diagonal steps.  The grid
-//    sends each head's longest blocks first (the forward's last query
-//    rows, dk/dv's first keys).
-
-// dq keeps a simpler plan: a block is 4 warps; each warp owns 16 of the
-// block's 64 query rows and keeps its accumulators in registers in
-// mma.sync's layout, and the 64-row key tiles go through shared memory
-// ([64][DP + 8] bf16, zero past T and in [D, DP)), loaded by the whole
-// block between two barriers.  The accumulator layout of S and dP is the
-// A fragment layout of the next product, so ds never leaves the
-// registers; K, read along the tile's rows in dS K, is gathered two bf16
-// at a time from shared memory.  No pre-pass and no scratch.  A simple
-// plan: the loads are synchronous, not overlapped with the products.
+//    sends each head's longest blocks first (the forward's and dq's last
+//    query rows, dk/dv's first keys).
 
 // Byte offset of element (row n, k) in a K-major bf16 image of `rows` rows
 // stored as [k / 64][rows][64 bf16] atoms in the 128-byte swizzle (sw_off's
@@ -1010,242 +1010,10 @@ __device__ __forceinline__ void load_image64(uint8_t* img, const uint16_t* src,
   }
 }
 
-// x0, x1 (K 2t, 2t+1 of a row) as bf16 hi and lo pairs: hi = x to the
-// nearest bf16, lo = x - hi (exact in f32) to the nearest bf16.
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const uint16_t h0 = float_to_bf16_bits(x0), h1 = float_to_bf16_bits(x1);
-  const uint16_t l0 = float_to_bf16_bits(x0 - bf16_bits_to_float(h0));
-  const uint16_t l1 = float_to_bf16_bits(x1 - bf16_bits_to_float(h1));
-  hi = h0 | (static_cast<uint32_t>(h1) << 16);
-  lo = l0 | (static_cast<uint32_t>(l1) << 16);
-}
-
 // Two f32 as the bf16 pair of one 32-bit store (the lower index low).
 __device__ __forceinline__ uint32_t pack_bf16x2(float x0, float x1) {
   return float_to_bf16_bits(x0) |
          (static_cast<uint32_t>(float_to_bf16_bits(x1)) << 16);
-}
-
-// ---- dq (mma.sync) -------------------------------------------------------
-
-constexpr int kB16Rows = 64;       // a block's own rows, 16 a warp
-constexpr int kB16Tile = 64;       // rows of a streamed tile
-constexpr int kB16Threads = 128;
-
-// A tile of 64 rows [64][LD] bf16 in shared memory, LD = DP + 8 (16 bytes
-// of padding: the fragment gathers meet no bank conflict).
-template <int DP>
-struct B16 {
-  static constexpr int LD = DP + 8;
-  static constexpr int TILE = kB16Tile * LD;          // elements
-  static constexpr int KS = DP / 16;                   // k-steps over D
-  static constexpr int ND = DP / 8;                    // 8-wide tiles of D
-  // dq: q, dout, k and v tiles and the key bias
-  static constexpr int DQ_SMEM = 4 * TILE * 2 + kB16Tile * 4;
-  static_assert(DQ_SMEM <= kSmemMax, "the plan exceeds shared memory");
-};
-
-// Rows r0 + [0, 64) of a [T][D] bf16 matrix into a [64][LD] tile, zero past
-// T and in [D, DP): 8-byte loads (D % 4 == 0, the base 16-byte aligned).
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
-                                               const uint16_t* src, int r0,
-                                               int T, int D) {
-  constexpr int C4 = DP / 4;
-  for (int e = threadIdx.x; e < kB16Tile * C4; e += kB16Threads) {
-    const int r = e / C4, c4 = e - r * C4;
-    uint2 x = make_uint2(0u, 0u);
-    if (r0 + r < T && 4 * c4 < D)
-      x = __ldg(reinterpret_cast<const uint2*>(
-          src + static_cast<size_t>(r0 + r) * D + 4 * c4));
-    *reinterpret_cast<uint2*>(dst + r * B16<DP>::LD + 4 * c4) = x;
-  }
-}
-
-// The A fragment of rows m0 + [0, 16) and columns k0 + [0, 16) of a tile.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint16_t* t,
-                                       int m0, int k0, int g, int tq) {
-  const uint16_t* p = t + (m0 + g) * LD + k0 + 2 * tq;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-}
-
-// The B fragment B[k][n] = t[n0 + n][k0 + k]: column n is a tile row.
-template <int LD>
-__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const uint16_t* t, int n0, int k0,
-                                            int g, int tq) {
-  const uint16_t* p = t + (n0 + g) * LD + k0 + 2 * tq;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// The B fragment B[k][n] = t[k0 + k][n0 + n]: row k is a tile row, gathered
-// two bf16 at a time.
-template <int LD>
-__device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const uint16_t* t, int k0, int n0,
-                                            int g, int tq) {
-  const uint16_t* p = t + (k0 + 2 * tq) * LD + n0 + g;
-  b0 = p[0] | (static_cast<uint32_t>(p[LD]) << 16);
-  b1 = p[8 * LD] | (static_cast<uint32_t>(p[9 * LD]) << 16);
-}
-
-// acc[ND][4] += X[16 x 64] T[64 x DP] for a warp: X in the accumulator
-// layout of eight 16 x 8 products (x[n][i]: row g + 8 (i / 2), column
-// 8 n + 2 t + i % 2), fed as hi + lo A fragments; T the tile t read along
-// its rows (B[k][n] = t[k][n]).
-template <int DP>
-__device__ __forceinline__ void mma_split_rows(float (&acc)[B16<DP>::ND][4],
-                                               const float (&x)[8][4],
-                                               const uint16_t* t, int g,
-                                               int tq) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t ah[4], al[4];
-    split_pair(x[2 * j][0], x[2 * j][1], ah[0], al[0]);
-    split_pair(x[2 * j][2], x[2 * j][3], ah[1], al[1]);
-    split_pair(x[2 * j + 1][0], x[2 * j + 1][1], ah[2], al[2]);
-    split_pair(x[2 * j + 1][2], x[2 * j + 1][3], ah[3], al[3]);
-#pragma unroll
-    for (int nd = 0; nd < B16<DP>::ND; ++nd) {
-      uint32_t b0, b1;
-      frag_b_cols<B16<DP>::LD>(b0, b1, t, 16 * j, 8 * nd, g, tq);
-      mma_bf16_16816(acc[nd], ah, b0, b1);
-      mma_bf16_16816(acc[nd], al, b0, b1);
-    }
-  }
-}
-
-// s[8][4] = A[16 x DP] B^T for a warp: A rows m0 + [0, 16) of tile a, B the
-// 64 rows of tile b (S = q k^T, dP = dout v^T and their transposes).
-template <int DP>
-__device__ __forceinline__ void mma_rows_rows(float (&s)[8][4],
-                                              const uint16_t* a, int m0,
-                                              const uint16_t* b, int g,
-                                              int tq) {
-  constexpr int LD = B16<DP>::LD;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[n][i] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < B16<DP>::KS; ++kk) {
-    uint32_t fa[4];
-    frag_a<LD>(fa, a, m0, 16 * kk, g, tq);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t b0, b1;
-      frag_b_rows<LD>(b0, b1, b, 8 * n, 16 * kk, g, tq);
-      mma_bf16_16816(s[n], fa, b0, b1);
-    }
-  }
-}
-
-// Rows r and r + 8 of a warp's [16][DP] accumulators (times `mul`) rounded
-// to bf16 into a [T][D] matrix; rows past T and columns past D are not
-// stored.
-template <int DP>
-__device__ __forceinline__ void store_rows_bf16(
-    uint16_t* dst, const float (&acc)[B16<DP>::ND][4], int r, int T, int D,
-    int tq, float mul0, float mul1) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r + 8 * h;
-    if (row >= T) continue;
-    const float mul = h ? mul1 : mul0;
-#pragma unroll
-    for (int nd = 0; nd < B16<DP>::ND; ++nd) {
-      const int d = 8 * nd + 2 * tq;
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D + d) =
-            float_to_bf16_bits(acc[nd][2 * h] * mul) |
-            (static_cast<uint32_t>(float_to_bf16_bits(acc[nd][2 * h + 1] *
-                                                      mul)) << 16);
-    }
-  }
-}
-
-// dq for 64 query rows a block: stream key tiles, dS = p (dP - delta),
-// dq += dS k; dq scale rounded once.
-template <int DP>
-__global__ void __launch_bounds__(kB16Threads)
-flash_dq_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v, const float* __restrict__ mask,
-              const uint16_t* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, uint16_t* __restrict__ dq,
-              int H, int T, int D, int causal, float scale) {
-  using P = B16<DP>;
-  constexpr int ND = P::ND;
-  extern __shared__ __align__(16) uint8_t smem_b16[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_b16);
-  uint16_t* dos = qs + P::TILE;
-  uint16_t* ks = dos + P::TILE;
-  uint16_t* vs = ks + P::TILE;
-  float* bias = reinterpret_cast<float*>(vs + P::TILE);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.x;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kB16Rows;
-  const int w0 = r0 + 16 * warp;
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const size_t base_t = static_cast<size_t>(bh) * T;
-  const float* maskb = mask + static_cast<size_t>(bh / H) * T;
-  load_tile_bf16<DP>(qs, q + base, r0, T, D);
-  load_tile_bf16<DP>(dos, dout + base, r0, T, D);
-  constexpr float kLog2e = 1.4426950408889634f;
-  const float sl2 = scale * kLog2e;
-  float row_lse[2], row_delta[2];
-  bool row_live[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = w0 + g + 8 * h;
-    row_lse[h] = r < T ? lse[base_t + r] : kDeadLse;
-    row_delta[h] = r < T ? delta[base_t + r] : 0.0f;
-    row_live[h] = row_lse[h] > 0.5f * kDeadLse;
-  }
-  const int ntiles = (T + kB16Tile - 1) / kB16Tile;
-  const int n_tiles =
-      causal ? min(ntiles, (r0 + kB16Rows - 1) / kB16Tile + 1) : ntiles;
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.0f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kB16Tile;
-    __syncthreads();
-    load_tile_bf16<DP>(ks, k + base, k0, T, D);
-    load_tile_bf16<DP>(vs, v + base, k0, T, D);
-    if (tid < kB16Tile)
-      bias[tid] = k0 + tid < T && maskb[k0 + tid] > 0.0f ? 0.0f : -INFINITY;
-    __syncthreads();
-    if (causal && k0 > w0 + 15) continue;
-
-    float s[8][4], dp[8][4];
-    mma_rows_rows<DP>(s, qs, 16 * warp, ks, g, tq);     // S = q k^T
-    mma_rows_rows<DP>(dp, dos, 16 * warp, vs, g, tq);   // dP = dout v^T
-    // p from lse, the exponent clamped on dead pairs and rows (0, never
-    // inf), and ds = p (dP - delta), in place of s
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = 8 * n + 2 * tq + (i & 1);
-        const bool live = row_live[h] && bias[col] == 0.0f &&
-                          (!causal || k0 + col <= w0 + g + 8 * h);
-        const float p =
-            exp2f(live ? s[n][i] * sl2 - row_lse[h] * kLog2e : -INFINITY);
-        s[n][i] = p * (dp[n][i] - row_delta[h]);
-      }
-    mma_split_rows<DP>(acc, s, ks, g, tq);             // dq += dS k
-  }
-  store_rows_bf16<DP>(dq + base, acc, w0 + g, T, D, tq, scale, scale);
 }
 
 // 2^x by one MUFU.EX2 (ex2.approx.ftz.f32: relative error below 2^-22, a
@@ -1977,6 +1745,301 @@ flash_dkv_bf16(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
   }
 }
 
+// ---- dq -------------------------------------------------------------------
+
+// The dq kernel's plan: a block of two warpgroups of 64 query rows; key
+// tiles of KT = 64 keys, one step a tile: S and dP are m64n64, and a
+// thread's S, dP, dS hi + lo and dQ take ~130 registers at DP = 64, ~160 at
+// 128, beside Q and dO in registers at DP = 64 (QR), K-major images in
+// shared memory at DP = 128.
+template <int DP>
+struct DqB16 {
+  static constexpr int ROWS = 128;                   // queries of a block
+  static constexpr int KT = 64;                      // keys of a tile
+  static constexpr int NS = KT / 2;                  // S, dP accumulators
+  static constexpr int KK = KT / 16;                 // k-steps of dS K
+  static constexpr int NO = DP / 2;                  // dQ accumulators
+  static constexpr bool QR = DP == 64;
+  static constexpr int IMG = KT * DP * 2;            // one image of a tile
+  // a tile in the scratch: K and V [key][d], K^T [d][key], the key bias,
+  // and (16 bytes) whether any key of the tile is masked or past T
+  static constexpr int TILE = 3 * IMG + KT * 4 + 16;
+  static constexpr int STAGE = (TILE + 1023) / 1024 * 1024;
+  static constexpr int STAGES = DP == 64 ? 3 : 2;
+  static constexpr int FIX = 64 * DP * 2;            // a warpgroup's Q or dO
+  static constexpr int RING = QR ? 0 : 2 * 2 * FIX;
+  static constexpr int THREADS = 256;                // two warpgroups
+  static constexpr int BARS = RING + STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * STAGES + 1024;
+  static_assert(SMEM <= kSmemMax, "the plan exceeds a block's shared memory");
+  static_assert(TILE % 16 == 0 && TILE < (1 << 20), "one bulk copy a tile");
+  static_assert(IMG % 1024 == 0 && FIX % 1024 == 0,
+                "images on the swizzle's 1 KB");
+};
+
+// The pre-pass: key tile `blockIdx.x` of head `blockIdx.y` into the
+// scratch: K, V and K^T images, zero past T and in [D, DP), then the key
+// bias and the flag.
+template <int DP>
+__global__ void __launch_bounds__(kSplitThreads)
+flash_dq_bf16_split(const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v,
+                    const float* __restrict__ mask,
+                    uint8_t* __restrict__ scratch, int H, int T, int D) {
+  using P = DqB16<DP>;
+  constexpr int KT = P::KT, LD = DP + 8, CH = P::IMG / 16;
+  __shared__ __align__(16) uint16_t ks[KT * LD], vs[KT * LD];
+  const int tile = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int k0 = tile * KT;
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  stage_rows<KT, DP, LD>(ks, k + base, k0, T, D, tid, kSplitThreads);
+  stage_rows<KT, DP, LD>(vs, v + base, k0, T, D, tid, kSplitThreads);
+  __syncthreads();
+  uint8_t* out =
+      scratch + (static_cast<size_t>(bh) * gridDim.x + tile) * P::TILE;
+  uint4* img = reinterpret_cast<uint4*>(out);
+  for (int c = tid; c < CH; c += kSplitThreads) {
+    img[c] = image_chunk<LD>(ks, KT, c, false);          // K [key][d]
+    img[CH + c] = image_chunk<LD>(vs, KT, c, false);     // V [key][d]
+    img[2 * CH + c] = image_chunk<LD>(ks, DP, c, true);  // K^T [d][key]
+  }
+  const int key = k0 + tid;
+  const bool live = tid < KT && key < T &&
+                    mask[static_cast<size_t>(bh / H) * T + key] > 0.0f;
+  if (tid < KT)
+    reinterpret_cast<float*>(out + 3 * P::IMG)[tid] = live ? 0.0f : -INFINITY;
+  const int any_dead = __syncthreads_or(tid < KT && !live);
+  if (tid == 0)
+    *reinterpret_cast<int*>(out + 3 * P::IMG + KT * 4) = any_dead;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqB16<DP>::THREADS, 1)
+flash_dq_bf16(const uint16_t* __restrict__ q,
+              const uint16_t* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const uint8_t* __restrict__ scratch, uint16_t* __restrict__ dq,
+              int T, int D, int causal, float scale) {
+  using P = DqB16<DP>;
+  constexpr int KT = P::KT, NS = P::NS, KK = P::KK, NO = P::NO;
+  constexpr int ST = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023) & ~1023u;   // the swizzle's 1 KB
+  uint8_t* smem = smem_raw + (base - raw_addr);
+  const uint32_t full = base + P::BARS, empty = full + 8 * ST;
+
+  // every head's last query rows, which visit the most key tiles, first
+  const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * P::ROWS;
+  const int ntiles = (T + KT - 1) / KT;
+  const int n_tiles = causal ? min(ntiles, (r0 + P::ROWS - 1) / KT + 1)
+                             : ntiles;
+  init_ring<ST>(full, empty);
+  B16Ring<ST> ring{base + P::RING, full, empty, P::TILE, P::STAGE,
+                   scratch + static_cast<size_t>(bh) * ntiles * P::TILE,
+                   n_tiles, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool loads = tid == 0;
+  if (loads)
+    while (ring.try_load()) {
+    }
+
+  // a warpgroup: query rows q0 + [0, 64); this thread's rows q0 + g and
+  // q0 + g + 8, and the accumulators' columns 8 j + 2 t + {0, 1} (keys in
+  // S and dP, head dims in dQ); Q and dO as the A operands of S and dP
+  const int wg = warp >> 2, t = lane & 3;
+  const int g = 16 * (warp & 3) + (lane >> 2);
+  const int q0 = r0 + 64 * wg;
+  const size_t base_td = static_cast<size_t>(bh) * T * D;
+  constexpr int QF = P::QR ? DP / 16 : 1;
+  uint32_t qf[QF][4], of[QF][4];
+  const uint32_t qimg = base + wg * 2 * P::FIX, oimg = qimg + P::FIX;
+  if constexpr (P::QR) {
+    load_frags<DP>(qf, q + base_td, q0, T, D, g, t);
+    load_frags<DP>(of, dout + base_td, q0, T, D, g, t);
+  } else {
+    load_image64<DP>(smem + wg * 2 * P::FIX, q + base_td, q0, T, D,
+                     tid & 127);
+    load_image64<DP>(smem + wg * 2 * P::FIX + P::FIX, dout + base_td, q0, T,
+                     D, tid & 127);
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  }
+
+  // the rows' lse log2(e), +inf on a dead row or past T (p = 2^-inf = 0
+  // with no test), and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + g + 8 * h;
+    const float l = r < T ? lse[static_cast<size_t>(bh) * T + r] : kDeadLse;
+    lse2[h] = l > 0.5f * kDeadLse ? l * 1.4426950408889634f : INFINITY;
+    dlt[h] = r < T ? delta[static_cast<size_t>(bh) * T + r] : 0.0f;
+  }
+  const float sl2 = scale * 1.4426950408889634f;   // the log2 domain
+  float acc[NO], s[NS], dp[NS];
+  uint32_t dh[KK][4], dl[KK][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+
+  // the steps with a live key for these rows under `causal` (none for rows
+  // past T); the tiles after them are waited for and released
+  const int U = q0 >= T ? 0 : causal ? min(n_tiles, q0 / KT + 1) : n_tiles;
+  auto stage_at = [&](int u) { return base + P::RING + (u % ST) * P::STAGE; };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) fence_operand(acc[i]);
+#pragma unroll
+    for (int j = 0; j < KK; ++j)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        fence_reg(dh[j][m]);
+        fence_reg(dl[j][m]);
+      }
+  };
+  // S = Q K^T and dP = dO V^T of step u into fresh accumulators: B = the
+  // tile's K and V images
+  auto issue_sdp = [&](int u) {
+    const uint32_t stage = stage_at(u);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t dkb = img_desc(stage, KT, kk);
+      const uint64_t dvb = img_desc(stage + P::IMG, KT, kk);
+      if constexpr (P::QR) {
+        if (kk == 0) {
+          WgmmaBf16<KT>::init(s, qf[kk], dkb);
+          WgmmaBf16<KT>::init(dp, of[kk], dvb);
+        } else {
+          WgmmaBf16<KT>::mma(s, qf[kk], dkb, 1);
+          WgmmaBf16<KT>::mma(dp, of[kk], dvb, 1);
+        }
+      } else {
+        const uint64_t dqa = img_desc(qimg, 64, kk);
+        const uint64_t doa = img_desc(oimg, 64, kk);
+        if (kk == 0) {
+          WgmmaBf16SS<KT>::init(s, dqa, dkb);
+          WgmmaBf16SS<KT>::init(dp, doa, dvb);
+        } else {
+          WgmmaBf16SS<KT>::mma(s, dqa, dkb, 1);
+          WgmmaBf16SS<KT>::mma(dp, doa, dvb, 1);
+        }
+      }
+    }
+    wgmma_commit();
+  };
+  // dQ += dS K of step u, hi and lo: B = the k-steps of the tile's K^T
+  // image
+  auto issue_dq = [&](int u) {
+    const uint32_t kt = stage_at(u) + 2 * P::IMG;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint64_t db = img_desc(kt, DP, kk);
+      WgmmaBf16<DP>::mma(acc, dh[kk], db, 1);
+      WgmmaBf16<DP>::mma(acc, dl[kk], db, 1);
+    }
+    wgmma_commit();
+  };
+  // p from lse, the exponent clamped on dead pairs (0, never inf), and
+  // dS = p (dP - delta) of step u, in f32 in place of dp (row = query,
+  // column = key).  A step off the diagonal whose tile has no masked key
+  // (most of them) takes p in one FMA and an EX2.
+  auto probs = [&](int u) {
+    const int k0 = u * KT;
+    const uint8_t* tile = smem + (stage_at(u) - base) + 3 * P::IMG;
+    const float* bias = reinterpret_cast<const float*>(tile);
+    const bool diag = causal && k0 + KT - 1 > q0;
+    if (!diag && !*reinterpret_cast<const int*>(tile + KT * 4)) {
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        fence_operand(s[i]);
+        fence_operand(s[i + 1]);
+        fence_operand(dp[i]);
+        fence_operand(dp[i + 1]);
+        const int h = (i >> 1) & 1;
+        const float p0 = ex2(fmaf(s[i], sl2, -lse2[h]));
+        const float p1 = ex2(fmaf(s[i + 1], sl2, -lse2[h]));
+        dp[i] = p0 * (dp[i] - dlt[h]);
+        dp[i + 1] = p1 * (dp[i + 1] - dlt[h]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        fence_operand(s[i]);
+        fence_operand(dp[i]);
+        const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool live =
+            bias[col] == 0.0f && (!diag || k0 + col <= q0 + g + 8 * h);
+        const float p = ex2(live ? fmaf(s[i], sl2, -lse2[h]) : -INFINITY);
+        dp[i] = p * (dp[i] - dlt[h]);
+      }
+    }
+  };
+  // dS as the A fragments: elements 8 j + 2 m and 8 j + 2 m + 1 are
+  // register m of k-step j
+  auto split = [&]() {
+#pragma unroll
+    for (int j = 0; j < KK; ++j)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        split_bf16x2(dp[8 * j + 2 * m], dp[8 * j + 2 * m + 1], dh[j][m],
+                     dl[j][m]);
+  };
+
+  // step 0 alone; then each step's S and dP go out with the last step's
+  // dQ products behind them, and p and dS run while the tensor cores do
+  // those
+  if (U > 0) {
+    ring.wait(0, loads);
+    issue_sdp(0);
+    wgmma_wait<0>();
+    probs(0);
+    split();
+    for (int u = 1; u < U; ++u) {
+      ring.wait(u, loads);
+      fence_acc();
+      issue_sdp(u);
+      issue_dq(u - 1);
+      wgmma_wait<1>();                 // S and dP
+      probs(u);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {   // done before the wait, not after
+        fence_operand(s[i]);
+        fence_operand(dp[i]);
+      }
+      wgmma_wait<0>();                 // the last step's dQ
+      fence_acc();
+      ring.release(u - 1);
+      split();
+    }
+    fence_acc();
+    issue_dq(U - 1);
+    wgmma_wait<0>();
+    fence_acc();
+    ring.release(U - 1);
+  }
+  for (int it = U; it < n_tiles; ++it) {
+    ring.wait(it, loads);
+    ring.release(it);
+  }
+
+  // dq = acc scale, rounded once, for the thread's rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + g + 8 * h;
+    if (r >= T) continue;
+    uint16_t* row = dq + base_td + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int i = 2 * h; i < NO; i += 4) {
+      const int d = 8 * (i >> 2) + 2 * t;   // elements i, i + 1
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(row + d) =
+            pack_bf16x2(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
 bool bad_shape(int BH, int H, int T, int D) {
   return BH < 1 || H < 1 || BH % H != 0 || BH > 65535 || T < 1 || D < 4 ||
          D > 128 || D % 4 != 0;
@@ -2048,15 +2111,21 @@ int launch_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
 template <int DP>
 int launch_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                    const float* mask, const uint16_t* dout, const float* lse,
-                   const float* delta, uint16_t* dq, int BH, int H, int T,
-                   int D, int causal, float scale, cudaStream_t stream) {
-  const int blocks = (T + kB16Rows - 1) / kB16Rows;
+                   const float* delta, uint16_t* dq, uint8_t* scratch, int BH,
+                   int H, int T, int D, int causal, float scale,
+                   cudaStream_t stream) {
+  using P = DqB16<DP>;
+  const int ntiles = (T + P::KT - 1) / P::KT;
+  const int blocks = (T + P::ROWS - 1) / P::ROWS;
   if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = B16<DP>::DQ_SMEM;
-  cudaError_t err = allow_smem(flash_dq_bf16<DP>, smem);
+  flash_dq_bf16_split<DP><<<dim3(ntiles, BH), kSplitThreads, 0, stream>>>(
+      k, v, mask, scratch, H, T, D);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dq_bf16<DP><<<dim3(BH, blocks), kB16Threads, smem, stream>>>(
-      q, k, v, mask, dout, lse, delta, dq, H, T, D, causal, scale);
+  err = allow_smem(flash_dq_bf16<DP>, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_dq_bf16<DP><<<dim3(BH, blocks), P::THREADS, P::SMEM, stream>>>(
+      q, dout, lse, delta, scratch, dq, T, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2136,11 +2205,13 @@ int dl4j_flash_dkv_f32(const float* q, const float* k, const float* v,
 }
 
 // The bf16 forms: q, k, v (and dout) bf16 [BH, T, D], the key mask, lse and
-// delta f32; out (dq, dk, dv) bf16, lse f32.  The forward and dk/dv take a
-// scratch for their split pre-pass, 16-byte aligned, overwritten: the
-// forward BH * ceil(T / KT) tiles of FwdB16<DP>::TILE bytes (KT = 128 and
-// TILE = 33,280 for D <= 64, else 64 and 33,024), dk/dv BH * ceil(T / 64)
-// tiles of DkvB16<DP>::TILE bytes (33,280 for D <= 64, else 66,048).
+// delta f32; out (dq, dk, dv) bf16, lse f32.  Each takes a scratch for its
+// split pre-pass, 16-byte aligned, overwritten: the forward BH * ceil(T /
+// KT) tiles of FwdB16<DP>::TILE bytes (KT = 128 and TILE = 33,280 for
+// D <= 64, else 64 and 33,024), dq BH * ceil(T / 64) tiles of
+// DqB16<DP>::TILE bytes (24,848 for D <= 64, else 49,424), dk/dv
+// BH * ceil(T / 64) tiles of DkvB16<DP>::TILE bytes (33,280 for D <= 64,
+// else 66,048).
 int dl4j_flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
                         const uint16_t* v, const float* mask, uint16_t* out,
                         float* lse, void* scratch, int BH, int H, int T, int D,
@@ -2157,14 +2228,16 @@ int dl4j_flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
 int dl4j_flash_dq_bf16(const uint16_t* q, const uint16_t* k,
                        const uint16_t* v, const float* mask,
                        const uint16_t* dout, const float* lse,
-                       const float* delta, uint16_t* dq, int BH, int H, int T,
-                       int D, int causal, float scale, void* stream) {
+                       const float* delta, uint16_t* dq, void* scratch,
+                       int BH, int H, int T, int D, int causal, float scale,
+                       void* stream) {
   if (bad_shape(BH, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* sc = static_cast<uint8_t*>(scratch);
   return D <= 64 ? launch_dq_bf16<64>(q, k, v, mask, dout, lse, delta, dq,
-                                      BH, H, T, D, causal, scale, s)
+                                      sc, BH, H, T, D, causal, scale, s)
                  : launch_dq_bf16<128>(q, k, v, mask, dout, lse, delta, dq,
-                                       BH, H, T, D, causal, scale, s);
+                                       sc, BH, H, T, D, causal, scale, s);
 }
 
 int dl4j_flash_dkv_bf16(const uint16_t* q, const uint16_t* k,

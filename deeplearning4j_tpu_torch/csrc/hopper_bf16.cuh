@@ -1,14 +1,11 @@
 // PTX wrappers for the bf16 forms of the kernels that multiply on Hopper's
 // tensor cores (sm_90a): bf16 <-> f32 by bits, an 8-byte cp.async, and the
 // wgmma.m64nNk16.f32.bf16.bf16 products with A in registers (WgmmaBf16, N =
-// 32, 64, 128) or in shared memory (WgmmaBf16SS, N = 32), B in shared
+// 32, 64, 128) or in shared memory (WgmmaBf16SS, N = 32, 64), B in shared
 // memory, both K-major (no transpose flag set).  The copies, fences and the
 // swizzled shared-memory descriptor are hopper_tf32.cuh's: a 16-deep bf16 K
 // step is 32 bytes, the byte depth of an 8-deep tf32 step, so the same
 // 128-byte-swizzle tiles and descriptors serve both.
-//
-// Also the warp-level m16n8k16 bf16 product (mma.sync) that the bf16 flash
-// dq kernel uses.
 //
 // Included by conv_bias_act.cu, lstm_step.cu and flash_attention.cu;
 // ops/cuda_kernels.py hashes this header with each source that includes it.
@@ -48,22 +45,6 @@ __device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src,
 // lane%4.  D's element i: row g + 8 * ((i / 2) % 2), column 8 (i / 4) + 2 t
 // + i % 2, as for the tf32 products.  The three immediates after the
 // predicate: A and B not negated, B not transposed (K-major).
-// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 accumulators, one
-// warp (mma.sync).  With g = lane / 4 and t = lane % 4, two bf16 a register
-// (the lower K in the low half): a[0] (row g, K 2t, 2t+1), a[1] (row g+8,
-// K 2t, 2t+1), a[2] (row g, K 2t+8, 2t+9), a[3] (row g+8, K 2t+8, 2t+9);
-// b0 (K 2t, 2t+1 of column g), b1 (K 2t+8, 2t+9 of column g); d[0], d[1]
-// (row g, columns 2t, 2t+1), d[2], d[3] (row g+8, the same columns).
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int BN>
 struct WgmmaBf16;
 
@@ -213,6 +194,48 @@ struct WgmmaBf16SS<32> {
         : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
           "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
           "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+  }
+};
+
+template <>
+struct WgmmaBf16SS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void init(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+          "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+          "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+          "=f"(d[30]), "=f"(d[31])
         : "l"(desc_a), "l"(desc_b), "r"(0));
   }
 };

@@ -60,9 +60,9 @@ backward kernels that recompute the probabilities from it.
 the lstm step and the three flash kernels keep the TPU kernels' f32
 arithmetic on bf16 inputs: the lstm step upcasts its five inputs and
 rounds c' and h' once; the flash kernels multiply bf16 operands on the
-tensor cores (``wgmma...f32.bf16.bf16`` in the forward and dK/dV, after a
-split pre-pass that writes the streamed tiles as the products read them;
-``mma.sync...f32.bf16.bf16`` in dQ; exact products, f32 sums), feed the
+tensor cores (``wgmma...f32.bf16.bf16``, each after a split pre-pass
+that writes the streamed tiles as the products read them; exact
+products, f32 sums), feed the
 f32 intermediates P and dS as a bf16 hi + lo pair (two products into one
 f32 sum), keep the softmax, lse and delta in f32 and round out, dq, dk
 and dv once.  The JAX wrapper's
@@ -250,7 +250,7 @@ FLASH_LIBRARY = KernelLibrary(
      "dl4j_flash_dq_f32": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dkv_f32": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_fwd_bf16": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
-     "dl4j_flash_dq_bf16": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
+     "dl4j_flash_dq_bf16": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
      "dl4j_flash_dkv_bf16": ([_P] * 10 + [_I] * 5 + [_F, _P], _I)})
 LIBRARIES = (CONV_LIBRARY, XENT_LIBRARY, DROPOUT_LIBRARY, LSTM_LIBRARY,
              FLASH_LIBRARY)
@@ -1090,15 +1090,17 @@ def _launch_flash(wrapper, kind: str, inputs, outputs, causal: bool,
 
 
 def flash_bf16_plan(D: int) -> dict:
-    """The bf16 forward's and dK/dV's plans for head dim D (``FwdB16<DP>``,
+    """The bf16 kernels' plans for head dim D (``FwdB16<DP>``, ``DqB16<DP>``,
     ``DkvB16<DP>`` in ``csrc/flash_attention.cu``): ``dp`` the padded head
     dim; ``fwd_tile`` the keys of a forward tile (the pre-pass's and a bulk
     copy's unit), ``fwd_step`` the keys of a step (P V is summed a step at
-    a time); ``dkv_tile`` and ``dkv_step`` the same in queries for dK/dV
-    (dK and dV are summed a step at a time)."""
+    a time); ``dq_tile`` and ``dq_step`` the same for dQ (dQ += dS K is
+    summed a step at a time); ``dkv_tile`` and ``dkv_step`` the same in
+    queries for dK/dV (dK and dV are summed a step at a time)."""
     wide = D > 64
     return {"dp": 128 if wide else 64, "fwd_tile": 64 if wide else 128,
-            "fwd_step": 64, "dkv_tile": 64, "dkv_step": 32}
+            "fwd_step": 64, "dq_tile": 64, "dq_step": 64, "dkv_tile": 64,
+            "dkv_step": 32}
 
 
 def flash_fwd_scratch_bytes(bh: int, T: int, D: int,
@@ -1115,6 +1117,16 @@ def flash_fwd_scratch_bytes(bh: int, T: int, D: int,
         return bh * _cdiv(T, kt) * (2 * kt * dp * 2 + kt * 4 + 16)
     dpad, kt = (64, 64) if D <= 64 else (128, 32)
     return bh * _cdiv(T, kt) * (4 * kt * dpad * 4 + kt * 4)
+
+
+def flash_dq_scratch_bytes(bh: int, T: int, D: int) -> int:
+    """Bytes of the bf16 dQ kernel's split pre-pass scratch (``DqB16<DP>``):
+    ceil(T / KT) key tiles per head of K, V and K^T bf16 images (3 x KT x
+    DP bf16), KT key biases and a 16-byte flag, KT
+    :func:`flash_bf16_plan`'s ``dq_tile``."""
+    plan = flash_bf16_plan(D)
+    dp, kt = plan["dp"], plan["dq_tile"]
+    return bh * _cdiv(T, kt) * (3 * kt * dp * 2 + kt * 4 + 16)
 
 
 def flash_dkv_scratch_bytes(bh: int, T: int, D: int) -> int:
@@ -1154,15 +1166,21 @@ def flash_dq(q, k, v, key_mask, dout, lse, delta, causal: bool,
              scale: float):
     """dQ (q's dtype) of one attention core from the forward's lse and
     delta = sum(dout * out, -1), both f32.  A CPU tensor takes the plain
-    version; any other launches the dQ kernel of q's dtype or raises."""
+    version; any other launches the dQ kernel of q's dtype (the bf16 form
+    after its split pre-pass, into a scratch the wrapper allocates and
+    frees) or raises."""
     _one_dtype("flash_dq", q=q, k=k, v=v, dout=dout)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, key_mask, dout, lse, delta, causal,
                                   scale)
     inputs = _flash_args(q, k=k, v=v, key_mask=key_mask, dout=dout, lse=lse,
                          delta=delta)
-    return _launch_flash(flash_dq, "dq", inputs,
-                         (torch.empty_like(inputs[0]),), causal, scale)[0]
+    outputs = (torch.empty_like(inputs[0]),)
+    if q.dtype == torch.bfloat16:
+        B, H, T, D = q.shape
+        outputs += (torch.empty(flash_dq_scratch_bytes(B * H, T, D),
+                                dtype=torch.uint8, device=q.device),)
+    return _launch_flash(flash_dq, "dq", inputs, outputs, causal, scale)[0]
 
 
 flash_dq.launches = 0

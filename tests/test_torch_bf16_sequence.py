@@ -250,6 +250,17 @@ EMULATED_FLASH_CASES = [
     (1, 1, 257, 128, True, "none"),
     (2, 1, 200, 64, True, "dead_row"),
 ]
+# the edges of the dQ kernel's plan: 64-key tiles and steps, 128 query rows
+# a block, D 32, 64 and 128 (DP 64 and 128), a single query, masked keys
+# and a dead row
+DQ_EDGE_CASES = [
+    (1, 1, 1, 64, False, "none"),
+    (1, 2, 63, 32, True, "none"),
+    (1, 1, 65, 128, True, "holes"),
+    (2, 1, 127, 64, False, "dead_row"),
+    (1, 1, 129, 96, True, "holes"),
+    (2, 1, 192, 64, True, "dead_row"),
+]
 
 
 @functools.lru_cache(maxsize=None)
@@ -275,12 +286,13 @@ def _within_flash_rule(got, want, what):
         f"beyond the rule; worst {float((diff / allowed).max())}")
 
 
-@pytest.mark.parametrize("B,H,T,D,causal,mask", EMULATED_FLASH_CASES)
+@pytest.mark.parametrize("B,H,T,D,causal,mask",
+                         EMULATED_FLASH_CASES + DQ_EDGE_CASES)
 def test_flash_bf16_kernel_emulation_matches_jax(B, H, T, D, causal, mask):
     """The bf16 kernels' arithmetic as the CPU emulates it (P and dS fed as
     bf16 hi + lo pairs; S and dP summed over 16 of D, P V over the
-    forward's 64-key steps, dK and dV over dK/dV's 32-query steps, dQ over
-    64 keys) against JAX's ``_flash_fwd`` and ``_flash_bwd`` on the same
+    forward's 64-key steps, dQ over dQ's 64-key steps, dK and dV over
+    dK/dV's 32-query steps) against JAX's ``_flash_fwd`` and ``_flash_bwd`` on the same
     bf16 inputs, run as :func:`test_flash_bf16_plain_versions_match_jax`
     runs them: out, dq, dk and dv by chip_smoke.py's bf16 flash rule, lse
     within LSE_TOL, out compared on live rows."""

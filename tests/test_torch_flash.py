@@ -407,27 +407,35 @@ def _plan_of(src, struct):
 @pytest.mark.parametrize("bh,T,D", [(32, 8192, 64), (4, 200, 32),
                                     (4, 130, 96), (1, 257, 128)])
 def test_bf16_scratch_plans_match_the_source(bh, T, D):
-    """``flash_bf16_plan`` and the bf16 scratch sizes mirror ``FwdB16<DP>``
-    and ``DkvB16<DP>`` of the source: the forward's tiles of 128 keys at DP
-    64 (64 at 128) in steps of 64, a tile of K and V^T images (KT x DP
-    bf16), KT key biases and a 16-byte flag; dK/dV's tiles of 64 queries in
-    steps of 32, a tile of four QT x DP bf16 images, lse and delta."""
+    """``flash_bf16_plan`` and the bf16 scratch sizes mirror ``FwdB16<DP>``,
+    ``DqB16<DP>`` and ``DkvB16<DP>`` of the source: the forward's tiles of
+    128 keys at DP 64 (64 at 128) in steps of 64, a tile of K and V^T
+    images (KT x DP bf16), KT key biases and a 16-byte flag; dQ's tiles of
+    64 keys, one step a tile, a tile of K, V and K^T images, the biases
+    and the flag; dK/dV's tiles of 64 queries in steps of 32, a tile of
+    four QT x DP bf16 images, lse and delta."""
     src = (ck.CSRC / "flash_attention.cu").read_text()
     fwd, dkv = _plan_of(src, "FwdB16"), _plan_of(src, "DkvB16")
+    dq = _plan_of(src, "DqB16")
     assert "int KT = DP == 64 ? 128 : 64;" in fwd
     assert "int NK = 64;" in fwd
     assert "int KIMG = KT * DP * 2;" in fwd
     assert "int TILE = 2 * KIMG + KT * 4 + 16;" in fwd
+    assert "int KT = 64;" in dq and "int IMG = KT * DP * 2;" in dq
+    assert "int TILE = 3 * IMG + KT * 4 + 16;" in dq
     assert "int QT = 64;" in dkv and "int NQ = 32;" in dkv
     assert "int IMG = QT * DP * 2;" in dkv
     assert "int TILE = 4 * IMG + 2 * QT * 4;" in dkv
     plan = ck.flash_bf16_plan(D)
     dp = 64 if D <= 64 else 128
     assert plan == {"dp": dp, "fwd_tile": 128 if dp == 64 else 64,
-                    "fwd_step": 64, "dkv_tile": 64, "dkv_step": 32}
+                    "fwd_step": 64, "dq_tile": 64, "dq_step": 64,
+                    "dkv_tile": 64, "dkv_step": 32}
     kt = plan["fwd_tile"]
     assert ck.flash_fwd_scratch_bytes(bh, T, D, torch.bfloat16) == \
         bh * -(-T // kt) * (2 * kt * dp * 2 + 4 * kt + 16)
+    assert ck.flash_dq_scratch_bytes(bh, T, D) == \
+        bh * -(-T // 64) * (3 * 64 * dp * 2 + 4 * 64 + 16)
     assert ck.flash_dkv_scratch_bytes(bh, T, D) == \
         bh * -(-T // 64) * (4 * 64 * dp * 2 + 2 * 64 * 4)
 

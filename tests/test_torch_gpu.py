@@ -216,19 +216,17 @@ def test_flash_kernels_run_on_the_tensor_cores(cuda_device):
 
 @pytest.mark.gpu
 def test_bf16_flash_kernels_run_on_the_tensor_cores(cuda_device):
-    """In the flash library's SASS every instance of the bf16 forward and
-    dK/dV (flash_fwd_bf16<DP>, flash_dkv_bf16<DP>, DP 64 and 128; not their
-    pre-passes) holds BF16 HGMMA (wgmma) and no HMMA, and every instance of
-    the bf16 dQ (flash_dq_bf16<DP>) BF16 HMMA (mma.sync)."""
+    """In the flash library's SASS every instance of the bf16 forward, dQ
+    and dK/dV (flash_fwd_bf16<DP>, flash_dq_bf16<DP>, flash_dkv_bf16<DP>,
+    DP 64 and 128; not their pre-passes) holds BF16 HGMMA (wgmma) and no
+    HMMA."""
     hgmma = ck.sass_hgmma_counts(ck.FLASH_LIBRARY, "BF16")
     hmma = ck.sass_hgmma_counts(ck.FLASH_LIBRARY, "BF16", "HMMA")
-    for kernel, on_wgmma in (("flash_fwd_bf16ILi", True),
-                             ("flash_dkv_bf16ILi", True),
-                             ("flash_dq_bf16ILi", False)):
-        want, other = (hgmma, hmma) if on_wgmma else (hmma, hgmma)
-        found = {f: n for f, n in want.items() if kernel in f}
+    for kernel in ("flash_fwd_bf16ILi", "flash_dkv_bf16ILi",
+                   "flash_dq_bf16ILi"):
+        found = {f: n for f, n in hgmma.items() if kernel in f}
         assert len(found) == 2 and all(found.values()), (kernel, found)
-        assert not any(n for f, n in other.items() if kernel in f), kernel
+        assert not any(n for f, n in hmma.items() if kernel in f), kernel
 
 
 def _emulate_conv_kernel(x, w, pad, sms):
@@ -1308,14 +1306,35 @@ def _assert_bf16_conv_close(y, ref):
     assert y.dtype == torch.bfloat16 and rec["ok"], rec
 
 
+# the edges of the bf16 form's halo route (chip_smoke.BF16_CONV_EDGES):
+# 32, 64 + 1 and 128 + 1 output channels, 1x1 and 3x3 at each of
+# ResNet-50's plane sizes, several images a tile, N = 1, a cluster split,
+# Cin 3 and 20
+CONV_BF16_EDGES = {
+    "p56_k1_cout32": ((2, 64, 56, 56), (32, 64, 1, 1), 0),
+    "p56_k3_cout65": ((2, 64, 56, 56), (65, 64, 3, 3), 1),
+    "p28_k1_cout129": ((2, 128, 28, 28), (129, 128, 1, 1), 0),
+    "p28_k3_cout64": ((2, 128, 28, 28), (64, 128, 3, 3), 1),
+    "p14_k1_cout65": ((2, 256, 14, 14), (65, 256, 1, 1), 0),
+    "p14_k3_cout129": ((2, 256, 14, 14), (129, 256, 3, 3), 1),
+    "p7_k1_images_a_tile": ((3, 512, 7, 7), (129, 512, 1, 1), 0),
+    "p7_k3_images_a_tile": ((3, 512, 7, 7), (32, 512, 3, 3), 1),
+    "p14_n1_cluster": ((1, 512, 14, 14), (512, 512, 3, 3), 1),
+    "p7_n1_cluster_k1": ((1, 2048, 7, 7), (512, 2048, 1, 1), 0),
+    "cin3": ((1, 3, 9, 9), (32, 3, 3, 3), 1),
+    "cin20_k5": ((2, 20, 12, 12), (50, 20, 5, 5), 0),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CONV_BRANCHES) +
-                         sorted(CONV_FULL_WIDTH))
+                         sorted(CONV_FULL_WIDTH) + sorted(CONV_BF16_EDGES))
 def test_bf16_conv_matches_plain_version_on_the_card(cuda_device, case):
-    """Both routes of the bf16 form, where the plan branches, against the
-    plain version (bf16 inputs upcast, f32, one rounding); the launch is
-    counted on the bf16 form's own count."""
-    x_shape, w_shape, pad = {**CONV_BRANCHES, **CONV_FULL_WIDTH}[case]
+    """Both routes of the bf16 form, where the plan branches, and the halo
+    route's edges, against the plain version (bf16 inputs upcast, f32, one
+    rounding); the launch is counted on the bf16 form's own count."""
+    x_shape, w_shape, pad = {**CONV_BRANCHES, **CONV_FULL_WIDTH,
+                             **CONV_BF16_EDGES}[case]
     pad = (pad, pad) if isinstance(pad, int) else pad
     x, w, b = _bf16_inputs(x_shape, w_shape, cuda_device)
     f32, bf16 = (ck.fused_conv2d_bias_act.launches,
@@ -1331,6 +1350,7 @@ def test_bf16_conv_matches_plain_version_on_the_card(cuda_device, case):
 @pytest.mark.parametrize("act", sorted(ck.CONV_FUSED_ACTS))
 def test_bf16_conv_every_activation_both_routes(cuda_device, act):
     for xs, ws in (((4, 20, 12, 12), (50, 20, 5, 5)),
+                   ((2, 40, 9, 9), (70, 40, 3, 3)),
                    ((6, 2, 21, 24), (36, 2, 5, 24))):
         x, w, b = _bf16_inputs(xs, ws, cuda_device)
         _assert_bf16_conv_close(

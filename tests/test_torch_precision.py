@@ -202,6 +202,63 @@ def test_plain_bf16_conv_against_jax_fused_conv(shape, kernel, pad, mode,
     assert rec["ok"] and rec["share_differ"] <= CONV_SHARE_DIFFER, rec
 
 
+# The slices of the bf16 halo route at its edges: 7 channels of a 3x3
+# (Cin 3: one short slice; Cin 64 and 130: a short last one), 2 of a 5x5
+# (Cin 20), 64 of a 1x1 (Cin 96 and 130: a short last one); several
+# images a tile, ragged planes.
+KERNEL_ORDER_GRID = [
+    ((2, 3, 10, 10), (3, 3), (1, 1)),
+    ((1, 20, 12, 12), (5, 5), (0, 0)),
+    ((2, 96, 7, 7), (1, 1), (0, 0)),
+    ((3, 130, 6, 5), (3, 3), (1, 1)),
+    ((2, 64, 9, 9), (3, 3), (1, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,kernel,pad", KERNEL_ORDER_GRID)
+def test_bf16_conv_in_the_kernels_order_against_jax_fused_conv(shape, kernel,
+                                                               pad):
+    """The bf16 conv with its sum over K taken as the card kernel takes it
+    (``chip_smoke.reordered_conv``, the emulation tools/bf16_rule_probe.py
+    sets the bf16 rules from: slices of whole input channels, at most 64 K
+    each, each slice's partial apart, the partials added in f32) against
+    JAX's Pallas conv on the same bf16 inputs: chip_smoke.py's bf16 conv
+    rule, and few elements apart."""
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (rng.normal(size=(6, shape[1]) + kernel)
+         * np.sqrt(2.0 / (shape[1] * np.prod(kernel)))).astype(np.float32)
+    b = (rng.normal(size=(6,)) * 0.1).astype(np.float32)
+    want = pk.fused_conv2d_bias_act(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)), pad=pad,
+        activation="relu")
+    xt, wt, bt = (torch.from_numpy(a).to(BF) for a in (x, w, b))
+    assert ck._conv_halo_supported(shape[0], shape[1], *kernel, 6,
+                                   *want.shape[2:])
+    got = CS.reordered_conv(ck, xt, wt, bt, pad, "truncate", "relu")
+    assert got.dtype == BF
+    rec = CS.bf16_conv_compare(torch, got,
+                               torch.from_numpy(_bf16_np(want)).to(BF))
+    assert rec["ok"] and rec["share_differ"] <= CONV_SHARE_DIFFER, rec
+
+
+@pytest.mark.parametrize("shape,kernel,pad", KERNEL_ORDER_GRID)
+def test_bf16_conv_kernel_order_sums_every_product_once(shape, kernel, pad):
+    """On f32 inputs the kernel's order is only an order: the emulation
+    equals the plain conv within f32 rounding (1e-5 of outputs of order 1,
+    He-scaled weights), where a product summed twice or dropped would move
+    an output by ~0.06 or more (each product in exactly one slice)."""
+    rng = np.random.default_rng(3)
+    fan_in = shape[1] * int(np.prod(kernel))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(5, shape[1]) + kernel)
+                          * np.sqrt(2.0 / fan_in)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(5,)).astype(np.float32))
+    got = CS.reordered_conv(ck, x, w, b, pad, "truncate", "identity")
+    want = ck.conv2d_bias_act_reference(x, w, b, pad, "truncate", "identity")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape,rate", [((64, 128), 0.5), ((7, 1001), 0.8),
                                         ((3, 5, 7, 11), 0.3),
                                         ((4097,), 0.9)])

@@ -459,8 +459,8 @@ def _flash_math(split):
     kernels' blocks and, with ``split``, P and dS fed as :func:`_hi_lo`
     pairs: the kernels' arithmetic (``split``) or the plain versions' sums
     reordered.  S and dP sum over 16 of D (one k16 product); the forward's
-    P V over its steps of keys and dK/dV's products over its steps of
-    queries (``ck.flash_bf16_plan``); dQ over 64 keys."""
+    P V and dQ's dS K over their steps of keys and dK/dV's products over
+    its steps of queries (``ck.flash_bf16_plan``)."""
     sp = _hi_lo if split else (lambda x: x)
 
     def mm(a, b, block):
@@ -494,7 +494,8 @@ def _flash_math(split):
         q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
         p = probs(q, k, key_mask, lse, causal, scale)
         ds = p * (mm(dout, v.transpose(-1, -2), 16) - delta[..., None])
-        return (mm(sp(ds), k, 64) * scale).to(dt)
+        step = ck.flash_bf16_plan(q.shape[-1])["dq_step"]
+        return (mm(sp(ds), k, step) * scale).to(dt)
 
     def dkv(q, k, v, key_mask, dout, lse, delta, causal, scale):
         kt, vt = k.dtype, v.dtype
