@@ -1049,6 +1049,26 @@ def hgmma_count(ck, library, kernel: str, operand: str = "",
     return sum(counts.values())
 
 
+def serialized_wgmmas(library) -> list:
+    """ptxas's ``serialized`` notes in ``library``'s build log (the
+    performance notes that name a kernel whose wgmmas it serialised, C7518
+    and the like): [(code, mangled function)], in the log's order."""
+    out = []
+    for line in library.build_log.splitlines():
+        if "serialized" in line:
+            code = re.search(r"\((C\d+)\)", line)
+            func = re.search(r"function '([^']+)'", line)
+            out.append((code.group(1) if code else "",
+                        func.group(1) if func else line.strip()))
+    return out
+
+
+# the bf16 conv's kernel functions (the halo and full-width routes', the
+# GEMM route's): each instance must hold bf16 HGMMA, and ptxas may
+# serialise the wgmmas of none
+BF16_CONV_KERNELS = ("conv_wgmma_bf16_kernel", "conv_gemm_bf16_kernel")
+
+
 SET_SUMS = ("ms", "plain_ms", "library_ms", "library_tf32_ms", "bound_ms",
             "bound_f32_simt_ms", "flops", "bytes")
 GRAPH_SUMS = ("graph_ms", "plain_graph_ms", "library_graph_ms",
@@ -3471,6 +3491,7 @@ def check_conv_bf16(torch, ck, shape, gen, timed: bool = True):
     y, ref = kernel(), plain()
     torch.cuda.synchronize()
     rec = {"shape": [N, Cin, H, W, Cout, K, p], "activation": act,
+           "route": ck.conv_bf16_route(N, Cin, H, W, Cout, KH, KW, p, p),
            "dtype": str(y.dtype).replace("torch.", ""),
            **bf16_conv_compare(torch, y, ref)}
     if y.dtype != bf or not rec["ok"]:
@@ -3544,13 +3565,18 @@ def bf16_conv_sets():
             (f"textcnn_{TEXTCNN_D}", textcnn_convs(TEXTCNN_D), 10)]
 
 
-# the edges of the bf16 form's halo route, checked untimed: Cout 32, 64 + 1
-# and 128 + 1 (BN 32 and 64, a ragged last Cout tile); a 1x1 and a 3x3 at
-# each of ResNet-50's plane sizes, 56, 28, 14 and 7 (x's planes 16-, 16-,
-# 8- and 2-byte aligned); several images a tile (7 x 7); N = 1 and a
-# cluster split (512 channels at 14 x 14, 2,048 at 7 x 7); Cin 3 and 20
-# (a slice of whole channels, K past one slice); and, on one shape, every
-# activation
+# the edges of the bf16 form's routes, checked untimed.  The halo route:
+# Cout 32, 64 + 1 and 128 + 1 (BN 32 and 64, a ragged last Cout tile); a
+# 3x3 at each of ResNet-50's plane sizes, 56, 28, 14 and 7 (x's planes
+# 16-, 16-, 8- and 2-byte aligned); several images a tile (7 x 7);
+# N = 1 and a cluster split (512 channels at 14 x 14); Cin 3 and 20 (a
+# slice of whole channels, K past one slice); a padded 1x1.  The GEMM
+# route (a 1x1 with no padding): each plane size (16- and 8-byte copies,
+# the pre-pass image at 7 x 7); pixels not a multiple of a tile (10 x
+# 10); tiles across images at 14 x 14 and 7 x 7; Cout 32, 64 (64 x 128
+# blocks), 65, 129 and 2,048; N = 1 and a cluster split (2,048 channels at
+# 7 x 7, 1,024 at 14 x 14); an odd plane (9 x 9, pixels stored one by
+# one).  And, on a 3x3 and on an even and an odd 1x1, every activation
 BF16_CONV_EDGES = [
     (2, 64, 56, 56, 32, 1, 0, "identity"), (2, 64, 56, 56, 65, 3, 1, "relu"),
     (2, 128, 28, 28, 129, 1, 0, "identity"),
@@ -3561,12 +3587,20 @@ BF16_CONV_EDGES = [
     (1, 512, 14, 14, 512, 3, 1, "relu"),
     (1, 2048, 7, 7, 512, 1, 0, "identity"),
     (1, 3, 9, 9, 32, 3, 1, "relu"), (2, 20, 12, 12, 50, 5, 0, "identity"),
+    (2, 64, 14, 14, 96, 1, 1, "relu"),
+    (2, 64, 10, 10, 64, 1, 0, "relu"), (3, 256, 14, 14, 128, 1, 0, "relu"),
+    (5, 512, 7, 7, 256, 1, 0, "identity"), (2, 64, 56, 56, 64, 1, 0, "relu"),
+    (2, 512, 7, 7, 2048, 1, 0, "relu"),
+    (1, 1024, 14, 14, 256, 1, 0, "relu"), (2, 40, 9, 9, 70, 1, 0, "relu"),
 ]
 
 
 def bf16_conv_edges(ck):
-    """:data:`BF16_CONV_EDGES`, then every activation on one shape."""
-    return BF16_CONV_EDGES + [(2, 40, 9, 9, 70, 3, 1, act)
+    """:data:`BF16_CONV_EDGES`, then every activation on a 3x3 (the halo
+    route) and on a 1x1 of an even and of an odd plane (the GEMM route's
+    pair and single stores)."""
+    return BF16_CONV_EDGES + [(2, 40, h, h, 70, k, p, act)
+                              for h, k, p in ((9, 3, 1), (8, 1, 0), (9, 1, 0))
                               for act in sorted(ck.CONV_FUSED_ACTS)]
 
 
@@ -3574,11 +3608,12 @@ def bf16_conv_edges(ck):
 def phase_bf16_kernels(torch, ck) -> dict:
     """The bf16 forms of the conv and dropout kernels against their plain
     versions: the conv on :func:`bf16_conv_sets` (timed), on the serving
-    ladders' other batches and at the halo route's edges
+    ladders' other batches and at its routes' edges
     (:func:`bf16_conv_edges`; checked), by the bf16 conv rule; dropout
     ``torch.equal`` forward and backward at VGG16-224's four launches and
-    the edges, with masks equal to the f32 form's; bf16 HGMMA in the conv
-    library's SASS."""
+    the edges, with masks equal to the f32 form's; bf16 HGMMA in every
+    instance of every bf16 conv kernel in the conv library's SASS, and no
+    ``serialized`` note of ptxas on any of them."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     sets, records = {}, []
     for name, shapes, calls in bf16_conv_sets():
@@ -3610,13 +3645,25 @@ def phase_bf16_kernels(torch, ck) -> dict:
                              ((VGG_BATCH, 4096), 0.8, 0),
                              ((3, 4099), 0.5, 0), ((3, 4099), 0.8, 0),
                              ((VGG_BATCH, 4096), 0.5, 1), ((4097,), 0.5, 0))]
+    serialized = [f for _, f in serialized_wgmmas(ck.CONV_LIBRARY)
+                  if any(k in f for k in BF16_CONV_KERNELS)]
+    if serialized:
+        raise AssertionError(f"ptxas serialised the wgmmas of bf16 conv "
+                             f"instances: {serialized}")
     res = {"sets": sets, "records": records, "untimed": untimed,
            "dropout": drop,
            "sass_bf16_hgmma": hgmma_count(ck, ck.CONV_LIBRARY,
-                                          "conv_wgmma_bf16_kernel", "BF16"),
+                                          "|".join(BF16_CONV_KERNELS),
+                                          "BF16"),
            "full_width_sass_bf16_hgmma": hgmma_count(
                ck, ck.CONV_LIBRARY, r"conv_wgmma_bf16_kernelILi\d+ELb1E",
-               "BF16")}
+               "BF16"),
+           "halo_sass_bf16_hgmma": hgmma_count(
+               ck, ck.CONV_LIBRARY, r"conv_wgmma_bf16_kernelILi\d+ELb0E",
+               "BF16"),
+           "gemm_sass_bf16_hgmma": hgmma_count(
+               ck, ck.CONV_LIBRARY, "conv_gemm_bf16_kernel", "BF16"),
+           "serialized_bf16_instances": serialized}
     emit("bf16_kernels", tf32=False, conv_rule="|y - ref| <= ulp_bf16(ref) "
          "+ BF16_CONV_ATOL * max|ref|", conv_atol_scaled=BF16_CONV_ATOL,
          bound_note="bound_ms: FLOPs at PEAK_BF16_FLOPS or 2-byte elements "
@@ -3625,7 +3672,12 @@ def phase_bf16_kernels(torch, ck) -> dict:
                     "its mask-multiply backward",
          timed_sets=sets, shapes=records, untimed_shapes=untimed,
          dropout=drop, sass_bf16_hgmma=res["sass_bf16_hgmma"],
-         full_width_sass_bf16_hgmma=res["full_width_sass_bf16_hgmma"])
+         full_width_sass_bf16_hgmma=res["full_width_sass_bf16_hgmma"],
+         halo_sass_bf16_hgmma=res["halo_sass_bf16_hgmma"],
+         gemm_sass_bf16_hgmma=res["gemm_sass_bf16_hgmma"],
+         serialized_bf16_instances=serialized,
+         routes={r["set"] + " " + str(r["shape"]): r["route"]
+                 for r in records})
     return res
 
 
@@ -4072,12 +4124,13 @@ def _check_output_bf16(torch, out, rows, classes, per_call, convs, rel,
 
 def _check_served_classes_bf16(name, xs, answers, direct, ladder) -> list:
     """Each request's served classes (argmax, or the best of top 3) must
-    equal argmax of a direct bf16 ``output()`` of its rows at one of the
-    batch sizes the batcher can have served them at: its rows zero-padded
-    to a bucket of ``ladder``.  Rows are independent at inference, but a
+    equal those of a direct bf16 ``output()`` of its rows, ordered as the
+    gateway orders them, at one of the batch sizes the batcher can have
+    served them at: its rows zero-padded to a bucket of ``ladder``.  Rows are independent at inference, but a
     conv's plan, and so its order of summation, follows the batch size,
     and bf16 rounds what that order changes.  -> the bucket each request
     matched first."""
+    from deeplearning4j_tpu_torch.server.gateway import DeepLearning4jEntryPoint
     matched = []
     for x, (mode, answer) in zip(xs, answers):
         cls = answer["classes"]
@@ -4089,8 +4142,15 @@ def _check_served_classes_bf16(name, xs, answers, direct, ladder) -> list:
                 continue
             xp = np.zeros((nb,) + x.shape[1:], np.float32)
             xp[:len(x)] = x
-            if direct(xp)[:len(x)].argmax(dim=-1).cpu().numpy().tolist() \
-                    == got:
+            out = direct(xp)[:len(x)].float().cpu().numpy()
+            # the best class as the server orders classes: argmax for
+            # argmax_only, the gateway's own top-k order for top_k (on
+            # classes of exactly equal probability, which bf16 rounding
+            # makes common near a uniform output, the two orders differ)
+            want = (out.argmax(axis=-1).tolist() if mode == "argmax" else
+                    [c[0] for c in DeepLearning4jEntryPoint
+                     ._format_predictions(out, top_k=3)["classes"]])
+            if want == got:
                 hit = nb
                 break
         if hit is None or answer["shape"] != shape:
@@ -5177,9 +5237,13 @@ def phase_bf16_sequence_kernels(torch, ck) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     steps = [check_lstm_step_bf16(torch, ck, n, CHAR_HIDDEN, gen, timed=True)
              for n in (CHAR_BATCH, SAMPLE_STREAMS, 1)]
+    # the f32 form's edges, then the bf16 form's: H past a staged chunk of
+    # 224 k, N at the switch from blocks of 4 rows to 8 and not a multiple
+    # of either
     steps += [check_lstm_step_bf16(torch, ck, n, h, gen)
               for n, h in ((3, 8), (5, 24), (64, 256), (3, 1024), (7, 264),
-                           (40, 8), (17, 200))]
+                           (40, 8), (17, 200), (9, 16), (2, 8), (17, 232),
+                           (33, 200), (8, 456), (9, 200), (1, 8))]
     B, H, T, D = ATT_BATCH, ATT_HEADS, ATT_SEQ, ATT_WIDTH // ATT_HEADS
     cases = [(B, H, T, D, True, "none"), (1, 2, ATT_SEQ, 64, True, "none"),
              (2, 2, 200, 64, False, "tail"), (2, 2, 200, 64, True, "tail"),
@@ -6896,6 +6960,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
         "library_ms": sum(a["library_ms"] for a in bserved),
         "sets": bsets,
         "sass_bf16_hgmma": bk["sass_bf16_hgmma"],
+        "gemm_sass_bf16_hgmma": bk["gemm_sass_bf16_hgmma"],
     }, {
         "name": "threshold_dropout_bf16",
         "route": "cuda",
@@ -7000,7 +7065,8 @@ def main() -> int:
         lib.path().name: {
             "nvcc_seconds": lib.build_seconds,
             "ptxas": [l.strip() for l in lib.build_log.splitlines()
-                      if "registers" in l or "spill" in l]}
+                      if "registers" in l or "spill" in l],
+            "serialized": serialized_wgmmas(lib)}
         for lib in ck.LIBRARIES})
 
     records = phase_kernels(torch, ck)

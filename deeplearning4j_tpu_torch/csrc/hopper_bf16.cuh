@@ -2,10 +2,12 @@
 // tensor cores (sm_90a): bf16 <-> f32 by bits, an 8-byte cp.async, and the
 // wgmma.m64nNk16.f32.bf16.bf16 products with A in registers (WgmmaBf16, N =
 // 32, 64, 128) or in shared memory (WgmmaBf16SS, N = 32, 64), B in shared
-// memory, both K-major (no transpose flag set).  The copies, fences and the
-// swizzled shared-memory descriptor are hopper_tf32.cuh's: a 16-deep bf16 K
-// step is 32 bytes, the byte depth of an 8-deep tf32 step, so the same
-// 128-byte-swizzle tiles and descriptors serve both.
+// memory, both K-major (no transpose flag set); and, for the conv's GEMM
+// route, an m64n64k16 product whose B is MN-major (WgmmaBf16SSTransB, the
+// transpose bit set) with its descriptor (sw128_mn_desc).  The copies,
+// fences and the K-major swizzled descriptor are hopper_tf32.cuh's: a
+// 16-deep bf16 K step is 32 bytes, the byte depth of an 8-deep tf32 step,
+// so the same 128-byte-swizzle tiles and descriptors serve both.
 //
 // Included by conv_bias_act.cu, lstm_step.cu and flash_attention.cu;
 // ops/cuda_kernels.py hashes this header with each source that includes it.
@@ -239,6 +241,49 @@ struct WgmmaBf16SS<64> {
         : "l"(desc_a), "l"(desc_b), "r"(0));
   }
 };
+
+// D[64 x N] = A[64 x 16] * B[16 x N] + (scale_d ? D : 0), N = 64, A and B
+// bf16 in shared memory: A K-major (desc_a, as WgmmaBf16SS), B
+// MN-major (the transpose bit set; desc_b from sw128_mn_desc): B's columns,
+// not its K rows, are contiguous, as an NCHW image's pixels are.  D's
+// layout as WgmmaBf16's.
+template <int N>
+struct WgmmaBf16SSTransB;
+
+template <>
+struct WgmmaBf16SSTransB<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// Descriptor of an MN-major bf16 tile with the 128-byte swizzle: atoms of 8
+// K rows by 64 contiguous MN elements (1,024 bytes, row r's 16-byte chunk c
+// at r * 128 + ((c ^ r) << 4) from a 1,024-byte-aligned base); the next 8 K
+// rows 1,024 bytes on (SBO), the next 64 MN elements `lbo` bytes on (LBO).
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr,
+                                                  uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
 
 // x0, x1 as bf16 hi and lo pairs (x0 in the low half): hi = x to the
 // nearest bf16, lo = x - hi (exact in f32) to the nearest bf16, two

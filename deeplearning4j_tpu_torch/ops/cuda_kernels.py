@@ -99,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -190,9 +191,14 @@ class KernelLibrary:
         return BUILD_DIR / f"lib{self.source.stem}-{digest[:12]}.so"
 
     def build(self) -> Path:
-        """Compile the source unless this exact build exists."""
+        """Compile the source unless this exact build exists.  nvcc's
+        output (ptxas's registers, spills and notes) is kept beside the
+        library, so ``build_log`` holds it whichever process built it."""
         out = self.path()
         if out.exists():
+            log = out.with_suffix(".log")
+            if not self.build_log and log.exists():
+                self.build_log = log.read_text()
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -206,6 +212,9 @@ class KernelLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"(rc {proc.returncode}):\n{self.build_log}")
+        log = out.with_suffix(f".{os.getpid()}.log")
+        log.write_text(self.build_log)
+        os.replace(log, out.with_suffix(".log"))
         os.replace(tmp, out)    # atomic against a concurrent builder
         return out
 
@@ -227,6 +236,7 @@ CONV_LIBRARY = KernelLibrary(
     CSRC / "conv_bias_act.cu",
     {"dl4j_conv2d_bias_act_f32": ([_P] * 5 + [_I] * 12 + [_P], _I),
      "dl4j_conv2d_bias_act_bf16": ([_P] * 5 + [_I] * 12 + [_P], _I),
+     "dl4j_conv2d_bf16_route": ([_I] * 11 + [_P, _P], _I),
      "dl4j_conv2d_plan": ([_I] * 8 + [_P], _I)})
 XENT_LIBRARY = KernelLibrary(
     CSRC / "softmax_xent.cu",
@@ -367,6 +377,50 @@ def conv_reordered_elements(Cout: int, Cin: int, KH: int, KW: int) -> int:
         _cdiv(Cin * KH * KW, _CONV_BK) * _CONV_BK
 
 
+# The bf16 form's routes, by the ids dl4j_conv2d_bf16_route returns.
+CONV_BF16_ROUTES = {0: "halo", 1: "full_width", 2: "gemm", 3: "gemm"}
+
+
+def conv_bf16_route(N, Cin, H, W, Cout, KH, KW, pt, pl) -> Optional[str]:
+    """The route the conv kernel's bf16 form takes for a shape the gate
+    accepts (``gemm_route`` and ``supported`` of csrc/conv_bias_act.cu):
+    ``"gemm"`` for a 1x1 conv with no padding, a plain GEMM over pixels;
+    ``"halo"`` for every other shape the halo route takes;
+    ``"full_width"`` for the rest (OW == 1); None where the kernel does not
+    apply.  ``pt`` and ``pl`` are the top and left padding, and the bottom
+    and right padding are taken equal to them."""
+    OH, OW = H + 2 * pt - KH + 1, W + 2 * pl - KW + 1
+    if _conv_halo_supported(N, Cin, KH, KW, Cout, OH, OW):
+        if KH == KW == 1 and pt == pl == 0:
+            return "gemm"
+        return "halo"
+    if _conv_full_width_supported(N, Cin, KH, KW, Cout, OH, OW):
+        return "full_width"
+    return None
+
+
+def conv_bf16_library_route(x, N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW):
+    """The bf16 form's route as the built library decides it
+    (``dl4j_conv2d_bf16_route``), for x's address: (route name, whether
+    the GEMM route reads a pre-pass image, scratch elements), or None where
+    the kernel does not apply.  Builds the library; the answer depends on
+    the address only through its alignment, and is kept per shape."""
+    return _conv_bf16_library_route(CONV_LIBRARY, N, Cin, H, W, Cout, KH, KW,
+                                    pt, pl, OH, OW, x.data_ptr() % 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_bf16_library_route(library, N, Cin, H, W, Cout, KH, KW, pt, pl, OH,
+                             OW, align):
+    scratch = ctypes.c_longlong(0)
+    rid = library.get().dl4j_conv2d_bf16_route(
+        N, Cin, H, W, Cout, KH, KW, pt, pl, OH, OW, 16 + align,
+        ctypes.byref(scratch))
+    if rid < 0:
+        return None
+    return CONV_BF16_ROUTES[rid], rid == 3, scratch.value
+
+
 def conv_fused_supported(x_shape, w_shape, dtype, stride=(1, 1),
                          dilation=(1, 1), activation: str = "identity",
                          pad=(0, 0), border_mode: str = "truncate") -> bool:
@@ -484,7 +538,11 @@ def _launch_conv(x, w, b, pad, border_mode, act):
     bf16 = x.dtype == torch.bfloat16
     y = torch.empty((N, Cout, OH, OW), dtype=x.dtype, device=x.device)
     if bf16:
-        ws = torch.empty((conv_reordered_elements(Cout, Cin, KH, KW),),
+        # the reordered weights and, on the GEMM route for a plane that
+        # 8- and 16-byte copies cannot read, the pre-pass image
+        route = conv_bf16_library_route(x, N, Cin, H, W, Cout, KH, KW, pt,
+                                        pl_, OH, OW)
+        ws = torch.empty((route[2] if route else 0,),
                          dtype=torch.bfloat16, device=x.device)
         launch = lib.dl4j_conv2d_bias_act_bf16
     else:

@@ -240,8 +240,9 @@ def test_conv_plan_mirror_matches_source_constants():
     assert "return halo_supported(N, Cin, KH, KW, Cout, OH, OW) ||\n" \
         "         full_width_supported(N, Cin, KH, KW, Cout, OH, OW);" in \
         body("supported")
-    # the plan and both entry points (f32 and bf16) guard
-    assert src.count("if (!supported(N, Cin, KH, KW, Cout, OH, OW))") == 3
+    # the plan, the bf16 form's route query and both entry points (f32 and
+    # bf16) guard
+    assert src.count("if (!supported(N, Cin, KH, KW, Cout, OH, OW))") == 4
     prose = " ".join(re.sub(r"\s*//\s*", " ", src).split())
     fields = re.search(r"as (\d+) ints: ([\w, ]+?)(?: \(grid size\))?\.",
                        prose)

@@ -541,6 +541,35 @@ def test_fit_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N,H", [(32, 200), (3, 24)])
+def test_bf16_lstm_kernel_unaligned_inputs_on_the_card(cuda_device, N, H):
+    """h and RW off a 16-byte boundary: the bf16 kernel stages them by
+    2-byte loads and agrees with the plain version by chip_smoke.py's bf16
+    rule."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(N + H)
+
+    def t(*shape, scale=1.0, offset=0):
+        flat = torch.zeros(int(np.prod(shape)) + offset, device=cuda_device,
+                           dtype=torch.bfloat16)
+        view = flat[offset:].view(shape)
+        view.copy_(torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda_device))
+        return view
+    zx = t(N, 3, 4 * H)[:, 1]
+    h, rw = t(N, H, offset=1), t(H, 4 * H, scale=0.1, offset=3)
+    assert h.data_ptr() % 16 and rw.data_ptr() % 16
+    args = (zx, h, t(N, H), rw, t(3, H, scale=0.1))
+    bf16 = ck.fused_lstm_step.bf16.launches
+    got = ck.fused_lstm_step(*args)
+    want = ck.lstm_step_reference(*args)
+    assert ck.fused_lstm_step.bf16.launches == bf16 + 1
+    for a, e in zip(got, want):
+        rec = cs.bf16_conv_compare(torch, a, e)
+        assert a.dtype == torch.bfloat16 and rec["ok"], rec
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("N,H", [(32, 200), (1, 200), (4, 200), (5, 24),
                                  (3, 1024), (40, 8), (7, 264), (70, 128)])
 def test_lstm_kernel_matches_plain_version_on_the_card(cuda_device, N, H):
@@ -1323,6 +1352,20 @@ CONV_BF16_EDGES = {
     "p7_n1_cluster_k1": ((1, 2048, 7, 7), (512, 2048, 1, 1), 0),
     "cin3": ((1, 3, 9, 9), (32, 3, 3, 3), 1),
     "cin20_k5": ((2, 20, 12, 12), (50, 20, 5, 5), 0),
+    # the GEMM route (1x1, no padding): pixels not a multiple of a tile
+    # (10 x 10, 2 images); tiles across images at 14 x 14 (8-byte copies)
+    # and 7 x 7 (the pre-pass image); Cout 64 (64 x 128 blocks), 65 and
+    # 2,048; N = 1 with a cluster split at 14 x 14; an odd plane (odd
+    # pixel stores); a padded 1x1, which stays on the halo route
+    "gemm_p10_ragged": ((2, 64, 10, 10), (64, 64, 1, 1), 0),
+    "gemm_p14_images": ((3, 256, 14, 14), (128, 256, 1, 1), 0),
+    "gemm_p7_images": ((5, 512, 7, 7), (256, 512, 1, 1), 0),
+    "gemm_p56_cout64": ((2, 64, 56, 56), (64, 64, 1, 1), 0),
+    "gemm_p28_cout65": ((2, 128, 28, 28), (65, 128, 1, 1), 0),
+    "gemm_p7_cout2048": ((2, 512, 7, 7), (2048, 512, 1, 1), 0),
+    "gemm_p14_n1_cluster": ((1, 1024, 14, 14), (256, 1024, 1, 1), 0),
+    "gemm_p9_odd_cin40": ((2, 40, 9, 9), (70, 40, 1, 1), 0),
+    "k1_padded_halo": ((2, 64, 14, 14), (96, 64, 1, 1), 1),
 }
 
 
@@ -1351,7 +1394,9 @@ def test_bf16_conv_matches_plain_version_on_the_card(cuda_device, case):
 def test_bf16_conv_every_activation_both_routes(cuda_device, act):
     for xs, ws in (((4, 20, 12, 12), (50, 20, 5, 5)),
                    ((2, 40, 9, 9), (70, 40, 3, 3)),
-                   ((6, 2, 21, 24), (36, 2, 5, 24))):
+                   ((6, 2, 21, 24), (36, 2, 5, 24)),
+                   ((2, 40, 8, 8), (70, 40, 1, 1)),
+                   ((2, 40, 9, 9), (70, 40, 1, 1))):
         x, w, b = _bf16_inputs(xs, ws, cuda_device)
         _assert_bf16_conv_close(
             ck.fused_conv2d_bias_act(x, w, b, activation=act),
@@ -1399,13 +1444,32 @@ def test_bf16_conv_rejects_mixed_dtypes(cuda_device):
         ck.fused_conv2d_bias_act(x, w.float(), b)
 
 
+# the bf16 conv's kernel functions and their instances: the halo and
+# full-width routes' (BN 32 and 64 each), the GEMM route's (blocks of 64
+# Cout x 128 pixels and of 128 x 64)
+BF16_CONV_KERNELS = {"conv_wgmma_bf16_kernel": 4, "conv_gemm_bf16_kernel": 2}
+
+
 @pytest.mark.gpu
 def test_bf16_conv_runs_bf16_products_on_the_tensor_cores(cuda_device):
-    """Every instance of conv_wgmma_bf16_kernel holds bf16 HGMMA in the
-    conv library's SASS."""
+    """Every instance of every bf16 conv kernel, both routes, holds bf16
+    HGMMA in the conv library's SASS."""
     counts = ck.sass_hgmma_counts(ck.CONV_LIBRARY, "BF16")
-    mine = {f: n for f, n in counts.items() if "conv_wgmma_bf16_kernel" in f}
-    assert len(mine) == 4 and all(mine.values()), counts
+    for name, instances in BF16_CONV_KERNELS.items():
+        mine = {f: n for f, n in counts.items() if name in f}
+        assert len(mine) == instances and all(mine.values()), (name, counts)
+
+
+@pytest.mark.gpu
+def test_bf16_conv_wgmmas_are_not_serialised(cuda_device):
+    """ptxas serialised no bf16 conv instance's wgmmas: the library's build
+    log (kept beside it) names none of them in a ``serialized`` line."""
+    ck.CONV_LIBRARY.get()
+    log = ck.CONV_LIBRARY.build_log
+    assert "ptxas" in log, "the conv library's build log is missing"
+    lines = [line for line in log.splitlines() if "serialized" in line and
+             any(name in line for name in BF16_CONV_KERNELS)]
+    assert not lines, lines
 
 
 @pytest.mark.gpu
@@ -1484,12 +1548,44 @@ def test_bf16_net_fit_on_the_card_launches_the_bf16_forms(cuda_device):
 # The bf16 forms of the lstm step and the flash kernels
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N,H", [(32, 200), (3, 24)])
+def test_bf16_lstm_kernel_unaligned_inputs_on_the_card(cuda_device, N, H):
+    """h and RW off a 16-byte boundary: the bf16 kernel stages them by
+    2-byte loads and agrees with the plain version by chip_smoke.py's bf16
+    rule."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(N + H)
+
+    def t(*shape, scale=1.0, offset=0):
+        flat = torch.zeros(int(np.prod(shape)) + offset, device=cuda_device,
+                           dtype=torch.bfloat16)
+        view = flat[offset:].view(shape)
+        view.copy_(torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda_device))
+        return view
+    zx = t(N, 3, 4 * H)[:, 1]
+    h, rw = t(N, H, offset=1), t(H, 4 * H, scale=0.1, offset=3)
+    assert h.data_ptr() % 16 and rw.data_ptr() % 16
+    args = (zx, h, t(N, H), rw, t(3, H, scale=0.1))
+    bf16 = ck.fused_lstm_step.bf16.launches
+    got = ck.fused_lstm_step(*args)
+    want = ck.lstm_step_reference(*args)
+    assert ck.fused_lstm_step.bf16.launches == bf16 + 1
+    for a, e in zip(got, want):
+        rec = cs.bf16_conv_compare(torch, a, e)
+        assert a.dtype == torch.bfloat16 and rec["ok"], rec
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("N,H", [(32, 200), (1, 200), (4, 200), (5, 24),
-                                 (3, 1024), (40, 8), (7, 264), (17, 200)])
+                                 (3, 1024), (40, 8), (7, 264), (17, 200),
+                                 (9, 16), (2, 8), (17, 232), (33, 200),
+                                 (8, 456), (9, 200), (1, 8)])
 def test_bf16_lstm_kernel_matches_plain_version_on_the_card(cuda_device, N,
                                                             H):
-    """The lstm kernel's bf16 form at the tiling's edges (as the f32 form's
-    test), zx a row-strided view: c' and h' by chip_smoke.py's bf16 rule
+    """The lstm kernel's bf16 form at the tiling's edges (blocks of 8 units
+    by 4 rows up to N = 8, by 8 rows beyond; H past a staged chunk of 224
+    k), zx a row-strided view: c' and h' by chip_smoke.py's bf16 rule
     against the plain version (the five inputs upcast, the step in f32, one
     rounding), counted on the bf16 form's count only; the gradients, which
     both paths take from ``lstm_step_formula`` on the same saved inputs,

@@ -242,6 +242,69 @@ def test_bf16_conv_in_the_kernels_order_against_jax_fused_conv(shape, kernel,
     assert rec["ok"] and rec["share_differ"] <= CONV_SHARE_DIFFER, rec
 
 
+# The GEMM route's slices (a 1x1 conv with no padding: 64 input channels a
+# slice) at each of ResNet-50's plane sizes, with as many input channels as
+# its convs there take, up to 2,048 (32 slices)
+KERNEL_ORDER_GEMM_GRID = [
+    (1, 64, 56, 56), (1, 256, 56, 56), (1, 512, 28, 28), (2, 1024, 14, 14),
+    (1, 2048, 7, 7), (3, 130, 7, 7),
+]
+
+
+@pytest.mark.parametrize("shape", KERNEL_ORDER_GEMM_GRID)
+def test_bf16_gemm_route_in_the_kernels_order_against_jax_fused_conv(shape):
+    """The GEMM route keeps the halo route's sum (slices of 64 whole input
+    channels, each partial apart, the partials added in f32 in slice
+    order), so ``chip_smoke.reordered_conv`` is its emulation too: held
+    against JAX's Pallas conv on the same bf16 inputs at 1x1 shapes the
+    route takes, by chip_smoke.py's bf16 conv rule, few elements apart."""
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (rng.normal(size=(6, shape[1], 1, 1))
+         * np.sqrt(2.0 / shape[1])).astype(np.float32)
+    b = (rng.normal(size=(6,)) * 0.1).astype(np.float32)
+    want = pk.fused_conv2d_bias_act(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)), pad=(0, 0),
+        activation="relu")
+    N, Cin, H, W = shape
+    assert ck.conv_bf16_route(N, Cin, H, W, 6, 1, 1, 0, 0) == "gemm"
+    xt, wt, bt = (torch.from_numpy(a).to(BF) for a in (x, w, b))
+    got = CS.reordered_conv(ck, xt, wt, bt, (0, 0), "truncate", "relu")
+    assert got.dtype == BF
+    rec = CS.bf16_conv_compare(torch, got,
+                               torch.from_numpy(_bf16_np(want)).to(BF))
+    assert rec["ok"] and rec["share_differ"] <= CONV_SHARE_DIFFER, rec
+
+
+@pytest.mark.parametrize("model", ["lenet", "vgg16_cifar10", "vgg16_224",
+                                   "resnet50"])
+@pytest.mark.parametrize("batch", [1, 8, 32, 128])
+def test_conv_gate_takes_every_model_conv_and_routes_1x1_to_gemm(model,
+                                                                  batch):
+    """``conv_fused_supported`` takes every stride-1 conv of the four
+    models' forwards in both dtypes, and the bf16 form routes each 1x1
+    with no padding to its GEMM route and every other shape to the halo
+    route, as ``gemm_route`` in csrc/conv_bias_act.cu decides."""
+    for N, Cin, H, W, Cout, K, p, act in CS.conv_shapes(model, batch):
+        for dtype in (torch.float32, BF):
+            assert ck.conv_fused_supported((N, Cin, H, W), (Cout, Cin, K, K),
+                                           dtype, activation=act,
+                                           pad=(p, p))
+        want = "gemm" if K == 1 and p == 0 else "halo"
+        assert ck.conv_bf16_route(N, Cin, H, W, Cout, K, K, p, p) == want
+
+
+def test_conv_bf16_route_edges():
+    """The route at its edges: a padded 1x1 stays on the halo route, a
+    filter as wide as the padded input (OW = 1) takes the full-width
+    route, a shape no route takes has none."""
+    assert ck.conv_bf16_route(2, 64, 14, 14, 96, 1, 1, 1, 1) == "halo"
+    assert ck.conv_bf16_route(2, 64, 14, 14, 96, 1, 1, 0, 0) == "gemm"
+    assert ck.conv_bf16_route(2, 300, 50, 300, 100, 3, 300, 0, 0) == \
+        "full_width"
+    assert ck.conv_bf16_route(2, 3, 10, 10, 8, 9, 9, 0, 0) is None
+
+
 @pytest.mark.parametrize("shape,kernel,pad", KERNEL_ORDER_GRID)
 def test_bf16_conv_kernel_order_sums_every_product_once(shape, kernel, pad):
     """On f32 inputs the kernel's order is only an order: the emulation
