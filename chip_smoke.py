@@ -391,6 +391,44 @@ exits non-zero:
                from 4 clients; each answer against brute force from one
                GEMM on the card, up to ties.
 
+23. fused_lenet — ``fit(fused_steps=8)`` of LeNet + Adam at 64 through the
+               async pipeline, 400 steps, against 400 plain steps from the
+               same params and generator under cuDNN's deterministic
+               algorithms: params, updater state and score torch.equal,
+               exactly 2 conv launches a step, no conv fallback, no call
+               inside a group that synchronises with the card (torch's
+               sync debug mode); the same for a LeNet-shaped
+               ComputationGraph at K = 4; samples/s fused and plain in
+               turns.
+24. pretrain_vae — dl4j-examples' VariationalAutoEncoderExample (784 ->
+               256, 256 -> 2 -> 256, 256 -> Bernoulli over 784, RMSProp):
+               200 ``pretrain`` steps at 128 on seeded MNIST-like strokes;
+               the negative ELBO falls; one step's gradients,
+               ``reconstruction_log_probability`` and
+               ``generate_at_mean_given_z`` against the CPU's from the same
+               params, pixels and ε; a zip written, restored and written
+               again byte-equal.
+25. pretrain_dbn — dl4j-examples' DeepAutoEncoderExample (binary RBMs 784 ->
+               1000 -> 500 -> 250 -> 100 -> 30 and back, an MSE sigmoid
+               output, batch 1,000): ``pretrain``, 3 ``fit`` steps, 5
+               iterations of ``Solver("LINE_GRADIENT_DESCENT")``; the first
+               RBM's reconstruction error and its data's free energy less
+               the shuffled pixels' fall, the line search's scores fall and
+               its first iteration equals the CPU's.
+26. center_loss_lenet — LeNet with a ``CenterLossOutputLayer`` head (alpha
+               0.1, lambda 2e-4), Nesterovs, 30 steps at 64: 2 conv
+               launches a step, the last step against the plain conv
+               chain's (phase 7's rules), the centres nearer their classes'
+               feature means.
+27. external_gradients_vgg16_224 — phase 7's net: ``backprop_gradient`` at 32
+               against autograd of <output, ε> through the plain conv
+               chain; the external loop (ε of the xent from
+               ``feed_forward(train=True)``, the generator rewound,
+               ``backprop_gradient(train=True)``, ``apply_gradients``) at
+               128 against one ``fit`` step (phase 7's rules); exactly 13
+               conv, then 26 conv and 6 dropout, then 13 conv, 1 xent and 4
+               dropout launches.
+
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -680,6 +718,77 @@ ATT_BF16_SCORE_RTOL, ATT_BF16_GRAD_RTOL, ATT_BF16_UPDATE_RTOL = \
     1.2e-5, 8.8e-3, 0.142
 ATT_BF16_COSINE_MIN = BF16_COSINE_MIN
 ATT_BF16_PROBS_REL, ATT_BF16_SAMPLE_REL = 0.0184, 0.0082
+# fit(fused_steps=K) (fused_lenet): LeNet + Adam at LENET_BATCH through
+# the async pipeline, FUSED_K = 8, FUSED_BATCHES x FUSED_EPOCHS = 400
+# steps, against 400 plain steps from the same params and generator; a
+# LeNet-shaped ComputationGraph likewise at FUSED_GRAPH_K = 4.  A group's
+# steps are the plain steps' launches, in the same order, on one stream,
+# so under cuDNN's deterministic algorithms (its default conv backward is
+# not: tools/fit_determinism_probe.py) params, updater state and score are
+# torch.equal.  No call inside a group may synchronise with the card
+# (torch.cuda.set_sync_debug_mode("warn") counts them): 0.  Samples/s of
+# each, in turns plain / fused / fused / plain, default algorithms.
+FUSED_K, FUSED_BATCHES, FUSED_EPOCHS = 8, 40, 10
+FUSED_GRAPH_K, FUSED_GRAPH_BATCHES, FUSED_GRAPH_EPOCHS = 4, 16, 4
+# pretrain_vae: the VAE of dl4j-examples 0.8 VariationalAutoEncoderExample
+# (784 -> encoder 256, 256 -> latent 2 -> decoder 256, 256 -> Bernoulli
+# (sigmoid) over 784, leaky relu, RMSProp lr 1e-2, l2 1e-4, which reaches
+# no VAE param: the penalty's keys are W and b, as in the JAX package),
+# VAE_STEPS pretrain steps at batch VAE_BATCH over VAE_BATCHES batches of
+# MNIST-like pixels (stroke_pixels: on load_mnist's dense stand-in this
+# recipe diverges in the JAX package too, the score 544 -> 203,392 in one
+# step).  The DBN below takes the same kind of pixels.  Rules: the negative
+# ELBO falls (the mean of the last 10 steps' scores below the first 10's,
+# and the loss of one batch at one ε below its initial value); one step's
+# gradients, reconstruction_log_probability and generate_at_mean_given_z
+# on the card against the CPU from the same params, pixels and ε by the
+# conv-free f32 rule, per tensor |y - y_cpu| <= RTOL |y_cpu| + ATOL
+# max|y_cpu| (sums of at most 784 products in other orders, the kernel
+# checks' rule); a zip written, restored and written again byte-equal.
+VAE_BATCH, VAE_BATCHES, VAE_STEPS, VAE_LR = 128, 32, 200, 1e-2
+# pretrain_dbn: the stack of dl4j-examples 0.8 DeepAutoEncoderExample,
+# binary RBMs 784 -> 1000 -> 500 -> 250 -> 100 -> 30 -> 100 -> 250 -> 500 ->
+# 1000 and an MSE sigmoid output of 784, batch DBN_BATCH, SGD lr 0.1 (the
+# example's 0.8 defaults), CD-1; pretrain (one epoch of DBN_BATCHES
+# batches, every RBM), DBN_FIT_STEPS fit steps, then DBN_LGD_ITERATIONS
+# iterations of Solver("LINE_GRADIENT_DESCENT") (the example's
+# algorithm).  The card's Bernoulli draws are not the CPU's, so the RBMs
+# are held to statistics: the first RBM's reconstruction error falls, and
+# so does the data's mean free energy less that of the same pixels
+# shuffled within each image.  Line search: the scores do not rise and
+# the last is below the first; its first iteration from the same params
+# and batch on the CPU takes the same step and reaches the same score
+# within STEP_RTOL (a forward of float32 sums in other orders).
+DBN_SIZES = (784, 1000, 500, 250, 100, 30)
+DBN_BATCH, DBN_BATCHES, DBN_FIT_STEPS, DBN_LGD_ITERATIONS = 1000, 4, 3, 5
+# center_loss_lenet: LeNet with LenetMnistExample's Nesterovs (lr 0.01,
+# momentum 0.9) and a CenterLossOutputLayer head (alpha 0.1, lambda 2e-4)
+# at LENET_BATCH, CENTER_STEPS fit steps through the async pipeline,
+# exactly 2 conv launches each; the last step against the same step with
+# the conv on the plain chain (cuDNN, TF32 off), by the training-step rule
+# (STEP_RTOL, STEP_UPDATE_RTOL: Nesterovs' update is linear in the
+# gradient); the centres' distance to their classes' feature means falls.
+CENTER_STEPS, CENTER_ALPHA, CENTER_LAMBDA = 30, 0.1, 2e-4
+# external_gradients_vgg16_224: phase 7's VGG16-224 with dropout 0.5.
+# backprop_gradient (train off) of a seeded ε at EXT_BATCH = 32 through the
+# kernels against autograd through the plain conv chain (cuDNN, TF32 off)
+# of the kernel path's own softmax backward at its pre-activation, with
+# the kernel path's max-pool argmax and dense relu masks (a near tie
+# decided the other way sends a gradient elsewhere whole; a conv's relu is
+# the plain one's in both, the kernel's backward recomputing the plain
+# conv): every param's gradient and dL/dx within
+# STEP_UPDATE_RTOL in relative 2-norm (16 layers of f32 sums in other
+# orders; the training-step rule for what is linear in the gradient), and
+# where the plain forward's own decision differs, a near tie within
+# TIE_RTOL of the layer's scale (train_keras_vgg16_bn's rule).  The
+# external loop at VGG_BATCH (so the 1,000-way head of the comparison fit
+# step takes the xent kernel: at 32 rows the gate's 65,536 elements are
+# not reached): ε of the mean xent from feed_forward(train=True)'s output,
+# the generator rewound, backprop_gradient(train=True), apply_gradients,
+# against one fit step from the same params and generator: the loss
+# within STEP_RTOL, each param's update within STEP_UPDATE_RTOL, the
+# generator in the same state after.
+EXT_BATCH, EXT_HW = 32, 224
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
 
@@ -1082,12 +1191,14 @@ def phase_kernels(torch, ck):
     # timed: the served ladder's top bucket (32), batch 128, VGG16-224 at
     # its output() batch and at its training batch (the forward convs of a
     # training step); untimed: every other bucket the server runs (1-16
-    # rows), VGG16-224's first call at one row and LeNet's training batch,
-    # since the kernel's plan (tile, cluster split) depends on the batch
+    # rows), VGG16-224's first call at one row, LeNet's training batch and
+    # VGG16-224 at 32 (fine-tuning, external gradients), since the
+    # kernel's plan (tile, cluster split) depends on the batch
     plan = [("lenet", 32, True), ("vgg16_cifar10", 32, True),
             ("lenet", 128, True), ("vgg16_cifar10", 128, True),
             ("vgg16_224", 8, True), ("vgg16_224", VGG_BATCH, True),
-            ("vgg16_224", 1, False), ("lenet", LENET_BATCH, False)]
+            ("vgg16_224", 1, False), ("lenet", LENET_BATCH, False),
+            ("vgg16_224", EXT_BATCH, False)]
     plan += [("vgg16_bn_cifar10", n, False) for n in VGG_BN_BATCHES]
     plan += [(m, n, False) for m in ("lenet", "vgg16_cifar10")
              for n in (1, 2, 4, 8, 16)]
@@ -6822,11 +6933,663 @@ def phase_nearest_neighbors(torch, w2v) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# fit(fused_steps=K), layerwise pretraining, the centre-loss head and
+# external gradients
+# ---------------------------------------------------------------------------
+
+def _sync_warnings(torch, fn):
+    """``fn()`` under torch's CUDA sync debug mode "warn" -> (its result,
+    the messages of the synchronising calls it made)."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def _watch_groups(torch, net) -> dict:
+    """Count ``net``'s fused_steps groups and the synchronising calls made
+    inside them."""
+    seen = {"groups": 0, "syncs": []}
+    inner = net._fit_group
+
+    def group(batches):
+        seen["groups"] += 1
+        seen["syncs"] += _sync_warnings(torch, lambda: inner(batches))[1]
+    net._fit_group = group
+    return seen
+
+
+def _mnist_like(rng, n, batch):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    return [DataSet(rng.random((batch, 1, 28, 28), np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, batch)])
+            for _ in range(n)]
+
+
+def lenet_graph(device):
+    """LeNet (``models.lenet``'s layers and Adam) as a ComputationGraph."""
+    from deeplearning4j_tpu_torch.nn.conf import graph_conf as gc
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import GlobalConf
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = (gc.GraphBuilder(GlobalConf(seed=12345, learning_rate=0.01,
+                                       updater="adam"))
+            .add_inputs("in")
+            .add_layer("c1", L.ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                                activation="identity"), "in")
+            .add_layer("p1", L.SubsamplingLayer(pooling_type="max"), "c1")
+            .add_layer("c2", L.ConvolutionLayer(n_out=50, kernel=(5, 5),
+                                                activation="identity"), "p1")
+            .add_layer("p2", L.SubsamplingLayer(pooling_type="max"), "c2")
+            .add_layer("d", L.DenseLayer(n_out=500, activation="relu"), "p2")
+            .add_layer("out", L.OutputLayer(n_out=10, activation="softmax",
+                                            loss="mcxent"), "d")
+            .set_outputs("out")
+            .set_input_types(InputType.convolutional(28, 28, 1))
+            .build())
+    return ComputationGraph(conf, device=device)
+
+
+def _fused_vs_plain(torch, ck, make, data, epochs, k) -> dict:
+    """``make()``'s network fit over ``data`` for ``epochs`` plain and with
+    ``fused_steps=k`` from the same params and generator under cuDNN's
+    deterministic algorithms (equality, launches, groups, syncs), then
+    timed in turns, default algorithms."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    steps = len(data) * epochs
+    rows = sum(d.num_examples() for d in data) * epochs
+
+    def run(net, fuse):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator(data), epochs=epochs, fused_steps=fuse)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        plain = make()
+        run(plain, 1)
+        fused = make()
+        seen = _watch_groups(torch, fused)
+        fallbacks = _conv_fallbacks()
+        _zero_counts(ck)                               # main path starts
+        run(fused, k)
+        launches = _kernel_counts(ck)                  # main path ends
+        fallbacks = _conv_fallbacks() - fallbacks
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    res = {"k": k, "steps": steps, "iteration": fused.iteration,
+           "groups": seen["groups"], "group_syncs": seen["syncs"][:5],
+           "n_group_syncs": len(seen["syncs"]), "launches": launches,
+           "conv_fallbacks": fallbacks,
+           "rule": "torch.equal, cuDNN deterministic",
+           "params_equal": bool(torch.equal(fused.params(), plain.params())),
+           "updater_equal": bool(torch.equal(fused.updater_state_flat(),
+                                             plain.updater_state_flat())),
+           "score_fused": fused.score(), "score_plain": plain.score()}
+    del plain, fused
+    rates = {"plain": [], "fused": []}
+    for mode in ("plain", "fused", "fused", "plain"):
+        net = make()
+        rates[mode].append(rows / run(net, 1 if mode == "plain" else k))
+    res["samples_per_s"] = rates
+    return res
+
+
+@_tf32_off
+def phase_fused_lenet(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.models import lenet
+    rng = np.random.default_rng(SEED + 20)
+    data = _mnist_like(rng, FUSED_BATCHES, LENET_BATCH)
+    mln = _fused_vs_plain(
+        torch, ck, lambda: lenet(device="cuda").init(
+            generator=torch.Generator().manual_seed(SEED)),
+        data, FUSED_EPOCHS, FUSED_K)
+    graph = _fused_vs_plain(
+        torch, ck, lambda: lenet_graph("cuda").init(
+            generator=torch.Generator().manual_seed(SEED)),
+        data[:FUSED_GRAPH_BATCHES], FUSED_GRAPH_EPOCHS, FUSED_GRAPH_K)
+    res = {"batch": LENET_BATCH, "multilayer": mln, "graph": graph,
+           "launches": {k: mln["launches"][k] + graph["launches"][k]
+                        for k in mln["launches"]}}
+    emit("fused_lenet", **res)
+    for what, r, batches, epochs, k in (
+            ("MultiLayerNetwork", mln, FUSED_BATCHES, FUSED_EPOCHS, FUSED_K),
+            ("ComputationGraph", graph, FUSED_GRAPH_BATCHES,
+             FUSED_GRAPH_EPOCHS, FUSED_GRAPH_K)):
+        if not (r["params_equal"] and r["updater_equal"]
+                and r["score_fused"] == r["score_plain"]
+                and r["iteration"] == r["steps"]
+                and r["groups"] == epochs * (batches // k)
+                and r["n_group_syncs"] == 0 and r["conv_fallbacks"] == 0
+                and r["launches"] == _want(ck,
+                                           conv2d_bias_act=2 * r["steps"])):
+            raise AssertionError(f"fused_steps on the {what}: {r}")
+    return res
+
+
+def stroke_pixels(torch, device, seed: int, n: int, hw: int = 28,
+                  strokes: int = 3, points: int = 24):
+    """MNIST-like seeded images [n, hw * hw]: ``strokes`` soft pen strokes
+    of random ends on a blank canvas, pixels in [0, 1], ~80 % of them 0
+    (MNIST: ~80 %; ``load_mnist``'s stand-in is dense, every pixel near
+    0.5, which no MNIST example was tuned for).  The ends come from a CPU
+    generator, so every device draws the same strokes."""
+    gen = torch.Generator().manual_seed(seed)
+    ends = 4 + (hw - 8) * torch.rand((n, strokes, 2, 2), generator=gen)
+    t = torch.linspace(0, 1, points)[:, None]
+    pts = (ends[:, :, :1] * (1 - t) + ends[:, :, 1:] * t).reshape(
+        n, -1, 2).to(device)
+    yy, xx = torch.meshgrid(torch.arange(hw, dtype=torch.float32),
+                            torch.arange(hw, dtype=torch.float32),
+                            indexing="ij")
+    grid = torch.stack([yy.ravel(), xx.ravel()], 1).to(device)
+    out = []
+    for chunk in pts.split(1024):
+        d2 = ((chunk[:, :, None, :] - grid) ** 2).sum(-1).amin(1)
+        out.append(torch.exp(-d2 / 1.5))
+    out = torch.cat(out)
+    return torch.where(out < 0.05, 0.0, out)
+
+
+def vae_example_net(device):
+    """dl4j-examples 0.8 VariationalAutoEncoderExample's network."""
+    from deeplearning4j_tpu_torch.nn.conf.layers_pretrain import (
+        VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(SEED)
+            .learning_rate(VAE_LR).updater("rmsprop").weight_init("xavier")
+            .regularization(True).l2(1e-4).list()
+            .layer(VariationalAutoencoder(
+                n_in=784, n_out=2, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), activation="leakyrelu",
+                pzx_activation="identity",
+                reconstruction_distribution={"type": "bernoulli",
+                                             "activation": "sigmoid"}))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def _rule_errs(torch, got, want) -> float:
+    """The worst element of |y - y_cpu| / (RTOL |y_cpu| + ATOL max|y_cpu|)
+    over a dict of tensors (1 is the limit)."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].detach().cpu().double()
+        w = w.detach().double()
+        lim = RTOL * w.abs() + ATOL * w.abs().max()
+        worst = max(worst, float(((g - w).abs() / lim.clamp_min(1e-30))
+                                 .max()))
+    return worst
+
+
+def _scores(net) -> list:
+    """A listener that keeps every step's score (a device tensor, read at
+    the end)."""
+    from deeplearning4j_tpu_torch.nn.listeners import IterationListener
+    kept = []
+
+    class Keep(IterationListener):
+        def iteration_done(self, model, iteration):
+            kept.append(model._score)
+    net.add_listener(Keep())
+    return kept
+
+
+def _zip_round_trip(torch, net) -> dict:
+    """``net`` written as a zip, restored on its device and written again:
+    the entries, byte for byte, and the params."""
+    import zipfile
+    from deeplearning4j_tpu_torch.nn import serialization as ser
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp) / "a.zip", Path(tmp) / "b.zip"
+        ser.write_model(net, a)
+        back = ser.load_model(a, device=net.device)
+        ser.write_model(back, b)
+        with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+            same = {n: za.read(n) == zb.read(n) for n in za.namelist()}
+            same["names"] = za.namelist() == zb.namelist()
+        return {"entries_equal": same, "bytes": a.stat().st_size,
+                "params_equal": bool(torch.equal(back.params(),
+                                                 net.params()))}
+
+
+@_tf32_off
+def phase_pretrain_vae(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    pixels = stroke_pixels(torch, "cuda", SEED + 23,
+                           VAE_BATCH * VAE_BATCHES)
+    batches = [DataSet(x, x) for x in pixels.split(VAE_BATCH)]
+    n_batches = len(batches)
+    epochs = -(-VAE_STEPS // n_batches)
+    net = vae_example_net("cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    layer = net.layers[0]
+    x0 = batches[0].features
+    eps_gen = torch.Generator().manual_seed(SEED + 1)
+    eps0 = torch.randn((1, VAE_BATCH, 2), generator=eps_gen)
+    with torch.no_grad():
+        before = float(layer.pretrain_loss(net.net_params[0], x0,
+                                           {"eps": eps0.cuda()}))
+    kept = _scores(net)
+    _zero_counts(ck)                                   # main path starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(ListDataSetIterator(batches), epochs=epochs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _kernel_counts(ck)                      # main path ends
+    scores = [float(s) for s in kept]
+    with torch.no_grad():
+        after = float(layer.pretrain_loss(net.net_params[0], x0,
+                                          {"eps": eps0.cuda()}))
+    # one step's gradients, card against CPU, the same params, x and eps
+    cpu = {k: v.detach().cpu() for k, v in net.net_params[0].items()}
+    x1 = batches[1].features.cpu()
+    eps1 = torch.randn((1, VAE_BATCH, 2), generator=eps_gen)
+
+    def grads(params, x, eps):
+        lp = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+        loss = layer.pretrain_loss(lp, x, {"eps": eps})
+        return dict(zip(lp, torch.autograd.grad(loss, list(lp.values()))))
+    g_card = grads(net.net_params[0], x1.cuda(), eps1.cuda())
+    g_cpu = grads(cpu, x1, eps1)
+    eps4 = torch.randn((4, VAE_BATCH, 2), generator=eps_gen)
+    z = torch.linspace(-2.0, 2.0, 8)
+    grid = torch.stack(torch.meshgrid(z, z, indexing="ij"), -1).reshape(-1, 2)
+    with torch.no_grad():
+        lp_card = layer.reconstruction_log_probability(
+            net.net_params[0], x1.cuda(), noise={"eps": eps4.cuda()})
+        lp_cpu = layer.reconstruction_log_probability(
+            cpu, x1, noise={"eps": eps4})
+        gen_card = layer.generate_at_mean_given_z(net.net_params[0], grid)
+        gen_cpu = layer.generate_at_mean_given_z(cpu, grid)
+    res = {"batch": VAE_BATCH, "steps": len(scores), "seconds": dt,
+           "ms_per_step": dt / max(1, len(scores)) * 1e3,
+           "samples_per_s": len(scores) * VAE_BATCH / dt,
+           "neg_elbo_first10": float(np.mean(scores[:10])),
+           "neg_elbo_last10": float(np.mean(scores[-10:])),
+           "fixed_batch_loss": {"before": before, "after": after},
+           "grad_rule_worst": _rule_errs(torch, g_card, g_cpu),
+           "log_prob_rule_worst": _rule_errs(torch, {"lp": lp_card},
+                                             {"lp": lp_cpu}),
+           "generate_rule_worst": _rule_errs(torch, {"g": gen_card},
+                                             {"g": gen_cpu}),
+           "log_prob_mean": float(lp_card.mean()),
+           "generated": list(gen_card.shape),
+           "zip": _zip_round_trip(torch, net), "launches": launches,
+           "rule": "RTOL |y_cpu| + ATOL max|y_cpu| (worst <= 1)"}
+    emit("pretrain_vae", **res)
+    if not (len(scores) == epochs * n_batches >= VAE_STEPS
+            and all(np.isfinite(scores))
+            and res["neg_elbo_last10"] < res["neg_elbo_first10"]
+            and after < before and res["grad_rule_worst"] <= 1.0
+            and res["log_prob_rule_worst"] <= 1.0
+            and res["generate_rule_worst"] <= 1.0
+            and bool(torch.isfinite(lp_card).all())
+            and res["generated"] == [64, 784]
+            and all(res["zip"]["entries_equal"].values())
+            and res["zip"]["params_equal"] and launches == _want(ck)):
+        raise AssertionError(f"pretrain_vae: {res}")
+    return res
+
+
+def dbn_example_net(device):
+    """dl4j-examples 0.8 DeepAutoEncoderExample's network."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_pretrain import RBM
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    sizes = list(DBN_SIZES) + list(DBN_SIZES[-2:0:-1])
+    b = (NeuralNetConfiguration.builder().seed(SEED).learning_rate(0.1)
+         .updater("sgd").list())
+    for n_in, n_out in zip(sizes, sizes[1:]):
+        b.layer(RBM(n_in=n_in, n_out=n_out, hidden_unit="binary",
+                    visible_unit="binary", k=1))
+    b.layer(OutputLayer(n_in=sizes[-1], n_out=DBN_SIZES[0],
+                        activation="sigmoid", loss="mse"))
+    return MultiLayerNetwork(b.build(), device=device)
+
+
+@_tf32_off
+def phase_pretrain_dbn(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.solvers import Solver
+    pixels = stroke_pixels(torch, "cuda", SEED + 24, DBN_BATCH * DBN_BATCHES)
+    batches = [DataSet(x, x) for x in pixels.split(DBN_BATCH)]
+    net = dbn_example_net("cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    rbm = net.layers[0]
+    x0 = batches[0].features
+    order = torch.argsort(torch.rand(
+        x0.shape, generator=torch.Generator().manual_seed(SEED)), 1)
+    shuffled = torch.gather(x0, 1, order.to(x0.device))
+
+    def stats():
+        """The first RBM's reconstruction error, and the data's mean free
+        energy less that of the same pixels shuffled within each image."""
+        with torch.no_grad():
+            p = net.net_params[0]
+            return (rbm.reconstruction_error(p, x0),
+                    float(rbm.free_energy(p, x0).mean()
+                          - rbm.free_energy(p, shuffled).mean()))
+    err0, fe0 = stats()
+    _zero_counts(ck)                                   # main path starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    err1, fe1 = stats()
+    t1 = time.perf_counter()
+    for d in batches[:DBN_FIT_STEPS]:
+        net.fit(d)
+    fit_score = net.score()
+    fit_s = time.perf_counter() - t1
+    snapshot = net.params().detach().cpu()
+    lgd = Solver("LINE_GRADIENT_DESCENT", max_iterations=DBN_LGD_ITERATIONS)
+    t2 = time.perf_counter()
+    final = lgd.optimize(net, batches[0])
+    lgd_s = time.perf_counter() - t2
+    launches = _kernel_counts(ck)                      # main path ends
+    hist = lgd.optimizer.score_history
+    cpu = dbn_example_net("cpu").init()
+    cpu.set_params(snapshot)
+    first = Solver("LINE_GRADIENT_DESCENT", max_iterations=1)
+    first.optimize(cpu, DataSet(x0.cpu(), x0.cpu()))
+    cpu_first = first.optimizer.score_history[0]
+    res = {"layers": len(net.layers), "params": net.num_params(),
+           "batch": DBN_BATCH, "pretrain_steps": DBN_BATCHES * 9,
+           "pretrain_seconds": pretrain_s, "fit_steps": DBN_FIT_STEPS,
+           "fit_seconds": fit_s, "fit_score": fit_score,
+           "rbm0": {"reconstruction_error": [err0, err1],
+                    "free_energy_data_less_shuffled": [fe0, fe1]},
+           "lgd": {"iterations": len(hist), "scores": hist, "final": final,
+                   "seconds": lgd_s, "cpu_first": cpu_first,
+                   "first_rel_diff": abs(hist[0] - cpu_first)
+                   / abs(cpu_first)},
+           "launches": launches}
+    emit("pretrain_dbn", **res)
+    if not (err1 < err0 and fe1 < fe0 and np.isfinite(fit_score)
+            and len(hist) >= 2 and hist[-1] < hist[0]
+            and all(b <= a + 1e-6 for a, b in zip(hist, hist[1:]))
+            and res["lgd"]["first_rel_diff"] <= STEP_RTOL
+            and launches == _want(ck)):
+        raise AssertionError(f"pretrain_dbn: {res}")
+    return res
+
+
+def center_loss_lenet(device):
+    """LeNet (LenetMnistExample's Nesterovs) with a centre-loss head."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ConvolutionLayer, DenseLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.conf.layers_pretrain import (
+        CenterLossOutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(12345).learning_rate(0.01)
+            .updater("nesterovs").weight_init("xavier").list()
+            .layer(ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                    activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max"))
+            .layer(ConvolutionLayer(n_out=50, kernel=(5, 5),
+                                    activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max"))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(CenterLossOutputLayer(n_out=10, activation="softmax",
+                                         loss="mcxent", alpha=CENTER_ALPHA,
+                                         lambda_=CENTER_LAMBDA))
+            .set_input_type(InputType.convolutional(28, 28, 1))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+@contextlib.contextmanager
+def _plain_conv_chain(ck):
+    """Every conv on the dense chain (cuDNN conv, bias, activation) with
+    TF32 off: the conv kernel's plain version inside the network's own
+    step."""
+    supported = ck.conv_fused_supported
+    ck.conv_fused_supported = lambda *a, **k: False
+    try:
+        with ck.full_f32_convs():
+            yield
+    finally:
+        ck.conv_fused_supported = supported
+
+
+def _center_distance(torch, net, x, y) -> float:
+    """Sum over the classes of x of the distance from the class's centre to
+    the mean of its features (the output layer's input)."""
+    with torch.no_grad():
+        acts = net.feed_forward(x)
+        feats = acts[-2]
+        labels = torch.as_tensor(y).argmax(1).to(feats.device)
+        centres = net.net_params[-1]["cL"]
+        return float(sum(torch.linalg.vector_norm(
+            centres[c] - feats[labels == c].mean(0))
+            for c in labels.unique()))
+
+
+@_tf32_off
+def phase_center_loss_lenet(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    rng = np.random.default_rng(SEED + 21)
+    data = _mnist_like(rng, CENTER_STEPS, LENET_BATCH)
+    net = center_loss_lenet("cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    x, y = data[0].features, data[0].labels
+    dist0 = _center_distance(torch, net, x, y)
+    fallbacks = _conv_fallbacks()
+    _zero_counts(ck)                                   # main path starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(data[:-1]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    before = net.clone()
+    net.fit(data[-1])
+    launches = _kernel_counts(ck)                      # main path ends
+    fallbacks = _conv_fallbacks() - fallbacks
+    kernel_score = net.score()
+    params0 = [{k: v.clone() for k, v in lp.items()}
+               for lp in before.net_params]
+    with _plain_conv_chain(ck):
+        before.fit(data[-1])
+    plain_score = before.score()
+    errs = _update_errs(torch, net, before.net_params, params0)
+    dist1 = _center_distance(torch, net, x, y)
+    res = {"batch": LENET_BATCH, "steps": CENTER_STEPS, "seconds": dt,
+           "samples_per_s": (CENTER_STEPS - 1) * LENET_BATCH / dt,
+           "launches": launches, "conv_fallbacks": fallbacks,
+           "plain_step": {"kernel_score": kernel_score,
+                          "plain_score": plain_score,
+                          "score_rel_diff": abs(kernel_score - plain_score)
+                          / abs(plain_score),
+                          "max_update_rel_err": max(errs.values()),
+                          "update_rel_err": errs, "score_rtol": STEP_RTOL,
+                          "update_rtol": STEP_UPDATE_RTOL},
+           "centre_to_class_mean": [dist0, dist1]}
+    emit("center_loss_lenet", **res)
+    if not (launches == _want(ck, conv2d_bias_act=2 * CENTER_STEPS)
+            and fallbacks == 0 and np.isfinite(kernel_score)
+            and res["plain_step"]["score_rel_diff"] <= STEP_RTOL
+            and res["plain_step"]["max_update_rel_err"] <= STEP_UPDATE_RTOL
+            and dist1 < dist0):
+        raise AssertionError(f"center_loss_lenet: {res}")
+    return res
+
+
+def _plain_backprop(torch, ck, net, params, x, signal, outputs=None):
+    """Autograd through ``net``'s plain forward (the conv's plain version,
+    TF32 off; no dropout) of <pre-activation of the output layer,
+    ``signal``> -> (gradients of every param and of x, near ties).  With
+    ``outputs`` (the kernel path's layer outputs, :class:`_RecordedOutputs`)
+    each relu and max pool decides as the kernel path's backward does
+    (:func:`_pin`): a max pool by the kernel path's argmax, a dense relu by
+    its mask, and a conv's relu by the plain conv of the kernel path's
+    input (the conv kernel's backward differentiates that recompute)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ActivationLayer, ConvolutionLayer, DenseLayer, SubsamplingLayer)
+    relu = ActivationLayer(activation="relu")
+    leaves = [{k: v.detach().clone().requires_grad_() for k, v in lp.items()}
+              for lp in params]
+    h = x = x.detach().clone().requires_grad_()
+    ties, n = [], len(net.layers)
+    with ck.full_f32_convs(), torch.enable_grad():
+        for i, layer in enumerate(net.layers):
+            if i in net.conf.preprocessors:
+                h, _ = net.conf.preprocessors[i](h)
+            p = leaves[i]
+            if isinstance(layer, ConvolutionLayer):
+                conv = functools.partial(
+                    ck.conv2d_bias_act_reference, pad=tuple(layer.padding),
+                    border_mode=layer.convolution_mode)
+                if outputs is None or layer.activation != "relu":
+                    h = conv(h, p["W"], p["b"], activation=layer.activation)
+                    continue
+                with torch.no_grad():
+                    recomputed = conv(outputs[i - 1] if i else x, p["W"],
+                                      p["b"], activation="relu")
+                h = _pin(torch, relu, i, conv(h, p["W"], p["b"]),
+                         recomputed, ties)
+                continue
+            if isinstance(layer, DenseLayer):
+                h = torch.addmm(p["b"], h, p["W"])
+            if i == n - 1:
+                break
+            if isinstance(layer, SubsamplingLayer):
+                h = (_pin(torch, layer, i, h, outputs[i - 1], ties)
+                     if outputs is not None else layer.forward(p, {}, h)[0])
+            elif outputs is not None and layer.activation == "relu":
+                h = _pin(torch, relu, i, h, outputs[i], ties)
+            else:
+                h = layer._act(h)
+        flat = [v for lp in leaves for v in lp.values()] + [x]
+        got = torch.autograd.grad((h * signal).sum(), flat)
+    return list(got), ties
+
+
+@_tf32_off
+def phase_external_gradients_vgg16_224(torch, ck) -> dict:
+    from deeplearning4j_tpu_torch.models import vgg16
+    net = vgg16(EXT_HW, EXT_HW, dropout=0.5, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 22)
+    x32, _ = _random_batch(rng, EXT_BATCH, (3, EXT_HW, EXT_HW), 1000)
+    eps = rng.normal(size=(EXT_BATCH, 1000)).astype(np.float32)
+    x, y = _random_batch(rng, VGG_BATCH, (3, EXT_HW, EXT_HW), 1000)
+    fallbacks = _conv_fallbacks()
+    _zero_counts(ck)                                   # main path starts
+    grads, dx = net.backprop_gradient(x32, eps)
+    counts = {"backprop_gradient": _kernel_counts(ck)}
+    # the external loop against one fit step from the same state
+    fit = net.clone()
+    fit._generator.set_state(net._generator.get_state())
+    state = net._generator.get_state()
+    out = net.feed_forward(x, train=True)[-1]
+    net._generator.set_state(state)
+    yd = torch.from_numpy(y).cuda()
+    ext_loss = float(-(yd * torch.log(out)).sum(1).mean())
+    eps_loop = -yd / (out * VGG_BATCH)
+    params0 = [{k: v.clone() for k, v in lp.items()} for lp in net.net_params]
+    g_loop, _ = net.backprop_gradient(x, eps_loop, train=True)
+    net.apply_gradients(g_loop)
+    counts["external_loop"] = {k: v - counts["backprop_gradient"][k]
+                               for k, v in _kernel_counts(ck).items()}
+    mark = _kernel_counts(ck)
+    fit.fit(x, y)
+    launches = _kernel_counts(ck)                      # main path ends
+    counts["fit_step"] = {k: launches[k] - mark[k] for k in launches}
+    fallbacks = _conv_fallbacks() - fallbacks
+    fit_score = fit.score()
+    errs = _update_errs(torch, net, fit.net_params, params0)
+    same_generator = bool(torch.equal(net._generator.get_state(),
+                                      fit._generator.get_state()))
+    del fit, g_loop, out, eps_loop
+    # backprop_gradient against autograd through the plain conv chain, from
+    # the same params and the kernel path's softmax backward at its
+    # pre-activation (autograd's, bit for bit what backprop_gradient takes),
+    # with the kernel path's max-pool argmax and dense relu masks (a near
+    # tie decided the other way reroutes a gradient whole)
+    net.net_params = params0
+    x32_d = torch.from_numpy(x32).cuda()
+    with torch.no_grad(), _RecordedOutputs(net) as rec:
+        pre = net._forward_to_preout(params0, net.net_state, x32_d, None,
+                                     False)[0]
+    pre = pre.detach().requires_grad_()
+    with torch.enable_grad():
+        signal, = torch.autograd.grad(net.layers[-1]._act(pre), pre,
+                                      torch.from_numpy(eps).cuda())
+    want, ties = _plain_backprop(torch, ck, net, params0, x32_d, signal,
+                                 rec.outputs)
+    unpinned, _ = _plain_backprop(torch, ck, net, params0, x32_d, signal)
+    del rec
+    got = [v for g in grads for v in g.values()] + [dx]
+    names = [f"{i}_{k}" for i, g in enumerate(grads) for k in g] + ["dx"]
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    grad_errs = dict(zip(names, (rel(g, w) for g, w in zip(got, want))))
+    unpinned_errs = [rel(g, w) for g, w in zip(got, unpinned)]
+    tie_gap = max(t["max_rel_gap"] for t in ties)
+    res = {"backprop_batch": EXT_BATCH, "loop_batch": VGG_BATCH,
+           "launches": launches, "launches_by_part": counts,
+           "conv_fallbacks": fallbacks,
+           "backprop_vs_plain": {"max_rel_err": max(grad_errs.values()),
+                                 "rel_err": grad_errs,
+                                 "rtol": STEP_UPDATE_RTOL,
+                                 "ties": ties, "max_tie_gap": tie_gap,
+                                 "tie_rtol": TIE_RTOL,
+                                 "unpinned_max_rel_err":
+                                     max(unpinned_errs)},
+           "loop_vs_fit": {"loss": ext_loss, "fit_score": fit_score,
+                           "score_rel_diff": abs(ext_loss - fit_score)
+                           / abs(fit_score),
+                           "max_update_rel_err": max(errs.values()),
+                           "update_rel_err": errs,
+                           "same_generator_after": same_generator,
+                           "score_rtol": STEP_RTOL,
+                           "update_rtol": STEP_UPDATE_RTOL}}
+    emit("external_gradients_vgg16_224", **res)
+    want_counts = {
+        "backprop_gradient": _want(ck, conv2d_bias_act=13),
+        "external_loop": _want(ck, conv2d_bias_act=26, threshold_dropout=6),
+        "fit_step": _want(ck, conv2d_bias_act=13, softmax_xent=1,
+                          threshold_dropout=4)}
+    if not (counts == want_counts and fallbacks == 0 and same_generator
+            and max(grad_errs.values()) <= STEP_UPDATE_RTOL
+            and tie_gap <= TIE_RTOL
+            and res["loop_vs_fit"]["score_rel_diff"] <= STEP_RTOL
+            and max(errs.values()) <= STEP_UPDATE_RTOL):
+        raise AssertionError(f"external_gradients_vgg16_224: {res}")
+    return res
+
+
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
             train_att, output_att, sample_att, textcnn, train_tc,
-            transfer_paths, bf16, seq_bf16) -> dict:
+            transfer_paths, bf16, seq_bf16, engine_paths) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -6875,7 +7638,8 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "sample_attention": sample_att["launches"],
              "train_textcnn": train_tc["launches"],
              "evaluate_textcnn": train_tc["evaluate"]["launches"],
-             **transfer_paths, **bf16["paths"], **seq_bf16["paths"]}
+             **transfer_paths, **bf16["paths"], **seq_bf16["paths"],
+             **engine_paths}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -7145,6 +7909,18 @@ def main() -> int:
     train_tc = phase_train_textcnn(torch, ck, w2v, sents, topic_of)
     phase_cluster_tsne(torch, w2v, topic_of)
     phase_nearest_neighbors(torch, w2v)
+    del w2v
+    torch.cuda.empty_cache()
+    fused = phase_fused_lenet(torch, ck)
+    vae = phase_pretrain_vae(torch, ck)
+    dbn = phase_pretrain_dbn(torch, ck)
+    center = phase_center_loss_lenet(torch, ck)
+    external = phase_external_gradients_vgg16_224(torch, ck)
+    engine_paths = {"fused_lenet": fused["launches"],
+                    "pretrain_vae": vae["launches"],
+                    "pretrain_dbn": dbn["launches"],
+                    "center_loss_lenet": center["launches"],
+                    "external_gradients_vgg16_224": external["launches"]}
 
     print(json.dumps(summary(records + resnet_records, serve_launches, xd,
                              train_vgg, train_lenet, lenet_pipe, gateway_fit,
@@ -7152,7 +7928,7 @@ def main() -> int:
                              serve_resnet, train_resnet, functional, lstm,
                              train_char, sample_char, flash, train_att,
                              output_att, sample_att, textcnn, train_tc,
-                             transfer_paths, bf16, seq_bf16)))
+                             transfer_paths, bf16, seq_bf16, engine_paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,7 +15,10 @@ family ``GravesLSTM``, ``GravesBidirectionalLSTM``, ``RnnOutputLayer`` and
 ``LastTimeStepLayer`` (sequences [N, T, C], masks [N, T]); and
 ``SelfAttentionLayer``, whose core goes through ``parallel/sequence``;
 and ``FrozenLayerConf``, the transfer-learning wrapper (``unfrozen``
-gives the layer it wraps, for type dispatch).
+gives the layer it wraps, for type dispatch).  ``nn/conf/layers_pretrain.py``
+registers the pretrain layers (``AutoEncoder``, ``RBM``,
+``VariationalAutoencoder``), ``CenterLossOutputLayer`` and the 1D conv
+family.
 ``initialize`` returns ``(params, output type)`` and ``initial_state``
 the layer's starting state (BatchNormalization's running ``mean`` and
 ``var``; empty for the others), which the JAX package's ``initialize``
@@ -88,6 +91,11 @@ class Layer:
 
     def has_params(self) -> bool:
         return True
+
+    def is_pretrain_layer(self) -> bool:
+        """Whether ``pretrain`` trains this layer unsupervised (the layers
+        of ``nn/conf/layers_pretrain.py``)."""
+        return False
 
     def initialize(self, generator: torch.Generator, input_type: InputType,
                    device: torch.device) -> Tuple[dict, InputType]:

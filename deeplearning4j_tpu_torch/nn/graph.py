@@ -37,10 +37,14 @@ are ``MultiLayerNetwork``'s.  A vertex whose layer is a
 the step asks autograd for no gradient of its params and updates none,
 so a frozen stack records no backward at all.
 
+``fit(fused_steps=K)``, ``pretrain`` / ``pretrain_layer`` (a layer vertex
+on the activations of its upstream subgraph) and ``backprop_gradient`` /
+``apply_gradients`` are ``MultiLayerNetwork``'s over the vertex dicts.  A
+``CenterLossOutputLayer`` output vertex raises, as in the JAX package.
+
 Not ported yet: truncated BPTT and ``rnn_time_step`` of a graph,
-``fit(fused_steps=K)``, ``pretrain``, ``backprop_gradient`` /
-``apply_gradients``, ``quantize_inference``, gradient checkpointing and
-sharding.
+``quantize_inference``, gradient checkpointing, sharding and distributed
+training.
 """
 
 from __future__ import annotations
@@ -68,7 +72,9 @@ from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.listeners import IterationListener
 from deeplearning4j_tpu_torch.nn.multilayer import (
     BIAS_KEYS, WEIGHT_KEYS, _clone, _detach, _tree_fill, _tree_leaves,
-    _updater_for, fit_epochs, render_table)
+    _updater_for, as_iterator, fit_epochs, fit_group, fused_group_size,
+    grad_like, grads_or_zeros, pretrain_gradients, reg_gradients,
+    render_table)
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import dtypes as dtype_ops
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
@@ -106,6 +112,8 @@ class ComputationGraph:
         self._score = float("nan")
         self._generator = torch.Generator().manual_seed(
             int(conf.global_conf.seed))
+        self._noise_gen: Optional[torch.Generator] = None
+        self._fused_before = False
         # the loss heads, by name, in the order of conf.network_outputs
         self.output_layers = {}
         for n in conf.network_outputs:
@@ -216,7 +224,7 @@ class ComputationGraph:
     def _forward_all(self, params, state, inputs: Dict[str, torch.Tensor],
                      masks: Dict[str, Optional[torch.Tensor]], train: bool,
                      seeds=None, preout_for: Sequence[str] = (),
-                     keep_all: bool = False):
+                     keep_all: bool = False, only=None):
         """Every vertex in topological order -> (activations of the
         network outputs, pre-activations of the vertices in
         ``preout_for``, new states, output masks).  A vertex in
@@ -226,7 +234,7 @@ class ComputationGraph:
         ``seeds[vi]``.  An activation is dropped once its last reader has
         run, so a training step holds only what autograd saves; under
         ``keep_all`` every activation is kept and returned, the inputs'
-        included."""
+        included.  ``only`` (a set of names) runs those vertices alone."""
         acts = dict(inputs)
         out_masks = dict(masks)
         new_states: Dict[str, dict] = {}
@@ -236,6 +244,8 @@ class ComputationGraph:
         if keep_all:
             keep |= set(acts) | set(self.order)
         for vi, name in enumerate(self.order):
+            if only is not None and name not in only:
+                continue
             v = self.conf.vertices[name]
             reads = self._reads(name)
             ins = [acts[i] for i in reads]
@@ -386,7 +396,8 @@ class ComputationGraph:
         self.listeners.append(listener)
         return self
 
-    def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, data, labels=None, epochs: int = 1, fused_steps: int = 1
+            ) -> "ComputationGraph":
         """fit(MultiDataSet | DataSet | iterator | (features, labels))
         (ref: ComputationGraph.fit :828): ``epochs`` passes, one training
         step per batch.  An iterator (of DataSets or MultiDataSets) that is
@@ -396,8 +407,9 @@ class ComputationGraph:
         ``pipeline_staging_depth`` transformed batches waiting, unless
         ``pipeline_workers`` is 0; each batch is staged onto the graph's
         device as the step takes it, and the pipeline is closed on
-        return.  Listeners and ``fault_tolerance(resume=True)`` as in
-        ``MultiLayerNetwork.fit``."""
+        return.  Listeners, ``fault_tolerance(resume=True)`` and
+        ``fused_steps`` (over an iterator) as in ``MultiLayerNetwork.fit``
+        (JAX :343-366)."""
         if labels is not None:
             data = MultiDataSet([np.asarray(data)], [np.asarray(labels)])
         if isinstance(data, DataSet):
@@ -435,7 +447,10 @@ class ComputationGraph:
         try:
             fit_epochs(self, epochs, skip,
                        reset if callable(reset) else lambda: None, batches,
-                       lambda item: fit_batch(_as_multi(item)))
+                       lambda item: fit_batch(_as_multi(item)),
+                       fused_group_size(self.conf, fused_steps),
+                       lambda group: self._fit_group(
+                           [_as_multi(m) for m in group]))
         finally:
             if isinstance(it, AsyncDataSetIterator):
                 it.close()
@@ -447,10 +462,20 @@ class ComputationGraph:
         return torch.randint(0, 1 << 32, (len(self.order), 2),
                              generator=self._generator, dtype=torch.int64)
 
-    def _fit_batch(self, mds, seeds=None) -> None:
+    def _fit_group(self, group: List[MultiDataSet]) -> None:
+        def masks(ms):
+            return None if ms is None else tuple(m is None for m in ms)
+        fit_group(self, group, lambda m: (
+            tuple(tuple(f.shape) for f in m.features),
+            tuple(tuple(y.shape) for y in m.labels),
+            masks(m.features_masks), masks(m.labels_masks)))
+
+    def _fit_batch(self, mds, seeds=None, notify: bool = True) -> None:
         """One training step on ``mds`` (a MultiDataSet or DataSet);
         ``seeds`` gives its dropout seed words ([n_vertices, 2]), else
-        they are drawn from the graph's generator."""
+        they are drawn from the graph's generator (on the host: no device
+        synchronisation).  ``notify`` False leaves the listeners to the
+        caller."""
         mds = _as_multi(mds)
         if self.conf.backprop_type == "truncatedbptt" and \
                 any(np.ndim(f) == 3 for f in mds.features):
@@ -477,8 +502,9 @@ class ComputationGraph:
         self.rnn_clear_previous_state()
         self._score = score
         self.iteration += 1
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration)
+        if notify:
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration)
 
     def _grad_step(self, xs: Dict[str, torch.Tensor], ys, fmasks, lmasks,
                    seeds):
@@ -505,7 +531,7 @@ class ComputationGraph:
             score = self._score_of(params, preouts, out_masks, ys, lmasks)
             if not self.conf.global_conf.minimize:
                 score = -score
-            flat = iter(torch.autograd.grad(
+            flat = iter(grads_or_zeros(
                 score, [v for lp in params.values() for v in lp.values()
                         if v.requires_grad]))
         grads = {n: {k: next(flat) for k, v in lp.items() if v.requires_grad}
@@ -545,6 +571,124 @@ class ComputationGraph:
                 gi, self.opt_states[name], lr, it)
             for k, u in upd.items():
                 self.net_params[name][k].sub_(u)
+
+    # ---- layerwise pretraining ----
+    def pretrain(self, data, epochs: int = 1) -> "ComputationGraph":
+        """Pretrain every layer vertex whose layer ``is_pretrain_layer()``,
+        in topological order (ref: ComputationGraph.pretrain :549-561)."""
+        for name in self.order:
+            v = self.conf.vertices[name]
+            if isinstance(v, LayerVertex) and \
+                    v.layer_conf().is_pretrain_layer():
+                self.pretrain_layer(name, data, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, name: str, data, epochs: int = 1
+                       ) -> "ComputationGraph":
+        """Unsupervised fit of layer vertex ``name`` on the activation of
+        its (first) input, from its upstream subgraph in inference mode
+        (ref: ComputationGraph.pretrainLayer; JAX :1306-1373): one step a
+        batch (an array, a DataSet, a MultiDataSet or an iterator of them;
+        only the features are read), as ``MultiLayerNetwork``'s."""
+        if not self.conf.vertices[name].layer_conf().is_pretrain_layer():
+            return self
+        if self.net_params is None:
+            self.init()
+        it = as_iterator(data)
+        for _ in range(epochs):
+            it.reset()
+            while it.has_next():
+                self._pretrain_step(name, _as_multi(it.next()).features)
+        return self
+
+    def _upstream(self, name: str) -> set:
+        """The vertices ``name`` depends on (itself excluded)."""
+        seen, todo = set(), list(self._reads(name))
+        while todo:
+            n = todo.pop()
+            if n in seen or n in self.conf.network_inputs:
+                continue
+            seen.add(n)
+            todo.extend(self._reads(n))
+        return seen
+
+    def _pretrain_step(self, name: str, features, noise=None) -> None:
+        """One pretrain step of vertex ``name``: features from its upstream
+        subgraph (no autograd), its layer's ``pretrain_loss`` on ``noise``
+        (else drawn from the graph's device generator) plus its l1/l2,
+        negated unless minimizing, then the vertex's update."""
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        with torch.no_grad():
+            acts, _, _, _ = self._forward_all(
+                self.net_params, _strip_rnn(self.net_state),
+                self._inputs(features), {}, False, keep_all=True,
+                only=self._upstream(name))
+        self._score, grads = pretrain_gradients(
+            self, self.conf.vertices[name].layer_conf(),
+            self.net_params[name], acts[self.conf.vertex_inputs[name][0]],
+            noise)
+        self._apply_updates({name: grads}, self.iteration)
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
+
+    # ---- external gradients ----
+    def backprop_gradient(self, inputs, epsilons, masks=None,
+                          train: bool = False):
+        """Vertex param gradients and dL/d(input) for external errors
+        ``epsilons`` = dL/d(output i), ordered as ``network_outputs``;
+        ``inputs`` as ``network_inputs`` (JAX :1375-1425) -> (grads like
+        ``net_params``, a tuple of input gradients, None for integer
+        inputs).  The forward is ``output()``'s under the precision
+        policy; ``train`` as in ``MultiLayerNetwork.backprop_gradient``."""
+        if self.net_params is None:
+            self.init()
+        policy = self._policy()
+        params = {n: {k: v.detach().requires_grad_() for k, v in lp.items()}
+                  for n, lp in self.net_params.items()}
+        xs = self._inputs(inputs)
+        xs = {n: (x.detach().requires_grad_() if torch.is_floating_point(x)
+                  else x) for n, x in xs.items()}
+        md = (dict(zip(self.conf.network_inputs, self._masks(masks)))
+              if masks is not None else {})
+        seeds = self._draw_seeds().tolist() if train else None
+        with torch.enable_grad():
+            pc, xc, mc = policy.cast_to_compute((params, xs, md))
+            outs, _, new_states, _ = self._forward_all(
+                pc, _strip_rnn(self.net_state), xc, mc, train, seeds)
+            outs = [outs[n] for n in self.conf.network_outputs]
+            eps = [torch.as_tensor(e).to(device=o.device, dtype=o.dtype)
+                   for e, o in zip(epsilons, outs)]
+            leaves = [v for lp in params.values() for v in lp.values()]
+            x_leaves = [x for x in xs.values() if x.requires_grad]
+            flat = iter(grads_or_zeros(outs, leaves + x_leaves, eps))
+        grads = {n: {k: next(flat) for k in lp} for n, lp in params.items()}
+        dxs = tuple(next(flat) if xs[n].requires_grad else None
+                    for n in self.conf.network_inputs)
+        if train:
+            self.net_state = _strip_rnn(_detach(
+                policy.cast_to_param(new_states)))
+        return grads, dxs
+
+    def apply_gradients(self, grads) -> "ComputationGraph":
+        """External vertex gradients through the updaters (JAX
+        :1427-1454): l1/l2 gradient added, negated under
+        ``minimize=False``, then each vertex's normalization, LR schedule
+        and learning rule, frozen vertices skipped; ``iteration``
+        advances."""
+        if self.net_params is None:
+            self.init()
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        reg = reg_gradients(self._reg_penalty, self.net_params)
+        sign = 1.0 if self.conf.global_conf.minimize else -1.0
+        total = {n: {k: sign * (grad_like(grads[n][k], r) + r)
+                     for k, r in rl.items() if k in grads.get(n, {})}
+                 for n, rl in reg.items()}
+        self._apply_updates(total, self.iteration)
+        self.iteration += 1
+        return self
 
     # ---- scores and evaluation ----
     def _inference_preouts(self, mds: MultiDataSet):

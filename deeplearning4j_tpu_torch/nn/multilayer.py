@@ -55,8 +55,18 @@ it had trained.  ``feed_forward``, ``clone``, ``summary``,
 ``param_table`` / ``get_param`` / ``set_param`` and ``get_layer_params``
 are the JAX package's.
 
-Not ported yet: ``fit(fused_steps=K)``, sharding and distributed
-training.
+``fit(fused_steps=K)`` trains K batches of one shape as a group whose
+steps the device runs back to back, the listeners once a group (the JAX
+package's scan fusion).  ``pretrain`` / ``pretrain_layer`` train the
+layers of ``nn/conf/layers_pretrain.py`` unsupervised, layer by layer, on
+the activations of the layers below; a ``CenterLossOutputLayer`` head is
+scored on its input features.  ``backprop_gradient`` /
+``apply_gradients`` let a caller own the loss: gradients for an external
+error on the output, then the updaters.  ``nn/gradientcheck.py`` and
+``nn/solvers.py`` work on these engines.
+
+Not ported yet: sharding, distributed training, ``quantize_inference``
+and gradient checkpointing.
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
     AsyncDataSetIterator, DataSetIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.nn import checkpoint as ckpt_mod
@@ -168,15 +178,129 @@ def _clone(tree):
     return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
+def layer_reg_penalty(layer: Layer, lp: dict):
+    """One layer's l1/l2 on its weights (``WEIGHT_KEYS``) and biases
+    (``BIAS_KEYS``); 0.0 when it has none (JAX ``_layer_reg_penalty``)."""
+    l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
+    l1b, l2b = layer.l1_bias or 0.0, layer.l2_bias or 0.0
+    total = 0.0
+    for k, v in lp.items():
+        a, b = ((l1b, l2b) if k in BIAS_KEYS
+                else (l1, l2) if k in WEIGHT_KEYS else (0.0, 0.0))
+        if a:
+            total = total + a * torch.sum(torch.abs(v))
+        if b:
+            total = total + 0.5 * b * torch.sum(v * v)
+    return total
+
+
+def reg_gradients(penalty_fn, params):
+    """The gradient of ``penalty_fn(params)`` (l1/l2) per entry and param,
+    zeros where the penalty does not reach: what ``apply_gradients`` adds
+    to external gradients.  ``params`` is a list or a dict of param
+    dicts, and so is the result."""
+    is_dict = isinstance(params, dict)
+    keys = list(params) if is_dict else list(range(len(params)))
+    leaves = {i: {k: v.detach().requires_grad_() for k, v in params[i].items()}
+              for i in keys}
+    with torch.enable_grad():
+        pen = penalty_fn(leaves if is_dict else [leaves[i] for i in keys])
+    flat = [v for lp in leaves.values() for v in lp.values()]
+    got = iter(grads_or_zeros(pen, flat) if isinstance(pen, torch.Tensor)
+               else [torch.zeros_like(v) for v in flat])
+    out = {i: {k: next(got) for k in lp} for i, lp in leaves.items()}
+    return out if is_dict else [out[i] for i in keys]
+
+
+def grads_or_zeros(outputs, leaves, grad_outputs=None) -> List[torch.Tensor]:
+    """d outputs / d leaves (weighted by ``grad_outputs``), zeros for a
+    leaf the outputs do not reach (a pretrain layer's visible bias or
+    decoder in a supervised step, the centres in ``output()``), as
+    ``jax.grad`` and ``jax.vjp`` give them."""
+    got = torch.autograd.grad(outputs, leaves, grad_outputs=grad_outputs,
+                              allow_unused=True)
+    return [torch.zeros_like(v) if g is None else g
+            for g, v in zip(got, leaves)]
+
+
+def grad_like(g, ref: torch.Tensor) -> torch.Tensor:
+    """A caller's gradient (a tensor or an array) as a tensor on
+    ``ref``'s device and in its dtype."""
+    if not isinstance(g, torch.Tensor):
+        g = torch.from_numpy(np.array(g))
+    return g.to(device=ref.device, dtype=ref.dtype)
+
+
+def fused_group_size(conf, fused_steps: int) -> int:
+    """K of ``fit(fused_steps=K)``: 1 (step by step) under truncated BPTT
+    and when ``iterations`` is above 1, as in the JAX package (:580-583)."""
+    if conf.backprop_type == "truncatedbptt" or \
+            conf.global_conf.iterations > 1:
+        return 1
+    return max(1, int(fused_steps))
+
+
+def fit_group(model, group, signature) -> None:
+    """One ``fused_steps`` group of either engine (JAX
+    ``_fit_fused_group``, multilayer :673-731, graph :538-616): batches of
+    one ``signature`` (shapes, mask presence) step back to back and the
+    listeners fire once, after the last, with the group's rows; a group of
+    mixed signatures runs step by step.  The model's first group ever runs
+    its first batch alone, as the JAX package's first launch does."""
+    if len({signature(b) for b in group}) != 1:
+        for b in group:
+            model._fit_batch(b)
+        return
+    if not model._fused_before:
+        model._fused_before = True
+        model._fit_batch(group[0])
+        group = group[1:]
+        if not group:
+            return
+    for b in group:
+        model._fit_batch(b, notify=False)
+    model.last_batch_size = sum(b.num_examples() for b in group)
+    for lst in model.listeners:
+        lst.iteration_done(model, model.iteration)
+
+
+def noise_generator(model) -> torch.Generator:
+    """The model's generator of pretraining noise, on its device, seeded
+    from the configuration at first use."""
+    if model._noise_gen is None:
+        model._noise_gen = torch.Generator(device=model.device).manual_seed(
+            int(model.conf.global_conf.seed))
+    return model._noise_gen
+
+
+def pretrain_gradients(model, layer, params: dict, feats, noise=None):
+    """The pretrain step's loss and gradients (JAX multilayer :922-945):
+    the layer's ``pretrain_loss`` on ``feats`` and ``noise`` (drawn from
+    :func:`noise_generator` when None) plus its l1/l2, negated unless
+    minimizing, differentiated for this layer's params alone."""
+    if noise is None:
+        noise = layer.draw_noise(feats, noise_generator(model))
+    lp = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = layer.pretrain_loss(lp, feats, noise) + \
+            layer_reg_penalty(layer, lp)
+        if not model.conf.global_conf.minimize:
+            loss = -loss
+        grads = dict(zip(lp, torch.autograd.grad(loss, list(lp.values()))))
+    return loss.detach(), grads
+
+
 def fit_epochs(model, epochs: int, skip: Tuple[int, int], reset, batches,
-               fit_batch) -> None:
+               fit_batch, fuse: int = 1, fit_group=None) -> None:
     """Both engines' epoch loop: ``epochs`` passes of ``fit_batch`` over
     ``batches()``, each after ``reset()``, inside the epoch hooks of the
     model's TrainingListeners.  ``skip`` (epochs, batches of the next
     epoch) were trained before a resume: those epochs are passed over and
     those batches consumed without training, so the stream stands where
-    an uninterrupted fit's would.  ``model.last_etl_time_ms`` gets the
-    host ms each batch took to come."""
+    an uninterrupted fit's would (counted in batches, whatever ``fuse``).
+    ``model.last_etl_time_ms`` gets the host ms each batch took to come.
+    With ``fuse`` K > 1, K consecutive batches go to ``fit_group`` together
+    and an epoch's ragged tail to ``fit_batch`` one by one."""
     skip_epochs, skip_batches = skip
     training = [l for l in model.listeners if isinstance(l, TrainingListener)]
     for ep in range(epochs):
@@ -190,16 +314,36 @@ def fit_epochs(model, epochs: int, skip: Tuple[int, int], reset, batches,
             lst.on_epoch_start(model)
         reset()
         t_etl = time.perf_counter()
+        pending = []
         for item in batches():
             if to_skip > 0:
                 to_skip -= 1
             else:
                 model.last_etl_time_ms = (time.perf_counter() - t_etl) * 1e3
-                fit_batch(item)
+                if fuse > 1:
+                    pending.append(item)
+                    if len(pending) == fuse:
+                        fit_group(pending)
+                        pending = []
+                else:
+                    fit_batch(item)
             t_etl = time.perf_counter()
+        for item in pending:
+            fit_batch(item)
         for lst in training:
             lst.on_epoch_end(model)
         model.epoch += 1
+
+
+def as_iterator(data):
+    """An iterator of batches from an iterator, a DataSet or MultiDataSet,
+    or features alone (an array or tensor, taken as the DataSet (x, x)):
+    what ``pretrain`` reads."""
+    if isinstance(data, (np.ndarray, torch.Tensor)):
+        data = DataSet(data, data)
+    if isinstance(data, (DataSet, MultiDataSet)):
+        data = ListDataSetIterator([data])
+    return data
 
 
 def _tree_fill(tree, leaves):
@@ -239,6 +383,11 @@ class MultiLayerNetwork:
         # the source of each step's dropout seed words
         self._generator = torch.Generator().manual_seed(
             int(conf.global_conf.seed))
+        # pretraining's noise, drawn on the network's device (made at the
+        # first pretrain step)
+        self._noise_gen: Optional[torch.Generator] = None
+        # whether fit(fused_steps=K) has run a group yet
+        self._fused_before = False
 
     def init(self, generator: Optional[torch.Generator] = None
              ) -> "MultiLayerNetwork":
@@ -331,7 +480,9 @@ class MultiLayerNetwork:
     def _forward_to_preout(self, params, state, x, mask, train: bool,
                            seeds=None, stateful_rnn: bool = False):
         """Forward to the output layer's PRE-activation (the stable fused
-        loss works on it) -> (preout, new states, mask)."""
+        loss works on it) -> (preout, new states, mask, features): the
+        features are the output layer's input, which a
+        ``CenterLossOutputLayer`` scores."""
         n = len(self.layers)
         x, new_states, mask = self._forward(params, state, x, mask, train,
                                             seeds, stateful_rnn, stop=n - 1)
@@ -344,7 +495,17 @@ class MultiLayerNetwork:
         new_states.append(state[-1])
         return (last.preoutput(last._maybe_drop_connect(params[-1], train,
                                                         seed), x),
-                new_states, mask)
+                new_states, mask, x)
+
+    def _per_example_loss(self, params, y, preout, feats, lm):
+        """The output layer's loss of each example; a layer that
+        ``requires_features_for_score`` (the centre-loss head) also gets
+        the features and its own params (JAX :348, :443, :1153)."""
+        last = self.layers[-1]
+        if getattr(last, "requires_features_for_score", False):
+            return last.compute_score_with_features(y, preout, feats,
+                                                    params[-1], lm)
+        return last.compute_score(y, preout, lm)
 
     def _policy(self) -> dtype_ops.Policy:
         return self._resolved(self.conf.global_conf.precision)
@@ -397,7 +558,7 @@ class MultiLayerNetwork:
         self.listeners.append(listener)
         return self
 
-    def fit(self, data, labels=None, epochs: int = 1
+    def fit(self, data, labels=None, epochs: int = 1, fused_steps: int = 1
             ) -> "MultiLayerNetwork":
         """fit(DataSetIterator) | fit(DataSet) | fit(x, y)
         (ref: MultiLayerNetwork.fit :996): ``epochs`` passes over the
@@ -412,7 +573,18 @@ class MultiLayerNetwork:
         ``conf.fault_tolerance(resume=True)`` a fresh network first
         restores the newest valid checkpoint and skips, without training
         on them, the epochs and the batches of the next epoch it had
-        trained (``nn/checkpoint.maybe_auto_resume``)."""
+        trained (``nn/checkpoint.maybe_auto_resume``).
+
+        ``fused_steps=K`` > 1 (the JAX package's scan fusion, :489-731)
+        trains K consecutive batches of identical shapes and mask presence
+        as one group: their K steps are enqueued on the device with no host
+        synchronisation between them, the listeners fire once a group and
+        see its last score, and the network's first group ever runs its
+        first batch alone, as JAX's does.  A group of mixed shapes and an
+        epoch's ragged tail run step by step.  Each step draws its own
+        dropout seed words, so a group is the same computation as K plain
+        steps.  The flag is ignored under truncated BPTT and when
+        ``iterations`` is above 1."""
         if labels is not None:
             data = DataSet(np.asarray(data), np.asarray(labels))
         if isinstance(data, DataSet):
@@ -436,7 +608,9 @@ class MultiLayerNetwork:
             while it.has_next():
                 yield it.next()
         try:
-            fit_epochs(self, epochs, skip, it.reset, batches, self._fit_batch)
+            fit_epochs(self, epochs, skip, it.reset, batches, self._fit_batch,
+                       fused_group_size(self.conf, fused_steps),
+                       self._fit_group)
         finally:
             # release the pipeline's threads, also when a step raised
             if isinstance(it, AsyncDataSetIterator):
@@ -450,11 +624,20 @@ class MultiLayerNetwork:
         return torch.randint(0, 1 << 32, (len(self.layers), 2),
                              generator=self._generator, dtype=torch.int64)
 
-    def _fit_batch(self, ds: DataSet, seeds=None) -> None:
+    def _fit_group(self, group: List[DataSet]) -> None:
+        fit_group(self, group, lambda d: (
+            tuple(d.features.shape), tuple(d.labels.shape),
+            d.features_mask is None, d.labels_mask is None))
+
+    def _fit_batch(self, ds: DataSet, seeds=None, notify: bool = True
+                   ) -> None:
         """Train on one batch: ``conf.iterations`` steps.  ``seeds`` gives
         the steps' dropout seed words, ``[n_layers, 2]`` for one step or
         ``[iterations, n_layers, 2]``; without it each step draws its own
-        from the network's generator."""
+        from the network's generator.  ``notify`` False leaves the
+        listeners to the caller (a ``fused_steps`` group).  Nothing here
+        waits for the device: the seed words are drawn on the host, and
+        the score stays a device tensor until a listener reads it."""
         g = self.conf.global_conf
         if not isinstance(self.layers[-1], (BaseOutputLayer, LossLayer)):
             raise ValueError(
@@ -480,6 +663,7 @@ class MultiLayerNetwork:
         fmask = self._as_mask(ds.features_mask)
         lmask = self._as_mask(ds.labels_mask)
         for k in range(n_steps):
+            # a host tensor's tolist(): no device synchronisation
             step_seeds = (self._draw_seeds() if seeds is None
                           else seeds[k]).tolist()
             score, grads = self._grad_step(x, y, fmask, lmask, step_seeds)
@@ -487,8 +671,9 @@ class MultiLayerNetwork:
             self.rnn_clear_previous_state()
             self._score = score
             self.iteration += 1
-            for lst in self.listeners:
-                lst.iteration_done(self, self.iteration)
+            if notify:
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration)
 
     def _fit_tbptt(self, ds: DataSet) -> None:
         """Truncated BPTT (ref: MultiLayerNetwork.doTruncatedBPTT :1227):
@@ -541,7 +726,7 @@ class MultiLayerNetwork:
         with torch.enable_grad():
             # the cast inside the differentiated function: the gradients
             # of the f32 masters come back in f32
-            preout, new_states, m = self._forward_to_preout(
+            preout, new_states, m, feats = self._forward_to_preout(
                 policy.cast_to_compute(params), state, x, fmask,
                 True, seeds,
                 stateful_rnn=self.conf.backprop_type == "truncatedbptt")
@@ -549,14 +734,15 @@ class MultiLayerNetwork:
             new_states = policy.cast_to_param(new_states)
             lm = lmask if lmask is not None else (
                 m if m is not None and m.ndim == preout.ndim - 1 else None)
-            per_ex = self.layers[-1].compute_score(y, preout, lm)
+            per_ex = self._per_example_loss(params, y, preout,
+                                            policy.cast_to_accum(feats), lm)
             score = per_ex.mean() if g.mini_batch else per_ex.sum()
             score = score + self._reg_penalty(params)
             if not g.minimize:
                 score = -score
             leaves = [v for lp in params for v in lp.values()
                       if v.requires_grad]
-            flat = iter(torch.autograd.grad(score, leaves))
+            flat = iter(grads_or_zeros(score, leaves))
         grads = [{k: next(flat) for k, v in lp.items() if v.requires_grad}
                  for lp in params]
         self.net_state = _detach(new_states)
@@ -567,15 +753,7 @@ class MultiLayerNetwork:
         enables regularization)."""
         total = 0.0
         for layer, lp in zip(self.layers, params):
-            l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
-            l1b, l2b = layer.l1_bias or 0.0, layer.l2_bias or 0.0
-            for k, v in lp.items():
-                a, b = ((l1b, l2b) if k in BIAS_KEYS
-                        else (l1, l2) if k in WEIGHT_KEYS else (0.0, 0.0))
-                if a:
-                    total = total + a * torch.sum(torch.abs(v))
-                if b:
-                    total = total + 0.5 * b * torch.sum(v * v)
+            total = total + layer_reg_penalty(layer, lp)
         return total
 
     def _init_opt_states(self) -> List:
@@ -586,31 +764,150 @@ class MultiLayerNetwork:
         """Per layer: gradient normalization, LR schedule, learning rule,
         bias-LR override, then params -= update.  The params are updated
         in place (JAX builds new arrays), which saves one copy of them."""
+        for i in range(len(self.layers)):
+            if grads[i] and not self.frozen[i]:
+                self._update_layer(i, grads[i], it)
+
+    @torch.no_grad()
+    def _update_layer(self, i: int, gi: dict, it: int,
+                      bias_lr: bool = True) -> None:
+        """Layer ``i``'s update from its gradients, in place: gradient
+        normalization, LR schedule, learning rule and, unless ``bias_lr``
+        is off (a pretrain step, as JAX's), the bias-LR override."""
         g = self.conf.global_conf
+        layer = self.layers[i]
+        gi = upd_ops.normalize_gradient(
+            gi, layer.gradient_normalization,
+            layer.gradient_normalization_threshold or 1.0)
+        base = (layer.learning_rate if layer.learning_rate is not None
+                else g.learning_rate)
+        lr = upd_ops.schedule_lr(
+            base, g.lr_policy, it, decay_rate=g.lr_policy_decay_rate,
+            steps=g.lr_policy_steps, power=g.lr_policy_power,
+            schedule_map=g.learning_rate_schedule)
+        upd, self.opt_states[i] = self.updaters[i].apply(
+            gi, self.opt_states[i], lr, it)
+        blr = layer.bias_learning_rate
+        if bias_lr and blr is not None and blr != (layer.learning_rate
+                                                   or g.learning_rate):
+            # rescale the bias update (exact for rules linear in lr)
+            scale = blr / base if base else 1.0
+            upd = {k: (v * scale if k in BIAS_KEYS else v)
+                   for k, v in upd.items()}
+        for k, u in upd.items():
+            self.net_params[i][k].sub_(u)
+
+    # ---- layerwise pretraining ----
+    def pretrain(self, data, epochs: int = 1) -> "MultiLayerNetwork":
+        """Pretrain every layer whose ``is_pretrain_layer()`` holds, in
+        order (ref: MultiLayerNetwork.pretrain :1010-1024)."""
         for i, layer in enumerate(self.layers):
-            gi = grads[i]
-            if not gi or self.frozen[i]:
-                continue
-            gi = upd_ops.normalize_gradient(
-                gi, layer.gradient_normalization,
-                layer.gradient_normalization_threshold or 1.0)
-            base = (layer.learning_rate if layer.learning_rate is not None
-                    else g.learning_rate)
-            lr = upd_ops.schedule_lr(
-                base, g.lr_policy, it, decay_rate=g.lr_policy_decay_rate,
-                steps=g.lr_policy_steps, power=g.lr_policy_power,
-                schedule_map=g.learning_rate_schedule)
-            upd, self.opt_states[i] = self.updaters[i].apply(
-                gi, self.opt_states[i], lr, it)
-            blr = layer.bias_learning_rate
-            if blr is not None and blr != (layer.learning_rate
-                                           or g.learning_rate):
-                # rescale the bias update (exact for rules linear in lr)
-                scale = blr / base if base else 1.0
-                upd = {k: (v * scale if k in BIAS_KEYS else v)
-                       for k, v in upd.items()}
-            for k, u in upd.items():
-                self.net_params[i][k].sub_(u)
+            if layer.is_pretrain_layer():
+                self.pretrain_layer(i, data, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, layer_idx: int, data, epochs: int = 1
+                       ) -> "MultiLayerNetwork":
+        """Unsupervised fit of layer ``layer_idx`` on the activations of the
+        layers below (ref: MultiLayerNetwork.pretrainLayer :197; JAX
+        :899-975): one step a batch (``data`` an array, a DataSet or an
+        iterator; only its features are read), each advancing
+        ``iteration`` and calling the listeners."""
+        if not self.layers[layer_idx].is_pretrain_layer():
+            return self
+        if self.net_params is None:
+            self.init()
+        it = as_iterator(data)
+        for _ in range(epochs):
+            it.reset()
+            while it.has_next():
+                self._pretrain_step(layer_idx, it.next().features)
+        return self
+
+    def _layer_input(self, layer_idx: int, x) -> torch.Tensor:
+        """The input of layer ``layer_idx``: the layers below in inference
+        mode, with their preprocessors and this layer's, no autograd."""
+        with torch.no_grad():
+            x, m = self._as_input(x), None
+            if layer_idx:
+                x, _, m = self._forward(self.net_params, self.net_state, x,
+                                        stop=layer_idx)
+            if layer_idx in self.conf.preprocessors:
+                x, m = self.conf.preprocessors[layer_idx](x, m)
+        return x
+
+    def _pretrain_step(self, layer_idx: int, x, noise=None) -> None:
+        """One pretrain step of layer ``layer_idx`` on features ``x``: its
+        ``pretrain_loss`` (on ``noise``, else noise drawn from the
+        network's device generator) plus its l1/l2, negated unless
+        minimizing; autograd of that for this layer's params alone, then
+        its normalization, LR schedule and updater in place."""
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        self._score, grads = pretrain_gradients(
+            self, self.layers[layer_idx], self.net_params[layer_idx],
+            self._layer_input(layer_idx, x), noise)
+        self._update_layer(layer_idx, grads, self.iteration, bias_lr=False)
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
+
+    # ---- external gradients ----
+    def backprop_gradient(self, x, epsilon, mask=None, train: bool = False):
+        """Param gradients and dL/dx for an external error ``epsilon`` =
+        dL/d(output) (ref: MLN backpropGradient, ComputationGraph
+        calcBackpropGradients :1421; JAX :1327-1377) -> (grads like
+        ``net_params``, dx; None for integer inputs).  The forward is
+        ``output()``'s, cast through the precision policy, so gradients
+        come back float32.  ``train=True`` runs the training forward with
+        fresh dropout seed words from the network's generator and keeps
+        its new states (batch norm's statistics); ``train=False`` leaves
+        ``net_state`` as it is."""
+        if self.net_params is None:
+            self.init()
+        policy = self._policy()
+        params = [{k: v.detach().requires_grad_() for k, v in lp.items()}
+                  for lp in self.net_params]
+        xin = self._as_input(x)
+        if torch.is_floating_point(xin):
+            xin = xin.detach().requires_grad_()
+        seeds = self._draw_seeds().tolist() if train else None
+        with torch.enable_grad():
+            pc, xc, mc = policy.cast_to_compute(
+                (params, xin, self._as_mask(mask)))
+            out, new_states, _ = self._forward(pc, self.net_state, xc, mc,
+                                               train, seeds)
+            eps = torch.as_tensor(epsilon).to(device=out.device,
+                                              dtype=out.dtype)
+            leaves = [v for lp in params for v in lp.values()]
+            if xin.requires_grad:
+                leaves.append(xin)
+            flat = iter(grads_or_zeros(out, leaves, eps))
+        grads = [{k: next(flat) for k in lp} for lp in params]
+        dx = next(flat, None)
+        if train:
+            self.net_state = _detach(policy.cast_to_param(new_states))
+            self.rnn_clear_previous_state()
+        return grads, dx
+
+    def apply_gradients(self, grads) -> "MultiLayerNetwork":
+        """Apply external per-layer gradients through the updaters (JAX
+        :1379-1412): the l1/l2 gradient is added, the sum negated under
+        ``minimize=False``, then each layer's normalization, LR schedule,
+        learning rule and bias LR, frozen layers skipped; ``iteration``
+        advances.  Callers pass plain dL/dparam."""
+        if self.net_params is None:
+            self.init()
+        if self.opt_states is None:
+            self.opt_states = self._init_opt_states()
+        reg = reg_gradients(self._reg_penalty, self.net_params)
+        sign = 1.0 if self.conf.global_conf.minimize else -1.0
+        total = [{k: sign * (grad_like(gl[k], r) + r)
+                  for k, r in rl.items() if k in gl}
+                 for gl, rl in zip(grads, reg)]
+        self._apply_updates(total, self.iteration)
+        self.iteration += 1
+        return self
 
     def score(self, dataset: Optional[DataSet] = None) -> float:
         """The loss on a DataSet (inference forward, l1/l2 included), or
@@ -619,13 +916,14 @@ class MultiLayerNetwork:
             return float(self._score)
         g = self.conf.global_conf
         with torch.inference_mode():
-            preout, _, m = self._inference_preout(
+            preout, _, m, feats = self._inference_preout(
                 dataset.features, dataset.features_mask)
             lm = (self._as_mask(dataset.labels_mask)
                   if dataset.labels_mask is not None else
                   m if m is not None and m.ndim == preout.ndim - 1 else None)
-            per_ex = self.layers[-1].compute_score(
-                self._as_float(dataset.labels), preout, lm)
+            per_ex = self._per_example_loss(
+                self.net_params, self._as_float(dataset.labels), preout,
+                feats, lm)
             score = per_ex.mean() if g.mini_batch else per_ex.sum()
             return float(score + self._reg_penalty(self.net_params))
 
@@ -643,14 +941,15 @@ class MultiLayerNetwork:
         out = []
         with torch.inference_mode():
             for ds in batches:
-                preout, _, m = self._inference_preout(ds.features,
-                                                      ds.features_mask)
+                preout, _, m, feats = self._inference_preout(
+                    ds.features, ds.features_mask)
                 lm = (self._as_mask(ds.labels_mask)
                       if ds.labels_mask is not None else
                       m if m is not None and m.ndim == preout.ndim - 1
                       else None)
-                per = self.layers[-1].compute_score(
-                    self._as_float(ds.labels), preout, lm)
+                per = self._per_example_loss(
+                    self.net_params, self._as_float(ds.labels), preout,
+                    feats, lm)
                 if add_regularization_terms:
                     per = per + self._reg_penalty(self.net_params)
                 out.append(per.cpu().numpy())
@@ -658,15 +957,16 @@ class MultiLayerNetwork:
 
     def _inference_preout(self, features, features_mask):
         """The inference forward to the output layer's pre-activation,
-        under the precision policy -> (preout in the accumulation dtype,
-        new states, mask)."""
+        under the precision policy -> (preout and features in the
+        accumulation dtype, new states, mask)."""
         policy = self._policy()
         pc, xc, mc = policy.cast_to_compute(
             (self.net_params, self._as_input(features),
              self._as_mask(features_mask)))
-        preout, states, m = self._forward_to_preout(pc, self.net_state, xc,
-                                                    mc, False)
-        return policy.cast_to_accum(preout), states, m
+        preout, states, m, feats = self._forward_to_preout(
+            pc, self.net_state, xc, mc, False)
+        return (policy.cast_to_accum(preout), states, m,
+                policy.cast_to_accum(feats))
 
     def evaluate(self, iterator_or_dataset) -> Evaluation:
         """Classification evaluation (ref: MultiLayerNetwork.evaluate):

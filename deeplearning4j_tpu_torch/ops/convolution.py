@@ -93,6 +93,38 @@ def pool2d(x, kind: str, kernel=(2, 2), stride=(2, 2), pad=(0, 0),
     raise ValueError(f"Unknown pooling type '{kind}'")
 
 
+def conv1d(x, w, b=None, stride: int = 1, pad: int = 0, dilation: int = 1,
+           border_mode: str = "truncate"):
+    """1D convolution over sequences [N, T, C] with weights [K, C_in,
+    C_out] (ref: nn/conf/layers/Convolution1DLayer.java, RNN-format data);
+    'same' pads as XLA's SAME does, odd totals high."""
+    (lo, hi), = (same_pads(x.shape[1:2], w.shape[:1], (stride,), (dilation,))
+                 if border_mode == "same" else ((pad, pad),))
+    xt = x.transpose(1, 2)
+    if lo != hi:
+        xt, lo = F.pad(xt, (lo, hi)), 0
+    y = F.conv1d(xt, w.permute(2, 1, 0), b, stride, lo, dilation)
+    return y.transpose(1, 2)
+
+
+def pool1d(x, kind: str, kernel: int = 2, stride: int = 2, pad: int = 0,
+           border_mode: str = "truncate", pnorm: int = 2):
+    """1D pooling over [N, T, C] (ref: Subsampling1DLayer.java): ``pool2d``
+    on a [N, C, T, 1] view."""
+    x2 = x.transpose(1, 2)[..., None]
+    y2 = pool2d(x2, kind, (kernel, 1), (stride, 1), (pad, 0), border_mode,
+                pnorm)
+    return y2[..., 0].transpose(1, 2)
+
+
+def conv1d_output_len(t, kernel, stride, pad, dilation=1,
+                      border_mode: str = "truncate"):
+    if border_mode == "same":
+        return -(-t // stride)
+    eff_k = (kernel - 1) * dilation + 1
+    return (t + 2 * pad - eff_k) // stride + 1
+
+
 def zero_pad2d(x, pad_top, pad_bottom, pad_left, pad_right):
     """ZeroPaddingLayer: zeros around the spatial dims of NCHW."""
     return F.pad(x, (pad_left, pad_right, pad_top, pad_bottom))
