@@ -429,6 +429,35 @@ exits non-zero:
                conv, then 26 conv and 6 dropout, then 13 conv, 1 xent and 4
                dropout launches.
 
+28. dl4j_zip_serve — VGG16-CIFAR10 and the seeded ResNet-50 exported in the
+               Java DL4J schema (``nn/dl4j_migration``) and restored on the
+               card by ``load_model``: params equal, a second export
+               byte-equal; the migrated VGG16 served to 8 clients (classes
+               as a direct ``output()``, 13 conv launches a batch, the
+               plain conv chain's output); the five frozen Java fixtures
+               on the card against the CPU port.
+29. serve_quantized — VGG16-CIFAR10 and ResNet-50 served from zips whose
+               configuration sets ``infer_quant`` (int8, fp8) and from a
+               dense zip: latency p50 / p99, resident weight bytes, served
+               classes against a direct quantized ``output()``, the
+               quantized output against the plain conv chain on the same
+               dequantized weights, top-1 agreement with the dense net
+               (margin-conditioned for VGG16, reported for ResNet-50).
+30. graph_tbptt_charrnn — the char-RNN as a ComputationGraph from the
+               network's initial params, graph TBPTT on phase 12's 8
+               minibatches: updates and scores against the network's,
+               lstm launches, chars/s; sampling through the graph's
+               ``rnn_time_step`` equal to the network's; stored-state
+               activations against the stepped forward.
+31. checkpointed_vgg16_224 — one VGG16-224 step at 128 with
+               ``gradient_checkpointing`` against one without from the same
+               state and seed words: updates, score, dropout masks, peak
+               memory, seconds, conv and dropout launches.
+32. bucketed_fit — LeNet + Adam on ragged batch sizes and the char-RNN on
+               ragged masked lengths, bucketed against unbucketed from the
+               same params: updates, training signatures, launches,
+               samples/s.
+
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -789,6 +818,94 @@ CENTER_STEPS, CENTER_ALPHA, CENTER_LAMBDA = 30, 0.1, 2e-4
 # within STEP_RTOL, each param's update within STEP_UPDATE_RTOL, the
 # generator in the same state after.
 EXT_BATCH, EXT_HW = 32, 224
+# dl4j_zip_serve: VGG16-CIFAR10 (VGG16_CIFAR10_PARAMS) and the seeded,
+# calibrated ResNet-50 exported in the Java DL4J schema and restored on the
+# card by load_model: params torch.equal, every member of a second export
+# byte-equal to the first's; the migrated ResNet-50's output at batch 4
+# against the seeded net's within DL4J_FIXTURE_TOL (the same params; only
+# the algorithm picks can differ).  The migrated VGG16 served through
+# Server to DL4J_CLIENTS clients (DL4J_REQUESTS requests of 1-4 rows):
+# classes equal a direct output(), 13 conv launches a served batch, no
+# fallback, the output at batch 4 against the plain conv chain by
+# NET_RTOL / NET_ATOL.  The five frozen fixtures of tests/regression
+# (per-example input shapes DL4J_FIXTURES) restored on the card: params
+# equal to the CPU port's, outputs within DL4J_FIXTURE_TOL of them.
+VGG16_CIFAR10_PARAMS = 15_245_130
+DL4J_REQUESTS, DL4J_CLIENTS, DL4J_FIXTURE_TOL = 64, 8, 1e-5
+DL4J_FIXTURES = {"mlp": (3,), "convbn": (1, 6, 6), "bilstm": (5, 2),
+                 "cg": (4,), "cg_ustate": (4,)}
+# serve_quantized: VGG16-CIFAR10 and ResNet-50 (seeded_resnet50 with
+# batch_norms=False: the calibrated net is chaotic, a rounding anywhere
+# growing to the output) served from zips whose configuration sets
+# infer_quant, int8 and fp8, and from a dense zip, through the gateway:
+# QUANT_CLIENTS clients, QUANT_*_REQUESTS requests of 1-2 rows, latency
+# p50 / p99 of each.  Rules: the served classes equal a direct quantized
+# output(); the codes are int8 / float8_e4m3fn tensors on the card; the
+# quantized output through the conv kernel against the plain conv chain
+# on the same dequantized weights by NET_RTOL / NET_ATOL.  Top-1 agreement
+# with the dense net over QUANT_ROWS seeded rows, JAX's floors (0.95 int8,
+# 0.9 fp8; tests/test_precision.py:283-324), counted over the rows whose
+# dense log-probability margin between the first and second class is at
+# least QUANT_MARGIN nats, which must be at least QUANT_MARGIN_ROWS_MIN of
+# the rows; the share over all rows is reported beside it.  Set from a CPU
+# run of the port at full width before any card run: VGG16-CIFAR10, 256
+# rows, largest probability 0.42, median margin 0.15 nats, 10% of rows
+# below 0.029; agreement int8 0.969 (1.0 over the 212 rows above 0.05
+# nats), fp8 0.898 (0.929).  The seeded ResNet-50 has no margins to speak
+# of (24 rows: largest probability 0.0012 of 1,000 classes, median margin
+# 0.013 nats against a largest change of log p of 0.076 int8 and 0.16
+# fp8; agreement 0.71 and 0.375; the calibrated net 0.04 and 0.0): its
+# top-1 agreement is reported and not gated (QUANT_TOP1_GATED).
+QUANT_CLIENTS, QUANT_VGG_REQUESTS, QUANT_RESNET_REQUESTS = 8, 48, 16
+QUANT_ROWS = {"vgg16_cifar10": 512, "resnet50": 128}
+QUANT_TOP1 = {"int8": 0.95, "fp8": 0.9}
+QUANT_TOP1_GATED = ("vgg16_cifar10",)
+QUANT_MARGIN, QUANT_MARGIN_ROWS_MIN = 0.05, 0.25
+# graph_tbptt_charrnn: the char-RNN of train_charrnn as a ComputationGraph
+# of the same layers from the same initial params, trained by graph TBPTT
+# on the same 8 minibatches: every update within CHAR_UPDATE_RTOL and every
+# minibatch's score within CHAR_SCORE_RTOL of the network's (the char-RNN
+# rules), exactly CHAR_LAYERS x CHAR_SEQ lstm launches a minibatch and no
+# lstm fallback; SAMPLE_STREAMS streams of GRAPH_SAMPLE_CHARS characters
+# sampled through the graph's rnn_time_step equal the network's on the
+# trained params (CHAR_LAYERS launches a character);
+# rnn_activate_using_stored_state over two chunks against the stepped
+# forward within LSTM_TOL.
+GRAPH_SAMPLE_CHARS = 100
+# checkpointed_vgg16_224: phase 7's net (dropout 0.5 on fc1 and fc2), one
+# step at VGG_BATCH from one state and one set of seed words, plain /
+# checkpointed / plain: updates within STEP_UPDATE_RTOL and the score
+# within STEP_RTOL of the plain step's; the dropout masks of the first
+# forward equal the plain step's and every recompute's is one of them; the
+# plain step 13 conv, 1 xent, 4 dropout launches; the checkpointed one
+# also runs each layer's forward again in the backward: 26 conv and 6
+# dropout (fc1's and fc2's forward again), 1 xent.  Peak memory and step
+# seconds of each are reported (PERF.md holds the prediction).
+CKPT_CONV_LAUNCHES, CKPT_DROPOUT_LAUNCHES = 26, 6
+# bucketed_fit: LeNet + Adam on BUCKET_LENET_BATCHES batches of
+# BUCKET_ROWS rows (all bucketed to 64), and the char-RNN (standard
+# backprop: truncated BPTT is never bucketed) on BUCKET_CHAR_BATCHES
+# batches of CHAR_BATCH sequences of BUCKET_TIME characters, each row
+# ending at a seeded step past half its length (features and labels
+# masks), each fit bucketed and unbucketed from the same params through
+# the async pipeline under cuDNN's deterministic algorithms: training
+# signatures (the bucketed run's at most the buckets it hit), launches (2
+# conv a LeNet step either way), samples/s, and how far the two runs end
+# apart, reported: on random labels both trajectories are chaotic (on the
+# CPU port at full width a step-1 difference of 6e-7 grew to 0.11 of the
+# params' norm by step 40 for LeNet, 0.25 for the char-RNN), so the gate
+# is per step: each of the first BUCKET_CHECK_STEPS batches stepped both
+# ways from the same state, every update within BUCKET_*_RTOL of the
+# unbucketed update (relative 2-norm per param) and the score within
+# BUCKET_SCORE_RTOL: the training-step rules, STEP_UPDATE_RTOL and
+# STEP_RTOL, each at least twice the CPU port's reading at full width
+# before any card run (updates 1.27e-4 LeNet, Adam's first steps being lr
+# sign(g); 1.6e-6 char-RNN; scores 1.0e-7 and 0).
+BUCKET_ROWS, BUCKET_LENET_BATCHES = (37, 64), 40
+BUCKET_TIME, BUCKET_CHAR_BATCHES = (60, 100), 8
+BUCKET_CHECK_STEPS = 4
+BUCKET_LENET_RTOL = BUCKET_CHAR_RTOL = STEP_UPDATE_RTOL
+BUCKET_SCORE_RTOL = STEP_RTOL
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
 
@@ -4702,9 +4819,12 @@ def phase_train_charrnn(torch, ck):
            * (CHAR_MINIBATCHES - 1)
            / sum(m["seconds"] for m in minibatches[1:]),
            "launches": launches, "max_memory_allocated": peak,
-           "n_params": net.n_params,
-           "plain_segment": _charrnn_segment_vs_plain(torch, ck, net, it)}
+           "n_params": net.n_params}
+    trained = _clone_tree(net.net_params)
+    res["plain_segment"] = _charrnn_segment_vs_plain(torch, ck, net, it)
     emit("train_charrnn", **res)
+    # the trained params, for graph_tbptt_charrnn
+    res["trained_params"] = trained
     return res, net, it
 
 
@@ -7585,6 +7705,668 @@ def phase_external_gradients_vgg16_224(torch, ck) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The rest of the engine: Java DL4J zips, quantized serving, graph TBPTT,
+# gradient checkpointing, shape bucketing
+# ---------------------------------------------------------------------------
+
+def _zip_members(path) -> dict:
+    import zipfile
+    with zipfile.ZipFile(path) as zf:
+        return {n: zf.read(n) for n in zf.namelist()}
+
+
+def _java_round_trip(torch, net, export, tmp, name) -> dict:
+    """``net`` exported in the Java DL4J schema (with its updater state,
+    made if it has none), restored on the card by ``load_model`` and
+    exported again: params equal, every member of the second zip
+    (``updaterState.bin`` included) byte-equal to the first's."""
+    from deeplearning4j_tpu_torch.nn.serialization import load_model
+    if net.opt_states is None:
+        net.opt_states = net._init_opt_states()
+    first, second = Path(tmp) / f"{name}.zip", Path(tmp) / f"{name}_2.zip"
+    t0 = time.perf_counter()
+    export(net, first)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_model(first, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    export(back, second)
+    rec = {"n_params": back.n_params, "zip_bytes": first.stat().st_size,
+           "export_s": export_s, "restore_s": restore_s,
+           "params_equal": bool(torch.equal(back.params(), net.params())),
+           "reexport_byte_equal": _zip_members(first) == _zip_members(second),
+           "on_card": back.params().device.type == "cuda"}
+    if not (rec["params_equal"] and rec["reexport_byte_equal"]
+            and rec["on_card"]):
+        raise AssertionError(f"{name}: Java-schema round trip {rec}")
+    return rec, back, str(first)
+
+
+def phase_dl4j_zip_serve(torch, ck) -> dict:
+    """VGG16-CIFAR10 and the seeded ResNet-50 exported in the Java DL4J
+    schema and migrated back on the card; the migrated VGG16 served to 8
+    clients; the five frozen Java fixtures restored on the card against
+    the CPU port."""
+    from deeplearning4j_tpu_torch.models import vgg16_cifar10
+    from deeplearning4j_tpu_torch.nn import dl4j_migration as mig
+    from deeplearning4j_tpu_torch.nn.serialization import load_model
+    from deeplearning4j_tpu_torch.server import (
+        DeepLearning4jEntryPoint, Server)
+    vgg = vgg16_cifar10(device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 30)
+    dims = (3, 32, 32)
+    xs = [rng.normal(size=(int(rng.integers(1, 5)),) + dims).astype(
+        np.float32) for _ in range(DL4J_REQUESTS)]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["vgg16_cifar10"], served, path = _java_round_trip(
+            torch, vgg, mig.export_multi_layer_network, tmp, "vgg16_cifar10")
+        resnet = seeded_resnet50("cuda")
+        res["resnet50"], back, _ = _java_round_trip(
+            torch, resnet, mig.export_computation_graph, tmp, "resnet50")
+        # the Java zip carries the running statistics: the migrated graph
+        # serves what the seeded one does
+        x = torch.randn((4, 3, RESNET_HW, RESNET_HW),
+                        generator=torch.Generator().manual_seed(SEED + 31))
+        x = x.cuda()
+        got, want = back.output(x)[0], resnet.output(x)[0]
+        res["resnet50"]["output_max_abs_vs_seeded"] = float(
+            (got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=DL4J_FIXTURE_TOL,
+                                   atol=DL4J_FIXTURE_TOL)
+        del resnet, back
+        if (res["vgg16_cifar10"]["n_params"], res["resnet50"]["n_params"]) \
+                != (VGG16_CIFAR10_PARAMS, RESNET_PARAMS):
+            raise AssertionError(f"Java-schema zips: {res}")
+        server = Server(DeepLearning4jEntryPoint(device="cuda",
+                                                 max_batch=32)).start()
+        try:
+            url = f"http://127.0.0.1:{server.port}/"
+            _rpc(url, "warmup", {"model_path": path,
+                                 "feature_dims": list(dims)})
+            fallbacks = _conv_fallbacks()
+            _zero_counts(ck)                           # main path starts
+            drive = _drive(url, path, xs, clients=DL4J_CLIENTS)
+            launches = _kernel_counts(ck)              # main path ends
+            fallbacks = _conv_fallbacks() - fallbacks
+            batches = server.entry_point.stats()["serving"][
+                str(Path(path).resolve())]["batches"]
+            cached = server.entry_point.model_cache.get(path)
+        finally:
+            server.stop()
+    _check_served_classes("migrated vgg16_cifar10", xs, drive.pop("answers"),
+                          cached.output)
+    if launches != _want(ck, conv2d_bias_act=13 * batches) or fallbacks:
+        raise AssertionError(f"{batches} served batches of the migrated "
+                             f"VGG16: launches {launches}, {fallbacks} "
+                             f"conv fallbacks")
+    x4 = torch.from_numpy(np.concatenate(xs)[:4]).cuda()
+    got, ref = cached.output(x4), _plain_forward(torch, ck, cached, x4)
+    torch.testing.assert_close(got, ref, rtol=NET_RTOL, atol=NET_ATOL)
+    res["serve"] = {**drive, "batches": batches, "launches": launches,
+                    "conv_fallbacks": fallbacks,
+                    "classes_equal_direct_output": True,
+                    "max_abs_vs_plain": float((got - ref).abs().max())}
+    fixtures = {}
+    for name, shape in DL4J_FIXTURES.items():
+        p = ROOT / "tests" / "regression" / f"dl4j_071_{name}.zip"
+        card, cpu = (load_model(p, device=d) for d in ("cuda", "cpu"))
+        xf = np.random.default_rng(9).normal(size=(3,) + shape).astype(
+            np.float32)
+        out_card, out_cpu = (m.output(xf) for m in (card, cpu))
+        if isinstance(out_card, tuple):
+            out_card, out_cpu = out_card[0], out_cpu[0]
+        err = float((out_card.cpu() - out_cpu).abs().max())
+        fixtures[name] = {"params_equal": bool(torch.equal(
+            card.params().cpu(), cpu.params())), "max_abs_vs_cpu": err}
+        if err > DL4J_FIXTURE_TOL or not fixtures[name]["params_equal"]:
+            raise AssertionError(f"fixture {name}: {fixtures[name]}")
+    res["fixtures"] = fixtures
+    res["fixture_tol"] = DL4J_FIXTURE_TOL
+    res["launches"] = launches
+    emit("dl4j_zip_serve", **res)
+    return res
+
+
+def _quantized_zip(torch, net, tmp, name, mode) -> str:
+    """A zip of ``net`` whose configuration asks for ``mode`` serving."""
+    from deeplearning4j_tpu_torch.nn.serialization import write_model
+    path = str(Path(tmp) / f"{name}_{mode}.zip")
+    prev = net.conf.global_conf.precision_infer_quant
+    net.conf.global_conf.precision_infer_quant = \
+        None if mode == "dense" else mode
+    try:
+        write_model(net, path)
+    finally:
+        net.conf.global_conf.precision_infer_quant = prev
+    return path
+
+
+def _top1(torch, dense, q, margin_min) -> dict:
+    """Top-1 agreement of ``q`` with ``dense`` (probabilities) over all
+    rows and over the rows whose dense log-probability margin between the
+    first and second class is at least ``margin_min`` nats."""
+    lp = torch.log(dense)
+    top2 = torch.topk(lp, 2, dim=1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = (q.argmax(1) == dense.argmax(1)).float()
+    sure = margin >= margin_min
+    return {"rows": len(agree), "agreement": float(agree.mean()),
+            "margin_rows": int(sure.sum()),
+            "margin_agreement": (float(agree[sure].mean())
+                                 if bool(sure.any()) else None),
+            "max_abs_log_prob_change": float((torch.log(q) - lp).abs().max()),
+            "median_margin": float(margin.median())}
+
+
+def phase_serve_quantized(torch, ck) -> dict:
+    """VGG16-CIFAR10 and ResNet-50 served from zips whose configuration
+    sets ``infer_quant`` (int8, fp8) and from a dense one, through Server
+    -> predict -> ModelCache -> MicroBatcher -> output."""
+    from deeplearning4j_tpu_torch.models import vgg16_cifar10
+    from deeplearning4j_tpu_torch.ops import quantize as qz
+    from deeplearning4j_tpu_torch.server import (
+        DeepLearning4jEntryPoint, Server)
+    models = {
+        "vgg16_cifar10": (vgg16_cifar10(device="cuda").init(
+            generator=torch.Generator().manual_seed(SEED)), (3, 32, 32),
+            QUANT_VGG_REQUESTS),
+        "resnet50": (seeded_resnet50("cuda", batch_norms=False),
+                     (3, RESNET_HW, RESNET_HW), QUANT_RESNET_REQUESTS)}
+    rng = np.random.default_rng(SEED + 32)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (net, dims, n_req) in models.items():
+            graph = hasattr(net, "order")
+            xs = [rng.normal(size=(int(rng.integers(1, 3)),) + dims).astype(
+                np.float32) for _ in range(n_req)]
+            xa = torch.from_numpy(rng.normal(
+                size=(QUANT_ROWS[name],) + dims).astype(np.float32)).cuda()
+            dense_out = torch.cat([
+                (net.output(c)[0] if graph else net.output(c))
+                for c in xa.split(32)])
+            rec = {}
+            for mode in ("dense", "int8", "fp8"):
+                path = _quantized_zip(torch, net, tmp, name, mode)
+                server = Server(DeepLearning4jEntryPoint(
+                    device="cuda", max_batch=32)).start()
+                try:
+                    url = f"http://127.0.0.1:{server.port}/"
+                    _rpc(url, "warmup", {"model_path": path,
+                                         "feature_dims": list(dims)})
+                    torch.cuda.synchronize()
+                    _zero_counts(ck)                   # main path starts
+                    drive = _drive(url, path, xs, clients=QUANT_CLIENTS)
+                    launches = _kernel_counts(ck)      # main path ends
+                    batches = server.entry_point.stats()["serving"][
+                        str(Path(path).resolve())]["batches"]
+                    served = server.entry_point.model_cache.get(path)
+                finally:
+                    server.stop()
+
+                def direct(x, served=served, graph=graph):
+                    return served.output(x)[0] if graph else served.output(x)
+                _check_served_classes(f"{name} {mode}", xs,
+                                      drive.pop("answers"), direct)
+                convs = (RESNET_KERNEL_CONVS if graph else 13) * batches
+                if launches != _want(ck, conv2d_bias_act=convs):
+                    raise AssertionError(f"{name} {mode}: {batches} batches "
+                                         f"launched {launches}")
+                r = {"p50_ms": drive["p50_ms"], "p99_ms": drive["p99_ms"],
+                     "requests_per_s": drive["requests_per_s"],
+                     "requests": drive["requests"], "batches": batches,
+                     "launches": launches,
+                     "classes_equal_direct_output": True}
+                if mode != "dense":
+                    if served._infer_quant != mode:
+                        raise AssertionError(f"{name}: served "
+                                             f"{served._infer_quant}")
+                    q_out = torch.cat([direct(c) for c in xa.split(32)])
+                    stats = served._q_stats
+                    codes = [r["q"] for r in _tensor_leaves_q(
+                        served._q_params)]
+                    want = torch.int8 if mode == "int8" else \
+                        qz.fp8_dtype()
+                    if not codes or any(c.dtype != want
+                                        or c.device.type != "cuda"
+                                        for c in codes):
+                        raise AssertionError(f"{name} {mode}: codes not "
+                                             f"{want} on the card")
+                    # the kernel path against the plain conv chain on the
+                    # same dequantized weights
+                    deq = served.clone()
+                    deq.quantize_inference(None)
+                    deq.net_params = qz.dequantize_params(served._q_params)
+                    x8 = xa[:8]
+                    got = direct(x8)
+                    ref = (_plain_graph_forward(torch, ck, deq, x8) if graph
+                           else _plain_forward(torch, ck, deq, x8))
+                    torch.testing.assert_close(got, ref, rtol=NET_RTOL,
+                                               atol=NET_ATOL)
+                    del deq
+                    agree = _top1(torch, dense_out, q_out, QUANT_MARGIN)
+                    r.update(resident_weight_bytes={
+                        "quantized": stats["quantized_bytes"],
+                        "dense": stats["dense_bytes"],
+                        "ratio": stats["dense_bytes"]
+                        / stats["quantized_bytes"]},
+                        max_abs_vs_plain_dequantized=float(
+                            (got - ref).abs().max()),
+                        top1=agree, top1_rule=QUANT_TOP1[mode]
+                        if name in QUANT_TOP1_GATED else None)
+                    if name in QUANT_TOP1_GATED and (
+                            agree["margin_rows"] < QUANT_MARGIN_ROWS_MIN
+                            * agree["rows"]
+                            or agree["margin_agreement"]
+                            < QUANT_TOP1[mode]):
+                        raise AssertionError(f"{name} {mode}: top-1 {agree}")
+                rec[mode] = r
+                del served
+            res[name] = rec
+            del net
+            torch.cuda.empty_cache()
+    res["launches"] = _sum_counts(
+        [res[m][k]["launches"] for m in models for k in res[m]])
+    emit("serve_quantized", margin_nats=QUANT_MARGIN, **res)
+    return res
+
+
+def _tensor_leaves_q(tree):
+    """The ``{"q", "s"}`` records of a quantized tree."""
+    from deeplearning4j_tpu_torch.ops import quantize as qz
+    if qz.is_qleaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [r for v in tree.values() for r in _tensor_leaves_q(v)]
+    if isinstance(tree, (list, tuple)):
+        return [r for v in tree for r in _tensor_leaves_q(v)]
+    return []
+
+
+def _sum_counts(counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def charrnn_graph(net):
+    """The char-RNN ``net`` (a MultiLayerNetwork) as a ComputationGraph of
+    the same layers, hyperparameters and TBPTT, holding copies of its
+    params."""
+    import copy
+    from deeplearning4j_tpu_torch.nn.conf import graph_conf as gc
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    b = gc.GraphBuilder(copy.deepcopy(net.conf.global_conf)).add_inputs("in")
+    prev, names = "in", []
+    for i, layer in enumerate(net.conf.layers):
+        names.append("out" if i == len(net.conf.layers) - 1 else f"lstm{i}")
+        b.add_layer(names[-1], layer, prev)
+        prev = names[-1]
+    conf = (b.set_outputs("out").backprop_type(net.conf.backprop_type)
+            .t_bptt_forward_length(net.conf.tbptt_fwd_length)
+            .t_bptt_backward_length(net.conf.tbptt_back_length).build())
+    graph = ComputationGraph(conf, device=net.device)
+    graph.net_params = {n: _clone_tree(lp)
+                        for n, lp in zip(names, net.net_params)}
+    graph.net_state = {n: {} for n in names}
+    return graph, names
+
+
+def _sample(net, V, streams, chars, seed, graph=False) -> list:
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    net.rnn_clear_previous_state()
+    cur = rng.integers(0, V, streams)
+    picks = []
+    for _ in range(chars):
+        out = net.rnn_time_step(eye[cur][:, None, :])
+        out = (out[0] if graph else out)[:, -1]
+        p = out.double().cpu().numpy()
+        cur = np.array([rng.choice(V, p=q / q.sum()) for q in p])
+        picks.append(cur.tolist())
+    return picks
+
+
+@_tf32_off
+def phase_graph_tbptt_charrnn(torch, ck, train_char) -> dict:
+    """The char-RNN as a ComputationGraph from the network's initial
+    params, trained by graph TBPTT on the same minibatches as
+    ``train_charrnn``; sampling and stored-state activations."""
+    from deeplearning4j_tpu_torch.models import CharacterIterator, char_rnn
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=CHAR_SEQ, batch=CHAR_BATCH, seed=0)
+    mln = char_rnn(it.vocab_size, CHAR_HIDDEN, CHAR_LAYERS,
+                   tbptt_length=CHAR_TBPTT, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    p0 = _clone_tree(mln.net_params)
+    graph, names = charrnn_graph(mln)
+    torch.cuda.synchronize()
+    lstm_fallbacks = _fallbacks("lstm_step")
+    minibatches = []
+    _zero_counts(ck)                                   # main path starts
+    for k in range(CHAR_MINIBATCHES):
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        graph.fit(it.next())
+        score = graph.score()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        minibatches.append({
+            "minibatch": k + 1, "score": score, "seconds": dt,
+            "chars_per_s": CHAR_BATCH * CHAR_SEQ / dt,
+            "launches": {n: after[n] - counts[n] for n in after}})
+    train_launches = _kernel_counts(ck)
+    lstm_fallbacks = _fallbacks("lstm_step") - lstm_fallbacks
+    want = _want(ck, lstm_step=CHAR_LAYERS * CHAR_SEQ)
+    if any(m["launches"] != want for m in minibatches) or lstm_fallbacks \
+            or graph.iteration != CHAR_MINIBATCHES * CHAR_SEQ // CHAR_TBPTT:
+        raise AssertionError(f"graph TBPTT: {minibatches}, {lstm_fallbacks} "
+                             f"lstm fallbacks, {graph.iteration} segments")
+    # against the network's training (train_charrnn, the same batches)
+    trained = train_char["trained_params"]
+    errs = {f"{n}_{k}": float(
+        torch.linalg.vector_norm(graph.net_params[n][k] - lp[k])
+        / torch.linalg.vector_norm(lp[k] - p[k]))
+        for n, lp, p in zip(names, trained, p0) for k in lp}
+    score_diffs = [abs(g["score"] - m["score"]) / abs(m["score"])
+                   for g, m in zip(minibatches, train_char["minibatches"])]
+    # sampling: the graph's rnn_time_step against the network's on the
+    # trained params
+    mln.net_params = [_clone_tree(graph.net_params[n]) for n in names]
+    mark = _kernel_counts(ck)
+    t0 = time.perf_counter()
+    g_chars = _sample(graph, it.vocab_size, SAMPLE_STREAMS,
+                      GRAPH_SAMPLE_CHARS, SEED, graph=True)
+    g_ms = (time.perf_counter() - t0) / GRAPH_SAMPLE_CHARS * 1e3
+    launches = _kernel_counts(ck)                      # main path ends
+    sample_launches = {k: launches[k] - mark[k] for k in launches}
+    m_chars = _sample(mln, it.vocab_size, SAMPLE_STREAMS, GRAPH_SAMPLE_CHARS,
+                      SEED)
+    # stored-state activations against the stepped forward
+    x = it.next().features[:SAMPLE_STREAMS, :2 * CHAR_TBPTT]
+    mln.rnn_clear_previous_state()
+    a1 = mln.rnn_activate_using_stored_state(x[:, :CHAR_TBPTT],
+                                             store_last_for_tbptt=True)
+    a2 = mln.rnn_activate_using_stored_state(x[:, CHAR_TBPTT:])
+    mln.rnn_clear_previous_state()
+    stepped = torch.cat([mln.rnn_time_step(x[:, t:t + 1])
+                         for t in range(2 * CHAR_TBPTT)], dim=1)
+    stored = torch.cat([a1[-1], a2[-1]], dim=1)
+    stored_err = float((stored - stepped).abs().max())
+    tmpl = mln.rnn_carry_template(SAMPLE_STREAMS)
+    res = {"segments": graph.iteration, "minibatches": minibatches,
+           "chars_per_s_after_first": CHAR_BATCH * CHAR_SEQ
+           * (CHAR_MINIBATCHES - 1)
+           / sum(m["seconds"] for m in minibatches[1:]),
+           "network_chars_per_s_after_first":
+               train_char["chars_per_s_after_first"],
+           "lstm_fallbacks": lstm_fallbacks,
+           "training_launches": train_launches,
+           "update_rel_err_vs_network": errs,
+           "max_update_rel_err": max(errs.values()),
+           "max_score_rel_diff": max(score_diffs),
+           "update_rtol": CHAR_UPDATE_RTOL, "score_rtol": CHAR_SCORE_RTOL,
+           "sample_launches": sample_launches,
+           "graph_sample_ms_per_char": g_ms,
+           "samples_equal_network": g_chars == m_chars,
+           "stored_state_vs_stepped_max_abs": stored_err,
+           "carry_template": [None if c is None else list(c.c.shape)
+                              for c in tmpl],
+           "launches": launches, "n_params": graph.n_params}
+    emit("graph_tbptt_charrnn", **res)
+    if res["max_update_rel_err"] > CHAR_UPDATE_RTOL or \
+            res["max_score_rel_diff"] > CHAR_SCORE_RTOL or \
+            not res["samples_equal_network"] or stored_err > LSTM_TOL or \
+            sample_launches != _want(
+                ck, lstm_step=CHAR_LAYERS * GRAPH_SAMPLE_CHARS):
+        raise AssertionError("graph char-RNN disagrees with the network")
+    return res
+
+
+def _recorded_dropout():
+    """A context recording the keep mask of every dropout a layer applies
+    (``ops/helpers.dropout``, which still launches and counts the
+    kernel)."""
+    from unittest import mock
+    from deeplearning4j_tpu_torch.ops import helpers
+    masks = []
+    inner = helpers.dropout
+
+    def rec(x, rate, seed):
+        y = inner(x, rate, seed)
+        masks.append(((y != 0) | (x == 0)).detach().clone())
+        return y
+    return masks, mock.patch.object(helpers, "dropout", rec)
+
+
+@_tf32_off
+def phase_checkpointed_vgg16_224(torch, ck) -> dict:
+    """One VGG16-224 step (dropout 0.5, batch VGG_BATCH, f32) with
+    ``gradient_checkpointing`` against one without, from the same params,
+    updater state and seed words: plain, checkpointed, plain."""
+    from deeplearning4j_tpu_torch.models import vgg16
+    net = vgg16(dropout=0.5, device="cuda").init(
+        generator=torch.Generator().manual_seed(SEED))
+    x, y = _random_batch(np.random.default_rng(SEED + 33), VGG_BATCH,
+                         (3, 224, 224), 1000)
+    xd, yd = (torch.from_numpy(a).cuda() for a in (x, y))
+    net.opt_states = net._init_opt_states()
+    seeds = net._draw_seeds().tolist()
+    snap = (_clone_tree(net.net_params), _clone_tree(net.opt_states),
+            _clone_tree(net.net_state))
+
+    def step(remat):
+        net.net_params, net.opt_states, net.net_state = (
+            _clone_tree(t) for t in snap)
+        net.conf.global_conf.gradient_checkpointing = remat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts = _kernel_counts(ck)
+        masks, patch = _recorded_dropout()
+        t0 = time.perf_counter()
+        with patch:
+            score, grads = net._grad_step(xd, yd, None, None, seeds)
+            net._apply_updates(grads, 0)
+            del grads
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        return {"seconds": dt, "score": float(score),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "peak_above_start_bytes":
+                    torch.cuda.max_memory_allocated() - base,
+                "launches": {n: after[n] - counts[n] for n in after}
+                }, masks, _clone_tree(net.net_params)
+    _zero_counts(ck)                                   # main path starts
+    runs = []
+    for remat in (False, True, False):
+        bw = ck._ConvBiasAct.backwards
+        rec, masks, params = step(remat)
+        rec["conv_backwards"] = ck._ConvBiasAct.backwards - bw
+        runs.append((rec, masks, params))
+    launches = _kernel_counts(ck)                      # main path ends
+    net.conf.global_conf.gradient_checkpointing = False
+    (plain, m_plain, p_plain), (remat, m_remat, p_remat), (again, _, _) = runs
+    n_fwd = len(m_plain)
+    errs = {f"{i}_{k}": float(
+        torch.linalg.vector_norm(lr[k] - lp[k])
+        / torch.linalg.vector_norm(lp[k] - l0[k]))
+        for i, (lr, lp, l0) in enumerate(zip(p_remat, p_plain, snap[0]))
+        for k in lp}
+    # the first forward's masks are the plain step's, and every recompute
+    # draws one of them again
+    masks_equal = len(m_remat) > n_fwd and all(
+        torch.equal(a, b) for a, b in zip(m_plain, m_remat[:n_fwd])) and \
+        all(any(torch.equal(m, p) for p in m_plain) for m in m_remat[n_fwd:])
+    res = {"batch": VGG_BATCH, "plain": plain, "checkpointed": remat,
+           "plain_again": again, "update_rel_err": errs,
+           "max_update_rel_err": max(errs.values()),
+           "score_rel_diff": abs(remat["score"] - plain["score"])
+           / abs(plain["score"]),
+           "dropout_masks_equal": masks_equal,
+           "dropout_mask_launches": [len(m_plain), len(m_remat)],
+           "running_statistics": "none (VGG16 has no batch norm)",
+           "peak_ratio": remat["peak_bytes"] / plain["peak_bytes"],
+           "seconds_ratio": remat["seconds"] / plain["seconds"],
+           "update_rtol": STEP_UPDATE_RTOL, "score_rtol": STEP_RTOL,
+           "launches": launches}
+    emit("checkpointed_vgg16_224", **res)
+    if res["max_update_rel_err"] > STEP_UPDATE_RTOL or \
+            res["score_rel_diff"] > STEP_RTOL or not masks_equal or \
+            plain["launches"] != _want(ck, conv2d_bias_act=13,
+                                       softmax_xent=1, threshold_dropout=4) \
+            or remat["launches"] != _want(
+                ck, conv2d_bias_act=CKPT_CONV_LAUNCHES, softmax_xent=1,
+                threshold_dropout=CKPT_DROPOUT_LAUNCHES):
+        raise AssertionError("checkpointed VGG16-224 step disagrees with "
+                             "the plain step")
+    return res
+
+
+def _ragged_lenet_batches(rng, n):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    sizes = rng.integers(BUCKET_ROWS[0], BUCKET_ROWS[1] + 1, n)
+    return [DataSet(rng.random((int(s), 1, 28, 28), np.float32),
+                    np.eye(10, dtype=np.float32)[rng.integers(0, 10, s)])
+            for s in sizes]
+
+
+def _ragged_char_batches(rng, it, n):
+    """Char-RNN batches of ragged lengths, each with a features mask that
+    ends some rows early."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    out = []
+    for _ in range(n):
+        t = int(rng.integers(BUCKET_TIME[0], BUCKET_TIME[1] + 1))
+        ds = it.next()
+        fm = np.ones((CHAR_BATCH, t), np.float32)
+        for r in range(CHAR_BATCH):
+            fm[r, rng.integers(t // 2, t + 1):] = 0.0
+        out.append(DataSet(ds.features[:, :t], ds.labels[:, :t], fm, fm))
+    return out
+
+
+def _bucketed_steps(torch, make, batches) -> dict:
+    """Each of ``batches`` stepped unbucketed and bucketed from the same
+    state (the unbucketed run's before it): per param the 2-norm of the
+    difference of the two updates over the unbucketed update's, and the
+    score's relative difference, worst over the batches."""
+    net = make()
+    worst_update, worst_score = 0.0, 0.0
+    for ds in batches:
+        twin = net.clone()
+        twin.conf.global_conf.shape_bucketing = True
+        before = _clone_tree(net.net_params)
+        net._fit_batch(ds)
+        twin._fit_batch(ds)
+        for lp, tp, bp in zip(net.net_params, twin.net_params, before):
+            for k in lp:
+                worst_update = max(worst_update, float(
+                    torch.linalg.vector_norm(tp[k] - lp[k])
+                    / torch.linalg.vector_norm(lp[k] - bp[k])))
+        worst_score = max(worst_score, abs(twin.score() - net.score())
+                          / abs(net.score()))
+        del twin
+    return {"steps": len(batches), "max_update_rel_err": worst_update,
+            "max_score_rel_diff": worst_score}
+
+
+def _bucketed_vs_raw(torch, ck, make, batches) -> dict:
+    """``make()`` fit over ``batches`` unbucketed and bucketed from the same
+    params, through the async pipeline: training signatures, launches,
+    samples/s and how far the two runs' params end apart (reported: over
+    many steps the runs part as any two float32 orders of summation do);
+    then :func:`_bucketed_steps` over the first BUCKET_CHECK_STEPS."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    rows = sum(d.num_examples() for d in batches)
+    out, params = {}, {}
+    for mode in ("raw", "bucketed"):
+        net = make()
+        net.conf.global_conf.shape_bucketing = mode == "bucketed"
+        torch.cuda.synchronize()
+        counts = _kernel_counts(ck)
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator(list(batches)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = _kernel_counts(ck)
+        snap = net.compile_telemetry.snapshot()
+        out[mode] = {"seconds": dt, "samples_per_s": rows / dt,
+                     "signatures": snap["by_kind"].get("train_step", 0),
+                     "bucket_hits": snap["bucket_hits"],
+                     "score": net.score(),
+                     "launches": {n: after[n] - counts[n] for n in after}}
+        params[mode] = net.params()
+        del net
+    out.update(batches=len(batches), rows=rows,
+               final_params_rel_diff=float(
+                   torch.linalg.vector_norm(params["bucketed"]
+                                            - params["raw"])
+                   / torch.linalg.vector_norm(params["raw"])),
+               step_check=_bucketed_steps(torch, make,
+                                          batches[:BUCKET_CHECK_STEPS]))
+    return out
+
+
+@_tf32_off
+def phase_bucketed_fit(torch, ck) -> dict:
+    """LeNet + Adam on ragged batch sizes and the char-RNN (standard
+    backprop) on ragged lengths with masks, each bucketed against
+    unbucketed from the same params, under cuDNN's deterministic
+    algorithms."""
+    from deeplearning4j_tpu_torch.models import CharacterIterator, char_rnn
+    from deeplearning4j_tpu_torch.models import lenet
+    rng = np.random.default_rng(SEED + 34)
+    lenet_batches = _ragged_lenet_batches(rng, BUCKET_LENET_BATCHES)
+    it = CharacterIterator((ROOT / "SURVEY.md").read_text(),
+                           seq_length=BUCKET_TIME[1], batch=CHAR_BATCH,
+                           seed=1)
+    char_batches = _ragged_char_batches(rng, it, BUCKET_CHAR_BATCHES)
+
+    def make_char():
+        net = char_rnn(it.vocab_size, CHAR_HIDDEN, CHAR_LAYERS,
+                       device="cuda").init(
+            generator=torch.Generator().manual_seed(SEED))
+        net.conf.backprop_type = "standard"   # TBPTT is not bucketed
+        return net
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        _zero_counts(ck)                               # main path starts
+        res = {"lenet": _bucketed_vs_raw(
+            torch, ck, lambda: lenet(device="cuda").init(
+                generator=torch.Generator().manual_seed(SEED)),
+            lenet_batches),
+            "charrnn": _bucketed_vs_raw(torch, ck, make_char, char_batches)}
+        launches = _kernel_counts(ck)                  # main path ends
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    res["launches"] = launches
+    res["rules"] = {"lenet": BUCKET_LENET_RTOL, "charrnn": BUCKET_CHAR_RTOL,
+                    "score": BUCKET_SCORE_RTOL}
+    emit("bucketed_fit", **res)
+    lb, cb = res["lenet"]["bucketed"], res["charrnn"]["bucketed"]
+    if any(res[m]["step_check"]["max_update_rel_err"] > rtol
+           or res[m]["step_check"]["max_score_rel_diff"] > BUCKET_SCORE_RTOL
+           for m, rtol in (("lenet", BUCKET_LENET_RTOL),
+                           ("charrnn", BUCKET_CHAR_RTOL))) or \
+            lb["signatures"] > len({k for k in lb["bucket_hits"]
+                                    if k.startswith("train_step:")}) or \
+            cb["signatures"] > len({k for k in cb["bucket_hits"]
+                                    if k.startswith("train_step:")}) or \
+            lb["launches"]["conv2d_bias_act"] != 2 * BUCKET_LENET_BATCHES:
+        raise AssertionError("bucketed fit disagrees with the raw fit")
+    return res
+
+
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
@@ -7916,11 +8698,25 @@ def main() -> int:
     dbn = phase_pretrain_dbn(torch, ck)
     center = phase_center_loss_lenet(torch, ck)
     external = phase_external_gradients_vgg16_224(torch, ck)
+    torch.cuda.empty_cache()
+    dl4j_zip = phase_dl4j_zip_serve(torch, ck)
+    torch.cuda.empty_cache()
+    quantized = phase_serve_quantized(torch, ck)
+    graph_char = phase_graph_tbptt_charrnn(torch, ck, train_char)
+    torch.cuda.empty_cache()
+    checkpointed = phase_checkpointed_vgg16_224(torch, ck)
+    torch.cuda.empty_cache()
+    bucketed = phase_bucketed_fit(torch, ck)
     engine_paths = {"fused_lenet": fused["launches"],
                     "pretrain_vae": vae["launches"],
                     "pretrain_dbn": dbn["launches"],
                     "center_loss_lenet": center["launches"],
-                    "external_gradients_vgg16_224": external["launches"]}
+                    "external_gradients_vgg16_224": external["launches"],
+                    "dl4j_zip_serve": dl4j_zip["launches"],
+                    "serve_quantized": quantized["launches"],
+                    "graph_tbptt_charrnn": graph_char["launches"],
+                    "checkpointed_vgg16_224": checkpointed["launches"],
+                    "bucketed_fit": bucketed["launches"]}
 
     print(json.dumps(summary(records + resnet_records, serve_launches, xd,
                              train_vgg, train_lenet, lenet_pipe, gateway_fit,

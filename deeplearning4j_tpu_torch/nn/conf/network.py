@@ -5,9 +5,11 @@ the global-then-per-layer merge, nIn inference and preprocessor insertion
 from ``InputType``, and ``MultiLayerConfiguration.to_json`` /
 ``from_json``.  The JSON is the JAX package's: a configuration written by
 either package builds the same network in the other.  ``precision`` is
-acted on (``ops/dtypes.py``: bf16 compute over f32 masters); the global
-fields this port does not act on yet (quantized serving and gradients,
-sharding, distribution) are kept and written back, not dropped.
+acted on (``ops/dtypes.py``: bf16 compute over f32 masters), and so are
+``precision_infer_quant`` (the model cache's quantized serving),
+``gradient_checkpointing`` and ``shape_bucketing``; the global fields this
+port does not act on yet (quantized gradients, sharding, distribution)
+are kept and written back, not dropped.
 """
 
 from __future__ import annotations
@@ -258,9 +260,12 @@ class Builder:
         engines (``ops/dtypes.py``) — 'bfloat16' (bf16 activations and
         conv / matmul inputs, f32 accumulation, f32 master params and
         updater state), 'float32', 'float64', or None / 'auto' (float32
-        on this port's devices).  ``infer_quant`` ('int8' | 'fp8') and
-        ``grad_allreduce`` ('int8') are stored and written to the
-        configuration, not acted on yet (ROADMAP A6.6)."""
+        on this port's devices).  ``infer_quant`` ('int8' | 'fp8'):
+        weight-only quantized serving, applied by ``server/model_cache``
+        when it loads the model (``quantize_inference``).
+        ``grad_allreduce`` ('int8') is stored and written to the
+        configuration, not acted on yet: it waits for distributed
+        training (ROADMAP A8)."""
         if compute is not None:
             self._g.precision = compute
         elif p is not Builder._UNSET:
@@ -269,6 +274,25 @@ class Builder:
             self._g.precision_infer_quant = infer_quant
         if grad_allreduce is not Builder._UNSET:
             self._g.dist_grad_quant = grad_allreduce
+        return self
+
+    def gradient_checkpointing(self, on: bool = True):
+        """Recompute each layer's (vertex's) forward in the backward pass
+        instead of keeping its activations (``torch.utils.checkpoint``):
+        more work for less activation memory (JAX :341-346)."""
+        self._g.gradient_checkpointing = bool(on)
+        return self
+
+    def shape_bucketing(self, on: bool = True, batch_sizes=None,
+                        time_sizes=None):
+        """Pad ragged batch and time dims up to a bucket ladder (powers of
+        two unless given), with exact masks (``ops/bucketing.py``; JAX
+        :348-358)."""
+        self._g.shape_bucketing = bool(on)
+        if batch_sizes is not None:
+            self._g.bucket_batch_sizes = [int(s) for s in batch_sizes]
+        if time_sizes is not None:
+            self._g.bucket_time_sizes = [int(s) for s in time_sizes]
         return self
 
     def input_pipeline(self, workers: Optional[int] = None,

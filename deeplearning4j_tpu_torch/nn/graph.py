@@ -42,9 +42,17 @@ on the activations of its upstream subgraph) and ``backprop_gradient`` /
 ``apply_gradients`` are ``MultiLayerNetwork``'s over the vertex dicts.  A
 ``CenterLossOutputLayer`` output vertex raises, as in the JAX package.
 
-Not ported yet: truncated BPTT and ``rnn_time_step`` of a graph,
-``quantize_inference``, gradient checkpointing, sharding and distributed
-training.
+Under ``backprop_type("truncatedbptt")`` ``fit`` of [N, T, C] inputs takes
+one step per segment of ``tbptt_fwd_length`` steps, every recurrent
+vertex carrying its ``rnn_state`` (detached) from segment to segment and
+none from batch to batch (JAX :755-806); ``rnn_time_step`` carries the
+vertices' states from call to call and ``rnn_carry_template`` makes zero
+carries from shapes found on ``meta`` tensors.  ``quantize_inference``,
+gradient checkpointing (per vertex) and shape bucketing (``fit``, its
+pipeline's ETL, ``output``, ``score``, ``score_examples``) are
+``MultiLayerNetwork``'s.
+
+Not ported yet: sharding and distributed training.
 """
 
 from __future__ import annotations
@@ -72,13 +80,15 @@ from deeplearning4j_tpu_torch.nn.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.listeners import IterationListener
 from deeplearning4j_tpu_torch.nn.multilayer import (
     BIAS_KEYS, WEIGHT_KEYS, _clone, _detach, _tree_fill, _tree_leaves,
-    _updater_for, as_iterator, fit_epochs, fit_group, fused_group_size,
-    grad_like, grads_or_zeros, pretrain_gradients, reg_gradients,
-    render_table)
+    _updater_for, _zeros_tree, as_iterator, checkpointed, fit_epochs,
+    fit_group, fused_group_size, grad_like, grads_or_zeros,
+    pretrain_gradients, reg_gradients, render_table, run_checkpointed,
+    serving_params, set_quantized, to_meta)
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import dtypes as dtype_ops
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
 
 
 def _strip_rnn(state: Dict[str, dict]) -> Dict[str, dict]:
@@ -114,6 +124,11 @@ class ComputationGraph:
             int(conf.global_conf.seed))
         self._noise_gen: Optional[torch.Generator] = None
         self._fused_before = False
+        self.compile_telemetry = bucketing.CompileTelemetry()
+        self._bucket_train_ok: Optional[bool] = None
+        self._infer_quant: Optional[str] = None
+        self._q_params = self._q_stats = None
+        self._q_iteration = -1
         # the loss heads, by name, in the order of conf.network_outputs
         self.output_layers = {}
         for n in conf.network_outputs:
@@ -243,6 +258,7 @@ class ComputationGraph:
         keep = set(self.conf.network_outputs)
         if keep_all:
             keep |= set(acts) | set(self.order)
+        remat = checkpointed(self, train)
         for vi, name in enumerate(self.order):
             if only is not None and name not in only:
                 continue
@@ -268,8 +284,14 @@ class ComputationGraph:
                     acts[name] = lc._act(pre)
                 out_masks[name] = ms[0] if ms else None
             else:
-                y, ns, m = v.forward(params[name], state[name], ins, train,
-                                     seed, ms)
+                if remat:
+                    y, ns, m = run_checkpointed(
+                        lambda p, s_, ins_, ms_, v=v, seed=seed:
+                        v.forward(p, s_, ins_, True, seed, ms_),
+                        params[name], state[name], ins, ms)
+                else:
+                    y, ns, m = v.forward(params[name], state[name], ins,
+                                         train, seed, ms)
                 acts[name] = y
                 new_states[name] = ns
                 out_masks[name] = m
@@ -351,13 +373,38 @@ class ComputationGraph:
         if self.net_params is None:
             self.init()
         policy = self._policy()
+        g = self.conf.global_conf
+        masks, unpad, bucket = {}, None, None
+        if g.shape_bucketing:
+            padded, pairs = [], []
+            for x in inputs:
+                xp, mp, n, t, b = bucketing.bucket_inference_features(
+                    x, None, g)
+                padded.append((xp, mp))
+                pairs.append((t, b[1]))
+            inputs = [xp for xp, _ in padded]
+            masks = {name: self._as_float(mp) for name, (_, mp) in
+                     zip(self.conf.network_inputs, padded) if mp is not None}
+            bucket = (b[0], tuple(tb for _, tb in pairs))
+            unpad = (n, pairs)
         with torch.inference_mode():
-            pc, xs = policy.cast_to_compute((self.net_params,
-                                             self._inputs(inputs)))
+            xs, masks = policy.cast_to_compute((self._inputs(inputs), masks))
+            self.compile_telemetry.record("output", (xs, masks),
+                                          bucket=bucket)
             outs, _, _, _ = self._forward_all(
-                pc, _strip_rnn(self.net_state), xs, {}, False)
-        return tuple(policy.cast_to_param(outs[n])
+                serving_params(self, self.net_params, policy),
+                _strip_rnn(self.net_state), xs, masks, False)
+        outs = tuple(policy.cast_to_param(outs[n])
                      for n in self.conf.network_outputs)
+        if unpad is not None:
+            outs = tuple(_unpad_graph_output(o, *unpad) for o in outs)
+        return outs
+
+    def quantize_inference(self, mode: str = "int8") -> "ComputationGraph":
+        """Weight-only quantized serving over the vertex params, as
+        ``MultiLayerNetwork.quantize_inference`` (JAX :914-958)."""
+        set_quantized(self, mode)
+        return self
 
     def warmup_inference(self, feature_dims, max_batch: int = 32,
                          batch_sizes=None) -> dict:
@@ -426,11 +473,18 @@ class ComputationGraph:
         if (g.pipeline_workers > 0
                 and not isinstance(it, AsyncDataSetIterator)
                 and getattr(it, "async_supported", lambda: True)()):
+            transform = _as_multi
+            if self._bucket_train_enabled():
+                # bucket on the pipeline's thread, before staging (JAX
+                # :431-446)
+                def transform(item):
+                    return bucketing.bucket_train_multidataset(
+                        _as_multi(item), g)[0]
             it = AsyncMultiDataSetIterator(
                 it, queue_size=g.pipeline_prefetch,
                 workers=g.pipeline_workers,
                 staging_depth=g.pipeline_staging_depth, device=self.device,
-                transform=_as_multi)
+                transform=transform)
         # the MultiDataSetIterator protocol where there is one; a plain
         # iterable works too
         has_protocol = (callable(getattr(it, "has_next", None))
@@ -462,26 +516,39 @@ class ComputationGraph:
         return torch.randint(0, 1 << 32, (len(self.order), 2),
                              generator=self._generator, dtype=torch.int64)
 
+    def _bucket_train_enabled(self) -> bool:
+        """As ``MultiLayerNetwork._bucket_train_enabled`` (JAX :668-674)."""
+        g = self.conf.global_conf
+        if not g.shape_bucketing or \
+                self.conf.backprop_type == "truncatedbptt":
+            return False
+        if self._bucket_train_ok is None:
+            self._bucket_train_ok = bucketing.pad_supported(self)
+        return self._bucket_train_ok
+
+    def _maybe_bucket_train(self, mds, scale_loss: bool = True):
+        if self._bucket_train_enabled():
+            return bucketing.bucket_train_multidataset(
+                mds, self.conf.global_conf, scale_loss=scale_loss)
+        return mds, None
+
     def _fit_group(self, group: List[MultiDataSet]) -> None:
         def masks(ms):
             return None if ms is None else tuple(m is None for m in ms)
+        rows = [m.num_examples() for m in group]
+        group = [self._maybe_bucket_train(m)[0] for m in group]
         fit_group(self, group, lambda m: (
             tuple(tuple(f.shape) for f in m.features),
             tuple(tuple(y.shape) for y in m.labels),
-            masks(m.features_masks), masks(m.labels_masks)))
+            masks(m.features_masks), masks(m.labels_masks)), rows)
 
     def _fit_batch(self, mds, seeds=None, notify: bool = True) -> None:
-        """One training step on ``mds`` (a MultiDataSet or DataSet);
-        ``seeds`` gives its dropout seed words ([n_vertices, 2]), else
-        they are drawn from the graph's generator (on the host: no device
-        synchronisation).  ``notify`` False leaves the listeners to the
-        caller."""
+        """One training step on ``mds`` (a MultiDataSet or DataSet), or
+        under truncated BPTT one a segment; ``seeds`` gives its dropout
+        seed words ([n_vertices, 2]), else they are drawn from the graph's
+        generator (on the host: no device synchronisation).  ``notify``
+        False leaves the listeners to the caller."""
         mds = _as_multi(mds)
-        if self.conf.backprop_type == "truncatedbptt" and \
-                any(np.ndim(f) == 3 for f in mds.features):
-            raise NotImplementedError(
-                "truncated BPTT of a ComputationGraph is not ported to "
-                "deeplearning4j_tpu_torch yet (ROADMAP A6)")
         if not self.output_layers:
             raise ValueError("ComputationGraph.fit() needs >=1 output layer "
                              "vertex (OutputLayer/LossLayer)")
@@ -490,9 +557,17 @@ class ComputationGraph:
         if self.opt_states is None:
             self.opt_states = self._init_opt_states()
         self.last_batch_size = mds.num_examples()
+        if self.conf.backprop_type == "truncatedbptt" and \
+                any(np.ndim(f) == 3 for f in mds.features):
+            self._fit_tbptt(mds)
+            return
+        mds, bucket = self._maybe_bucket_train(mds)
         step_seeds = (self._draw_seeds() if seeds is None else
                       np.asarray(seeds, dtype=np.int64).reshape(
                           len(self.order), 2)).tolist()
+        self.compile_telemetry.record(
+            "train_step", (mds.features, mds.labels, mds.features_masks,
+                           mds.labels_masks), bucket=bucket)
         score, grads = self._grad_step(
             self._inputs(mds.features),
             [self._as_float(y) for y in mds.labels],
@@ -506,12 +581,50 @@ class ComputationGraph:
             for lst in self.listeners:
                 lst.iteration_done(self, self.iteration)
 
+    def _fit_tbptt(self, mds: MultiDataSet) -> None:
+        """Truncated BPTT (ref: ComputationGraph.doTruncatedBPTT :1476;
+        JAX :755-806): the carries are cleared, then one step and one
+        update per segment of ``tbptt_fwd_length`` steps of the [N, T, C]
+        inputs, every recurrent vertex starting from the state it ended
+        the previous segment in (detached).  3-D labels are sliced with
+        the features, and so is any mask whose time axis is the full
+        length (2-D masks included)."""
+        T = max(f.shape[1] for f in mds.features if np.ndim(f) == 3)
+        seg_len = self.conf.tbptt_fwd_length
+        self.rnn_clear_previous_state()
+        xs = self._inputs(mds.features)
+        ys = [self._as_float(y) for y in mds.labels]
+        fms, lms = (self._masks(mds.features_masks),
+                    self._masks(mds.labels_masks))
+
+        def seg(a, sl):
+            return a[:, sl] if a is not None and a.ndim == 3 else a
+
+        def seg_mask(m, sl):
+            if m is None or m.ndim < 2 or m.shape[1] != T:
+                return m
+            return m[:, sl]
+        for t0 in range(0, T, seg_len):
+            sl = slice(t0, min(t0 + seg_len, T))
+            score, grads = self._grad_step(
+                {n: seg(x, sl) for n, x in xs.items()},
+                [seg(y, sl) for y in ys],
+                None if fms is None else [seg_mask(m, sl) for m in fms],
+                None if lms is None else [seg_mask(m, sl) for m in lms],
+                self._draw_seeds().tolist())
+            self._apply_updates(grads, self.iteration)
+            self._score = score
+            self.iteration += 1
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration)
+
     def _grad_step(self, xs: Dict[str, torch.Tensor], ys, fmasks, lmasks,
                    seeds):
         """Score of the batch and its gradient per vertex and param (none
         for a frozen vertex, whose forward then records no backward); the
         vertices' new states (detached) replace ``net_state``, as the JAX
-        step returns them."""
+        step returns them.  A carried ``rnn_state`` (truncated BPTT)
+        enters in the compute dtype, as in ``MultiLayerNetwork``."""
         policy = self._policy()
         params = {n: {k: v.detach().requires_grad_(not self.frozen[n])
                       for k, v in lp.items()}
@@ -519,11 +632,14 @@ class ComputationGraph:
         masks = (dict(zip(self.conf.network_inputs, fmasks))
                  if fmasks is not None else {})
         xs, masks = policy.cast_to_compute((xs, masks))
+        state = {n: {k: policy.cast_to_compute(v) if k == "rnn_state"
+                     else v for k, v in s.items()}
+                 for n, s in self.net_state.items()}
         with torch.enable_grad():
             # the cast inside the differentiated function: f32 gradients
             # of the f32 masters
             _, preouts, new_states, out_masks = self._forward_all(
-                policy.cast_to_compute(params), self.net_state, xs, masks,
+                policy.cast_to_compute(params), state, xs, masks,
                 True, seeds, preout_for=list(self.output_layers))
             preouts = {n: policy.cast_to_accum(v)
                        for n, v in preouts.items()}
@@ -710,7 +826,10 @@ class ComputationGraph:
         included), or the score of the last training step."""
         if data is None:
             return float(self._score)
-        mds = _as_multi(data)
+        mds, bucket = self._maybe_bucket_train(_as_multi(data))
+        self.compile_telemetry.record(
+            "score", (mds.features, mds.labels, mds.features_masks,
+                      mds.labels_masks), bucket=bucket)
         preouts, out_masks = self._inference_preouts(mds)
         with torch.inference_mode():
             return float(self._score_of(
@@ -724,14 +843,27 @@ class ComputationGraph:
         output layers (ref: ComputationGraph.scoreExamples);
         ``add_regularization_terms`` adds the l1/l2 penalty to every
         example's score.  Takes a DataSet, a MultiDataSet or an iterator
-        of them; returns a 1-D array over all examples."""
+        of them; returns a 1-D array over all examples.  Under
+        ``shape_bucketing`` a batch is padded with unscaled masks and the
+        padded rows' scores dropped."""
         if self.net_params is None:
             self.init()
         batches = ([data] if isinstance(data, (DataSet, MultiDataSet))
                    else data)
+        g = self.conf.global_conf
+        bucket_ok = (g.shape_bucketing and
+                     bucketing.pad_supported(self, require_mean=False))
         out = []
         for item in batches:
             mds = _as_multi(item)
+            n, bucket = mds.num_examples(), None
+            if bucket_ok:
+                mds, bucket = bucketing.bucket_train_multidataset(
+                    mds, g, scale_loss=False)
+            self.compile_telemetry.record(
+                "score_examples", (mds.features, mds.labels,
+                                   mds.features_masks, mds.labels_masks),
+                bucket=bucket)
             preouts, out_masks = self._inference_preouts(mds)
             with torch.inference_mode():
                 per = sum(self._per_example_scores(
@@ -740,7 +872,7 @@ class ComputationGraph:
                     self._masks(mds.labels_masks)).values())
                 if add_regularization_terms:
                     per = per + self._reg_penalty(self.net_params)
-            out.append(per.cpu().numpy())
+            out.append(per.cpu().numpy()[:n])
         return np.concatenate(out)
 
     def evaluate(self, iterator_or_dataset, output_idx: int = 0
@@ -762,6 +894,70 @@ class ComputationGraph:
     def rnn_clear_previous_state(self) -> None:
         """Drop any stored RNN carry (ref: rnnClearPreviousState :1608)."""
         self.net_state = _strip_rnn(self.net_state)
+
+    def rnn_time_step(self, *inputs):
+        """Stateful inference (ref: ComputationGraph.rnnTimeStep :1569; JAX
+        :871-905): each input [N, T, C] continues every recurrent vertex
+        from the state the previous call left (zeros after
+        :meth:`rnn_clear_previous_state`) and the new final states are kept
+        for the next call; returns the network outputs.  The forward runs
+        under ``kv_decode_scope``, so attention vertices decode against
+        their KV ring."""
+        if self.net_params is None:
+            self.init()
+        policy = self._policy()
+        state = {n: {k: policy.cast_to_compute(v) if k == "rnn_state"
+                     else v for k, v in s.items()}
+                 for n, s in self.net_state.items()}
+        with torch.no_grad(), seq_ops.kv_decode_scope():
+            pc, xs = policy.cast_to_compute((self.net_params,
+                                             self._inputs(inputs)))
+            self.compile_telemetry.record("rnn_time_step", xs)
+            outs, _, new_states, _ = self._forward_all(pc, state, xs, {},
+                                                       False)
+        self._merge_rnn_state(policy.cast_to_param(new_states))
+        return tuple(policy.cast_to_param(outs[n])
+                     for n in self.conf.network_outputs)
+
+    def _merge_rnn_state(self, new_states) -> None:
+        """Keep the vertices' new ``rnn_state`` and nothing else of their
+        new states."""
+        merged = {}
+        for name, old in self.net_state.items():
+            s = {k: v for k, v in old.items() if k != "rnn_state"}
+            if "rnn_state" in new_states.get(name, {}):
+                s["rnn_state"] = new_states[name]["rnn_state"]
+            merged[name] = s
+        self.net_state = merged
+
+    def rnn_carry_template(self, n: int, feature_tails=None,
+                           dtype: torch.dtype = torch.float32) -> dict:
+        """Zero carries for ``n`` streams, vertex name -> carry, of the
+        structure ``rnn_time_step`` stores (JAX :845-869); the shapes come
+        from the step's forward over ``meta`` tensors.  ``feature_tails``
+        has one per-example shape per network input (``(T, C)``); by
+        default one step of each declared input type."""
+        if self.net_params is None:
+            self.init()
+        if feature_tails is None:
+            if not self.conf.input_types:
+                raise ValueError("rnn_carry_template needs explicit "
+                                 "feature_tails= (no set_input_types())")
+            feature_tails = [(1, it.size) if it.kind == "rnn"
+                             else (it.size,)
+                             for it in self.conf.input_types]
+        policy = self._policy()
+        xs = {name: torch.empty((int(n),) + tuple(int(d) for d in t),
+                                dtype=dtype, device="meta")
+              for name, t in zip(self.conf.network_inputs, feature_tails)}
+        with torch.no_grad(), seq_ops.kv_decode_scope():
+            pc, xs = policy.cast_to_compute((to_meta(self.net_params), xs))
+            _, _, new_states, _ = self._forward_all(
+                pc, to_meta(_strip_rnn(self.net_state)), xs, {}, False)
+        return {name: _zeros_tree(policy.cast_to_param(ns["rnn_state"]),
+                                  self.device)
+                for name, ns in new_states.items()
+                if isinstance(ns, dict) and "rnn_state" in ns}
 
     # ---- flat views ----
     def params(self) -> torch.Tensor:
@@ -888,6 +1084,18 @@ class ComputationGraph:
             net.opt_states = _clone(self.opt_states)
         net.iteration = self.iteration
         return net
+
+
+def _unpad_graph_output(out, n, time_pairs):
+    """One padded graph output sliced back to the real rows, and to the
+    real time extent when its time axis is a padded input's time bucket
+    (JAX :1062-1071)."""
+    out = out[:n]
+    for t, tb in time_pairs:
+        if t is not None and tb != t and out.ndim >= 3 \
+                and out.shape[1] == tb:
+            return out[:, :t]
+    return out
 
 
 def _as_multi(item):

@@ -155,10 +155,10 @@ class ProfilerListener(IterationListener):
 
 
 class CompileTelemetryListener(IterationListener):
-    """The engine's ``CompileTelemetry`` through the listener interface,
-    as in the JAX package: logs the iterations that caused a new trace
-    and keeps periodic snapshots.  The port's engines run eagerly and
-    carry no ``compile_telemetry``, so there it records nothing."""
+    """The engine's ``CompileTelemetry`` (``ops/bucketing.py``: the input
+    signatures each entry point met) through the listener interface, as
+    in the JAX package: logs the iterations that met a new signature and
+    keeps periodic snapshots."""
 
     def __init__(self, frequency: int = 1):
         self.frequency = max(1, frequency)

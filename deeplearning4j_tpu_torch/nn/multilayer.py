@@ -65,8 +65,23 @@ scored on its input features.  ``backprop_gradient`` /
 error on the output, then the updaters.  ``nn/gradientcheck.py`` and
 ``nn/solvers.py`` work on these engines.
 
-Not ported yet: sharding, distributed training, ``quantize_inference``
-and gradient checkpointing.
+``quantize_inference("int8" | "fp8")`` serves ``output`` from weight-only
+codes kept on the device (``ops/quantize.py``), expanded layer by layer as
+the forward reaches them; ``mode=None`` serves dense again.  Under
+``gradient_checkpointing`` a training forward runs each layer under
+``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+layer from its inputs and its explicit dropout seed words, so the
+recompute launches the same kernels on the same inputs, and the layer's
+new state (batch norm's statistics, ``rnn_state``) is the first forward's.
+``rnn_carry_template`` makes the zero carries of ``n`` streams from shapes
+found on ``meta`` tensors; ``rnn_activate_using_stored_state`` runs every
+layer from the stored carries.  Under ``shape_bucketing`` (``ops/
+bucketing.py``) ``fit`` (the async pipeline's ETL included, on its feeder
+thread), ``output``, ``score`` and ``score_examples`` pad ragged batches
+up to their bucket with exact masks; ``compile_telemetry`` counts the
+input signatures each entry point met.
+
+Not ported yet: sharding and distributed training.
 """
 
 from __future__ import annotations
@@ -77,6 +92,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
@@ -93,6 +109,7 @@ from deeplearning4j_tpu_torch.nn.listeners import (
     IterationListener, TrainingListener)
 from deeplearning4j_tpu_torch.ops import bucketing
 from deeplearning4j_tpu_torch.ops import dtypes as dtype_ops
+from deeplearning4j_tpu_torch.ops import quantize as qz
 from deeplearning4j_tpu_torch.ops import updaters as upd_ops
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.parallel import sequence as seq_ops
@@ -178,6 +195,77 @@ def _clone(tree):
     return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
+def checkpointed(model, train: bool) -> bool:
+    """Whether a forward of ``model`` runs each layer (vertex) under
+    ``torch.utils.checkpoint``: in a training forward that records
+    gradients, with ``gradient_checkpointing`` on (JAX multilayer
+    :143-153, graph :167)."""
+    return (train and model.conf.global_conf.gradient_checkpointing
+            and torch.is_grad_enabled())
+
+
+def run_checkpointed(fn, *args):
+    """``fn(*args)`` under non-reentrant ``torch.utils.checkpoint``: its
+    activations are not kept for the backward, which runs ``fn`` again
+    on the same inputs.  The outputs, the layer's new state among them,
+    are the first call's."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _zeros_tree(tree, device):
+    """Zeros of ``tree``'s structure (named tuples kept), shapes and
+    dtypes, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _zeros_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_zeros_tree(t, device) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    return tree
+
+
+def to_meta(tree):
+    """``tree`` with every tensor as a ``meta`` tensor of its shape and
+    dtype: a forward over it finds shapes and runs nothing."""
+    if isinstance(tree, dict):
+        return {k: to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [to_meta(t) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
+    return tree.to("meta") if isinstance(tree, torch.Tensor) else tree
+
+
+def serving_params(model, params, policy):
+    """The params ``output`` reads: the quantized codes through a
+    :class:`ops.quantize.DequantizedView` when quantized serving is on
+    (re-quantized when ``iteration`` moved since; JAX ``_infer_params``),
+    else the dense params, cast through the policy."""
+    if model._infer_quant is None:
+        return policy.cast_to_compute(params)
+    if model._q_params is None or model._q_iteration != model.iteration:
+        model._q_params, model._q_stats = qz.quantize_params(
+            params, model._infer_quant)
+        model._q_iteration = model.iteration
+    return qz.DequantizedView(model._q_params, policy.cast_to_compute)
+
+
+def set_quantized(model, mode) -> None:
+    """``quantize_inference`` of either engine (JAX multilayer :988, graph
+    :914): ``mode`` 'int8' or 'fp8' serves from weight-only codes,
+    quantized at the next ``output``; None serves dense again; anything
+    else, or fp8 on a torch without float8, raises."""
+    if mode is not None:
+        mode = qz.check_mode(mode)
+        if model.net_params is None:
+            model.init()
+    model._infer_quant = mode
+    model._q_params = model._q_stats = None
+    model._q_iteration = -1
+
+
 def layer_reg_penalty(layer: Layer, lp: dict):
     """One layer's l1/l2 on its weights (``WEIGHT_KEYS``) and biases
     (``BIAS_KEYS``); 0.0 when it has none (JAX ``_layer_reg_penalty``)."""
@@ -240,13 +328,15 @@ def fused_group_size(conf, fused_steps: int) -> int:
     return max(1, int(fused_steps))
 
 
-def fit_group(model, group, signature) -> None:
+def fit_group(model, group, signature, rows=None) -> None:
     """One ``fused_steps`` group of either engine (JAX
     ``_fit_fused_group``, multilayer :673-731, graph :538-616): batches of
     one ``signature`` (shapes, mask presence) step back to back and the
-    listeners fire once, after the last, with the group's rows; a group of
-    mixed signatures runs step by step.  The model's first group ever runs
-    its first batch alone, as the JAX package's first launch does."""
+    listeners fire once, after the last, with the group's rows (``rows``,
+    each batch's unpadded count when the group was bucketed); a group of
+    mixed signatures runs step by step.  The model's first group ever
+    runs its first batch alone, as the JAX package's first launch does."""
+    rows = [b.num_examples() for b in group] if rows is None else rows
     if len({signature(b) for b in group}) != 1:
         for b in group:
             model._fit_batch(b)
@@ -254,12 +344,14 @@ def fit_group(model, group, signature) -> None:
     if not model._fused_before:
         model._fused_before = True
         model._fit_batch(group[0])
-        group = group[1:]
+        group, rows = group[1:], rows[1:]
         if not group:
             return
+    model.compile_telemetry.record(f"fused_step_k{len(group)}",
+                                   signature(group[0]))
     for b in group:
         model._fit_batch(b, notify=False)
-    model.last_batch_size = sum(b.num_examples() for b in group)
+    model.last_batch_size = sum(rows)
     for lst in model.listeners:
         lst.iteration_done(model, model.iteration)
 
@@ -388,6 +480,13 @@ class MultiLayerNetwork:
         self._noise_gen: Optional[torch.Generator] = None
         # whether fit(fused_steps=K) has run a group yet
         self._fused_before = False
+        # input signatures each entry point met (ops/bucketing.py)
+        self.compile_telemetry = bucketing.CompileTelemetry()
+        self._bucket_train_ok: Optional[bool] = None
+        # weight-only quantized serving (quantize_inference)
+        self._infer_quant: Optional[str] = None
+        self._q_params = self._q_stats = None
+        self._q_iteration = -1
 
     def init(self, generator: Optional[torch.Generator] = None
              ) -> "MultiLayerNetwork":
@@ -463,15 +562,22 @@ class MultiLayerNetwork:
         ``seeds[i]``; ``acts``, a list, receives every layer's output."""
         layers = self.layers if stop is None else self.layers[:stop]
         new_states = []
+        remat = checkpointed(self, train)
         for i, layer in enumerate(layers):
             if i in self.conf.preprocessors:
                 x, mask = self.conf.preprocessors[i](x, mask)
             s = state[i]
             if not stateful_rnn and "rnn_state" in s:
                 s = {k: v for k, v in s.items() if k != "rnn_state"}
-            x, ns, mask = layer.forward(params[i], s, x, train,
-                                        None if seeds is None else seeds[i],
-                                        mask)
+            seed = None if seeds is None else seeds[i]
+            if remat:
+                x, ns, mask = run_checkpointed(
+                    lambda p, s_, x_, m_, layer=layer, seed=seed:
+                    layer.forward(p, s_, x_, True, seed, m_),
+                    params[i], s, x, mask)
+            else:
+                x, ns, mask = layer.forward(params[i], s, x, train, seed,
+                                            mask)
             new_states.append(ns)
             if acts is not None:
                 acts.append(x)
@@ -514,15 +620,44 @@ class MultiLayerNetwork:
         """Network output for a batch (numpy array or tensor), as a tensor
         on the network's device; no stored RNN state is used.  Under a
         mixed policy the forward runs in the compute dtype and the output
-        comes back in the param dtype (float32)."""
+        comes back in the param dtype (float32).  Under quantized serving
+        (:meth:`quantize_inference`) each layer's weights are expanded from
+        their codes as the forward reaches it; under ``shape_bucketing``
+        the batch is zero-padded up to its bucket and the output sliced
+        back (JAX :1045-1078)."""
         if self.net_params is None:
             self.init()
         policy = self._policy()
+        unpad = bucket = None
+        if self.conf.global_conf.shape_bucketing:
+            x, mask, n, t, bucket = bucketing.bucket_inference_features(
+                x, mask, self.conf.global_conf)
+            unpad = (n, t, bucket[1])
         with torch.inference_mode():
-            pc, xc, mc = policy.cast_to_compute(
-                (self.net_params, self._as_input(x), self._as_mask(mask)))
-            out, _, _ = self._forward(pc, self.net_state, xc, mc)
-            return policy.cast_to_param(out)
+            xc, mc = policy.cast_to_compute(
+                (self._as_input(x), self._as_mask(mask)))
+            self.compile_telemetry.record("output", (xc, mc), bucket=bucket)
+            out, _, _ = self._forward(
+                serving_params(self, self.net_params, policy),
+                self.net_state, xc, mc)
+            out = policy.cast_to_param(out)
+        if unpad is not None:
+            out = bucketing.unpad_outputs(out, *unpad)
+        return out
+
+    def quantize_inference(self, mode: str = "int8") -> "MultiLayerNetwork":
+        """Serve ``output`` (and so ``predict``, the micro-batcher and
+        ``warmup_inference``) from weight-only quantized params (JAX
+        :988-1040): every float param of two or more dimensions becomes
+        int8 (or fp8) codes and float32 scales per index of its last axis,
+        kept on the network's device and expanded layer by layer in the
+        forward; biases and 1-D params stay float32.  The codes are made
+        at the next ``output`` and again whenever ``iteration`` moved
+        since (training keeps the float32 masters).  ``mode=None`` serves
+        dense again.  An unknown mode raises; there is no quiet fallback
+        to dense serving."""
+        set_quantized(self, mode)
+        return self
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions."""
@@ -599,10 +734,18 @@ class MultiLayerNetwork:
         g = self.conf.global_conf
         if (g.pipeline_workers > 0 and it.async_supported()
                 and not isinstance(it, AsyncDataSetIterator)):
+            transform = None
+            if self._bucket_train_enabled():
+                # bucket on the pipeline's thread, before staging: the
+                # staged batch is bucket-shaped and the step's own
+                # bucketing passes it through (JAX :555-565)
+                transform = (lambda d: bucketing.bucket_train_dataset(
+                    d, g)[0])
             it = AsyncDataSetIterator(
                 it, queue_size=g.pipeline_prefetch,
                 workers=g.pipeline_workers,
-                staging_depth=g.pipeline_staging_depth, device=self.device)
+                staging_depth=g.pipeline_staging_depth, device=self.device,
+                transform=transform)
 
         def batches():
             while it.has_next():
@@ -624,10 +767,33 @@ class MultiLayerNetwork:
         return torch.randint(0, 1 << 32, (len(self.layers), 2),
                              generator=self._generator, dtype=torch.int64)
 
+    def _bucket_train_enabled(self) -> bool:
+        """Bucketing of the loss paths (fit, score): the configuration's
+        ``shape_bucketing`` and the exact pad-and-mask preconditions
+        (``bucketing.pad_supported``); truncated BPTT segments its own
+        time axis and is left out (JAX :287-297)."""
+        g = self.conf.global_conf
+        if not g.shape_bucketing or \
+                self.conf.backprop_type == "truncatedbptt":
+            return False
+        if self._bucket_train_ok is None:
+            self._bucket_train_ok = bucketing.pad_supported(self)
+        return self._bucket_train_ok
+
+    def _maybe_bucket_train(self, ds: DataSet):
+        """(ds padded up to its bucket, bucket) when bucketing is on, else
+        (ds, None)."""
+        if self._bucket_train_enabled():
+            return bucketing.bucket_train_dataset(ds, self.conf.global_conf)
+        return ds, None
+
     def _fit_group(self, group: List[DataSet]) -> None:
+        # ragged groups become bucket-uniform and stay one group
+        rows = [d.num_examples() for d in group]
+        group = [self._maybe_bucket_train(d)[0] for d in group]
         fit_group(self, group, lambda d: (
             tuple(d.features.shape), tuple(d.labels.shape),
-            d.features_mask is None, d.labels_mask is None))
+            d.features_mask is None, d.labels_mask is None), rows)
 
     def _fit_batch(self, ds: DataSet, seeds=None, notify: bool = True
                    ) -> None:
@@ -658,10 +824,13 @@ class MultiLayerNetwork:
             if len(seeds) != n_steps:
                 raise ValueError(f"{len(seeds)} steps of seeds for "
                                  f"{n_steps} iterations")
+        ds, bucket = self._maybe_bucket_train(ds)
         x = self._as_input(ds.features)
         y = self._as_float(ds.labels)
         fmask = self._as_mask(ds.features_mask)
         lmask = self._as_mask(ds.labels_mask)
+        self.compile_telemetry.record("train_step", (x, y, fmask, lmask),
+                                      bucket=bucket)
         for k in range(n_steps):
             # a host tensor's tolist(): no device synchronisation
             step_seeds = (self._draw_seeds() if seeds is None
@@ -915,6 +1084,11 @@ class MultiLayerNetwork:
         if dataset is None:
             return float(self._score)
         g = self.conf.global_conf
+        dataset, bucket = self._maybe_bucket_train(dataset)
+        self.compile_telemetry.record(
+            "score", (dataset.features, dataset.labels,
+                      dataset.features_mask, dataset.labels_mask),
+            bucket=bucket)
         with torch.inference_mode():
             preout, _, m, feats = self._inference_preout(
                 dataset.features, dataset.features_mask)
@@ -934,13 +1108,25 @@ class MultiLayerNetwork:
         the output layer's loss of each example from an inference forward;
         ``add_regularization_terms`` adds the net's l1/l2 penalty to every
         example's score.  Takes a DataSet or an iterator; returns a 1-D
-        array over all examples."""
+        array over all examples.  Under ``shape_bucketing`` a batch is
+        padded with unscaled masks and the padded rows' scores dropped."""
         if self.net_params is None:
             self.init()
         batches = [data] if isinstance(data, DataSet) else data
+        g = self.conf.global_conf
+        bucket_ok = (g.shape_bucketing and
+                     bucketing.pad_supported(self, require_mean=False))
         out = []
         with torch.inference_mode():
             for ds in batches:
+                n, bucket = ds.num_examples(), None
+                if bucket_ok:
+                    ds, bucket = bucketing.bucket_train_dataset(
+                        ds, g, scale_loss=False)
+                self.compile_telemetry.record(
+                    "score_examples", (ds.features, ds.labels,
+                                       ds.features_mask, ds.labels_mask),
+                    bucket=bucket)
                 preout, _, m, feats = self._inference_preout(
                     ds.features, ds.features_mask)
                 lm = (self._as_mask(ds.labels_mask)
@@ -952,7 +1138,7 @@ class MultiLayerNetwork:
                     feats, lm)
                 if add_regularization_terms:
                     per = per + self._reg_penalty(self.net_params)
-                out.append(per.cpu().numpy())
+                out.append(per.cpu().numpy()[:n])
         return np.concatenate(out)
 
     def _inference_preout(self, features, features_mask):
@@ -1023,6 +1209,62 @@ class MultiLayerNetwork:
         next batch (the JAX package's ``_strip_rnn_state``)."""
         self.net_state = [{k: v for k, v in s.items() if k != "rnn_state"}
                           for s in self.net_state]
+
+    def rnn_carry_template(self, n: int, feature_tail=None,
+                           dtype: torch.dtype = torch.float32) -> list:
+        """Zero carries for ``n`` streams, one entry per layer (None for a
+        layer that carries nothing), of the structure ``rnn_time_step``
+        stores (JAX :1237-1263).  The shapes come from the step's forward
+        over ``meta`` tensors: nothing runs on the device, and any layer
+        that returns an ``rnn_state`` takes part.  ``feature_tail`` is the
+        per-example input shape (``(T, C)``), by default one step of the
+        configuration's recurrent input type."""
+        if self.net_params is None:
+            self.init()
+        if feature_tail is None:
+            it = self._input_type_chain_start()
+            if it.kind != "rnn":
+                raise ValueError(
+                    "rnn_carry_template needs a recurrent input type "
+                    "(or an explicit feature_tail=)")
+            feature_tail = (1, it.size)
+        policy = self._policy()
+        x = torch.empty((int(n),) + tuple(int(d) for d in feature_tail),
+                        dtype=dtype, device="meta")
+        base = [{k: v for k, v in s.items() if k != "rnn_state"}
+                for s in self.net_state]
+        with torch.no_grad(), seq_ops.kv_decode_scope():
+            pc, xc = policy.cast_to_compute((to_meta(self.net_params), x))
+            _, new_states, _ = self._forward(pc, to_meta(base), xc,
+                                             stateful_rnn=True)
+        return [None if "rnn_state" not in ns else _zeros_tree(
+            policy.cast_to_param(ns["rnn_state"]), self.device)
+            for ns in new_states]
+
+    def rnn_activate_using_stored_state(self, x, training: bool = False,
+                                        store_last_for_tbptt: bool = False
+                                        ) -> List[torch.Tensor]:
+        """Every layer's activation, computed from the stored RNN carries
+        (ref: MultiLayerNetwork.rnnActivateUsingStoredState :1955; JAX
+        :1303-1325); ``store_last_for_tbptt`` keeps the final carries.
+        ``training`` runs the training forward with fresh dropout seed
+        words from the network's generator."""
+        if self.net_params is None:
+            self.init()
+        policy = self._policy()
+        state = [{k: policy.cast_to_compute(v) if k == "rnn_state" else v
+                  for k, v in s.items()} for s in self.net_state]
+        acts: List[torch.Tensor] = []
+        with torch.no_grad():
+            pc, xc = policy.cast_to_compute((self.net_params,
+                                             self._as_input(x)))
+            _, new_states, _ = self._forward(
+                pc, state, xc, None, training,
+                self._draw_seeds().tolist() if training else None,
+                stateful_rnn=True, acts=acts)
+        if store_last_for_tbptt:
+            self._merge_rnn_state(policy.cast_to_param(new_states))
+        return policy.cast_to_param(acts)
 
     # ---- updater state ----
     def updater_state_flat(self) -> torch.Tensor:

@@ -14,8 +14,10 @@ deflated as the JAX package writes them: deflate barely shrinks float32
 weights and costs host time in proportion to their size, which a
 checkpoint pays at every save (``tools/zip_save_cost.py`` times a
 tree's save); every zip reader takes either.  ``load_model`` tells the
-two apart by the configuration (``is_graph_conf``).  A zip the original Java DL4J wrote
-raises: its migration is not ported (ROADMAP A6).
+two apart by the configuration (``is_graph_conf``).  A zip the original
+Java DL4J wrote (its Jackson schema: ``confs`` for a network,
+``networkInputs`` and ``vertices`` for a graph) is migrated by
+``nn/dl4j_migration.py``, as the JAX package routes it.
 """
 
 from __future__ import annotations
@@ -71,9 +73,11 @@ def restore_multi_layer_network(path: Union[str, Path],
         MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
+    if "confs" in _read_conf(path):
+        from deeplearning4j_tpu_torch.nn import dl4j_migration
+        return dl4j_migration.restore_multi_layer_network(
+            path, load_updater=load_updater, device=device)
     conf_dict, flat, upd = _read_zip(path, load_updater)
-    if "confs" in conf_dict:
-        raise _java_zip()
     return _restored(MultiLayerNetwork(
         MultiLayerConfiguration.from_dict(conf_dict), device=device),
         flat, upd)
@@ -87,12 +91,20 @@ def restore_computation_graph(path: Union[str, Path],
         ComputationGraphConfiguration)
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
+    conf_dict = _read_conf(path)
+    if "networkInputs" in conf_dict and "vertices" in conf_dict:
+        from deeplearning4j_tpu_torch.nn import dl4j_migration
+        return dl4j_migration.restore_computation_graph(
+            path, load_updater=load_updater, device=device)
     conf_dict, flat, upd = _read_zip(path, load_updater)
-    if "networkInputs" in conf_dict:
-        raise _java_zip()
     return _restored(ComputationGraph(
         ComputationGraphConfiguration.from_dict(conf_dict), device=device),
         flat, upd)
+
+
+def _read_conf(path) -> dict:
+    with zipfile.ZipFile(path, "r") as zf:
+        return json.loads(zf.read(CONFIG_NAME))
 
 
 def _read_zip(path, load_updater: bool):
@@ -115,12 +127,6 @@ def _restored(net, flat, upd):
     return net
 
 
-def _java_zip() -> NotImplementedError:
-    return NotImplementedError(
-        "a zip written by the Java DL4J: its migration is not ported to "
-        "deeplearning4j_tpu_torch yet (ROADMAP A6)")
-
-
 def read_updater_state(path: Union[str, Path]):
     """The zip's flat updater state (``updaterState.bin``) as float32, or
     None when it holds none."""
@@ -134,8 +140,6 @@ def load_model(path: Union[str, Path], device: DeviceLike = None,
                load_updater: bool = True):
     """Restore a model zip, a MultiLayerNetwork or a ComputationGraph by
     its configuration (ref: util/ModelGuesser.java)."""
-    with zipfile.ZipFile(path, "r") as zf:
-        conf_dict = json.loads(zf.read(CONFIG_NAME))
-    restore = (restore_computation_graph if is_graph_conf(conf_dict)
+    restore = (restore_computation_graph if is_graph_conf(_read_conf(path))
                else restore_multi_layer_network)
     return restore(path, device=device, load_updater=load_updater)

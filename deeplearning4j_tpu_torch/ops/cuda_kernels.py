@@ -971,7 +971,8 @@ class _LSTMStep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, zx, h, c, rw, p3):
         ctx.save_for_backward(zx, h, c, rw, p3)
-        if c.device.type == "cpu":
+        if c.device.type in ("cpu", "meta"):
+            # meta: shapes only (``rnn_carry_template``), nothing runs
             return lstm_step_reference(zx, h, c, rw, p3)
         return _launch_lstm_step(zx, h, c, rw, p3)
 
@@ -995,7 +996,8 @@ class _LSTMStep(torch.autograd.Function):
 def fused_lstm_step(zx, h, c, rw, p3):
     """One peephole-LSTM step -> (c', h') in the inputs' dtype, f32 or bf16,
     for shapes :func:`lstm_fused_supported` accepts.  A CPU tensor takes the
-    plain version; any other tensor launches the kernel or raises.
+    plain version (a ``meta`` tensor too, which computes nothing); any
+    other tensor launches the kernel or raises.
     Differentiable in all five inputs."""
     N, H = c.shape
     if not lstm_fused_supported(N, H, c.dtype):

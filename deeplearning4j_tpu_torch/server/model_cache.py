@@ -8,10 +8,15 @@ on load (or on the first hit that knows the request shape).  Models load
 onto the cache's device: CUDA unless the caller asks for the CPU.  A
 ``.h5`` / ``.hdf5`` path is a Keras model, loaded through Keras import;
 anything else is a ModelSerializer zip, of a MultiLayerNetwork or a
-ComputationGraph (``load_model`` tells them apart).
+ComputationGraph (``load_model`` tells them apart; a zip the Java DL4J
+wrote is migrated).  A model whose configuration sets
+``precision_infer_quant`` ('int8' | 'fp8') is served quantized
+(``quantize_inference``), as the JAX package's cache applies it
+(:116-131): its codes are made on the cache's device at the first
+``output``.
 
-Blue/green rollouts, quantized serving, load retries and the load
-circuit breaker are not ported yet.
+Blue/green rollouts, load retries and the load circuit breaker are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ from deeplearning4j_tpu_torch.ops.platform import DeviceLike, resolve_device
 
 def is_keras_path(path) -> bool:
     return str(path).endswith((".h5", ".hdf5"))
+
+
+def apply_quant(model) -> None:
+    """Serve ``model`` quantized when its configuration's
+    ``precision_infer_quant`` names a mode."""
+    mode = model.conf.global_conf.precision_infer_quant
+    if mode is not None:
+        model.quantize_inference(mode)
 
 
 def default_loader(path: str, device: DeviceLike = None,
@@ -84,10 +97,11 @@ class ModelCache:
                 self._entries.move_to_end(key)
             else:
                 self._count("misses")
-                e = {"mtime": mtime,
-                     # serving needs no updater state on the device
-                     "model": default_loader(key, device=self.device,
-                                             load_updater=False),
+                # serving needs no updater state on the device
+                model = default_loader(key, device=self.device,
+                                       load_updater=False)
+                apply_quant(model)
+                e = {"mtime": mtime, "model": model,
                      "warmup": None, "loaded_at": time.time()}
                 self._entries[key] = e
                 while len(self._entries) > self.capacity:
@@ -125,7 +139,9 @@ class ModelCache:
         with self._lock:
             models = {k: {"mtime_ns": e["mtime"],
                           "loaded_at": e["loaded_at"],
-                          "warmup": e["warmup"]}
+                          "warmup": e["warmup"],
+                          "infer_quant": getattr(e["model"], "_infer_quant",
+                                                 None)}
                       for k, e in self._entries.items()}
             return {"capacity": self.capacity, "size": len(models),
                     "device": str(self.device),

@@ -1675,3 +1675,78 @@ def test_bf16_sequence_nets_launch_the_bf16_forms_on_the_card(cuda_device):
     assert ck.flash_forward.bf16.launches == before[0] + 4
     assert [getattr(ck, n).launches for n in names] == f32
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_forward_on_the_card(cuda_device, mode):
+    """``quantize_inference`` keeps int8 / float8_e4m3fn codes on the card,
+    the codes equal the CPU's bit for bit, and the quantized LeNet's output
+    through the conv kernel (2 launches a forward) equals the plain conv
+    chain on the dequantized weights within the conv rule."""
+    from deeplearning4j_tpu_torch.ops import quantize as qz
+    net = lenet(device=cuda_device).init(
+        generator=torch.Generator().manual_seed(5))
+    x = torch.from_numpy(np.random.default_rng(6).random(
+        (16, 1, 28, 28), np.float32)).to(cuda_device)
+    net.quantize_inference(mode)
+    before = ck.fused_conv2d_bias_act.launches
+    out = net.output(x)
+    assert ck.fused_conv2d_bias_act.launches == before + 2
+    want = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+    for lp, dense in zip(net._q_params, net.net_params):
+        for k, leaf in lp.items():
+            if qz.is_qleaf(leaf):
+                assert leaf["q"].dtype == want and leaf["q"].is_cuda
+                cpu = qz.quantize_weight(dense[k].cpu(), mode)
+                assert torch.equal(leaf["q"].cpu().view(torch.uint8),
+                                   cpu["q"].view(torch.uint8))
+                assert torch.equal(leaf["s"].cpu(), cpu["s"])
+    plain = MultiLayerNetwork(net.conf, device=cuda_device)
+    plain.net_params = qz.dequantize_params(net._q_params)
+    plain.net_state = net.net_state
+    with ck.full_f32_convs():
+        h = x
+        for i, layer in enumerate(plain.layers):
+            if i in plain.conf.preprocessors:
+                h, _ = plain.conf.preprocessors[i](h)
+            p = plain.net_params[i]
+            if isinstance(layer, L.ConvolutionLayer):
+                h = ck.conv2d_bias_act_reference(
+                    h, p["W"], p["b"], tuple(layer.padding),
+                    layer.convolution_mode, layer.activation)
+            else:
+                h, _, _ = layer.forward(p, {}, h)
+    torch.testing.assert_close(out, h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_checkpointed_step_on_the_card(cuda_device):
+    """A LeNet step with ``gradient_checkpointing`` launches the conv kernel
+    twice a conv (forward and recompute), makes the same conv backwards,
+    and equals the plain step's updates within the training-step rule
+    (5e-4 relative 2-norm) from the same state."""
+    rng = np.random.default_rng(7)
+    x = rng.random((64, 1, 28, 28), np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]
+    nets = []
+    for remat in (False, True):
+        net = lenet(device=cuda_device).init(
+            generator=torch.Generator().manual_seed(5))
+        net.conf.global_conf.gradient_checkpointing = remat
+        conv, bw = ck.fused_conv2d_bias_act.launches, \
+            ck._ConvBiasAct.backwards
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        nets.append((net, ck.fused_conv2d_bias_act.launches - conv,
+                     ck._ConvBiasAct.backwards - bw))
+    (plain, conv_p, bw_p), (remat, conv_r, bw_r) = nets
+    assert (conv_p, conv_r, bw_p, bw_r) == (2, 4, 2, 2)
+    start = lenet(device=cuda_device).init(
+        generator=torch.Generator().manual_seed(5))
+    for lp, lr, l0 in zip(plain.net_params, remat.net_params,
+                          start.net_params):
+        for k in lp:
+            err = torch.linalg.vector_norm(lr[k] - lp[k]) / \
+                torch.linalg.vector_norm(lp[k] - l0[k])
+            assert float(err) <= 5e-4, (k, float(err))

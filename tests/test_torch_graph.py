@@ -478,12 +478,15 @@ def test_port_written_graph_zip_restores_in_jax(tmp_path):
 
 
 def test_java_graph_zip_raises(tmp_path):
+    """A zip in the Java DL4J's graph schema goes to the migration
+    (nn/dl4j_migration.py), which raises on an empty ``coefficients.bin``
+    instead of reading it as this package's float32 vector."""
     p = tmp_path / "java.zip"
     with zipfile.ZipFile(p, "w") as zf:
         zf.writestr(ser.CONFIG_NAME, json.dumps(
             {"networkInputs": ["in"], "vertices": {}}))
         zf.writestr(ser.COEFFICIENTS_NAME, b"")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="truncated nd4j"):
         ser.load_model(p, device="cpu")
 
 

@@ -196,8 +196,8 @@ def test_performance_listener_reads_batch_and_etl():
 def test_profiler_and_telemetry_listeners(tmp_path):
     """ProfilerListener writes a torch.profiler Chrome trace for each
     window, closed by the window's end or ``close()``;
-    CompileTelemetryListener records nothing on the port, whose engines
-    carry no compile telemetry."""
+    CompileTelemetryListener snapshots the engine's telemetry every
+    iteration: five batches of one shape are one training signature."""
     x, y = iris_data()
     net = port_of(iris_net(updater="sgd"))
     prof = lst.ProfilerListener(tmp_path, frequency=2, trace_iterations=1)
@@ -209,7 +209,9 @@ def test_profiler_and_telemetry_listeners(tmp_path):
         ["iter2", "iter4"]
     for d in prof.trace_dirs:
         assert (tmp_path / d.rsplit("/", 1)[-1] / "trace.json").stat().st_size
-    assert tel.history == [] and tel.snapshot() is None
+    assert [h["iteration"] for h in tel.history] == [1, 2, 3, 4, 5]
+    assert tel.snapshot()["by_kind"] == {"train_step": 1}
+    assert tel.snapshot()["retraces"] == 1
 
 
 def test_latency_histogram_is_the_registry_reservoir():
