@@ -457,6 +457,30 @@ exits non-zero:
                ragged masked lengths, bucketed against unbucketed from the
                same params: updates, training signatures, launches,
                samples/s.
+33. decode_charrnn — the char-RNN of phase 12 served by ``Server`` over
+               HTTP to 32 concurrent decode sessions (``decode_slots``
+               32), opened 15 ms apart, 200 one-token ``decode_step``s
+               each, every fourth closing half-way for a new session:
+               each stream against ``rnn_time_step`` of that stream
+               (LSTM_TOL), exactly two lstm launches a pool dispatch and
+               no fallback; tokens/s, p50 / p99 per RPC, the mean joined
+               batch.  Then the bf16 char-RNN, 50 steps a session, by
+               ``sample_charrnn_bf16``'s rule, on the step's bf16 form.
+34. decode_attention — the attention model, 8 sessions x 300 characters
+               through a ``DecodePool`` with dense KV rings and with the
+               paged arena (blocks of 16): no kernel, paged equal to dense
+               and each to ``rnn_time_step`` (ATT_OUT_TOL); KV bytes,
+               peak memory, every block free after close.
+35. spec_decode — greedy speculative decode of the char-RNN: NGramDraft
+               (k = 4) commits plain greedy's 200 tokens (acceptance,
+               tokens a dispatch, tokens/s beside plain), ScriptedDraft
+               at every acceptance length likewise, sampling equal to
+               k = 0 at the same seed; two lstm launches a fed token.
+36. decode_migrate_fault — an attention session moved dense -> paged ->
+               dense between two ``DecodeManager``s against its twin
+               (MIGRATE_TOL); a ``kill`` fault at ``decode.step`` with 4
+               sessions in flight: clean failures, slots reclaimed, the
+               thread restarted by the next submit.
 
 Then a line with the kernels' summary, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -468,6 +492,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -906,6 +931,24 @@ BUCKET_TIME, BUCKET_CHAR_BATCHES = (60, 100), 8
 BUCKET_CHECK_STEPS = 4
 BUCKET_LENET_RTOL = BUCKET_CHAR_RTOL = STEP_UPDATE_RTOL
 BUCKET_SCORE_RTOL = STEP_RTOL
+# Stateful decode serving: the char-RNN served over HTTP to 32 concurrent
+# sessions of 200 one-token steps (the bf16 net 50), the attention model to
+# 8 sessions of 300 characters with dense rings and a paged arena of blocks
+# of 16, speculative decode with k = 4 drafts over 200 tokens, and a
+# migrated attention stream against its twin (1e-6: the same f32 math in
+# both managers, the paged arena's delta write off by at most an ulp).
+DECODE_SESSIONS, DECODE_STEPS, DECODE_BF16_STEPS = 32, 200, 50
+# The bf16 char-RNN's served streams against ``rnn_time_step``: together
+# within one bf16 rounding (CHAR_BF16_SAMPLE_REL, ``sample_charrnn_bf16``'s
+# rule), and each alone within 2^-6.  On an H100 the streams read 0.0 with
+# the clients in four processes, and the worst one 7.3e-3 once with the
+# clients as threads of the server's process: twice that, to a power of
+# two.  ``tools/decode_bf16_probe.py`` reads the gap in each setting and
+# pool-free, a batch shape at a time.
+DECODE_BF16_STREAM_REL = 2.0 ** -6
+DECODE_ATT_SESSIONS, DECODE_ATT_TOKENS, DECODE_ATT_BLOCK = 8, 300, 16
+SPEC_K, SPEC_TOKENS = 4, 200
+MIGRATE_TOL = 1e-6
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
 
@@ -8367,11 +8410,540 @@ def phase_bucketed_fit(torch, ck) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# stateful decode serving: the decode pool, the paged KV arena, speculative
+# decode, migration and a killed pool thread
+# ---------------------------------------------------------------------------
+
+def _decode_clients(spec_path: str, out_path: str) -> None:
+    """A client process of ``_decode_streams_over_http``: one thread a
+    client of the spec, from the spec's start time; client i opens its
+    session ``delay`` s after the start and sends one-token
+    ``decode_step`` RPCs, closing and reopening its session at ``cut``.
+    Writes the streams (tokens, outputs), the RPC latencies, its end time
+    and any errors to ``out_path``."""
+    spec = json.loads(Path(spec_path).read_text())
+    url, path, V = spec["url"], spec["path"], spec["vocab"]
+    eye = np.eye(V, dtype=np.float32)
+    streams, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(cl):
+        try:
+            time.sleep(max(0.0, spec["start_at"] + cl["delay"]
+                           - time.time()))
+            toks, cut = cl["tokens"], cl["cut"]
+            for a, b in ((0, cut), (cut, len(toks))):
+                if a == b:
+                    continue
+                sid = _rpc(url, "open_session",
+                           {"model_path": path})["session_id"]
+                outs = []
+                for t in range(a, b):
+                    body = {"session_id": sid,
+                            "features": eye[toks[t]][None].tolist()}
+                    t0 = time.perf_counter()
+                    res = _rpc(url, "decode_step", body)
+                    dt = time.perf_counter() - t0
+                    outs.append(res["predictions"][0])
+                    with lock:
+                        lat.append(dt)
+                _rpc(url, "close_session", {"session_id": sid})
+                with lock:
+                    streams.append((toks[a:b], outs))
+        except Exception as e:  # reported by the parent
+            errors.append(f"client: {type(e).__name__}: {e}")
+    threads = [threading.Thread(target=client, args=(cl,))
+               for cl in spec["clients"]]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    Path(out_path).write_text(json.dumps({
+        "streams": streams, "lat": lat, "errors": errors,
+        "end": time.time()}))
+
+
+def _decode_streams_over_http(torch, ck, net, it, sessions, steps, seed,
+                              kernel, processes=4):
+    """``net`` written as a zip and served by ``Server`` over HTTP to
+    ``sessions`` clients (``decode_slots`` = sessions) in ``processes``
+    client processes (the server's process holds only its handler threads
+    and the pool thread, as a deployment's would): client i opens its
+    session i x 15 ms after the start and sends ``steps`` one-token
+    ``decode_step`` RPCs; every fourth client closes its session half-way
+    and opens a new one for the rest.  ``processes=0`` runs the clients as
+    threads of this process instead.  Counts zeroed just before the
+    clients start and read after the last ends: the ``kernel`` form of the
+    lstm step twice (two layers) a pool dispatch, nothing else, no
+    fallback.  -> (result, [(tokens, outputs) per stream])."""
+    from deeplearning4j_tpu_torch.nn.serialization import write_model
+    from deeplearning4j_tpu_torch.server import (DeepLearning4jEntryPoint,
+                                                 Server)
+    toks = np.random.default_rng(seed).integers(0, it.vocab_size,
+                                                (sessions, steps))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_decode_"))
+    path = str(tmp / "charrnn.zip")
+    write_model(net, path)
+    ep = DeepLearning4jEntryPoint(device="cuda", decode_slots=sessions,
+                                  decode_max_wait_ms=2.0)
+    server = Server(ep, port=0).start()
+    procs = []
+    try:
+        start_at = time.time() + 3.0          # after the processes start
+        parts = max(1, processes)
+        for k in range(parts):
+            spec = {"url": f"http://{server.host}:{server.port}/",
+                    "path": path, "vocab": it.vocab_size,
+                    "start_at": start_at,
+                    "clients": [{"tokens": toks[i].tolist(),
+                                 "cut": steps // 2 if i % 4 == 3 else steps,
+                                 "delay": i * 0.015}
+                                for i in range(k, sessions, parts)]}
+            (tmp / f"spec{k}.json").write_text(json.dumps(spec))
+        fb = _fallbacks("lstm_step")
+        _zero_counts(ck)                               # main path starts
+        if processes:
+            for k in range(processes):
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke as c; "
+                     "c._decode_clients(sys.argv[1], sys.argv[2])",
+                     str(tmp / f"spec{k}.json"), str(tmp / f"out{k}.json")],
+                    cwd=str(ROOT)))
+            for p in procs:
+                p.wait(900)
+        else:
+            _decode_clients(str(tmp / "spec0.json"), str(tmp / "out0.json"))
+        launches = _kernel_counts(ck)                  # main path ends
+        fallbacks = _fallbacks("lstm_step") - fb
+        (stats,) = ep.decode_stats().values()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        server.stop()
+    outs = [json.loads((tmp / f"out{k}.json").read_text())
+            for k in range(parts)]
+    errors = [e for o in outs for e in o["errors"]]
+    if errors or any(p.returncode for p in procs):
+        raise RuntimeError(f"decode serving failed: {errors[:3]}")
+    wall = max(o["end"] for o in outs) - start_at
+    lat = [x for o in outs for x in o["lat"]]
+    streams = [(np.asarray(t), np.asarray(v, np.float32))
+               for o in outs for t, v in o["streams"]]
+    want = _want(ck, **{kernel: 2 * stats["batches"]})
+    if launches != want or fallbacks:
+        raise AssertionError(f"decode launched {launches} with {fallbacks} "
+                             f"fallbacks; want {want} and none")
+    n = sessions * steps
+    res = {"sessions": sessions, "steps": steps, "streams": len(streams),
+           "client_processes": processes, "rpcs": len(lat),
+           "wall_s": wall, "tokens_per_s": n / wall,
+           "p50_ms": float(np.percentile(lat, 50) * 1e3),
+           "p99_ms": float(np.percentile(lat, 99) * 1e3),
+           "dispatches": stats["batches"],
+           "mean_joined_batch": stats["steps_per_batch_mean"],
+           "batch_size_hist": stats["batch_size_hist"],
+           "pool_step_ms": stats["step_ms"],
+           "pool_queue_ms": stats["queue_ms"], "launches": launches,
+           "fallbacks": fallbacks}
+    return res, streams
+
+
+def _streams_vs_time_step(torch, net, it, streams):
+    """Each stream's served outputs against ``rnn_time_step`` of that
+    stream alone, fed its tokens in one call -> (max |diff|, the worst
+    stream's relative 2-norm, the relative 2-norm over every stream
+    together, [(served, reference)])."""
+    eye = np.eye(it.vocab_size, dtype=np.float32)
+    pairs = []
+    for tok, got in streams:
+        net.rnn_clear_previous_state()
+        ref = net.rnn_time_step(eye[tok][None])[0].float().cpu()
+        pairs.append((torch.from_numpy(got), ref))
+    net.rnn_clear_previous_state()
+    got = torch.cat([g for g, _ in pairs])
+    ref = torch.cat([r for _, r in pairs])
+    return (float((got - ref).abs().max()),
+            max(_rel_norm(torch, g, r) for g, r in pairs),
+            _rel_norm(torch, got, ref), pairs)
+
+
+def phase_decode_charrnn(torch, ck, net, it, net_bf16) -> dict:
+    """The char-RNN served to DECODE_SESSIONS concurrent sessions over
+    HTTP (``decode_slots`` 32), DECODE_STEPS one-token steps each, joins
+    and leaves as ``_decode_streams_over_http`` schedules them: every
+    stream's outputs against ``rnn_time_step`` by ``sample_charrnn``'s rule
+    (LSTM_TOL), exact lstm launches, no fallback; then the bf16 char-RNN
+    for DECODE_BF16_STEPS steps by ``sample_charrnn_bf16``'s rule
+    (CHAR_BF16_SAMPLE_REL, the relative 2-norm over every stream's
+    outputs together) and each stream's by DECODE_BF16_STREAM_REL,
+    launching the step's bf16 form."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res, streams = _decode_streams_over_http(
+        torch, ck, net, it, DECODE_SESSIONS, DECODE_STEPS, SEED + 40,
+        "lstm_step")
+    (res["max_abs_vs_time_step"], res["worst_stream_rel_vs_time_step"],
+     res["rel_vs_time_step"], pairs) = _streams_vs_time_step(
+        torch, net, it, streams)
+    res["tol"] = LSTM_TOL
+    bf, streams = _decode_streams_over_http(
+        torch, ck, net_bf16, it, DECODE_SESSIONS, DECODE_BF16_STEPS,
+        SEED + 41, "lstm_step_bf16")
+    (bf["max_abs_vs_time_step"], bf["worst_stream_rel_vs_time_step"],
+     bf["rel_vs_time_step"], _) = _streams_vs_time_step(
+        torch, net_bf16, it, streams)
+    bf["rel_rule"] = CHAR_BF16_SAMPLE_REL
+    bf["worst_stream_rule"] = DECODE_BF16_STREAM_REL
+    res["bf16"] = bf
+    emit("decode_charrnn", **res)
+    for got, ref in pairs:
+        torch.testing.assert_close(got, ref, rtol=LSTM_TOL, atol=LSTM_TOL)
+    if bf["rel_vs_time_step"] > CHAR_BF16_SAMPLE_REL or \
+            bf["worst_stream_rel_vs_time_step"] > DECODE_BF16_STREAM_REL:
+        raise AssertionError(
+            f"bf16 decode against rnn_time_step: {bf['rel_vs_time_step']} "
+            f"over every stream, {bf['worst_stream_rel_vs_time_step']} "
+            f"the worst one")
+    return res
+
+
+def _pool_streams(pool, xs, wait=300.0):
+    """One client thread per row of ``xs`` [S, T, V]: open a session, step
+    its T tokens one at a time, close -> outputs [S, T, V]."""
+    outs = [None] * len(xs)
+    errors = []
+    sids = [pool.open_session() for _ in xs]
+
+    def client(i):
+        try:
+            outs[i] = np.concatenate([pool.step(sids[i], xs[i, t:t + 1],
+                                                timeout=wait)[0]
+                                      for t in range(xs.shape[1])])
+        except Exception as e:
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"decode streams failed: {errors[:3]}")
+    return np.stack(outs), sids
+
+
+def phase_decode_attention(torch, ck, net, it) -> dict:
+    """DECODE_ATT_SESSIONS sessions x DECODE_ATT_TOKENS characters of the
+    attention model through a ``DecodePool`` with dense KV rings (8,192
+    entries per layer and slot) and with the paged arena (blocks of
+    DECODE_ATT_BLOCK, the sessions' tokens in whole blocks): no kernel (the
+    decode attention is plain torch), paged equal to dense and each equal
+    to ``rnn_time_step`` of the 8 streams within ATT_OUT_TOL; the KV bytes
+    each holds and the peak memory; every block free after close."""
+    from deeplearning4j_tpu_torch.server.decode import DecodePool
+    f = it.next().features                 # [4, 8192, V]: two windows a row
+    xs = np.concatenate([f[:, :DECODE_ATT_TOKENS],
+                         f[:, DECODE_ATT_TOKENS:2 * DECODE_ATT_TOKENS]])
+    window = net.layers[0].cache_window
+    net.rnn_clear_previous_state()
+    torch.cuda.empty_cache()
+    res, outs = {"sessions": DECODE_ATT_SESSIONS,
+                 "tokens": DECODE_ATT_TOKENS, "window": window,
+                 "tol": ATT_OUT_TOL}, {}
+    for mode in ("dense", "paged"):
+        # the arena holds the sessions' resident tokens in whole blocks
+        # (the pool never makes it smaller than one window)
+        kw = ({"kv_paged": True, "kv_block": DECODE_ATT_BLOCK,
+               "kv_arena_tokens": DECODE_ATT_SESSIONS * DECODE_ATT_BLOCK
+               * -(-DECODE_ATT_TOKENS // DECODE_ATT_BLOCK)}
+              if mode == "paged" else {})
+        pool = DecodePool(net, name=f"attention_{mode}",
+                          max_slots=DECODE_ATT_SESSIONS, max_wait_ms=2.0,
+                          **kw)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _zero_counts(ck)                           # main path starts
+            t0 = time.perf_counter()
+            outs[mode], sids = _pool_streams(pool, xs)
+            wall = time.perf_counter() - t0
+            launches = _kernel_counts(ck)              # main path ends
+            peak = torch.cuda.max_memory_allocated() - base
+            st = pool.stats()
+            for sid in sids:
+                pool.close_session(sid)
+            arena = pool.stats().get("kv_arena")
+        finally:
+            pool.stop()
+        if any(launches.values()):
+            raise AssertionError(f"{mode} attention decode launched "
+                                 f"{launches}")
+        if arena is not None and arena["blocks_free"] != arena["blocks"]:
+            raise AssertionError(f"blocks held after close: {arena}")
+        res[mode] = {"wall_s": wall, "tokens_per_s": DECODE_ATT_SESSIONS
+                     * DECODE_ATT_TOKENS / wall,
+                     "dispatches": st["batches"],
+                     "mean_joined_batch": st["steps_per_batch_mean"],
+                     "pool_step_ms": st["step_ms"],
+                     "kv_bytes": st["kv_cache"]["bytes"],
+                     "peak_bytes_over_base": peak, "launches": launches,
+                     "arena_after_close": arena}
+    dense = torch.from_numpy(outs["dense"])
+    paged = torch.from_numpy(outs["paged"])
+    res["paged_vs_dense_max_abs"] = float((paged - dense).abs().max())
+    ref = net.rnn_time_step(xs).float().cpu()
+    net.rnn_clear_previous_state()
+    res["dense_vs_time_step_max_abs"] = float((dense - ref).abs().max())
+    res["paged_vs_time_step_max_abs"] = float((paged - ref).abs().max())
+    res["arena_bytes_over_dense"] = res["paged"]["kv_bytes"] / \
+        res["dense"]["kv_bytes"]
+    emit("decode_attention", **res)
+    torch.testing.assert_close(paged, dense, rtol=ATT_OUT_TOL,
+                               atol=ATT_OUT_TOL)
+    torch.testing.assert_close(dense, ref, rtol=ATT_OUT_TOL,
+                               atol=ATT_OUT_TOL)
+    torch.testing.assert_close(paged, ref, rtol=ATT_OUT_TOL,
+                               atol=ATT_OUT_TOL)
+    return res
+
+
+def phase_spec_decode(torch, ck, net, it) -> dict:
+    """Greedy speculative decode of the char-RNN through a ``DecodePool``:
+    SPEC_TOKENS tokens after the prompt "The " plainly (one dispatch a
+    token), then with ``NGramDraft`` (k = SPEC_K): the same tokens,
+    acceptance, tokens a dispatch and tokens/s beside plain; ``ScriptedDraft``
+    pinned at every acceptance length 0..k commits plain greedy's tokens;
+    sampling (temperature 0.8) with k = SPEC_K equals k = 0 at the same
+    seed.  lstm launches: two a fed token, no fallback."""
+    from deeplearning4j_tpu_torch.ops import bucketing
+    from deeplearning4j_tpu_torch.server.decode import DecodePool
+    from deeplearning4j_tpu_torch.server.speculative import (
+        NGramDraft, ScriptedDraft, SpeculativeDecoder, one_hot)
+    V = it.vocab_size
+    prompt = [it.char_to_idx[c] for c in "The "]
+    fed = []
+    pool = DecodePool(net, name="spec", max_slots=8, max_wait_ms=0.5)
+
+    def prefill():
+        sid = pool.open_session()
+        (o,) = pool.step(sid, one_hot(prompt, V), timeout=120)
+        fed.append(bucketing.bucket_size(len(prompt)))
+        return sid, int(np.argmax(o[-1]))
+
+    def spec(sid, first, n, k, draft, **sampling):
+        r = SpeculativeDecoder(pool, vocab=V, k=k, draft=draft,
+                               **sampling).generate(sid, first, n)
+        fed.append(r["dispatches"] + r["proposed"])
+        pool.close_session(sid)
+        return r
+    try:
+        fb = _fallbacks("lstm_step")
+        _zero_counts(ck)                               # main path starts
+        sid, pending = prefill()
+        plain = []
+        t0 = time.perf_counter()
+        for _ in range(SPEC_TOKENS + SPEC_K + 1):
+            plain.append(pending)
+            (o,) = pool.step(sid, one_hot([pending], V), timeout=120)
+            pending = int(np.argmax(o[-1]))
+            fed.append(1)
+        plain_s = (time.perf_counter() - t0) * SPEC_TOKENS / len(plain)
+        pool.close_session(sid)
+        sid, first = prefill()
+        t0 = time.perf_counter()
+        ngram = spec(sid, first, SPEC_TOKENS, SPEC_K, NGramDraft(order=3))
+        ngram_s = time.perf_counter() - t0
+        if ngram["tokens"] != plain[:SPEC_TOKENS]:
+            raise AssertionError("speculative greedy decode left plain "
+                                 "greedy decode's tokens")
+        pinned = []
+        for a in range(SPEC_K + 1):
+            sid, first = prefill()
+            chunk = [first] + plain[1:1 + a] + \
+                [(t + 1) % V for t in plain[1 + a:1 + SPEC_K]]
+            _, picks, acc = pool.spec_step(sid, one_hot(chunk, V), chunk,
+                                           timeout=120)
+            fed.append(len(chunk))
+            pool.close_session(sid)
+            if acc != 1 + a or chunk[:acc] != plain[:acc] or \
+                    int(picks[acc - 1]) != plain[acc]:
+                raise AssertionError(f"acceptance {a}: committed {acc}")
+            pinned.append(acc)
+        scripted = []
+        for a in range(SPEC_K + 1):
+            props, i = [], 1
+            while i < SPEC_TOKENS // 4:
+                p = plain[i:i + SPEC_K]
+                p = p[:a] + [(t + 1) % V for t in p[a:]]
+                props.append(p)
+                i += a + 1
+            sid, first = prefill()
+            r = spec(sid, first, SPEC_TOKENS // 4, SPEC_K,
+                     ScriptedDraft(props))
+            if r["tokens"] != plain[:SPEC_TOKENS // 4]:
+                raise AssertionError(f"scripted acceptance {a} moved the "
+                                     "tokens")
+            scripted.append(r["tokens_per_dispatch"])
+        sampled = {}
+        for k, draft in ((0, "none"), (SPEC_K, NGramDraft(order=3))):
+            sid, first = prefill()
+            sampled[k] = spec(sid, first, SPEC_TOKENS // 2, k, draft,
+                              temperature=0.8, seed=SEED)
+        launches = _kernel_counts(ck)                  # main path ends
+        fallbacks = _fallbacks("lstm_step") - fb
+        st = pool.stats()
+    finally:
+        pool.stop()
+    want = _want(ck, lstm_step=CHAR_LAYERS * sum(fed))
+    if launches != want or fallbacks:
+        raise AssertionError(f"spec decode launched {launches} with "
+                             f"{fallbacks} fallbacks; want {want}")
+    if sampled[SPEC_K]["tokens"] != sampled[0]["tokens"]:
+        raise AssertionError("speculative sampling left non-speculative "
+                             "sampling's trajectory")
+    res = {"k": SPEC_K, "tokens": SPEC_TOKENS,
+           "plain_tokens_per_s": SPEC_TOKENS / plain_s,
+           "ngram_tokens_per_s": SPEC_TOKENS / ngram_s,
+           "ngram_dispatches": ngram["dispatches"],
+           "ngram_tokens_per_dispatch": ngram["tokens_per_dispatch"],
+           "ngram_draft_acceptance": (ngram["accepted"]
+                                      - ngram["dispatches"])
+           / max(1, ngram["proposed"]),
+           "pinned_acceptance": pinned,
+           "scripted_tokens_per_dispatch": scripted,
+           "sampled_dispatches": {str(k): v["dispatches"]
+                                  for k, v in sampled.items()},
+           "sampled_tokens_per_dispatch": sampled[SPEC_K][
+               "tokens_per_dispatch"],
+           "spec_accept_per_dispatch": st["spec_accept_per_dispatch"],
+           "text": "".join(it.idx_to_char[t] for t in ngram["tokens"]),
+           "launches": launches, "fallbacks": fallbacks}
+    emit("spec_decode", **res)
+    return res
+
+
+def phase_decode_migrate_fault(torch, ck, att_net, att_it, char_net,
+                               char_it) -> dict:
+    """A session of the attention model decodes 96 characters in one
+    ``DecodeManager`` (dense rings), is exported, imported into a second
+    (paged arena, blocks of DECODE_ATT_BLOCK), decodes 24 more, moves back
+    and decodes 24 more: each output within MIGRATE_TOL of an unmigrated
+    twin in the first manager.  Then a char-RNN pool with 4 sessions in
+    flight and a ``kill`` fault armed at ``decode.step``: every step fails
+    with a clean error, every slot is reclaimed, and the next submit
+    restarts the thread, whose output equals ``rnn_time_step``'s."""
+    from deeplearning4j_tpu_torch.nn.serialization import write_model
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.server import DecodeManager, ModelCache
+    from deeplearning4j_tpu_torch.server.decode import DecodePool
+    from deeplearning4j_tpu_torch.server.speculative import one_hot
+    tmp = tempfile.mkdtemp(prefix="chip_migrate_")
+    os.environ["DL4J_FLIGHT_DIR"] = str(Path(tmp) / "flight")
+    path = str(Path(tmp) / "attention.zip")
+    att_net.rnn_clear_previous_state()
+    write_model(att_net, path)
+    x = att_it.next().features[0, :144]
+    window = att_net.layers[0].cache_window
+    dense = DecodeManager(ModelCache(device="cuda"), max_slots=2,
+                          max_wait_ms=0.5)
+    paged = DecodeManager(ModelCache(device="cuda"), max_slots=2,
+                          max_wait_ms=0.5, kv_paged=True,
+                          kv_block=DECODE_ATT_BLOCK, kv_arena_tokens=window)
+    hops, worst = [], 0.0
+    try:
+        mig = dense.open_session(path)["session_id"]
+        twin = dense.open_session(path)["session_id"]
+        for t in range(0, 96, 8):
+            dense.decode_step(mig, x[t:t + 8])
+            dense.decode_step(twin, x[t:t + 8])
+        src, t = dense, 96
+        for dst in (paged, dense):
+            t0 = time.perf_counter()
+            payload = json.loads(json.dumps(src.export_session(mig)))
+            dst.import_session(path, payload)
+            src.finish_export(mig, ok=True)
+            hop_s = time.perf_counter() - t0
+            wire = len(json.dumps(payload))
+            for _ in range(24):
+                (a,) = dst.decode_step(mig, x[t:t + 1])
+                (b,) = dense.decode_step(twin, x[t:t + 1])
+                worst = max(worst, float(np.abs(a - b).max()))
+                t += 1
+            hops.append({"to": "paged" if dst is paged else "dense",
+                         "seconds": hop_s, "wire_bytes": wire})
+            src = dst
+        arena = paged.stats()
+    finally:
+        dense.close()
+        paged.close()
+    if worst > MIGRATE_TOL:
+        raise AssertionError(f"migrated stream {worst} from its twin")
+    V = char_it.vocab_size
+    # min_batch 4: a dispatch waits (up to 2 s) until the 4 sessions'
+    # steps are queued, so the kill meets all four in flight
+    pool = DecodePool(char_net, name="fault", max_slots=8,
+                      max_wait_ms=2000.0, min_batch=4)
+    try:
+        fb = _fallbacks("lstm_step")
+        _zero_counts(ck)                               # main path starts
+        sids = [pool.open_session() for _ in range(4)]
+        for f in [pool.submit_step(s, one_hot([1], V)) for s in sids]:
+            f.result(120)
+        faults.arm({"site": "decode.step", "mode": "kill",
+                    "probability": 1.0, "max_injections": 1})
+        try:
+            futs = [pool.submit_step(s, one_hot([2], V)) for s in sids]
+            failed = 0
+            for f in futs:
+                try:
+                    f.result(60)
+                except RuntimeError as e:
+                    failed += "batcher thread died" in str(e)
+        finally:
+            faults.reset()
+        deadline = time.monotonic() + 30
+        while pool.thread_alive and time.monotonic() < deadline:
+            time.sleep(0.01)
+        reclaimed = pool.stats()["slots_free"]
+        sid = pool.open_session()
+        (out,) = pool.step(sid, one_hot([3, 4], V), timeout=120)
+        launches = _kernel_counts(ck)                  # main path ends
+        fallbacks = _fallbacks("lstm_step") - fb
+        st = pool.stats()
+    finally:
+        pool.stop()
+    if failed != 4 or reclaimed != 8 or st["restarts"] != 1 or \
+            st["deaths"] != 1:
+        raise AssertionError(f"killed pool: {failed} clean failures, "
+                             f"{reclaimed} slots free, {st['restarts']} "
+                             f"restarts")
+    char_net.rnn_clear_previous_state()
+    ref = char_net.rnn_time_step(one_hot([3, 4], V)[None])[0].cpu().numpy()
+    char_net.rnn_clear_previous_state()
+    torch.testing.assert_close(torch.from_numpy(out), torch.from_numpy(ref),
+                               rtol=LSTM_TOL, atol=LSTM_TOL)
+    # the four sessions' joined step, then the new session's two tokens
+    want = _want(ck, lstm_step=CHAR_LAYERS * (1 + 2))
+    if launches != want or fallbacks:
+        raise AssertionError(f"fault phase launched {launches}; want {want}")
+    res = {"migration_max_abs": worst, "tol": MIGRATE_TOL, "hops": hops,
+           "paged_arena": {k: v.get("kv_arena") for k, v in arena.items()},
+           "killed_steps_failed_cleanly": failed,
+           "slots_free_after_kill": reclaimed, "restarts": st["restarts"],
+           "deaths": st["deaths"], "launches": launches,
+           "fallbacks": fallbacks}
+    emit("decode_migrate_fault", **res)
+    return res
+
+
 def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
             gateway_fit, keras_vgg, train_keras_vgg, resnet_set, serve_resnet,
             train_resnet, functional, lstm, train_char, sample_char, flash,
             train_att, output_att, sample_att, textcnn, train_tc,
-            transfer_paths, bf16, seq_bf16, engine_paths) -> dict:
+            transfer_paths, bf16, seq_bf16, engine_paths,
+            decode_paths) -> dict:
     """One entry per kernel.  Conv: times, bounds and errors sum (max for
     the error) over the convs of one 32-row batch of each served model.
     Xent and dropout: the launches of one VGG16-224 training step (one
@@ -8421,7 +8993,7 @@ def summary(records, serve_launches, xd, train_vgg, train_lenet, lenet_pipe,
              "train_textcnn": train_tc["launches"],
              "evaluate_textcnn": train_tc["evaluate"]["launches"],
              **transfer_paths, **bf16["paths"], **seq_bf16["paths"],
-             **engine_paths}
+             **engine_paths, **decode_paths}
 
     def launches(name):
         return sum(p.get(name, 0) for p in paths.values())
@@ -8658,17 +9230,21 @@ def main() -> int:
     lstm = phase_lstm_kernel(torch, ck)
     train_char, net, it = phase_train_charrnn(torch, ck)
     sample_char = phase_sample_charrnn(torch, ck, net, it)
+    char_net, char_it = net, it          # the decode phases serve it
     del net
     flash = phase_flash_kernels(torch, ck)
     train_att, net, it = phase_train_attention(torch, ck)
     output_att = phase_output_attention(torch, ck, net, it)
     sample_att = phase_sample_attention(torch, ck, net, it)
+    net.rnn_clear_previous_state()
+    att_net, att_it = net, it
     del net
     torch.cuda.empty_cache()
     seq_kernels = phase_bf16_sequence_kernels(torch, ck)
     train_char_bf16, net, it = phase_train_charrnn_bf16(torch, ck,
                                                         train_char)
     sample_char_bf16 = phase_sample_charrnn_bf16(torch, ck, net, it)
+    char_bf16_net = net
     del net
     torch.cuda.empty_cache()
     train_att_bf16, net, it = phase_train_attention_bf16(torch, ck,
@@ -8707,6 +9283,18 @@ def main() -> int:
     checkpointed = phase_checkpointed_vgg16_224(torch, ck)
     torch.cuda.empty_cache()
     bucketed = phase_bucketed_fit(torch, ck)
+    torch.cuda.empty_cache()
+    decode_char = phase_decode_charrnn(torch, ck, char_net, char_it,
+                                       char_bf16_net)
+    phase_decode_attention(torch, ck, att_net, att_it)
+    torch.cuda.empty_cache()
+    spec_decode = phase_spec_decode(torch, ck, char_net, char_it)
+    migrate = phase_decode_migrate_fault(torch, ck, att_net, att_it,
+                                         char_net, char_it)
+    decode_paths = {"decode_charrnn": decode_char["launches"],
+                    "decode_charrnn_bf16": decode_char["bf16"]["launches"],
+                    "spec_decode": spec_decode["launches"],
+                    "decode_migrate_fault": migrate["launches"]}
     engine_paths = {"fused_lenet": fused["launches"],
                     "pretrain_vae": vae["launches"],
                     "pretrain_dbn": dbn["launches"],
@@ -8724,7 +9312,8 @@ def main() -> int:
                              serve_resnet, train_resnet, functional, lstm,
                              train_char, sample_char, flash, train_att,
                              output_att, sample_att, textcnn, train_tc,
-                             transfer_paths, bf16, seq_bf16, engine_paths)))
+                             transfer_paths, bf16, seq_bf16, engine_paths,
+                             decode_paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -51,6 +51,8 @@ from deeplearning4j_tpu_torch.nn.listeners import TrainingListener
 from deeplearning4j_tpu_torch.nn.serialization import (
     COEFFICIENTS_NAME, CONFIG_NAME, _read_zip, is_graph_conf, load_model,
     write_model)
+from deeplearning4j_tpu_torch.resilience.errors import (  # noqa: F401
+    CorruptCheckpointError)
 
 log = logging.getLogger(__name__)
 
@@ -60,11 +62,6 @@ INDEX_NAME = "checkpoint_index.json"
 # The longest generator replay a restore makes (the JAX package's bound
 # on its key replay).
 MAX_RNG_REPLAY = 100_000
-
-
-class CorruptCheckpointError(RuntimeError):
-    """A checkpoint zip failed validation (truncated write, bad CRC,
-    unparsable configuration): resume skips it for the previous one."""
 
 
 def _fsync_dir(directory: Path) -> None:

@@ -678,7 +678,12 @@ class SelfAttentionLayer(Layer):
     entries (``attend_cached``).  Decoding is causal; with ``cache_window``
     at least the stream's length it equals causal ``output()``.
     ``cache_window=None`` becomes the declared input timesteps at init (128
-    when variable).  The paged KV arena of the JAX package is not ported."""
+    when variable).  Under ``parallel/sequence.paged_scope`` (the decode
+    pool's paged KV arena) the K/V pages live in a pool-shared arena
+    instead, and the carry holds ``{"aid", "pos", "tbl"}``: the arena id,
+    encoded in the trailing dimension of the ``aid`` leaf (a shape
+    survives a carry template, values do not), the write position and the
+    block table (``attend_paged``)."""
 
     n_in: Optional[int] = None
     n_out: int = 0
@@ -721,12 +726,36 @@ class SelfAttentionLayer(Layer):
         v = split(x @ params["Wv"] + params["bv"])
         new_state = state
         if seq_ops.kv_decode_active() and not train:
-            ring = state.get("rnn_state") if state else None
-            if ring is None:
-                ring = seq_ops.kv_ring_init(
-                    B, H, int(self.cache_window or 128), Dh, x.dtype,
-                    x.device)
-            out, ring = seq_ops.attend_cached(q, k, v, ring, key_mask=mask)
+            W = int(self.cache_window or 128)
+            tape = seq_ops.paged_tape()
+            prev = state.get("rnn_state") if state else None
+            if tape is not None:
+                aid, arena, tbl = tape.next_layer(H, Dh, W, x.dtype)
+                pos = (prev["pos"] if isinstance(prev, dict)
+                       and "pos" in prev else
+                       torch.zeros((B,), dtype=torch.int64, device=x.device))
+                if tape.template:
+                    _, nbs = seq_ops.block_geometry(W, tape.block_size)
+                    tbl = torch.zeros((B, nbs), dtype=torch.int64,
+                                      device=x.device)
+                    out = torch.zeros_like(q)
+                elif tape.record_undo:
+                    out, pos, journal = seq_ops.attend_paged(
+                        q, k, v, pos, tbl, arena, window=W, key_mask=mask,
+                        undo=True)
+                    tape.put_undo(aid, journal)
+                else:
+                    out, pos = seq_ops.attend_paged(
+                        q, k, v, pos, tbl, arena, window=W, key_mask=mask)
+                ring = {"aid": torch.full((B, aid + 1), aid,
+                                          dtype=torch.int64,
+                                          device=x.device),
+                        "pos": pos, "tbl": tbl}
+            else:
+                ring = prev if prev is not None else seq_ops.kv_ring_init(
+                    B, H, W, Dh, x.dtype, x.device)
+                out, ring = seq_ops.attend_cached(q, k, v, ring,
+                                                  key_mask=mask)
             new_state = {**(state or {}), "rnn_state": ring}
         else:
             out = seq_ops.attention(q, k, v, causal=self.causal,

@@ -900,24 +900,51 @@ class ComputationGraph:
         :871-905): each input [N, T, C] continues every recurrent vertex
         from the state the previous call left (zeros after
         :meth:`rnn_clear_previous_state`) and the new final states are kept
-        for the next call; returns the network outputs.  The forward runs
-        under ``kv_decode_scope``, so attention vertices decode against
-        their KV ring."""
+        for the next call; returns the network outputs.  One call of
+        :meth:`_rnn_step_raw`, the carried step the serving decode pool
+        runs too."""
         if self.net_params is None:
             self.init()
+        xs = self._inputs(inputs)
+        self.compile_telemetry.record("rnn_time_step", xs)
+        outs, carries = self._rnn_step_raw(
+            self.net_params, self.net_state,
+            {n: s["rnn_state"] for n, s in self.net_state.items()
+             if "rnn_state" in s},
+            tuple(xs[n] for n in self.conf.network_inputs))
+        self._merge_rnn_state({n: {"rnn_state": c}
+                               for n, c in carries.items()})
+        return outs
+
+    def _rnn_step_raw(self, params, base_state, carries, xs, masks=None):
+        """The carried decode step (JAX :806-843), shared by
+        :meth:`rnn_time_step` and ``server/decode.DecodePool``:
+        ``(params, base_state, carries, xs, masks) -> (outs, new_carries)``
+        with ``carries`` a dict keyed by the recurrent vertices' names (a
+        vertex missing from it starts from zeros), ``xs`` one tensor per
+        network input and ``masks`` one time mask (or None) per input.
+        The carries and inputs take the compute dtype; the outputs and new
+        carries come back in the param dtype.  The forward runs under
+        ``kv_decode_scope``."""
         policy = self._policy()
-        state = {n: {k: policy.cast_to_compute(v) if k == "rnn_state"
-                     else v for k, v in s.items()}
-                 for n, s in self.net_state.items()}
+        state = {}
+        for n, s in base_state.items():
+            s = {k: v for k, v in s.items() if k != "rnn_state"}
+            if n in carries:
+                s["rnn_state"] = policy.cast_to_compute(carries[n])
+            state[n] = s
         with torch.no_grad(), seq_ops.kv_decode_scope():
-            pc, xs = policy.cast_to_compute((self.net_params,
-                                             self._inputs(inputs)))
-            self.compile_telemetry.record("rnn_time_step", xs)
-            outs, _, new_states, _ = self._forward_all(pc, state, xs, {},
-                                                       False)
-        self._merge_rnn_state(policy.cast_to_param(new_states))
-        return tuple(policy.cast_to_param(outs[n])
+            pc, xs_c = policy.cast_to_compute((params, tuple(xs)))
+            ms = {n: m for n, m in zip(self.conf.network_inputs,
+                                       masks or ()) if m is not None}
+            acts, _, new_states, _ = self._forward_all(
+                pc, state, dict(zip(self.conf.network_inputs, xs_c)), ms,
+                False)
+        outs = tuple(policy.cast_to_param(acts[n])
                      for n in self.conf.network_outputs)
+        return outs, {n: policy.cast_to_param(ns["rnn_state"])
+                      for n, ns in new_states.items()
+                      if isinstance(ns, dict) and "rnn_state" in ns}
 
     def _merge_rnn_state(self, new_states) -> None:
         """Keep the vertices' new ``rnn_state`` and nothing else of their
@@ -946,18 +973,13 @@ class ComputationGraph:
             feature_tails = [(1, it.size) if it.kind == "rnn"
                              else (it.size,)
                              for it in self.conf.input_types]
-        policy = self._policy()
-        xs = {name: torch.empty((int(n),) + tuple(int(d) for d in t),
-                                dtype=dtype, device="meta")
-              for name, t in zip(self.conf.network_inputs, feature_tails)}
-        with torch.no_grad(), seq_ops.kv_decode_scope():
-            pc, xs = policy.cast_to_compute((to_meta(self.net_params), xs))
-            _, _, new_states, _ = self._forward_all(
-                pc, to_meta(_strip_rnn(self.net_state)), xs, {}, False)
-        return {name: _zeros_tree(policy.cast_to_param(ns["rnn_state"]),
-                                  self.device)
-                for name, ns in new_states.items()
-                if isinstance(ns, dict) and "rnn_state" in ns}
+        xs = tuple(torch.empty((int(n),) + tuple(int(d) for d in t),
+                               dtype=dtype, device="meta")
+                   for t in feature_tails)
+        _, carries = self._rnn_step_raw(to_meta(self.net_params),
+                                        to_meta(self.net_state), {}, xs)
+        return {name: _zeros_tree(c, self.device)
+                for name, c in carries.items()}
 
     # ---- flat views ----
     def params(self) -> torch.Tensor:

@@ -1175,22 +1175,44 @@ class MultiLayerNetwork:
         x [N, T, C] continues each recurrent layer from the state the
         previous call left (zeros after :meth:`rnn_clear_previous_state`),
         and the new final state is kept for the next call.  Fed one step
-        at a time it equals :meth:`output` on the whole sequence.  The
-        forward runs under ``kv_decode_scope``, so an attention layer
-        decodes against its KV ring (the JAX package's ``_rnn_step_raw``)."""
+        at a time it equals :meth:`output` on the whole sequence.  One call
+        of :meth:`_rnn_step_raw`, the carried step the serving decode pool
+        runs too."""
         if self.net_params is None:
             self.init()
+        out, carries = self._rnn_step_raw(
+            self.net_params, self.net_state,
+            [s.get("rnn_state") for s in self.net_state],
+            self._as_input(x), self._as_mask(mask))
+        self._merge_rnn_state([{} if c is None else {"rnn_state": c}
+                               for c in carries])
+        return out
+
+    def _rnn_step_raw(self, params, base_state, carries, x, mask=None):
+        """The carried decode step (JAX :1198-1235), shared by
+        :meth:`rnn_time_step` and ``server/decode.DecodePool``:
+        ``(params, base_state, carries, x, mask) -> (out, new_carries)``,
+        ``carries`` one entry per layer (None for a layer that carries
+        nothing, or for a fresh stream).  The carries and inputs take the
+        compute dtype; the output and the new carries come back in the
+        param dtype.  The forward runs under ``kv_decode_scope``, so an
+        attention layer decodes against its KV ring (or the paged arena
+        under ``parallel/sequence.paged_scope``)."""
         policy = self._policy()
-        # the carries take the compute dtype; batch norm's statistics stay
-        state = [{k: policy.cast_to_compute(v) if k == "rnn_state" else v
-                  for k, v in s.items()} for s in self.net_state]
+        state = []
+        for s, c in zip(base_state, carries):
+            s = {k: v for k, v in s.items() if k != "rnn_state"}
+            if c is not None:
+                s["rnn_state"] = policy.cast_to_compute(c)
+            state.append(s)
         with torch.no_grad(), seq_ops.kv_decode_scope():
-            pc, xc, mc = policy.cast_to_compute(
-                (self.net_params, self._as_input(x), self._as_mask(mask)))
+            pc, xc, mc = policy.cast_to_compute((params, x, mask))
             out, new_states, _ = self._forward(pc, state, xc, mc,
                                                stateful_rnn=True)
-        self._merge_rnn_state(policy.cast_to_param(new_states))
-        return policy.cast_to_param(out)
+        new_carries = [policy.cast_to_param(ns["rnn_state"])
+                       if isinstance(ns, dict) and "rnn_state" in ns
+                       else None for ns in new_states]
+        return policy.cast_to_param(out), new_carries
 
     def _merge_rnn_state(self, new_states) -> None:
         """Keep the layers' new ``rnn_state`` and nothing else of their
@@ -1228,18 +1250,13 @@ class MultiLayerNetwork:
                     "rnn_carry_template needs a recurrent input type "
                     "(or an explicit feature_tail=)")
             feature_tail = (1, it.size)
-        policy = self._policy()
         x = torch.empty((int(n),) + tuple(int(d) for d in feature_tail),
                         dtype=dtype, device="meta")
-        base = [{k: v for k, v in s.items() if k != "rnn_state"}
-                for s in self.net_state]
-        with torch.no_grad(), seq_ops.kv_decode_scope():
-            pc, xc = policy.cast_to_compute((to_meta(self.net_params), x))
-            _, new_states, _ = self._forward(pc, to_meta(base), xc,
-                                             stateful_rnn=True)
-        return [None if "rnn_state" not in ns else _zeros_tree(
-            policy.cast_to_param(ns["rnn_state"]), self.device)
-            for ns in new_states]
+        _, carries = self._rnn_step_raw(
+            to_meta(self.net_params), to_meta(self.net_state),
+            [None] * len(self.layers), x)
+        return [None if c is None else _zeros_tree(c, self.device)
+                for c in carries]
 
     def rnn_activate_using_stored_state(self, x, training: bool = False,
                                         store_last_for_tbptt: bool = False

@@ -1,7 +1,9 @@
-"""Exception types the serving path raises — copies of
-``deeplearning4j_tpu/resilience/errors.py``.  ``OverloadedError`` maps to
-HTTP 503 with ``Retry-After`` at the gateway (shed, don't queue);
-``DeadlineExceededError`` maps to 504 (the client's budget is gone)."""
+"""Exception types of the serving path — copies of
+``deeplearning4j_tpu/resilience/errors.py``.  ``TransientError`` (and the
+stdlib transients) is what a retry policy retries; ``OverloadedError`` and
+``CircuitOpenError`` map to HTTP 503 with ``Retry-After`` at the gateway
+(shed, don't queue); ``DeadlineExceededError`` maps to 504 (the client's
+budget is gone)."""
 
 from __future__ import annotations
 
@@ -19,3 +21,24 @@ class OverloadedError(RuntimeError):
                  retry_after_s: float = 1.0):
         super().__init__(message)
         self.retry_after_s = float(retry_after_s)
+
+
+class TransientError(RuntimeError):
+    """A failure worth retrying: the operation may succeed if repeated
+    (flaky reader, hiccuping filesystem, injected chaos, a decode session
+    in the middle of a migration)."""
+
+
+class CircuitOpenError(RuntimeError):
+    """The circuit breaker is open: calls are short-circuited until the
+    cooldown elapses.  ``retry_after_s`` is the remaining cooldown."""
+
+    def __init__(self, message: str = "circuit open",
+                 retry_after_s: float = 0.0):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+
+
+class CorruptCheckpointError(RuntimeError):
+    """A checkpoint zip failed validation (truncated write, bad CRC,
+    unparsable configuration): resume skips it for the previous one."""

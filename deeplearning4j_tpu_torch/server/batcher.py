@@ -15,12 +15,18 @@ batch-mates run as their own group.  A request whose ``timeout_ms``
 expires while queued is shed before compute with
 :class:`DeadlineExceededError`.
 
-The event journal, trace spans, fault sites and the dead-thread restart
-of the JAX package's batcher are not ported yet.
+Each request carries the trace context it was submitted under, and the
+batch it rides journals ``batch.dispatch`` with every joined request id
+(``monitor/events.py``).  The fault site ``batcher.compute`` sits before
+the batched call; a batcher thread killed there (or by anything else)
+fails its in-flight and queued requests, journals ``batcher.died``, writes
+a flight-recorder dump, and the next :meth:`MicroBatcher.submit` restarts
+it.  The trace spans of the JAX package's batcher are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from concurrent.futures import Future
@@ -30,18 +36,31 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.monitor import events, flight
 from deeplearning4j_tpu_torch.ops import bucketing
+from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.resilience.errors import DeadlineExceededError
+
+log = logging.getLogger(__name__)
 
 
 class _Pending:
-    __slots__ = ("x", "future", "t_enqueue", "deadline")
+    __slots__ = ("x", "future", "t_enqueue", "deadline", "tenant", "ctx")
 
-    def __init__(self, x, future, t_enqueue, deadline=None):
+    def __init__(self, x, future, t_enqueue, deadline=None, tenant=None,
+                 ctx=None):
         self.x = x
         self.future = future
         self.t_enqueue = t_enqueue
         self.deadline = deadline  # absolute time.monotonic(), or None
+        self.tenant = tenant
+        # the submitter's trace context (request id, tenant): the batcher
+        # thread journals on the request's behalf under it
+        self.ctx = ctx or {}
+
+    @property
+    def request_id(self):
+        return self.ctx.get("request_id")
 
 
 class ServingMetrics:
@@ -133,47 +152,90 @@ class MicroBatcher:
         self._bucket_sizes = list(bucket_sizes) if bucket_sizes else None
         self.metrics = ServingMetrics(name)
         self._queue: List[_Pending] = []
+        self._inflight: List[_Pending] = []
         self._cond = threading.Condition()
         self._running = True
         self._name = name
-        self._c_shed = monitor.get_registry().counter(
+        # set by the crash handler before the dying thread's is_alive()
+        # goes False: submit() restarts off either
+        self._dead = False
+        self.deaths = 0
+        self.restarts = 0
+        reg = monitor.get_registry()
+        self._c_shed = reg.counter(
             "dl4j_resilience_shed_total",
             "requests shed instead of served", labels=("reason",))
-        self._thread = threading.Thread(
-            target=self._loop, daemon=True,
-            name=f"micro-batcher:{name or hex(id(self))}")
-        self._thread.start()
+        self._c_deaths = reg.counter(
+            "dl4j_resilience_batcher_deaths_total",
+            "micro-batcher threads that died unexpectedly")
+        self._c_restarts = reg.counter(
+            "dl4j_resilience_batcher_restarts_total",
+            "micro-batcher threads restarted after a death")
+        self._thread = self._spawn_thread()
+
+    def _spawn_thread(self) -> threading.Thread:
+        t = threading.Thread(
+            target=self._loop_guarded, daemon=True,
+            name=f"micro-batcher:{self._name or hex(id(self))}")
+        t.start()
+        return t
 
     # ---- client side ----
-    def submit(self, features, timeout_ms: Optional[float] = None) -> Future:
+    def submit(self, features, timeout_ms: Optional[float] = None,
+               tenant: Optional[str] = None) -> Future:
         """Enqueue a ``[k, ...]`` row batch; the future resolves to the
         ``[k, ...]`` numpy output slice for exactly those rows.
         ``timeout_ms`` is the request's deadline budget: past it, a
-        still-queued request is shed before compute."""
+        still-queued request is shed before compute.  A dead batcher
+        thread is restarted here."""
         x = np.asarray(features)
         if x.ndim < 1 or x.shape[0] == 0:
             raise ValueError("submit() needs a non-empty [k, ...] row batch")
         deadline = (None if timeout_ms is None
                     else time.monotonic() + float(timeout_ms) / 1e3)
+        ctx = events.current_context()
+        restarted = False
         with self._cond:
             if not self._running:
                 raise RuntimeError("MicroBatcher is stopped")
+            if self._dead or not self._thread.is_alive():
+                self._dead = False
+                self.restarts += 1
+                self._c_restarts.inc()
+                self._thread = self._spawn_thread()
+                restarted = True
             fut = Future()
             self._queue.append(_Pending(x, fut, time.perf_counter(),
-                                        deadline))
+                                        deadline, tenant, ctx=ctx))
             self._cond.notify_all()
+        if restarted:
+            events.emit("batcher.restarted", model=self._name)
         return fut
 
     def predict(self, features, timeout: Optional[float] = None,
-                timeout_ms: Optional[float] = None):
+                timeout_ms: Optional[float] = None,
+                tenant: Optional[str] = None):
         """Blocking :meth:`submit`.  ``timeout`` (seconds) bounds the
         client-side wait; ``timeout_ms`` is the server-side deadline."""
-        return self.submit(features, timeout_ms=timeout_ms).result(timeout)
+        return self.submit(features, timeout_ms=timeout_ms,
+                           tenant=tenant).result(timeout)
 
     def queue_rows(self) -> int:
         """Rows waiting for dispatch — the gateway's admission signal."""
         with self._cond:
             return sum(len(p.x) for p in self._queue)
+
+    def queue_rows_by_tenant(self) -> dict:
+        with self._cond:
+            out: dict = {}
+            for p in self._queue:
+                t = p.tenant or "-"
+                out[t] = out.get(t, 0) + len(p.x)
+            return out
+
+    @property
+    def thread_alive(self) -> bool:
+        return self._thread.is_alive()
 
     def stop(self, timeout: float = 5.0) -> None:
         """Drain in-flight work, stop the batcher thread, and fail any
@@ -204,6 +266,9 @@ class MicroBatcher:
                     break
                 taken.append(self._queue.pop(0))
                 rows += nxt
+            # in flight from the moment it leaves the queue: a thread that
+            # dies on any group of the take fails every group's futures
+            self._inflight = list(taken)
             return taken
 
     def _shed_expired(self, taken: List[_Pending]) -> List[_Pending]:
@@ -213,6 +278,9 @@ class MicroBatcher:
             if p.deadline is not None and now >= p.deadline:
                 self.metrics.record_shed("deadline")
                 self._c_shed.labels(reason="deadline").inc()
+                events.emit("request.shed", severity="warn",
+                            reason="deadline", model=self._name,
+                            request_id=p.request_id, tenant=p.tenant)
                 p.future.set_exception(DeadlineExceededError(
                     "request deadline expired while queued "
                     f"({(now - p.deadline) * 1e3:.1f} ms past budget)"))
@@ -222,21 +290,27 @@ class MicroBatcher:
 
     def _run_group(self, group: List[_Pending]) -> None:
         t_dispatch = time.perf_counter()
+        # the batch's events carry every joined request id
+        rids = [p.request_id for p in group if p.request_id]
         try:
-            xs = [p.x for p in group]
-            x = np.concatenate(xs) if len(xs) > 1 else xs[0]
-            n = len(x)
-            nb = bucketing.bucket_size(n, self._bucket_sizes)
-            if nb != n:
-                x = np.concatenate(
-                    [x, np.zeros((nb - n,) + x.shape[1:], x.dtype)])
-            t0 = time.perf_counter()
-            out = self._infer_fn(x)
-            # the one explicit device → host copy of the bucket result
-            if isinstance(out, torch.Tensor):
-                out = out.cpu().numpy()
-            out = np.asarray(out)[:n]
-            t1 = time.perf_counter()
+            with events.scope(model=self._name or None,
+                              request_ids=rids or None):
+                faults.check("batcher.compute")
+                xs = [p.x for p in group]
+                x = np.concatenate(xs) if len(xs) > 1 else xs[0]
+                n = len(x)
+                nb = bucketing.bucket_size(n, self._bucket_sizes)
+                if nb != n:
+                    x = np.concatenate(
+                        [x, np.zeros((nb - n,) + x.shape[1:], x.dtype)])
+                events.emit("batch.dispatch", requests=len(group), rows=n)
+                t0 = time.perf_counter()
+                out = self._infer_fn(x)
+                # the one explicit device → host copy of the bucket result
+                if isinstance(out, torch.Tensor):
+                    out = out.cpu().numpy()
+                out = np.asarray(out)[:n]
+                t1 = time.perf_counter()
             # metrics before results: a client that has its answer sees
             # its batch in ``stats``
             for p in group:
@@ -254,6 +328,45 @@ class MicroBatcher:
                 if not p.future.done():
                     p.future.set_exception(e)
 
+    def _loop_guarded(self) -> None:
+        """The batcher thread's body and crash handler: a
+        ``BaseException`` escaping the loop (a ``kill`` fault) fails the
+        in-flight and queued requests, journals ``batcher.died`` with
+        their request ids and writes a flight-recorder dump; the next
+        :meth:`submit` restarts the thread."""
+        death_err = None
+        try:
+            self._loop()
+        except BaseException as e:
+            death_err = e
+            log.error("micro-batcher %r thread died: %s: %s",
+                      self._name, type(e).__name__, e)
+        finally:
+            with self._cond:
+                died = self._running   # a stop() is not a death
+                stranded = self._inflight + self._queue
+                self._inflight = []
+                if died:
+                    self._queue = []
+                    self.deaths += 1
+                    self._dead = True
+            if died:
+                self._c_deaths.inc()
+                for p in stranded:
+                    if not p.future.done():
+                        p.future.set_exception(RuntimeError(
+                            "MicroBatcher thread died; request failed "
+                            "(the batcher restarts on the next submit)"))
+                rids = [p.request_id for p in stranded if p.request_id]
+                events.emit(
+                    "batcher.died", severity="error", model=self._name,
+                    error=(f"{type(death_err).__name__}: {death_err}"
+                           if death_err is not None else "unknown"),
+                    stranded=len(stranded), request_ids=rids or None)
+                flight.dump("batcher_died", extra={
+                    "batcher": self._name, "stranded_request_ids": rids,
+                    "error": repr(death_err)})
+
     def _loop(self) -> None:
         while True:
             taken = self._take_batch()
@@ -270,3 +383,9 @@ class MicroBatcher:
                                   []).append(p)
             for group in groups.values():
                 self._run_group(group)
+                done = {id(p) for p in group}
+                with self._cond:
+                    self._inflight = [p for p in self._inflight
+                                      if id(p) not in done]
+            with self._cond:
+                self._inflight = []     # the shed ones are answered

@@ -20,9 +20,20 @@ directory (ref: DeepLearning4jEntryPoint.fit :21-33).  ``GET /healthz``
 answers liveness.  Everything runs on the CUDA device unless the entry
 point is built with ``device="cpu"``.
 
-Not ported yet: bucketed ``fit``,
-``predict(data_dir=...)``, decode sessions and speculative decode,
-tenants and fair share, SLOs, readiness, the metrics and trace endpoints.
+Stateful decode sessions (``server/decode.py``): ``open_session``,
+``decode_step`` (with ``spec=`` / ``draft=`` for speculative continuation,
+``server/speculative.py``), ``close_session``, the two-phase migration
+``export_session`` / ``finish_export`` / ``import_session`` (payloads move
+between this gateway and the JAX package's both ways), ``drain`` /
+``undrain`` and ``decode_stats``; ``warmup(spec_k=)`` warms the decode
+pool's verify step.  Slot or arena exhaustion answers 503 with
+``Retry-After``; ``invalidate`` closes the model's decode pools.  Each RPC
+runs under a request id (the caller's ``X-DL4J-Request-ID`` or a new one),
+which every journal event it causes carries; the fault site
+``gateway.predict`` sits at the top of ``predict``.
+
+Not ported yet: bucketed ``fit``, ``predict(data_dir=...)``, tenants and
+fair share, SLOs, readiness, the metrics and trace endpoints.
 """
 
 from __future__ import annotations
@@ -38,21 +49,28 @@ from typing import Optional
 import numpy as np
 
 from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.monitor import events
 from deeplearning4j_tpu_torch.keras_import.hdf5_data import (
     _BATCH_RE, HDF5MiniBatchDataSetIterator)
 from deeplearning4j_tpu_torch.nn.serialization import (
     read_updater_state, write_model)
 from deeplearning4j_tpu_torch.ops.platform import DeviceLike
+from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.resilience.errors import (
-    DeadlineExceededError, OverloadedError)
+    CircuitOpenError, DeadlineExceededError, OverloadedError)
 from deeplearning4j_tpu_torch.scaleout.data import PathDataSetIterator
+from deeplearning4j_tpu_torch.server import speculative
 from deeplearning4j_tpu_torch.server.batcher import MicroBatcher
+from deeplearning4j_tpu_torch.server.decode import DecodeManager
 from deeplearning4j_tpu_torch.server.model_cache import (
     ModelCache, is_keras_path)
 
 # the RPC methods a client may call
-RPC_METHODS = frozenset(("predict", "warmup", "invalidate", "stats",
-                         "healthz", "fit", "evaluate"))
+RPC_METHODS = frozenset((
+    "predict", "warmup", "invalidate", "stats", "healthz", "fit",
+    "evaluate", "open_session", "decode_step", "close_session",
+    "export_session", "finish_export", "import_session", "drain",
+    "undrain", "decode_stats"))
 
 
 class DeepLearning4jEntryPoint:
@@ -61,20 +79,32 @@ class DeepLearning4jEntryPoint:
     ``max_batch`` bounds the rows of one coalesced batch; ``coalesce``
     is the default for
     ``predict(features=...)`` (overridable per request);
-    ``max_queue_rows`` bounds the rows queued across batchers."""
+    ``max_queue_rows`` bounds the rows queued across batchers and decode
+    pools.  ``decode_slots``, ``decode_ttl_s`` and ``decode_max_wait_ms``
+    size each model's decode pool; the paged arena and the carry dtype
+    come from the ``DL4J_KV_*`` and ``DL4J_CARRY_DTYPE`` environment."""
 
     def __init__(self, model_cache: Optional[ModelCache] = None,
                  device: DeviceLike = None,
                  max_batch: int = 32, coalesce: bool = True,
-                 max_queue_rows: int = 1024, retry_after_s: float = 1.0):
+                 max_queue_rows: int = 1024, retry_after_s: float = 1.0,
+                 decode_slots: int = 32, decode_ttl_s: float = 600.0,
+                 decode_max_wait_ms: float = 2.0):
         self.model_cache = model_cache or ModelCache(device=device)
         self.max_batch = max(1, int(max_batch))
         self.coalesce = bool(coalesce)
         self.max_queue_rows = max(1, int(max_queue_rows))
         self.retry_after_s = max(0.0, float(retry_after_s))
+        self.decode = DecodeManager(
+            self.model_cache, max_slots=decode_slots, ttl_s=decode_ttl_s,
+            max_wait_ms=decode_max_wait_ms, retry_after_s=self.retry_after_s)
         self._t_start = time.time()
         self._batchers: dict = {}
         self._batcher_lock = threading.Lock()
+        # speculative decoders, one per (vocab, k, draft): the per-session
+        # drafting state lives inside them
+        self._spec_decoders: dict = {}
+        self._spec_lock = threading.Lock()
         self._c_shed = monitor.get_registry().counter(
             "dl4j_resilience_shed_total",
             "requests shed instead of served", labels=("reason",))
@@ -82,13 +112,23 @@ class DeepLearning4jEntryPoint:
     # ---- inference ----
     def predict(self, model_path: str, features, top_k: Optional[int] = None,
                 argmax_only: bool = False, coalesce: Optional[bool] = None,
-                deadline_ms: Optional[float] = None) -> dict:
+                deadline_ms: Optional[float] = None,
+                tenant: Optional[str] = None) -> dict:
         """Run the cached, warmed model on an inline ``[k, ...]`` row
         batch.  Concurrent requests coalesce through the micro-batcher
         unless ``coalesce=False``.  ``argmax_only`` returns class ids;
         ``top_k=K`` the K best class ids and their probabilities per row;
         otherwise the full output rows.  ``deadline_ms`` is the request's
-        budget in the batcher's queue."""
+        budget in the batcher's queue; ``tenant`` labels the request's
+        events."""
+        with events.request_scope(tenant=tenant,
+                                  model=os.path.basename(str(model_path))):
+            return self._predict(model_path, features, top_k, argmax_only,
+                                 coalesce, deadline_ms, tenant)
+
+    def _predict(self, model_path, features, top_k, argmax_only, coalesce,
+                 deadline_ms, tenant) -> dict:
+        faults.check("gateway.predict")
         x = np.asarray(features, dtype=np.float32)
         if x.ndim < 1 or x.shape[0] == 0:
             raise ValueError("features must be a non-empty [k, ...] row "
@@ -101,7 +141,7 @@ class DeepLearning4jEntryPoint:
                                      max_batch=self.max_batch)
         if use_batcher:
             out = self._batcher_for(model_path, model).predict(
-                x, timeout_ms=deadline_ms)
+                x, timeout_ms=deadline_ms, tenant=tenant)
         else:
             out = self._infer_fn(model)(x).cpu().numpy()
         return self._format_predictions(out, top_k, argmax_only)
@@ -158,18 +198,27 @@ class DeepLearning4jEntryPoint:
         return {"accuracy": ev.accuracy(), "f1": ev.f1()}
 
     def warmup(self, model_path: str, feature_dims,
-               max_batch: Optional[int] = None) -> dict:
+               max_batch: Optional[int] = None,
+               spec_k: Optional[int] = None) -> dict:
         """Run the serving batch ladder for ``model_path`` now — what
         the first ``predict`` does implicitly.  The cache records it, so
-        the first ``predict`` does not run the ladder again."""
-        return self.model_cache.warmup(
+        the first ``predict`` does not run the ladder again.  ``spec_k=K``
+        also runs the decode pool's speculative verify step at every slot
+        rung (``DecodePool.warmup_spec``)."""
+        out = self.model_cache.warmup(
             model_path, tuple(feature_dims),
             max_batch=int(max_batch or self.max_batch))
+        if spec_k is not None:
+            out = dict(out)
+            out["spec"] = self.decode.warmup_spec(
+                model_path, feature_dims, k=int(spec_k))
+        return out
 
     def invalidate(self, model_path: Optional[str] = None) -> dict:
-        """Drop cached model(s) and their batchers, so the next request
-        reloads from disk."""
+        """Drop cached model(s), their batchers and their decode pools
+        (open sessions fail), so the next request reloads from disk."""
         n = self.model_cache.invalidate(model_path)
+        self.decode.invalidate(model_path)
         with self._batcher_lock:
             keys = ([os.path.abspath(str(model_path))]
                     if model_path is not None else list(self._batchers))
@@ -195,26 +244,138 @@ class DeepLearning4jEntryPoint:
         return {"status": "ok",
                 "uptime_s": round(time.time() - self._t_start, 1)}
 
+    # ---- stateful decode sessions ----
+    def open_session(self, model_path: str,
+                     tenant: Optional[str] = None) -> dict:
+        """Open a decode session: the model's recurrent carry for this
+        stream lives on the device in the model's slot pool, so each
+        :meth:`decode_step` costs the same however long the stream is.
+        503 + Retry-After when every slot is held."""
+        with events.request_scope(
+                tenant=tenant, model=os.path.basename(str(model_path))):
+            return self.decode.open_session(model_path, tenant=tenant)
+
+    def decode_step(self, session_id: str, features, mask=None,
+                    tenant: Optional[str] = None,
+                    deadline_ms: Optional[float] = None,
+                    top_k: Optional[int] = None, argmax_only: bool = False,
+                    spec=None, draft=None) -> dict:
+        """Feed one ``[T, C]`` chunk to a session (``T = 1`` token by
+        token; a longer chunk is a prefill) and return its ``[T, ...]``
+        outputs.  Concurrent sessions' steps join one pool dispatch.
+        ``spec=N`` (or ``{"tokens": N, "k": K}``) then generates N more
+        greedy tokens by speculative decode with the ``draft=`` proposer
+        (``"ngram"`` by default); the response gains ``spec``: the tokens,
+        the pending next token and the dispatch and acceptance counts."""
+        with events.request_scope(tenant=tenant, session_id=session_id):
+            self._admit(1)
+            outs = self.decode.decode_step(
+                session_id, features, mask=mask, timeout_ms=deadline_ms,
+                tenant=tenant)
+            spec_out = None
+            if spec:
+                spec_out = self._spec_continue(
+                    session_id, outs, spec, draft, tenant=tenant,
+                    deadline_ms=deadline_ms)
+        result = self._format_predictions(outs[0], top_k, argmax_only)
+        if len(outs) > 1:
+            result["outputs"] = [np.asarray(o).tolist() for o in outs]
+        result["session_id"] = session_id
+        if spec_out is not None:
+            result["spec"] = spec_out
+        return result
+
+    def _spec_continue(self, session_id: str, outs, spec, draft,
+                       tenant=None, deadline_ms=None) -> dict:
+        cfg = {"tokens": int(spec)} if not isinstance(spec, dict) else spec
+        n_tokens = int(cfg.get("tokens", 0))
+        if n_tokens <= 0:
+            return {"tokens": [], "dispatches": 0}
+        k = int(cfg.get("k", 4))
+        last = np.asarray(outs[0])[-1]
+        vocab = int(last.shape[-1])
+        key = (vocab, k, json.dumps(draft, sort_keys=True)
+               if isinstance(draft, dict) else str(draft))
+        with self._spec_lock:
+            dec = self._spec_decoders.get(key)
+            if dec is None:
+                dec = speculative.SpeculativeDecoder(
+                    self.decode, vocab=vocab, k=k, draft=draft)
+                self._spec_decoders[key] = dec
+        return dec.generate(session_id, int(np.argmax(last)), n_tokens,
+                            tenant=tenant, timeout_ms=deadline_ms)
+
+    def close_session(self, session_id: str) -> dict:
+        """Release a decode session's slot."""
+        with self._spec_lock:
+            decoders = list(self._spec_decoders.values())
+        for dec in decoders:
+            dec.forget(session_id)
+        return {"closed": self.decode.close_session(session_id)}
+
+    def export_session(self, session_id: str) -> dict:
+        """Phase one of a migration: the session's carry as a JSON payload
+        (its slot held until ``finish_export``)."""
+        return self.decode.export_session(session_id)
+
+    def finish_export(self, session_id: str, ok: bool = True) -> dict:
+        """Phase two: ``ok`` releases the migrated session's slot;
+        otherwise the session is reinstated."""
+        return {"finished": self.decode.finish_export(session_id,
+                                                      ok=bool(ok))}
+
+    def import_session(self, model_path: str, payload: dict,
+                       session_id: Optional[str] = None,
+                       tenant: Optional[str] = None) -> dict:
+        """Restore an exported session (from this package's gateway or the
+        JAX package's) on this gateway; the stream continues."""
+        return self.decode.import_session(model_path, payload,
+                                          session_id=session_id,
+                                          tenant=tenant)
+
+    def drain(self, deadline_ms: Optional[float] = None) -> dict:
+        """Stop admitting decode session joins (opens and imports shed
+        503) and report the remaining sessions per pool."""
+        deadline_s = None if deadline_ms is None \
+            else max(0.0, float(deadline_ms)) / 1e3
+        return {"pools": self.decode.drain(deadline_s), "draining": True}
+
+    def undrain(self) -> dict:
+        """Re-admit decode session joins after a drain."""
+        self.decode.resume()
+        return {"draining": False}
+
+    def decode_stats(self) -> dict:
+        """Per-model decode-pool statistics: slots, sessions, steps, the
+        joined-batch histogram, KV residency and speculative counts."""
+        return self.decode.stats()
+
     def close(self) -> None:
-        """Stop every batcher thread (server shutdown)."""
+        """Stop every batcher thread and decode pool (server shutdown)."""
         with self._batcher_lock:
             dropped = list(self._batchers.values())
             self._batchers.clear()
         for _, batcher in dropped:
             batcher.stop()
+        self.decode.close()
 
     # ---- internals ----
     def _admit(self, n_rows: int) -> None:
         """Bounded-queue admission: reject (don't queue) when the rows
-        waiting across batchers plus this request exceed the limit."""
+        waiting across batchers and decode pools plus this request exceed
+        the limit."""
         with self._batcher_lock:
             batchers = [b for _, b in self._batchers.values()]
-        depth = sum(b.queue_rows() for b in batchers)
+        depth = sum(b.queue_rows() for b in batchers) \
+            + self.decode.queue_rows()
         if depth + n_rows > self.max_queue_rows:
             self._c_shed.labels(reason="queue_full").inc()
+            events.emit("request.shed", severity="warn",
+                        reason="queue_full", rows=n_rows, queued=depth)
             raise OverloadedError(
                 f"queue full ({depth} rows waiting, limit "
                 f"{self.max_queue_rows})", retry_after_s=self.retry_after_s)
+        events.emit("request.admitted", rows=n_rows, queued=depth)
 
     def _batcher_for(self, model_path: str, model) -> MicroBatcher:
         """The micro-batcher bound to this model instance; a reloaded
@@ -258,11 +419,20 @@ class DeepLearning4jEntryPoint:
         return {"predictions": out.tolist(), "shape": list(out.shape)}
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: a sixth client connecting
+    # at once waits out a SYN retransmit (1 s), which decode sessions of
+    # tens of concurrent clients hit on every burst
+    request_queue_size = 128
+
+
 class Server:
     """JSON-RPC over a ``ThreadingHTTPServer``.  Without an entry point
     it builds one on ``device`` (CUDA unless the caller asks for the
     CPU).  Error payloads carry the exception type and message, not the
-    traceback (it would leak host paths)."""
+    traceback (it would leak host paths).  Each RPC runs under the
+    caller's ``X-DL4J-Request-ID`` or a new id, journals ``rpc.request``
+    and ``rpc.response`` and returns the id in its header and body."""
 
     def __init__(self, entry_point: Optional[DeepLearning4jEntryPoint] = None,
                  host: str = "127.0.0.1", port: int = 0,
@@ -294,6 +464,8 @@ class Server:
             def do_POST(self):
                 method = ""
                 headers = {}
+                rid = (self.headers.get("X-DL4J-Request-ID") or "").strip() \
+                    or events.new_request_id()
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     req = json.loads(self.rfile.read(n) or b"{}")
@@ -303,13 +475,19 @@ class Server:
                         raise ValueError("params must be an object")
                     if method not in RPC_METHODS:
                         raise AttributeError(f"no method {method!r}")
-                    result = getattr(ep, method)(**params)
-                    payload = json.dumps({"result": result},
+                    with events.scope(request_id=rid, method=method,
+                                      tenant=params.get("tenant")):
+                        events.emit("rpc.request")
+                        result = getattr(ep, method)(**params)
+                        events.emit("rpc.response", code=200)
+                    payload = json.dumps({"result": result,
+                                          "request_id": rid},
                                          default=str).encode()
                     code = 200
                 except Exception as e:  # the RPC loop must keep serving
-                    err = {"error": f"{type(e).__name__}: {e}"}
-                    if isinstance(e, OverloadedError):
+                    err = {"error": f"{type(e).__name__}: {e}",
+                           "request_id": rid}
+                    if isinstance(e, (OverloadedError, CircuitOpenError)):
                         code = 503
                         headers["Retry-After"] = str(max(
                             1, int(round(e.retry_after_s or 1.0))))
@@ -318,11 +496,15 @@ class Server:
                         code = 504
                     else:
                         code = 500
+                    with events.scope(request_id=rid, method=method or "?"):
+                        events.emit("rpc.response", severity="warn",
+                                    code=code, error=type(e).__name__)
                     payload = json.dumps(err).encode()
+                headers["X-DL4J-Request-ID"] = rid
                 server._count_request(method or "?", code)
                 self._respond(code, payload, headers)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = _HTTPServer((host, port), Handler)
         self.host, self.port = self._httpd.server_address
         self._thread: Optional[threading.Thread] = None
         self._requests_c = monitor.get_registry().counter(

@@ -1750,3 +1750,44 @@ def test_checkpointed_step_on_the_card(cuda_device):
             err = torch.linalg.vector_norm(lr[k] - lp[k]) / \
                 torch.linalg.vector_norm(lp[k] - l0[k])
             assert float(err) <= 5e-4, (k, float(err))
+
+
+@pytest.mark.gpu
+def test_decode_pool_keeps_carries_on_the_card_and_launches_lstm(
+        cuda_device):
+    """A CUDA ``DecodePool`` serving three char-RNN sessions keeps every
+    carry leaf on the card, launches the LSTM step kernel once per layer
+    and dispatch with no fallback, and each session's outputs equal a
+    one-stream ``rnn_time_step`` on the same inputs (rtol = atol = 1e-5)."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.server.decode import DecodePool, tree_leaves
+    V, T = 20, 6
+    net = char_rnn(V, 64, 2, device=cuda_device).init(
+        generator=torch.Generator().manual_seed(3))
+    x = np.eye(V, dtype=np.float32)[
+        np.random.default_rng(5).integers(0, V, (3, T))]
+    fallbacks = monitor.get_registry().counter(
+        "dl4j_kernel_fallback_total", "ops that took the dense torch chain",
+        labels=("op",)).labels(op="lstm_step")
+    pool = DecodePool(net, max_slots=4, max_wait_ms=0.5)
+    try:
+        sids = [pool.open_session() for _ in range(3)]
+        launches, fb = ck.fused_lstm_step.launches, fallbacks.value
+        outs = [[] for _ in sids]
+        for t in range(T):
+            futs = [pool.submit_step(s, x[i, t:t + 1])
+                    for i, s in enumerate(sids)]
+            for i, f in enumerate(futs):
+                outs[i].append(f.result(60)[0])
+        assert all(leaf.is_cuda for leaf in tree_leaves(pool._pool))
+        assert ck.fused_lstm_step.launches - launches == \
+            2 * pool.stats()["batches"]
+        assert fallbacks.value == fb
+    finally:
+        pool.stop()
+    for i in range(3):
+        net.rnn_clear_previous_state()
+        ref = torch.cat([net.rnn_time_step(x[i:i + 1, t:t + 1])[0]
+                         for t in range(T)]).cpu()
+        torch.testing.assert_close(torch.from_numpy(np.concatenate(outs[i])),
+                                   ref, rtol=1e-5, atol=1e-5)
